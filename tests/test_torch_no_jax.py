@@ -1,0 +1,44 @@
+"""The PyTorch port never imports JAX.
+
+A fresh interpreter imports the port's server and pipeline, runs a tiny T2I
+generate on the CPU through the server, and reports whether any ``jax``
+module was loaded. (The suite's conftest imports JAX, so this must run in a
+subprocess.)
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+SCRIPT = r"""
+import json, sys
+import torch
+from flux2_tpu.models.flux2.config import Flux2Model, Flux2TransformerConfig
+from flux2_tpu_torch.models.flux2.vae import VAEConfig
+from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
+from flux2_tpu_torch.serve import Flux2Server
+from flux2_tpu_torch.io.png import decode_png
+
+tc = Flux2TransformerConfig(num_layers=1, num_single_layers=1, num_attention_heads=1,
+                            attention_head_dim=128, joint_attention_dim=32, guidance_embeds=False)
+vc = VAEConfig(block_out_channels=(8, 8, 8, 8), layers_per_block=1, norm_num_groups=4)
+pipe = Flux2Pipeline.from_random(Flux2Model.KLEIN_4B, device="cpu", dtype=torch.float32,
+                                 transformer_config=tc, vae_config=vc)
+res = pipe.generate(embeddings=torch.zeros(1, 4, 32), height=32, width=32, num_steps=1, seed=0)
+server = Flux2Server(pipe, embeddings_fn=lambda prompt: torch.ones(1, 4, 32))
+png = server.generate_png({"prompt": "x", "height": 32, "width": 32, "steps": 1})
+server.shutdown()
+print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+                  "image": list(res.image.shape), "png": list(decode_png(png).shape)}))
+"""
+
+
+def test_port_runs_without_importing_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=root, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report == {"jax": [], "image": [32, 32, 3], "png": [32, 32, 3]}
