@@ -5,6 +5,12 @@ or anything ``np.asarray`` accepts) and returns the port's module holding the
 same weights, on the CPU, so both packages compute the same function. Pure
 numpy + torch: JAX stores linear weights [in, out] (stacked [L, in, out] for
 layers) and convolutions HWIO; the port stores [out, in] and OIHW.
+
+A linear leaf may also be one of JAX's quantized weights (``QTensor``,
+``W8A8Tensor``, ``W4A8Tensor``, recognised by their fields, so no JAX import):
+it is split per layer and carried into the port's quantized module with its
+codes and scales moved to the [N, K] layout, bit for bit
+(``flux2_tpu_torch/ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -20,12 +26,18 @@ from flux2_tpu.models.text_encoders.config import DecoderConfig
 from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
 from flux2_tpu_torch.models.flux2.vae import VAEConfig, VAEDecoder
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
+from flux2_tpu_torch.ops.quant import QTensor, W4A8Tensor, W8A8Tensor
+
+
+# ml_dtypes' types: the same bits as torch's, carried through an integer view
+_ML_DTYPES = {"bfloat16": (np.uint16, torch.bfloat16), "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
 
 
 def _tensor(x) -> torch.Tensor:
     a = np.asarray(x)
-    if a.dtype.name == "bfloat16":  # ml_dtypes bf16: same bits as torch's
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype.name in _ML_DTYPES:
+        bits, dtype = _ML_DTYPES[a.dtype.name]
+        return torch.from_numpy(np.ascontiguousarray(a).view(bits).copy()).view(dtype)
     return torch.from_numpy(np.ascontiguousarray(a).copy())
 
 
@@ -34,34 +46,79 @@ def _linear(x) -> torch.Tensor:
     return _tensor(x).T.contiguous()
 
 
-def _load(module: torch.nn.Module, state: Dict[str, torch.Tensor]) -> torch.nn.Module:
-    module.load_state_dict(state, strict=True)
+def _layer(x, i):
+    return np.asarray(x) if i is None else np.asarray(x)[i]
+
+
+def _quantized(leaf, i=None):
+    """JAX quantized leaf (layer ``i`` of a stacked one) -> the port's module, [N, K] layout."""
+    def t(x):
+        return _linear(_layer(x, i))
+
+    if hasattr(leaf, "group_size"):  # QTensor
+        bias = None if leaf.bias is None else t(leaf.bias)
+        return QTensor(t(leaf.q), t(leaf.scale), bias, leaf.format, leaf.group_size, leaf.orig_in)
+    if hasattr(leaf, "block"):  # W4A8Tensor: packed bytes [K/2, N] -> [N, K/2], same nibbles
+        return W4A8Tensor(t(leaf.q), t(leaf.scale), leaf.block, leaf.orig_in)
+    return W8A8Tensor(t(leaf.q), _tensor(_layer(leaf.scale, i)[0]), leaf.orig_in)  # scale [1, N] -> [N]
+
+
+def _is_quantized_leaf(leaf) -> bool:
+    return hasattr(leaf, "q") and hasattr(leaf, "scale") and hasattr(leaf, "orig_in")
+
+
+def _load(module: torch.nn.Module, state: Dict[str, object]) -> torch.nn.Module:
+    """Load dense tensors into ``module`` and put each quantized module in place
+    of the parameter of its name."""
+    dense = {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
+    for name, qw in state.items():
+        if name not in dense:
+            owner, _, attr = name.rpartition(".")
+            mod = module.get_submodule(owner) if owner else module
+            delattr(mod, attr)
+            setattr(mod, attr, qw)
+    missing, unexpected = module.load_state_dict(dense, strict=False)
+    quantized = tuple(f"{k}." for k in state if k not in dense)
+    missing = [k for k in missing if not k.startswith(quantized)]
+    if missing or unexpected:
+        raise KeyError(f"missing {missing}, unexpected {unexpected}")
     return module
 
 
+def _carry(leaf, i=None):
+    """A JAX linear leaf (layer ``i`` of a stack) -> the port's [out, in] tensor or quantized module."""
+    return _quantized(leaf, i) if _is_quantized_leaf(leaf) else _linear(_layer(leaf, i))
+
+
 def transformer_from_jax(params: dict, config: Flux2TransformerConfig) -> Flux2Transformer:
-    dtype = _tensor(params["x_embedder"]["kernel"]).dtype
+    dtype = _tensor(params["double_blocks"]["norm_q"]).dtype  # norm scales are never quantized
     sd = {
-        "x_embedder": _linear(params["x_embedder"]["kernel"]),
-        "context_embedder": _linear(params["context_embedder"]["kernel"]),
-        "time_linear1": _linear(params["time_embed"]["linear1"]),
-        "time_linear2": _linear(params["time_embed"]["linear2"]),
-        "double_mod_img": _linear(params["double_mod_img"]["kernel"]),
-        "double_mod_txt": _linear(params["double_mod_txt"]["kernel"]),
-        "single_mod": _linear(params["single_mod"]["kernel"]),
-        "norm_out": _linear(params["norm_out"]["kernel"]),
-        "proj_out": _linear(params["proj_out"]["kernel"]),
+        "x_embedder": _carry(params["x_embedder"]["kernel"]),
+        "context_embedder": _carry(params["context_embedder"]["kernel"]),
+        "time_linear1": _carry(params["time_embed"]["linear1"]),
+        "time_linear2": _carry(params["time_embed"]["linear2"]),
+        "double_mod_img": _carry(params["double_mod_img"]["kernel"]),
+        "double_mod_txt": _carry(params["double_mod_txt"]["kernel"]),
+        "single_mod": _carry(params["single_mod"]["kernel"]),
+        "norm_out": _carry(params["norm_out"]["kernel"]),
+        "proj_out": _carry(params["proj_out"]["kernel"]),
     }
     if config.guidance_embeds:
-        sd["guidance_linear1"] = _linear(params["guidance_embed"]["linear1"])
-        sd["guidance_linear2"] = _linear(params["guidance_embed"]["linear2"])
+        sd["guidance_linear1"] = _carry(params["guidance_embed"]["linear1"])
+        sd["guidance_linear2"] = _carry(params["guidance_embed"]["linear2"])
     for stack, n in (("double_blocks", config.num_layers), ("single_blocks", config.num_single_layers)):
-        for name, arr in params[stack].items():
-            arr = np.asarray(arr)
+        for name, leaf in params[stack].items():
             for i in range(n):
-                # [L, in, out] linear stacks transpose; [L, head_dim] norm scales do not
-                sd[f"{stack}.{i}.{name}"] = _linear(arr[i]) if arr.ndim == 3 else _tensor(arr[i])
+                sd[f"{stack}.{i}.{name}"] = _stacked(leaf, i)
     return _load(Flux2Transformer(config, device="cpu", dtype=dtype), sd)
+
+
+def _stacked(leaf, i):
+    """Layer ``i`` of a stacked leaf: [L, in, out] linears (dense or quantized)
+    transpose; [L, head_dim] norm scales do not."""
+    if _is_quantized_leaf(leaf) or np.asarray(leaf).ndim == 3:
+        return _carry(leaf, i)
+    return _tensor(np.asarray(leaf)[i])
 
 
 def _conv(p: dict, prefix: str, sd: dict) -> None:
@@ -114,9 +171,8 @@ def decoder_from_jax(params: dict, config: DecoderConfig) -> Qwen3Decoder:
     """The hidden-state path of the JAX decoder (``final_norm`` and
     ``lm_head`` are not used by it and are not loaded)."""
     embed = _tensor(params["embed_tokens"])
-    sd: Dict[str, torch.Tensor] = {"embed_tokens": embed}
-    for name, arr in params["layers"].items():
-        arr = np.asarray(arr)
+    sd: Dict[str, object] = {"embed_tokens": embed}
+    for name, leaf in params["layers"].items():
         for i in range(config.num_hidden_layers):
-            sd[f"layers.{i}.{name}"] = _linear(arr[i]) if arr.ndim == 3 else _tensor(arr[i])
+            sd[f"layers.{i}.{name}"] = _stacked(leaf, i)
     return _load(Qwen3Decoder(config, device="cpu", dtype=embed.dtype), sd)

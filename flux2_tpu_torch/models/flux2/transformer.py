@@ -8,9 +8,12 @@ ported yet.
 
 Linear weights are stored [out, in] (``F.linear``'s layout); the JAX package
 stores [in, out] stacked over layers, and ``flux2_tpu_torch.io.jax_params``
-converts. The joint sequence is [txt ; img], and the attention in every block
-goes through ``sdpa(..., bounded_logits=True)``: on the card, the
-hand-written flash-attention kernel.
+converts. Every matmul goes through ``q_linear`` (JAX's ``mm``), so a
+weight may be a quantized module from ``flux2_tpu_torch.ops.quant``
+(``quantize_params``); the stream dtype then follows JAX's rules (see
+``_mlp_embed`` and ``forward``). The joint sequence is [txt ; img], and the
+attention in every block goes through ``sdpa(..., bounded_logits=True)``: on
+the card, the hand-written flash-attention kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from torch import nn
 from flux2_tpu.models.flux2.config import Flux2TransformerConfig
 from flux2_tpu_torch.ops.attention import sdpa
 from flux2_tpu_torch.ops.normalization import gate, layer_norm, modulate, rms_norm
+from flux2_tpu_torch.ops.quant import q_linear
 from flux2_tpu_torch.ops.rope import apply_rope
 
 
@@ -62,8 +66,8 @@ def _unheads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _swiglu(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
-    g, v = F.linear(x, w_in).chunk(2, dim=-1)
-    return F.linear(F.silu(g) * v, w_out)
+    g, v = q_linear(x, w_in).chunk(2, dim=-1)
+    return q_linear(F.silu(g) * v, w_out)
 
 
 class DoubleBlock(nn.Module):
@@ -89,20 +93,20 @@ class DoubleBlock(nn.Module):
         img_n = modulate(layer_norm(img), img_mod[:, 0, 0], img_mod[:, 0, 1])
         txt_n = modulate(layer_norm(txt), txt_mod[:, 0, 0], txt_mod[:, 0, 1])
 
-        q_img = rms_norm(_heads(F.linear(img_n, self.to_q), nh), self.norm_q)
-        k_img = rms_norm(_heads(F.linear(img_n, self.to_k), nh), self.norm_k)
-        v_img = _heads(F.linear(img_n, self.to_v), nh)
-        q_txt = rms_norm(_heads(F.linear(txt_n, self.add_q), nh), self.norm_added_q)
-        k_txt = rms_norm(_heads(F.linear(txt_n, self.add_k), nh), self.norm_added_k)
-        v_txt = _heads(F.linear(txt_n, self.add_v), nh)
+        q_img = rms_norm(_heads(q_linear(img_n, self.to_q), nh), self.norm_q)
+        k_img = rms_norm(_heads(q_linear(img_n, self.to_k), nh), self.norm_k)
+        v_img = _heads(q_linear(img_n, self.to_v), nh)
+        q_txt = rms_norm(_heads(q_linear(txt_n, self.add_q), nh), self.norm_added_q)
+        k_txt = rms_norm(_heads(q_linear(txt_n, self.add_k), nh), self.norm_added_k)
+        v_txt = _heads(q_linear(txt_n, self.add_v), nh)
 
         q = apply_rope(torch.cat([q_txt, q_img], dim=2), rope_cos, rope_sin)
         k = apply_rope(torch.cat([k_txt, k_img], dim=2), rope_cos, rope_sin)
         v = torch.cat([v_txt, v_img], dim=2)
         attn = sdpa(q, k, v, bounded_logits=True)  # qk are RMS-normed above
 
-        img = img + gate(F.linear(_unheads(attn[:, :, s_txt:]), self.to_out), img_mod[:, 0, 2])
-        txt = txt + gate(F.linear(_unheads(attn[:, :, :s_txt]), self.add_out), txt_mod[:, 0, 2])
+        img = img + gate(q_linear(_unheads(attn[:, :, s_txt:]), self.to_out), img_mod[:, 0, 2])
+        txt = txt + gate(q_linear(_unheads(attn[:, :, :s_txt]), self.add_out), txt_mod[:, 0, 2])
 
         img_n2 = modulate(layer_norm(img), img_mod[:, 1, 0], img_mod[:, 1, 1])
         txt_n2 = modulate(layer_norm(txt), txt_mod[:, 1, 0], txt_mod[:, 1, 1])
@@ -131,12 +135,12 @@ class SingleBlock(nn.Module):
     def forward(self, x, mod, rope_cos, rope_sin) -> torch.Tensor:
         nh = self.num_heads
         x_n = modulate(layer_norm(x), mod[:, 0, 0], mod[:, 0, 1])
-        q = apply_rope(rms_norm(_heads(F.linear(x_n, self.to_q), nh), self.norm_q), rope_cos, rope_sin)
-        k = apply_rope(rms_norm(_heads(F.linear(x_n, self.to_k), nh), self.norm_k), rope_cos, rope_sin)
-        v = _heads(F.linear(x_n, self.to_v), nh)
+        q = apply_rope(rms_norm(_heads(q_linear(x_n, self.to_q), nh), self.norm_q), rope_cos, rope_sin)
+        k = apply_rope(rms_norm(_heads(q_linear(x_n, self.to_k), nh), self.norm_k), rope_cos, rope_sin)
+        v = _heads(q_linear(x_n, self.to_v), nh)
         attn = _unheads(sdpa(q, k, v, bounded_logits=True))  # qk RMS-normed above
-        mlp = F.silu(F.linear(x_n, self.mlp_gate)) * F.linear(x_n, self.mlp_up)
-        out = F.linear(attn, self.out_attn) + F.linear(mlp, self.out_mlp)
+        mlp = F.silu(q_linear(x_n, self.mlp_gate)) * q_linear(x_n, self.mlp_up)
+        out = q_linear(attn, self.out_attn) + q_linear(mlp, self.out_mlp)
         return x + gate(out, mod[:, 0, 2])
 
 
@@ -177,27 +181,34 @@ class Flux2Transformer(nn.Module):
             self.guidance_linear1 = lin(tc, d)
             self.guidance_linear2 = lin(d, d)
 
+    @staticmethod
+    def _mlp_embed(x: torch.Tensor, w1, w2) -> torch.Tensor:
+        """linear2(silu(linear1(x))). ``x`` (the f32 sinusoid) is cast to ``w1``'s
+        dtype only when ``w1`` is dense: under a quantized ``w1`` it stays f32 and
+        so does the result, as in JAX's ``_mlp_embed``."""
+        if isinstance(w1, torch.Tensor):
+            x = x.to(w1.dtype)
+        return q_linear(F.silu(q_linear(x, w1)), w2)
+
     def time_guidance_embedding(self, timestep: torch.Tensor, guidance: Optional[torch.Tensor]) -> torch.Tensor:
         """Timestep (+ optional guidance) embedding [B, D]; sigma is scaled x1000."""
         tc = self.config.time_embed_channels
-        w1 = self.time_linear1
-        temb = F.linear(F.silu(F.linear(sinusoidal_embedding(timestep * 1000.0, tc).to(w1.dtype), w1)),
-                        self.time_linear2)
+        temb = self._mlp_embed(sinusoidal_embedding(timestep * 1000.0, tc), self.time_linear1, self.time_linear2)
         if self.config.guidance_embeds and guidance is not None:
-            g = sinusoidal_embedding(guidance * 1000.0, tc).to(w1.dtype)
-            temb = temb + F.linear(F.silu(F.linear(g, self.guidance_linear1)), self.guidance_linear2)
+            g = sinusoidal_embedding(guidance * 1000.0, tc)
+            temb = temb + self._mlp_embed(g, self.guidance_linear1, self.guidance_linear2)
         return temb
 
     @staticmethod
     def _modulation(weight: torch.Tensor, temb: torch.Tensor, num_sets: int) -> torch.Tensor:
         """linear(silu(temb)) -> [B, num_sets, 3, D] of (shift, scale, gate)."""
-        out = F.linear(F.silu(temb), weight)
+        out = q_linear(F.silu(temb), weight)
         return out.reshape(out.shape[0], num_sets, 3, -1)
 
     def _final(self, temb: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
         """AdaLN-continuous out: (scale, shift) in diffusers order, then proj_out."""
-        scale, shift = F.linear(F.silu(temb), self.norm_out).chunk(2, dim=-1)
-        return F.linear(modulate(layer_norm(img), shift, scale), self.proj_out)
+        scale, shift = q_linear(F.silu(temb), self.norm_out).chunk(2, dim=-1)
+        return q_linear(modulate(layer_norm(img), shift, scale), self.proj_out)
 
     def forward(
         self,
@@ -209,8 +220,12 @@ class Flux2Transformer(nn.Module):
         guidance: Optional[torch.Tensor] = None,  # [B]
     ) -> torch.Tensor:
         s_txt = encoder_hidden_states.shape[1]
-        img = F.linear(hidden_states, self.x_embedder)
-        txt = F.linear(encoder_hidden_states.to(self.context_embedder.dtype), self.context_embedder)
+        img = q_linear(hidden_states, self.x_embedder)
+        # a quantized context embedder takes the stream's dtype (JAX: hidden_states')
+        ctx_w = self.context_embedder
+        ctx_dtype = ctx_w.dtype if isinstance(ctx_w, torch.Tensor) else hidden_states.dtype
+        txt = q_linear(encoder_hidden_states.to(ctx_dtype), ctx_w)
+        # back to the stream dtype when a quantized time embedding left it f32
         temb = self.time_guidance_embedding(timestep, guidance).to(img.dtype)
 
         img_mod = self._modulation(self.double_mod_img, temb, 2)

@@ -6,8 +6,9 @@ interleaved pairs), grouped-query attention with an additive causal + key
 padding mask (finite ``NEG_INF``, so a fully masked row never turns NaN),
 and ``forward_hidden_states`` / ``extract_hidden_layers``. The attention is
 plain torch with float32 logits, as in JAX (an einsum there, no Pallas).
-Generation (KV cache, logits) and Mistral's llama4 query scaling are not
-ported yet.
+Every layer matmul goes through ``q_linear`` (JAX's ``mm``), so layer weights
+may be quantized (``extractor.quantize_encoder_params``). Generation (KV
+cache, logits) and Mistral's llama4 query scaling are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from torch import nn
 from flux2_tpu.models.text_encoders.config import DecoderConfig
 from flux2_tpu_torch.models.flux2.transformer import linear_weight, ones_weight
 from flux2_tpu_torch.ops.normalization import rms_norm
+from flux2_tpu_torch.ops.quant import q_linear
 
 NEG_INF = -1e30
 
@@ -75,9 +77,9 @@ class DecoderLayer(nn.Module):
         b, s, _ = x.shape
         nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         h = rms_norm(x, self.input_norm, cfg.rms_norm_eps)
-        q = F.linear(h, self.q_proj).reshape(b, s, nh, hd).transpose(1, 2)
-        k = F.linear(h, self.k_proj).reshape(b, s, nkv, hd).transpose(1, 2)
-        v = F.linear(h, self.v_proj).reshape(b, s, nkv, hd).transpose(1, 2)
+        q = q_linear(h, self.q_proj).reshape(b, s, nh, hd).transpose(1, 2)
+        k = q_linear(h, self.k_proj).reshape(b, s, nkv, hd).transpose(1, 2)
+        v = q_linear(h, self.v_proj).reshape(b, s, nkv, hd).transpose(1, 2)
         if cfg.qk_norm:
             q = rms_norm(q, self.q_norm, cfg.rms_norm_eps)
             k = rms_norm(k, self.k_norm, cfg.rms_norm_eps)
@@ -90,9 +92,9 @@ class DecoderLayer(nn.Module):
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd**-0.5) + mask
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         attn = torch.matmul(probs, v).transpose(1, 2).reshape(b, s, nh * hd)
-        x = x + F.linear(attn, self.o_proj)
+        x = x + q_linear(attn, self.o_proj)
         h2 = rms_norm(x, self.post_attn_norm, cfg.rms_norm_eps)
-        mlp = F.linear(F.silu(F.linear(h2, self.gate_proj)) * F.linear(h2, self.up_proj), self.down_proj)
+        mlp = q_linear(F.silu(q_linear(h2, self.gate_proj)) * q_linear(h2, self.up_proj), self.down_proj)
         return x + mlp
 
 

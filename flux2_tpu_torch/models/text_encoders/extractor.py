@@ -25,6 +25,7 @@ from flux2_tpu.models.text_encoders.config import (  # noqa: F401  (QWEN3_4B: re
     QWEN3_HIDDEN_LAYERS,
 )
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
+from flux2_tpu_torch.ops.quant import quantize_params
 
 
 class ChatTokenizer(Protocol):
@@ -83,3 +84,11 @@ class EmbeddingExtractor:
 def qwen3_extractor(decoder: Qwen3Decoder, tokenizer: ChatTokenizer) -> EmbeddingExtractor:
     """Klein path: Qwen3 layers (9, 18, 27) with the Klein recipe."""
     return EmbeddingExtractor(decoder, tokenizer, QWEN3_HIDDEN_LAYERS)
+
+
+def quantize_encoder_params(decoder: Qwen3Decoder, fmt: str) -> Qwen3Decoder:
+    """Quantize the decoder's LAYER weights in place (JAX
+    ``facade.quantize_encoder_params``): ``embed_tokens`` (gather-indexed) and
+    the norms stay dense. Returns ``decoder``."""
+    quantize_params(decoder.layers, fmt)
+    return decoder

@@ -28,6 +28,7 @@ from flux2_tpu.models.flux2.config import Flux2Model, Flux2TransformerConfig
 from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
 from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, VAEConfig, VAEDecoder
 from flux2_tpu_torch.ops import latents as lu
+from flux2_tpu_torch.ops.quant import param_dtype
 from flux2_tpu_torch.ops import scheduler as sch
 from flux2_tpu_torch.ops.rope import rope_embeddings
 
@@ -196,7 +197,7 @@ class Flux2Pipeline:
 
     def _denoise(self, latents, embeddings, sigma_pairs, cos, sin, guidance, cancel) -> torch.Tensor:
         """Euler loop over (sigma, sigma_next) pairs; latents stay float32."""
-        dtype = self.transformer.x_embedder.dtype
+        dtype = param_dtype(self.transformer.x_embedder)  # bf16 when x_embedder is quantized
         b = latents.shape[0]
         with torch.inference_mode():
             for i, (sigma, sigma_next) in enumerate(sigma_pairs):

@@ -1,4 +1,5 @@
-"""The port's CUDA flash-attention kernel on the card (marker ``cuda``).
+"""The port's CUDA kernels on the card (marker ``cuda``): K1 (flash attention)
+and K5 / K6 / K7 (quantized matmuls).
 
 Skips without a CUDA device. Imports no JAX, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -17,6 +18,8 @@ import torch
 
 from flux2_tpu_torch.ops import attention as tattn
 from flux2_tpu_torch.ops import flash_attention as tfa
+from flux2_tpu_torch.ops import quant as tq
+from flux2_tpu_torch.ops import quant_kernels as tqk
 
 pytestmark = pytest.mark.cuda
 REL_TOL = 1e-2
@@ -74,3 +77,75 @@ def test_sdpa_dispatch_on_cuda(device, monkeypatch):
     out = tattn.sdpa(q, k, v)
     assert tfa.launches == before + 1
     assert os.environ["FLUX2_DISABLE_FLASH"] == "1" and out.shape == q.shape
+
+
+# K5 / K6 / K7 against their plain versions, relative L2 error, as chip_smoke.py
+# holds them. K5 and K6 compute the same int32 sums and the same f32 products
+# and sums in the same order as their plain versions (no contracted
+# multiply-add), so they should agree exactly; K7's f32 sums run in another
+# order than the plain f32 matmul, which flips a bf16 output rounding now and
+# then (~1e-4). 1e-3 is 40x below what one dropped 64-wide K tile gives at
+# K = 3072 (~0.14) and below a neighbouring column's or group's scale (~1e-2).
+QMM_REL_TOL = 1e-3
+
+
+def _qmm_inputs(device, m, k, n, dtype=torch.bfloat16):
+    g = torch.Generator(device=device).manual_seed(m * 31 + k * 7 + n)
+    x = torch.randn(m, k, device=device, generator=g).to(dtype)
+    w = (torch.randn(n, k, device=device, generator=g) * k**-0.5).bfloat16()
+    return x, w
+
+
+def _rel(out, ref):
+    return float((out.float() - ref.float()).norm() / ref.float().norm())
+
+
+@pytest.mark.parametrize("kind", ["w8a8", "w4a8", "qint8", "int4"])
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (1, 3072, 18432, torch.bfloat16),  # bs=1 modulation (K7: M=8, its gate)
+    (300, 2560, 9216, torch.bfloat16),  # ragged M, Qwen3-4B gate_proj
+    (3, 1024, 3072, torch.float32),  # f32 activations: the quantized time embedding
+])
+def test_quantized_matmul_matches_reference(device, kind, m, k, n, dtype):
+    if kind in ("qint8", "int4"):
+        if dtype != torch.bfloat16:
+            pytest.skip("K7 takes bf16 activations only")
+        m = max(m, 8)
+    x, w = _qmm_inputs(device, m, k, n, dtype)
+    fmt = {"w8a8": tq.to_w8a8, "w4a8": tq.to_w4a8}.get(kind)
+    qw = fmt(w) if fmt else tq.quantize(w, kind)
+    kernel, reference, counter = {
+        "w8a8": (tqk.w8a8_matmul, tqk.w8a8_matmul_reference, "w8a8"),
+        "w4a8": (tqk.w4a8_matmul, tqk.w4a8_matmul_reference, "w4a8"),
+        "qint8": (tqk.dequant_matmul, tqk.dequant_matmul_reference, "dequant_int8"),
+        "int4": (tqk.dequant_matmul, tqk.dequant_matmul_reference, "dequant_int4"),
+    }[kind]
+    before = tqk.launches[counter]
+    out = kernel(x, qw)
+    torch.cuda.synchronize()
+    assert tqk.launches[counter] == before + 1
+    ref = reference(x, qw)
+    assert out.dtype == x.dtype and out.shape == (m, n)
+    assert torch.isfinite(out).all()
+    assert _rel(out, ref) <= QMM_REL_TOL
+
+
+def test_q_linear_routes_on_cuda(device, monkeypatch):
+    """q_linear launches the kernel its gate picks and dequantizes otherwise."""
+    x, w = _qmm_inputs(device, 16, 512, 640)
+    before = dict(tqk.launches)
+    tq.q_linear(x, tq.to_w8a8(w))  # N = 640 fails the K5 gate: dequant path
+    monkeypatch.setenv("FLUX2_PALLAS_DEQUANT", "1")
+    tq.q_linear(x, tq.quantize(w, "qint8"))  # K7 takes N % 128
+    assert tqk.launches["w8a8"] == before["w8a8"]
+    assert tqk.launches["dequant_int8"] == before["dequant_int8"] + 1
+
+
+def test_quantized_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    x, w = _qmm_inputs(device, 16, 512, 256)
+    with pytest.raises(ValueError):
+        tqk.w8a8_matmul(x[:, :256], tq.to_w8a8(w))  # K disagrees
+    with pytest.raises(TypeError):
+        tqk.dequant_matmul(x.float(), tq.quantize(w, "qint8"))
+    with pytest.raises(ValueError):
+        tqk.w4a8_matmul(x, tq.to_w4a8(w).cpu())

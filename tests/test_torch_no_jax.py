@@ -1,9 +1,10 @@
 """The PyTorch port never imports JAX.
 
-A fresh interpreter imports the port's server and pipeline, runs a tiny T2I
-generate on the CPU through the server, and reports whether any ``jax``
-module was loaded. (The suite's conftest imports JAX, so this must run in a
-subprocess.)
+A fresh interpreter imports the port's server, pipeline, quantization and
+CLI, runs a tiny T2I generate on the CPU through the server and a tiny w8a8
+pipeline built by the CLI's ``build_pipeline``, and reports whether any
+``jax`` module was loaded. (The suite's conftest imports JAX, so this must run
+in a subprocess.)
 """
 
 import json
@@ -12,9 +13,12 @@ import subprocess
 import sys
 
 SCRIPT = r"""
-import json, sys
+import argparse, dataclasses, json, sys
 import torch
 from flux2_tpu.models.flux2.config import Flux2Model, Flux2TransformerConfig
+from flux2_tpu.models.text_encoders.config import TINY_DECODER
+from flux2_tpu_torch.cli.main import build_pipeline
+from flux2_tpu_torch.ops import quant
 from flux2_tpu_torch.models.flux2.vae import VAEConfig
 from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
 from flux2_tpu_torch.serve import Flux2Server
@@ -29,8 +33,15 @@ res = pipe.generate(embeddings=torch.zeros(1, 4, 32), height=32, width=32, num_s
 server = Flux2Server(pipe, embeddings_fn=lambda prompt: torch.ones(1, 4, 32))
 png = server.generate_png({"prompt": "x", "height": 32, "width": 32, "steps": 1})
 server.shutdown()
+qtc = dataclasses.replace(tc, num_attention_heads=4, joint_attention_dim=192)
+args = argparse.Namespace(model="klein-4b", quantization="w8a8", encoder_quantization="w8a8", random_init=True)
+qpipe = build_pipeline(args, "cpu", torch.Generator().manual_seed(0), transformer_config=qtc, vae_config=vc,
+                       encoder_config=dataclasses.replace(TINY_DECODER, num_hidden_layers=28, vocab_size=600))
+qres = qpipe.generate(prompt="a red fox", height=32, width=32, num_steps=1)
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
-                  "image": list(res.image.shape), "png": list(decode_png(png).shape)}))
+                  "image": list(res.image.shape), "png": list(decode_png(png).shape),
+                  "w8a8_image": list(qres.image.shape),
+                  "w8a8": sorted(set(quant.quantized_names(qpipe.transformer).values()))}))
 """
 
 
@@ -41,4 +52,5 @@ def test_port_runs_without_importing_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert report == {"jax": [], "image": [32, 32, 3], "png": [32, 32, 3]}
+    assert report == {"jax": [], "image": [32, 32, 3], "png": [32, 32, 3], "w8a8_image": [32, 32, 3],
+                      "w8a8": ["w8a8"]}
