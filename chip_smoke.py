@@ -3,21 +3,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (into
-build/kernels/) and checks each against its plain PyTorch version on the card:
-K1 (flash attention) and K5 / K6 / K7 (the W8A8, W4A8 and grouped int8/int4
-quantized matmuls). Then, with random weights drawn on the card from a seed,
-at full Klein-4B width: one DiT forward per quantized runtime against the
-bf16 forward, bf16 serving through the port's entry point (Flux2Server ->
-Qwen3-4B encoder -> DiT -> VAE), and w8a8 serving through the CLI's
-build_pipeline (DiT and encoder quantized). Every path runs with the launch
-counts set to 0 just before it and checks them just after. Any failure
-raises: the traceback is printed and the exit code is not 0. There is no CPU
-fallback.
+build/kernels/, one nvcc per source, all at once) and checks each against its
+plain PyTorch version on the card: K1 (flash attention), K2 / K3 / K4 (the
+flash forward with the row LSE, and the dQ and dK/dV backward) at the training
+shapes, and K5 / K6 / K7 (the W8A8, W4A8 and grouped int8/int4 quantized
+matmuls). Then, with random weights drawn on the card from a seed, at full
+Klein-4B width: one DiT forward per quantized runtime against the bf16
+forward, bf16 serving through the port's entry point (Flux2Server ->
+Qwen3-4B encoder -> DiT -> VAE), w8a8 serving through the CLI's
+build_pipeline (DiT and encoder quantized), one Klein-4B-base train step at
+512^2 on the kernels against the same step on plain attention, and LoRA
+training through the CLI (train-lora --random-init: 5 steps at 512^2 with a
+checkpoint, then 2 steps at 1024^2). Every path runs with the launch counts
+set to 0 just before it and checks them just after. Any failure raises: the
+traceback is printed and the exit code is not 0. There is no CPU fallback.
 
 The last two lines of standard output are the card's name and power limit as
 nvidia-smi reports them, then {"ok": true, "device": {...}}; the line before
-those lists each kernel with its launches on the served path, its error
-against the plain version, and both times.
+those lists each kernel with its launches on its path (serving for K1 and K5,
+the quantized forwards for K6 and K7, the 512^2 training run for K2-K4), its
+error against the plain version, and both times.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -147,6 +153,79 @@ def phase_kernel_check(card: str):
     return results
 
 
+TRAIN_ATTENTION_CASES = [  # (name, q shape, k/v shape, span)
+    ("train_512px", (1, 24, 1056, 128), (1, 24, 1056, 128), None),  # 32 txt + 1024 img, both tails ragged
+    ("klein4b_1024px", (1, 24, 4608, 128), (1, 24, 4608, 128), None),
+    ("train_512px_txt512_bs2", (2, 24, 1536, 128), (2, 24, 1536, 128), None),
+    ("blocked_span", (1, 4, 320, 128), (1, 4, 704, 128), (64, 192, 400)),
+]
+# K2's LSE against the f32 logsumexp: both are f32 sums of the same bf16
+# products, ~1e-6 apart at S_k = 4608; a missing ln2 or a log2-domain LSE is
+# off by ~4, one dropped key tile by ~1e-2.
+LSE_ABS_TOL = 1e-3
+
+
+def phase_flash_grad_check(card: str):
+    """K2 (forward + LSE), K3 (dQ) and K4 (dK, dV) against their plain f32
+    versions on the card, same bf16 inputs, at the training shapes. The
+    gradients are held at KERNEL_REL_TOL (relative L2): p and dS enter the
+    tensor cores as bf16, which a model of those roundings puts at ~3-5e-3;
+    one dropped 64-key tile at S = 4608 costs ~sqrt(64 / 4608) = 0.12."""
+    from flux2_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    results = {}
+    for name, qs, ks, span in TRAIN_ATTENTION_CASES:
+        q = torch.randn(*qs, device="cuda", generator=gen).bfloat16()
+        k = torch.randn(*ks, device="cuda", generator=gen).bfloat16()
+        v = torch.randn(*ks, device="cuda", generator=gen).bfloat16()
+        dout = torch.randn(*qs, device="cuda", generator=gen).bfloat16()
+        scale = qs[-1] ** -0.5
+        before = fa.launch_counts()
+        out, lse = fa.flash_attention_lse(q, k, v, scale, span)
+        dq, dk, dv = fa.flash_attention_backward(q, k, v, out, lse, dout, scale, span)
+        torch.cuda.synchronize()
+        after = fa.launch_counts()
+        if [after[c] - before[c] for c in ("flash_lse", "flash_bwd_dq", "flash_bwd_dkv")] != [1, 1, 1]:
+            raise AssertionError(f"{name}: the wrappers did not launch K2, K3 and K4 once each: {before} -> {after}")
+        ref_out, ref_lse = fa.flash_attention_lse_reference(q, k, v, scale, span)
+        refs = fa.flash_attention_grads_reference(q, k, v, dout, scale, span)
+        errs = {"out": float((out.float() - ref_out.float()).norm() / ref_out.float().norm()),
+                "lse": float((lse - ref_lse).abs().max())}
+        for label, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            errs[label] = float((got.float() - ref.float()).norm() / ref.float().norm())
+        finite = all(bool(torch.isfinite(x).all()) for x in (out, lse, dq, dk, dv))
+        if not finite or errs["lse"] > LSE_ABS_TOL or max(errs[x] for x in ("out", "dq", "dk", "dv")) > KERNEL_REL_TOL:
+            raise AssertionError(f"{name}: errors {errs} (limits: LSE {LSE_ABS_TOL} max abs, the rest "
+                                 f"{KERNEL_REL_TOL} relative L2), finite={finite}")
+        max_abs = {"lse": errs["lse"], "out": float((out.float() - ref_out.float()).abs().max())}
+        for label, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            max_abs[label] = float((got.float() - ref.float()).abs().max())
+        fwd_ms = time_ms(lambda: fa.flash_attention_lse(q, k, v, scale, span))
+        fwd_plain_ms = time_ms(lambda: fa.flash_attention_lse_reference(q, k, v, scale, span))
+        bwd_ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, scale, span))
+        bwd_plain_ms = time_ms(lambda: fa.flash_attention_grads_reference(q, k, v, dout, scale, span))
+        alone = {mark: kernel_only_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, scale, span), mark)
+                 for mark in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
+        alone["flash_fwd_lse_kernel"] = kernel_only_ms(lambda: fa.flash_attention_lse(q, k, v, scale, span),
+                                                       "flash_fwd_lse_kernel")
+        flop = 2.0 * qs[0] * qs[1] * qs[2] * ks[2] * qs[3]  # one S_q x S_k x D product
+        log(f"[kernel] flash training {name} q={list(qs)} k={list(ks)} span={span}: rel_l2_err out "
+            f"{errs['out']:.3e} dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} (tol {KERNEL_REL_TOL}), "
+            f"lse max_abs_err {errs['lse']:.3e} (tol {LSE_ABS_TOL}); max_abs_err {max_abs}")
+        log(f"[kernel] flash training {name}: K2 wrapper {fwd_ms:.4f} ms (alone {alone['flash_fwd_lse_kernel']:.4f} ms, "
+            f"{2 * flop / alone['flash_fwd_lse_kernel'] / 1e9:.1f} TFLOP/s) vs plain f32 {fwd_plain_ms:.4f} ms; "
+            f"backward wrapper (delta + K3 + K4) {bwd_ms:.4f} ms (K3 alone {alone['flash_bwd_dq_kernel']:.4f} ms, "
+            f"{3 * flop / alone['flash_bwd_dq_kernel'] / 1e9:.1f} TFLOP/s; K4 alone "
+            f"{alone['flash_bwd_dkv_kernel']:.4f} ms, {4 * flop / alone['flash_bwd_dkv_kernel'] / 1e9:.1f} TFLOP/s) "
+            f"vs plain f32 grads {bwd_plain_ms:.4f} ms [{card}]")
+        results[name] = {"max_abs": max_abs, "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "bwd_ms": bwd_ms,
+                         "bwd_plain_ms": bwd_plain_ms, "alone": alone}
+        del q, k, v, dout, out, lse, dq, dk, dv, ref_out, ref_lse, refs
+        torch.cuda.empty_cache()
+    return results
+
+
 # Launch counter of each quantized format's kernel (flux2_tpu_torch.ops.quant_kernels.launches).
 COUNTER = {"w8a8": "w8a8", "w4a8": "w4a8", "qint8": "dequant_int8", "int4": "dequant_int4"}
 
@@ -234,15 +313,17 @@ def _zero_launches():
     from flux2_tpu_torch.ops import flash_attention as fa
     from flux2_tpu_torch.ops import quant_kernels as qk
 
-    fa.launches = 0
+    fa.reset_launches()
     qk.reset_launches()
 
 
 def _launch_counts() -> dict:
+    """Every kernel's count: K1 "flash", K2 "flash_lse", K3 "flash_bwd_dq", K4
+    "flash_bwd_dkv", and the quantized matmuls' (a path checks all of them)."""
     from flux2_tpu_torch.ops import flash_attention as fa
     from flux2_tpu_torch.ops import quant_kernels as qk
 
-    return {"flash": fa.launches, **qk.launches}
+    return {**fa.launch_counts(), **qk.launches}
 
 
 def phase_quant_model_check(pipe, card: str) -> dict:
@@ -354,6 +435,179 @@ def phase_model_check(pipe, card: str) -> None:
         f"relative L2 error {rel:.3e} (tol {DIT_REL_TOL}) [{card}]")
 
 
+# The training step at 512^2 on the kernels against the same step on the plain
+# attention path (FLUX2_DISABLE_FLASH=1), same LoRA, batch, sigmas and noise:
+# both run 25 blocks of bf16 math and differ only in attention's roundings, as
+# the forward check above (DIT_REL_TOL); the loss is a mean over 131,072
+# squared errors, so its limit is tighter.
+TRAIN_LOSS_REL_TOL = 1e-2
+TRAIN_GRAD_REL_TOL = 5e-2
+# Flash launches of one train step (one micro-batch) under remat=True: each of
+# the 25 blocks runs its attention once with grad (K2), again when
+# torch.utils.checkpoint (non-reentrant) recomputes the block in the backward
+# (K2), and its backward once (K3, then K4); nothing runs without grad (K1).
+STEP_LAUNCHES = {"flash": 0, "flash_lse": 50, "flash_bwd_dq": 25, "flash_bwd_dkv": 25}
+
+
+def _klein_train_inputs(gen, size: int):
+    """Latents [1, S_img, 128], embeddings [1, 32, 7680], sigmas, noise and the RoPE of [txt ; img] on the card."""
+    import numpy as np
+
+    from flux2_tpu_torch.ops import latents as lu
+    from flux2_tpu_torch.ops.rope import rope_embeddings
+
+    s_img = (size // 16) ** 2
+    latents = torch.randn(1, s_img, 128, device="cuda", generator=gen)
+    emb = torch.randn(1, 32, 7680, device="cuda", generator=gen)
+    noise = torch.randn(1, s_img, 128, device="cuda", generator=gen)
+    ids = np.concatenate([lu.text_position_ids(32), lu.image_position_ids(size, size)])
+    cos, sin = rope_embeddings(torch.from_numpy(ids).cuda())
+    return latents, emb, torch.tensor([0.6], device="cuda"), noise, cos, sin
+
+
+def phase_train_grad_check(card: str) -> None:
+    """One full-width Klein-4B-base train step (loss + backward, remat) at 512^2
+    on K2/K3/K4 against the same step with FLUX2_DISABLE_FLASH=1."""
+    from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Model
+    from flux2_tpu_torch.training import lora as lora_mod
+    from flux2_tpu_torch.training import trainer
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    model = Flux2Transformer(Flux2Model.KLEIN_4B_BASE.transformer_config, device="cuda", generator=gen)
+    lora = lora_mod.init_lora(model, lora_mod.LoRAConfig(16, 16.0), gen)
+    with torch.no_grad():  # b != 0, so that every adapter leaf (a too) has a gradient to compare
+        for name, p in lora.named_parameters():
+            if name.endswith(".b"):
+                p.normal_(generator=gen).mul_(1e-2)
+    tcfg = trainer.TrainConfig(rank=16, alpha=16.0, remat=True)
+    latents, emb, sigmas, noise, cos, sin = _klein_train_inputs(gen, 512)
+
+    def run():
+        for p in lora.parameters():
+            p.grad = None
+        loss = trainer.flow_matching_loss(model, lora, tcfg, latents, emb, noise, sigmas, cos, sin)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {n: p.grad.detach().clone() for n, p in lora.named_parameters()}
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    loss_k, grads_k = run()
+    sec = time.perf_counter() - t0
+    counts = _launch_counts()
+    os.environ["FLUX2_DISABLE_FLASH"] = "1"
+    try:
+        loss_p, grads_p = run()
+    finally:
+        del os.environ["FLUX2_DISABLE_FLASH"]
+    if counts != {name: STEP_LAUNCHES.get(name, 0) for name in counts} or _launch_counts() != counts:
+        raise AssertionError(f"train step launched {counts} (then {_launch_counts()} after the plain step), "
+                             f"want {STEP_LAUNCHES}")
+    leaves = {}  # per stacked leaf, as JAX's: "double_blocks.to_q.a" over the blocks
+    for name in grads_k:
+        group, _, leaf, ab = name.split(".")
+        leaves.setdefault(f"{group}.{leaf}.{ab}", []).append(name)
+    diff = sum(float((grads_k[n] - grads_p[n]).square().sum()) for n in grads_k)
+    ref = sum(float(grads_p[n].square().sum()) for n in grads_p)
+    rel_grad = (diff / ref) ** 0.5
+    per_leaf = {}
+    for leaf, names in leaves.items():
+        d = sum(float((grads_k[n] - grads_p[n]).square().sum()) for n in names)
+        r = sum(float(grads_p[n].square().sum()) for n in names)
+        per_leaf[leaf] = (d / r) ** 0.5
+    worst = max(per_leaf, key=per_leaf.get)
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values()) and loss_k == loss_k
+    if not finite or rel_loss > TRAIN_LOSS_REL_TOL or rel_grad > TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"train step on the kernels vs plain attention: loss {loss_k} vs {loss_p} (relative "
+                             f"{rel_loss}, tol {TRAIN_LOSS_REL_TOL}), LoRA gradient relative L2 {rel_grad} (tol "
+                             f"{TRAIN_GRAD_REL_TOL}), finite={finite}")
+    log(f"[train] Klein-4B-base train step at 512^2 (1056 tokens, remat), K2/K3/K4 vs plain attention: loss "
+        f"{loss_k:.6f} vs {loss_p:.6f} (relative {rel_loss:.3e}, tol {TRAIN_LOSS_REL_TOL}); LoRA gradient relative "
+        f"L2 {rel_grad:.3e} (tol {TRAIN_GRAD_REL_TOL}), worst leaf {worst} {per_leaf[worst]:.3e}; launches "
+        f"{counts}; first step {sec:.3f} s [{card}]")
+    del model, lora, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def _jax_lora_shapes(rank: int) -> dict:
+    """JAX's flattened LoRA names and stacked shapes for Klein-4B, attention_ffn targets."""
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Model
+    from flux2_tpu_torch.training.lora import DEFAULT_TARGETS
+
+    c = Flux2Model.KLEIN_4B_BASE.transformer_config
+    d, mlp = c.inner_dim, c.mlp_hidden_dim
+    dims = {"ff_in": (d, 2 * mlp), "ff_ctx_in": (d, 2 * mlp), "ff_out": (mlp, d), "ff_ctx_out": (mlp, d),
+            "mlp_gate": (d, mlp), "mlp_up": (d, mlp), "out_mlp": (mlp, d)}
+    out = {}
+    for group, leaf in DEFAULT_TARGETS:
+        n = c.num_layers if group == "double_blocks" else c.num_single_layers
+        d_in, d_out = dims.get(leaf, (d, d))
+        out[f"{group}.{leaf}.a"] = (n, d_in, rank)
+        out[f"{group}.{leaf}.b"] = (n, rank, d_out)
+    return out
+
+
+TRAIN_YAML = """model: {{name: klein-4b}}
+lora: {{rank: 16, alpha: 16, target_layers: attention_ffn}}
+dataset: {{image_size: {size}}}
+training: {{optimizer: adamw, learning_rate: 1.0e-4, warmup_steps: 0, lr_scheduler: constant, batch_size: 1,
+  max_steps: {steps}, log_every: 1}}
+memory: {{gradient_checkpointing: true}}
+checkpoints: {{output: {out}, save_every: {save_every}}}
+"""
+
+
+def phase_train_cli(card: str, workdir: str, size: int, steps: int, save_every: int) -> dict:
+    """``train-lora --random-init`` through the port's CLI (argument parser and
+    run_training, in this process) at full Klein-4B-base width; checks every
+    loss, the gradient norms, the launch counts and the checkpoint."""
+    import numpy as np
+
+    from flux2_tpu_torch.cli.main import parse_args
+    from flux2_tpu_torch.cli.train import run_training
+
+    out = os.path.join(workdir, f"lora_{size}")
+    cfg_path = os.path.join(workdir, f"train_{size}.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(TRAIN_YAML.format(size=size, steps=steps, out=out, save_every=save_every))
+    args = parse_args(["train-lora", "--config", cfg_path, "--random-init", "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()  # count the training path's launches only
+    t0 = time.perf_counter()
+    history = run_training(args, "cuda")
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    if [r["step"] for r in history] != list(range(1, steps + 1)):
+        raise AssertionError(f"{size}^2 training ran steps {[r['step'] for r in history]}, want 1..{steps}")
+    if not all(np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in history):
+        raise AssertionError(f"{size}^2 training: a loss is not finite or a gradient norm is 0: {history}")
+    want = {name: STEP_LAUNCHES.get(name, 0) * steps for name in counts}
+    if counts != want:
+        raise AssertionError(f"{size}^2 training launched {counts}, want {want} ({steps} steps x {STEP_LAUNCHES})")
+    ckpt = os.path.join(out, f"checkpoint_{steps:06d}", "lora.safetensors")
+    import safetensors.numpy
+
+    saved = safetensors.numpy.load_file(ckpt)
+    shapes = {k: v.shape for k, v in saved.items()}
+    if shapes != _jax_lora_shapes(16):
+        raise AssertionError(f"{ckpt}: names/shapes {shapes} differ from JAX's {_jax_lora_shapes(16)}")
+    zero_b = [k for k, v in saved.items() if k.endswith(".b") and not np.any(v)]
+    if zero_b:  # AdamW's first update moves every element with a gradient by ~lr
+        raise AssertionError(f"{ckpt}: LoRA b leaves still zero after training: {zero_b}")
+    warm = [r["seconds"] for r in history[1:]]
+    log(f"[train] train-lora --random-init, Klein-4B-base at {size}^2 ({32 + (size // 16) ** 2} tokens), rank 16, "
+        f"AdamW, remat: {steps} steps in {wall:.2f} s (base drawn, steps, checkpoints); losses "
+        f"{[round(r['loss'], 5) for r in history]}; grad norms {[round(r['grad_norm'], 5) for r in history]}; "
+        f"{statistics.mean(warm):.4f} s/step warm (steps 2-{steps}: {[round(x, 4) for x in warm]}), first step "
+        f"{history[0]['seconds']:.3f} s; peak device memory {peak_gib:.2f} GiB; launches {counts}; checkpoint "
+        f"{ckpt} has JAX's {len(shapes)} names and shapes, every b leaf non-zero [{card}]")
+    return {"counts": counts, "s_per_step": statistics.mean(warm), "peak_gib": peak_gib}
+
+
 class _RecordingPipeline:
     """Forwards to the pipeline and keeps every generate() result (final latents)."""
 
@@ -459,6 +713,7 @@ def main() -> int:
             log(f"[build] {line.strip()}")
 
     checks = phase_kernel_check(card)
+    grad_checks = phase_flash_grad_check(card)
     qchecks = phase_quant_kernel_check(card)
 
     t0 = time.perf_counter()
@@ -484,6 +739,15 @@ def main() -> int:
     w8a8_launches = FORWARD_LAUNCHES["w8a8"] * 4 * 3 + ENCODE_LAUNCHES_W8A8 * 5
     qcounts, w8a8_peak = phase_serve(qpipe, card, "w8a8", {"flash": flash_launches, "w8a8": w8a8_launches})
     log(f"[serve] peak device memory: w8a8 {w8a8_peak:.2f} GiB vs bf16 {bf16_peak:.2f} GiB [{card}]")
+    del qpipe
+    torch.cuda.empty_cache()
+
+    phase_train_grad_check(card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        train = phase_train_cli(card, workdir, size=512, steps=5, save_every=5)
+        train_1024 = phase_train_cli(card, workdir, size=1024, steps=2, save_every=0)
+    log(f"[train] s/step warm: 512^2 {train['s_per_step']:.4f} s, 1024^2 {train_1024['s_per_step']:.4f} s; peak "
+        f"device memory 512^2 {train['peak_gib']:.2f} GiB, 1024^2 {train_1024['peak_gib']:.2f} GiB [{card}]")
 
     _, ms, plain_ms = checks["klein4b_1024px"]
     kernels = [{
@@ -507,6 +771,21 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": "flux2_tpu_torch/csrc/quant_matmul.cu",
                         "replaces": replaces, "launches": launches, "max_abs_err": max(r[1] for r in rows),
                         "ms": ms, "plain_ms": plain_ms})
+    # K2: wrapper vs the plain f32 forward with LSE; K3 and K4: each kernel alone
+    # (torch.profiler) vs the plain f32 backward, which computes dq, dk and dv at
+    # once; all at (1, 24, 4608, 128). Launches from the 512^2 training run.
+    big = grad_checks["klein4b_1024px"]
+    for name, source, replaces, counter, mark, errs in (
+        ("flash_attention_fwd_lse", "flash_attention.cu", ":73", "flash_lse", None, ("out",)),
+        ("flash_attention_bwd_dq", "flash_attention_bwd.cu", ":313", "flash_bwd_dq", "flash_bwd_dq_kernel", ("dq",)),
+        ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", ":363", "flash_bwd_dkv", "flash_bwd_dkv_kernel",
+         ("dk", "dv")),
+    ):
+        kernels.append({"name": name, "route": "cuda", "source": f"flux2_tpu_torch/csrc/{source}",
+                        "replaces": f"flux2_tpu/ops/flash_attention.py{replaces}", "launches": train["counts"][counter],
+                        "max_abs_err": max(r["max_abs"][e] for r in grad_checks.values() for e in errs),
+                        "ms": big["fwd_ms"] if mark is None else big["alone"][mark],
+                        "plain_ms": big["fwd_plain_ms"] if mark is None else big["bwd_plain_ms"]})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Command line of the PyTorch port: random-init text-to-image, bf16 or quantized.
+"""Command line of the PyTorch port: random-init text-to-image, bf16 or
+quantized, and random-init LoRA training.
 
 Port of the random-init branch of ``flux2_tpu/cli/main.py``'s
 ``build_pipeline`` (``:94-104``) with ``--model``, ``--quantization``
@@ -12,9 +13,16 @@ quantization, ``:276-306``).
     python -m flux2_tpu_torch.cli.main t2i --random-init --quantization w8a8 \\
         --encoder-quantization w8a8 --prompt "a red fox" -o fox.png
 
-Loading checkpoints, prequantized load and export, LoRA, memory profiles and
-``--shard`` are not ported yet: without ``--random-init`` ``build_pipeline``
-raises, and argparse refuses the other flags.
+``train-lora`` takes the JAX command's flags (``flux2_tpu/cli/main.py``
+:1016-1040) and runs ``flux2_tpu_torch.cli.train.run_training``: with
+``--random-init`` and no dataset directory, a LoRA trained on synthetic data
+(``cli/train.py`` says what else it refuses, and why).
+
+    python -m flux2_tpu_torch.cli.main train-lora --config cfg.yaml --random-init
+
+Loading checkpoints, prequantized load and export, LoRA inference, memory
+profiles and ``--shard`` are not ported yet: without ``--random-init``
+``build_pipeline`` raises, and argparse refuses the other flags.
 """
 
 from __future__ import annotations
@@ -98,7 +106,29 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
     p.add_argument("-o", "--output", default="out.png")
+
+    p = sub.add_parser("train-lora", help="flow-matching LoRA training")
+    p.add_argument("--config", required=True, help="YAML training config")
+    p.add_argument("--output-dir")
+    p.add_argument("--resume")
+    p.add_argument("--max-steps", type=int)
+    p.add_argument("--random-init", action="store_true", help="random weights; synthetic data (required for now)")
+    p.add_argument("--dataset-dir", help="override the YAML's dataset.path")
+    p.add_argument("--transformer-dir", help="base-variant transformer weights dir")
+    p.add_argument("--vae-dir")
+    p.add_argument("--encoder-dir")
+    p.add_argument("--encoder-tokenizer-dir")
+    p.add_argument("--quantization", default="bf16", choices=["bf16", "qint8", "w8a8", "int4", "nf4", "w4a8"])
+    p.add_argument("--encoder-quantization", default=None, choices=list(ENCODER_QUANTIZATIONS))
+    p.add_argument("--allow-partial-resume", action="store_true",
+                   help="resume even when the saved optimizer state does not match (unmatched state restarts)")
+    p.add_argument("--shard", help="mesh spec 'data,fsdp,tp[,sp]' or 'auto'")
+    p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
     return parser
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    return _parser().parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -106,7 +136,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from flux2_tpu_torch.io.png import encode_png
 
-    args = _parser().parse_args(argv)
+    args = parse_args(argv)
+    if args.command == "train-lora":
+        from flux2_tpu_torch.cli.train import run_training
+
+        run_training(args, args.device)
+        return 0
     pipe = build_pipeline(args, args.device)
     res = pipe.generate(prompt=args.prompt, height=args.height, width=args.width, num_steps=args.steps,
                         seed=args.seed)

@@ -1,7 +1,11 @@
 // Flash-attention forward for the FLUX.2 DiT, hand-written for Hopper (sm_90a).
 //
-// Replaces the TPU kernel flux2_tpu/ops/flash_attention.py:_flash_kernel /
-// _flash_body (forward only). Computes, per (batch*head), the non-causal
+// Replaces the TPU kernels flux2_tpu/ops/flash_attention.py:_flash_kernel /
+// _flash_body (K1, no gradient) and :_flash_kernel_lse (K2, the forward of a
+// differentiated call, which also writes each row's natural-log LSE for the
+// backward kernels in flash_attention_bwd.cu). Both are one template body
+// (flash_fwd_body<kWriteLse>), so they cannot drift apart; the LSE costs one
+// log2f and one 4-byte store per row. Computes, per (batch*head), the non-causal
 //   out = softmax(scale * Q K^T) V
 // with an exact online softmax (running row max and row sum in f32, f32
 // accumulation of P V), keys >= S_k masked on the ragged last tile, and the
@@ -27,49 +31,17 @@
 // The C entry launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kD = 128;                 // head dim (every FLUX.2 config)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockQ = kWarps * 16;    // 64 query rows per block
-constexpr int kBlockK = 64;             // keys per tile
-constexpr int kKStride = kD + 8;        // bf16 per padded row of the K tile
-constexpr int kVtStride = kBlockK + 8;  // bf16 per padded row of the transposed V tile
-constexpr float kNegInf = -1e30f;       // blocked-span logit, as the JAX package's NEG_INF
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D[16x8] += A[16x16] * B[16x8], bf16 inputs, f32 accumulators.
-// Fragments (g = lane / 4, t = lane % 4):
-//   A: a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 = (g+8, 2t+8..)
-//   B: b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..2t+9, n g)
-//   C: c0,c1 = (g, 2t..2t+1), c2,c3 = (g+8, 2t..2t+1)
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base, int row, int col, int rows) {
-  return row < rows ? *reinterpret_cast<const uint32_t*>(base + (size_t)row * kD + col) : 0u;
-}
-
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                 int s_q, int s_k, float scale_log2, int q0, int q1, int k0, int has_span) {
+template <bool kWriteLse>
+__device__ __forceinline__ void flash_fwd_body(const __nv_bfloat16* __restrict__ q,
+                                               const __nv_bfloat16* __restrict__ k,
+                                               const __nv_bfloat16* __restrict__ v,
+                                               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                                               int s_q, int s_k, float scale_log2, int q0, int q1, int k0,
+                                               int has_span) {
   __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * kKStride];
   __shared__ __align__(16) __nv_bfloat16 vt[kD * kVtStride];
 
@@ -226,6 +198,28 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       *reinterpret_cast<uint32_t*>(oh + (size_t)row1 * kD + col) = pack_bf16(o[dn][2] * inv1, o[dn][3] * inv1);
     }
   }
+  if constexpr (kWriteLse) {
+    if (t != 0) return;
+    // Natural-log row LSE, as the JAX kernel returns it: m is the running max
+    // in the log2 domain (logits * scale * log2e), so lse = (m + log2 l) * ln2.
+    if (row0 < s_q) lse[bh * s_q + row0] = (m[0] + log2f(l[0])) * kLn2;
+    if (row1 < s_q) lse[bh * s_q + row1] = (m[1] + log2f(l[1])) * kLn2;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                 int s_q, int s_k, float scale_log2, int q0, int q1, int k0, int has_span) {
+  flash_fwd_body<false>(q, k, v, out, nullptr, s_q, s_k, scale_log2, q0, q1, k0, has_span);
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_lse_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, int s_q, int s_k, float scale_log2, int q0, int q1, int k0,
+                     int has_span) {
+  flash_fwd_body<true>(q, k, v, out, lse, s_q, s_k, scale_log2, q0, q1, k0, has_span);
 }
 
 }  // namespace
@@ -241,6 +235,21 @@ extern "C" int flux2_flash_attention_fwd(const void* q, const void* k, const voi
   flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      s_q, s_k, scale * kLog2e, q0, q1, k0, has_span);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As flux2_flash_attention_fwd, and lse: contiguous f32 [bh, s_q], the natural-log row LSE.
+extern "C" int flux2_flash_attention_fwd_lse(const void* q, const void* k, const void* v, void* out, void* lse,
+                                             int bh, int s_q, int s_k, int d, float scale,
+                                             int q0, int q1, int k0, int has_span, void* stream) {
+  if (d != kD || bh <= 0 || bh > 65535 || s_q <= 0 || s_k <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((s_q + kBlockQ - 1) / kBlockQ, bh);
+  flash_fwd_lse_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
       s_q, s_k, scale * kLog2e, q0, q1, k0, has_span);
   return static_cast<int>(cudaGetLastError());
 }

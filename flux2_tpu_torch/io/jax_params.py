@@ -11,6 +11,12 @@ A linear leaf may also be one of JAX's quantized weights (``QTensor``,
 it is split per layer and carried into the port's quantized module with its
 codes and scales moved to the [N, K] layout, bit for bit
 (``flux2_tpu_torch/ops/quant.py``).
+
+LoRA adapters go both ways: ``lora_from_jax`` splits JAX's stacked
+``{group: {leaf: {a [L, in, r], b [L, r, out]}}}`` into the port's ``LoRA``
+module, and ``lora_to_flat`` gives the flat names and shapes of JAX's
+``trainer._flatten`` (``"double_blocks.to_q.a"`` -> [L, in, r]), which is what
+a ``lora.safetensors`` checkpoint holds in both packages.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
 from flux2_tpu_torch.models.flux2.vae import VAEConfig, VAEDecoder
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
 from flux2_tpu_torch.ops.quant import QTensor, W4A8Tensor, W8A8Tensor
+from flux2_tpu_torch.training.lora import LoRA, Adapter
 
 
 # ml_dtypes' types: the same bits as torch's, carried through an integer view
@@ -176,3 +183,34 @@ def decoder_from_jax(params: dict, config: DecoderConfig) -> Qwen3Decoder:
         for i in range(config.num_hidden_layers):
             sd[f"layers.{i}.{name}"] = _stacked(leaf, i)
     return _load(Qwen3Decoder(config, device="cpu", dtype=embed.dtype), sd)
+
+
+def lora_from_jax(tree: dict, device: "torch.device | str" = "cpu") -> LoRA:
+    """JAX's LoRA pytree (stacked leaves, numpy or anything ``np.asarray``
+    takes) -> the port's ``LoRA``, float32 on ``device``."""
+    blocks: Dict[str, list] = {}
+    for group, leaves in tree.items():
+        n = len(np.asarray(next(iter(leaves.values()))["a"]))
+        blocks[group] = [{leaf: Adapter(_tensor(np.asarray(ab["a"], np.float32)[i]).to(device),
+                                        _tensor(np.asarray(ab["b"], np.float32)[i]).to(device))
+                          for leaf, ab in leaves.items()} for i in range(n)]
+    return LoRA(blocks)
+
+
+def lora_from_flat(flat: Dict[str, np.ndarray], device: "torch.device | str" = "cpu") -> LoRA:
+    """Flat ``"group.leaf.a"`` arrays (a ``lora.safetensors``) -> the port's ``LoRA``."""
+    tree: dict = {}
+    for name, arr in flat.items():
+        group, leaf, ab = name.split(".")
+        tree.setdefault(group, {}).setdefault(leaf, {})[ab] = arr
+    return lora_from_jax(tree, device)
+
+
+def lora_to_flat(lora: LoRA) -> Dict[str, np.ndarray]:
+    """The port's ``LoRA`` -> JAX's flat names with stacked float32 leaves."""
+    flat: Dict[str, np.ndarray] = {}
+    for group, leaf in lora.targets():
+        for ab in ("a", "b"):
+            flat[f"{group}.{leaf}.{ab}"] = np.stack(
+                [getattr(blk[leaf], ab).detach().float().cpu().numpy() for blk in getattr(lora, group)])
+    return flat

@@ -2,9 +2,11 @@
 
 Port of the T2I forward of ``flux2_tpu/models/flux2/transformer.py``:
 ``sinusoidal_embedding``, ``time_guidance_embedding``, the modulation
-projections, ``double_block``, ``single_block``, ``forward`` and ``_final``.
-LoRA, the KV-extract/KV-cached forwards, remat and ring attention are not
-ported yet.
+projections, ``double_block``, ``single_block``, ``forward`` and ``_final``,
+with JAX's unmerged LoRA (``_lmm``, ``forward(lora=, lora_scale=)``) and
+per-block remat (``remat=True`` / ``"block"``: ``torch.utils.checkpoint``).
+The KV-extract/KV-cached forwards, the ``"dots"`` remat policy and ring
+attention are not ported yet.
 
 Linear weights are stored [out, in] (``F.linear``'s layout); the JAX package
 stores [in, out] stacked over layers, and ``flux2_tpu_torch.io.jax_params``
@@ -24,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from flux2_tpu.models.flux2.config import Flux2TransformerConfig
 from flux2_tpu_torch.ops.attention import sdpa
@@ -65,9 +68,20 @@ def _unheads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _swiglu(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
-    g, v = q_linear(x, w_in).chunk(2, dim=-1)
-    return q_linear(F.silu(g) * v, w_out)
+def _lmm(x: torch.Tensor, w, lora: Optional[nn.ModuleDict], name: str, scale: float) -> torch.Tensor:
+    """Projection with an optional UNMERGED LoRA adapter (JAX ``_lmm``):
+    y = x W^T + scale * ((x a) b), the adapter cast to x's dtype. The
+    backward forms only [in, r] and [r, out] gradients, never a base-sized one."""
+    y = q_linear(x, w)
+    if lora is not None and name in lora:
+        ad = lora[name]
+        y = y + ((x @ ad.a.to(x.dtype)) @ ad.b.to(x.dtype)) * scale
+    return y
+
+
+def _swiglu(x, bp, w_in: str, w_out: str, lora, scale) -> torch.Tensor:
+    g, v = _lmm(x, getattr(bp, w_in), lora, w_in, scale).chunk(2, dim=-1)
+    return _lmm(F.silu(g) * v, getattr(bp, w_out), lora, w_out, scale)
 
 
 class DoubleBlock(nn.Module):
@@ -87,31 +101,35 @@ class DoubleBlock(nn.Module):
         self.ff_ctx_in = linear_weight(d, 2 * mlp, device, dtype, generator)
         self.ff_ctx_out = linear_weight(mlp, d, device, dtype, generator)
 
-    def forward(self, img, txt, img_mod, txt_mod, rope_cos, rope_sin) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, img, txt, img_mod, txt_mod, rope_cos, rope_sin, lora: Optional[nn.ModuleDict] = None,
+                lora_scale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
         nh = self.num_heads
         s_txt = txt.shape[1]
         img_n = modulate(layer_norm(img), img_mod[:, 0, 0], img_mod[:, 0, 1])
         txt_n = modulate(layer_norm(txt), txt_mod[:, 0, 0], txt_mod[:, 0, 1])
 
-        q_img = rms_norm(_heads(q_linear(img_n, self.to_q), nh), self.norm_q)
-        k_img = rms_norm(_heads(q_linear(img_n, self.to_k), nh), self.norm_k)
-        v_img = _heads(q_linear(img_n, self.to_v), nh)
-        q_txt = rms_norm(_heads(q_linear(txt_n, self.add_q), nh), self.norm_added_q)
-        k_txt = rms_norm(_heads(q_linear(txt_n, self.add_k), nh), self.norm_added_k)
-        v_txt = _heads(q_linear(txt_n, self.add_v), nh)
+        def proj(x, name):
+            return _lmm(x, getattr(self, name), lora, name, lora_scale)
+
+        q_img = rms_norm(_heads(proj(img_n, "to_q"), nh), self.norm_q)
+        k_img = rms_norm(_heads(proj(img_n, "to_k"), nh), self.norm_k)
+        v_img = _heads(proj(img_n, "to_v"), nh)
+        q_txt = rms_norm(_heads(proj(txt_n, "add_q"), nh), self.norm_added_q)
+        k_txt = rms_norm(_heads(proj(txt_n, "add_k"), nh), self.norm_added_k)
+        v_txt = _heads(proj(txt_n, "add_v"), nh)
 
         q = apply_rope(torch.cat([q_txt, q_img], dim=2), rope_cos, rope_sin)
         k = apply_rope(torch.cat([k_txt, k_img], dim=2), rope_cos, rope_sin)
         v = torch.cat([v_txt, v_img], dim=2)
         attn = sdpa(q, k, v, bounded_logits=True)  # qk are RMS-normed above
 
-        img = img + gate(q_linear(_unheads(attn[:, :, s_txt:]), self.to_out), img_mod[:, 0, 2])
-        txt = txt + gate(q_linear(_unheads(attn[:, :, :s_txt]), self.add_out), txt_mod[:, 0, 2])
+        img = img + gate(proj(_unheads(attn[:, :, s_txt:]), "to_out"), img_mod[:, 0, 2])
+        txt = txt + gate(proj(_unheads(attn[:, :, :s_txt]), "add_out"), txt_mod[:, 0, 2])
 
         img_n2 = modulate(layer_norm(img), img_mod[:, 1, 0], img_mod[:, 1, 1])
         txt_n2 = modulate(layer_norm(txt), txt_mod[:, 1, 0], txt_mod[:, 1, 1])
-        img = img + gate(_swiglu(img_n2, self.ff_in, self.ff_out), img_mod[:, 1, 2])
-        txt = txt + gate(_swiglu(txt_n2, self.ff_ctx_in, self.ff_ctx_out), txt_mod[:, 1, 2])
+        img = img + gate(_swiglu(img_n2, self, "ff_in", "ff_out", lora, lora_scale), img_mod[:, 1, 2])
+        txt = txt + gate(_swiglu(txt_n2, self, "ff_ctx_in", "ff_ctx_out", lora, lora_scale), txt_mod[:, 1, 2])
         return img, txt
 
 
@@ -132,15 +150,20 @@ class SingleBlock(nn.Module):
         self.out_attn = linear_weight(d, d, device, dtype, generator)
         self.out_mlp = linear_weight(mlp, d, device, dtype, generator)
 
-    def forward(self, x, mod, rope_cos, rope_sin) -> torch.Tensor:
+    def forward(self, x, mod, rope_cos, rope_sin, lora: Optional[nn.ModuleDict] = None,
+                lora_scale: float = 1.0) -> torch.Tensor:
         nh = self.num_heads
+
+        def proj(x, name):
+            return _lmm(x, getattr(self, name), lora, name, lora_scale)
+
         x_n = modulate(layer_norm(x), mod[:, 0, 0], mod[:, 0, 1])
-        q = apply_rope(rms_norm(_heads(q_linear(x_n, self.to_q), nh), self.norm_q), rope_cos, rope_sin)
-        k = apply_rope(rms_norm(_heads(q_linear(x_n, self.to_k), nh), self.norm_k), rope_cos, rope_sin)
-        v = _heads(q_linear(x_n, self.to_v), nh)
+        q = apply_rope(rms_norm(_heads(proj(x_n, "to_q"), nh), self.norm_q), rope_cos, rope_sin)
+        k = apply_rope(rms_norm(_heads(proj(x_n, "to_k"), nh), self.norm_k), rope_cos, rope_sin)
+        v = _heads(proj(x_n, "to_v"), nh)
         attn = _unheads(sdpa(q, k, v, bounded_logits=True))  # qk RMS-normed above
-        mlp = F.silu(q_linear(x_n, self.mlp_gate)) * q_linear(x_n, self.mlp_up)
-        out = q_linear(attn, self.out_attn) + q_linear(mlp, self.out_mlp)
+        mlp = F.silu(proj(x_n, "mlp_gate")) * proj(x_n, "mlp_up")
+        out = proj(attn, "out_attn") + proj(mlp, "out_mlp")
         return x + gate(out, mod[:, 0, 2])
 
 
@@ -218,7 +241,16 @@ class Flux2Transformer(nn.Module):
         rope_cos: torch.Tensor,  # [S_txt + S_img, head_dim] f32, ids in [txt ; img] order
         rope_sin: torch.Tensor,
         guidance: Optional[torch.Tensor] = None,  # [B]
+        remat: "bool | str" = False,
+        lora=None,  # flux2_tpu_torch.training.lora.LoRA
+        lora_scale: float = 1.0,
     ) -> torch.Tensor:
+        """Velocity [B, S_img, 128]. ``remat``: False, or True / "block" to
+        recompute each block in the backward (``torch.utils.checkpoint``,
+        non-reentrant; JAX ``_remat_wrap``). ``lora`` adds the unmerged
+        adapters scaled by ``lora_scale``."""
+        if remat not in (False, True, "block"):
+            raise NotImplementedError(f"remat={remat!r}: only per-block recompute is ported (ROADMAP queue 13)")
         s_txt = encoder_hidden_states.shape[1]
         img = q_linear(hidden_states, self.x_embedder)
         # a quantized context embedder takes the stream's dtype (JAX: hidden_states')
@@ -234,9 +266,17 @@ class Flux2Transformer(nn.Module):
         rope_cos = rope_cos.to(torch.float32)
         rope_sin = rope_sin.to(torch.float32)
 
-        for block in self.double_blocks:
-            img, txt = block(img, txt, img_mod, txt_mod, rope_cos, rope_sin)
+        def run(block, *args, lora_block):
+            kw = {"lora": lora_block, "lora_scale": lora_scale}
+            if remat:
+                return checkpoint(block, *args, use_reentrant=False, **kw)
+            return block(*args, **kw)
+
+        for i, block in enumerate(self.double_blocks):
+            lb = lora.block("double_blocks", i) if lora is not None else None
+            img, txt = run(block, img, txt, img_mod, txt_mod, rope_cos, rope_sin, lora_block=lb)
         x = torch.cat([txt, img], dim=1)
-        for block in self.single_blocks:
-            x = block(x, single_mod, rope_cos, rope_sin)
+        for i, block in enumerate(self.single_blocks):
+            lb = lora.block("single_blocks", i) if lora is not None else None
+            x = run(block, x, single_mod, rope_cos, rope_sin, lora_block=lb)
         return self._final(temb, x[:, s_txt:])

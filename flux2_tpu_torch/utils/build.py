@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``*.cu`` under ``flux2_tpu_torch/csrc/`` is compiled by ``nvcc`` into
-one shared library with a plain C interface, for ``sm_90a`` (Hopper), and
-loaded with ``ctypes``. The library lands in ``build/kernels/`` at the
+Every ``*.cu`` under ``flux2_tpu_torch/csrc/`` is compiled by its own
+``nvcc`` for ``sm_90a`` (Hopper), all at once, and the objects are linked into
+one shared library with a plain C interface, loaded with ``ctypes``. The library lands in ``build/kernels/`` at the
 repository root, named by a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one loads at once. Nothing is built when a
 module is imported: the first kernel launch builds.
@@ -24,7 +24,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -61,16 +61,35 @@ def build_kernels() -> BuildResult:
     if out.exists():
         return BuildResult(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in _sources() if s.suffix == ".cu")]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    compiles = []  # one nvcc per source, all running at once
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], None
+    for cmd, _, proc in compiles:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{err}"
+    tmp = out.with_name(f"{tag}.so.tmp")
+    try:
+        if failed is None:
+            link = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in compiles)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                failed = f"nvcc link failed with code {proc.returncode}:\n{' '.join(link)}\n{proc.stderr}"
+        if failed is not None:
+            raise RuntimeError(failed)
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    return BuildResult(out, seconds, proc.stderr)
+        for _, obj, _ in compiles:
+            obj.unlink(missing_ok=True)
+    return BuildResult(out, time.perf_counter() - t0, "".join(logs))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,7 @@
-"""Where the device time of the port's served path goes, on one CUDA card.
+"""Where the device time of the port's served and training paths goes, on one CUDA card.
 
     python3 -m flux2_tpu_torch.utils.profile_step [--quantization w8a8|w4a8|qint8|int4]
+    python3 -m flux2_tpu_torch.utils.profile_step --train
 
 Draws a random full-width Klein-4B DiT and FLUX.2 VAE decoder (bf16, on the
 card, from seed 0; the DiT quantized with ``quantize_params`` under
@@ -19,6 +20,12 @@ batch 3, and for a warm VAE decode at 1024^2, it prints:
 - the device's idle share, 1 - device time / host-clock time;
 - the GEMM FLOP that ``torch.profiler`` counts for ``aten::mm``-family ops.
 
+With ``--train`` it profiles instead one LoRA train step of the full-width
+Klein-4B base (rank 16 on every attention and FFN target, AdamW, per-block
+remat: ``trainer.make_train_step``) on synthetic data with 32 text tokens,
+at 512^2 and at 1024^2 (batch 1), and splits the device time into K2
+(``flash_fwd_lse_kernel``), K3 + K4 (``flash_bwd_*``), GEMMs and the rest.
+
 Each line carries the card's name and power limit; the last line is one JSON
 object with every number.
 """
@@ -36,6 +43,8 @@ import torch
 
 SEED = 0
 K1_KERNEL = "flash_fwd_kernel"
+K2_KERNEL = "flash_fwd_lse_kernel"
+K34_MARK = "flash_bwd_"  # flash_bwd_dq_kernel (K3), flash_bwd_dkv_kernel (K4)
 _QUANT_MARKS = ("w8a8_kernel", "w4a8_kernel", "dequant_kernel")  # csrc/quant_matmul.cu
 _CONV_MARKS = ("conv", "fprop", "dgrad", "wgrad", "winograd", "implicit_gemm", "cudnn")
 _GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
@@ -46,6 +55,10 @@ def kernel_class(name: str) -> str:
     low = name.lower()
     if K1_KERNEL in low:
         return "k1"
+    if K2_KERNEL in low:
+        return "k2"
+    if K34_MARK in low:
+        return "k34"
     if any(m in low for m in _QUANT_MARKS):
         return "quant"
     if any(m in low for m in _CONV_MARKS):
@@ -57,7 +70,7 @@ def kernel_class(name: str) -> str:
 
 def device_breakdown(prof) -> dict:
     """Device ms by kernel class, and the GEMM FLOP counted by the profiler."""
-    ms = {"k1": 0.0, "quant": 0.0, "conv": 0.0, "gemm": 0.0, "other": 0.0}
+    ms = {"k1": 0.0, "k2": 0.0, "k34": 0.0, "quant": 0.0, "conv": 0.0, "gemm": 0.0, "other": 0.0}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             ms[kernel_class(evt.name)] += evt.time_range.elapsed_us() / 1e3
@@ -83,27 +96,69 @@ def measure(fn, label: str, card: str) -> dict:
     if dev["total"] <= 0:
         raise RuntimeError(f"{label}: torch.profiler recorded no device time")
     row = {"label": label, "host_ms": host_ms, "device_ms": dev, "idle_share": 1.0 - dev["total"] / host_ms}
-    shares = ", ".join(f"{k} {dev[k]:.3f} ms ({dev[k] / dev['total']:.1%})" for k in ("k1", "quant", "gemm", "conv", "other"))
+    shares = ", ".join(f"{k} {dev[k]:.3f} ms ({dev[k] / dev['total']:.1%})"
+                       for k in ("k1", "k2", "k34", "quant", "gemm", "conv", "other") if dev[k] or k == "k1")
     gemm_rate = f"{dev['gemm_flop'] / dev['gemm'] / 1e9:.1f} TFLOP/s" if dev["gemm"] else "no GEMM"
     print(f"[profile] {label}: host {host_ms:.3f} ms, device {dev['total']:.3f} ms (idle {row['idle_share']:.1%}); "
           f"{shares}; GEMM {dev['gemm_flop'] / 1e12:.2f} TFLOP at {gemm_rate} [{card}]", flush=True)
     return row
 
 
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def profile_train(card: str) -> list:
+    """One LoRA train step of the full-width Klein-4B base at 512^2 and 1024^2."""
+    from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
+    from flux2_tpu_torch.ops import latents as lu
+    from flux2_tpu_torch.ops.rope import rope_embeddings
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Model
+    from flux2_tpu_torch.training import trainer
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    config = Flux2Model.KLEIN_4B_BASE.transformer_config
+    model = Flux2Transformer(config, device=device, generator=gen)
+    cfg = trainer.TrainConfig(rank=16, alpha=16.0, remat=True)
+    state = trainer.init_train_state(model, cfg, gen)
+    step = trainer.make_train_step(model, cfg)
+    rows = []
+    for size in (512, 1024):
+        s_img = (size // 16) ** 2
+        ids = np.concatenate([lu.text_position_ids(32), lu.image_position_ids(size, size)])
+        cos, sin = rope_embeddings(torch.from_numpy(ids).to(device))
+        batch = {"latents": torch.randn(1, s_img, 128, device=device, generator=gen),
+                 "embeddings": torch.randn(1, 32, config.joint_attention_dim, device=device, generator=gen),
+                 "rope_cos": cos, "rope_sin": sin}
+        rows.append(measure(lambda: step(state.lora, state.optimizer, batch, gen),
+                            f"LoRA train step {size}^2 bs=1 ({32 + s_img} tokens, rank 16, remat)", card))
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--quantization", default="bf16", choices=("bf16", "w8a8", "w4a8", "qint8", "int4"))
-    fmt = parser.parse_args(argv).quantization
+    parser.add_argument("--train", action="store_true", help="profile LoRA train steps instead of serving")
+    args = parser.parse_args(argv)
+    fmt = args.quantization
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
+    if args.train:
+        if fmt != "bf16":
+            raise SystemExit("--train profiles the bf16 base only (training on a quantized base is ROADMAP queue 12)")
+        card = _card()
+        rows = profile_train(card)
+        print(json.dumps({"card": card, "torch": torch.__version__, "train": True, "rows": rows}), flush=True)
+        return 0
 
     from flux2_tpu_torch.ops import latents as lu
     from flux2_tpu_torch.ops.quant import quantize_params
     from flux2_tpu_torch.ops.rope import rope_embeddings
     from flux2_tpu_torch.pipeline.pipeline import Flux2Model, Flux2Pipeline
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = _card()
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(SEED)
     pipe = Flux2Pipeline.from_random(Flux2Model.KLEIN_4B, device=device, generator=gen)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card (marker ``cuda``): K1 (flash attention)
-and K5 / K6 / K7 (quantized matmuls).
+"""The port's CUDA kernels on the card (marker ``cuda``): K1 (flash attention),
+K2 / K3 / K4 (its forward with the LSE and its backward) and K5 / K6 / K7
+(quantized matmuls).
 
 Skips without a CUDA device. Imports no JAX, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -77,6 +78,55 @@ def test_sdpa_dispatch_on_cuda(device, monkeypatch):
     out = tattn.sdpa(q, k, v)
     assert tfa.launches == before + 1
     assert os.environ["FLUX2_DISABLE_FLASH"] == "1" and out.shape == q.shape
+
+
+# K2 / K3 / K4 against their plain f32 versions, as chip_smoke.py holds them:
+# out and the gradients within REL_TOL (p and dS enter the tensor cores as
+# bf16, ~2.6e-3 measured; one dropped 64-key tile costs ~sqrt(64 / S_k)), the
+# LSE within 1e-3 absolute (two f32 sums of the same products, ~1e-6 apart).
+@pytest.mark.parametrize("q_shape,k_len,span", [
+    ((1, 24, 1056, 128), 1056, None),  # 512^2 training: 32 txt + 1024 img, both tails ragged
+    ((1, 4, 320, 128), 704, (64, 192, 400)),
+])
+def test_training_kernels_match_reference(device, q_shape, k_len, span):
+    q, k, v = _qkv(device, q_shape[0], q_shape[1], q_shape[2], k_len)
+    dout = torch.randn(q.shape, device=device, generator=torch.Generator(device=device).manual_seed(1)).bfloat16()
+    scale = 128**-0.5
+    before = tfa.launch_counts()
+    out, lse = tfa.flash_attention_lse(q, k, v, scale, span)
+    grads = tfa.flash_attention_backward(q, k, v, out, lse, dout, scale, span)
+    torch.cuda.synchronize()
+    after = tfa.launch_counts()
+    assert [after[c] - before[c] for c in ("flash", "flash_lse", "flash_bwd_dq", "flash_bwd_dkv")] == [0, 1, 1, 1]
+    ref_out, ref_lse = tfa.flash_attention_lse_reference(q, k, v, scale, span)
+    assert _rel(out, ref_out) <= REL_TOL and float((lse - ref_lse).abs().max()) <= 1e-3
+    for got, ref in zip(grads, tfa.flash_attention_grads_reference(q, k, v, dout, scale, span)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert _rel(got, ref) <= REL_TOL
+
+
+def test_autograd_takes_k2_k3_k4_with_grad_and_k1_without(device):
+    q, k, v = (t.requires_grad_() for t in _qkv(device, 1, 2, 256, 256))
+    before = tfa.launch_counts()
+    out = tattn.sdpa(q, k, v, bounded_logits=True)
+    out.float().sum().backward()
+    with torch.no_grad():
+        tattn.sdpa(q, k, v, bounded_logits=True)
+    after = tfa.launch_counts()
+    assert {c: after[c] - before[c] for c in after} == {"flash": 1, "flash_lse": 1, "flash_bwd_dq": 1,
+                                                        "flash_bwd_dkv": 1}
+    assert q.grad.dtype == torch.bfloat16 and torch.isfinite(q.grad.float()).all()
+
+
+def test_backward_wrapper_raises_on_what_the_kernels_do_not_take(device):
+    q, k, v = _qkv(device, 1, 2, 256, 256)
+    out, lse = tfa.flash_attention_lse(q, k, v, 0.1)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_backward(q, k, v, out, lse, q.transpose(2, 3), 0.1)  # dout not contiguous
+    with pytest.raises(ValueError):
+        tfa.flash_attention_backward(q, k, v, out, lse[:, :, :128].contiguous(), q, 0.1)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_backward(q, k, v, out.float(), lse, q, 0.1)
 
 
 # K5 / K6 / K7 against their plain versions, relative L2 error, as chip_smoke.py

@@ -1,8 +1,10 @@
 """The PyTorch port never imports JAX.
 
-A fresh interpreter imports the port's server, pipeline, quantization and
-CLI, runs a tiny T2I generate on the CPU through the server and a tiny w8a8
-pipeline built by the CLI's ``build_pipeline``, and reports whether any
+A fresh interpreter imports the port's server, pipeline, quantization,
+trainer and CLI, runs a tiny T2I generate on the CPU through the server, a
+tiny w8a8 pipeline built by the CLI's ``build_pipeline`` and a one-step
+``train-lora --random-init`` (the JAX package's YAML schema, controller,
+registry and safetensors helpers come along), and reports whether any
 ``jax`` module was loaded. (The suite's conftest imports JAX, so this must run
 in a subprocess.)
 """
@@ -38,10 +40,23 @@ args = argparse.Namespace(model="klein-4b", quantization="w8a8", encoder_quantiz
 qpipe = build_pipeline(args, "cpu", torch.Generator().manual_seed(0), transformer_config=qtc, vae_config=vc,
                        encoder_config=dataclasses.replace(TINY_DECODER, num_hidden_layers=28, vocab_size=600))
 qres = qpipe.generate(prompt="a red fox", height=32, width=32, num_steps=1)
+import os, tempfile
+from flux2_tpu_torch.cli.main import parse_args
+from flux2_tpu_torch.cli.train import run_training
+from flux2_tpu_torch.training import trainer
+with tempfile.TemporaryDirectory() as tmp:
+    cfg = os.path.join(tmp, "cfg.yaml")
+    with open(cfg, "w") as f:
+        f.write("model: {name: klein-4b}\nlora: {rank: 2}\ndataset: {image_size: 32}\n"
+                f"training: {{max_steps: 1}}\ncheckpoints: {{output: {tmp}/out}}\n")
+    hist = run_training(parse_args(["train-lora", "--config", cfg, "--random-init", "--device", "cpu"]), "cpu",
+                        transformer_config=dataclasses.replace(tc, num_attention_heads=2, joint_attention_dim=96))
+    ckpt = sorted(os.listdir(os.path.join(tmp, "out")))
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
                   "image": list(res.image.shape), "png": list(decode_png(png).shape),
                   "w8a8_image": list(qres.image.shape),
-                  "w8a8": sorted(set(quant.quantized_names(qpipe.transformer).values()))}))
+                  "w8a8": sorted(set(quant.quantized_names(qpipe.transformer).values())),
+                  "train_steps": [r["step"] for r in hist], "checkpoints": ckpt}))
 """
 
 
@@ -53,4 +68,4 @@ def test_port_runs_without_importing_jax():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report == {"jax": [], "image": [32, 32, 3], "png": [32, 32, 3], "w8a8_image": [32, 32, 3],
-                      "w8a8": ["w8a8"]}
+                      "w8a8": ["w8a8"], "train_steps": [1], "checkpoints": ["checkpoint_000001", "learning_curve.svg"]}
