@@ -21,8 +21,12 @@ traceback is printed and the exit code is not 0. There is no CPU fallback.
 The last two lines of standard output are the card's name and power limit as
 nvidia-smi reports them, then {"ok": true, "device": {...}}; the line before
 those lists each kernel with its launches on its path (serving for K1 and K5,
-the quantized forwards for K6 and K7, the 512^2 training run for K2-K4), its
-error against the plain version, and both times.
+the quantized forwards for K6 and K7, the 512^2 training run for K2-K4) and
+per unit of it (a 1024^2 image, forward or train step), its error against the
+plain version, and at the main path's shape its time alone (torch.profiler),
+its wrapper's and the plain version's, its bound (operations or bytes over
+the H100's published peaks) and one PyTorch call that computes the same
+function, timed as a yardstick that the port never calls.
 """
 
 from __future__ import annotations
@@ -88,6 +92,11 @@ QMM_SHAPES = [  # (name, M, K, N) as the served path gives them
     ("bn_regression", 16, 512, 2560),  # tests/test_quant.py:201-230
 ]
 SEED = 0
+# Published peaks of one H100 SXM (NVIDIA's data sheet; dense, at the full
+# 700 W power limit): the bound of each kernel below is computed from them.
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -117,8 +126,54 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound_ms(ops: float, nbytes: float, peak_ops: float) -> tuple:
+    """The least time the card could take for a function (ms), and what bounds
+    it: ``ops`` over the peak rate of their type, or ``nbytes`` (each input read
+    once, each output written once) over the memory rate, whichever is larger."""
+    t_ops = ops / peak_ops * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attention_bytes(b: int, h: int, s_q: int, s_k: int, bf16_q_rows: int, bf16_k_rows: int, f32_q_rows: int) -> int:
+    """Bytes of an attention kernel's inputs and outputs: ``bf16_q_rows`` bf16
+    [B, H, S_q, 128] tensors, ``bf16_k_rows`` [B, H, S_k, 128] ones and
+    ``f32_q_rows`` f32 [B, H, S_q] row statistics."""
+    return b * h * (2 * 128 * (bf16_q_rows * s_q + bf16_k_rows * s_k) + 4 * f32_q_rows * s_q)
+
+
+def library_time(fn, label: str, card: str):
+    """time_ms of one library call timed as a yardstick (the port never calls
+    it), or None, logged, where this build or card refuses the call."""
+    try:
+        return time_ms(fn)
+    except RuntimeError as e:
+        log(f"[library] {label} unavailable: {e} [{card}]")
+        return None
+
+
+def library_sdpa(q, k, v, card: str) -> tuple:
+    """The faster of F.scaled_dot_product_attention's flash and cuDNN backends
+    on the same inputs: (name, ms); timed as a yardstick, the port never calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    best = ("F.scaled_dot_product_attention", None)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        label = f"F.scaled_dot_product_attention[{backend.name}]"
+        with sdpa_kernel(backend):
+            ms = library_time(lambda: F.scaled_dot_product_attention(q, k, v), label, card)
+        if ms is None:
+            continue
+        log(f"[library] {label} q={list(q.shape)}: {ms:.4f} ms [{card}]")
+        if best[1] is None or ms < best[1]:
+            best = (f"F.scaled_dot_product_attention[{backend.name}]", ms)
+    return best
+
+
 def phase_kernel_check(card: str):
-    """K1 against flash_attention_reference on the card, same bf16 inputs."""
+    """K1 against flash_attention_reference on the card, same bf16 inputs; at
+    the 1024^2 shape also the kernel alone, its bound and the library call."""
     from flux2_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -128,8 +183,10 @@ def phase_kernel_check(card: str):
         ("klein4b_1024px", (1, 24, 4608, 4608), None),
         ("klein4b_256px_bs3", (3, 24, 768, 768), None),
         ("ragged", (1, 24, 777, 1000), None),
-        ("ragged_mostly_pad", (1, 24, 777, 961), None),  # last key tile: 1 real key, 63 pad
+        ("ragged_961", (1, 24, 777, 961), None),  # last 128-key tile: 65 real keys, 63 pad
+        ("ragged_one_key", (1, 24, 777, 897), None),  # last 128-key tile: 1 real key, 127 pad
         ("blocked_span", (1, 24, 2560, 2560), (512, 1536, 1536)),
+        ("span_mid_tile", (1, 24, 2560, 2560), (100, 1300, 1000)),  # the span cuts query and key tiles
     ]
     results = {}
     for name, (b, h, s_q, s_k), span in cases:
@@ -149,7 +206,15 @@ def phase_kernel_check(card: str):
         log(f"[kernel] flash_attention {name} q={[b, h, s_q, 128]} s_k={s_k} span={span}: rel_l2_err={rel} "
             f"(tol {KERNEL_REL_TOL}) max_abs_err={err} (max |ref| {float(ref.abs().max())}) kernel {ms:.4f} ms "
             f"({flop / ms / 1e9:.1f} TFLOP/s) plain f32 {plain_ms:.4f} ms [{card}]")
-        results[name] = (err, ms, plain_ms)
+        results[name] = {"err": err, "ms": ms, "plain_ms": plain_ms}
+        if name == "klein4b_1024px":
+            alone = kernel_only_ms(lambda: fa.flash_attention(q, k, v), "flash_fwd_kernel")
+            bound, bound_by = bound_ms(flop, attention_bytes(b, h, s_q, s_k, 2, 2, 0), BF16_FLOPS)
+            library, library_ms = library_sdpa(q, k, v, card)
+            log(f"[kernel] K1 {name}: alone {alone:.4f} ms ({flop / alone / 1e9:.1f} TFLOP/s), bound {bound:.4f} ms "
+                f"({bound_by}; {bound / alone:.1%} of it), {library} {library_ms} ms [{card}]")
+            results[name].update(alone=alone, bound=bound, bound_by=bound_by, library=library,
+                                 library_ms=library_ms)
     return results
 
 
@@ -221,9 +286,40 @@ def phase_flash_grad_check(card: str):
             f"vs plain f32 grads {bwd_plain_ms:.4f} ms [{card}]")
         results[name] = {"max_abs": max_abs, "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "bwd_ms": bwd_ms,
                          "bwd_plain_ms": bwd_plain_ms, "alone": alone}
+        if name == "klein4b_1024px":
+            results[name].update(_flash_grad_yardsticks(q, k, v, dout, scale, flop, card))
         del q, k, v, dout, out, lse, dq, dk, dv, ref_out, ref_lse, refs
         torch.cuda.empty_cache()
     return results
+
+
+def _flash_grad_yardsticks(q, k, v, dout, scale: float, flop: float, card: str) -> dict:
+    """Bounds of K2, K3 and K4 at one no-span shape, and the library calls
+    timed beside them: the flash forward that returns the LSE (K2), and its
+    backward, which returns dq, dk and dv at once (K3 + K4)."""
+    b, h, s_q, _ = q.shape
+    s_k = k.shape[2]
+    bounds = {  # (operations: S_q x S_k x 128 products, bytes: bf16 q-/k-shaped tensors, f32 rows)
+        "k2": bound_ms(2 * flop, attention_bytes(b, h, s_q, s_k, 2, 2, 1), BF16_FLOPS),
+        "k3": bound_ms(3 * flop, attention_bytes(b, h, s_q, s_k, 3, 2, 2), BF16_FLOPS),
+        "k4": bound_ms(4 * flop, attention_bytes(b, h, s_q, s_k, 2, 4, 2), BF16_FLOPS),
+    }
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention
+    bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    names = ("aten._scaled_dot_product_flash_attention",
+             "aten._scaled_dot_product_flash_attention_backward (dq, dk, dv at once: compare with K3 + K4)")
+    fwd_ms = bwd_ms = None
+    try:
+        out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd(q, k, v, 0.0, False, False, scale=scale)[:8]
+    except RuntimeError as e:
+        log(f"[library] {names[0]} unavailable: {e} [{card}]")
+    else:
+        fwd_ms = library_time(lambda: fwd(q, k, v, 0.0, False, False, scale=scale), names[0], card)
+        bwd_ms = library_time(lambda: bwd(dout, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, False, seed,
+                                          offset, scale=scale), names[1], card)
+    log(f"[library] {names[0]} {fwd_ms} ms; {names[1]} {bwd_ms} ms; bounds (ms) "
+        + ", ".join(f"{kk} {bd[0]:.4f} ({bd[1]})" for kk, bd in bounds.items()) + f" [{card}]")
+    return {"bounds": bounds, "library": {"k2": (names[0], fwd_ms), "k34": (names[1], bwd_ms)}}
 
 
 # Launch counter of each quantized format's kernel (flux2_tpu_torch.ops.quant_kernels.launches).
@@ -304,9 +400,44 @@ def phase_quant_kernel_check(card: str):
                 f"K tile gives {drop:.3e}, a neighbouring column's scale {wrong:.3e}) max_abs_err={err}; wrapper "
                 f"{ms:.4f} ms, kernel alone {alone_ms:.4f} ms ({2.0 * m * n * k / alone_ms / 1e9:.1f} TOPS), "
                 f"plain {plain_ms:.4f} ms [{card}]")
-            rows.append((name, err, ms, plain_ms))
+            row = {"name": name, "err": err, "ms": ms, "alone": alone_ms, "plain_ms": plain_ms}
+            if not rows:  # the first shape, image_qkvo_1024: the bound and the library call
+                row.update(_qmm_yardsticks(kind, x, w, card))
+            rows.append(row)
         results[kind] = rows
     return results
+
+
+def _qmm_yardsticks(kind: str, x, w, card: str) -> dict:
+    """A quantized matmul's bound from the bytes its kernel reads and writes
+    (codes, scales and the activations it is given; the bf16 output) and its
+    products at the int8 (K5, K6) or bf16 (K7) peak; and one library call timed
+    beside it on the same codes, the product only (no scales, no rounding):
+    torch._int_mm on the int8 codes for K5 and K6, a bf16 torch.matmul on the
+    weight dequantized beforehand for K7."""
+    from flux2_tpu_torch.ops import quant as tq
+    from flux2_tpu_torch.ops import quant_kernels as qk
+
+    m, k = x.shape
+    n = w.q.shape[0]
+    ops = 2.0 * m * n * k
+    if kind in ("w8a8", "w4a8"):
+        xq, _ = qk.quantize_rows(x)
+        codes = w.q if kind == "w8a8" else tq.w4a8_codes(w)
+        x_bytes = m * k + 4 * m * (1 if kind == "w8a8" else k // w.block)  # int8 codes, f32 row (block) scales
+        bound = bound_ms(ops, x_bytes + w.q.numel() + 4 * w.scale.numel() + 2 * m * n, INT8_OPS)
+        wt = codes.t()
+        library = "torch._int_mm on the int8 codes (int32 product only: no scales)"
+        library_ms = library_time(lambda: torch._int_mm(xq, wt), library, card)
+    else:
+        bound = bound_ms(ops, 2 * m * k + w.q.numel() + 4 * (w.scale.numel() + w.bias.numel()) + 2 * m * n,
+                         BF16_FLOPS)
+        wd = tq.dequantize(w, torch.bfloat16).t()
+        library = "torch.matmul bf16 on the weight dequantized beforehand (product only)"
+        library_ms = library_time(lambda: torch.matmul(x, wd), library, card)
+    log(f"[library] {kind} (M,K,N)=({m},{k},{n}): {library} {library_ms} ms; bound {bound[0]:.4f} ms "
+        f"({bound[1]}) [{card}]")
+    return {"bound": bound, "library": library, "library_ms": library_ms}
 
 
 def _zero_launches():
@@ -749,43 +880,61 @@ def main() -> int:
     log(f"[train] s/step warm: 512^2 {train['s_per_step']:.4f} s, 1024^2 {train_1024['s_per_step']:.4f} s; peak "
         f"device memory 512^2 {train['peak_gib']:.2f} GiB, 1024^2 {train_1024['peak_gib']:.2f} GiB [{card}]")
 
-    _, ms, plain_ms = checks["klein4b_1024px"]
+    # Each kernel at the main path's shape ((1, 24, 4608, 128) for K1-K4, the
+    # 1024^2 image projections (4096, 3072, 3072) for K5-K7): "ms" is the kernel
+    # alone (torch.profiler), "wrapper_ms" the wrapper around it (CUDA events);
+    # "launches" counts the main path's run, "launches_per_unit" one unit of it.
+    k1 = checks["klein4b_1024px"]
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "flux2_tpu_torch/csrc/flash_attention.cu",
         "replaces": "flux2_tpu/ops/flash_attention.py:84",
         "launches": counts["flash"],
-        "max_abs_err": max(e for e, _, _ in checks.values()),
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "launches_per_unit": 25 * 4, "unit": "1024^2 image (25 blocks x 4 steps)",
+        "max_abs_err": max(c["err"] for c in checks.values()),
+        "ms": k1["alone"], "wrapper_ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound"], "bound_by": k1["bound_by"],
+        "library": k1["library"], "library_ms": k1["library_ms"],
     }]
-    for fmt, name, replaces, launches in (
-        ("w8a8", "w8a8_matmul", "flux2_tpu/ops/quant_kernels.py:182", qcounts["w8a8"]),
-        ("w4a8", "w4a8_matmul", "flux2_tpu/ops/quant_kernels.py:282", model_launches["w4a8"]),
-        ("qint8", "dequant_matmul_int8", "flux2_tpu/ops/quant_kernels.py:41", model_launches["qint8"]),
-        ("int4", "dequant_matmul_int4", "flux2_tpu/ops/quant_kernels.py:66", model_launches["int4"]),
+    for fmt, name, replaces, launches, per_unit, unit in (
+        ("w8a8", "w8a8_matmul", "flux2_tpu/ops/quant_kernels.py:182", qcounts["w8a8"],
+         FORWARD_LAUNCHES["w8a8"], f"1024^2 forward (and {ENCODE_LAUNCHES_W8A8} per Qwen3-4B encode)"),
+        ("w4a8", "w4a8_matmul", "flux2_tpu/ops/quant_kernels.py:282", model_launches["w4a8"],
+         FORWARD_LAUNCHES["w4a8"], "1024^2 forward"),
+        ("qint8", "dequant_matmul_int8", "flux2_tpu/ops/quant_kernels.py:41", model_launches["qint8"],
+         FORWARD_LAUNCHES["qint8"], "1024^2 forward (FLUX2_PALLAS_DEQUANT=1)"),
+        ("int4", "dequant_matmul_int4", "flux2_tpu/ops/quant_kernels.py:66", model_launches["int4"],
+         FORWARD_LAUNCHES["int4"], "1024^2 forward (FLUX2_PALLAS_DEQUANT=1)"),
     ):
         rows = qchecks[fmt]
-        _, _, ms, plain_ms = rows[0]  # image_qkvo_1024
+        first = rows[0]  # image_qkvo_1024
         kernels.append({"name": name, "route": "cuda", "source": "flux2_tpu_torch/csrc/quant_matmul.cu",
-                        "replaces": replaces, "launches": launches, "max_abs_err": max(r[1] for r in rows),
-                        "ms": ms, "plain_ms": plain_ms})
-    # K2: wrapper vs the plain f32 forward with LSE; K3 and K4: each kernel alone
-    # (torch.profiler) vs the plain f32 backward, which computes dq, dk and dv at
-    # once; all at (1, 24, 4608, 128). Launches from the 512^2 training run.
+                        "replaces": replaces, "launches": launches, "launches_per_unit": per_unit, "unit": unit,
+                        "max_abs_err": max(r["err"] for r in rows), "ms": first["alone"],
+                        "wrapper_ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
+                        "bound_by": first["bound"][1], "library": first["library"],
+                        "library_ms": first["library_ms"]})
+    # K2 vs the plain f32 forward with LSE; K3 and K4 vs the plain f32 backward,
+    # which computes dq, dk and dv at once, as does their library call. Launches
+    # from the 512^2 training run.
     big = grad_checks["klein4b_1024px"]
-    for name, source, replaces, counter, mark, errs in (
-        ("flash_attention_fwd_lse", "flash_attention.cu", ":73", "flash_lse", None, ("out",)),
-        ("flash_attention_bwd_dq", "flash_attention_bwd.cu", ":313", "flash_bwd_dq", "flash_bwd_dq_kernel", ("dq",)),
+    for name, source, replaces, counter, mark, errs, key, lib in (
+        ("flash_attention_fwd_lse", "flash_attention.cu", ":73", "flash_lse", "flash_fwd_lse_kernel", ("out", "lse"),
+         "k2", "k2"),
+        ("flash_attention_bwd_dq", "flash_attention_bwd.cu", ":313", "flash_bwd_dq", "flash_bwd_dq_kernel", ("dq",),
+         "k3", "k34"),
         ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", ":363", "flash_bwd_dkv", "flash_bwd_dkv_kernel",
-         ("dk", "dv")),
+         ("dk", "dv"), "k4", "k34"),
     ):
         kernels.append({"name": name, "route": "cuda", "source": f"flux2_tpu_torch/csrc/{source}",
                         "replaces": f"flux2_tpu/ops/flash_attention.py{replaces}", "launches": train["counts"][counter],
+                        "launches_per_unit": STEP_LAUNCHES[counter], "unit": "train step (remat)",
                         "max_abs_err": max(r["max_abs"][e] for r in grad_checks.values() for e in errs),
-                        "ms": big["fwd_ms"] if mark is None else big["alone"][mark],
-                        "plain_ms": big["fwd_plain_ms"] if mark is None else big["bwd_plain_ms"]})
+                        "ms": big["alone"][mark], "wrapper_ms": big["fwd_ms"] if key == "k2" else big["bwd_ms"],
+                        "plain_ms": big["fwd_plain_ms"] if key == "k2" else big["bwd_plain_ms"],
+                        "bound_ms": big["bounds"][key][0], "bound_by": big["bounds"][key][1],
+                        "library": big["library"][lib][0], "library_ms": big["library"][lib][1]})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

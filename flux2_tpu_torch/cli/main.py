@@ -33,8 +33,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from flux2_tpu.models.flux2.config import Flux2Model, Flux2TransformerConfig
-from flux2_tpu.models.text_encoders.config import QWEN3_4B, QWEN3_8B, DecoderConfig
+from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
+from flux2_tpu_torch.models.text_encoders.config import QWEN3_4B, QWEN3_8B, DecoderConfig
 from flux2_tpu_torch.models.flux2.vae import VAEConfig
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
 from flux2_tpu_torch.models.text_encoders.extractor import qwen3_extractor, quantize_encoder_params
@@ -104,7 +104,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--height", type=int, default=1024)
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu; the CPU only when asked")
     p.add_argument("-o", "--output", default="out.png")
 
     p = sub.add_parser("train-lora", help="flow-matching LoRA training")
@@ -123,7 +123,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--allow-partial-resume", action="store_true",
                    help="resume even when the saved optimizer state does not match (unmatched state restarts)")
     p.add_argument("--shard", help="mesh spec 'data,fsdp,tp[,sp]' or 'auto'")
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu; the CPU only when asked")
     return parser
 
 

@@ -9,9 +9,10 @@ lines, checkpoints, learning-curve SVG, EMA, loss-plateau early stop,
 ``TrainingController`` stop / pause / checkpoint sentinels and ``--resume``
 of the port's own checkpoints.
 
-The YAML schema, the encoder-quantization resolution, the SVG writer, the
-checkpoint pruning, the training variant and the controller are the JAX
-package's own, JAX-free at import, and used as they are.
+The YAML schema, the SVG writer, the checkpoint pruning and the training
+variant (``cli/train_config.py``) and the controller (``training/control.py``)
+are the port's own copies of the JAX package's, held against them by the CPU
+tests.
 
 JAX's random-init base is f32; the port's is bf16, as the checkpoint branch
 trains and as the kernels take it. What this slice does not carry raises
@@ -34,7 +35,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from flux2_tpu.models.flux2.config import Flux2TransformerConfig
+from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
 
 
 def _refuse_unsupported(cfg, args: argparse.Namespace) -> None:
@@ -107,14 +108,14 @@ def _train_config(cfg):
 
 def _save(cfg, tstate, state, tcfg) -> str:
     """checkpoint_{step:06d}/ with the training state's fields in training_state.json, then prune."""
-    from flux2_tpu.cli.train import _prune_checkpoints
+    from flux2_tpu_torch.cli.train_config import prune_checkpoints
     from flux2_tpu_torch.training import trainer
 
     path = os.path.join(cfg.output_dir, f"checkpoint_{tstate.step:06d}")
     state.step = tstate.step
     trainer.save_checkpoint(path, state, tcfg, extra=dataclasses.asdict(tstate))
     print(f"checkpoint -> {path}", flush=True)
-    _prune_checkpoints(cfg, keep=path)
+    prune_checkpoints(cfg, keep=path)
     return path
 
 
@@ -126,11 +127,10 @@ def run_training(
     """Train as ``flux2 train-lora --random-init`` does, on ``device``; returns
     one dict per step run here (step, loss, dop_loss, grad_norm, lr, seconds).
     ``transformer_config`` replaces the model's (tests run a tiny one)."""
-    from flux2_tpu.cli.train import YAMLTrainingConfig, write_learning_curve_svg
-    from flux2_tpu.io import registry
-    from flux2_tpu.models.flux2.config import Flux2Model
-    from flux2_tpu.training.control import TrainingController, TrainingState, config_hash
-    from flux2_tpu.utils import logging as flog
+    from flux2_tpu_torch.cli.train_config import YAMLTrainingConfig, training_variant, write_learning_curve_svg
+    from flux2_tpu_torch.models.flux2.config import Flux2Model
+    from flux2_tpu_torch.training.control import TrainingController, TrainingState, config_hash
+    from flux2_tpu_torch.utils import logging as flog
     from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
     from flux2_tpu_torch.training import lora as lora_mod
     from flux2_tpu_torch.training import trainer
@@ -139,7 +139,7 @@ def run_training(
         output_dir=args.output_dir, max_steps=args.max_steps, dataset_dir=getattr(args, "dataset_dir", None))
     _refuse_unsupported(cfg, args)
     requested = Flux2Model(cfg.model)
-    train_model = registry.training_variant(requested)
+    train_model = training_variant(requested)
     if train_model != requested:
         flog.info(f"resolved training variant: {requested.value} -> {train_model.value}")
     if getattr(args, "encoder_quantization", None) or cfg.encoder_quantization:

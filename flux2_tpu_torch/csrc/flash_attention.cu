@@ -8,248 +8,527 @@
 // log2f and one 4-byte store per row. Computes, per (batch*head), the non-causal
 //   out = softmax(scale * Q K^T) V
 // with an exact online softmax (running row max and row sum in f32, f32
-// accumulation of P V), keys >= S_k masked on the ragged last tile, and the
-// optional blocked span (queries in [q0, q1) see no key >= k0) applied in-tile.
+// accumulation of P V), keys >= S_k at weight exactly 0 (logit -inf) on the
+// ragged last tile, and the optional blocked span (queries in [q0, q1) see no
+// key >= k0: logit kNegInf, finite, so a fully blocked row averages its keys).
 //
 // What bounds it on this card: at the 1024^2 Klein-4B shape (B=1, H=24,
 // S=4608, D=128) one call is 4*S^2*D*H = 2.6e11 FLOP against 113 MB of
 // q/k/v/o in HBM, about 2300 FLOP/byte: compute-bound, about 8x past the
-// H100's ~295 FLOP/byte bf16 ridge. Each block re-reads a head's K and V
-// (2.4 MB), which stays in the 50 MB L2. K1 is about 19% of a 1024^2 DiT
-// step's FLOPs (25 calls, 6.5 of ~35 TFLOP; a count, not a time). The
-// design's job is keeping the tensor cores fed; this first version does it
-// simply:
-//   - one block of 4 warps per (b*h, 64-query tile); each warp owns 16 query
-//     rows and keeps its Q fragments in registers for the whole key loop;
-//   - a loop over 64-key tiles, K staged row-major and V staged transposed in
-//     shared memory (rows padded by 8 bf16 so fragment reads hit 32 banks);
-//   - Q K^T and P V on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-//     accumulate); the S accumulator's register layout is the A-fragment
-//     layout of P, so P goes from registers to the second product as bf16;
-//   - no cp.async/TMA pipelining, no wgmma, no warp specialisation: those are
-//     later work, measured against this version.
-// The C entry launches on the caller's stream, does not synchronise,
-// allocates nothing, and returns cudaGetLastError() after the launch.
+// H100's ~295 FLOP/byte bf16 ridge (0.264 ms at 989 TFLOP/s). The design's
+// job is keeping the tensor cores fed, which on Hopper means wgmma fed by TMA:
+//   - one CTA of three warpgroups per (b*h, 128-query tile). Warpgroup 0 is
+//     the producer: one thread issues every TMA load, the warpgroup gives its
+//     registers away (setmaxnreg.dec). Warpgroups 1 and 2 are the consumers,
+//     each owning 64 query rows (setmaxnreg.inc to 232 registers; ptxas
+//     still compiles them to the 168 that 384 threads get at launch);
+//   - shared memory (dynamic, ~161 KB): the Q tile (128 x 128 bf16), loaded
+//     once, and a 2-stage ring of 128-key K and V tiles. Each tile is two
+//     boxes of 128 rows x 64 columns with the 128-byte swizzle (a swizzled
+//     row holds at most 128 bytes), read by wgmma through descriptors of
+//     that layout. The tensor maps are 3D [bh, s, 128], so rows past a
+//     head's S are zero-filled by TMA and never read from the next head;
+//   - per stage four mbarriers: K-full and V-full (armed by the producer
+//     with expect_tx of the whole box, out-of-bounds rows included), and
+//     K-empty and V-empty (one arrival per consumer warpgroup once its
+//     product that reads the tile is done), so S = Q K^T starts while V is
+//     still in flight and a K tile is refilled before its V is released;
+//   - S = Q K^T is wgmma m64n128k16 with A = Q and B = K from shared memory,
+//     both K-major (K's [keys][d] rows are already B's layout);
+//   - O += P V is wgmma m64n128k16 with A = P from registers (the f32 S
+//     accumulator packed to bf16 pairs is A's register fragment) and B = V
+//     from its TMA tile, MN-major (the transpose bit), so V is never
+//     transposed by hand;
+//   - the softmax stays in registers: row max and row sum across the four
+//     threads of a row, p = exp2(s * scale * log2e - m) as one FFMA and one
+//     ex2. The pad mask runs only on the last key tile of a ragged S_k and
+//     the span mask only on tiles that meet the span, as the JAX kernel gates
+//     them per tile; every other tile runs maskless;
+//   - ping-pong: a consumer warpgroup issues its products (O += P V of the
+//     previous tile, then S of this one) only in its turn, a named barrier
+//     the other warpgroup releases after issuing its own, so one
+//     warpgroup's softmax runs while the other's products hold the tensor
+//     cores. (Overlapping a warpgroup's own softmax with its next S as well,
+//     which keeps S, P and O live at once, measured level with the ping-pong
+//     on top of it and slower than it alone, so it is not done.)
+//   - the epilogue normalises O in registers and stores it with guarded
+//     4-byte stores (rows >= S_q dropped); K2 stores its LSE from one thread
+//     per row.
+// At (1, 24, 4608, 128) the grid is 36 x 24 = 864 CTAs, one per SM (the
+// shared memory allows no second), 6.5 waves on 132 SMs; at the 512^2 train
+// shape (S = 1056) it is 9 x 24 = 216, 1.6 waves.
+// The C entry encodes the three tensor maps per call (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so nothing links libcuda),
+// launches on the caller's stream, does not synchronise, allocates nothing,
+// and returns a cudaError_t.
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include "flash_common.cuh"
 
 namespace {
 
-template <bool kWriteLse>
-__device__ __forceinline__ void flash_fwd_body(const __nv_bfloat16* __restrict__ q,
-                                               const __nv_bfloat16* __restrict__ k,
-                                               const __nv_bfloat16* __restrict__ v,
-                                               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                                               int s_q, int s_k, float scale_log2, int q0, int q1, int k0,
-                                               int has_span) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * kKStride];
-  __shared__ __align__(16) __nv_bfloat16 vt[kD * kVtStride];
+// The forward's own tiling; K3/K4 keep flash_common.cuh's 64-row tiles.
+constexpr int kFwdRows = 128;                      // query rows of a CTA, and keys of a K/V tile
+constexpr int kFwdStages = 2;                      // depth of the K/V ring
+constexpr int kFwdThreads = 384;                   // warpgroup 0 loads, warpgroups 1 and 2 compute
+constexpr int kBoxCols = 64;                       // bf16 in one 128-byte swizzled row
+constexpr int kBoxBytes = kFwdRows * kBoxCols * 2;  // one TMA box: 128 rows x 64 columns, 16 KB
+constexpr int kTileBytes = 2 * kBoxBytes;          // a 128 x 128 tile, two boxes side by side
+constexpr int kSmemQ = 0;
+constexpr int kSmemK = kSmemQ + kTileBytes;
+constexpr int kSmemV = kSmemK + kFwdStages * kTileBytes;
+constexpr int kSmemBar = kSmemV + kFwdStages * kTileBytes;
+constexpr int kNumBars = 1 + 4 * kFwdStages;  // Q-full; K-full, V-full, K-empty and V-empty of each stage
+constexpr int kFwdSmem = kSmemBar + 8 * kNumBars + 1024;  // + slack to align the base to 1024 bytes
+static_assert(kD == 2 * kBoxCols, "a 128-wide row is two swizzled boxes");
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const size_t bh = blockIdx.y;
-  const __nv_bfloat16* qh = q + bh * s_q * kD;
-  const __nv_bfloat16* kh = k + bh * s_k * kD;
-  const __nv_bfloat16* vh = v + bh * s_k * kD;
-  __nv_bfloat16* oh = out + bh * s_q * kD;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  // This thread's two query rows.
-  const int row0 = blockIdx.x * kBlockQ + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const bool span0 = has_span && row0 >= q0 && row0 < q1;
-  const bool span1 = has_span && row1 >= q0 && row1 < q1;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  // Q fragments of the warp's 16 x 128 rows, held for the whole key loop.
-  uint32_t qf[kD / 16][4];
+// ---- mbarriers -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 3D [bh, s, 128] bf16 tensor map into shared memory; completion
+// is counted on ``bar`` in bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int col, int row,
+                                         int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(bh)
+      : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+// Descriptor of a wgmma operand in shared memory with the 128-byte swizzle
+// (layout type 1): start address, leading and stride byte offsets, each
+// encoded in 16-byte units. The stride byte offset is the step between
+// 8-row groups (1024 bytes here); the leading byte offset is unused for a
+// K-major operand and is the step between 64-column boxes for an MN-major one.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define FLUX2_ACC_REGS                                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
+  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "  \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "  \
+  "%62, %63}"
+#define FLUX2_ACC8(i) \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FLUX2_ACC64 \
+  FLUX2_ACC8(0), FLUX2_ACC8(8), FLUX2_ACC8(16), FLUX2_ACC8(24), FLUX2_ACC8(32), FLUX2_ACC8(40), FLUX2_ACC8(48), FLUX2_ACC8(56)
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128]; A and B in shared memory, both
+// K-major; D is overwritten when ``accumulate`` is 0. bf16 in, f32 accumulate.
+// Accumulator of thread (warp w, lane 4g + t): d[4j + e] is row 16w + g + 8(e >> 1),
+// column 8j + 2t + (e & 1).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FLUX2_ACC_REGS ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FLUX2_ACC64
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128]; A in registers (the m16n8k16
+// A-fragment layout per warp: a0 = (g, 2t..), a1 = (g + 8, 2t..), a2 = (g, 2t + 8..),
+// a3 = (g + 8, 2t + 8..)), B in shared memory MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FLUX2_ACC_REGS
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : FLUX2_ACC64
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// ---- the kernel ------------------------------------------------------------
+
+// S = Q K^T of this warpgroup's 64 rows against one 128-key tile: 8 steps of
+// 16 along d, 4 in each 64-column box; within a box a step advances the start
+// address by 32 bytes. Issued, not waited for.
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_rows, uint32_t k_tile) {
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
-    const int col = kk * 16 + 2 * t;
-    qf[kk][0] = load_pair(qh, row0, col, s_q);
-    qf[kk][1] = load_pair(qh, row1, col, s_q);
-    qf[kk][2] = load_pair(qh, row0, col + 8, s_q);
-    qf[kk][3] = load_pair(qh, row1, col + 8, s_q);
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_ss(s, smem_desc(q_rows + off, 16, 1024), smem_desc(k_tile + off, 16, 1024), kk);
   }
+  wgmma_commit();
+}
 
-  float o[kD / 8][4];
+// O += P V over one 128-key tile: 8 steps of 16 keys; a step advances 16 rows
+// (2048 bytes) of the V tile, and the two 64-column boxes are the leading byte
+// offset apart. Issued, not waited for.
+__device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&p)[32], uint32_t v_tile) {
 #pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};  // running row max, log2 domain
-  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+  for (int kk = 0; kk < kFwdRows / 16; ++kk) {
+    wgmma_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+             smem_desc(v_tile + kk * 16 * 128, kBoxBytes, 1024));
+  }
+  wgmma_commit();
+}
 
-  for (int kt = 0; kt < s_k; kt += kBlockK) {
-    __syncthreads();  // every warp is done with the previous tile
-    // Stage the tile: 16-byte chunks, consecutive threads on consecutive key
-    // rows (conflict-free for both the K rows and the transposed V columns).
-    // Rows past S_k are zero.
+__device__ __forceinline__ void fence_p(uint32_t (&p)[32]) {
 #pragma unroll
-    for (int it = 0; it < kBlockK * kD / 8 / kThreads; ++it) {
-      const int i = threadIdx.x + it * kThreads;
-      const int r = i % kBlockK;
-      const int c = (i / kBlockK) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (kt + r < s_k) {
-        kv = *reinterpret_cast<const uint4*>(kh + (size_t)(kt + r) * kD + c);
-        vv = *reinterpret_cast<const uint4*>(vh + (size_t)(kt + r) * kD + c);
-      }
-      *reinterpret_cast<uint4*>(ks + r * kKStride + c) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[(c + j) * kVtStride + r] = ve[j];
-    }
-    __syncthreads();
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(p[i])::"memory");
+}
 
-    // S = Q K^T for 16 rows x 64 keys: 8 accumulator tiles of 8 keys.
-    float s[kBlockK / 8][4];
+// Online softmax of one S tile (in place, masked where the tile needs it):
+// new row max m, the rescale alpha of the old O and l, P in bf16 pairs.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], uint32_t (&p)[32], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool masked, int key0, int s_k, int k0, int t,
+                                             bool span0, bool span1, float scale_log2) {
+  // A masked tile holds its logits already scaled (sc = 1); a maskless one
+  // scales in the FFMA below.
+  float sc = scale_log2;
+  if (masked) {
 #pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* krow = ks + (j * 8 + g) * kKStride + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        uint32_t b[2];
-        b[0] = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        b[1] = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_16816(s[j], qf[kk], b);
-      }
-    }
-
-    // Scale into the log2 domain, mask, and take the new row max.
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
+    for (int j = 0; j < 16; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = kt + j * 8 + 2 * t + (e & 1);
-        const bool spanned = (e < 2) ? span0 : span1;
-        float x = s[j][e] * scale_log2;
+        const int col = key0 + j * 8 + 2 * t + (e & 1);
+        float x = s[4 * j + e] * scale_log2;
         if (col >= s_k) {
           x = -CUDART_INF_F;  // pad key: weight exactly 0
-        } else if (spanned && col >= k0) {
+        } else if (((e < 2) ? span0 : span1) && col >= k0) {
           x = kNegInf;
         }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        s[4 * j + e] = x;
       }
     }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      alpha[i] = exp2f(m[i] - mx[i]);
-      m[i] = mx[i];
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) {
-      o[dn][0] *= alpha[0];
-      o[dn][1] *= alpha[0];
-      o[dn][2] *= alpha[1];
-      o[dn][3] *= alpha[1];
-    }
-
-    // O += P V: P's accumulator tiles 2kk, 2kk+1 form the A fragment of keys
-    // 16kk..16kk+15; V^T rows give the B fragments.
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < kD / 8; ++dn) {
-        const __nv_bfloat16* vrow = vt + (dn * 8 + g) * kVtStride + kk * 16 + 2 * t;
-        uint32_t b[2];
-        b[0] = *reinterpret_cast<const uint32_t*>(vrow);
-        b[1] = *reinterpret_cast<const uint32_t*>(vrow + 8);
-        mma_16816(o[dn], a, b);
-      }
-    }
+    sc = 1.f;
   }
-
-  // Row sums across the 4 threads of each row, then normalise and store.
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  float neg_m[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * sc);  // sc > 0: max commutes with the scaling
+    alpha[i] = ex2(m[i] - m_new);
+    m[i] = m_new;
+    neg_m[i] = -m_new;
+    l[i] *= alpha[i];
   }
-  const float inv0 = 1.f / l[0];
-  const float inv1 = 1.f / l[1];
 #pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (row0 < s_q) {
-      *reinterpret_cast<uint32_t*>(oh + (size_t)row0 * kD + col) = pack_bf16(o[dn][0] * inv0, o[dn][1] * inv0);
-    }
-    if (row1 < s_q) {
-      *reinterpret_cast<uint32_t*>(oh + (size_t)row1 * kD + col) = pack_bf16(o[dn][2] * inv1, o[dn][3] * inv1);
-    }
-  }
-  if constexpr (kWriteLse) {
-    if (t != 0) return;
-    // Natural-log row LSE, as the JAX kernel returns it: m is the running max
-    // in the log2 domain (logits * scale * log2e), so lse = (m + log2 l) * ln2.
-    if (row0 < s_q) lse[bh * s_q + row0] = (m[0] + log2f(l[0])) * kLn2;
-    if (row1 < s_q) lse[bh * s_q + row1] = (m[1] + log2f(l[1])) * kLn2;
+  for (int j = 0; j < 16; ++j) {
+    const float p0 = ex2(fmaf(s[4 * j], sc, neg_m[0]));
+    const float p1 = ex2(fmaf(s[4 * j + 1], sc, neg_m[0]));
+    const float p2 = ex2(fmaf(s[4 * j + 2], sc, neg_m[1]));
+    const float p3 = ex2(fmaf(s[4 * j + 3], sc, neg_m[1]));
+    l[0] += p0 + p1;
+    l[1] += p2 + p3;
+    p[2 * j] = pack_bf16(p0, p1);
+    p[2 * j + 1] = pack_bf16(p2, p3);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+__device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void named_arrive(int id) { asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory"); }
+
+template <bool kWriteLse>
+__device__ __forceinline__ void flash_fwd_body(const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                               const CUtensorMap* vmap, __nv_bfloat16* __restrict__ out,
+                                               float* __restrict__ lse, int s_q, int s_k, float scale_log2,
+                                               int q0, int q1, int k0, int has_span) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms are 1024-byte aligned
+  const uint32_t sq = base + kSmemQ;
+  const uint32_t sk = base + kSmemK;
+  const uint32_t sv = base + kSmemV;
+  const uint32_t bar_q = base + kSmemBar;
+  auto bar_k = [&](int st) { return bar_q + 8u * (1 + st); };
+  auto bar_v = [&](int st) { return bar_q + 8u * (1 + kFwdStages + st); };
+  auto bar_k_empty = [&](int st) { return bar_q + 8u * (1 + 2 * kFwdStages + st); };
+  auto bar_v_empty = [&](int st) { return bar_q + 8u * (1 + 3 * kFwdStages + st); };
+
+  const int bh = blockIdx.y;
+  const int q_tile = blockIdx.x * kFwdRows;
+  const int n_kt = (s_k + kFwdRows - 1) / kFwdRows;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kFwdStages; ++st) {
+      mbar_init(bar_k(st), 1);
+      mbar_init(bar_v(st), 1);
+      mbar_init(bar_k_empty(st), 2);  // one arrival per consumer warpgroup
+      mbar_init(bar_v_empty(st), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, kTileBytes);
+      tma_load(sq, qmap, bar_q, 0, q_tile, bh);
+      tma_load(sq + kBoxBytes, qmap, bar_q, kBoxCols, q_tile, bh);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % kFwdStages;
+        const uint32_t free_parity = ((kt / kFwdStages) & 1) ^ 1;  // the first pass finds the stage free
+        const int row = kt * kFwdRows;
+        const uint32_t k_dst = sk + st * kTileBytes;
+        const uint32_t v_dst = sv + st * kTileBytes;
+        mbar_wait(bar_k_empty(st), free_parity);
+        mbar_expect_tx(bar_k(st), kTileBytes);
+        tma_load(k_dst, kmap, bar_k(st), 0, row, bh);
+        tma_load(k_dst + kBoxBytes, kmap, bar_k(st), kBoxCols, row, bh);
+        mbar_wait(bar_v_empty(st), free_parity);
+        mbar_expect_tx(bar_v(st), kTileBytes);
+        tma_load(v_dst, vmap, bar_v(st), 0, row, bh);
+        tma_load(v_dst + kBoxBytes, vmap, bar_v(st), kBoxCols, row, bh);
+      }
+    }
+  } else {
+    // Consumer warpgroups: 64 query rows each. For key tile j, in this
+    // warpgroup's turn: O += P V of tile j-1, then S = Q K_j^T; out of turn:
+    // the softmax of S, which rescales O and l and makes the next P.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int w = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int wg_row = q_tile + w * 64;
+    const int row0 = wg_row + warp * 16 + g;  // this thread's two query rows
+    const int row1 = row0 + 8;
+    const bool span_wg = has_span && wg_row < q1 && wg_row + 64 > q0;
+    const bool span0 = has_span && row0 >= q0 && row0 < q1;
+    const bool span1 = has_span && row1 >= q0 && row1 < q1;
+    const bool ragged = (s_k % kFwdRows) != 0;
+    const uint32_t q_rows = sq + w * 64 * 128;  // this warpgroup's rows of each Q box (128 bytes a row)
+    auto masked = [&](int kt) {
+      return (ragged && kt == n_kt - 1) || (span_wg && kt * kFwdRows + kFwdRows > k0);
+    };
+
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};  // running row max, log2 domain
+    float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+    float alpha[2];
+    float s[64];
+    uint32_t p[32];  // P of the previous tile in bf16 pairs: the A fragments of O += P V
+
+    const int my_turn = 1 + w;  // named barriers 1 and 2 (0 is __syncthreads')
+    const int other_turn = 2 - w;
+    if (w == 1) named_arrive(1);  // warpgroup 1 (w = 0) goes first
+    mbar_wait(bar_q, 0);
+    named_sync(my_turn);
+    mbar_wait(bar_k(0), 0);
+    wgmma_fence();
+    issue_qk(s, q_rows, sk);
+    named_arrive(other_turn);
+    wgmma_wait_all();
+    fence_acc(s);
+    if (tid == 0) mbar_arrive(bar_k_empty(0));
+    softmax_tile(s, p, m, l, alpha, masked(0), 0, s_k, k0, t, span0, span1, scale_log2);
+
+    for (int kt = 1; kt < n_kt; ++kt) {
+      const int st = kt % kFwdStages;
+      const int prev = (kt - 1) % kFwdStages;
+      named_sync(my_turn);
+      mbar_wait(bar_v(prev), ((kt - 1) / kFwdStages) & 1);
+      wgmma_fence();
+      issue_pv(o, p, sv + prev * kTileBytes);
+      wgmma_wait_all();
+      fence_acc(o);
+      fence_p(p);
+      if (tid == 0) mbar_arrive(bar_v_empty(prev));
+      mbar_wait(bar_k(st), (kt / kFwdStages) & 1);
+      wgmma_fence();
+      issue_qk(s, q_rows, sk + st * kTileBytes);
+      named_arrive(other_turn);
+      wgmma_wait_all();
+      fence_acc(s);
+      if (tid == 0) mbar_arrive(bar_k_empty(st));
+      softmax_tile(s, p, m, l, alpha, masked(kt), kt * kFwdRows, s_k, k0, t, span0, span1, scale_log2);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+    }
+    const int last = (n_kt - 1) % kFwdStages;
+    named_sync(my_turn);
+    mbar_wait(bar_v(last), ((n_kt - 1) / kFwdStages) & 1);
+    wgmma_fence();
+    issue_pv(o, p, sv + last * kTileBytes);
+    wgmma_wait_all();
+    fence_acc(o);
+    fence_p(p);
+    if (tid == 0) mbar_arrive(bar_v_empty(last));
+    if (w == 0) named_arrive(other_turn);  // the last hand-over; warpgroup 2's would find no taker
+
+    // Row sums across the 4 threads of each row, then normalise and store.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
+    const float inv0 = 1.f / l[0];
+    const float inv1 = 1.f / l[1];
+    __nv_bfloat16* oh = out + static_cast<size_t>(bh) * s_q * kD;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = j * 8 + 2 * t;
+      if (row0 < s_q) {
+        *reinterpret_cast<uint32_t*>(oh + static_cast<size_t>(row0) * kD + col) =
+            pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      }
+      if (row1 < s_q) {
+        *reinterpret_cast<uint32_t*>(oh + static_cast<size_t>(row1) * kD + col) =
+            pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+      }
+    }
+    if constexpr (kWriteLse) {
+      if (t != 0) return;
+      // Natural-log row LSE, as the JAX kernel returns it: m is the running max
+      // in the log2 domain (logits * scale * log2e), so lse = (m + log2 l) * ln2.
+      float* lh = lse + static_cast<size_t>(bh) * s_q;
+      if (row0 < s_q) lh[row0] = (m[0] + log2f(l[0])) * kLn2;
+      if (row1 < s_q) lh[row1] = (m[1] + log2f(l[1])) * kLn2;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                  int s_q, int s_k, float scale_log2, int q0, int q1, int k0, int has_span) {
-  flash_fwd_body<false>(q, k, v, out, nullptr, s_q, s_k, scale_log2, q0, q1, k0, has_span);
+  flash_fwd_body<false>(&qmap, &kmap, &vmap, out, lse, s_q, s_k, scale_log2, q0, q1, k0, has_span);
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_lse_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_lse_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
                      float* __restrict__ lse, int s_q, int s_k, float scale_log2, int q0, int q1, int k0,
                      int has_span) {
-  flash_fwd_body<true>(q, k, v, out, lse, s_q, s_k, scale_log2, q0, q1, k0, has_span);
+  flash_fwd_body<true>(&qmap, &kmap, &vmap, out, lse, s_q, s_k, scale_log2, q0, q1, k0, has_span);
+}
+
+// The driver's cuTensorMapEncodeTiled, found once through the runtime.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A 3D map over a contiguous bf16 [bh, s, 128] tensor whose box is 128 rows x
+// 64 columns with the 128-byte swizzle; rows past s read as zeros.
+bool encode_map(CUtensorMap* map, const void* ptr, int bh, int s) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(kD) * 2, static_cast<cuuint64_t>(s) * kD * 2};
+  const cuuint32_t box[3] = {kBoxCols, kFwdRows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool kWriteLse>
+int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int s_q, int s_k, int d,
+               float scale, int q0, int q1, int k0, int has_span, void* stream) {
+  if (d != kD || bh <= 0 || bh > 65535 || s_q <= 0 || s_k <= 0 || !(scale > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap qmap, kmap, vmap;
+  if (!encode_map(&qmap, q, bh, s_q) || !encode_map(&kmap, k, bh, s_k) || !encode_map(&vmap, v, bh, s_k)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = kWriteLse ? flash_fwd_lse_kernel : flash_fwd_kernel;
+  const cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((s_q + kFwdRows - 1) / kFwdRows, bh);
+  kernel<<<grid, kFwdThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), s_q, s_k, scale * kLog2e, q0,
+      q1, k0, has_span);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, out: contiguous bf16 [bh, s, d] with d == 128; returns a cudaError_t.
+// q, k, v, out: contiguous, 16-byte aligned bf16 [bh, s, d] with d == 128 and
+// scale > 0; returns a cudaError_t.
 extern "C" int flux2_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                          int bh, int s_q, int s_k, int d, float scale,
                                          int q0, int q1, int k0, int has_span, void* stream) {
-  if (d != kD || bh <= 0 || bh > 65535 || s_q <= 0 || s_k <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((s_q + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      s_q, s_k, scale * kLog2e, q0, q1, k0, has_span);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<false>(q, k, v, out, nullptr, bh, s_q, s_k, d, scale, q0, q1, k0, has_span, stream);
 }
 
 // As flux2_flash_attention_fwd, and lse: contiguous f32 [bh, s_q], the natural-log row LSE.
 extern "C" int flux2_flash_attention_fwd_lse(const void* q, const void* k, const void* v, void* out, void* lse,
                                              int bh, int s_q, int s_k, int d, float scale,
                                              int q0, int q1, int k0, int has_span, void* stream) {
-  if (d != kD || bh <= 0 || bh > 65535 || s_q <= 0 || s_k <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((s_q + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_lse_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
-      s_q, s_k, scale * kLog2e, q0, q1, k0, has_span);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<true>(q, k, v, out, lse, bh, s_q, s_k, d, scale, q0, q1, k0, has_span, stream);
 }

@@ -1,7 +1,9 @@
-// Tile constants and tensor-core helpers shared by the flash-attention kernels
-// (flash_attention.cu: K1/K2 forward; flash_attention_bwd.cu: K3/K4 backward).
-// Every kernel is 4 warps over 64-row tiles of a [bh, s, 128] bf16 tensor,
-// with mma.sync m16n8k16 (bf16 in, f32 accumulate).
+// Constants and tensor-core helpers shared by the flash-attention kernels
+// (flash_attention.cu: K1/K2 forward; flash_attention_bwd.cu: K3/K4 backward)
+// over [bh, s, 128] bf16 tensors. The tile constants below are the backward's:
+// 4 warps over 64-row tiles with mma.sync m16n8k16 (bf16 in, f32 accumulate).
+// The forward has its own tiling (three warpgroups, 128-row tiles, TMA and
+// wgmma), defined in flash_attention.cu.
 
 #pragma once
 

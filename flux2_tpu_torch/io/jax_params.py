@@ -27,8 +27,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from flux2_tpu.models.flux2.config import Flux2TransformerConfig
-from flux2_tpu.models.text_encoders.config import DecoderConfig
+from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
+from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
 from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
 from flux2_tpu_torch.models.flux2.vae import VAEConfig, VAEDecoder
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder

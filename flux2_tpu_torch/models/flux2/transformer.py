@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from flux2_tpu.models.flux2.config import Flux2TransformerConfig
+from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
 from flux2_tpu_torch.ops.attention import sdpa
 from flux2_tpu_torch.ops.normalization import gate, layer_norm, modulate, rms_norm
 from flux2_tpu_torch.ops.quant import q_linear

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flux2_tpu.models.text_encoders.config import DecoderConfig
+from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
 from flux2_tpu_torch.models.flux2.transformer import linear_weight, ones_weight
 from flux2_tpu_torch.ops.normalization import rms_norm
 from flux2_tpu_torch.ops.quant import q_linear

@@ -19,7 +19,7 @@ from typing import List, Protocol, Tuple
 import numpy as np
 import torch
 
-from flux2_tpu.models.text_encoders.config import (  # noqa: F401  (QWEN3_4B: re-exported for callers)
+from flux2_tpu_torch.models.text_encoders.config import (  # noqa: F401  (QWEN3_4B: re-exported for callers)
     MAX_SEQUENCE_LENGTH,
     QWEN3_4B,
     QWEN3_HIDDEN_LAYERS,

@@ -28,7 +28,8 @@ nothing: the exact running max is correct inside and outside that contract,
 so ``FLUX2_FLASH_EXACT_MAX`` has nothing to switch here.
 
 On a CPU tensor every wrapper computes its plain float32 version; on a CUDA
-tensor it launches its kernel or raises.
+tensor it launches its kernel or raises. The forward kernels take scale > 0
+(their row max is taken before the scaling), as every caller's D^-0.5 is.
 """
 
 from __future__ import annotations
@@ -211,10 +212,16 @@ def _launch(symbol: str, q: torch.Tensor, k: torch.Tensor, ptrs, scale: float, b
         raise RuntimeError(f"{symbol}: kernel launch failed with cudaError {err}")
 
 
+def _check_scale(name: str, scale: float) -> None:
+    if not scale > 0:
+        raise ValueError(f"{name}: the CUDA forward kernel takes scale > 0, got {scale}")
+
+
 def _flash_k1(q, k, v, scale, blocked_span) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale, blocked_span)
     _check_cuda_inputs("flash_attention", q, k, v)
+    _check_scale("flash_attention", scale)
     out = torch.empty_like(q)
     _launch("flux2_flash_attention_fwd", q, k, (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()),
             scale, blocked_span)
@@ -234,6 +241,7 @@ def flash_attention_lse(
     if q.device.type == "cpu":
         return flash_attention_lse_reference(q, k, v, scale, blocked_span)
     _check_cuda_inputs("flash_attention_lse", q, k, v)
+    _check_scale("flash_attention_lse", scale)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], device=q.device, dtype=torch.float32)
     _launch("flux2_flash_attention_fwd_lse", q, k,

@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from flux2_tpu.models.flux2.config import Flux2Model, Flux2TransformerConfig
+from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
 from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
 from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, VAEConfig, VAEDecoder
 from flux2_tpu_torch.ops import latents as lu
@@ -83,7 +83,7 @@ class Flux2Pipeline:
     def from_random(
         cls,
         model: Flux2Model = Flux2Model.KLEIN_4B,
-        device: "torch.device | str" = "cpu",
+        device: "torch.device | str" = "cuda",
         generator: Optional[torch.Generator] = None,
         dtype: torch.dtype = torch.bfloat16,
         transformer_config: Optional[Flux2TransformerConfig] = None,

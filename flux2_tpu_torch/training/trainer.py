@@ -453,7 +453,7 @@ def save_checkpoint(path: str, state: TrainState, train_cfg: TrainConfig, extra:
     """lora.safetensors (+ lora_ema.safetensors) in JAX's flat names and
     stacked shapes, optimizer.safetensors in the port's keys, and
     training_state.json with JAX's keys (+ ``extra``)."""
-    from flux2_tpu.io import safetensors_io
+    from flux2_tpu_torch.io import safetensors_io
     from flux2_tpu_torch.io.jax_params import lora_to_flat
 
     os.makedirs(path, exist_ok=True)
@@ -473,7 +473,7 @@ def load_checkpoint(path: str, cfg: TrainConfig, device: "torch.device | str",
                     allow_partial: bool = False) -> TrainState:
     """Restore the LoRA (written by either package), the port's optimizer state
     (strict, see ``Optimizer.load_state_arrays``) and the EMA."""
-    from flux2_tpu.io import safetensors_io
+    from flux2_tpu_torch.io import safetensors_io
     from flux2_tpu_torch.io.jax_params import lora_from_flat
 
     with open(os.path.join(path, "training_state.json")) as f:

@@ -101,3 +101,11 @@ def test_sdpa_ring_is_not_ported():
     q, k, v = _t(*_qkv(6, 128))
     with pytest.raises(NotImplementedError):
         tattn.sdpa(q, k, v, ring=("mesh", "sp"))
+
+
+def test_flash_fwd_candidate_refuses_to_run_without_a_card(monkeypatch):
+    from flux2_tpu_torch.utils import flash_fwd_candidate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        flash_fwd_candidate.main(["--source", "candidate.cu"])

@@ -9,7 +9,8 @@ Kernel vs ``flash_attention_reference`` from the same bf16 inputs, tolerance
 the P V product and its output to bf16, which a model of those roundings puts
 at ~2.3e-3. Outputs are softmax-weighted averages, small next to |v| (max
 |out| ~0.1-1), so the limit is relative; unmasked pad keys would give
-~1.4e-2 at S_k = 1000 and ~4e-2 at S_k = 961.
+~1.4e-2 at S_k = 1000 and more where the last 128-key tile holds fewer
+real keys (S_k = 961: 65 of 128, S_k = 897: 1 of 128).
 """
 
 import os
@@ -42,8 +43,10 @@ def _qkv(device, b, h, s_q, s_k, d=128, dtype=torch.bfloat16):
     (1, 24, 512, 512, None),
     (3, 24, 768, 768, None),  # the 256^2 served shape, batch 3
     (2, 3, 777, 1000, None),
-    (2, 3, 777, 961, None),  # last key tile: 1 real key, 63 pad
+    (2, 3, 777, 961, None),  # last 128-key tile: 65 real keys, 63 pad
+    (2, 3, 777, 897, None),  # last 128-key tile: 1 real key, 127 pad
     (1, 2, 2560, 2560, (512, 1536, 1536)),
+    (1, 2, 2560, 2560, (100, 1300, 1000)),  # the span cuts query and key tiles mid-way
     (2, 3, 128, 200, (0, 64, 0)),  # fully blocked rows: uniform over the real keys
 ])
 def test_kernel_matches_reference(device, b, h, s_q, s_k, span):
@@ -67,6 +70,8 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(device):
         tfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError):
         tfa.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):  # the forward kernels take its row max before the scaling
+        tfa.flash_attention(q, k, v, scale=-0.1)
 
 
 def test_sdpa_dispatch_on_cuda(device, monkeypatch):

@@ -15,14 +15,15 @@ import pytest
 import torch
 
 from flux2_tpu.models.flux2 import transformer as jtfm
-from flux2_tpu.models.flux2.config import Flux2TransformerConfig
 from flux2_tpu.training import lora as jlora
 from flux2_tpu.training import trainer as jtrainer
+from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
 from flux2_tpu_torch.io.jax_params import lora_from_flat, lora_from_jax, lora_to_flat, transformer_from_jax
 from flux2_tpu_torch.ops import quant as tq
 from flux2_tpu_torch.training import lora as tlora
 
 from tests.test_torch_transformer import perturbed_numpy
+from tests.test_torch_shared_copies import jax_config
 
 CONFIG = Flux2TransformerConfig(num_layers=2, num_single_layers=2, num_attention_heads=2,
                                 attention_head_dim=128, joint_attention_dim=96, guidance_embeds=False)
@@ -32,7 +33,7 @@ FORWARD_ATOL = 2e-5
 
 @pytest.fixture(scope="module")
 def jax_params():
-    return perturbed_numpy(jtfm.init_params(jax.random.PRNGKey(0), CONFIG, dtype=jnp.float32), 0)
+    return perturbed_numpy(jtfm.init_params(jax.random.PRNGKey(0), jax_config(CONFIG), dtype=jnp.float32), 0)
 
 
 def jax_lora(params, config=tlora.LoRAConfig(rank=4, alpha=8.0), seed=1):

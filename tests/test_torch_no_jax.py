@@ -1,12 +1,12 @@
-"""The PyTorch port never imports JAX.
+"""The PyTorch port never imports JAX, nor anything of the JAX package.
 
 A fresh interpreter imports the port's server, pipeline, quantization,
-trainer and CLI, runs a tiny T2I generate on the CPU through the server, a
-tiny w8a8 pipeline built by the CLI's ``build_pipeline`` and a one-step
-``train-lora --random-init`` (the JAX package's YAML schema, controller,
-registry and safetensors helpers come along), and reports whether any
-``jax`` module was loaded. (The suite's conftest imports JAX, so this must run
-in a subprocess.)
+trainer and CLI (and only the port: its configs, YAML schema, controller and
+safetensors helpers are its own copies), runs a tiny T2I generate on the CPU
+through the server, a tiny w8a8 pipeline built by the CLI's
+``build_pipeline`` and a one-step ``train-lora --random-init``, and reports
+whether any ``jax`` or ``flux2_tpu`` module was loaded. (The suite's conftest
+imports JAX, so this must run in a subprocess.)
 """
 
 import json
@@ -17,8 +17,8 @@ import sys
 SCRIPT = r"""
 import argparse, dataclasses, json, sys
 import torch
-from flux2_tpu.models.flux2.config import Flux2Model, Flux2TransformerConfig
-from flux2_tpu.models.text_encoders.config import TINY_DECODER
+from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
+from flux2_tpu_torch.models.text_encoders.config import TINY_DECODER
 from flux2_tpu_torch.cli.main import build_pipeline
 from flux2_tpu_torch.ops import quant
 from flux2_tpu_torch.models.flux2.vae import VAEConfig
@@ -53,6 +53,7 @@ with tempfile.TemporaryDirectory() as tmp:
                         transformer_config=dataclasses.replace(tc, num_attention_heads=2, joint_attention_dim=96))
     ckpt = sorted(os.listdir(os.path.join(tmp, "out")))
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+                  "flux2_tpu": sorted(m for m in sys.modules if m == "flux2_tpu" or m.startswith("flux2_tpu.")),
                   "image": list(res.image.shape), "png": list(decode_png(png).shape),
                   "w8a8_image": list(qres.image.shape),
                   "w8a8": sorted(set(quant.quantized_names(qpipe.transformer).values())),
@@ -67,5 +68,5 @@ def test_port_runs_without_importing_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert report == {"jax": [], "image": [32, 32, 3], "png": [32, 32, 3], "w8a8_image": [32, 32, 3],
+    assert report == {"jax": [], "flux2_tpu": [], "image": [32, 32, 3], "png": [32, 32, 3], "w8a8_image": [32, 32, 3],
                       "w8a8": ["w8a8"], "train_steps": [1], "checkpoints": ["checkpoint_000001", "learning_curve.svg"]}

@@ -24,8 +24,8 @@ import torch
 
 from flux2_tpu.io import weight_mapping as wm
 from flux2_tpu.models.flux2 import transformer as tfm
-from flux2_tpu.models.flux2.config import Flux2TransformerConfig
 from flux2_tpu.ops.rope import rope_embeddings
+from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
 
 from tests.torch_flux2_oracle import (
     TorchFlux2Oracle,
@@ -34,6 +34,7 @@ from tests.torch_flux2_oracle import (
     text_position_ids,
     to_bfl_format,
 )
+from tests.test_torch_shared_copies import jax_config
 
 TINY = Flux2TransformerConfig(
     num_layers=2, num_single_layers=3, num_attention_heads=2,
@@ -86,11 +87,11 @@ def _run_both(config: Flux2TransformerConfig, seed: int, h: int = 4, w_: int = 4
     ).numpy()
 
     raw = {k: v.numpy() for k, v in ckpt.items()}
-    params = wm.map_transformer_weights(raw, config, dtype=np.float32)
+    params = wm.map_transformer_weights(raw, jax_config(config), dtype=np.float32)
     ids = np.concatenate([txt_ids.numpy(), img_ids.numpy()], axis=0)
     cos, sin = rope_embeddings(jnp.asarray(ids))
     out = tfm.forward(
-        params, config, jnp.asarray(lat), jnp.asarray(txt), jnp.asarray(sigma),
+        params, jax_config(config), jnp.asarray(lat), jnp.asarray(txt), jnp.asarray(sigma),
         cos, sin, guidance=jnp.asarray(guid) if guid is not None else None,
     )
     return ref, np.asarray(out), raw, params
@@ -124,7 +125,7 @@ def test_bfl_dialect_matches_torch_oracle():
     )
     bfl = {k: v.numpy() for k, v in to_bfl_format(ckpt, config.num_layers, config.num_single_layers).items()}
     assert wm.is_bfl_format(bfl)
-    params = wm.map_transformer_weights(bfl, config, dtype=np.float32)
+    params = wm.map_transformer_weights(bfl, jax_config(config), dtype=np.float32)
 
     rng = np.random.RandomState(11)
     lat = rng.randn(1, 16, config.in_channels).astype(np.float32)
@@ -145,7 +146,7 @@ def test_bfl_dialect_matches_torch_oracle():
     ids = np.concatenate([txt_ids.numpy(), img_ids.numpy()], axis=0)
     cos, sin = rope_embeddings(jnp.asarray(ids))
     out = np.asarray(
-        tfm.forward(params, config, jnp.asarray(lat), jnp.asarray(txt), jnp.asarray(sigma),
+        tfm.forward(params, jax_config(config), jnp.asarray(lat), jnp.asarray(txt), jnp.asarray(sigma),
                     cos, sin, guidance=jnp.asarray(guid))
     )
     assert np.max(np.abs(ref - out)) < 5e-4, f"max |diff| = {np.max(np.abs(ref - out))}"
@@ -159,7 +160,7 @@ def test_oracle_is_sensitive():
     raw2 = dict(raw)
     # sign-flip one double-block Q projection in the raw checkpoint
     raw2["transformer_blocks.0.attn.to_q.weight"] = -raw2["transformer_blocks.0.attn.to_q.weight"]
-    params2 = wm.map_transformer_weights(raw2, config, dtype=np.float32)
+    params2 = wm.map_transformer_weights(raw2, jax_config(config), dtype=np.float32)
 
     rng = np.random.RandomState(6)
     lat = rng.randn(2, 16, config.in_channels).astype(np.float32)
@@ -169,8 +170,8 @@ def test_oracle_is_sensitive():
     ids = np.concatenate([text_position_ids(6).numpy(), image_position_ids(4, 4).numpy()], axis=0)
     cos, sin = rope_embeddings(jnp.asarray(ids))
 
-    a = tfm.forward(params, config, jnp.asarray(lat), jnp.asarray(txt), jnp.asarray(sigma),
+    a = tfm.forward(params, jax_config(config), jnp.asarray(lat), jnp.asarray(txt), jnp.asarray(sigma),
                     cos, sin, guidance=jnp.asarray(guid))
-    b = tfm.forward(params2, config, jnp.asarray(lat), jnp.asarray(txt), jnp.asarray(sigma),
+    b = tfm.forward(params2, jax_config(config), jnp.asarray(lat), jnp.asarray(txt), jnp.asarray(sigma),
                     cos, sin, guidance=jnp.asarray(guid))
     assert np.max(np.abs(np.asarray(a) - np.asarray(b))) > 1e-2

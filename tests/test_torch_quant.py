@@ -27,20 +27,21 @@ import pytest
 import torch
 
 from flux2_tpu.models.flux2 import transformer as jtfm
-from flux2_tpu.models.flux2.config import KLEIN_4B, TINY_TEST
-from flux2_tpu.models.text_encoders.config import QWEN3_4B
 from flux2_tpu.ops import latents as jlu
 from flux2_tpu.ops import quant as jq
 from flux2_tpu.ops import quant_kernels as jqk
 from flux2_tpu.ops.rope import rope_embeddings
 from flux2_tpu_torch.io.jax_params import transformer_from_jax
 from flux2_tpu_torch.models.flux2 import transformer as ttfm
+from flux2_tpu_torch.models.flux2.config import KLEIN_4B, TINY_TEST
+from flux2_tpu_torch.models.text_encoders.config import QWEN3_4B
 from flux2_tpu_torch.models.text_encoders import decoder as tdec
 from flux2_tpu_torch.models.text_encoders.extractor import quantize_encoder_params
 from flux2_tpu_torch.ops import quant as tq
 from flux2_tpu_torch.ops import quant_kernels as tqk
 
 from tests.test_torch_oracle import KLEIN_SLICE, TINY
+from tests.test_torch_shared_copies import jax_config
 from tests.test_torch_transformer import perturbed_numpy
 
 STORAGE = ("qint8", "int4", "nf4", "mxfp8", "mxfp4", "nvfp4")
@@ -235,7 +236,7 @@ def _jax_quantized_names(params, config) -> dict:
 def test_quantized_leaf_set_equals_jax(config, min_size, fmt):
     """With TINY at min_size 100000 a block's [256, 256] weight (65536) is below
     the limit and only the stacked [L, 256, 256] leaf reaches it."""
-    params = jtfm.init_params(jax.random.PRNGKey(0), config, dtype=jnp.float32)
+    params = jtfm.init_params(jax.random.PRNGKey(0), jax_config(config), dtype=jnp.float32)
     jnames = _jax_quantized_names(jq.quantize_params(params, fmt, min_size=min_size), config)
     model = ttfm.Flux2Transformer(config, device="meta", dtype=torch.float32)
     tnames = tq.quantized_names(tq.quantize_params(model, fmt, min_size=min_size))
@@ -249,7 +250,7 @@ def test_quantized_leaf_set_equals_jax(config, min_size, fmt):
 def test_runtime_conversion_of_stored_weights_equals_jax(stored, runtime):
     """``quantize_params(.., "w8a8" / "w4a8")`` converts QTensor leaves, as JAX's
     ``w8a8_params`` / ``w4a8_params`` do for a prequantized checkpoint."""
-    dense = perturbed_numpy(jtfm.init_params(jax.random.PRNGKey(6), KLEIN_SLICE, dtype=jnp.float32), 6)
+    dense = perturbed_numpy(jtfm.init_params(jax.random.PRNGKey(6), jax_config(KLEIN_SLICE), dtype=jnp.float32), 6)
     jstored = jq.quantize_params(jax.tree_util.tree_map(jnp.asarray, dense), stored)
     jruntime = jq.quantize_params(jstored, runtime)
     model = tq.quantize_params(transformer_from_jax(jstored, KLEIN_SLICE), runtime)
@@ -271,7 +272,7 @@ def test_runtime_conversion_of_stored_weights_equals_jax(stored, runtime):
                                         ("mxfp8", TINY), ("w4a8", KLEIN_SLICE)])
 def test_forward_on_jax_quantized_params_matches_jax(fmt, config):
     seed = 11
-    dense = perturbed_numpy(jtfm.init_params(jax.random.PRNGKey(seed), config, dtype=jnp.float32), seed)
+    dense = perturbed_numpy(jtfm.init_params(jax.random.PRNGKey(seed), jax_config(config), dtype=jnp.float32), seed)
     qparams = jq.quantize_params(jax.tree_util.tree_map(jnp.asarray, dense), fmt)
     model = transformer_from_jax(qparams, config)
     assert tq.quantized_names(model) == _jax_quantized_names(qparams, config) != {}
@@ -291,7 +292,7 @@ def test_forward_on_jax_quantized_params_matches_jax(fmt, config):
     guid = np.array([4.0, 3.0], np.float32) if config.guidance_embeds else None
     ids = np.concatenate([jlu.text_position_ids(s_txt), jlu.image_position_ids(16 * h, 16 * w)])
     cos, sin = rope_embeddings(jnp.asarray(ids))
-    ref = jtfm.forward(qparams, config, jnp.asarray(lat), jnp.asarray(txt), jnp.asarray(sigma), cos, sin,
+    ref = jtfm.forward(qparams, jax_config(config), jnp.asarray(lat), jnp.asarray(txt), jnp.asarray(sigma), cos, sin,
                        guidance=jnp.asarray(guid) if guid is not None else None)
     with torch.inference_mode():
         out = model(torch.from_numpy(lat), torch.from_numpy(txt), torch.from_numpy(sigma),
@@ -307,7 +308,7 @@ def _bits_t(t: torch.Tensor) -> torch.Tensor:
 
 
 def test_param_bytes_and_dequantize_params_match_jax():
-    dense = jtfm.init_params(jax.random.PRNGKey(2), TINY, dtype=jnp.float32)
+    dense = jtfm.init_params(jax.random.PRNGKey(2), jax_config(TINY), dtype=jnp.float32)
     qparams = jq.quantize_params(dense, "qint8")
     model = transformer_from_jax(qparams, TINY)
     assert tq.param_bytes(model) == jq.param_bytes(qparams)

@@ -25,9 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from flux2_tpu.models.flux2.config import KLEIN_4B, Flux2Model, Flux2TransformerConfig
 from flux2_tpu.models.text_encoders import decoder as jdec
-from flux2_tpu.models.text_encoders.config import TINY_DECODER
 from flux2_tpu.models.text_encoders.facade import quantize_encoder_params as jax_quantize_encoder_params
 from flux2_tpu_torch.cli import main as tcli
 from flux2_tpu_torch.io.jax_params import decoder_from_jax
@@ -41,6 +39,9 @@ from flux2_tpu_torch.ops import quant_kernels as tqk
 from flux2_tpu_torch.ops.rope import rope_embeddings
 from flux2_tpu_torch.serve import Flux2Server
 
+from flux2_tpu_torch.models.flux2.config import KLEIN_4B, Flux2Model, Flux2TransformerConfig
+from flux2_tpu_torch.models.text_encoders.config import TINY_DECODER
+from tests.test_torch_shared_copies import jax_config
 from tests.test_torch_text_encoder import _ids_mask
 from tests.test_torch_transformer import perturbed_numpy
 
@@ -54,7 +55,7 @@ DIT_QUANT_REL_TOL = {"w8a8": 0.1, "w4a8": 0.5, "qint8": 0.06, "int4": 0.4}
 
 @pytest.mark.parametrize("fmt", ["w8a8", "w4a8", "qint8"])
 def test_encoder_on_jax_quantized_params_matches_jax(fmt):
-    dense = perturbed_numpy(jdec.init_params(jax.random.PRNGKey(4), WIDE_DECODER, dtype=jnp.float32), 4)
+    dense = perturbed_numpy(jdec.init_params(jax.random.PRNGKey(4), jax_config(WIDE_DECODER), dtype=jnp.float32), 4)
     qparams = jax_quantize_encoder_params(jax.tree_util.tree_map(jnp.asarray, dense), fmt)
     decoder = decoder_from_jax(qparams, WIDE_DECODER)
     names = tq.quantized_names(decoder)
@@ -65,7 +66,7 @@ def test_encoder_on_jax_quantized_params_matches_jax(fmt):
     assert tq.quantized_names(own) == names
 
     ids, mask = _ids_mask(np.random.RandomState(5), 2, 12, [12, 7], WIDE_DECODER.vocab_size)
-    ref = jdec.forward_hidden_states(qparams, WIDE_DECODER, jnp.asarray(ids), jnp.asarray(mask))
+    ref = jdec.forward_hidden_states(qparams, jax_config(WIDE_DECODER), jnp.asarray(ids), jnp.asarray(mask))
     with torch.inference_mode():
         out = decoder.forward_hidden_states(torch.from_numpy(ids).long(), torch.from_numpy(mask))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ENCODER_TOL, rtol=0)

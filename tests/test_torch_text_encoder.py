@@ -18,11 +18,12 @@ import torch
 
 from flux2_tpu.models.text_encoders import decoder as jdec
 from flux2_tpu.models.text_encoders import extractor as jext
-from flux2_tpu.models.text_encoders.config import TINY_DECODER
-from flux2_tpu.utils import dev_tokenizer
 from flux2_tpu_torch.io.jax_params import decoder_from_jax
 from flux2_tpu_torch.models.text_encoders import extractor as text
+from flux2_tpu_torch.models.text_encoders.config import TINY_DECODER
+from flux2_tpu_torch.utils import dev_tokenizer
 
+from tests.test_torch_shared_copies import jax_config
 from tests.test_torch_transformer import perturbed_numpy
 
 TOL = 1e-5
@@ -36,12 +37,12 @@ def _ids_mask(rng, b, s, lengths, vocab):
 
 @pytest.fixture(scope="module")
 def tiny_params():
-    return perturbed_numpy(jdec.init_params(jax.random.PRNGKey(0), TINY_DECODER, dtype=jnp.float32), 0)
+    return perturbed_numpy(jdec.init_params(jax.random.PRNGKey(0), jax_config(TINY_DECODER), dtype=jnp.float32), 0)
 
 
 def test_hidden_states_match_jax(tiny_params):
     ids, mask = _ids_mask(np.random.RandomState(1), 2, 12, [12, 7], TINY_DECODER.vocab_size)
-    ref = jdec.forward_hidden_states(tiny_params, TINY_DECODER, jnp.asarray(ids), jnp.asarray(mask))
+    ref = jdec.forward_hidden_states(tiny_params, jax_config(TINY_DECODER), jnp.asarray(ids), jnp.asarray(mask))
     with torch.inference_mode():
         out = decoder_from_jax(tiny_params, TINY_DECODER).forward_hidden_states(
             torch.from_numpy(ids).long(), torch.from_numpy(mask))
@@ -52,7 +53,7 @@ def test_hidden_states_match_jax(tiny_params):
 def test_extract_hidden_layers_matches_jax(tiny_params):
     ids, mask = _ids_mask(np.random.RandomState(2), 1, 16, [9], TINY_DECODER.vocab_size)
     layers = (1, 2, 4)
-    ref = jdec.extract_hidden_layers(tiny_params, TINY_DECODER, jnp.asarray(ids), jnp.asarray(mask), layers)
+    ref = jdec.extract_hidden_layers(tiny_params, jax_config(TINY_DECODER), jnp.asarray(ids), jnp.asarray(mask), layers)
     with torch.inference_mode():
         out = decoder_from_jax(tiny_params, TINY_DECODER).extract_hidden_layers(
             torch.from_numpy(ids).long(), torch.from_numpy(mask), layers)
@@ -97,9 +98,9 @@ def test_prepare_klein_input_ids_matches_jax(make_tok, prompt, max_length):
 def test_qwen3_extractor_matches_jax():
     """The whole Klein recipe: 28 layers so hidden layers (9, 18, 27) exist, 512 tokens."""
     cfg = dataclasses.replace(TINY_DECODER, num_hidden_layers=28, vocab_size=600)
-    params = perturbed_numpy(jdec.init_params(jax.random.PRNGKey(5), cfg, dtype=jnp.float32), 5)
+    params = perturbed_numpy(jdec.init_params(jax.random.PRNGKey(5), jax_config(cfg), dtype=jnp.float32), 5)
     tok = dev_tokenizer.inline_bpe_tokenizer()
-    ref = jext.qwen3_extractor(params, cfg, tok)("a serene mountain lake")
+    ref = jext.qwen3_extractor(params, jax_config(cfg), tok)("a serene mountain lake")
     out = text.qwen3_extractor(decoder_from_jax(params, cfg), tok)("a serene mountain lake")
     assert out.shape == (1, 512, 3 * cfg.hidden_size)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=0)

@@ -14,11 +14,11 @@ import os
 import numpy as np
 import pytest
 
-from flux2_tpu.io import safetensors_io
-from flux2_tpu.models.flux2.config import Flux2TransformerConfig
-from flux2_tpu.training.control import TrainingController
 from flux2_tpu_torch.cli import main as cli
 from flux2_tpu_torch.cli.train import run_training
+from flux2_tpu_torch.io import safetensors_io
+from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
+from flux2_tpu_torch.training.control import TrainingController
 
 TINY = Flux2TransformerConfig(num_layers=1, num_single_layers=1, num_attention_heads=2, attention_head_dim=128,
                               joint_attention_dim=96, guidance_embeds=True)

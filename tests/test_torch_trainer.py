@@ -26,16 +26,17 @@ import torch
 
 from flux2_tpu.io import safetensors_io
 from flux2_tpu.models.flux2 import transformer as jtfm
-from flux2_tpu.models.flux2.config import Flux2TransformerConfig
 from flux2_tpu.ops import latents as jlu
 from flux2_tpu.ops.rope import rope_embeddings
 from flux2_tpu.training import lora as jlora
 from flux2_tpu.training import trainer as jtrainer
+from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
 from flux2_tpu_torch.io.jax_params import lora_from_jax, lora_to_flat, transformer_from_jax
 from flux2_tpu_torch.training import lora as tlora
 from flux2_tpu_torch.training import trainer as ttrainer
 
 from tests.test_torch_lora import jax_lora
+from tests.test_torch_shared_copies import jax_config
 from tests.test_torch_transformer import perturbed_numpy
 
 CONFIG = Flux2TransformerConfig(num_layers=1, num_single_layers=1, num_attention_heads=2,
@@ -45,7 +46,7 @@ LCFG = tlora.LoRAConfig(rank=4, alpha=8.0)
 
 @pytest.fixture(scope="module")
 def jax_params():
-    return perturbed_numpy(jtfm.init_params(jax.random.PRNGKey(0), CONFIG, dtype=jnp.float32), 0)
+    return perturbed_numpy(jtfm.init_params(jax.random.PRNGKey(0), jax_config(CONFIG), dtype=jnp.float32), 0)
 
 
 def _batch(b=2, s_txt=6, size=64, seed=5):
@@ -81,7 +82,7 @@ def test_lora_forward_matches_jax(jax_params):
     lj = jax_lora(jax_params)
     batch = _batch(b=1)
     t = np.array([0.4], np.float32)
-    ref = jtfm.forward(jax_params, CONFIG, jnp.asarray(batch["latents"]), jnp.asarray(batch["embeddings"]),
+    ref = jtfm.forward(jax_params, jax_config(CONFIG), jnp.asarray(batch["latents"]), jnp.asarray(batch["embeddings"]),
                        jnp.asarray(t), jnp.asarray(batch["rope_cos"]), jnp.asarray(batch["rope_sin"]),
                        lora=lj, lora_scale=LCFG.scale)
     tb = _t(batch)
@@ -102,7 +103,7 @@ def test_loss_and_grads_match_jax_value_and_grad(jax_params, weighting):
     sigmas = np.array([0.3, 0.8], np.float32)
 
     def jloss(lora):
-        return jtrainer.flow_matching_loss(jax_params, lora, CONFIG, jtrainer.TrainConfig(**cfg),
+        return jtrainer.flow_matching_loss(jax_params, lora, jax_config(CONFIG), jtrainer.TrainConfig(**cfg),
                                            jnp.asarray(batch["latents"]), jnp.asarray(batch["embeddings"]),
                                            jnp.asarray(noise), jnp.asarray(sigmas), jnp.asarray(batch["rope_cos"]),
                                            jnp.asarray(batch["rope_sin"]))

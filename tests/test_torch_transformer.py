@@ -20,6 +20,7 @@ from flux2_tpu_torch.io.jax_params import transformer_from_jax
 from flux2_tpu_torch.models.flux2 import transformer as ttfm
 
 from tests.test_torch_oracle import KLEIN_SLICE, TINY
+from tests.test_torch_shared_copies import jax_config
 
 TOL = 5e-4
 
@@ -38,7 +39,7 @@ def perturbed_numpy(params, seed, scale=0.1):
 @pytest.mark.parametrize("config,seed,hw,s_txt", [(TINY, 0, (4, 4), 6), (KLEIN_SLICE, 7, (4, 6), 8)],
                          ids=["tiny", "klein_slice"])
 def test_forward_matches_jax(config, seed, hw, s_txt):
-    params = perturbed_numpy(jtfm.init_params(jax.random.PRNGKey(seed), config, dtype=jnp.float32), seed)
+    params = perturbed_numpy(jtfm.init_params(jax.random.PRNGKey(seed), jax_config(config), dtype=jnp.float32), seed)
     rng = np.random.RandomState(seed + 1)
     h, w = hw
     lat = rng.randn(2, h * w, config.in_channels).astype(np.float32)
@@ -48,7 +49,7 @@ def test_forward_matches_jax(config, seed, hw, s_txt):
     ids = np.concatenate([jlu.text_position_ids(s_txt), jlu.image_position_ids(16 * h, 16 * w)])
     cos, sin = rope_embeddings(jnp.asarray(ids))
 
-    ref = jtfm.forward(params, config, jnp.asarray(lat), jnp.asarray(txt), jnp.asarray(sigma), cos, sin,
+    ref = jtfm.forward(params, jax_config(config), jnp.asarray(lat), jnp.asarray(txt), jnp.asarray(sigma), cos, sin,
                        guidance=jnp.asarray(guid) if guid is not None else None)
     model = transformer_from_jax(params, config)
     with torch.inference_mode():
@@ -61,12 +62,12 @@ def test_forward_matches_jax(config, seed, hw, s_txt):
 
 
 def test_time_embedding_matches_jax():
-    params = perturbed_numpy(jtfm.init_params(jax.random.PRNGKey(3), TINY, dtype=jnp.float32), 3)
+    params = perturbed_numpy(jtfm.init_params(jax.random.PRNGKey(3), jax_config(TINY), dtype=jnp.float32), 3)
     t = np.array([0.0, 0.31, 1.0], np.float32)
     g = np.array([1.0, 3.5, 4.0], np.float32)
     np.testing.assert_allclose(ttfm.sinusoidal_embedding(torch.from_numpy(t * 1000)).numpy(),
                                np.asarray(jtfm.sinusoidal_embedding(jnp.asarray(t * 1000))), atol=1e-4, rtol=0)
-    ref = jtfm.time_guidance_embedding(params, TINY, jnp.asarray(t), jnp.asarray(g))
+    ref = jtfm.time_guidance_embedding(params, jax_config(TINY), jnp.asarray(t), jnp.asarray(g))
     with torch.inference_mode():
         out = transformer_from_jax(params, TINY).time_guidance_embedding(torch.from_numpy(t), torch.from_numpy(g))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL, rtol=0)
