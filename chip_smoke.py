@@ -223,6 +223,9 @@ TRAIN_ATTENTION_CASES = [  # (name, q shape, k/v shape, span)
     ("klein4b_1024px", (1, 24, 4608, 128), (1, 24, 4608, 128), None),
     ("train_512px_txt512_bs2", (2, 24, 1536, 128), (2, 24, 1536, 128), None),
     ("blocked_span", (1, 4, 320, 128), (1, 4, 704, 128), (64, 192, 400)),
+    ("one_row_tails", (1, 24, 897, 128), (1, 24, 897, 128), None),  # 897 = 7 * 128 + 1 = 14 * 64 + 1
+    ("span_mid_tile", (1, 24, 2560, 128), (1, 24, 2560, 128), (100, 1300, 1000)),  # the span cuts tiles mid-way
+    ("ragged_q_ne_k", (1, 24, 777, 128), (1, 24, 1000, 128), None),  # S_q != S_k, both ragged
 ]
 # K2's LSE against the f32 logsumexp: both are f32 sums of the same bf16
 # products, ~1e-6 apart at S_k = 4608; a missing ln2 or a log2-domain LSE is
@@ -235,7 +238,8 @@ def phase_flash_grad_check(card: str):
     versions on the card, same bf16 inputs, at the training shapes. The
     gradients are held at KERNEL_REL_TOL (relative L2): p and dS enter the
     tensor cores as bf16, which a model of those roundings puts at ~3-5e-3;
-    one dropped 64-key tile at S = 4608 costs ~sqrt(64 / 4608) = 0.12."""
+    one dropped 64-key tile at S = 4608 costs ~sqrt(64 / 4608) = 0.12. A second
+    backward on the same inputs must give the same bits (no atomics)."""
     from flux2_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -253,6 +257,10 @@ def phase_flash_grad_check(card: str):
         after = fa.launch_counts()
         if [after[c] - before[c] for c in ("flash_lse", "flash_bwd_dq", "flash_bwd_dkv")] != [1, 1, 1]:
             raise AssertionError(f"{name}: the wrappers did not launch K2, K3 and K4 once each: {before} -> {after}")
+        again = fa.flash_attention_backward(q, k, v, out, lse, dout, scale, span)
+        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+            raise AssertionError(f"{name}: a second backward on the same inputs gave other bits")
+        del again
         ref_out, ref_lse = fa.flash_attention_lse_reference(q, k, v, scale, span)
         refs = fa.flash_attention_grads_reference(q, k, v, dout, scale, span)
         errs = {"out": float((out.float() - ref_out.float()).norm() / ref_out.float().norm()),
@@ -277,7 +285,8 @@ def phase_flash_grad_check(card: str):
         flop = 2.0 * qs[0] * qs[1] * qs[2] * ks[2] * qs[3]  # one S_q x S_k x D product
         log(f"[kernel] flash training {name} q={list(qs)} k={list(ks)} span={span}: rel_l2_err out "
             f"{errs['out']:.3e} dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} (tol {KERNEL_REL_TOL}), "
-            f"lse max_abs_err {errs['lse']:.3e} (tol {LSE_ABS_TOL}); max_abs_err {max_abs}")
+            f"lse max_abs_err {errs['lse']:.3e} (tol {LSE_ABS_TOL}); max_abs_err {max_abs}; a repeated backward "
+            f"gave the same bits")
         log(f"[kernel] flash training {name}: K2 wrapper {fwd_ms:.4f} ms (alone {alone['flash_fwd_lse_kernel']:.4f} ms, "
             f"{2 * flop / alone['flash_fwd_lse_kernel'] / 1e9:.1f} TFLOP/s) vs plain f32 {fwd_plain_ms:.4f} ms; "
             f"backward wrapper (delta + K3 + K4) {bwd_ms:.4f} ms (K3 alone {alone['flash_bwd_dq_kernel']:.4f} ms, "

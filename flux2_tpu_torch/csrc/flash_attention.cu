@@ -20,8 +20,8 @@
 //   - one CTA of three warpgroups per (b*h, 128-query tile). Warpgroup 0 is
 //     the producer: one thread issues every TMA load, the warpgroup gives its
 //     registers away (setmaxnreg.dec). Warpgroups 1 and 2 are the consumers,
-//     each owning 64 query rows (setmaxnreg.inc to 232 registers; ptxas
-//     still compiles them to the 168 that 384 threads get at launch);
+//     each owning 64 query rows (setmaxnreg.inc to 232 registers; their
+//     code names up to R165, within the 168 that 384 threads get at launch);
 //   - shared memory (dynamic, ~161 KB): the Q tile (128 x 128 bf16), loaded
 //     once, and a 2-stage ring of 128-key K and V tiles. Each tile is two
 //     boxes of 128 rows x 64 columns with the 128-byte swizzle (a swizzled
@@ -62,18 +62,14 @@
 // launches on the caller's stream, does not synchronise, allocates nothing,
 // and returns a cudaError_t.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "flash_common.cuh"
 
 namespace {
 
-// The forward's own tiling; K3/K4 keep flash_common.cuh's 64-row tiles.
+// The forward's tiling.
 constexpr int kFwdRows = 128;                      // query rows of a CTA, and keys of a K/V tile
 constexpr int kFwdStages = 2;                      // depth of the K/V ring
 constexpr int kFwdThreads = 384;                   // warpgroup 0 loads, warpgroups 1 and 2 compute
-constexpr int kBoxCols = 64;                       // bf16 in one 128-byte swizzled row
 constexpr int kBoxBytes = kFwdRows * kBoxCols * 2;  // one TMA box: 128 rows x 64 columns, 16 KB
 constexpr int kTileBytes = 2 * kBoxBytes;          // a 128 x 128 tile, two boxes side by side
 constexpr int kSmemQ = 0;
@@ -82,111 +78,6 @@ constexpr int kSmemV = kSmemK + kFwdStages * kTileBytes;
 constexpr int kSmemBar = kSmemV + kFwdStages * kTileBytes;
 constexpr int kNumBars = 1 + 4 * kFwdStages;  // Q-full; K-full, V-full, K-empty and V-empty of each stage
 constexpr int kFwdSmem = kSmemBar + 8 * kNumBars + 1024;  // + slack to align the base to 1024 bytes
-static_assert(kD == 2 * kBoxCols, "a 128-wide row is two swizzled boxes");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// ---- mbarriers -------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity ``parity`` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 3D [bh, s, 128] bf16 tensor map into shared memory; completion
-// is counted on ``bar`` in bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int col, int row,
-                                         int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(bh)
-      : "memory");
-}
-
-// ---- wgmma -----------------------------------------------------------------
-
-// Descriptor of a wgmma operand in shared memory with the 128-byte swizzle
-// (layout type 1): start address, leading and stride byte offsets, each
-// encoded in 16-byte units. The stride byte offset is the step between
-// 8-row groups (1024 bytes here); the leading byte offset is unused for a
-// K-major operand and is the step between 64-column boxes for an MN-major one.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
-
-// Keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous wgmma that owns it.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define FLUX2_ACC_REGS                                                                                  \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
-  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "  \
-  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "  \
-  "%62, %63}"
-#define FLUX2_ACC8(i) \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define FLUX2_ACC64 \
-  FLUX2_ACC8(0), FLUX2_ACC8(8), FLUX2_ACC8(16), FLUX2_ACC8(24), FLUX2_ACC8(32), FLUX2_ACC8(40), FLUX2_ACC8(48), FLUX2_ACC8(56)
-
-// D[64 x 128] (+)= A[64 x 16] * B[16 x 128]; A and B in shared memory, both
-// K-major; D is overwritten when ``accumulate`` is 0. bf16 in, f32 accumulate.
-// Accumulator of thread (warp w, lane 4g + t): d[4j + e] is row 16w + g + 8(e >> 1),
-// column 8j + 2t + (e & 1).
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FLUX2_ACC_REGS ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : FLUX2_ACC64
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// D[64 x 128] += A[64 x 16] * B[16 x 128]; A in registers (the m16n8k16
-// A-fragment layout per warp: a0 = (g, 2t..), a1 = (g + 8, 2t..), a2 = (g, 2t + 8..),
-// a3 = (g + 8, 2t + 8..)), B in shared memory MN-major (transposed).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FLUX2_ACC_REGS
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : FLUX2_ACC64
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
-}
 
 // ---- the kernel ------------------------------------------------------------
 
@@ -212,11 +103,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&p)[32]
              smem_desc(v_tile + kk * 16 * 128, kBoxBytes, 1024));
   }
   wgmma_commit();
-}
-
-__device__ __forceinline__ void fence_p(uint32_t (&p)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(p[i])::"memory");
 }
 
 // Online softmax of one S tile (in place, masked where the tile needs it):
@@ -387,7 +273,7 @@ __device__ __forceinline__ void flash_fwd_body(const CUtensorMap* qmap, const CU
       issue_pv(o, p, sv + prev * kTileBytes);
       wgmma_wait_all();
       fence_acc(o);
-      fence_p(p);
+      fence_regs(p);
       if (tid == 0) mbar_arrive(bar_v_empty(prev));
       mbar_wait(bar_k(st), (kt / kFwdStages) & 1);
       wgmma_fence();
@@ -412,7 +298,7 @@ __device__ __forceinline__ void flash_fwd_body(const CUtensorMap* qmap, const CU
     issue_pv(o, p, sv + last * kTileBytes);
     wgmma_wait_all();
     fence_acc(o);
-    fence_p(p);
+    fence_regs(p);
     if (tid == 0) mbar_arrive(bar_v_empty(last));
     if (w == 0) named_arrive(other_turn);  // the last hand-over; warpgroup 2's would find no taker
 
@@ -463,39 +349,6 @@ flash_fwd_lse_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_cons
   flash_fwd_body<true>(&qmap, &kmap, &vmap, out, lse, s_q, s_k, scale_log2, q0, q1, k0, has_span);
 }
 
-// The driver's cuTensorMapEncodeTiled, found once through the runtime.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-    }
-  }
-  return fn;
-}
-
-// A 3D map over a contiguous bf16 [bh, s, 128] tensor whose box is 128 rows x
-// 64 columns with the 128-byte swizzle; rows past s read as zeros.
-bool encode_map(CUtensorMap* map, const void* ptr, int bh, int s) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(kD) * 2, static_cast<cuuint64_t>(s) * kD * 2};
-  const cuuint32_t box[3] = {kBoxCols, kFwdRows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <bool kWriteLse>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int s_q, int s_k, int d,
                float scale, int q0, int q1, int k0, int has_span, void* stream) {
@@ -503,7 +356,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap qmap, kmap, vmap;
-  if (!encode_map(&qmap, q, bh, s_q) || !encode_map(&kmap, k, bh, s_k) || !encode_map(&vmap, v, bh, s_k)) {
+  if (!encode_map(&qmap, q, bh, s_q, kFwdRows) || !encode_map(&kmap, k, bh, s_k, kFwdRows) ||
+      !encode_map(&vmap, v, bh, s_k, kFwdRows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = kWriteLse ? flash_fwd_lse_kernel : flash_fwd_kernel;

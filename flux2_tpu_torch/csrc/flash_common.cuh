@@ -1,12 +1,14 @@
-// Constants and tensor-core helpers shared by the flash-attention kernels
-// (flash_attention.cu: K1/K2 forward; flash_attention_bwd.cu: K3/K4 backward)
-// over [bh, s, 128] bf16 tensors. The tile constants below are the backward's:
-// 4 warps over 64-row tiles with mma.sync m16n8k16 (bf16 in, f32 accumulate).
-// The forward has its own tiling (three warpgroups, 128-row tiles, TMA and
-// wgmma), defined in flash_attention.cu.
+// Constants and Hopper helpers shared by the flash-attention kernels over
+// [bh, s, 128] bf16 tensors (flash_attention.cu: K1/K2 forward;
+// flash_attention_bwd.cu: K3/K4 backward): mbarriers, TMA loads from 3D
+// tensor maps with the 128-byte swizzle, wgmma descriptors and the wgmma
+// forms both files issue. Each .cu is its own translation unit; the anonymous
+// namespace gives each its own copy.
 
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -14,55 +16,163 @@
 
 namespace {
 
-constexpr int kD = 128;                 // head dim (every FLUX.2 config)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockQ = kWarps * 16;    // 64 query rows per block
-constexpr int kBlockK = 64;             // keys per tile
-constexpr int kKStride = kD + 8;        // bf16 per padded row of the K tile
-constexpr int kVtStride = kBlockK + 8;  // bf16 per padded row of the transposed V tile
-constexpr float kNegInf = -1e30f;       // blocked-span logit, as the JAX package's NEG_INF
+constexpr int kD = 128;            // head dim (every FLUX.2 config)
+constexpr int kBoxCols = 64;       // bf16 in one 128-byte swizzled row: a 128-wide row is two boxes
+constexpr float kNegInf = -1e30f;  // blocked-span logit, as the JAX package's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+static_assert(kD == 2 * kBoxCols, "a 128-wide row is two swizzled boxes");
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D[16x8] += A[16x16] * B[16x8], bf16 inputs, f32 accumulators.
-// Fragments (g = lane / 4, t = lane % 4):
-//   A: a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 = (g+8, 2t+8..)
-//   B: b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..2t+9, n g)
-//   C: c0,c1 = (g, 2t..2t+1), c2,c3 = (g+8, 2t..2t+1)
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- mbarriers -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 3D [bh, s, 128] bf16 tensor map into shared memory; completion
+// is counted on ``bar`` in bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int col, int row,
+                                         int bh) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(bh)
+      : "memory");
 }
 
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base, int row, int col, int rows) {
-  return row < rows ? *reinterpret_cast<const uint32_t*>(base + (size_t)row * kD + col) : 0u;
+// ---- wgmma -----------------------------------------------------------------
+
+// Descriptor of a wgmma operand in shared memory with the 128-byte swizzle
+// (layout type 1): start address, leading and stride byte offsets, each
+// encoded in 16-byte units. The stride byte offset is the step between
+// 8-row groups (1024 bytes here); the leading byte offset is unused for a
+// K-major operand and is the step between 64-column boxes for an MN-major one.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// A fragment of rows [m, m+16) x cols [k, k+16) of a row-major bf16 tile in
-// shared memory (``stride`` bf16 per row); pass m = tile_row + g, k = col + 2t.
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* base, int stride, int m, int k) {
-  const __nv_bfloat16* p = base + m * stride + k;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * stride);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * stride + 8);
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+// Keeps the compiler from moving reads or writes of an accumulator (or of an
+// A fragment in registers) across the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// B fragment of a product whose B operand is stored [n][k] row-major in shared
-// memory: b0 = base[n][k..k+1], b1 = base[n][k+8..k+9]; pass n = col + g, k = row + 2t.
-__device__ __forceinline__ void load_b(uint32_t* b, const __nv_bfloat16* base, int stride, int n, int k) {
-  const __nv_bfloat16* p = base + n * stride + k;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define FLUX2_ACC_REGS                                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
+  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "  \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "  \
+  "%62, %63}"
+#define FLUX2_ACC8(i) \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FLUX2_ACC64 \
+  FLUX2_ACC8(0), FLUX2_ACC8(8), FLUX2_ACC8(16), FLUX2_ACC8(24), FLUX2_ACC8(32), FLUX2_ACC8(40), FLUX2_ACC8(48), FLUX2_ACC8(56)
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128]; A and B in shared memory, both
+// K-major; D is overwritten when ``accumulate`` is 0. bf16 in, f32 accumulate.
+// Accumulator of thread (warp w, lane 4g + t): d[4j + e] is row 16w + g + 8(e >> 1),
+// column 8j + 2t + (e & 1).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FLUX2_ACC_REGS ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FLUX2_ACC64
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128]; A in registers (the m16n8k16
+// A-fragment layout per warp: a0 = (g, 2t..), a1 = (g + 8, 2t..), a2 = (g, 2t + 8..),
+// a3 = (g + 8, 2t + 8..)), B in shared memory MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FLUX2_ACC_REGS
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : FLUX2_ACC64
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// ---- tensor maps (host) ----------------------------------------------------
+
+// The CUDA driver's cuTensorMapEncodeTiled, found once through the runtime.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A 3D map over a contiguous bf16 [bh, s, 128] tensor whose box is
+// ``box_rows`` rows x 64 columns with the 128-byte swizzle; rows past s read
+// as zeros.
+bool encode_map(CUtensorMap* map, const void* ptr, int bh, int s, int box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(kD) * 2, static_cast<cuuint64_t>(s) * kD * 2};
+  const cuuint32_t box[3] = {kBoxCols, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -7,7 +7,8 @@ C entries ``flux2_flash_attention_fwd`` and ``flux2_flash_attention_fwd_lse``
 with the signatures of ``csrc/flash_attention.cu``) into ``build/candidate/``,
 prints ptxas's registers and spills, checks its K1 and K2 against the plain
 versions at the K1 shapes ``chip_smoke.py`` checks (relative L2 of out within
-1e-2, LSE within 1e-3), and times it beside the library's own K1/K2 (the
+1e-2, LSE within 1e-3), says whether its outputs equal the library's bit for
+bit (a refactor should), and times it beside the library's own K1/K2 (the
 checkout's ``csrc/``) in one process, in turns (library, candidate,
 candidate, library), with CUDA events at three sequence lengths. It is how a
 redesign of the forward is compared with the current kernel before it
@@ -40,8 +41,11 @@ REL_TOL = 1e-2
 LSE_ABS_TOL = 1e-3
 
 
-def build(source: Path, out_dir: Path):
-    """nvcc ``source`` into a shared library; (typed C entries, ptxas report)."""
+SYMBOLS = {"flux2_flash_attention_fwd": 4, "flux2_flash_attention_fwd_lse": 5}  # C entry: its pointer count
+
+
+def build(source: Path, out_dir: Path, symbols: dict = SYMBOLS):
+    """nvcc ``source`` into a shared library; (typed C entries, ptxas report, library path)."""
     from flux2_tpu_torch.utils import build as kbuild
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -53,13 +57,13 @@ def build(source: Path, out_dir: Path):
         raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{proc.stderr}")
     lib = ctypes.CDLL(str(lib_path))
     entries = {}
-    for name, n_ptr in (("flux2_flash_attention_fwd", 4), ("flux2_flash_attention_fwd_lse", 5)):
+    for name, n_ptr in symbols.items():
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         entries[name] = fn
-    return entries, proc.stderr
+    return entries, proc.stderr, lib_path
 
 
 def candidate_forward(entries, q, k, v, scale, span, with_lse: bool):
@@ -101,7 +105,7 @@ def main(argv=None) -> int:
 
     card = _card()
     t0 = time.perf_counter()
-    entries, report = build(args.source.resolve(), Path(__file__).resolve().parents[2] / "build" / "candidate")
+    entries, report, _ = build(args.source.resolve(), Path(__file__).resolve().parents[2] / "build" / "candidate")
     print(f"[build] {args.source}: {time.perf_counter() - t0:.2f} s", flush=True)
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "C75" in line:
@@ -112,18 +116,21 @@ def main(argv=None) -> int:
     for name, (b, h, s_q, s_k), span in CASES:
         q, k, v = (torch.randn(b, h, s, 128, device="cuda", generator=gen).bfloat16() for s in (s_q, s_k, s_k))
         scale = 128**-0.5
-        out = candidate_forward(entries, q, k, v, scale, span, with_lse=False).float()
+        out = candidate_forward(entries, q, k, v, scale, span, with_lse=False)
         out2, lse = candidate_forward(entries, q, k, v, scale, span, with_lse=True)
-        torch.cuda.synchronize()
+        lib_out, lib_lse = fa.flash_attention_lse(q, k, v, scale, span)
+        same = (torch.equal(out, fa._flash_k1(q, k, v, scale, span)) and torch.equal(out2, lib_out)
+                and torch.equal(lse, lib_lse))
         ref, ref_lse = fa.flash_attention_lse_reference(q, k, v, scale, span)
         ref = ref.float()
-        rel = float((out - ref).norm() / ref.norm())
+        rel = float((out.float() - ref).norm() / ref.norm())
         rel2 = float((out2.float() - ref).norm() / ref.norm())
         lse_err = float((lse - ref_lse).abs().max())
         good = bool(torch.isfinite(out).all()) and max(rel, rel2) <= REL_TOL and lse_err <= LSE_ABS_TOL
         ok &= good
         print(f"[check] {name} {(b, h, s_q, s_k)} span={span}: K1 rel_l2 {rel:.3e}, K2 rel_l2 {rel2:.3e}, "
-              f"lse max_abs {lse_err:.3e} {'ok' if good else 'FAIL'} [{card}]", flush=True)
+              f"lse max_abs {lse_err:.3e}, K1/K2 bitwise equal to the library's {same} {'ok' if good else 'FAIL'} "
+              f"[{card}]", flush=True)
     for s in TIMED_SEQ:
         q, k, v = (torch.randn(1, 24, s, 128, device="cuda", generator=gen).bfloat16() for _ in range(3))
         scale = 128**-0.5

@@ -109,3 +109,11 @@ def test_flash_fwd_candidate_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
         flash_fwd_candidate.main(["--source", "candidate.cu"])
+
+
+def test_flash_bwd_candidate_refuses_to_run_without_a_card(monkeypatch):
+    from flux2_tpu_torch.utils import flash_bwd_candidate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        flash_bwd_candidate.main(["--source", "candidate.cu"])

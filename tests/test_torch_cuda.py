@@ -87,15 +87,26 @@ def test_sdpa_dispatch_on_cuda(device, monkeypatch):
 
 # K2 / K3 / K4 against their plain f32 versions, as chip_smoke.py holds them:
 # out and the gradients within REL_TOL (p and dS enter the tensor cores as
-# bf16, ~2.6e-3 measured; one dropped 64-key tile costs ~sqrt(64 / S_k)), the
+# bf16, ~2.6e-3 measured; one dropped 64-row tile costs ~sqrt(64 / S)), the
 # LSE within 1e-3 absolute (two f32 sums of the same products, ~1e-6 apart).
-@pytest.mark.parametrize("q_shape,k_len,span", [
+TRAINING_CASES = [  # (q shape, S_k, span), as chip_smoke.TRAIN_ATTENTION_CASES
     ((1, 24, 1056, 128), 1056, None),  # 512^2 training: 32 txt + 1024 img, both tails ragged
     ((1, 4, 320, 128), 704, (64, 192, 400)),
-])
-def test_training_kernels_match_reference(device, q_shape, k_len, span):
+    ((1, 24, 897, 128), 897, None),  # one real query and one real key in the last 64- and 128-row tiles
+    ((1, 24, 2560, 128), 2560, (100, 1300, 1000)),  # the span cuts query and key tiles mid-way
+    ((1, 24, 777, 128), 1000, None),  # S_q != S_k, both ragged
+]
+
+
+def _training_inputs(device, q_shape, k_len):
     q, k, v = _qkv(device, q_shape[0], q_shape[1], q_shape[2], k_len)
     dout = torch.randn(q.shape, device=device, generator=torch.Generator(device=device).manual_seed(1)).bfloat16()
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("q_shape,k_len,span", TRAINING_CASES)
+def test_training_kernels_match_reference(device, q_shape, k_len, span):
+    q, k, v, dout = _training_inputs(device, q_shape, k_len)
     scale = 128**-0.5
     before = tfa.launch_counts()
     out, lse = tfa.flash_attention_lse(q, k, v, scale, span)
@@ -108,6 +119,17 @@ def test_training_kernels_match_reference(device, q_shape, k_len, span):
     for got, ref in zip(grads, tfa.flash_attention_grads_reference(q, k, v, dout, scale, span)):
         assert got.dtype == torch.bfloat16 and got.shape == ref.shape
         assert _rel(got, ref) <= REL_TOL
+
+
+def test_backward_kernels_are_deterministic(device):
+    """K3 owns its dQ rows and K4 its dK/dV rows (no atomics): a second call gives the same bits."""
+    q, k, v, dout = _training_inputs(device, (1, 24, 777, 128), 1000)
+    out, lse = tfa.flash_attention_lse(q, k, v, 128**-0.5, (100, 500, 600))
+    first = tfa.flash_attention_backward(q, k, v, out, lse, dout, 128**-0.5, (100, 500, 600))
+    second = tfa.flash_attention_backward(q, k, v, out, lse, dout, 128**-0.5, (100, 500, 600))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_autograd_takes_k2_k3_k4_with_grad_and_k1_without(device):

@@ -31,13 +31,24 @@ CASES = [
     dict(s=200),  # ragged: pad keys (and pad queries in JAX's backward) masked
     dict(s=128, blocked_span=(32, 96, 64)),
     dict(s=200, blocked_span=(0, 64, 128)),
+    dict(s=257),  # one real row in the last 128- and 64-row tile
+    dict(s_q=320, s_k=704, blocked_span=(64, 192, 400)),  # as chip_smoke's blocked_span
+    dict(s_q=257, s_k=200),  # S_q != S_k, both ragged
+    dict(s_q=200, s_k=257, blocked_span=(100, 200, 129)),  # the span starts mid-tile, one real key at the tail
 ]
-IDS = ["s128", "ragged_s200", "span", "ragged_span"]
+IDS = ["s128", "ragged_s200", "span", "ragged_span", "ragged_s257", "q320_k704_span", "q257_k200",
+       "q200_k257_span"]
 
 
-def _inputs(seed, s, b=1, h=2, d=128):
+def _lens(case):
+    """(S_q, S_k) of a case."""
+    return case.get("s_q", case.get("s")), case.get("s_k", case.get("s"))
+
+
+def _inputs(seed, s_q, s_k=None, b=1, h=2, d=128):
     rng = np.random.RandomState(seed)
-    q, k, v, g = (rng.randn(b, h, s, d).astype(np.float32) for _ in range(4))
+    s_k = s_q if s_k is None else s_k
+    q, k, v, g = (rng.randn(b, h, s, d).astype(np.float32) for s in (s_q, s_k, s_k, s_q))
     return q, k, v, g
 
 
@@ -55,19 +66,19 @@ def _leaves(*xs):
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_lse_reference_matches_jax_kernel_interpret(case):
-    q, k, v, _ = _inputs(1, case["s"])
+    q, k, v, _ = _inputs(1, *_lens(case))
     span = case.get("blocked_span")
     ref_out, ref_lse = jfa._flash_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 128**-0.5, block_q=128,
                                        block_k=128, interpret=True, blocked_span=span, return_lse=True)
     out, lse = tfa.flash_attention_lse(*(torch.from_numpy(x) for x in (q, k, v)), 128**-0.5, span)
-    assert lse.shape == (1, 2, case["s"]) and lse.dtype == torch.float32
+    assert lse.shape == (1, 2, _lens(case)[0]) and lse.dtype == torch.float32
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=LSE_ATOL, rtol=0)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=LSE_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_autograd_function_matches_jax_grad(case):
-    q, k, v, g = _inputs(2, case["s"])
+    q, k, v, g = _inputs(2, *_lens(case))
     span = case.get("blocked_span")
     tq, tk, tv = _leaves(q, k, v)
     out = tfa.flash_attention(tq, tk, tv, blocked_span=span, bounded_logits=True)
@@ -79,7 +90,7 @@ def test_autograd_function_matches_jax_grad(case):
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_grads_reference_matches_xla_attention_grads(case):
-    q, k, v, g = _inputs(3, case["s"])
+    q, k, v, g = _inputs(3, *_lens(case))
     span = case.get("blocked_span")
     ref = jfa._xla_attention_grads(*(jnp.asarray(x) for x in (q, k, v, g)), 128**-0.5, span)
     got = tfa.flash_attention_grads_reference(*(torch.from_numpy(x) for x in (q, k, v, g)), 128**-0.5, span)
@@ -91,7 +102,7 @@ def test_grads_reference_matches_xla_attention_grads(case):
 def test_backward_from_lse_matches_softmax_grads(case):
     """The wrapper's backward (p from the LSE, delta from O) against the softmax
     grads; a natural-log LSE used in the exp2 domain would be off everywhere."""
-    q, k, v, g = (torch.from_numpy(x) for x in _inputs(4, case["s"]))
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs(4, *_lens(case)))
     span = case.get("blocked_span")
     out, lse = tfa.flash_attention_lse(q, k, v, 128**-0.5, span)
     got = tfa.flash_attention_backward(q, k, v, out, lse, g, 128**-0.5, span)
