@@ -8,9 +8,10 @@ plain PyTorch version on the card: K1 (flash attention), K2 / K3 / K4 (the
 flash forward with the row LSE, and the dQ and dK/dV backward) at the training
 shapes, and K5 / K6 / K7 (the W8A8, W4A8 and grouped int8/int4 quantized
 matmuls). Then, with random weights drawn on the card from a seed, at full
-Klein-4B width: one DiT forward per quantized runtime against the bf16
-forward, bf16 serving through the port's entry point (Flux2Server ->
-Qwen3-4B encoder -> DiT -> VAE), w8a8 serving through the CLI's
+Klein-4B width: the 1024^2 VAE decode (first and warm), one DiT forward per
+quantized runtime against the bf16 forward, bf16 serving through the port's
+entry point (Flux2Server -> Qwen3-4B encoder -> DiT -> VAE), one
+klein-4b-base request with classical CFG, w8a8 serving through the CLI's
 build_pipeline (DiT and encoder quantized), one Klein-4B-base train step at
 512^2 on the kernels against the same step on plain attention, and LoRA
 training through the CLI (train-lora --random-init: 5 steps at 512^2 with a
@@ -23,8 +24,9 @@ nvidia-smi reports them, then {"ok": true, "device": {...}}; the line before
 those lists each kernel with its launches on its path (serving for K1 and K5,
 the quantized forwards for K6 and K7, the 512^2 training run for K2-K4) and
 per unit of it (a 1024^2 image, forward or train step), its error against the
-plain version, and at the main path's shape its time alone (torch.profiler),
-its wrapper's and the plain version's, its bound (operations or bytes over
+plain version, and at the main path's shape its time alone (torch.profiler;
+for K5-K7 also CUDA events around its C entry), its wrapper's and the plain
+version's, its bound (operations or bytes over
 the H100's published peaks) and one PyTorch call that computes the same
 function, timed as a yardstick that the port never calls.
 """
@@ -111,8 +113,8 @@ def nvidia_smi_line() -> str:
     return out[0].strip()
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median time of one call, CUDA events around each call, after warm-up."""
+def event_times(fn, reps: int = 20, warmup: int = 3) -> list:
+    """Times of ``reps`` calls (ms), CUDA events around each call, after warm-up."""
     for _ in range(warmup):
         fn()
     times = []
@@ -123,7 +125,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median time of one call, CUDA events around each call, after warm-up."""
+    return statistics.median(event_times(fn, reps, warmup))
 
 
 def bound_ms(ops: float, nbytes: float, peak_ops: float) -> tuple:
@@ -359,20 +366,30 @@ def kernel_only_ms(fn, mark: str, reps: int = 10) -> float:
     torch activation prologue."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and mark in e.name)
-    if us <= 0:
-        raise RuntimeError(f"torch.profiler recorded no {mark} device time")
-    return us / reps / 1e3
+    for _ in range(3):  # a trace now and then comes back without device events; a third empty one raises
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and mark in e.name)
+        if us > 0:
+            return us / reps / 1e3
+    raise RuntimeError(f"torch.profiler recorded no {mark} device time in three traces")
 
 
 def phase_quant_kernel_check(card: str):
-    """K5, K6 and K7 (int8, int4) against their plain versions, same inputs, served shapes."""
+    """K5, K6 and K7 (int8, int4) against their plain versions, same inputs, served shapes.
+    Each kernel's time alone twice: torch.profiler's mean over 10 calls of the
+    wrapper, and CUDA events around 25 calls of its C entry on activations
+    quantized beforehand (median, min, max). At every shape its bound and its
+    library call (_qmm_yardsticks); beside K7 also the route a qint8 / int4
+    weight takes without FLUX2_PALLAS_DEQUANT (dequantize, then F.linear)."""
+    import torch.nn.functional as F
+
+    from flux2_tpu_torch.ops import quant as tq
     from flux2_tpu_torch.ops import quant_kernels as qk
+    from flux2_tpu_torch.utils import quant_candidate as qc
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
@@ -404,14 +421,22 @@ def phase_quant_kernel_check(card: str):
             ms = time_ms(lambda: kernel(x, w))
             plain_ms = time_ms(lambda: plain(x, w), reps=5)
             alone_ms = kernel_only_ms(lambda: kernel(x, w), KERNEL_MARK[kind])
+            entry, c_args = qk._kernel(qc.ENTRY[kind]), qc.entry_args(kind, x, w)
+            buf = torch.empty(m, n, device="cuda", dtype=x.dtype)
+            events = event_times(lambda: qc.call(entry, c_args, buf), reps=25, warmup=5)
+            events = (statistics.median(events), min(events), max(events))
             err = float((out - ref).abs().max())
+            row = {"name": name, "err": err, "ms": ms, "alone": alone_ms, "events": events, "plain_ms": plain_ms}
+            route = ""
+            if kind in ("qint8", "int4"):
+                row["route_ms"] = time_ms(lambda: F.linear(x, tq.dequantize_any(w, x.dtype)))
+                route = f", dequantize + F.linear {row['route_ms']:.4f} ms"
             log(f"[kernel] {kind} {name} (M,K,N)=({m},{k},{n}): rel_l2_err={rel} (tol {QMM_REL_TOL}; a dropped "
                 f"K tile gives {drop:.3e}, a neighbouring column's scale {wrong:.3e}) max_abs_err={err}; wrapper "
-                f"{ms:.4f} ms, kernel alone {alone_ms:.4f} ms ({2.0 * m * n * k / alone_ms / 1e9:.1f} TOPS), "
-                f"plain {plain_ms:.4f} ms [{card}]")
-            row = {"name": name, "err": err, "ms": ms, "alone": alone_ms, "plain_ms": plain_ms}
-            if not rows:  # the first shape, image_qkvo_1024: the bound and the library call
-                row.update(_qmm_yardsticks(kind, x, w, card))
+                f"{ms:.4f} ms, kernel alone {alone_ms:.4f} ms by torch.profiler ({2.0 * m * n * k / alone_ms / 1e9:.1f}"
+                f" TOPS), by CUDA events median {events[0]:.4f} (min {events[1]:.4f}, max {events[2]:.4f}) ms, "
+                f"plain {plain_ms:.4f} ms{route} [{card}]")
+            row.update(_qmm_yardsticks(kind, x, w, card))
             rows.append(row)
         results[kind] = rows
     return results
@@ -545,6 +570,72 @@ def build_pipeline():
     pipe.text_encoder = qwen3_extractor(Qwen3Decoder(QWEN3_4B, device="cuda", generator=gen), tokenizer)
     torch.cuda.synchronize()
     return pipe, type(tokenizer).__name__
+
+
+def phase_vae_decode(pipe, card: str) -> dict:
+    """The 1024^2 decode as the pipeline runs it (its VAE's parameters cast to
+    vae_compute_dtype, bf16, as JAX's pipeline casts them): the first decode
+    in the process (cuDNN's set-up and the cast copy included), then three
+    warm ones; uint8 [1, 1024, 1024, 3] out."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    latents = torch.randn(1, 4096, 128, device="cuda", generator=gen)
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        img = pipe.decode_latents_u8(latents, 1024, 1024)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if tuple(img.shape) != (1, 1024, 1024, 3) or img.dtype != torch.uint8 or int(img.max()) == int(img.min()):
+        raise AssertionError(f"decode gave {tuple(img.shape)} {img.dtype}, range {int(img.min())}..{int(img.max())}")
+    warm = statistics.median(times[1:])
+    log(f"[vae] 1024^2 decode, VAE in {pipe.vae_compute_dtype} (cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}): "
+        f"first {times[0]:.4f} s, warm {warm:.4f} s (median of {[round(t, 4) for t in times[1:]]}) [{card}]")
+    return {"cold_s": times[0], "warm_s": warm}
+
+
+def phase_cfg_serve(pipe, card: str) -> dict:
+    """One klein-4b-base 1024^2 request through Flux2Server on the same
+    weights: classical CFG runs cond and uncond (the encoded "" prompt) as two
+    batch rows of one forward, so K1 launches 25 blocks x 4 steps = 100 times,
+    each over both rows."""
+    import dataclasses
+
+    from flux2_tpu_torch.io.png import decode_png
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Model
+    from flux2_tpu_torch.serve import Flux2Server
+
+    base = dataclasses.replace(pipe, model=Flux2Model.KLEIN_4B_BASE)
+    recorder = _RecordingPipeline(base)
+    server = Flux2Server(recorder, embeddings_fn=base.encode_prompt, batch_window_s=0.5)
+    req = {"prompt": "a lighthouse on a cliff at dusk (base, CFG)", "height": 1024, "width": 1024, "steps": 4,
+           "seed": 3}
+    try:
+        _zero_launches()
+        t0 = time.perf_counter()
+        png = server.generate_png(req)
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+    finally:
+        server.shutdown()
+    img = decode_png(png)
+    if img.shape != (1024, 1024, 3) or int(img.max()) == int(img.min()):
+        raise AssertionError(f"CFG request: PNG {img.shape}, range {int(img.min())}..{int(img.max())}")
+    (res,) = recorder.results
+    if tuple(res.latents.shape) != (1, 4096, 128) or not torch.isfinite(res.latents).all():
+        raise AssertionError(f"CFG request: latents {tuple(res.latents.shape)}, finite "
+                             f"{bool(torch.isfinite(res.latents).all())}")
+    want = {name: 0 for name in counts}
+    want["flash"] = 25 * 4
+    if counts != want:
+        raise AssertionError(f"CFG request launched {counts}, want {want}")
+    if "" not in base._prompt_cache:
+        raise AssertionError('CFG request: the "" negative was not encoded through the prompt LRU')
+    (r,) = server.request_timings
+    log(f"[serve cfg] klein-4b-base 1024^2, guidance {base.model.default_guidance}, cond + uncond rows: "
+        f"{wall:.3f} s wall; text encoding {r['text_encoding_s']:.4f} s, denoising "
+        f"{r['denoising_s'] / r['steps']:.4f} s/step, VAE decoding {r['vae_decoding_s']:.4f} s; launches {counts} "
+        f"[{card}]")
+    return {"wall_s": wall, "s_per_step": r["denoising_s"] / r["steps"]}
 
 
 def phase_model_check(pipe, card: str) -> None:
@@ -860,11 +951,13 @@ def main() -> int:
     pipe, tok_name = build_pipeline()
     log(f"[model] random Klein-4B DiT + FLUX.2 VAE + Qwen3-4B encoder (tokenizer {tok_name}) drawn on the card "
         f"in {time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated [{card}]")
+    decode = phase_vae_decode(pipe, card)
     phase_model_check(pipe, card)
     model_launches = phase_quant_model_check(pipe, card)
 
     flash_launches = 25 * 4 * 3
     counts, bf16_peak = phase_serve(pipe, card, "bf16", {"flash": flash_launches})
+    phase_cfg_serve(pipe, card)
     del pipe
     torch.cuda.empty_cache()
 
@@ -918,12 +1011,14 @@ def main() -> int:
     ):
         rows = qchecks[fmt]
         first = rows[0]  # image_qkvo_1024
-        kernels.append({"name": name, "route": "cuda", "source": "flux2_tpu_torch/csrc/quant_matmul.cu",
-                        "replaces": replaces, "launches": launches, "launches_per_unit": per_unit, "unit": unit,
-                        "max_abs_err": max(r["err"] for r in rows), "ms": first["alone"],
-                        "wrapper_ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
-                        "bound_by": first["bound"][1], "library": first["library"],
-                        "library_ms": first["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": "flux2_tpu_torch/csrc/quant_matmul.cu",
+                 "replaces": replaces, "launches": launches, "launches_per_unit": per_unit, "unit": unit,
+                 "max_abs_err": max(r["err"] for r in rows), "ms": first["alone"], "events_ms": first["events"],
+                 "wrapper_ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
+                 "bound_by": first["bound"][1], "library": first["library"], "library_ms": first["library_ms"]}
+        if "route_ms" in first:
+            entry["dequantize_then_linear_ms"] = first["route_ms"]
+        kernels.append(entry)
     # K2 vs the plain f32 forward with LSE; K3 and K4 vs the plain f32 backward,
     # which computes dq, dk and dv at once, as does their library call. Launches
     # from the 512^2 training run.
@@ -944,6 +1039,7 @@ def main() -> int:
                         "plain_ms": big["fwd_plain_ms"] if key == "k2" else big["bwd_plain_ms"],
                         "bound_ms": big["bounds"][key][0], "bound_by": big["bounds"][key][1],
                         "library": big["library"][lib][0], "library_ms": big["library"][lib][1]})
+    log(f"[vae] 1024^2 decode: first {decode['cold_s']:.4f} s, warm {decode['warm_s']:.4f} s [{card}]")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

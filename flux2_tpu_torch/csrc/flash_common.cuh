@@ -1,18 +1,16 @@
-// Constants and Hopper helpers shared by the flash-attention kernels over
-// [bh, s, 128] bf16 tensors (flash_attention.cu: K1/K2 forward;
-// flash_attention_bwd.cu: K3/K4 backward): mbarriers, TMA loads from 3D
-// tensor maps with the 128-byte swizzle, wgmma descriptors and the wgmma
-// forms both files issue. Each .cu is its own translation unit; the anonymous
-// namespace gives each its own copy.
+// Constants and helpers of the flash-attention kernels over [bh, s, 128]
+// bf16 tensors (flash_attention.cu: K1/K2 forward; flash_attention_bwd.cu:
+// K3/K4 backward), on top of hopper_common.cuh (mbarriers, TMA, descriptors,
+// the shared wgmma forms, the tensor-map encoder): the head dim, the exp2
+// helper, the register-A bf16 wgmma and the 3D tensor map of a [bh, s, 128]
+// tensor. Each .cu is its own translation unit; the anonymous namespace gives
+// each its own copy.
 
 #pragma once
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -23,107 +21,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kD == 2 * kBoxCols, "a 128-wide row is two swizzled boxes");
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// ---- mbarriers -------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity ``parity`` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 3D [bh, s, 128] bf16 tensor map into shared memory; completion
-// is counted on ``bar`` in bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int col, int row,
-                                         int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(bh)
-      : "memory");
-}
-
-// ---- wgmma -----------------------------------------------------------------
-
-// Descriptor of a wgmma operand in shared memory with the 128-byte swizzle
-// (layout type 1): start address, leading and stride byte offsets, each
-// encoded in 16-byte units. The stride byte offset is the step between
-// 8-row groups (1024 bytes here); the leading byte offset is unused for a
-// K-major operand and is the step between 64-column boxes for an MN-major one.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
-
-// Keeps the compiler from moving reads or writes of an accumulator (or of an
-// A fragment in registers) across the asynchronous wgmma that owns it.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define FLUX2_ACC_REGS                                                                                  \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
-  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "  \
-  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "  \
-  "%62, %63}"
-#define FLUX2_ACC8(i) \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define FLUX2_ACC64 \
-  FLUX2_ACC8(0), FLUX2_ACC8(8), FLUX2_ACC8(16), FLUX2_ACC8(24), FLUX2_ACC8(32), FLUX2_ACC8(40), FLUX2_ACC8(48), FLUX2_ACC8(56)
-
-// D[64 x 128] (+)= A[64 x 16] * B[16 x 128]; A and B in shared memory, both
-// K-major; D is overwritten when ``accumulate`` is 0. bf16 in, f32 accumulate.
-// Accumulator of thread (warp w, lane 4g + t): d[4j + e] is row 16w + g + 8(e >> 1),
-// column 8j + 2t + (e & 1).
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FLUX2_ACC_REGS ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : FLUX2_ACC64
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // D[64 x 128] += A[64 x 16] * B[16 x 128]; A in registers (the m16n8k16
@@ -140,25 +41,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a
 }
 
 // ---- tensor maps (host) ----------------------------------------------------
-
-// The CUDA driver's cuTensorMapEncodeTiled, found once through the runtime.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-    }
-  }
-  return fn;
-}
 
 // A 3D map over a contiguous bf16 [bh, s, 128] tensor whose box is
 // ``box_rows`` rows x 64 columns with the 128-byte swizzle; rows past s read

@@ -19,43 +19,76 @@
 //       are uint8 [N, K]; int4 codes are [N, K/2] interleaved (low nibble =
 //       even k), unlike K6's.
 //
-// What bounds them on the card. K5 at the 1024^2 image projections
-// (M=4096, K=3072, N=3072) does 2*M*N*K = 7.7e10 int ops on ~25 MB of
-// operands: compute-bound against the 1,979 TOPS int8 dense peak, of which
-// mma.sync without wgmma reaches a fraction. At the modulation shapes
-// (M=1..3, K=3072, N=18432) it is bound by the 57 MB of weight bytes
-// (~17 us at 3.35 TB/s). K6 does the same int work plus the nibble unpack and
-// one f32 rescale per 512-block; it moves half K5's weight bytes. K7 is a
-// bf16 GEMM (989 TFLOP/s dense peak) with an f32 dequant of every weight
-// element in each block that reads it: at large M that per-block dequant,
-// repeated for every M tile, is ALU work the bf16 GEMM does not have.
+// What bounds them on the card. At the 1024^2 image projections (M=4096,
+// K=3072, N=3072) each does 2*M*N*K = 7.7e10 multiply-adds on ~25-35 MB of
+// operands: compute-bound, K5 and K6 against the 1,979 TOPS int8 dense peak
+// (0.0391 ms), K7 against the 989 TFLOP/s bf16 one (0.0782 ms). K6 adds the
+// nibble unpack and one f32 rescale per 512-block; K7 adds the dequant of
+// every weight element, once for every M tile that reads it (~4 ALU
+// operations an element), which is the work a bf16 GEMM does not have. At the
+// modulation shapes (M=1..8, K=3072, N=18432) they are bound by the weight
+// bytes (~17 us for K5's 57 MB at 3.35 TB/s).
 //
-// The design is the simple, right one, a base for later work (wgmma, TMA and
-// warp specialisation are not used):
-//   - one block of 8 warps per 128 x 128 output tile; warp (wm, wn) owns a
-//     64 x 32 sub-tile, 4 x 4 mma tiles, accumulators in registers;
-//   - K5 and K6 use mma.sync.m16n8k32 s8 x s8 -> s32; K7 uses
-//     mma.sync.m16n8k16 bf16 x bf16 -> f32, with the fragment code of
-//     csrc/flash_attention.cu;
-//   - tiles are 64 bytes of K (int8) or 64 elements (bf16) per row, double
-//     buffered in shared memory with cp.async; rows are padded (80 bytes for
-//     int8, 72 bf16 for bf16) so the 32-bit fragment loads of a warp hit 32
-//     distinct banks; rows >= M are zero-filled by cp.async and not stored;
-//   - K6 unpacks nibbles in registers (two per-byte subtractions per 32-bit
-//     word), since Hopper has no int4 mma; K7 loads the next tile's codes
-//     into registers while the current tile computes, then dequantizes them
-//     into shared memory;
-//   - the f32 epilogues use __fmul_rn / __fadd_rn, so no multiply-add is
-//     contracted: K5 and K6 perform the same f32 operations in the same order
-//     as their plain versions in ops/quant_kernels.py.
-// Each C entry launches on the caller's stream, does not synchronise,
-// allocates nothing, and returns cudaGetLastError() after the launch.
+// K5 is the simple design (no wgmma, no TMA): one block of 8 warps per
+// 128 x 128 output tile, mma.sync.m16n8k32 s8 on a double-buffered cp.async
+// ring of padded tiles.
+//
+// K6 and K7 are warp-specialised, on the tensor cores' only full-rate path,
+// in the "swapped" form: out^T = W x^T, with the weight as wgmma's A operand
+// in registers and x as B from shared memory, so no converted weight tile
+// passes through shared memory:
+//   - one CTA of three warpgroups per 128 weight rows (output columns) and BM
+//     x rows. Warpgroup 0 loads: one thread keeps a ring of stages full by
+//     TMA from 2D tensor maps: the x tile (128-byte swizzle; rows past M read
+//     as zeros and are never stored) and the code tile (K7 qint8 64-byte rows
+//     with the 64-byte swizzle, int4 32-byte rows with the 32-byte one, K6
+//     128-byte rows with the 128-byte one, so that the fragment loads below
+//     meet no bank conflicts). Warpgroups 1 and 2 take 64 weight rows each:
+//     every thread reads the codes of its two rows of each k-step's A
+//     fragment, converts them in registers (K7: dequantized to bf16 pairs;
+//     K6: one 32-bit load of packed bytes gives the low-nibble fragment for
+//     x's low half and the high-nibble one for its high half), and issues
+//     the tile's wgmmas against all BM x rows;
+//   - mbarriers: "full" per stage (TMA bytes) and "x empty" per stage (one
+//     arrival per multiplying warpgroup once the products that read it
+//     retire). wgmma reads its A registers after it issues, so a warpgroup
+//     converts its next tile only after its products are done; the other
+//     warpgroup's products keep the tensor cores busy meanwhile;
+//   - the epilogue stages each warpgroup's transposed tile in the idle ring
+//     and stores 16 bytes a thread along the output rows;
+//   - K7: wgmma m64nBMk16 bf16 -> f32, 64 K a tile (one dequant group: one
+//     scale and bias per row a tile, read one tile ahead). float(code) is the
+//     byte placed under 2^23's exponent minus 2^23 (exact, no conversion
+//     instruction), then __fmul_rn and __fadd_rn as the plain version. BM =
+//     256 where that still fills the card, else 128: the dequant is repeated
+//     once per BM rows;
+//   - K6: wgmma m64n128k32 s8 -> s32, 256 K a tile (128 packed bytes: the x
+//     columns of the low and of the high half), two tiles a 512-block. The
+//     nibbles unpack with per-byte subtractions (nibbles_lo/hi). At a
+//     block's end each warpgroup folds its s32 sums into the f32 ones with
+//     __fmul_rn / __fadd_rn in the plain version's order (the block's xs and
+//     ws are written to shared memory by the two warpgroups, one array
+//     each); int -> float is exact below 2^22 by the same exponent trick
+//     (|sum| <= 512 * 127 * 8). K6 therefore equals its plain version to the
+//     bit. BM = 128: the s32 and f32 accumulators take 128 registers a thread.
+// PERF.md §6 has the designs tried on the way and their times, among them a
+// converting warpgroup that writes the B tile to shared memory (form a).
+// Each C entry encodes its tensor maps per call (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so nothing links libcuda),
+// launches on the caller's stream, does not synchronise, allocates nothing,
+// and returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// K5: W8A8 (mma.sync)
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;  // 8 warps: 2 along M x 4 along N
 constexpr int kBM = 128;
@@ -65,21 +98,13 @@ constexpr int kWarpN = 32;
 constexpr int kMT = kWarpM / 16;  // m16 tiles per warp
 constexpr int kNT = kWarpN / 8;   // n8 tiles per warp
 
-constexpr int kTileK8 = 64;                       // int8 K bytes per tile row
-constexpr int kStride8 = kTileK8 + 16;            // padded int8 row, bytes
-constexpr int kTile8Bytes = kBM * kStride8;       // one 128-row int8 tile
-constexpr int kW4Block = 512;                     // K6's K block
-constexpr int kTileKbf = 64;                      // bf16 K elements per tile row
-constexpr int kStrideBf = kTileKbf + 8;           // padded bf16 row, elements
-constexpr int kTileBfElems = kBM * kStrideBf;     // one 128-row bf16 tile
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int kTileK8 = 64;                  // int8 K bytes per tile row
+constexpr int kStride8 = kTileK8 + 16;       // padded int8 row, bytes
+constexpr int kTile8Bytes = kBM * kStride8;  // one 128-row int8 tile
 
 // 16-byte async copy; src_bytes = 0 writes zeros (rows past M).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(valid ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -99,20 +124,7 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// D[16x8] += A[16x16] * B[16x8], bf16 inputs, f32 accumulators (layout as K1's).
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ uint32_t lds32(const void* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// Four packed bytes -> the four int8 codes of their low / high nibbles (minus 8).
-__device__ __forceinline__ uint32_t nibbles_lo(uint32_t p) { return __vsub4(p & 0x0F0F0F0Fu, 0x08080808u); }
-__device__ __forceinline__ uint32_t nibbles_hi(uint32_t p) { return __vsub4((p >> 4) & 0x0F0F0F0Fu, 0x08080808u); }
 
 __device__ __forceinline__ void store2(float* out, float a, float b) {
   *reinterpret_cast<float2*>(out) = make_float2(a, b);
@@ -144,10 +156,6 @@ __device__ __forceinline__ void frag_a8(uint32_t* a, const int8_t* tile, int row
   a[2] = lds32(p + 16);
   a[3] = lds32(p + 8 * kStride8 + 16);
 }
-
-// ---------------------------------------------------------------------------
-// K5: W8A8
-// ---------------------------------------------------------------------------
 
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
@@ -224,270 +232,431 @@ w8a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs, const i
 }
 
 // ---------------------------------------------------------------------------
-// K6: W4A8
+// K6 and K7: warp-specialised TMA + mbarrier + wgmma
 // ---------------------------------------------------------------------------
 
-// One pipeline stage: the x columns of the low and high halves of a 512-block
-// that one 64-byte tile of packed codes covers, and that tile.
-constexpr int kW4StageBytes = 3 * kTile8Bytes;
-constexpr int kW4Smem = 2 * kW4StageBytes;  // 61,440 bytes: dynamic shared memory
+constexpr int kWsThreads = 384;  // warpgroup 0 loads, 1 and 2 unpack or dequantize, and multiply
+constexpr int kWsBN = 128;       // weight rows (output columns) per CTA
+// setmaxnreg of the loading warpgroup and of the multiplying ones: the
+// registers the first gives up are the ones the others take, from the 168 a
+// thread of 384 gets at launch: 128 * (168 - 24) == 256 * (240 - 168).
+constexpr int kLoadRegs = 24;
+constexpr int kMmaRegs = 240;
+constexpr int kRowTile = kWsBN * 128;  // 16 KB: 128 rows of 128 bytes with the 128-byte swizzle
+constexpr int kW4Block = 512;          // K6's K block
 
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-w4a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs, const uint8_t* __restrict__ wq,
-            const float* __restrict__ ws, OutT* __restrict__ out, int m, int n, int k) {
-  extern __shared__ __align__(16) int8_t smem[];
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / (kBN / kWarpN), wn = warp % (kBN / kWarpN);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int kblocks = k / kW4Block;
-  constexpr int kTilesPerBlock = (kW4Block / 2) / kTileK8;  // 4 tiles of 64 packed bytes
-  const int ntiles = kblocks * kTilesPerBlock;
-  const int8_t* wq8 = reinterpret_cast<const int8_t*>(wq);
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
 
-  auto load_stage = [&](int stage, int tile) {
-    int8_t* base = smem + stage * kW4StageBytes;
-    const int b = tile / kTilesPerBlock, j = tile % kTilesPerBlock;
-    const int kx = b * kW4Block + j * kTileK8;  // x column of the low half
-    load_tile8(base, xq, m0, m, k, kx);
-    load_tile8(base + kTile8Bytes, xq, m0, m, k, kx + kW4Block / 2);
-    load_tile8(base + 2 * kTile8Bytes, wq8, n0, n, k / 2, b * (kW4Block / 2) + j * kTileK8);
-  };
+__device__ __forceinline__ void sts_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
+}
 
-  float accf[kMT][kNT][4];
-  int acc[kMT][kNT][4];
+__device__ __forceinline__ float lds_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 lds_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of 128-byte rows with the
+// 128-byte swizzle (the layout TMA writes and wgmma's descriptors read).
+__device__ __forceinline__ uint32_t sw128(int r, int c) { return r * 128 + 16 * (c ^ (r & 7)); }
+
+// ---- K7 --------------------------------------------------------------------
+
+constexpr int kDqGroup = 64;     // K of a tile: one scale and one bias per weight row
+constexpr int kXBox = 64 * 128;  // one x box: 64 rows x 64 bf16 (8 KB)
+constexpr int kStageRow = 144;   // epilogue staging: 64 bf16 and 16 bytes of padding a row
+
+template <int kBM, bool kInt4>
+struct DqLayout {
+  static constexpr int kXBytes = kBM * 128;
+  static constexpr int kCodeRow = kInt4 ? 32 : 64;  // code bytes of one weight row a tile
+  static constexpr int kStage = kXBytes + kWsBN * kCodeRow;
+  static constexpr int kStages = kBM == 256 ? 5 : 8;
+  static constexpr int kBars = kStages * kStage;  // full and x-empty per stage
+  static constexpr int kSmem = kBars + 16 * kStages + 1024;  // + slack to align the base
+  static_assert(kStage % 1024 == 0, "stages keep the swizzle atoms aligned");
+  static_assert(2 * kBM * kStageRow <= kBars, "both warpgroups' staging fits the idle ring");
+};
+
+// float(code) * s + b in f32 (__fmul_rn, __fadd_rn), code = byte ``sel`` of
+// ``word``: the byte is placed under the exponent of 2^23, and 2^23 subtracted.
+__device__ __forceinline__ float dequant1(uint32_t word, int sel, float s, float b) {
+  const float f = __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7440 + sel));
+  return __fadd_rn(__fmul_rn(__fsub_rn(f, 8388608.f), s), b);
+}
+
+// The A fragments of a tile's four k16 steps for this thread's weight rows r0
+// and r0 + 8 of the code tile at ``codes``: a[kk] = {(r0, k 2t, 2t+1), (r0+8,
+// 2t..), (r0, 2t+8, 2t+9), (r0+8, 2t+8..)} of step kk, dequantized to bf16
+// pairs. The rows' scales and biases are s[0], b[0] and s[1], b[1].
+template <bool kInt4>
+__device__ __forceinline__ void dequant_fragments(uint32_t (&a)[4][4], uint32_t codes, int r0, int t,
+                                                  const float (&s)[2], const float (&b)[2]) {
 #pragma unroll
-  for (int i = 0; i < kMT; ++i)
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if constexpr (kInt4) {  // byte 8kk + t holds k 16kk + 2t (low nibble) and + 1; byte 8kk + 4 + t k + 8, + 9
 #pragma unroll
-    for (int j = 0; j < kNT; ++j)
+      for (int c = 0; c < 2; ++c) {
+        const uint4 v = lds128(codes + r * 32 + 16 * (c ^ ((r >> 2) & 1)));  // 32-byte swizzle
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        accf[i][j][e] = 0.f;
-        acc[i][j][e] = 0;
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t lo0 = w[2 * h] & 0x0F0F0F0Fu, hi0 = (w[2 * h] >> 4) & 0x0F0F0F0Fu;
+          const uint32_t lo1 = w[2 * h + 1] & 0x0F0F0F0Fu, hi1 = (w[2 * h + 1] >> 4) & 0x0F0F0F0Fu;
+          a[2 * c + h][i] = pack_bf16(dequant1(lo0, t, s[i], b[i]), dequant1(hi0, t, s[i], b[i]));
+          a[2 * c + h][2 + i] = pack_bf16(dequant1(lo1, t, s[i], b[i]), dequant1(hi1, t, s[i], b[i]));
+        }
       }
-
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int st = tile & 1;
-    if (tile + 1 < ntiles) load_stage(st ^ 1, tile + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int8_t* a_lo = smem + st * kW4StageBytes;
-    const int8_t* a_hi = a_lo + kTile8Bytes;
-    const int8_t* bp = a_lo + 2 * kTile8Bytes;
+    } else {  // 16 bytes a step: k 2t, 2t+1 in word t / 2, k 2t+8, 2t+9 in word 2 + t / 2
+      const int sel = 2 * (t & 1);
 #pragma unroll
-    for (int kb = 0; kb < kTileK8; kb += 32) {
-      uint32_t blo[kNT][2], bhi[kNT][2];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int8_t* p = bp + (wn * kWarpN + j * 8 + g) * kStride8 + kb + 4 * t;
-        const uint32_t p0 = lds32(p), p1 = lds32(p + 16);
-        blo[j][0] = nibbles_lo(p0);
-        blo[j][1] = nibbles_lo(p1);
-        bhi[j][0] = nibbles_hi(p0);
-        bhi[j][1] = nibbles_hi(p1);
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        const int row = wm * kWarpM + i * 16 + g;
-        uint32_t a[4];
-        frag_a8(a, a_lo, row, kb, t);
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) mma_s8(acc[i][j], a, blo[j]);
-        frag_a8(a, a_hi, row, kb, t);
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) mma_s8(acc[i][j], a, bhi[j]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint4 v = lds128(codes + r * 64 + 16 * (kk ^ ((r >> 1) & 3)));  // 64-byte swizzle
+        const uint32_t lo = (t & 2) ? v.y : v.x, hi = (t & 2) ? v.w : v.z;
+        a[kk][i] = pack_bf16(dequant1(lo, sel, s[i], b[i]), dequant1(lo, sel + 1, s[i], b[i]));
+        a[kk][2 + i] = pack_bf16(dequant1(hi, sel, s[i], b[i]), dequant1(hi, sel + 1, s[i], b[i]));
       }
     }
-    if (tile % kTilesPerBlock == kTilesPerBlock - 1) {
-      // End of a 512-block: acc_f += float(acc) * (xs[row, b] * ws[col, b]).
-      const int b = tile / kTilesPerBlock;
+  }
+}
+
+template <int kBM, bool kInt4>
+__global__ void __launch_bounds__(kWsThreads, 1)
+dequant_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap cmap,
+               const float* __restrict__ scale, const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+               int m, int n, int k) {
+  using L = DqLayout<kBM, kInt4>;
+  constexpr int S = L::kStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms are 1024-byte aligned
+  auto full = [&](int st) { return base + L::kBars + 8u * st; };
+  auto x_empty = [&](int st) { return base + L::kBars + 8u * (S + st); };
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kWsBN;
+  const int nk = k / kDqGroup;  // a multiple of 8 (the gate asks K % 512)
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(x_empty(st), 2);  // one arrival per multiplying warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Loading warpgroup: one thread refills each stage (the kBM x rows in
+    // 64-row boxes, the 128 weight rows' codes) once both multiplying
+    // warpgroups have retired the products that read it.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoadRegs) : "memory");
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % S;
+        if (kt >= S) mbar_wait(x_empty(st), ((kt / S) - 1) & 1);
+        const uint32_t stage = base + st * L::kStage;
+        mbar_expect_tx(full(st), L::kStage);
 #pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        const int r0 = m0 + wm * kWarpM + i * 16 + g;
-        const int r1 = r0 + 8;
-        const float xs0 = r0 < m ? xs[(size_t)r0 * kblocks + b] : 0.f;
-        const float xs1 = r1 < m ? xs[(size_t)r1 * kblocks + b] : 0.f;
+        for (int r = 0; r < kBM / 64; ++r) tma_load_2d(stage + r * kXBox, &xmap, full(st), kt * kDqGroup, m0 + 64 * r);
+        tma_load_2d(stage + L::kXBytes, &cmap, full(st), kt * L::kCodeRow, n0);
+      }
+    }
+  } else {
+    // Multiplying warpgroup w: weight rows n0 + 64w .. + 63 against all kBM
+    // x rows, out^T = W x^T with W as the register A operand.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kMmaRegs) : "memory");
+    const int w = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int wq = tid / 32, g = (tid % 32) >> 2, t = tid & 3;
+    const int r0 = 64 * w + 16 * wq + g;  // this thread's weight rows in the tile: r0 and r0 + 8
+    const float* scale0 = scale + (size_t)(n0 + r0) * nk;
+    const float* bias0 = bias + (size_t)(n0 + r0) * nk;
+    float s[2] = {scale0[0], scale0[8 * nk]}, b[2] = {bias0[0], bias0[8 * nk]};
+    float acc[kBM / 2];
+    uint32_t a[4][4];
+    mbar_wait(full(0), 0);
+    dequant_fragments<kInt4>(a, base + L::kXBytes, r0, t, s, b);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % S;
+      if (kt + 1 < nk) {  // the next tile's scales and biases, loaded under this tile's products
+        s[0] = scale0[kt + 1];
+        s[1] = scale0[8 * nk + kt + 1];
+        b[0] = bias0[kt + 1];
+        b[1] = bias0[8 * nk + kt + 1];
+      }
+      wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          const int col = n0 + wn * kWarpN + j * 8 + 2 * t;
-          const float ws0 = ws[(size_t)col * kblocks + b], ws1 = ws[(size_t)(col + 1) * kblocks + b];
-          const float s[4] = {__fmul_rn(xs0, ws0), __fmul_rn(xs0, ws1), __fmul_rn(xs1, ws0), __fmul_rn(xs1, ws1)};
+      for (int kk = 0; kk < kDqGroup / 16; ++kk) {
+        wgmma_rs_kmajor(acc, a[kk], smem_desc(base + st * L::kStage + kk * 32, 16, 1024), kt | kk);
+      }
+      wgmma_commit();
+      // The A registers are read after issue, so the next tile's fragments
+      // wait for these products (with one group left in flight the compiler
+      // reused the registers under the running products: wrong, varying
+      // results). The other warpgroup's products keep the tensor cores busy.
+      wgmma_wait_all();
+      if (tid == 0) mbar_arrive(x_empty(st));
+      if (kt + 1 < nk) {
+        const int st1 = (kt + 1) % S;
+        mbar_wait(full(st1), ((kt + 1) / S) & 1);
+        dequant_fragments<kInt4>(a, base + st1 * L::kStage + L::kXBytes, r0, t, s, b);
+      }
+    }
+    fence_acc(acc);
+    // Epilogue: acc[4j + e] is weight row 16wq + g + 8(e >> 1) of this
+    // warpgroup's 64 and x row 8j + 2t + (e & 1). Staged transposed through
+    // shared memory (the ring is idle once both warpgroups are here), then
+    // stored 16 bytes a thread along the output rows.
+    asm volatile("bar.sync 1, 256;" ::: "memory");
+    const uint32_t staging = base + w * kBM * kStageRow;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            accf[i][j][e] = __fadd_rn(accf[i][j][e], __fmul_rn(__int2float_rn(acc[i][j][e]), s[e]));
-            acc[i][j][e] = 0;
-          }
+    for (int j = 0; j < kBM / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat16 v = __float2bfloat16_rn(acc[4 * j + e]);
+        asm volatile("st.shared.u16 [%0], %1;" ::"r"(staging + (8 * j + 2 * t + (e & 1)) * kStageRow +
+                                                      2 * (16 * wq + g + 8 * (e >> 1))),
+                     "h"(*reinterpret_cast<const unsigned short*>(&v))
+                     : "memory");
+      }
+    }
+    asm volatile("bar.sync %0, 128;" ::"r"(2 + w) : "memory");
+    for (int i = tid; i < kBM * 8; i += 128) {
+      const int row = i / 8, chunk = i % 8;
+      if (m0 + row < m) {
+        *reinterpret_cast<uint4*>(out + (size_t)(m0 + row) * n + n0 + 64 * w + 8 * chunk) =
+            lds128(staging + row * kStageRow + 16 * chunk);
+      }
+    }
+  }
+}
+
+// ---- K6 --------------------------------------------------------------------
+
+constexpr int kW4Stages = 4;
+constexpr int kW4Tile = 128;            // packed code bytes of a weight row a tile: 256 K
+constexpr int kW4Stage = 3 * kRowTile;  // x low half, x high half, codes (each [128, 128] bytes)
+constexpr int kW4Scales = kW4Stages * kW4Stage;  // xs and ws of a block (128 f32 each), by the block's parity
+constexpr int kW4Bars = kW4Scales + 2 * 1024;
+constexpr int kW4Smem = kW4Bars + 16 * kW4Stages + 1024;
+
+// Four packed bytes -> the four int8 codes of their low / high nibbles (minus 8).
+__device__ __forceinline__ uint32_t nibbles_lo(uint32_t p) { return __vsub4(p & 0x0F0F0F0Fu, 0x08080808u); }
+__device__ __forceinline__ uint32_t nibbles_hi(uint32_t p) { return __vsub4((p >> 4) & 0x0F0F0F0Fu, 0x08080808u); }
+
+// Exact float of an int32 below 2^22 in magnitude: placed under the exponent
+// of 1.5 * 2^23, which is then subtracted.
+__device__ __forceinline__ float small_int_to_float(int v) {
+  return __fsub_rn(__int_as_float(0x4B400000 + v), 12582912.f);
+}
+
+// The A fragments of a tile's four k32 steps for this thread's weight rows r0
+// and r0 + 8 of the code tile at ``codes``: one 32-bit load of packed bytes
+// gives the fragment of the low half's step (low nibbles) and of the high
+// half's (high nibbles) at the same positions.
+__device__ __forceinline__ void unpack_fragments(uint32_t (&lo)[4][4], uint32_t (&hi)[4][4], uint32_t codes, int r0,
+                                                 int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // rows r0, r0 + 8; bytes 32kk + 4t, 32kk + 16 + 4t
+      const int r = r0 + 8 * (i & 1);
+      const uint32_t p = lds_u32(codes + sw128(r, 2 * kk + (i >> 1)) + 4 * t);
+      lo[kk][i] = nibbles_lo(p);
+      hi[kk][i] = nibbles_hi(p);
+    }
+  }
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(kWsThreads, 1)
+w4a8_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap cmap,
+            const float* __restrict__ xs, const float* __restrict__ ws, OutT* __restrict__ out, int m, int n, int k) {
+  constexpr int S = kW4Stages;
+  constexpr int kRow = 64 * sizeof(OutT) + 16;  // epilogue staging row: 64 outputs and padding
+  static_assert(2 * 128 * kRow <= kW4Scales, "both warpgroups' staging fits the idle ring");
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  auto full = [&](int st) { return base + kW4Bars + 8u * st; };
+  auto x_empty = [&](int st) { return base + kW4Bars + 8u * (S + st); };
+  const int m0 = blockIdx.y * 128, n0 = blockIdx.x * kWsBN;
+  const int kblocks = k / kW4Block;
+  const int nk = 2 * kblocks;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(x_empty(st), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Loading warpgroup: one thread refills each stage once its products retire.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoadRegs) : "memory");
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % S;
+        if (kt >= S) mbar_wait(x_empty(st), ((kt / S) - 1) & 1);
+        const uint32_t stage = base + st * kW4Stage;
+        const int kx = (kt / 2) * kW4Block + (kt % 2) * kW4Tile;  // x column of the low half
+        mbar_expect_tx(full(st), kW4Stage);
+        tma_load_2d(stage, &xmap, full(st), kx, m0);
+        tma_load_2d(stage + kRowTile, &xmap, full(st), kx + kW4Block / 2, m0);
+        tma_load_2d(stage + 2 * kRowTile, &cmap, full(st), kt * kW4Tile, n0);
+      }
+    }
+  } else {
+    // Multiplying warpgroup w: weight rows n0 + 64w .. + 63 against the 128
+    // x rows, out^T = W x^T with the unpacked codes as the register A operand;
+    // s32 sums of the current block, f32 sums of the blocks before it.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kMmaRegs) : "memory");
+    const int w = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int wq = tid / 32, g = (tid % 32) >> 2, t = tid & 3;
+    const int r0 = 64 * w + 16 * wq + g;  // this thread's weight rows in the tile: r0 and r0 + 8
+    int acc[64];
+    float acc_f[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc_f[i] = 0.f;
+    uint32_t lo[4][4], hi[4][4];
+    mbar_wait(full(0), 0);
+    unpack_fragments(lo, hi, base + 2 * kRowTile, r0, t);
+    for (int b = 0; b < kblocks; ++b) {
+      // The block's scales into its parity's area: warpgroup 0 writes xs of
+      // the 128 x rows, warpgroup 1 ws of the 128 weight rows. The area was
+      // last read by the fold of block b - 2, which both warpgroups finished
+      // before the barrier of block b - 1.
+      const uint32_t sc = base + kW4Scales + (b & 1) * 1024;
+      const float v = w == 0 ? (m0 + tid < m ? xs[(size_t)(m0 + tid) * kblocks + b] : 0.f)
+                             : ws[(size_t)(n0 + tid) * kblocks + b];
+      sts_f32(sc + 512 * w + 4 * tid, v);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int kt = 2 * b + half;
+        const int st = kt % S;
+        const uint32_t x_lo = base + st * kW4Stage;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {  // low nibbles by x's low half; the block's first product overwrites
+          wgmma_rs_s8(acc, lo[kk], smem_desc(x_lo + kk * 32, 16, 1024), half | kk);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_s8(acc, hi[kk], smem_desc(x_lo + kRowTile + kk * 32, 16, 1024), 1);
+        wgmma_commit();
+        wgmma_wait_all();  // the fragments may be written again (see K7)
+        if (tid == 0) mbar_arrive(x_empty(st));
+        if (kt + 1 < nk) {
+          const int st1 = (kt + 1) % S;
+          mbar_wait(full(st1), ((kt + 1) / S) & 1);
+          unpack_fragments(lo, hi, base + st1 * kW4Stage + 2 * kRowTile, r0, t);
+        }
+      }
+      // acc_f += float(sum) * (xs[row, b] * ws[col, b]), in the plain version's order.
+      fence_acc(acc);
+      asm volatile("bar.sync 1, 256;" ::: "memory");  // the block's xs and ws are in place
+      const float w0 = lds_f32(sc + 512 + 4 * r0), w1 = lds_f32(sc + 512 + 4 * (r0 + 8));
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 xv = lds_f32x2(sc + 4 * (8 * j + 2 * t));
+        const float s[4] = {__fmul_rn(xv.x, w0), __fmul_rn(xv.y, w0), __fmul_rn(xv.x, w1), __fmul_rn(xv.y, w1)};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc_f[4 * j + e] = __fadd_rn(acc_f[4 * j + e], __fmul_rn(small_int_to_float(acc[4 * j + e]), s[e]));
         }
       }
     }
-    __syncthreads();
-  }
-
+    // Epilogue: acc_f[4j + e] is weight row 16wq + g + 8(e >> 1) of this
+    // warpgroup's 64 and x row 8j + 2t + (e & 1); staged transposed through
+    // the idle ring, then stored 16 bytes a thread along the output rows.
+    asm volatile("bar.sync 1, 256;" ::: "memory");
+    const uint32_t staging = base + w * 128 * kRow;
 #pragma unroll
-  for (int i = 0; i < kMT; ++i) {
-    const int r0 = m0 + wm * kWarpM + i * 16 + g;
-    const int r1 = r0 + 8;
+    for (int j = 0; j < 16; ++j) {
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int col = n0 + wn * kWarpN + j * 8 + 2 * t;
-      if (r0 < m) store2(out + (size_t)r0 * n + col, accf[i][j][0], accf[i][j][1]);
-      if (r1 < m) store2(out + (size_t)r1 * n + col, accf[i][j][2], accf[i][j][3]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K7: grouped int8 / int4 dequant, bf16 GEMM
-// ---------------------------------------------------------------------------
-
-constexpr int kDqGroup = 64;  // == kTileKbf: one scale and bias per row of a tile
-constexpr int kDqSmem = 2 * 2 * kTileBfElems * (int)sizeof(__nv_bfloat16);  // 73,728 bytes
-
-// Each thread dequantizes 32 consecutive k of one weight row per tile.
-template <bool kInt4>
-struct CodeRegs {
-  uint4 v[kInt4 ? 1 : 2];
-  float scale, bias;
-};
-
-template <bool kInt4>
-__device__ __forceinline__ void load_codes(CodeRegs<kInt4>& r, const uint8_t* codes, const float* scale,
-                                           const float* bias, int row, int half, int k, int k0) {
-  const int groups = k / kDqGroup;
-  if (kInt4) {
-    r.v[0] = *reinterpret_cast<const uint4*>(codes + (size_t)row * (k / 2) + k0 / 2 + half * 16);
-  } else {
-    const uint8_t* p = codes + (size_t)row * k + k0 + half * 32;
-    r.v[0] = *reinterpret_cast<const uint4*>(p);
-    r.v[1] = *reinterpret_cast<const uint4*>(p + 16);
-  }
-  r.scale = scale[(size_t)row * groups + k0 / kDqGroup];
-  r.bias = bias[(size_t)row * groups + k0 / kDqGroup];
-}
-
-__device__ __forceinline__ float dequant1(uint32_t code, float s, float b) {
-  return __fadd_rn(__fmul_rn(static_cast<float>(code), s), b);
-}
-
-// 32 codes -> 32 bf16 weights at dst, k in order.
-template <bool kInt4>
-__device__ __forceinline__ void store_dequant(__nv_bfloat16* dst, const CodeRegs<kInt4>& r) {
-  const uint32_t* words = reinterpret_cast<const uint32_t*>(r.v);
-  uint32_t packed[16];  // bf16 pairs (k = 2i, 2i + 1)
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    uint32_t lo, hi;
-    if (kInt4) {  // byte i holds k = 2i (low nibble) and 2i + 1 (high nibble)
-      const uint32_t byte = (words[i / 4] >> (8 * (i % 4))) & 0xFFu;
-      lo = byte & 0xFu;
-      hi = byte >> 4;
-    } else {  // bytes 2i and 2i + 1
-      const uint32_t half = words[i / 2] >> (16 * (i % 2));
-      lo = half & 0xFFu;
-      hi = (half >> 8) & 0xFFu;
-    }
-    __nv_bfloat162 v = __floats2bfloat162_rn(dequant1(lo, r.scale, r.bias), dequant1(hi, r.scale, r.bias));
-    packed[i] = *reinterpret_cast<uint32_t*>(&v);
-  }
-  uint4* d = reinterpret_cast<uint4*>(dst);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] = make_uint4(packed[4 * i], packed[4 * i + 1], packed[4 * i + 2], packed[4 * i + 3]);
-}
-
-template <bool kInt4>
-__global__ void __launch_bounds__(kThreads)
-dequant_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
-               const float* __restrict__ scale, const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-               int m, int n, int k) {
-  extern __shared__ __align__(16) __nv_bfloat16 smem_bf[];
-  __nv_bfloat16* as = smem_bf;                     // [2][128][72]
-  __nv_bfloat16* bs = smem_bf + 2 * kTileBfElems;  // [2][128][72], weights [n][k]
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / (kBN / kWarpN), wn = warp % (kBN / kWarpN);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int brow = threadIdx.x / 2, bhalf = threadIdx.x % 2;  // this thread's weight row and half of k
-
-  auto load_a = [&](int stage, int k0) {
-#pragma unroll
-    for (int it = 0; it < kBM * (kTileKbf / 8) / kThreads; ++it) {
-      const int c = threadIdx.x + it * kThreads;
-      const int r = c / (kTileKbf / 8);
-      const int col = (c % (kTileKbf / 8)) * 8;
-      const bool valid = m0 + r < m;
-      const __nv_bfloat16* s = valid ? x + (size_t)(m0 + r) * k + k0 + col : x;
-      cp_async16(as + stage * kTileBfElems + r * kStrideBf + col, s, valid);
-    }
-  };
-
-  float acc[kMT][kNT][4];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int nk = k / kTileKbf;
-  CodeRegs<kInt4> regs;
-  load_codes<kInt4>(regs, codes, scale, bias, n0 + brow, bhalf, k, 0);
-  load_a(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    // Stage st was last read two tiles ago; the barrier of the previous
-    // iteration orders that read before this write.
-    store_dequant<kInt4>(bs + st * kTileBfElems + brow * kStrideBf + bhalf * 32, regs);
-    cp_async_wait<0>();
-    __syncthreads();  // A and B of tile kt are in place; every warp is done with tile kt - 1
-    if (kt + 1 < nk) {
-      load_codes<kInt4>(regs, codes, scale, bias, n0 + brow, bhalf, k, (kt + 1) * kTileKbf);
-      load_a(st ^ 1, (kt + 1) * kTileKbf);
-    }
-    cp_async_commit();
-    const __nv_bfloat16* at = as + st * kTileBfElems;
-    const __nv_bfloat16* bt = bs + st * kTileBfElems;
-#pragma unroll
-    for (int kk = 0; kk < kTileKbf; kk += 16) {
-      uint32_t b[kNT][2];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const __nv_bfloat16* p = bt + (wn * kWarpN + j * 8 + g) * kStrideBf + kk + 2 * t;
-        b[j][0] = lds32(p);
-        b[j][1] = lds32(p + 8);
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        const __nv_bfloat16* p = at + (wm * kWarpM + i * 16 + g) * kStrideBf + kk + 2 * t;
-        uint32_t a[4];
-        a[0] = lds32(p);
-        a[1] = lds32(p + 8 * kStrideBf);
-        a[2] = lds32(p + 8);
-        a[3] = lds32(p + 8 * kStrideBf + 8);
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) mma_bf16(acc[i][j], a, b[j]);
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t at = staging + (8 * j + 2 * t + (e & 1)) * kRow + sizeof(OutT) * (16 * wq + g + 8 * (e >> 1));
+        if constexpr (sizeof(OutT) == 4) {
+          sts_f32(at, acc_f[4 * j + e]);
+        } else {
+          const __nv_bfloat16 v = __float2bfloat16_rn(acc_f[4 * j + e]);
+          asm volatile("st.shared.u16 [%0], %1;" ::"r"(at), "h"(*reinterpret_cast<const unsigned short*>(&v))
+                       : "memory");
+        }
       }
     }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kMT; ++i) {
-    const int r0 = m0 + wm * kWarpM + i * 16 + g;
-    const int r1 = r0 + 8;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int col = n0 + wn * kWarpN + j * 8 + 2 * t;
-      if (r0 < m) store2(out + (size_t)r0 * n + col, acc[i][j][0], acc[i][j][1]);
-      if (r1 < m) store2(out + (size_t)r1 * n + col, acc[i][j][2], acc[i][j][3]);
+    asm volatile("bar.sync %0, 128;" ::"r"(2 + w) : "memory");
+    constexpr int kChunks = 64 * sizeof(OutT) / 16;
+    for (int i = tid; i < 128 * kChunks; i += 128) {
+      const int row = i / kChunks, chunk = i % kChunks;
+      if (m0 + row < m) {
+        *reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(out + (size_t)(m0 + row) * n + n0 + 64 * w) +
+                                  16 * chunk) = lds128(staging + row * kRow + 16 * chunk);
+      }
     }
   }
 }
 
 bool grid_ok(int m, int n) { return m > 0 && n > 0 && (m + kBM - 1) / kBM <= 65535; }
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+                                                   cudaSuccess) {
+      count = 132;
+    }
+  }
+  return count;
+}
+
+template <typename OutT>
+int launch_w4a8(const CUtensorMap& xmap, const CUtensorMap& cmap, const float* xs, const float* ws, OutT* out, int m,
+                int n, int k, void* stream) {
+  const cudaError_t attr =
+      cudaFuncSetAttribute(w4a8_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kW4Smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(n / kWsBN, (m + 127) / 128);
+  w4a8_kernel<OutT><<<grid, kWsThreads, kW4Smem, static_cast<cudaStream_t>(stream)>>>(xmap, cmap, xs, ws, out, m, n,
+                                                                                        k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kBM, bool kInt4>
+int launch_dequant(const CUtensorMap& xmap, const CUtensorMap& cmap, const float* scale, const float* bias,
+                   __nv_bfloat16* out, int m, int n, int k, void* stream) {
+  using L = DqLayout<kBM, kInt4>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(dequant_kernel<kBM, kInt4>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(n / kWsBN, (m + kBM - 1) / kBM);
+  dequant_kernel<kBM, kInt4><<<grid, kWsThreads, L::kSmem, static_cast<cudaStream_t>(stream)>>>(
+      xmap, cmap, scale, bias, out, m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -512,54 +681,48 @@ extern "C" int flux2_w8a8_matmul(const void* xq, const void* xs, const void* wq,
 }
 
 // xq int8 [m, k], xs f32 [m, k/512], wq uint8 [n, k/2] split-half packed,
-// ws f32 [n, k/512]; out as K5's. Needs k % 512 == 0 and n % 128 == 0.
+// ws f32 [n, k/512]; out as K5's. Needs k % 512 == 0, n % 128 == 0 and
+// 16-byte aligned xq and wq.
 extern "C" int flux2_w4a8_matmul(const void* xq, const void* xs, const void* wq, const void* ws, void* out,
                                  int m, int n, int k, int out_f32, void* stream) {
-  if (!grid_ok(m, n) || k <= 0 || k % kW4Block || n % kBN) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(n / kBN, (m + kBM - 1) / kBM);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* a = static_cast<const int8_t*>(xq);
-  const uint8_t* b = static_cast<const uint8_t*>(wq);
+  if (!grid_ok(m, n) || k <= 0 || k % kW4Block || n % kWsBN) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, cmap;
+  if (!encode_map_2d(&xmap, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, m, k, 128, kW4Tile, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_map_2d(&cmap, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, n, k / 2, kWsBN, kW4Tile,
+                     CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const float* sa = static_cast<const float*>(xs);
   const float* sb = static_cast<const float*>(ws);
-  cudaError_t err;
-  if (out_f32) {
-    err = cudaFuncSetAttribute(w4a8_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize, kW4Smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    w4a8_kernel<float><<<grid, kThreads, kW4Smem, s>>>(a, sa, b, sb, static_cast<float*>(out), m, n, k);
-  } else {
-    err = cudaFuncSetAttribute(w4a8_kernel<__nv_bfloat16>, cudaFuncAttributeMaxDynamicSharedMemorySize, kW4Smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    w4a8_kernel<__nv_bfloat16><<<grid, kThreads, kW4Smem, s>>>(a, sa, b, sb, static_cast<__nv_bfloat16*>(out),
-                                                                m, n, k);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (out_f32) return launch_w4a8(xmap, cmap, sa, sb, static_cast<float*>(out), m, n, k, stream);
+  return launch_w4a8(xmap, cmap, sa, sb, static_cast<__nv_bfloat16*>(out), m, n, k, stream);
 }
 
 // x bf16 [m, k]; codes uint8 [n, k] (int4 = 0) or [n, k/2] (int4 = 1,
 // interleaved); scale, bias f32 [n, k/group]; out bf16 [m, n]. Needs
-// group == 64, k % 64 == 0 and n % 128 == 0 (the K7 gate asks k % 512).
+// group == 64, k % 512 == 0 (the K7 gate's), n % 128 == 0 and 16-byte aligned
+// pointers.
 extern "C" int flux2_dequant_matmul(const void* x, const void* codes, const void* scale, const void* bias,
                                     void* out, int m, int n, int k, int group, int int4, void* stream) {
-  if (!grid_ok(m, n) || group != kDqGroup || k <= 0 || k % kTileKbf || n % kBN) {
+  if (!grid_ok(m, n) || group != kDqGroup || k <= 0 || k % 512 || n % kWsBN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(n / kBN, (m + kBM - 1) / kBM);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xa = static_cast<const __nv_bfloat16*>(x);
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  // 256 rows a CTA halve the dequant work where the grid still fills the card.
+  const bool wide = m > 128 && ((m + 255) / 256) * (n / kWsBN) >= sm_count();
+  const int code_cols = int4 ? k / 2 : k;
+  CUtensorMap xmap, cmap;
+  if (!encode_map_2d(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, m, k, 64, kDqGroup, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_map_2d(&cmap, codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, n, code_cols, kWsBN, int4 ? 32 : 64,
+                     int4 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  cudaError_t err;
   if (int4) {
-    err = cudaFuncSetAttribute(dequant_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dequant_kernel<true><<<grid, kThreads, kDqSmem, s>>>(xa, c, sc, bi, o, m, n, k);
-  } else {
-    err = cudaFuncSetAttribute(dequant_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dequant_kernel<false><<<grid, kThreads, kDqSmem, s>>>(xa, c, sc, bi, o, m, n, k);
+    return wide ? launch_dequant<256, true>(xmap, cmap, sc, bi, o, m, n, k, stream)
+                : launch_dequant<128, true>(xmap, cmap, sc, bi, o, m, n, k, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return wide ? launch_dequant<256, false>(xmap, cmap, sc, bi, o, m, n, k, stream)
+              : launch_dequant<128, false>(xmap, cmap, sc, bi, o, m, n, k, stream);
 }

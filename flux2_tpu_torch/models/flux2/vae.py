@@ -66,7 +66,7 @@ class Conv2d(nn.Module):
         self.padding = ksize // 2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), padding=self.padding)
+        return F.conv2d(x, self.weight.to(x.dtype), padding=self.padding) + self.bias.to(x.dtype)[:, None, None]
 
 
 class GroupNorm(nn.Module):
@@ -92,7 +92,8 @@ class Dense(nn.Module):
         self.bias = _param(torch.zeros(cout, device=device, dtype=torch.float32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
 
 
 class ResnetBlock(nn.Module):

@@ -2,11 +2,13 @@
 
 Port of the T2I branch of ``flux2_tpu/pipeline/pipeline.py``: prompt ->
 text encoder (LRU-cached) -> seeded noise -> Euler denoising over the
-FLUX.2 sigma schedule -> VAE decode -> uint8. Where JAX compiles the denoise
-loop into one ``lax.scan``, the port runs a Python loop over the schedule
-under ``torch.inference_mode()``; cancellation is checked on the host between
-steps. Classical CFG, I2I, img2img strength, step hooks, previews and
-checkpoint images are not ported yet.
+FLUX.2 sigma schedule -> VAE decode -> uint8, with JAX's classical CFG for
+the base models (cond and uncond as batch rows of one forward, the "" negative
+encoded through the same LRU). Where JAX compiles the denoise loop into one
+``lax.scan``, the port runs a Python loop over the schedule under
+``torch.inference_mode()``; cancellation is checked on the host between steps.
+I2I, img2img strength, step hooks, previews and checkpoint images are not
+ported yet.
 
 The noise comes from a ``torch.Generator`` seeded with ``seed``: JAX uses
 threefry, so one seed gives different images in the two packages. Pass
@@ -15,6 +17,7 @@ threefry, so one seed gives different images in the two packages. Pass
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import threading
 import time
@@ -68,8 +71,9 @@ class Flux2Pipeline:
     device: torch.device
     text_encoder: Optional[Callable[[str], torch.Tensor]] = None  # prompt -> [1, S, joint]
     max_pixels: int = 4096 * 4096
-    # VAE compute dtype: bf16 convs with f32 GroupNorm statistics, as the JAX
-    # pipeline; float32 for full-precision comparisons.
+    # VAE compute dtype: the decode casts the VAE's float parameters and the
+    # latents to it, as the JAX pipeline does (bf16 throughout, f32 GroupNorm
+    # statistics); float32 for full-precision comparisons.
     vae_compute_dtype: torch.dtype = torch.bfloat16
 
     PROMPT_CACHE_SIZE = 8
@@ -78,6 +82,7 @@ class Flux2Pipeline:
         self._prompt_cache: "OrderedDict[str, torch.Tensor]" = OrderedDict()
         self._prompt_lock = threading.Lock()
         self._cache_encoder = None
+        self._cast_vae = (None, None, None)  # (source VAE, dtype, its cast copy)
 
     @classmethod
     def from_random(
@@ -132,6 +137,7 @@ class Flux2Pipeline:
         self,
         prompt: Optional[str] = None,
         embeddings: Optional[torch.Tensor] = None,
+        negative_embeddings: Optional[torch.Tensor] = None,  # classical CFG's uncond rows
         height: int = 1024,
         width: int = 1024,
         num_steps: Optional[int] = None,
@@ -141,7 +147,9 @@ class Flux2Pipeline:
         decode: bool = True,
         cancel: Optional[Any] = None,  # threading.Event-like or () -> bool
     ) -> GenerationResult:
-        """Text to image. The batch follows ``embeddings``' leading axis."""
+        """Text to image. The batch follows ``embeddings``' leading axis. A
+        base model (``uses_classical_cfg``) guides with ``negative_embeddings``,
+        or with the encoded "" prompt when an encoder is attached."""
         t0 = time.perf_counter()
         timings: Dict[str, float] = {}
         height, width = lu.validate_dimensions(height, width)
@@ -155,7 +163,11 @@ class Flux2Pipeline:
         t = time.perf_counter()
         if embeddings is None:
             embeddings = self.encode_prompt(prompt or "")
+        if self.model.uses_classical_cfg and negative_embeddings is None and self.text_encoder is not None:
+            negative_embeddings = self.encode_prompt("")
         embeddings = torch.as_tensor(embeddings).to(self.device)
+        if negative_embeddings is not None:
+            negative_embeddings = torch.as_tensor(negative_embeddings).to(self.device)
         _sync(self.device)
         timings["text_encoding"] = time.perf_counter() - t
 
@@ -173,7 +185,9 @@ class Flux2Pipeline:
         t = time.perf_counter()
         g = (torch.full((batch,), guidance, dtype=torch.float32, device=self.device)
              if self.model.uses_guidance_embeds else None)
-        latents = self._denoise(latents, embeddings, schedule.sigma_pairs(), cos, sin, g, cancel)
+        negative = negative_embeddings if self.model.uses_classical_cfg else None
+        latents = self._denoise(latents, embeddings, negative, schedule.sigma_pairs(), guidance, cos, sin, g,
+                                cancel)
         _sync(self.device)
         timings["denoising"] = time.perf_counter() - t
 
@@ -195,16 +209,33 @@ class Flux2Pipeline:
             images=images if images is not None and images.shape[0] > 1 else None,
         )
 
-    def _denoise(self, latents, embeddings, sigma_pairs, cos, sin, guidance, cancel) -> torch.Tensor:
-        """Euler loop over (sigma, sigma_next) pairs; latents stay float32."""
+    def _denoise(self, latents, embeddings, negative, sigma_pairs, guidance, cos, sin, g, cancel) -> torch.Tensor:
+        """Euler loop over (sigma, sigma_next) pairs; latents stay float32. For
+        a base model, cond and uncond are batch rows of one forward and
+        ``v = v_uncond + guidance * (v_cond - v_uncond)`` in the forward's dtype,
+        as JAX's ``_denoise``; ``g`` is the guidance embedding's input or None."""
+        use_cfg = self.model.uses_classical_cfg
+        if use_cfg and negative is None:
+            raise ValueError("classical CFG requires negative embeddings")
         dtype = param_dtype(self.transformer.x_embedder)  # bf16 when x_embedder is quantized
         b = latents.shape[0]
+        if use_cfg:
+            embeddings = torch.cat([embeddings, negative])
+            g = torch.cat([g, g]) if g is not None else None
         with torch.inference_mode():
             for i, (sigma, sigma_next) in enumerate(sigma_pairs):
                 if _cancel_requested(cancel):
                     raise GenerationCancelled(f"cancelled at step {i + 1}/{len(sigma_pairs)}")
                 tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
-                v = self.transformer(latents.to(dtype), embeddings, tstep, cos, sin, guidance=guidance)
+                x = latents.to(dtype)
+                if use_cfg:
+                    v2 = self.transformer(torch.cat([x, x]), embeddings, torch.cat([tstep, tstep]), cos, sin,
+                                          guidance=g)
+                    v_cond, v_uncond = v2[:b], v2[b:]
+                    scale = torch.tensor(guidance, dtype=torch.float32, device=self.device).to(v2.dtype)
+                    v = v_uncond + scale * (v_cond - v_uncond)
+                else:
+                    v = self.transformer(x, embeddings, tstep, cos, sin, guidance=g)
                 latents = sch.euler_step(latents, v.to(torch.float32), sigma, sigma_next)
         return latents
 
@@ -217,12 +248,26 @@ class Flux2Pipeline:
             mean, var = self.vae.get_batchnorm_stats()
             z = lu.unpatchify_latents(lu.denormalize_with_batchnorm(patched, mean, var))
             z = z.to(self.vae_compute_dtype)
+            vae = self._vae_in_compute_dtype()
             if z.shape[0] * height * width > DECODE_BATCH_BUDGET_PIXELS:
-                img = torch.cat([self.vae.decode(z[i : i + 1]) for i in range(z.shape[0])])
+                img = torch.cat([vae.decode(z[i : i + 1]) for i in range(z.shape[0])])
             else:
-                img = self.vae.decode(z)
+                img = vae.decode(z)
             img = torch.clamp(img.to(torch.float32) * 0.5 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
             return torch.clamp(img * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+
+    def _vae_in_compute_dtype(self) -> VAEDecoder:
+        """The VAE with its float parameters in ``vae_compute_dtype``: JAX's
+        ``_decode_latents_jit`` casts every VAE parameter before it decodes, so
+        its default decode runs in bf16 to the end (GroupNorm's scale and shift
+        rounded to bf16 as well). A copy, made once per VAE and dtype."""
+        if self.vae.post_quant_conv.weight.dtype == self.vae_compute_dtype:
+            return self.vae
+        source, dtype, cast = self._cast_vae
+        if source is not self.vae or dtype != self.vae_compute_dtype:
+            cast = copy.deepcopy(self.vae).to(self.vae_compute_dtype)
+            self._cast_vae = (self.vae, self.vae_compute_dtype, cast)
+        return cast
 
 
 def _sync(device: torch.device) -> None:

@@ -14,7 +14,8 @@ checks the library's and each candidate's K3 and K4 against
 ``flash_attention_grads_reference`` at the training shapes ``chip_smoke.py``
 checks (relative L2 of dq, dk and dv within 1e-2; the forward's out and LSE
 come from the library's K2), checks that a second call gives the same bits,
-and times the candidates beside the library's K3 and K4 in one process, in
+says whether each candidate's gradients equal the library's bit for bit (as
+a refactor's should), and times the candidates beside the library's K3 and K4 in one process, in
 turns (library, candidates, candidates in reverse, library), with CUDA
 events at three sequence lengths. It is how a redesign of the backward is
 compared with the current kernels before it replaces
@@ -134,6 +135,7 @@ def main(argv=None) -> int:
     for name, qs, ks, span in CASES:
         q, k, v, dout, lse, delta, scale = _inputs(gen, qs, ks, span)
         refs = fa.flash_attention_grads_reference(q, k, v, dout, scale, span)
+        first = None
         for label, entries in [("library", library), *candidates.items()]:
             grads = backward(entries, q, k, v, dout, lse, delta, scale, span, "dq") + backward(
                 entries, q, k, v, dout, lse, delta, scale, span, "dkv")
@@ -142,12 +144,14 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             errs = [float((g.float() - r.float()).norm() / r.float().norm()) for g, r in zip(grads, refs)]
             same = all(torch.equal(a, b) for a, b in zip(grads, again))
+            first = first or grads
+            lib_equal = all(torch.equal(a, b) for a, b in zip(grads, first))
             good = all(bool(torch.isfinite(g).all()) for g in grads) and max(errs) <= REL_TOL and same
             ok &= good
             print(f"[check] {label} {name} q={list(qs)} k={list(ks)} span={span}: rel_l2 dq {errs[0]:.3e} dk "
-                  f"{errs[1]:.3e} dv {errs[2]:.3e} (tol {REL_TOL}), repeat bitwise equal {same} "
-                  f"{'ok' if good else 'FAIL'} [{card}]", flush=True)
-        del q, k, v, dout, lse, delta, refs
+                  f"{errs[1]:.3e} dv {errs[2]:.3e} (tol {REL_TOL}), repeat bitwise equal {same}, equal to the "
+                  f"library's {lib_equal} {'ok' if good else 'FAIL'} [{card}]", flush=True)
+        del q, k, v, dout, lse, delta, refs, first
         torch.cuda.empty_cache()
 
     order = [("library", library)] + list(candidates.items())

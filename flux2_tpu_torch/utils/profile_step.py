@@ -172,9 +172,9 @@ def main(argv=None) -> int:
         noise = lu.seeded_noise_seq(SEED, size, size, batch, device=device)
         ids = np.concatenate([lu.text_position_ids(512), lu.image_position_ids(size, size)])
         cos, sin = rope_embeddings(torch.from_numpy(ids).to(device))
-        guidance = (torch.full((batch,), pipe.model.default_guidance, device=device)
-                    if pipe.model.uses_guidance_embeds else None)
-        step = lambda: pipe._denoise(noise, emb, [(0.7, 0.5)], cos, sin, guidance, None)  # noqa: E731
+        guidance = pipe.model.default_guidance
+        g = torch.full((batch,), guidance, device=device) if pipe.model.uses_guidance_embeds else None
+        step = lambda: pipe._denoise(noise, emb, None, [(0.7, 0.5)], guidance, cos, sin, g, None)  # noqa: E731
         rows.append(measure(step, f"DiT step {size}^2 bs={batch} {fmt}", card))
         if size == 1024:
             with torch.inference_mode():

@@ -226,3 +226,40 @@ def test_quantized_wrappers_raise_on_what_the_kernels_do_not_take(device):
         tqk.dequant_matmul(x.float(), tq.quantize(w, "qint8"))
     with pytest.raises(ValueError):
         tqk.w4a8_matmul(x, tq.to_w4a8(w).cpu())
+
+
+# K6 and K7 at the gates' edge shapes (one 512-block, the narrowest N each
+# gate takes, one row, a ragged last M tile) and at chip_smoke.QMM_SHAPES.
+QMM_SERVED = [(4096, 3072, 3072), (4608, 3072, 9216), (4096, 9216, 3072), (512, 7680, 3072), (1, 3072, 18432),
+              (512, 2560, 9216), (16, 512, 2560)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(1, 512, 256), (8, 512, 256), (100, 512, 256), (4095, 512, 256), *QMM_SERVED])
+def test_w4a8_kernel_equals_its_plain_version_to_the_bit(device, m, k, n, dtype):
+    """K6's s32 block sums are exact in any order and its f32 fold keeps the
+    plain version's operations and order, so both output types agree to the bit."""
+    x, w = _qmm_inputs(device, m, k, n, dtype)
+    qw = tq.to_w4a8(w)
+    out = tqk.w4a8_matmul(x, qw)
+    again = tqk.w4a8_matmul(x, qw)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert torch.equal(out, tqk.w4a8_matmul_reference(x, qw))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("fmt", ["qint8", "int4"])
+@pytest.mark.parametrize("m,k,n", [(8, 512, 128), (100, 512, 128), (4095, 512, 128),
+                                   *[(max(m, 8), k, n) for m, k, n in QMM_SERVED]])
+def test_dequant_kernel_matches_reference_and_repeats(device, fmt, m, k, n):
+    """K7 at the edge shapes (M = 8 is its gate's least) and the served ones:
+    within QMM_REL_TOL, and a second call gives the same bits."""
+    x, w = _qmm_inputs(device, m, k, n)
+    qw = tq.quantize(w, fmt)
+    out = tqk.dequant_matmul(x, qw)
+    again = tqk.dequant_matmul(x, qw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n) and torch.isfinite(out).all()
+    assert _rel(out, tqk.dequant_matmul_reference(x, qw)) <= QMM_REL_TOL
+    assert torch.equal(out, again)
