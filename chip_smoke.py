@@ -6,8 +6,10 @@ Builds the port's CUDA kernels from the sources in this checkout (into
 build/kernels/, one nvcc per source, all at once) and checks each against its
 plain PyTorch version on the card: K1 (flash attention), K2 / K3 / K4 (the
 flash forward with the row LSE, and the dQ and dK/dV backward) at the training
-shapes, and K5 / K6 / K7 (the W8A8, W4A8 and grouped int8/int4 quantized
-matmuls). Then, with random weights drawn on the card from a seed, at full
+shapes, K5 / K6 / K7 (the W8A8, W4A8 and grouped int8/int4 quantized
+matmuls) and the int8 activation prologue of K5 and K6 (equal to the plain
+torch chain to the bit). Then, with random weights drawn on the card from a
+seed, at full
 Klein-4B width: the 1024^2 VAE decode (first and warm), one DiT forward per
 quantized runtime against the bf16 forward, bf16 serving through the port's
 entry point (Flux2Server -> Qwen3-4B encoder -> DiT -> VAE), one
@@ -21,8 +23,9 @@ traceback is printed and the exit code is not 0. There is no CPU fallback.
 
 The last two lines of standard output are the card's name and power limit as
 nvidia-smi reports them, then {"ok": true, "device": {...}}; the line before
-those lists each kernel with its launches on its path (serving for K1 and K5,
-the quantized forwards for K6 and K7, the 512^2 training run for K2-K4) and
+those lists each kernel with its launches on its path (serving for K1, K5
+and the prologue, the quantized forwards for K6 and K7, the 512^2 training
+run for K2-K4) and
 per unit of it (a 1024^2 image, forward or train step), its error against the
 plain version, and at the main path's shape its time alone (torch.profiler;
 for K5-K7 also CUDA events around its C entry), its wrapper's and the plain
@@ -182,6 +185,7 @@ def phase_kernel_check(card: str):
     """K1 against flash_attention_reference on the card, same bf16 inputs; at
     the 1024^2 shape also the kernel alone, its bound and the library call."""
     from flux2_tpu_torch.ops import flash_attention as fa
+    from flux2_tpu_torch.utils.profile_step import kernel_time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -215,7 +219,7 @@ def phase_kernel_check(card: str):
             f"({flop / ms / 1e9:.1f} TFLOP/s) plain f32 {plain_ms:.4f} ms [{card}]")
         results[name] = {"err": err, "ms": ms, "plain_ms": plain_ms}
         if name == "klein4b_1024px":
-            alone = kernel_only_ms(lambda: fa.flash_attention(q, k, v), "flash_fwd_kernel")
+            alone = kernel_time_ms(lambda: fa.flash_attention(q, k, v), "flash_fwd_kernel")
             bound, bound_by = bound_ms(flop, attention_bytes(b, h, s_q, s_k, 2, 2, 0), BF16_FLOPS)
             library, library_ms = library_sdpa(q, k, v, card)
             log(f"[kernel] K1 {name}: alone {alone:.4f} ms ({flop / alone / 1e9:.1f} TFLOP/s), bound {bound:.4f} ms "
@@ -248,6 +252,7 @@ def phase_flash_grad_check(card: str):
     one dropped 64-key tile at S = 4608 costs ~sqrt(64 / 4608) = 0.12. A second
     backward on the same inputs must give the same bits (no atomics)."""
     from flux2_tpu_torch.ops import flash_attention as fa
+    from flux2_tpu_torch.utils.profile_step import kernel_time_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     results = {}
@@ -285,9 +290,9 @@ def phase_flash_grad_check(card: str):
         fwd_plain_ms = time_ms(lambda: fa.flash_attention_lse_reference(q, k, v, scale, span))
         bwd_ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, scale, span))
         bwd_plain_ms = time_ms(lambda: fa.flash_attention_grads_reference(q, k, v, dout, scale, span))
-        alone = {mark: kernel_only_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, scale, span), mark)
+        alone = {mark: kernel_time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, scale, span), mark)
                  for mark in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
-        alone["flash_fwd_lse_kernel"] = kernel_only_ms(lambda: fa.flash_attention_lse(q, k, v, scale, span),
+        alone["flash_fwd_lse_kernel"] = kernel_time_ms(lambda: fa.flash_attention_lse(q, k, v, scale, span),
                                                        "flash_fwd_lse_kernel")
         flop = 2.0 * qs[0] * qs[1] * qs[2] * ks[2] * qs[3]  # one S_q x S_k x D product
         log(f"[kernel] flash training {name} q={list(qs)} k={list(ks)} span={span}: rel_l2_err out "
@@ -356,26 +361,12 @@ def _qmm(fmt: str):
             lambda w, s: tq.QTensor(w.q, s, w.bias, w.format, w.group_size, w.orig_in))
 
 
-# Name marks of the quantized-matmul kernels in a torch.profiler trace.
+# Name marks of the quantized-matmul kernels in a torch.profiler trace, and of
+# K5's and K6's activation prologue (csrc/quant_prologue.cu).
 KERNEL_MARK = {"w8a8": "w8a8_kernel", "w4a8": "w4a8_kernel", "qint8": "dequant_kernel", "int4": "dequant_kernel"}
-
-
-def kernel_only_ms(fn, mark: str, reps: int = 10) -> float:
-    """Mean device time of the kernels whose name holds ``mark`` in one call of
-    ``fn`` (torch.profiler over ``reps`` calls): the kernel without the wrapper's
-    torch activation prologue."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without device events; a third empty one raises
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and mark in e.name)
-        if us > 0:
-            return us / reps / 1e3
-    raise RuntimeError(f"torch.profiler recorded no {mark} device time in three traces")
+PROLOGUE_MARK = "quantize_rows_kernel"
+# The formats whose wrapper runs the prologue kernel before its matmul.
+PROLOGUE_FORMATS = ("w8a8", "w4a8")
 
 
 def phase_quant_kernel_check(card: str):
@@ -390,6 +381,7 @@ def phase_quant_kernel_check(card: str):
     from flux2_tpu_torch.ops import quant as tq
     from flux2_tpu_torch.ops import quant_kernels as qk
     from flux2_tpu_torch.utils import quant_candidate as qc
+    from flux2_tpu_torch.utils.profile_step import kernel_time_ms
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
@@ -402,11 +394,12 @@ def phase_quant_kernel_check(card: str):
                 m = max(m, 8)
             x = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
             w = quantize((torch.randn(n, k, device="cuda", generator=gen) * k**-0.5).bfloat16())
-            before = qk.launches[counter]
+            before = dict(qk.launches)
             out = kernel(x, w).float()
             torch.cuda.synchronize()
-            if qk.launches[counter] != before + 1:
-                raise AssertionError(f"{kind} {name}: the wrapper did not launch its kernel")
+            launched = {c: qk.launches[c] - before[c] for c in before if qk.launches[c] != before[c]}
+            if launched != {counter: 1, **({"quantize_rows": 1} if kind in PROLOGUE_FORMATS else {})}:
+                raise AssertionError(f"{kind} {name}: the wrapper launched {launched}")
             ref = plain(x, w).float()
             rel = float((out - ref).norm() / ref.norm())
             x_drop = x.clone()
@@ -420,7 +413,7 @@ def phase_quant_kernel_check(card: str):
                                      f"({drop}) or a wrong scale ({wrong})")
             ms = time_ms(lambda: kernel(x, w))
             plain_ms = time_ms(lambda: plain(x, w), reps=5)
-            alone_ms = kernel_only_ms(lambda: kernel(x, w), KERNEL_MARK[kind])
+            alone_ms = kernel_time_ms(lambda: kernel(x, w), KERNEL_MARK[kind])
             entry, c_args = qk._kernel(qc.ENTRY[kind]), qc.entry_args(kind, x, w)
             buf = torch.empty(m, n, device="cuda", dtype=x.dtype)
             events = event_times(lambda: qc.call(entry, c_args, buf), reps=25, warmup=5)
@@ -439,7 +432,55 @@ def phase_quant_kernel_check(card: str):
             row.update(_qmm_yardsticks(kind, x, w, card))
             rows.append(row)
         results[kind] = rows
+    results["prologue"] = _prologue_check(card)
     return results
+
+
+def _prologue_check(card: str) -> dict:
+    """K5's and K6's activation prologue (quant_kernels.quantize_activations)
+    against the plain torch chain on the card, at the served shapes, per row
+    (K5: block = K) and per 512-block (K6): the int8 codes and the f32 scales
+    must be equal to the bit. Row 0 is zero (scale 1e-30 / 127) and row 1
+    holds values half-way between two codes. Timed alone (torch.profiler),
+    as the wrapper (CUDA events) and as the plain chain; its bound is bytes
+    (bf16 x read once, the codes and the scales written once); no single
+    PyTorch call computes it."""
+    from flux2_tpu_torch.ops import quant_kernels as qk
+    from flux2_tpu_torch.utils.profile_step import kernel_time_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows = {}
+    for name, m, k, _ in QMM_SHAPES:
+        for block in sorted({k, 512}, reverse=True):  # per row (K5), per 512-block (K6)
+            x = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+            x[0] = 0
+            if m > 1:  # the scale of a 127/64 amax is 2^-6: every (n + 1/2) / 64 is a tie
+                ties = (torch.arange(k, device="cuda") % 254 - 127 + 0.5) / 64
+                x[1] = ties.bfloat16()
+                x[1, ::block] = 127 / 64
+            plain = (lambda: qk.quantize_rows(x)) if block == k else (lambda: qk.quantize_row_blocks(x, block))
+            before = qk.launches["quantize_rows"]
+            xq, xs = qk.quantize_activations(x, block)
+            torch.cuda.synchronize()
+            if qk.launches["quantize_rows"] != before + 1:
+                raise AssertionError(f"prologue {name} block {block}: the wrapper did not launch its kernel")
+            ref_q, ref_s = plain()
+            ref_s = ref_s.reshape(xs.shape)
+            if not (torch.equal(xq, ref_q) and torch.equal(xs.view(torch.int32), ref_s.view(torch.int32))):
+                raise AssertionError(f"prologue {name} (M,K)=({m},{k}) block {block}: codes equal "
+                                     f"{torch.equal(xq, ref_q)}, scales equal {torch.equal(xs, ref_s)}")
+            err = max(float((xq.int() - ref_q.int()).abs().max()), float((xs - ref_s).abs().max()))
+            alone = kernel_time_ms(lambda: qk.quantize_activations(x, block), PROLOGUE_MARK)
+            ms = time_ms(lambda: qk.quantize_activations(x, block))
+            plain_ms = time_ms(plain)
+            nbytes = 2 * m * k + m * k + 4 * m * (k // block)
+            bound = bound_ms(0.0, nbytes, INT8_OPS)
+            log(f"[kernel] prologue {name} (M,K)=({m},{k}) block {block}: codes and scales equal to the plain chain "
+                f"to the bit (max_abs_err {err}); alone {alone:.4f} ms ({nbytes / alone / 1e6:.1f} GB/s, "
+                f"{bound[0] / alone:.1%} of its {bound[0]:.6f} ms bound, {bound[1]}), wrapper {ms:.4f} ms, plain "
+                f"chain {plain_ms:.4f} ms [{card}]")
+            rows[(name, block)] = {"err": err, "alone": alone, "ms": ms, "plain_ms": plain_ms, "bound": bound}
+    return rows
 
 
 def _qmm_yardsticks(kind: str, x, w, card: str) -> dict:
@@ -540,6 +581,8 @@ def phase_quant_model_check(pipe, card: str) -> dict:
         want = {name: 0 for name in counts}
         want["flash"] = 25
         want[COUNTER[fmt]] = FORWARD_LAUNCHES[fmt]
+        if fmt in PROLOGUE_FORMATS:
+            want["quantize_rows"] = FORWARD_LAUNCHES[fmt]
         if counts != want:
             raise AssertionError(f"{fmt} forward launched {counts}, want {want}")
         rel = float((out - ref).norm() / ref.norm())
@@ -970,7 +1013,8 @@ def main() -> int:
     log(f"[model] w8a8 Klein-4B DiT + VAE + w8a8 Qwen3-4B encoder built by cli.main.build_pipeline in "
         f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated [{card}]")
     w8a8_launches = FORWARD_LAUNCHES["w8a8"] * 4 * 3 + ENCODE_LAUNCHES_W8A8 * 5
-    qcounts, w8a8_peak = phase_serve(qpipe, card, "w8a8", {"flash": flash_launches, "w8a8": w8a8_launches})
+    qcounts, w8a8_peak = phase_serve(qpipe, card, "w8a8", {"flash": flash_launches, "w8a8": w8a8_launches,
+                                                           "quantize_rows": w8a8_launches})
     log(f"[serve] peak device memory: w8a8 {w8a8_peak:.2f} GiB vs bf16 {bf16_peak:.2f} GiB [{card}]")
     del qpipe
     torch.cuda.empty_cache()
@@ -1019,6 +1063,17 @@ def main() -> int:
         if "route_ms" in first:
             entry["dequantize_then_linear_ms"] = first["route_ms"]
         kernels.append(entry)
+    # K5's and K6's activation prologue at K5's main shape (block = K = 3072);
+    # launches from the w8a8 serving run (one before each K5 launch).
+    pro = qchecks["prologue"][("image_qkvo_1024", 3072)]
+    kernels.append({"name": "quantize_activations", "route": "cuda", "source": "flux2_tpu_torch/csrc/quant_prologue.cu",
+                    "replaces": "flux2_tpu/ops/quant_kernels.py:235",
+                    "note": "the XLA prologue of w8a8_matmul (and of w4a8_matmul at :342), not a Pallas kernel",
+                    "launches": qcounts["quantize_rows"], "launches_per_unit": FORWARD_LAUNCHES["w8a8"],
+                    "unit": "1024^2 w8a8 forward (and one per K6 launch under w4a8)",
+                    "max_abs_err": max(r["err"] for r in qchecks["prologue"].values()), "ms": pro["alone"],
+                    "wrapper_ms": pro["ms"], "plain_ms": pro["plain_ms"], "bound_ms": pro["bound"][0],
+                    "bound_by": pro["bound"][1], "library": None, "library_ms": None})
     # K2 vs the plain f32 forward with LSE; K3 and K4 vs the plain f32 backward,
     # which computes dq, dk and dv at once, as does their library call. Launches
     # from the 512^2 training run.

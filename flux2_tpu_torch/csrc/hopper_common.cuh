@@ -1,8 +1,9 @@
 // Hopper (sm_90a) helpers shared by the port's warp-specialised kernels:
-// mbarriers, TMA loads from 2D and 3D tensor maps, shared-memory operand
-// descriptors with the 128-byte swizzle, the K-major wgmma forms (bf16 with
-// A in shared memory, N = 128; bf16 with A in registers, N = 128 or 256; s8
-// with A in registers, N = 128), register fences, and the 2D tensor-map
+// mbarriers, TMA loads from 2D and 3D tensor maps and TMA stores to 2D ones,
+// shared-memory operand descriptors with the 128-byte swizzle, the K-major
+// wgmma forms (bf16 with A in shared memory, N = 128; bf16 with A in
+// registers, N = 128 or 256; s8 with A in registers, N = 128; s8 with A in
+// shared memory, N = 128 or 256), register fences, and the 2D tensor-map
 // encoder. flash_common.cuh adds the flash-attention ones on top;
 // quant_matmul.cu includes this header alone. Each .cu is its own translation
 // unit; the anonymous namespace gives each its own copy.
@@ -72,6 +73,21 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One box of shared memory at ``src`` to a 2D tensor map at (col, row);
+// elements past the map's extent are not written. The writes to ``src`` must
+// be made visible to the async proxy first (fence_proxy_async, then a barrier
+// with the issuing thread), and the box must not be overwritten before
+// tma_store_wait_read.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int col, int row) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(col), "r"(row)
+               : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;" ::: "memory"); }
+// Wait until the committed stores have read their shared memory.
+__device__ __forceinline__ void tma_store_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory"); }
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
 // ---- wgmma -----------------------------------------------------------------
 
 // Descriptor of a wgmma operand in shared memory with the 128-byte swizzle
@@ -87,6 +103,9 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory"); }
 
 // Keeps the compiler from moving reads or writes of an accumulator (or of an
 // A fragment in registers) across the asynchronous wgmma that owns it.
@@ -167,6 +186,39 @@ __device__ __forceinline__ void wgmma_rs_s8(int (&d)[64], const uint32_t (&a)[4]
       "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " FLUX2_ACC_REGS ", {%64, %65, %66, %67}, %68, p;\n}\n"
       : FLUX2_IACC64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x N] (+)= A[64 x 32] * B[32 x N], s8 in, s32 accumulate, N = 128 (d[64])
+// or 256 (d[128]); A and B in shared memory, both K-major (the only layout an
+// 8-bit wgmma takes); D is overwritten when ``accumulate`` is 0. The
+// accumulator layout is wgmma_ss's: d[4j + e] is row 16w + g + 8(e >> 1),
+// column 8j + 2t + (e & 1).
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " FLUX2_ACC_REGS ", %64, %65, p;\n}\n"
+      : FLUX2_IACC64
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+#define FLUX2_ACC_REGS128                                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "   \
+  "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "    \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, "    \
+  "%65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "    \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, " \
+  "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "     \
+  "%123, %124, %125, %126, %127}"
+#define FLUX2_IACC128                                                                                          \
+  FLUX2_IACC64, FLUX2_IACC8(64), FLUX2_IACC8(72), FLUX2_IACC8(80), FLUX2_IACC8(88), FLUX2_IACC8(96),         \
+      FLUX2_IACC8(104), FLUX2_IACC8(112), FLUX2_IACC8(120)
+
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[128], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " FLUX2_ACC_REGS128 ", %128, %129, p;\n}\n"
+      : FLUX2_IACC128
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // ---- tensor maps (host) ----------------------------------------------------

@@ -4,7 +4,8 @@
 //   K5  flux2_w8a8_matmul   replaces flux2_tpu/ops/quant_kernels.py:_kernel_w8a8 (:182)
 //       out[m, n] = float(sum_k xq[m, k] * wq[n, k]) * (xs[m] * ws[n])
 //       xq int8 [M, K], xs f32 [M], wq int8 [N, K], ws f32 [N]; the int32 sum
-//       spans all of K and the f32 epilogue runs once, as on the TPU.
+//       spans all of K and the f32 epilogue runs once, as on the TPU. xq and
+//       xs (and K6's) come from the activation prologue, quant_prologue.cu.
 //       Overflow: |sum| <= K * 127 * 127, 9216 * 16129 = 1.5e8 for Klein-4B's
 //       largest K (3.0e8 for Dev's K = 18432), far inside int32's 2.1e9.
 //   K6  flux2_w4a8_matmul   replaces quant_kernels.py:_kernel_w4a8 (:282)
@@ -29,14 +30,36 @@
 // modulation shapes (M=1..8, K=3072, N=18432) they are bound by the weight
 // bytes (~17 us for K5's 57 MB at 3.35 TB/s).
 //
-// K5 is the simple design (no wgmma, no TMA): one block of 8 warps per
-// 128 x 128 output tile, mma.sync.m16n8k32 s8 on a double-buffered cp.async
-// ring of padded tiles.
+// All three are warp-specialised on the tensor cores' only full-rate path
+// (TMA into a ring of stages guarded by mbarriers, one loading warpgroup,
+// multiplying warpgroups issuing wgmma).
 //
-// K6 and K7 are warp-specialised, on the tensor cores' only full-rate path,
-// in the "swapped" form: out^T = W x^T, with the weight as wgmma's A operand
-// in registers and x as B from shared memory, so no converted weight tile
-// passes through shared memory:
+// K5 takes the plain form, both operands from shared memory: xq [M, K] and
+// wq [N, K] are both int8 and K-major, the only layout an 8-bit wgmma reads,
+// so the TMA boxes feed it as they land, with no conversion:
+//   - persistent CTAs, one an SM, walk the BM x BN output tiles; a stage is
+//     128 K bytes of the BM x rows and of the BN weight rows (128-byte
+//     swizzle; rows past M read as zeros), 3-4 stages; mbarriers "full"
+//     (TMA bytes) and "empty" (one arrival per multiplying warpgroup); the
+//     loading warpgroup runs on into the next tile's stages while the
+//     multiplying ones finish the last;
+//   - each multiplying warpgroup owns 64 x rows: wgmma m64nBNk32 s8 -> s32
+//     over the whole K (|sum| stays far inside int32, see above), one group
+//     of products left in flight while the next issues, a stage released
+//     when the products that read it retire;
+//   - epilogue __fmul_rn(__int2float_rn(acc), __fmul_rn(xs, ws)), as the
+//     plain version, so K5 equals it to the bit; each multiplying
+//     warpgroup writes its tile into 32 KB of its own as 64-row, 128-byte
+//     swizzled boxes, which one thread stores by TMA (rows past M dropped)
+//     while the next tile's products run;
+//   - tiles: 128 x 256 (two multiplying warpgroups, 128 accumulators a
+//     thread, setmaxnreg as K6) where there are as many as SMs, 128 x 128
+//     otherwise, and 64 x 128 with one multiplying warpgroup and two CTAs an
+//     SM for M <= 64, where the weight bytes bound it.
+//
+// K6 and K7 take the "swapped" form: out^T = W x^T, with the weight as
+// wgmma's A operand in registers and x as B from shared memory, so no
+// converted weight tile passes through shared memory:
 //   - one CTA of three warpgroups per 128 weight rows (output columns) and BM
 //     x rows. Warpgroup 0 loads: one thread keeps a ring of stages full by
 //     TMA from 2D tensor maps: the x tile (128-byte swizzle; rows past M read
@@ -86,157 +109,8 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// K5: W8A8 (mma.sync)
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;  // 8 warps: 2 along M x 4 along N
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kWarpM = 64;
-constexpr int kWarpN = 32;
-constexpr int kMT = kWarpM / 16;  // m16 tiles per warp
-constexpr int kNT = kWarpN / 8;   // n8 tiles per warp
-
-constexpr int kTileK8 = 64;                  // int8 K bytes per tile row
-constexpr int kStride8 = kTileK8 + 16;       // padded int8 row, bytes
-constexpr int kTile8Bytes = kBM * kStride8;  // one 128-row int8 tile
-
-// 16-byte async copy; src_bytes = 0 writes zeros (rows past M).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// D[16x8] += A[16x32] * B[32x8], s8 inputs, s32 accumulators.
-// Fragments (g = lane / 4, t = lane % 4), each register 4 consecutive k:
-//   A: a0 = (g, 4t..), a1 = (g+8, 4t..), a2 = (g, 16+4t..), a3 = (g+8, 16+4t..)
-//   B: b0 = (k 4t.., n g), b1 = (k 16+4t.., n g)
-//   C: c0,c1 = (g, 2t..2t+1), c2,c3 = (g+8, 2t..2t+1)
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t lds32(const void* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ __forceinline__ void store2(float* out, float a, float b) {
-  *reinterpret_cast<float2*>(out) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* out, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(a, b);
-}
-
-// Stage a 128-row x 64-byte int8 tile of a row-major [rows, ld] matrix at
-// (row0, col0) into shared memory; rows >= rows_valid are zero.
-__device__ __forceinline__ void load_tile8(int8_t* dst, const int8_t* src, int row0, int rows_valid,
-                                           size_t ld, int col0) {
-#pragma unroll
-  for (int it = 0; it < kBM * (kTileK8 / 16) / kThreads; ++it) {
-    const int c = threadIdx.x + it * kThreads;
-    const int r = c / (kTileK8 / 16);
-    const int col = (c % (kTileK8 / 16)) * 16;
-    const bool valid = row0 + r < rows_valid;
-    const int8_t* s = valid ? src + (size_t)(row0 + r) * ld + col0 + col : src;
-    cp_async16(dst + r * kStride8 + col, s, valid);
-  }
-}
-
-// A fragments of m-tile mt for the k32 step at byte offset kb of a staged tile.
-__device__ __forceinline__ void frag_a8(uint32_t* a, const int8_t* tile, int row, int kb, int t) {
-  const int8_t* p = tile + row * kStride8 + kb + 4 * t;
-  a[0] = lds32(p);
-  a[1] = lds32(p + 8 * kStride8);
-  a[2] = lds32(p + 16);
-  a[3] = lds32(p + 8 * kStride8 + 16);
-}
-
-template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-w8a8_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs, const int8_t* __restrict__ wq,
-            const float* __restrict__ ws, OutT* __restrict__ out, int m, int n, int k) {
-  __shared__ __align__(16) int8_t as[2][kTile8Bytes];
-  __shared__ __align__(16) int8_t bs[2][kTile8Bytes];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / (kBN / kWarpN), wn = warp % (kBN / kWarpN);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  int acc[kMT][kNT][4];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-  const int nk = k / kTileK8;
-  load_tile8(as[0], xq, m0, m, k, 0);
-  load_tile8(bs[0], wq, n0, n, k, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile8(as[st ^ 1], xq, m0, m, k, (kt + 1) * kTileK8);
-      load_tile8(bs[st ^ 1], wq, n0, n, k, (kt + 1) * kTileK8);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // tile kt has landed
-    __syncthreads();
-#pragma unroll
-    for (int kb = 0; kb < kTileK8; kb += 32) {
-      uint32_t b[kNT][2];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int8_t* p = bs[st] + (wn * kWarpN + j * 8 + g) * kStride8 + kb + 4 * t;
-        b[j][0] = lds32(p);
-        b[j][1] = lds32(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i) {
-        uint32_t a[4];
-        frag_a8(a, as[st], wm * kWarpM + i * 16 + g, kb, t);
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) mma_s8(acc[i][j], a, b[j]);
-      }
-    }
-    __syncthreads();  // the next iteration refills this stage
-  }
-
-  // Epilogue: float(acc) * (xs[row] * ws[col]), in that order, as the TPU kernel.
-#pragma unroll
-  for (int i = 0; i < kMT; ++i) {
-    const int r0 = m0 + wm * kWarpM + i * 16 + g;
-    const int r1 = r0 + 8;
-    const float xs0 = r0 < m ? xs[r0] : 0.f;
-    const float xs1 = r1 < m ? xs[r1] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const int col = n0 + wn * kWarpN + j * 8 + 2 * t;
-      const float ws0 = ws[col], ws1 = ws[col + 1];
-      if (r0 < m) {
-        store2(out + (size_t)r0 * n + col, __fmul_rn(__int2float_rn(acc[i][j][0]), __fmul_rn(xs0, ws0)),
-               __fmul_rn(__int2float_rn(acc[i][j][1]), __fmul_rn(xs0, ws1)));
-      }
-      if (r1 < m) {
-        store2(out + (size_t)r1 * n + col, __fmul_rn(__int2float_rn(acc[i][j][2]), __fmul_rn(xs1, ws0)),
-               __fmul_rn(__int2float_rn(acc[i][j][3]), __fmul_rn(xs1, ws1)));
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K6 and K7: warp-specialised TMA + mbarrier + wgmma
-// ---------------------------------------------------------------------------
-
-constexpr int kWsThreads = 384;  // warpgroup 0 loads, 1 and 2 unpack or dequantize, and multiply
-constexpr int kWsBN = 128;       // weight rows (output columns) per CTA
+constexpr int kWsThreads = 384;  // K6, K7: warpgroup 0 loads, 1 and 2 unpack or dequantize, and multiply
+constexpr int kWsBN = 128;       // K6, K7: weight rows (output columns) per CTA
 // setmaxnreg of the loading warpgroup and of the multiplying ones: the
 // registers the first gives up are the ones the others take, from the 168 a
 // thread of 384 gets at launch: 128 * (168 - 24) == 256 * (240 - 168).
@@ -619,7 +493,170 @@ w4a8_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
   }
 }
 
-bool grid_ok(int m, int n) { return m > 0 && n > 0 && (m + kBM - 1) / kBM <= 65535; }
+// ---- K5 --------------------------------------------------------------------
+
+// Persistent CTAs (one an SM; two with one multiplying warpgroup) walk the
+// BM x BN output tiles: kConsumers multiplying warpgroups of 64 x rows each,
+// and the loading warpgroup 0. A stage holds 128 K bytes of the BM x rows and
+// of the BN weight rows, both with the 128-byte swizzle. Each multiplying
+// warpgroup stages its output in 32 KB of its own, so a tile's epilogue runs
+// while the loading warpgroup fills the ring for the next tile.
+template <int kBN, int kConsumers>
+struct W8Layout {
+  static constexpr int kBM = 64 * kConsumers;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kMinBlocks = kConsumers == 1 ? 2 : 1;
+  static constexpr int kStages = kBN == 128 && kConsumers == 2 ? 4 : 3;
+  static constexpr int kXBytes = kBM * 128;
+  static constexpr int kStage = kXBytes + kBN * 128;
+  static constexpr int kStaging = kStages * kStage;  // the staging areas: 32 KB a multiplying warpgroup
+  static constexpr int kBars = kStaging + kConsumers * 32768;  // full and empty per stage
+  static constexpr int kSmem = kBars + 16 * kStages + 1024;
+  // 128 s32 accumulators a thread (kBN = 256) take the loading warpgroup's
+  // registers (setmaxnreg, as K6); 64 fit the launch count.
+  static constexpr bool kShiftRegs = kBN == 256;
+  static constexpr int kBox = 8192;  // one output box: 64 rows x 128 bytes, 128-byte swizzle
+  static_assert(kStage % 1024 == 0, "stages keep the swizzle atoms aligned");
+  static_assert(kMinBlocks * (kSmem + 1024) <= 233472, "the CTAs an SM holds fit its shared memory");
+};
+
+__device__ __forceinline__ void sts_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void sts_f32x2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+template <int kBN, int kConsumers, typename OutT>
+__global__ void __launch_bounds__(W8Layout<kBN, kConsumers>::kThreads, W8Layout<kBN, kConsumers>::kMinBlocks)
+w8a8_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+            const __grid_constant__ CUtensorMap omap, const float* __restrict__ xs, const float* __restrict__ ws,
+            int m, int n, int k) {
+  using L = W8Layout<kBN, kConsumers>;
+  constexpr int S = L::kStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  auto full = [&](int st) { return base + L::kBars + 8u * st; };
+  auto empty = [&](int st) { return base + L::kBars + 8u * (S + st); };
+  const int nk = k / 128;
+  const int ntn = n / kBN;
+  const int tiles = ((m + L::kBM - 1) / L::kBM) * ntn;  // row-tile major: neighbouring CTAs share x rows
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers);  // one arrival per multiplying warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Loading warpgroup: one thread refills each stage once every
+    // multiplying warpgroup has retired the products that read it, tile
+    // after tile (``it`` counts this CTA's k-tiles: stage and phase).
+    if constexpr (L::kShiftRegs) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoadRegs) : "memory");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / ntn) * L::kBM, n0 = (tile % ntn) * kBN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int st = it % S;
+          if (it >= S) mbar_wait(empty(st), ((it / S) - 1) & 1);
+          const uint32_t stage = base + st * L::kStage;
+          mbar_expect_tx(full(st), L::kStage);
+          tma_load_2d(stage, &xmap, full(st), kt * 128, m0);
+          tma_load_2d(stage + L::kXBytes, &wmap, full(st), kt * 128, n0);
+        }
+      }
+    }
+  } else {
+    // Multiplying warpgroup w: x rows m0 + 64w .. + 63 against the kBN weight
+    // rows, both operands from shared memory; one group of products stays in
+    // flight while the next tile's issue, and a stage is released as soon as
+    // the products that read it retire.
+    if constexpr (L::kShiftRegs) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kMmaRegs) : "memory");
+    const int w = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int wq = tid / 32, g = (tid % 32) >> 2, t = tid & 3;
+    const int r0 = 16 * wq + g;  // this thread's rows in the warpgroup's 64: r0 and r0 + 8
+    // The output leaves in passes of 32 KB (f32 at kBN = 256: two of 128 columns).
+    constexpr int kBoxCols = 128 / sizeof(OutT);
+    constexpr int kPasses = (64 * kBN * static_cast<int>(sizeof(OutT)) + 32767) / 32768;
+    constexpr int kPassCols = kBN / kPasses;
+    const uint32_t staging = base + L::kStaging + w * 32768;
+    int acc[kBN / 2];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / ntn) * L::kBM, n0 = (tile % ntn) * kBN;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int st = it % S;
+        mbar_wait(full(st), (it / S) & 1);
+        const uint32_t a = base + st * L::kStage + w * 64 * 128;
+        const uint32_t b = base + st * L::kStage + L::kXBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {  // k32 steps: 32 bytes along the swizzled 128-byte rows
+          wgmma_ss_s8(acc, smem_desc(a + kk * 32, 16, 1024), smem_desc(b + kk * 32, 16, 1024), kt | kk);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous k-tile's products have retired
+        if (kt > 0 && tid == 0) mbar_arrive(empty((it - 1) % S));
+      }
+      wgmma_wait_all();
+      fence_acc(acc);
+      if (tid == 0) mbar_arrive(empty((it - 1) % S));
+
+      // Epilogue: out = float(acc) * (xs[row] * ws[col]) in that order, as
+      // the plain version. acc[4j + e] is row r0 + 8(e >> 1) and column
+      // 8j + 2t + (e & 1). The tile goes into the staging area as 64-row
+      // boxes of 128 bytes with the 128-byte swizzle (conflict-free: the 8
+      // rows of a fragment land in 8 distinct 16-byte chunks), then one
+      // thread stores them by TMA, which drops the rows past M.
+      const int row0 = m0 + 64 * w + r0;
+      const float xs_r[2] = {row0 < m ? xs[row0] : 0.f, row0 + 8 < m ? xs[row0 + 8] : 0.f};
+#pragma unroll
+      for (int p = 0; p < kPasses; ++p) {
+        if (tid == 0) tma_store_wait_read();  // the last stores have read the staging area
+        asm volatile("bar.sync %0, 128;" ::"r"(2 + w) : "memory");
+#pragma unroll
+        for (int jj = 0; jj < kPassCols / 8; ++jj) {
+          const int j = p * (kPassCols / 8) + jj;
+          const float2 wv = *reinterpret_cast<const float2*>(ws + n0 + 8 * j + 2 * t);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 8 * h;
+            const float v0 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), __fmul_rn(xs_r[h], wv.x));
+            const float v1 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), __fmul_rn(xs_r[h], wv.y));
+            const int col = 8 * jj + 2 * t;  // within the pass
+            const int byte = (col % kBoxCols) * sizeof(OutT);  // within the 128-byte box row
+            const uint32_t at = staging + (col / kBoxCols) * L::kBox + r * 128 + 16 * ((byte / 16) ^ (r & 7)) +
+                                byte % 16;
+            if constexpr (sizeof(OutT) == 4) {
+              sts_f32x2(at, v0, v1);
+            } else {
+              sts_u32(at, pack_bf16(v0, v1));
+            }
+          }
+        }
+        fence_proxy_async();
+        asm volatile("bar.sync %0, 128;" ::"r"(2 + w) : "memory");
+        if (tid == 0) {
+#pragma unroll 1
+          for (int bx = 0; bx < kPassCols / kBoxCols; ++bx) {
+            tma_store_2d(&omap, staging + bx * L::kBox, n0 + p * kPassCols + bx * kBoxCols, m0 + 64 * w);
+          }
+          tma_store_commit();
+        }
+      }
+    }
+    if (tid == 0) tma_store_wait_read();
+  }
+}
+
+bool grid_ok(int m, int n) { return m > 0 && n > 0 && (m + 127) / 128 <= 65535; }
 
 int sm_count() {
   static int count = 0;
@@ -658,26 +695,61 @@ int launch_dequant(const CUtensorMap& xmap, const CUtensorMap& cmap, const float
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5 on one tile shape: the tensor maps (x and weight boxes of the tile's
+// rows by 128 K bytes; output boxes of 64 rows by 128 bytes), then a grid of
+// at most as many CTAs as the card holds at once.
+template <int kBN, int kConsumers, typename OutT>
+int launch_w8a8(const void* xq, const float* xs, const void* wq, const float* ws, void* out, int m, int n, int k,
+                void* stream) {
+  using L = W8Layout<kBN, kConsumers>;
+  constexpr bool kF32 = sizeof(OutT) == 4;
+  CUtensorMap xmap, wmap, omap;
+  if (!encode_map_2d(&xmap, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, m, k, L::kBM, 128, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_map_2d(&wmap, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, n, k, kBN, 128, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_map_2d(&omap, out, kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     sizeof(OutT), m, n, 64, 128 / sizeof(OutT), CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // Once per instantiation in the process (the port drives one card): K5 runs
+  // on every served matmul, and the host's time per call shows at the
+  // smallest shapes.
+  static const cudaError_t attr = cudaFuncSetAttribute(w8a8_kernel<kBN, kConsumers, OutT>,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long tiles = static_cast<long long>((m + L::kBM - 1) / L::kBM) * (n / kBN);
+  const int grid = static_cast<int>(tiles < sm_count() * L::kMinBlocks ? tiles : sm_count() * L::kMinBlocks);
+  w8a8_kernel<kBN, kConsumers, OutT><<<grid, L::kThreads, L::kSmem, static_cast<cudaStream_t>(stream)>>>(
+      xmap, wmap, omap, xs, ws, m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5's tile shape for an [m, n] output: 64 x 128 (one multiplying warpgroup,
+// two CTAs an SM) while the x rows fill one wgmma (m <= 64: the modulations
+// and short prompts, bound by the weight bytes); 128 x 256 where there are
+// at least as many such tiles as SMs; else 128 x 128.
+template <typename OutT>
+int dispatch_w8a8(const void* xq, const float* xs, const void* wq, const float* ws, void* out, int m, int n, int k,
+                  void* stream) {
+  if (m <= 64) return launch_w8a8<128, 1, OutT>(xq, xs, wq, ws, out, m, n, k, stream);
+  if (n % 256 == 0 && ((m + 127) / 128) * (n / 256) >= sm_count()) {
+    return launch_w8a8<256, 2, OutT>(xq, xs, wq, ws, out, m, n, k, stream);
+  }
+  return launch_w8a8<128, 2, OutT>(xq, xs, wq, ws, out, m, n, k, stream);
+}
+
 }  // namespace
 
 // xq int8 [m, k], xs f32 [m], wq int8 [n, k], ws f32 [n]; out [m, n] f32 if
-// out_f32 else bf16. Needs k % 64 == 0 and n % 128 == 0 (the K5 gate asks
-// k % 256 and n % 256). Returns a cudaError_t.
+// out_f32 else bf16. Needs k % 128 == 0, n % 128 == 0 (the K5 gate asks
+// k % 256 and n % 256) and 16-byte aligned xq, wq and out. Returns a
+// cudaError_t.
 extern "C" int flux2_w8a8_matmul(const void* xq, const void* xs, const void* wq, const void* ws, void* out,
                                  int m, int n, int k, int out_f32, void* stream) {
-  if (!grid_ok(m, n) || k <= 0 || k % kTileK8 || n % kBN) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(n / kBN, (m + kBM - 1) / kBM);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* a = static_cast<const int8_t*>(xq);
-  const int8_t* b = static_cast<const int8_t*>(wq);
+  if (!grid_ok(m, n) || k <= 0 || k % 128 || n % 128) return static_cast<int>(cudaErrorInvalidValue);
   const float* sa = static_cast<const float*>(xs);
   const float* sb = static_cast<const float*>(ws);
-  if (out_f32) {
-    w8a8_kernel<float><<<grid, kThreads, 0, s>>>(a, sa, b, sb, static_cast<float*>(out), m, n, k);
-  } else {
-    w8a8_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a, sa, b, sb, static_cast<__nv_bfloat16*>(out), m, n, k);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (out_f32) return dispatch_w8a8<float>(xq, sa, wq, sb, out, m, n, k, stream);
+  return dispatch_w8a8<__nv_bfloat16>(xq, sa, wq, sb, out, m, n, k, stream);
 }
 
 // xq int8 [m, k], xs f32 [m, k/512], wq uint8 [n, k/2] split-half packed,

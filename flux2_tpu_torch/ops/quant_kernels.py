@@ -12,16 +12,19 @@ Replaces the TPU kernels of ``flux2_tpu/ops/quant_kernels.py``:
 The CUDA source is ``flux2_tpu_torch/csrc/quant_matmul.cu``; its header says
 what bounds each kernel on the card and how the design answers that.
 
-The activation quantization (per token for K5, per (token, 512-block) for K6)
-stays a plain torch prologue in the wrapper, as it is an XLA op outside the
-Pallas call in JAX. The shape gates are JAX's, unchanged; the weights are in
-the port's [N, K] layout (``flux2_tpu_torch/ops/quant.py``).
+The activation quantization of K5 (per token) and K6 (per (token, 512-block))
+is an XLA prologue outside the Pallas call in JAX. In the port it is a fourth
+hand-written kernel, ``quantize_activations`` (``csrc/quant_prologue.cu``),
+which reads x once and writes the int8 codes and f32 scales, equal to the
+plain torch chain ``quantize_rows`` / ``quantize_row_blocks`` to the bit. The
+shape gates are JAX's, unchanged; the weights are in the port's [N, K] layout
+(``flux2_tpu_torch/ops/quant.py``).
 
 Beside each kernel is its plain torch version, which the CPU path and the
 card's checks use. K5's and K6's compute the int32 dot exactly (in float64,
 which is exact below 2^53; an f32 matmul is not once |sum| > 2^24). A wrapper
 given a CPU tensor returns its plain version; on a CUDA tensor it launches its
-kernel or raises.
+kernels or raises.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 # Kernel launches by the wrappers, keyed by kernel; tests and chip_smoke.py
 # reset and read it. Request threads (prompt encodes) and the serving worker
 # launch concurrently, so increments hold ``_launch_lock``.
-launches = {"w8a8": 0, "w4a8": 0, "dequant_int8": 0, "dequant_int4": 0}
+launches = {"w8a8": 0, "w4a8": 0, "dequant_int8": 0, "dequant_int4": 0, "quantize_rows": 0}
 _launch_lock = threading.Lock()
 
 DEQUANT_BLOCK_K = 512  # JAX's DEFAULT_BK: the K7 gate wants K % 512 == 0
@@ -91,7 +94,7 @@ def w4a8_supported(x: torch.Tensor, w) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Activation prologues (plain torch, shared by the kernels and their references)
+# Activation prologues (plain torch: the CPU path, the references, the yardsticks)
 # ---------------------------------------------------------------------------
 
 
@@ -162,16 +165,21 @@ def dequant_matmul_reference(x: torch.Tensor, w) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# (pointers, ints) before the stream of each C entry. K5 and K6: xq, xs, wq, ws,
+# out, m, n, k, out_is_f32. K7: x, codes, scale, bias, out, m, n, k, group,
+# is_int4. The prologue: x, xq, xs, m, k, block, x_is_f32.
+_SIGNATURES = {"flux2_w8a8_matmul": (5, 4), "flux2_w4a8_matmul": (5, 4), "flux2_dequant_matmul": (5, 5),
+               "flux2_quantize_rows": (3, 4)}
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str):
-    """A C entry of the kernel library (built on first use), typed. K5 and K6:
-    xq, xs, wq, ws, out, m, n, k, out_is_f32, stream. K7: x, codes, scale,
-    bias, out, m, n, k, group, is_int4, stream."""
+    """A C entry of the kernel library (built on first use), typed; its last argument is the stream."""
     from flux2_tpu_torch.utils.build import load_kernels
 
     fn = getattr(load_kernels(), name)
-    n_ints = 5 if name == "flux2_dequant_matmul" else 4
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    n_ptrs, n_ints = _SIGNATURES[name]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -202,8 +210,31 @@ def _out_dtype_flag(x: torch.Tensor, what: str) -> int:
     return int(x.dtype == torch.float32)
 
 
+def quantize_activations(x2: torch.Tensor, block: int):
+    """The prologue of K5 (``block`` = K) and K6 (``block`` = 512): x2 [M, K]
+    (bf16 or f32) -> (xq int8 [M, K], xs f32 [M, K / block]), per (row,
+    block) as ``quantize_row_blocks``. A CPU tensor takes that plain version;
+    a CUDA tensor launches the hand-written kernel (``csrc/quant_prologue.cu``)."""
+    if x2.device.type == "cpu":
+        return quantize_row_blocks(x2, block)
+    m, k = x2.shape
+    if x2.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"quantize_activations: the CUDA kernel reads bfloat16 or float32, x is {x2.dtype}")
+    if block <= 0 or k % block or block % 8:
+        raise ValueError(f"quantize_activations: block {block} must divide K = {k} and be a multiple of 8")
+    x2 = x2.contiguous()
+    if x2.data_ptr() % 16:  # a view at an odd offset: the kernel reads 16 bytes at a time
+        x2 = x2.clone()
+    xq = torch.empty(m, k, dtype=torch.int8, device=x2.device)
+    xs = torch.empty(m, k // block, dtype=torch.float32, device=x2.device)
+    _launch("flux2_quantize_rows", "quantize_rows", x2.device, x2.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k,
+            block, int(x2.dtype == torch.float32))
+    return xq, xs
+
+
 def w8a8_matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """K5: x [.., K] (bf16 or f32) by W8A8 [N, K] -> [.., N] in x's dtype."""
+    """K5: x [.., K] (bf16 or f32) by W8A8 [N, K] -> [.., N] in x's dtype,
+    after the prologue kernel quantizes x per row."""
     if x.device.type == "cpu":
         return w8a8_matmul_reference(x, w)
     if not w8a8_supported(x, w):
@@ -211,10 +242,10 @@ def w8a8_matmul(x: torch.Tensor, w) -> torch.Tensor:
     out_f32 = _out_dtype_flag(x, "w8a8_matmul")
     *lead, k = x.shape
     n = w.q.shape[0]
-    xq, xs = quantize_rows(x.reshape(-1, k))
-    m = xq.shape[0]
     _check_tensor("w8a8 codes", w.q, x.device, torch.int8)
     _check_tensor("w8a8 scale", w.scale, x.device, torch.float32)
+    xq, xs = quantize_activations(x.reshape(-1, k), k)
+    m = xq.shape[0]
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
     _launch("flux2_w8a8_matmul", "w8a8", x.device, xq.data_ptr(), xs.data_ptr(), w.q.data_ptr(),
             w.scale.data_ptr(), out.data_ptr(), m, n, k, out_f32)
@@ -222,7 +253,8 @@ def w8a8_matmul(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def w4a8_matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """K6: x [.., K] (bf16 or f32) by W4A8 [N, K/2] packed -> [.., N] in x's dtype."""
+    """K6: x [.., K] (bf16 or f32) by W4A8 [N, K/2] packed -> [.., N] in x's dtype,
+    after the prologue kernel quantizes x per (row, 512-block)."""
     if x.device.type == "cpu":
         return w4a8_matmul_reference(x, w)
     if not w4a8_supported(x, w) or w.block != 512:
@@ -231,10 +263,10 @@ def w4a8_matmul(x: torch.Tensor, w) -> torch.Tensor:
     out_f32 = _out_dtype_flag(x, "w4a8_matmul")
     *lead, k = x.shape
     n = w.q.shape[0]
-    xq, xs = quantize_row_blocks(x.reshape(-1, k), w.block)
-    m = xq.shape[0]
     _check_tensor("w4a8 codes", w.q, x.device, torch.uint8)
     _check_tensor("w4a8 scale", w.scale, x.device, torch.float32)
+    xq, xs = quantize_activations(x.reshape(-1, k), w.block)
+    m = xq.shape[0]
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
     _launch("flux2_w4a8_matmul", "w4a8", x.device, xq.data_ptr(), xs.data_ptr(), w.q.data_ptr(),
             w.scale.data_ptr(), out.data_ptr(), m, n, k, out_f32)

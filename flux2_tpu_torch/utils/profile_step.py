@@ -14,9 +14,9 @@ batch 3, and for a warm VAE decode at 1024^2, it prints:
 - the host-clock time (mean of 3 after a warm-up, synchronised);
 - the device time of one profiled run (``torch.profiler``), summed over its
   kernels and split into classes by kernel name: K1 (``flash_fwd_kernel``),
-  the quantized matmuls K5 / K6 / K7, convolutions, GEMMs, and the rest
-  (elementwise, reductions, copies, the quantized matmuls' activation
-  prologues);
+  the quantized matmuls K5 / K6 / K7, their activation prologue
+  (``quantize_rows_kernel``, before each K5 and K6), convolutions, GEMMs, and
+  the rest (elementwise, reductions, copies);
 - the device's idle share, 1 - device time / host-clock time;
 - the GEMM FLOP that ``torch.profiler`` counts for ``aten::mm``-family ops.
 
@@ -46,6 +46,7 @@ K1_KERNEL = "flash_fwd_kernel"
 K2_KERNEL = "flash_fwd_lse_kernel"
 K34_MARK = "flash_bwd_"  # flash_bwd_dq_kernel (K3), flash_bwd_dkv_kernel (K4)
 _QUANT_MARKS = ("w8a8_kernel", "w4a8_kernel", "dequant_kernel")  # csrc/quant_matmul.cu
+PROLOGUE_KERNEL = "quantize_rows_kernel"  # csrc/quant_prologue.cu: K5's and K6's activation prologue
 _CONV_MARKS = ("conv", "fprop", "dgrad", "wgrad", "winograd", "implicit_gemm", "cudnn")
 _GEMM_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 _GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -61,6 +62,8 @@ def kernel_class(name: str) -> str:
         return "k34"
     if any(m in low for m in _QUANT_MARKS):
         return "quant"
+    if PROLOGUE_KERNEL in low:
+        return "prologue"
     if any(m in low for m in _CONV_MARKS):
         return "conv"
     if any(m in low for m in _GEMM_MARKS):
@@ -70,7 +73,7 @@ def kernel_class(name: str) -> str:
 
 def device_breakdown(prof) -> dict:
     """Device ms by kernel class, and the GEMM FLOP counted by the profiler."""
-    ms = {"k1": 0.0, "k2": 0.0, "k34": 0.0, "quant": 0.0, "conv": 0.0, "gemm": 0.0, "other": 0.0}
+    ms = {"k1": 0.0, "k2": 0.0, "k34": 0.0, "quant": 0.0, "prologue": 0.0, "conv": 0.0, "gemm": 0.0, "other": 0.0}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             ms[kernel_class(evt.name)] += evt.time_range.elapsed_us() / 1e3
@@ -78,6 +81,25 @@ def device_breakdown(prof) -> dict:
     ms["total"] = sum(ms.values())
     ms["gemm_flop"] = float(gemm_flop)
     return ms
+
+
+def kernel_time_ms(fn, mark: str = "", reps: int = 10) -> float:
+    """Mean device time of the kernels whose name holds ``mark`` (all of them
+    by default) in one call of ``fn`` (torch.profiler over ``reps`` calls):
+    a kernel alone, without its wrapper's other launches or the host's time
+    between launches."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without device events; a third empty one raises
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and mark in e.name)
+        if us > 0:
+            return us / reps / 1e3
+    raise RuntimeError(f"torch.profiler recorded no {mark or 'kernel'} device time in three traces")
 
 
 def measure(fn, label: str, card: str) -> dict:
@@ -96,8 +118,8 @@ def measure(fn, label: str, card: str) -> dict:
     if dev["total"] <= 0:
         raise RuntimeError(f"{label}: torch.profiler recorded no device time")
     row = {"label": label, "host_ms": host_ms, "device_ms": dev, "idle_share": 1.0 - dev["total"] / host_ms}
-    shares = ", ".join(f"{k} {dev[k]:.3f} ms ({dev[k] / dev['total']:.1%})"
-                       for k in ("k1", "k2", "k34", "quant", "gemm", "conv", "other") if dev[k] or k == "k1")
+    classes = ("k1", "k2", "k34", "quant", "prologue", "gemm", "conv", "other")
+    shares = ", ".join(f"{k} {dev[k]:.3f} ms ({dev[k] / dev['total']:.1%})" for k in classes if dev[k] or k == "k1")
     gemm_rate = f"{dev['gemm_flop'] / dev['gemm'] / 1e9:.1f} TFLOP/s" if dev["gemm"] else "no GEMM"
     print(f"[profile] {label}: host {host_ms:.3f} ms, device {dev['total']:.3f} ms (idle {row['idle_share']:.1%}); "
           f"{shares}; GEMM {dev['gemm_flop'] / 1e12:.2f} TFLOP at {gemm_rate} [{card}]", flush=True)

@@ -263,3 +263,76 @@ def test_dequant_kernel_matches_reference_and_repeats(device, fmt, m, k, n):
     assert out.dtype == torch.bfloat16 and out.shape == (m, n) and torch.isfinite(out).all()
     assert _rel(out, tqk.dequant_matmul_reference(x, qw)) <= QMM_REL_TOL
     assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(1, 512, 256), (8, 512, 256), (100, 512, 256), (4095, 512, 256), *QMM_SERVED])
+def test_w8a8_kernel_equals_its_plain_version_to_the_bit(device, m, k, n, dtype):
+    """K5's s32 sums are exact and its epilogue is the plain version's
+    float(acc) * (xs * ws), so both output types agree to the bit."""
+    x, w = _qmm_inputs(device, m, k, n, dtype)
+    qw = tq.to_w8a8(w)
+    out = tqk.w8a8_matmul(x, qw)
+    again = tqk.w8a8_matmul(x, qw)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert torch.equal(out, tqk.w8a8_matmul_reference(x, qw))
+    assert torch.equal(out, again)
+
+
+def _tie_values(amax: float, dtype: torch.dtype) -> torch.Tensor:
+    """Values of ``dtype`` within [-amax, amax] whose f32 quotient by the scale
+    of a segment with that amax is exactly n + 1/2 (searched on the CPU)."""
+    amax = torch.tensor(amax).to(dtype).float()
+    scale = torch.clamp(amax, min=1e-30) * (1.0 / 127.0)
+    if dtype == torch.bfloat16:  # every positive bf16 value up to amax
+        cand = (torch.arange(0, 1 << 15, dtype=torch.int32) << 16).view(torch.float32)
+    else:
+        cand = (torch.arange(-127, 127, dtype=torch.float32) + 0.5) * scale
+    cand = cand[torch.isfinite(cand) & (cand.abs() <= amax)]
+    cand = torch.cat([cand, -cand])
+    q = cand / scale
+    return cand[(q - q.floor()) == 0.5].to(dtype)
+
+
+def _prologue_input(device, m, k, block, dtype):
+    """Gaussian rows, with row 0 zero and row 1's segments holding half-way values (each at its segment's amax)."""
+    g = torch.Generator(device=device).manual_seed(m * 13 + k + block)
+    x = torch.randn(m, k, device=device, generator=g).to(dtype)
+    x[0] = 0
+    if m > 1:
+        ties = _tie_values(127 / 64, dtype)  # the scale is 2^-6: every (n + 1/2) / 64 is a tie
+        assert ties.numel() > 0
+        row = ties.repeat(k // ties.numel() + 1)[:k].reshape(k // block, block).clone()
+        row[:, 0] = 127 / 64
+        x[1] = row.reshape(k).to(device)
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("per_block", [False, True], ids=["block_k", "block_512"])
+@pytest.mark.parametrize("m,k", [(1, 512), (100, 512), (4095, 512), *sorted({(m, k) for m, k, _ in QMM_SERVED})])
+def test_prologue_kernel_equals_the_plain_chain_to_the_bit(device, m, k, per_block, dtype):
+    """The hand-written prologue against quantize_rows / quantize_row_blocks
+    (the torch chain on the card): the same int8 codes and the same f32
+    scales, a zero row (scale 1e-30 / 127, codes 0) and exact ties included."""
+    block = 512 if per_block else k
+    x = _prologue_input(device, m, k, block, dtype)
+    before = tqk.launches["quantize_rows"]
+    xq, xs = tqk.quantize_activations(x, block)
+    torch.cuda.synchronize()
+    assert tqk.launches["quantize_rows"] == before + 1
+    ref_q, ref_s = tqk.quantize_row_blocks(x, block) if per_block else tqk.quantize_rows(x)
+    assert torch.equal(xq, ref_q)
+    assert torch.equal(xs.view(torch.int32).reshape(ref_s.shape), ref_s.view(torch.int32))
+    assert not xq[0].any() and xs[0, 0].item() == (torch.tensor(1e-30) * (1.0 / 127.0)).item()
+
+
+def test_quantized_wrappers_bump_the_prologue_and_their_own_counter(device):
+    x, w = _qmm_inputs(device, 64, 1024, 512)
+    for kernel, fmt, counter in ((tqk.w8a8_matmul, tq.to_w8a8, "w8a8"), (tqk.w4a8_matmul, tq.to_w4a8, "w4a8")):
+        before = dict(tqk.launches)
+        kernel(x, fmt(w))
+        torch.cuda.synchronize()
+        assert {c: tqk.launches[c] - before[c] for c in before} == {
+            c: int(c in (counter, "quantize_rows")) for c in before}
