@@ -15,10 +15,15 @@ quantized runtime against the bf16 forward, bf16 serving through the port's
 entry point (Flux2Server -> Qwen3-4B encoder -> DiT -> VAE), one
 klein-4b-base request with classical CFG, w8a8 serving through the CLI's
 build_pipeline (DiT and encoder quantized), one Klein-4B-base train step at
-512^2 on the kernels against the same step on plain attention, and LoRA
+512^2 on the kernels against the same step on plain attention, LoRA
 training through the CLI (train-lora --random-init: 5 steps at 512^2 with a
-checkpoint, then 2 steps at 1024^2). Every path runs with the launch counts
-set to 0 just before it and checks them just after. Any failure raises: the
+checkpoint, then 2 steps at 1024^2), and a checkpoint round trip: Klein-4B,
+the VAE and Qwen3-4B at its published shape (Qwen/Qwen3-4B's config.json)
+serve one 1024^2 request in memory, are written as checkpoint directories
+(the DiT in the Diffusers dialect, sharded) and read back by `t2i` through
+cli.main (latents and PNG equal to the bit), then `profile --compare
+bf16,w8a8` and `profile --trace` run on them. Every path runs with the launch
+counts set to 0 just before it and checks them just after. Any failure raises: the
 traceback is printed and the exit code is not 0. There is no CPU fallback.
 
 The last two lines of standard output are the card's name and power limit as
@@ -681,6 +686,11 @@ def phase_cfg_serve(pipe, card: str) -> dict:
     return {"wall_s": wall, "s_per_step": r["denoising_s"] / r["steps"]}
 
 
+def encode_ms(extractor) -> float:
+    """Median of 5 warm encodes of one prompt (the extractor itself: no prompt cache), CUDA events."""
+    return time_ms(lambda: extractor("a warm encode of one prompt"), reps=5, warmup=2)
+
+
 def phase_model_check(pipe, card: str) -> None:
     """The encoder's output, and one full-width DiT forward at 256^2 with the
     kernel against the same forward on the plain attention path."""
@@ -705,6 +715,8 @@ def phase_model_check(pipe, card: str) -> None:
     rel = float((v_kernel - v_plain).norm() / v_plain.norm())
     if not torch.isfinite(v_kernel).all() or rel > DIT_REL_TOL:
         raise AssertionError(f"DiT with K1 vs plain attention: relative L2 {rel} > {DIT_REL_TOL}")
+    log(f"[model] one warm encode (512 tokens), built-in random-init Qwen3-4B shape (head_dim "
+        f"{pipe.text_encoder.decoder.cfg.head_dim}): {encode_ms(pipe.text_encoder):.3f} ms [{card}]")
     log(f"[model] encoder [1, 512, 7680] finite; Klein-4B DiT forward at 256^2, K1 vs plain attention: "
         f"relative L2 error {rel:.3e} (tol {DIT_REL_TOL}) [{card}]")
 
@@ -882,6 +894,327 @@ def phase_train_cli(card: str, workdir: str, size: int, steps: int, save_every: 
     return {"counts": counts, "s_per_step": statistics.mean(warm), "peak_gib": peak_gib}
 
 
+# -- checkpoint round trip and `profile` ------------------------------------------------
+
+# Qwen/Qwen3-4B's published config.json (the fields DecoderConfig reads): the
+# built-in QWEN3_4B is a random-init shape (head_dim 80, intermediate 9216).
+QWEN3_4B_CONFIG_JSON = {
+    "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3", "vocab_size": 151936, "hidden_size": 2560,
+    "intermediate_size": 9728, "num_hidden_layers": 36, "num_attention_heads": 32, "num_key_value_heads": 8,
+    "head_dim": 128, "rope_theta": 1000000, "rms_norm_eps": 1e-06, "tie_word_embeddings": True,
+    "max_position_embeddings": 40960, "torch_dtype": "bfloat16",
+}
+KLEIN_RECIPE_DEPTH = 28  # the Klein recipe reads hidden layers 9, 18 and 27
+SHARD_BYTES = 5 * 10**9  # the largest safetensors file written
+ROUND_TRIP = {"prompt": "a lighthouse on a cliff at dusk, from a checkpoint", "seed": 5}
+
+
+def _diffusers_transformer_state(model) -> dict:
+    """The DiT in the Diffusers dialect (Flux2Transformer2DModel names): the
+    inverse of the port's map, written out here on its own so the round trip
+    checks the map rather than restating it."""
+    double = {"to_q": "attn.to_q", "to_k": "attn.to_k", "to_v": "attn.to_v", "to_out": "attn.to_out.0",
+              "add_q": "attn.add_q_proj", "add_k": "attn.add_k_proj", "add_v": "attn.add_v_proj",
+              "add_out": "attn.to_add_out", "norm_q": "attn.norm_q", "norm_k": "attn.norm_k",
+              "norm_added_q": "attn.norm_added_q", "norm_added_k": "attn.norm_added_k", "ff_in": "ff.linear_in",
+              "ff_out": "ff.linear_out", "ff_ctx_in": "ff_context.linear_in", "ff_ctx_out": "ff_context.linear_out"}
+    top = {"x_embedder": "x_embedder", "context_embedder": "context_embedder",
+           "time_linear1": "time_guidance_embed.timestep_embedder.linear_1",
+           "time_linear2": "time_guidance_embed.timestep_embedder.linear_2",
+           "double_mod_img": "double_stream_modulation_img.linear",
+           "double_mod_txt": "double_stream_modulation_txt.linear",
+           "single_mod": "single_stream_modulation.linear", "norm_out": "norm_out.linear", "proj_out": "proj_out"}
+    out = {f"{name}.weight": getattr(model, attr) for attr, name in top.items()}
+    for i, blk in enumerate(model.double_blocks):
+        for attr, name in double.items():
+            out[f"transformer_blocks.{i}.{name}.weight"] = getattr(blk, attr)
+    for i, blk in enumerate(model.single_blocks):
+        p = f"single_transformer_blocks.{i}.attn."
+        out[p + "to_qkv_mlp_proj.weight"] = torch.cat([blk.to_q, blk.to_k, blk.to_v, blk.mlp_gate, blk.mlp_up])
+        out[p + "to_out.weight"] = torch.cat([blk.out_attn, blk.out_mlp], dim=1)
+        out[p + "norm_q.weight"], out[p + "norm_k.weight"] = blk.norm_q, blk.norm_k
+    return out
+
+
+def _autoencoder_decoder_state(vae) -> dict:
+    """The VAE decoder half in diffusers AutoencoderKL names."""
+    renames = (("mid_resnet1.", "decoder.mid_block.resnets.0."), ("mid_resnet2.", "decoder.mid_block.resnets.1."),
+               ("mid_attn.to_out.", "decoder.mid_block.attentions.0.to_out.0."),
+               ("mid_attn.", "decoder.mid_block.attentions.0."), ("norm_out.", "decoder.conv_norm_out."),
+               ("conv_in.", "decoder.conv_in."), ("conv_out.", "decoder.conv_out."),
+               ("bn_running_", "bn.running_"), ("post_quant_conv.", "post_quant_conv."))
+    out = {}
+    for name, t in vae.state_dict().items():
+        if name.startswith("up_blocks."):
+            key = "decoder." + name.replace(".upsample.", ".upsamplers.0.conv.")
+        else:
+            key = next(dst + name[len(src):] for src, dst in renames if name.startswith(src))
+        out[key] = t
+    return out
+
+
+def _qwen3_state(decoder, layers: int) -> dict:
+    """The first ``layers`` layers in HF Qwen3 names, tied embeddings (no
+    lm_head); ``model.norm`` as ones (the hidden-state path never reads it)."""
+    names = {"input_norm": "input_layernorm", "post_attn_norm": "post_attention_layernorm",
+             "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj", "v_proj": "self_attn.v_proj",
+             "o_proj": "self_attn.o_proj", "q_norm": "self_attn.q_norm", "k_norm": "self_attn.k_norm",
+             "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj", "down_proj": "mlp.down_proj"}
+    out = {"model.embed_tokens.weight": decoder.embed_tokens,
+           "model.norm.weight": torch.ones(decoder.cfg.hidden_size, dtype=decoder.embed_tokens.dtype)}
+    for i in range(layers):
+        for attr, name in names.items():
+            out[f"model.layers.{i}.{name}.weight"] = getattr(decoder.layers[i], attr)
+    return out
+
+
+def _write_sharded(path: str, state: dict, stem: str, config: dict) -> int:
+    """``state`` as safetensors files of at most SHARD_BYTES each (copied off
+    the card one file at a time) with its config.json; returns bytes written."""
+    from flux2_tpu_torch.io import safetensors_io
+
+    os.makedirs(path, exist_ok=True)
+    shards, size = [[]], 0
+    for name, t in state.items():
+        nbytes = t.numel() * t.element_size()
+        if shards[-1] and size + nbytes > SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append(name)
+        size += nbytes
+    for i, names in enumerate(shards):
+        safetensors_io.save_file({n: state[n].detach().cpu() for n in names},
+                                 os.path.join(path, f"{stem}-{i + 1:05d}-of-{len(shards):05d}.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _run_cli(argv: list, label: str, card: str) -> list:
+    """cli.main.main(argv) in this process; its standard output is logged and returned as lines."""
+    import contextlib
+    import io
+
+    from flux2_tpu_torch.cli import main as cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"{label} exited non-zero")
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"[ckpt {label}] {line}")
+    log(f"[ckpt {label}] {time.perf_counter() - t0:.2f} s of command [{card}]")
+    return lines
+
+
+def _cli_process(argv: list, label: str, card: str) -> dict:
+    """``python -m flux2_tpu_torch.cli.main`` as a user runs it, in a process of
+    its own: its wall time (start-up, kernel library load, checkpoint load,
+    request) and its own peak resident set (``os.wait4``'s rusage)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "flux2_tpu_torch.cli.main", *argv], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    out = proc.stdout.read()
+    _, status, usage = os.wait4(proc.pid, 0)
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    wall = time.perf_counter() - t0
+    for line in out.strip().splitlines():
+        log(f"[ckpt {label}] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{label} exited {proc.returncode}")
+    peak_gib = usage.ru_maxrss * 1024 / 2**30
+    bare = subprocess.run([sys.executable, "-c", "import resource; print(resource.getrusage(resource.RUSAGE_SELF)"
+                           ".ru_maxrss * 1024 / 2**30)"], capture_output=True, text=True, timeout=60, check=True)
+    log(f"[ckpt {label}] its own process: {wall:.2f} s wall, host peak RSS {peak_gib:.2f} GiB (ru_maxrss by "
+        f"os.wait4; a bare python process reads its own as {float(bare.stdout):.3f} GiB) [{card}]")
+    return {"wall_s": wall, "host_peak_gib": peak_gib}
+
+
+def _encode_launches_w8a8(decoder) -> int:
+    """K5 launches of one encode (512 tokens): the decoder's w8a8 weights that pass K5's gate."""
+    from flux2_tpu_torch.ops import quant as tq
+
+    n = 0
+    for name in tq.quantized_names(decoder):
+        w = decoder.get_submodule(name)
+        x = torch.empty(512, w.orig_in, device="cuda", dtype=torch.bfloat16)
+        n += tq.kernel_route(x, w) == "w8a8"
+    return n
+
+
+def phase_checkpoint_round_trip(card: str, workdir: str) -> dict:
+    """Full-width Klein-4B, the FLUX.2 VAE and Qwen3-4B at its published shape,
+    drawn on the card: one 1024^2 request in memory; the three written as
+    checkpoint directories (DiT in the Diffusers dialect, sharded; VAE in
+    AutoencoderKL names; Qwen3 in HF names with the dev tokenizer); then
+    ``t2i`` from them through cli.main (latents and PNG equal to the
+    in-memory request's to the bit, K1 100 launches), ``profile --compare
+    bf16,w8a8`` and ``profile --trace``, each with exact launch counts."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from flux2_tpu_torch.cli import main as cli
+    from flux2_tpu_torch.io.png import encode_png
+    from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
+    from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
+    from flux2_tpu_torch.models.text_encoders.extractor import qwen3_extractor
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Model, Flux2Pipeline
+    from flux2_tpu_torch.utils import inline_bpe_tokenizer
+    from flux2_tpu_torch.utils import memory as tmem
+    from flux2_tpu_torch.utils import profiler as tprof
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    pipe = Flux2Pipeline.from_random(Flux2Model.KLEIN_4B, device="cuda", generator=gen)
+    enc_cfg = DecoderConfig.from_json_dict(QWEN3_4B_CONFIG_JSON, qk_norm=True)
+    tokenizer = inline_bpe_tokenizer()
+    pipe.text_encoder = qwen3_extractor(Qwen3Decoder(enc_cfg, device="cuda", generator=gen), tokenizer)
+    res = pipe.generate(height=1024, width=1024, **ROUND_TRIP)
+    latents = res.latents.cpu()
+    png = encode_png(np.rint(res.image * 255.0).astype(np.uint8))
+    log(f"[ckpt] in-memory request, published-shape Qwen3-4B ({enc_cfg.num_hidden_layers} layers, head_dim "
+        f"{enc_cfg.head_dim}, intermediate {enc_cfg.intermediate_size}): {res.duration_s:.3f} s, phases "
+        f"{ {k: round(v, 4) for k, v in res.phase_timings.items()} } [{card}]")
+
+    log(f"[ckpt] one warm encode (512 tokens), published Qwen3-4B shape: {encode_ms(pipe.text_encoder):.3f} ms "
+        f"[{card}]")
+    decoder = pipe.text_encoder.decoder
+    free = shutil.disk_usage(workdir).free
+    need = sum(t.numel() * t.element_size() for m in (pipe.transformer, pipe.vae, decoder) for t in m.state_dict().values())
+    layers = enc_cfg.num_hidden_layers
+    if free < 1.1 * need:
+        layers = KLEIN_RECIPE_DEPTH  # layers 28-35 never reach the Klein embedding
+        log(f"[ckpt] CUT: {free / 2**30:.1f} GiB free for {need / 2**30:.1f} GiB: the encoder is written with "
+            f"{layers} of its {enc_cfg.num_hidden_layers} layers [{card}]")
+    dirs = {k: os.path.join(workdir, k) for k in ("transformer", "vae", "text_encoder")}
+    t0 = time.perf_counter()
+    written = {
+        "transformer": _write_sharded(dirs["transformer"], _diffusers_transformer_state(pipe.transformer),
+                                      "diffusion_pytorch_model", {"_class_name": "Flux2Transformer2DModel",
+                                                                  **dataclasses.asdict(pipe.transformer.config)}),
+        "vae": _write_sharded(dirs["vae"], _autoencoder_decoder_state(pipe.vae), "diffusion_pytorch_model",
+                              {"_class_name": "AutoencoderKLFlux2", **dataclasses.asdict(pipe.vae.config)}),
+        "text_encoder": _write_sharded(dirs["text_encoder"], _qwen3_state(decoder, layers), "model",
+                                       dict(QWEN3_4B_CONFIG_JSON, num_hidden_layers=layers)),
+    }
+    tokenizer.save_pretrained(dirs["text_encoder"])
+    log(f"[ckpt] wrote {', '.join(f'{k} {v / 2**30:.2f} GiB' for k, v in written.items())} in "
+        f"{time.perf_counter() - t0:.2f} s ({free / 2**30:.1f} GiB free before) [{card}]")
+    del pipe, decoder, res
+    gc_cuda()
+
+    dir_flags = ["--transformer-dir", dirs["transformer"], "--vae-dir", dirs["vae"], "--encoder-dir",
+                 dirs["text_encoder"]]
+    built, load = [], {}
+    original = cli.build_pipeline
+
+    def recording_build(args, device, *a, **k):
+        """The CLI's build_pipeline, with its load measured: host peak RSS
+        from the start of the build, device memory after it."""
+        reset = tmem.reset_host_peak_rss()
+        p = original(args, device, *a, **k)
+        torch.cuda.synchronize()
+        peak, scope = tmem.host_peak_rss_bytes()
+        load.update(host_peak_gib=peak / 2**30, host_peak_scope=scope if reset else "ru_maxrss",
+                    device_gib=torch.cuda.memory_allocated() / 2**30,
+                    encode_w8a8=_encode_launches_w8a8(p.text_encoder.decoder))
+        if built is not None:
+            built.append(_RecordingPipeline(p))
+            return built[-1]
+        return p
+
+    cli.build_pipeline = recording_build
+    try:
+        # t2i: load, one request; the load's phases are read from the shared profiler
+        tprof._shared = tprof.PhaseProfiler(enabled=True)
+        out_png = os.path.join(workdir, "t2i.png")
+        _zero_launches()
+        lines = _run_cli(["t2i", *dir_flags, "--prompt", ROUND_TRIP["prompt"], "--seed", str(ROUND_TRIP["seed"]),
+                          "-o", out_png], "t2i", card)
+        counts = _launch_counts()
+        phases = tprof.shared().phases
+        (rec,) = built
+        built = None  # the profile runs below must free each pipeline
+        got = rec.results[0].latents.cpu()
+        if not torch.equal(got, latents):
+            raise AssertionError(f"t2i from the checkpoint: latents differ from the in-memory request's, max abs "
+                                 f"{float((got - latents).abs().max())}")
+        with open(out_png, "rb") as f:
+            if f.read() != png:
+                raise AssertionError("t2i from the checkpoint: the PNG differs from the in-memory request's")
+        want = {name: 0 for name in counts}
+        want["flash"] = 25 * 4
+        if counts != want or lines[0] != f"saved {out_png}":
+            raise AssertionError(f"t2i launched {counts}, want {want}; printed {lines}")
+        report = json.loads(lines[-1])
+        log(f"[ckpt load] transformer {phases['4. Load Transformer']:.3f} s, VAE {phases['5. Load VAE']:.3f} s, "
+            f"encoder {phases['1. Load Text Encoder']:.3f} s ({sum(written.values()) / 2**30:.2f} GiB); host peak RSS "
+            f"{load['host_peak_gib']:.2f} GiB ({load['host_peak_scope']}); device memory after load {load['device_gib']:.2f} GiB [{card}]")
+        log(f"[ckpt t2i] 1024^2 from the checkpoint: latents and PNG equal to the in-memory request's to the bit; "
+            f"launches {counts}; duration {report['duration_s']} s, phases {report['phases']}, memory_gb "
+            f"{report.get('memory_gb')} [{card}]")
+        del rec
+        gc_cuda()
+
+        # the same t2i as its own process: its PNG, wall time and host peak
+        proc_png = os.path.join(workdir, "t2i_process.png")
+        proc = _cli_process(["t2i", *dir_flags, "--prompt", ROUND_TRIP["prompt"], "--seed", str(ROUND_TRIP["seed"]),
+                             "-o", proc_png], "t2i process", card)
+        with open(proc_png, "rb") as f:
+            if f.read() != png:
+                raise AssertionError("t2i in its own process: the PNG differs from the in-memory request's")
+
+        # profile --compare bf16,w8a8, the encoder in w8a8 in both configurations
+        tprof._shared = None
+        _zero_launches()
+        lines = _run_cli(["profile", *dir_flags, "--prompt", ROUND_TRIP["prompt"], "--compare", "bf16,w8a8",
+                          "--encoder-quantization", "w8a8", "--warmup", "1", "--runs", "3"], "profile --compare", card)
+        counts = _launch_counts()
+        encode = load["encode_w8a8"]
+        k5 = FORWARD_LAUNCHES["w8a8"] * 4 * 4 + 2 * encode  # 4 generates of 4 steps in w8a8; one encode a config
+        want = {name: 0 for name in counts}
+        want.update(flash=25 * 4 * 4 * 2, w8a8=k5, quantize_rows=k5)
+        if counts != want:
+            raise AssertionError(f"profile --compare launched {counts}, want {want} (one encode: {encode} K5)")
+        stats = json.loads(lines[-1])
+        log(f"[ckpt profile] phase report of the two configurations, loads included [{card}]")
+        log(tprof.shared().report())
+        log(f"[ckpt profile] --compare bf16,w8a8 at 1024^2, 4 steps, warmup 1, runs 3: {stats}; launches {counts} "
+            f"(K5 {FORWARD_LAUNCHES['w8a8']} a forward, {encode} an encode of the published-shape Qwen3-4B) [{card}]")
+        gc_cuda()
+
+        # profile --trace, bf16
+        tprof._shared = None
+        trace = os.path.join(workdir, "trace.json")
+        _zero_launches()
+        lines = _run_cli(["profile", *dir_flags, "--prompt", ROUND_TRIP["prompt"], "--runs", "2", "--trace", trace],
+                         "profile --trace", card)
+        counts = _launch_counts()
+        want = {name: 0 for name in counts}
+        want["flash"] = 25 * 4 * 3
+        with open(trace) as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        missing = [p for p in ("1. Text Encoding", "2. Denoising", "3. VAE Decoding") if names.count(p) != 3]
+        if counts != want or missing:
+            raise AssertionError(f"profile --trace launched {counts}, want {want}; phases short in the trace: {missing}")
+        log(f"[ckpt profile] --trace: {len(names)} Chrome-trace events, the three generate phases 3 times each; "
+            f"launches {counts} [{card}]")
+    finally:
+        cli.build_pipeline = original
+        tprof._shared = None
+    return {"load": load, "phases": phases, "written": written, "compare": stats, "t2i": report, "process": proc}
+
+
+def gc_cuda() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 class _RecordingPipeline:
     """Forwards to the pipeline and keeps every generate() result (final latents)."""
 
@@ -1025,6 +1358,12 @@ def main() -> int:
         train_1024 = phase_train_cli(card, workdir, size=1024, steps=2, save_every=0)
     log(f"[train] s/step warm: 512^2 {train['s_per_step']:.4f} s, 1024^2 {train_1024['s_per_step']:.4f} s; peak "
         f"device memory 512^2 {train['peak_gib']:.2f} GiB, 1024^2 {train_1024['peak_gib']:.2f} GiB [{card}]")
+    gc_cuda()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as workdir:
+        phase_checkpoint_round_trip(card, workdir)
+    log(f"[ckpt] checkpoint round trip and profile phase: {time.perf_counter() - t0:.2f} s [{card}]")
 
     # Each kernel at the main path's shape ((1, 24, 4608, 128) for K1-K4, the
     # 1024^2 image projections (4096, 3072, 3072) for K5-K7): "ms" is the kernel

@@ -1,45 +1,61 @@
-"""Command line of the PyTorch port: random-init text-to-image, bf16 or
-quantized, and random-init LoRA training.
+"""Command line of the PyTorch port: text-to-image and ``profile`` from
+checkpoint directories or random weights, bf16 or quantized, and LoRA
+training on random weights.
 
-Port of the random-init branch of ``flux2_tpu/cli/main.py``'s
-``build_pipeline`` (``:94-104``) with ``--model``, ``--quantization``
-(``:815``), ``--encoder-quantization`` (``:840-843``) and ``--random-init``,
-on an explicit device and ``torch.Generator``. Where JAX's random-init
-pipeline has no text encoder, the port attaches a random Qwen3 encoder of the
-model's family (as ``chip_smoke.py`` serves it) and quantizes its layer
-weights with ``--encoder-quantization`` (JAX ``attach_text_encoder``'s
-quantization, ``:276-306``).
+Port of ``flux2_tpu/cli/main.py``'s ``build_pipeline`` (``:84-164``): the
+checkpoint branch resolves each component's directory through the registry
+(``--transformer-dir``, ``--vae-dir``, ``--encoder-dir``, else the models dir,
+else the HF cache), reads its ``config.json``, maps BFL or Diffusers
+transformer weights, the Diffusers VAE decoder and HF Qwen3 straight onto the
+device (``io/weight_mapping.py``), and quantizes the DiT to
+``--quantization`` and the encoder's layers to ``--encoder-quantization`` on
+the fly. Missing weights exit with JAX's messages. ``--random-init`` draws
+the same modules from a seed instead; where JAX's random-init pipeline has no
+text encoder, the port attaches a random Qwen3 encoder of the model's family
+(as ``chip_smoke.py`` serves it).
 
-    python -m flux2_tpu_torch.cli.main t2i --random-init --quantization w8a8 \\
-        --encoder-quantization w8a8 --prompt "a red fox" -o fox.png
+    python -m flux2_tpu_torch.cli.main t2i --transformer-dir T --vae-dir V \\
+        --encoder-dir E --prompt "a red fox" -o fox.png
+    python -m flux2_tpu_torch.cli.main profile --transformer-dir T --vae-dir V \\
+        --encoder-dir E --compare bf16,w8a8 --warmup 1 --runs 3
 
-``train-lora`` takes the JAX command's flags (``flux2_tpu/cli/main.py``
-:1016-1040) and runs ``flux2_tpu_torch.cli.train.run_training``: with
-``--random-init`` and no dataset directory, a LoRA trained on synthetic data
-(``cli/train.py`` says what else it refuses, and why).
+``t2i`` prints ``saved <path>`` and JAX's JSON line (seed, steps, duration_s,
+phases, memory_gb); ``profile`` (JAX's ``cmd_profile`` / ``_profile_once``,
+``:720-778``) runs warmup and timed generations per configuration and prints
+JAX's report, table and JSON, ``--trace`` writing the phases as a Chrome
+trace.
 
-    python -m flux2_tpu_torch.cli.main train-lora --config cfg.yaml --random-init
+``train-lora`` takes the JAX command's flags (``:1016-1040``) and runs
+``flux2_tpu_torch.cli.train.run_training``: with ``--random-init`` and no
+dataset directory, a LoRA trained on synthetic data (``cli/train.py`` says
+what else it refuses, and why).
 
-Loading checkpoints, prequantized load and export, LoRA inference, memory
-profiles and ``--shard`` are not ported yet: without ``--random-init``
-``build_pipeline`` raises, and argparse refuses the other flags.
+Not ported yet, and refused by argparse or raising: prequantized checkpoints
+(on-the-fly quantization only), LoRA inference, the small decoder, memory
+profiles, ``--shard``, the Mistral encoder (Dev) and the other subcommands.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
+import json
+import os
 import sys
+import time
 from typing import Optional, Sequence
 
 import torch
 
 from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
 from flux2_tpu_torch.models.text_encoders.config import QWEN3_4B, QWEN3_8B, DecoderConfig
-from flux2_tpu_torch.models.flux2.vae import VAEConfig
+from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, VAEConfig
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
 from flux2_tpu_torch.models.text_encoders.extractor import qwen3_extractor, quantize_encoder_params
 from flux2_tpu_torch.ops.quant import quantize_params
 from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
+from flux2_tpu_torch.utils import logging as flog
+from flux2_tpu_torch.utils.profiler import shared as profiler
 
 QUANTIZATIONS = ("bf16", "qint8", "w8a8", "int4", "nf4", "w4a8", "mxfp8", "mxfp4", "nvfp4")
 ENCODER_QUANTIZATIONS = ("bf16", "qint8", "w8a8", "int4", "w4a8", "mxfp8")
@@ -63,24 +79,26 @@ def build_pipeline(
     vae_config: Optional[VAEConfig] = None,
     encoder_config: Optional[DecoderConfig] = None,
 ) -> Flux2Pipeline:
-    """Random-init pipeline for ``args.model`` on ``device``: DiT and VAE, then
-    the text encoder, drawn in that order from ``generator`` (seed 0 on the
-    device by default), the DiT quantized to ``args.quantization`` and the
-    encoder's layers to ``args.encoder_quantization``. The config overrides
-    give checkpoint-free runs at reduced size."""
-    if not getattr(args, "random_init", False):
-        raise NotImplementedError("loading checkpoints is not ported to flux2_tpu_torch yet; pass --random-init")
+    """The pipeline of ``args.model`` on ``device``, the DiT quantized to
+    ``args.quantization`` and the encoder's layers to
+    ``args.encoder_quantization``: from checkpoint directories, or with
+    ``args.random_init`` drawn from ``generator`` (seed 0 on the device by
+    default; DiT and VAE, then the encoder). The config overrides give
+    random-init runs at reduced size."""
     fmt = getattr(args, "quantization", "bf16")
-    enc_fmt = getattr(args, "encoder_quantization", "bf16")
+    enc_fmt = getattr(args, "encoder_quantization", "bf16") or "bf16"
     if fmt not in QUANTIZATIONS:
         raise ValueError(f"--quantization {fmt!r}: choose from {QUANTIZATIONS}")
     if enc_fmt not in ENCODER_QUANTIZATIONS:
         raise ValueError(f"--encoder-quantization {enc_fmt!r}: choose from {ENCODER_QUANTIZATIONS}")
+    model = Flux2Model(args.model)
+    device = torch.device(device)
+    if not getattr(args, "random_init", False):
+        return _load_pipeline(args, model, device, fmt, enc_fmt)
+
     from flux2_tpu_torch.utils import inline_bpe_tokenizer
 
-    model = Flux2Model(args.model)
     encoder_config = encoder_config or _encoder_config(model)
-    device = torch.device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     pipe = Flux2Pipeline.from_random(model, device=device, generator=generator,
@@ -91,21 +109,123 @@ def build_pipeline(
     return pipe
 
 
+def _load_pipeline(args, model: Flux2Model, device: torch.device, fmt: str, enc_fmt: str) -> Flux2Pipeline:
+    """JAX ``build_pipeline``'s checkpoint branch (``:105-164``), with
+    on-the-fly quantization only; each component is timed as JAX's phases."""
+    from flux2_tpu_torch.io import checkpoints, registry, weight_mapping
+
+    with_encoder = not getattr(args, "no_text_encoder", False)
+    if with_encoder:
+        _encoder_config(model)  # refuse Dev (Mistral) before loading anything
+    with profiler().phase("4. Load Transformer"):
+        t0 = _load_start()
+        tdir = registry.find_model_path(registry.TRANSFORMER_REPOS[model], getattr(args, "transformer_dir", None))
+        if tdir is None:
+            raise SystemExit(
+                f"transformer weights for {model.value} not found; run "
+                f"`flux2 download --model {model.value}` or pass --transformer-dir"
+            )
+        transformer = weight_mapping.load_transformer(
+            checkpoints.WeightsDir(tdir), _read_config_json(tdir, model.transformer_config), device)
+        quantize_params(transformer, fmt)
+        _log_load("transformer", tdir, t0, device, fmt)
+    with profiler().phase("5. Load VAE"):
+        t0 = _load_start()
+        vdir = registry.find_model_path(registry.VAE_REPO, getattr(args, "vae_dir", None))
+        if vdir is None:
+            raise SystemExit("VAE weights not found; run `flux2 download` or pass --vae-dir")
+        vae = weight_mapping.load_vae(checkpoints.WeightsDir(vdir), _read_vae_config_json(vdir, FLUX2_VAE), device)
+        _log_load("VAE", vdir, t0, device, "float32")
+    pipe = Flux2Pipeline(model=model, transformer=transformer, vae=vae, device=device)
+    if with_encoder:
+        with profiler().phase("1. Load Text Encoder"):
+            attach_text_encoder(pipe, getattr(args, "encoder_dir", None), getattr(args, "encoder_tokenizer_dir", None),
+                                enc_fmt)
+    return pipe
+
+
+def _read_config_json(model_dir: str, default: Flux2TransformerConfig) -> Flux2TransformerConfig:
+    """A diffusers ``config.json`` beside the weights, else ``default``."""
+    path = os.path.join(model_dir, "config.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            return Flux2TransformerConfig.from_json_dict(json.load(f))
+    return default
+
+
+def _read_vae_config_json(vae_dir: str, default: VAEConfig) -> VAEConfig:
+    path = os.path.join(vae_dir, "config.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            return VAEConfig.from_json_dict(json.load(f))
+    return default
+
+
+def attach_text_encoder(pipe: Flux2Pipeline, encoder_dir: Optional[str] = None, tokenizer_dir: Optional[str] = None,
+                        quantization: str = "bf16") -> None:
+    """Load the model family's Qwen3 encoder onto the pipeline's device and
+    attach it: explicit ``encoder_dir``, then the models dir, then the HF
+    cache (JAX ``attach_text_encoder``, ``:276-309``, without the VLM loader)."""
+    from flux2_tpu_torch.io import registry
+    from flux2_tpu_torch.models.text_encoders import facade
+
+    t0 = _load_start()
+    name = registry.ENCODER_FOR_MODEL[pipe.model]
+    edir = registry.find_model_path(registry.TEXT_ENCODER_REPOS[name], encoder_dir)
+    if edir is None:
+        raise SystemExit(
+            f"text encoder {name} weights not found; run `flux2 download --model "
+            f"{pipe.model.value}`, pass --encoder-dir, or pass --no-text-encoder "
+            f"to run with precomputed embeddings"
+        )
+    if name == "mistral-small-3.2":
+        enc = facade.load_mistral(edir, tokenizer_dir, quantization=quantization, device=pipe.device)
+    else:
+        enc = facade.load_qwen3(edir, tokenizer_dir, size="4b" if "4b" in name else "8b",
+                                quantization=quantization, device=pipe.device)
+    pipe.text_encoder = enc.extractor
+    _log_load(f"text encoder {enc.name} ({enc.config.num_hidden_layers} layers, {enc.config.hidden_size} hidden)",
+              edir, t0, pipe.device, quantization)
+
+
+def _load_start() -> float:
+    from flux2_tpu_torch.utils.memory import reset_host_peak_rss
+
+    reset_host_peak_rss()
+    return time.perf_counter()
+
+
+def _log_load(what: str, path: str, t0: float, device: torch.device, fmt: str) -> None:
+    """One line per component: bytes read, seconds, the host's peak resident
+    set during the load and the device memory allocated after it."""
+    from flux2_tpu_torch.io.checkpoints import safetensors_files
+    from flux2_tpu_torch.utils.memory import device_memory_stats, host_peak_rss_bytes
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    gib = 2**30
+    nbytes = sum(os.path.getsize(f) for f in safetensors_files(path))
+    peak, scope = host_peak_rss_bytes()
+    flog.info(f"loaded {what} ({fmt}) from {path}: {nbytes / gib:.2f} GiB read "
+              f"in {time.perf_counter() - t0:.2f} s; host peak RSS {peak / gib:.2f} GiB ({scope}); "
+              f"{device_memory_stats(device)['bytes_in_use'] / gib:.2f} GiB allocated on {device}")
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="flux2_tpu_torch", description="flux2-tpu's PyTorch port")
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("t2i", help="text to image")
-    p.add_argument("--model", default="klein-4b", choices=[m.value for m in Flux2Model])
-    p.add_argument("--quantization", default="bf16", choices=QUANTIZATIONS)
-    p.add_argument("--encoder-quantization", default="bf16", choices=ENCODER_QUANTIZATIONS)
-    p.add_argument("--random-init", action="store_true", help="random weights (smoke test; required for now)")
-    p.add_argument("--prompt", default="")
-    p.add_argument("--width", type=int, default=1024)
-    p.add_argument("--height", type=int, default=1024)
-    p.add_argument("--steps", type=int, default=None)
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu; the CPU only when asked")
-    p.add_argument("-o", "--output", default="out.png")
+    _add_common(p)
+    p.add_argument("-o", "--output", default="output.png")
+
+    p = sub.add_parser("profile", help="benchmark generation (warmup + N runs)")
+    _add_common(p)
+    p.add_argument("--warmup", type=int, default=1)
+    p.add_argument("--runs", type=int, default=3)
+    p.add_argument("--trace", help="export Chrome-trace JSON here")
+    p.add_argument("--no-decode", action="store_true")
+    p.add_argument("--compare", metavar="FMT,FMT,...",
+                   help="cross-config comparison over quantization formats (e.g. bf16,w8a8)")
 
     p = sub.add_parser("train-lora", help="flow-matching LoRA training")
     p.add_argument("--config", required=True, help="YAML training config")
@@ -127,28 +247,119 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _add_common(p: argparse.ArgumentParser) -> None:
+    """The flags of JAX's ``_add_common`` (``:813-876``) that the port runs."""
+    p.add_argument("--model", default="klein-4b", choices=[m.value for m in Flux2Model])
+    p.add_argument("--quantization", default="bf16", choices=QUANTIZATIONS)
+    p.add_argument("--transformer-dir")
+    p.add_argument("--vae-dir")
+    p.add_argument("--random-init", action="store_true", help="random weights (smoke test)")
+    p.add_argument("--encoder-dir", help="text-encoder weights dir (default: registry resolution)")
+    p.add_argument("--encoder-tokenizer-dir", help="tokenizer dir when separate from weights")
+    p.add_argument("--encoder-quantization", default="bf16", choices=ENCODER_QUANTIZATIONS)
+    p.add_argument("--no-text-encoder", action="store_true",
+                   help="skip encoder load (requires precomputed embeddings via the library API)")
+    p.add_argument("--models-dir", help="custom models directory (env FLUX2_MODELS_DIR)")
+    p.add_argument("--prompt", default="")
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--height", type=int, default=1024)
+    p.add_argument("--steps", type=int)
+    p.add_argument("--guidance", type=float)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu; the CPU only when asked")
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return _parser().parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
+def _generate(pipe: Flux2Pipeline, args, seed: int, decode: bool = True):
+    return pipe.generate(prompt=args.prompt, height=args.height, width=args.width, num_steps=args.steps,
+                         guidance=args.guidance, seed=seed, decode=decode)
+
+
+def cmd_t2i(args) -> None:
     import numpy as np
 
     from flux2_tpu_torch.io.png import encode_png
 
+    pipe = build_pipeline(args, args.device)
+    res = _generate(pipe, args, args.seed)
+    with open(args.output, "wb") as f:
+        f.write(encode_png(np.rint(res.image * 255.0).astype(np.uint8)))
+    print(f"saved {args.output}")
+    out = {"seed": res.seed, "steps": res.num_steps, "duration_s": round(res.duration_s, 2),
+           "phases": {k: round(v, 2) for k, v in res.phase_timings.items()}}
+    if res.memory_stats and any(v["peak_gb"] for v in res.memory_stats.values()):
+        out["memory_gb"] = {k: v["peak_gb"] for k, v in res.memory_stats.items()}
+    print(json.dumps(out))
+
+
+def _profile_once(args, quantization: Optional[str] = None):
+    """One profiled configuration: build, warmup, N timed runs -> stats dict."""
+    import numpy as np
+
+    prof = profiler()
+    prof.enabled = True
+    if quantization is not None:
+        args.quantization = quantization
+    pipe = build_pipeline(args, args.device)
+    durations = []
+    for run in range(args.warmup + args.runs):
+        with prof.phase(f"run {run}"):
+            res = _generate(pipe, args, args.seed + run, decode=not args.no_decode)
+        if run >= args.warmup:
+            durations.append(res.duration_s)
+    stats = {
+        "runs": len(durations),
+        "mean_s": round(float(np.mean(durations)), 3) if durations else None,
+        "min_s": round(float(np.min(durations)), 3) if durations else None,
+        "max_s": round(float(np.max(durations)), 3) if durations else None,
+    }
+    return pipe, prof, stats
+
+
+def cmd_profile(args) -> None:
+    os.environ["FLUX2_PROFILE"] = "1"
+    if args.compare:
+        # same prompt, shape and steps across quantization formats, one table
+        rows = []
+        for fmt in args.compare.split(","):
+            fmt = fmt.strip()
+            pipe, prof, stats = _profile_once(args, quantization=fmt)
+            rows.append((fmt, stats))
+            del pipe  # free device memory before the next config
+            gc.collect()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+        base = rows[0][1]["mean_s"] or 1.0
+        print(f"{'config':<10} {'mean_s':>8} {'min_s':>8} {'max_s':>8} {'vs_first':>9}")
+        for fmt, s in rows:
+            rel = base / s["mean_s"] if s["mean_s"] else float("nan")
+            print(f"{fmt:<10} {s['mean_s']:>8} {s['min_s']:>8} {s['max_s']:>8} {rel:>8.2f}x")
+        print(json.dumps({fmt: s for fmt, s in rows}))
+        return
+    pipe, prof, stats = _profile_once(args)
+    print(prof.report())
+    if stats["runs"]:
+        print(json.dumps(stats))
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+        print(f"chrome trace -> {args.trace} (open in Perfetto)")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
+    if getattr(args, "models_dir", None):
+        os.environ["FLUX2_MODELS_DIR"] = args.models_dir
     if args.command == "train-lora":
         from flux2_tpu_torch.cli.train import run_training
 
         run_training(args, args.device)
-        return 0
-    pipe = build_pipeline(args, args.device)
-    res = pipe.generate(prompt=args.prompt, height=args.height, width=args.width, num_steps=args.steps,
-                        seed=args.seed)
-    with open(args.output, "wb") as f:
-        f.write(encode_png(np.rint(res.image * 255.0).astype(np.uint8)))
-    timings = ", ".join(f"{k} {v:.3f} s" for k, v in res.phase_timings.items())
-    print(f"wrote {args.output} ({args.width}x{args.height}, {res.num_steps} steps, {args.quantization}): {timings}")
+    elif args.command == "profile":
+        cmd_profile(args)
+    else:
+        cmd_t2i(args)
     return 0
 
 

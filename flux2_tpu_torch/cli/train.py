@@ -20,7 +20,8 @@ trains and as the kernels take it. What this slice does not carry raises
 images (the VAE encoder, queue 11), validation prompts, VLM scoring and
 validation-loss datasets (queues 13 and 15), pipeline parallelism and
 ``--shard`` (queue 16), a quantized base (QLoRA, queue 12), adapter dropout
-(queue 13) and checkpoint directories (queues 10 and 12).
+(queue 13) and checkpoint directories (queue 13: JAX trains on real data
+whenever it loads checkpoints, and real data needs the VAE encoder).
 """
 
 from __future__ import annotations
@@ -44,10 +45,10 @@ def _refuse_unsupported(cfg, args: argparse.Namespace) -> None:
         raise SystemExit(f"train-lora in flux2_tpu_torch: {what} is not ported yet (ROADMAP queue {queue})")
 
     if not getattr(args, "random_init", False):
-        refuse("training from checkpoints (pass --random-init)", "10/12")
+        refuse("training from checkpoints (pass --random-init)", "13")
     for flag in ("transformer_dir", "vae_dir", "encoder_dir", "encoder_tokenizer_dir"):
         if getattr(args, flag, None):
-            refuse(f"--{flag.replace('_', '-')} (reading checkpoints)", "10/12")
+            refuse(f"--{flag.replace('_', '-')} (reading checkpoints)", "13")
     if cfg.dataset_dir and os.path.isdir(cfg.dataset_dir):
         refuse(f"real-data training (dataset {cfg.dataset_dir} needs the VAE encoder)", "11")
     if cfg.control_dir:
@@ -127,7 +128,8 @@ def run_training(
     """Train as ``flux2 train-lora --random-init`` does, on ``device``; returns
     one dict per step run here (step, loss, dop_loss, grad_norm, lr, seconds).
     ``transformer_config`` replaces the model's (tests run a tiny one)."""
-    from flux2_tpu_torch.cli.train_config import YAMLTrainingConfig, training_variant, write_learning_curve_svg
+    from flux2_tpu_torch.cli.train_config import YAMLTrainingConfig, write_learning_curve_svg
+    from flux2_tpu_torch.io.registry import training_variant
     from flux2_tpu_torch.models.flux2.config import Flux2Model
     from flux2_tpu_torch.training.control import TrainingController, TrainingState, config_hash
     from flux2_tpu_torch.utils import logging as flog

@@ -1,8 +1,7 @@
 """What ``train-lora`` takes from the JAX package's training CLI, as the
 port's own copies: the YAML schema (``YAMLTrainingConfig``, from
 ``flux2_tpu/cli/train.py:34``), checkpoint pruning (``:1142``), the
-learning-curve SVG (``:1167``) and the training variant of a model
-(``flux2_tpu/io/registry.py:67``). Each behaves as its original; the CPU tests
+learning-curve SVG (``:1167``). Each behaves as its original; the CPU tests
 hold them against it (``tests/test_torch_shared_copies.py``).
 """
 
@@ -14,8 +13,6 @@ import shutil
 from typing import ClassVar, Optional, Sequence
 
 import numpy as np
-
-from flux2_tpu_torch.models.flux2.config import Flux2Model
 
 
 @dataclasses.dataclass
@@ -301,19 +298,6 @@ class YAMLTrainingConfig:
     def override(self, **kw) -> "YAMLTrainingConfig":
         updates = {k: v for k, v in kw.items() if v is not None}
         return dataclasses.replace(self, **updates)
-
-
-def training_variant(model: Flux2Model) -> Flux2Model:
-    """LoRA training MUST use the base (non-distilled) sibling
-    (ModelRegistry.swift:238-250). Dev is already non-distilled."""
-    return {
-        Flux2Model.KLEIN_4B: Flux2Model.KLEIN_4B_BASE,
-        Flux2Model.KLEIN_4B_BASE: Flux2Model.KLEIN_4B_BASE,
-        Flux2Model.KLEIN_9B: Flux2Model.KLEIN_9B_BASE,
-        Flux2Model.KLEIN_9B_BASE: Flux2Model.KLEIN_9B_BASE,
-        Flux2Model.KLEIN_9B_KV: Flux2Model.KLEIN_9B_BASE,
-        Flux2Model.DEV: Flux2Model.DEV,
-    }[model]
 
 
 def prune_checkpoints(cfg, keep: str) -> None:

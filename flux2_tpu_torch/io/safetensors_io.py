@@ -7,6 +7,11 @@ reference's truncation guard (PrequantizedCheckpoint.swift:108-142): a
 checkpoint whose payload is shorter than its header's ``data_offsets`` claim
 would otherwise silently produce uninitialized weights, so completeness is
 validated BEFORE any model state is touched.
+
+Files are read and written through safetensors' torch API, so every dtype it
+stores loads as a torch tensor (bf16 and fp8 included, with no ``ml_dtypes``:
+the JAX package's numpy reads need it, and the port's hosts need not have
+it). ``save_file`` takes torch tensors or numpy arrays.
 """
 
 from __future__ import annotations
@@ -15,11 +20,12 @@ import json
 import os
 import struct
 import tempfile
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
+import torch
 from safetensors import safe_open
-from safetensors.numpy import save_file as _st_save
+from safetensors.torch import save_file as _st_save
 
 
 def read_header(path: str) -> Dict[str, Any]:
@@ -47,14 +53,21 @@ def payload_is_complete(path: str) -> bool:
     return os.path.getsize(path) >= 8 + header_len + max_end
 
 
-def load_file(path: str, validate: bool = True) -> Dict[str, np.ndarray]:
-    if validate and not payload_is_complete(path):
+def check_complete(path: str) -> None:
+    """Raise ValueError when the file's payload is shorter than its header claims."""
+    if not payload_is_complete(path):
         raise ValueError(
             f"safetensors payload incomplete: {path} — refusing to load "
             "(truncated checkpoints silently yield uninitialized weights)"
         )
-    out: Dict[str, np.ndarray] = {}
-    with safe_open(path, framework="numpy") as f:
+
+
+def load_file(path: str, validate: bool = True) -> Dict[str, torch.Tensor]:
+    """Every tensor of the file, as CPU torch tensors in their stored dtype."""
+    if validate:
+        check_complete(path)
+    out: Dict[str, torch.Tensor] = {}
+    with safe_open(path, framework="pt") as f:
         for key in f.keys():
             out[key] = f.get_tensor(key)
     return out
@@ -70,15 +83,21 @@ def tensor_names(path: str) -> list:
 
 
 def save_file(
-    tensors: Dict[str, np.ndarray], path: str, metadata: Optional[Dict[str, str]] = None
+    tensors: Mapping[str, "torch.Tensor | np.ndarray"], path: str, metadata: Optional[Dict[str, str]] = None
 ) -> None:
     """Atomic save: write to a temp file in the target dir, then rename."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)), suffix=".tmp")
     os.close(fd)
     try:
-        _st_save({k: np.ascontiguousarray(v) for k, v in tensors.items()}, tmp, metadata=metadata)
+        _st_save({k: _cpu_tensor(v) for k, v in tensors.items()}, tmp, metadata=metadata)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def _cpu_tensor(v: "torch.Tensor | np.ndarray") -> torch.Tensor:
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(np.ascontiguousarray(v))
+    return v.detach().cpu().contiguous()

@@ -1,0 +1,320 @@
+"""Checkpoint dialects -> the port's modules: BFL-native and Diffusers FLUX.2
+transformers, the Diffusers ``AutoencoderKL`` decoder half, HF Qwen3.
+
+Port of ``flux2_tpu/io/weight_mapping.py``: ``dequantize_quanto`` (``:38-54``),
+``is_bfl_format`` (``:57``), ``map_transformer_weights`` with ``_map_bfl`` and
+``_map_diffusers`` (``:71-232``), the decoder half of ``map_vae_weights``
+(``:353-389``), ``map_decoder_weights`` and ``strip_language_model_prefix``
+(``:397-439``).
+
+Where JAX transposes every linear to [in, out] and stacks the layers, each
+``map_*`` here yields (port parameter name, tensor) pairs straight in torch's
+[out, in] layout and the checkpoint's dtype, one checkpoint tensor at a time:
+the names ``io/jax_params.py`` fills (``double_blocks.{i}.to_q``, ...). Each
+``load_*`` builds the module on its device and copies every pair into it as
+it comes, cast to the module's dtype (bf16 for the DiT and the encoder, as
+JAX's ``_to_bf16``; float32 for the VAE, as ``map_vae_weights``), so the
+host holds about one tensor at a time. A weight the module needs and the
+checkpoint lacks raises ``KeyError`` naming it, after the whole checkpoint
+was read; a checkpoint tensor the module has no place for is skipped, as
+JAX skips it.
+"""
+
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+from typing import Iterable, Iterator, List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
+from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
+from flux2_tpu_torch.models.flux2.vae import VAEConfig, VAEDecoder
+from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
+from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
+
+Item = Tuple[str, torch.Tensor]
+
+
+# -- quanto (diffusers checkpoints quantized with optimum-quanto) ------------------
+
+
+def quanto_items(weights: Mapping) -> Iterator[Item]:
+    """Every entry of ``weights``, each ``<k>._data`` / ``<k>._scale`` pair
+    folded into float ``<k>``: the f32 product of the two (a ``._data``
+    without its scale passes as it is)."""
+    for key in weights:
+        if key.endswith("._scale"):
+            continue
+        if key.endswith("._data"):
+            base = key[: -len("._data")]
+            data = weights[key]
+            if base + "._scale" in weights:
+                data = data.to(torch.float32) * weights[base + "._scale"].to(torch.float32)
+            yield base, data
+        else:
+            yield key, weights[key]
+
+
+def dequantize_quanto(weights: Mapping) -> dict:
+    """Fold ``<k>._data`` (int8) and ``<k>._scale`` pairs into float ``<k>``."""
+    return dict(quanto_items(weights))
+
+
+def _base_names(names: Iterable[str]) -> List[str]:
+    return [k[: -len("._data")] if k.endswith("._data") else k for k in names if not k.endswith("._scale")]
+
+
+def is_bfl_format(names: Iterable[str]) -> bool:
+    """True for BFL-native names (a mapping's keys or any iterable of names)."""
+    return any(".img_attn.qkv." in k or k == "img_in.weight" for k in _base_names(names))
+
+
+# -- FLUX.2 transformer ------------------------------------------------------------
+
+_BFL_DOUBLE = {
+    "img_attn.proj.weight": "to_out",
+    "txt_attn.proj.weight": "add_out",
+    "img_attn.norm.query_norm.scale": "norm_q",
+    "img_attn.norm.key_norm.scale": "norm_k",
+    "txt_attn.norm.query_norm.scale": "norm_added_q",
+    "txt_attn.norm.key_norm.scale": "norm_added_k",
+    "img_mlp.0.weight": "ff_in",
+    "img_mlp.2.weight": "ff_out",
+    "txt_mlp.0.weight": "ff_ctx_in",
+    "txt_mlp.2.weight": "ff_ctx_out",
+}
+_BFL_QKV = {"img_attn.qkv.weight": ("to_q", "to_k", "to_v"), "txt_attn.qkv.weight": ("add_q", "add_k", "add_v")}
+_BFL_SINGLE = {"norm.query_norm.scale": "norm_q", "norm.key_norm.scale": "norm_k"}
+_BFL_TOP = {
+    "img_in.weight": "x_embedder",
+    "txt_in.weight": "context_embedder",
+    "time_in.in_layer.weight": "time_linear1",
+    "time_in.out_layer.weight": "time_linear2",
+    "guidance_in.in_layer.weight": "guidance_linear1",
+    "guidance_in.out_layer.weight": "guidance_linear2",
+    "double_stream_modulation_img.lin.weight": "double_mod_img",
+    "double_stream_modulation_txt.lin.weight": "double_mod_txt",
+    "single_stream_modulation.lin.weight": "single_mod",
+    "final_layer.linear.weight": "proj_out",
+}
+
+_DIFFUSERS_DOUBLE = {
+    "attn.to_q.weight": "to_q",
+    "attn.to_k.weight": "to_k",
+    "attn.to_v.weight": "to_v",
+    "attn.to_out.0.weight": "to_out",
+    "attn.add_q_proj.weight": "add_q",
+    "attn.add_k_proj.weight": "add_k",
+    "attn.add_v_proj.weight": "add_v",
+    "attn.to_add_out.weight": "add_out",
+    "attn.norm_q.weight": "norm_q",
+    "attn.norm_k.weight": "norm_k",
+    "attn.norm_added_q.weight": "norm_added_q",
+    "attn.norm_added_k.weight": "norm_added_k",
+    "ff.linear_in.weight": "ff_in",
+    "ff.linear_out.weight": "ff_out",
+    "ff_context.linear_in.weight": "ff_ctx_in",
+    "ff_context.linear_out.weight": "ff_ctx_out",
+}
+_DIFFUSERS_SINGLE = {"attn.norm_q.weight": "norm_q", "attn.norm_k.weight": "norm_k"}
+_DIFFUSERS_TOP = {
+    "x_embedder.weight": "x_embedder",
+    "context_embedder.weight": "context_embedder",
+    "double_stream_modulation_img.linear.weight": "double_mod_img",
+    "double_stream_modulation_txt.linear.weight": "double_mod_txt",
+    "single_stream_modulation.linear.weight": "single_mod",
+    "norm_out.linear.weight": "norm_out",  # diffusers order: no swap
+    "proj_out.weight": "proj_out",
+    "time_text_embed.timestep_embedder.linear_1.weight": "time_linear1",
+    "time_text_embed.timestep_embedder.linear_2.weight": "time_linear2",
+    "time_text_embed.guidance_embedder.linear_1.weight": "guidance_linear1",
+    "time_text_embed.guidance_embedder.linear_2.weight": "guidance_linear2",
+    "time_guidance_embed.timestep_embedder.linear_1.weight": "time_linear1",
+    "time_guidance_embed.timestep_embedder.linear_2.weight": "time_linear2",
+    "time_guidance_embed.guidance_embedder.linear_1.weight": "guidance_linear1",
+    "time_guidance_embed.guidance_embedder.linear_2.weight": "guidance_linear2",
+}
+
+_BLOCK = re.compile(r"(double_blocks|single_blocks|transformer_blocks|single_transformer_blocks)\.(\d+)\.(.+)")
+
+
+def _single_fused(prefix: str, rest: str, v: torch.Tensor, config: Flux2TransformerConfig) -> List[Item]:
+    """A single block's fused input rows [Q | K | V | gate | up] or output
+    columns [attn | mlp]."""
+    inner, mlp = config.inner_dim, config.mlp_hidden_dim
+    if rest == "in":
+        parts = torch.split(v, [inner, inner, inner, mlp, mlp], dim=0)
+        return [(prefix + n, t) for n, t in zip(("to_q", "to_k", "to_v", "mlp_gate", "mlp_up"), parts)]
+    return [(prefix + "out_attn", v[:, :inner]), (prefix + "out_mlp", v[:, inner:])]
+
+
+def _bfl_items(key: str, v: torch.Tensor, config: Flux2TransformerConfig) -> List[Item]:
+    m = _BLOCK.fullmatch(key)
+    if m and m.group(1) == "double_blocks":
+        p, rest = f"double_blocks.{m.group(2)}.", m.group(3)
+        if rest in _BFL_QKV:
+            return [(p + n, t) for n, t in zip(_BFL_QKV[rest], torch.chunk(v, 3, dim=0))]
+        return [(p + _BFL_DOUBLE[rest], v)] if rest in _BFL_DOUBLE else []
+    if m and m.group(1) == "single_blocks":
+        p, rest = f"single_blocks.{m.group(2)}.", m.group(3)
+        if rest in ("linear1.weight", "linear2.weight"):
+            return _single_fused(p, "in" if rest == "linear1.weight" else "out", v, config)
+        return [(p + _BFL_SINGLE[rest], v)] if rest in _BFL_SINGLE else []
+    if key == "final_layer.adaLN_modulation.1.weight":
+        # BFL stores [shift | scale] rows; the port's _final reads [scale | shift].
+        d = v.shape[0] // 2
+        return [("norm_out", torch.cat([v[d:], v[:d]], dim=0))]
+    return [(_BFL_TOP[key], v)] if key in _BFL_TOP else []
+
+
+def _diffusers_items(key: str, v: torch.Tensor, config: Flux2TransformerConfig) -> List[Item]:
+    m = _BLOCK.fullmatch(key)
+    if m and m.group(1) == "transformer_blocks":
+        p, rest = f"double_blocks.{m.group(2)}.", m.group(3)
+        return [(p + _DIFFUSERS_DOUBLE[rest], v)] if rest in _DIFFUSERS_DOUBLE else []
+    if m and m.group(1) == "single_transformer_blocks":
+        p, rest = f"single_blocks.{m.group(2)}.", m.group(3)
+        if rest == "attn.to_qkv_mlp_proj.weight":
+            return _single_fused(p, "in", v, config)
+        if rest in ("attn.to_out.weight", "attn.to_out.0.weight"):
+            return _single_fused(p, "out", v, config)
+        return [(p + _DIFFUSERS_SINGLE[rest], v)] if rest in _DIFFUSERS_SINGLE else []
+    return [(_DIFFUSERS_TOP[key], v)] if key in _DIFFUSERS_TOP else []
+
+
+def map_transformer_weights(weights: Mapping, config: Flux2TransformerConfig) -> Iterator[Item]:
+    """(port name, tensor) for every transformer weight of a BFL or Diffusers
+    checkpoint (quanto pairs folded), [out, in], in the checkpoint's dtype."""
+    items = _bfl_items if is_bfl_format(weights) else _diffusers_items
+    for key, v in quanto_items(weights):
+        yield from items(key, v, config)
+
+
+def load_transformer(weights: Mapping, config: Flux2TransformerConfig, device: "torch.device | str",
+                     dtype: torch.dtype = torch.bfloat16) -> Flux2Transformer:
+    """The DiT of ``config`` on ``device`` in ``dtype``, filled from ``weights``."""
+    model = Flux2Transformer(config, device=device, dtype=dtype)
+    missing = fill(model, map_transformer_weights(weights, config))
+    if config.guidance_embeds and "guidance_linear1" in missing:
+        raise KeyError("config.guidance_embeds=True but checkpoint has no guidance embedder")
+    _raise_missing(missing)
+    return model
+
+
+# -- VAE (diffusers AutoencoderKL names): the decoder half ---------------------------
+
+_VAE_RENAMES: Sequence[Tuple[re.Pattern, str]] = [(re.compile(a), b) for a, b in (
+    (r"post_quant_conv\.(weight|bias)", r"post_quant_conv.\1"),
+    (r"bn\.running_(mean|var)", r"bn_running_\1"),
+    (r"decoder\.mid_block\.resnets\.0\.(.+)", r"mid_resnet1.\1"),
+    (r"decoder\.mid_block\.resnets\.1\.(.+)", r"mid_resnet2.\1"),
+    (r"decoder\.mid_block\.attentions\.0\.to_out(?:\.0)?\.(weight|bias)", r"mid_attn.to_out.\1"),
+    (r"decoder\.mid_block\.attentions\.0\.(.+)", r"mid_attn.\1"),
+    (r"decoder\.up_blocks\.(\d+)\.upsamplers\.0\.conv\.(weight|bias)", r"up_blocks.\1.upsample.\2"),
+    (r"decoder\.up_blocks\.(.+)", r"up_blocks.\1"),
+    (r"decoder\.conv_norm_out\.(weight|bias)", r"norm_out.\1"),
+    (r"decoder\.(conv_in|conv_out)\.(weight|bias)", r"\1.\2"),
+)]
+
+
+def map_vae_weights(weights: Mapping) -> Iterator[Item]:
+    """(port name, tensor) for the decoder's weights, ``post_quant_conv`` and
+    the ``bn`` statistics; the encoder's and ``quant_conv`` are skipped."""
+    for key in weights:
+        for pattern, repl in _VAE_RENAMES:
+            if pattern.fullmatch(key):
+                yield pattern.sub(repl, key), weights[key]
+                break
+
+
+def load_vae(weights: Mapping, config: VAEConfig, device: "torch.device | str") -> VAEDecoder:
+    """The float32 decoder of ``config`` on ``device``; absent ``bn`` statistics
+    keep their zero mean and unit variance, as in JAX."""
+    vae = VAEDecoder(config, device=device)
+    _raise_missing([n for n in fill(vae, map_vae_weights(weights)) if not n.startswith("bn_running_")])
+    return vae
+
+
+# -- Qwen3 (HF llama-style names) ---------------------------------------------------
+
+_DECODER_LAYER = {
+    "input_layernorm.weight": "input_norm",
+    "post_attention_layernorm.weight": "post_attn_norm",
+    "self_attn.q_proj.weight": "q_proj",
+    "self_attn.k_proj.weight": "k_proj",
+    "self_attn.v_proj.weight": "v_proj",
+    "self_attn.o_proj.weight": "o_proj",
+    "self_attn.q_norm.weight": "q_norm",
+    "self_attn.k_norm.weight": "k_norm",
+    "mlp.gate_proj.weight": "gate_proj",
+    "mlp.up_proj.weight": "up_proj",
+    "mlp.down_proj.weight": "down_proj",
+}
+_DECODER_KEY = re.compile(r"layers\.(\d+)\.(.+)")
+
+
+def strip_language_model_prefix(names: Iterable[str]) -> dict:
+    """checkpoint name -> name without ``language_model.`` (the
+    Mistral3ForConditionalGeneration layout), for every name."""
+    pre = "language_model."
+    names = list(names)
+    if not any(k.startswith(pre) for k in names):
+        return {k: k for k in names}
+    return {k: k[len(pre):] if k.startswith(pre) else k for k in names}
+
+
+def map_decoder_weights(weights: Mapping) -> Iterator[Item]:
+    """(port name, tensor) for the decoder's hidden-state path: the embedding
+    and the layers. ``norm.weight`` and ``lm_head`` (tied or not) are not
+    used by it and are skipped. Quanto pairs are folded."""
+    renamed = strip_language_model_prefix(_base_names(weights))
+    pre = "model." if any(k.startswith("model.") for k in renamed.values()) else ""
+    for key, v in quanto_items(weights):
+        name = renamed[key]
+        if not name.startswith(pre):
+            continue
+        name = name[len(pre):]
+        if name == "embed_tokens.weight":
+            yield "embed_tokens", v
+            continue
+        m = _DECODER_KEY.fullmatch(name)
+        if m and m.group(2) in _DECODER_LAYER:
+            yield f"layers.{m.group(1)}.{_DECODER_LAYER[m.group(2)]}", v
+
+
+def load_decoder(weights: Mapping, cfg: DecoderConfig, device: "torch.device | str",
+                 dtype: torch.dtype = torch.bfloat16) -> Qwen3Decoder:
+    decoder = Qwen3Decoder(cfg, device=device, dtype=dtype)
+    _raise_missing(fill(decoder, map_decoder_weights(weights)))
+    return decoder
+
+
+# -- filling a module ------------------------------------------------------------------
+
+
+def fill(module: nn.Module, items: Iterable[Item]) -> List[str]:
+    """Copy each (name, tensor) into the parameter or buffer of that name,
+    cast to its dtype, on its device, as the items come; names the module
+    does not hold are skipped. Returns the names left unfilled."""
+    targets = dict(module.named_parameters())
+    targets.update(module.named_buffers())
+    filled = set()
+    with torch.no_grad():
+        for name, t in items:
+            dst = targets.get(name)
+            if dst is None:
+                continue
+            if tuple(dst.shape) != tuple(t.shape):
+                raise ValueError(f"checkpoint weight {name}: shape {tuple(t.shape)}, the model's {tuple(dst.shape)}")
+            dst.copy_(t)
+            filled.add(name)
+    return [n for n in targets if n not in filled]
+
+
+def _raise_missing(missing: List[str]) -> None:
+    if missing:
+        more = f" (and {len(missing) - 1} more)" if len(missing) > 1 else ""
+        raise KeyError(f"missing checkpoint weight: {missing[0]}{more}")

@@ -45,6 +45,21 @@ class VAEConfig:
     def effective_decoder_channels(self) -> Tuple[int, ...]:
         return self.decoder_block_out_channels or self.block_out_channels
 
+    @classmethod
+    def from_json_dict(cls, d: dict) -> "VAEConfig":
+        """Parse a diffusers AutoencoderKL config.json (JAX ``VAEConfig.from_json_dict``)."""
+        dec = d.get("decoder_block_out_channels")
+        return cls(
+            in_channels=d.get("in_channels", 3),
+            out_channels=d.get("out_channels", 3),
+            latent_channels=d.get("latent_channels", 32),
+            block_out_channels=tuple(d.get("block_out_channels", (128, 256, 512, 512))),
+            decoder_block_out_channels=tuple(dec) if dec else None,
+            layers_per_block=d.get("layers_per_block", 2),
+            norm_num_groups=d.get("norm_num_groups", 32),
+            norm_eps=d.get("norm_eps", 1e-6),
+        )
+
 
 FLUX2_VAE = VAEConfig()
 

@@ -34,6 +34,8 @@ from flux2_tpu_torch.ops import latents as lu
 from flux2_tpu_torch.ops.quant import param_dtype
 from flux2_tpu_torch.ops import scheduler as sch
 from flux2_tpu_torch.ops.rope import rope_embeddings
+from flux2_tpu_torch.utils.memory import MemoryTelemetry, telemetry as _mem_telemetry
+from flux2_tpu_torch.utils.profiler import shared as _profiler
 
 # Largest total pixel count decoded as one dense batch; above it the decode
 # runs image by image to bound the decoder's peak activation memory.
@@ -53,6 +55,7 @@ class GenerationResult:
     duration_s: float
     phase_timings: Dict[str, float]
     images: Optional[np.ndarray] = None  # [B, H, W, 3] when batch > 1
+    memory_stats: Optional[Dict[str, Dict[str, float]]] = None  # per-phase device memory (GiB)
 
 
 def _cancel_requested(cancel) -> bool:
@@ -149,7 +152,11 @@ class Flux2Pipeline:
     ) -> GenerationResult:
         """Text to image. The batch follows ``embeddings``' leading axis. A
         base model (``uses_classical_cfg``) guides with ``negative_embeddings``,
-        or with the encoded "" prompt when an encoder is attached."""
+        or with the encoded "" prompt when an encoder is attached. Each phase
+        is timed by the shared profiler (when ``FLUX2_PROFILE=1``) and closed
+        by a device-memory snapshot (``memory_stats``), as in JAX."""
+        prof = _profiler()
+        mem = MemoryTelemetry(enabled=_mem_telemetry().enabled, device=self.device)  # per call
         t0 = time.perf_counter()
         timings: Dict[str, float] = {}
         height, width = lu.validate_dimensions(height, width)
@@ -161,6 +168,7 @@ class Flux2Pipeline:
             guidance = self.model.default_guidance
 
         t = time.perf_counter()
+        prof.start("1. Text Encoding")
         if embeddings is None:
             embeddings = self.encode_prompt(prompt or "")
         if self.model.uses_classical_cfg and negative_embeddings is None and self.text_encoder is not None:
@@ -169,7 +177,9 @@ class Flux2Pipeline:
         if negative_embeddings is not None:
             negative_embeddings = torch.as_tensor(negative_embeddings).to(self.device)
         _sync(self.device)
+        prof.end("1. Text Encoding")
         timings["text_encoding"] = time.perf_counter() - t
+        mem.snapshot("text_encoding")
 
         _, _, num_patches = lu.latent_dims(height, width)
         schedule = sch.set_timesteps(num_steps, image_seq_len=num_patches)
@@ -183,21 +193,29 @@ class Flux2Pipeline:
         cos, sin = rope_embeddings(torch.from_numpy(ids).to(self.device))
 
         t = time.perf_counter()
+        prof.start("2. Denoising")
         g = (torch.full((batch,), guidance, dtype=torch.float32, device=self.device)
              if self.model.uses_guidance_embeds else None)
         negative = negative_embeddings if self.model.uses_classical_cfg else None
         latents = self._denoise(latents, embeddings, negative, schedule.sigma_pairs(), guidance, cos, sin, g,
                                 cancel)
         _sync(self.device)
+        prof.end("2. Denoising")
+        if schedule.num_steps:
+            prof.record_step((time.perf_counter() - t) / schedule.num_steps)
         timings["denoising"] = time.perf_counter() - t
+        mem.snapshot("denoising")
 
         t = time.perf_counter()
+        prof.start("3. VAE Decoding")
         image = images = None
         if decode:
             u8 = self.decode_latents_u8(latents, height, width).cpu().numpy()
             images = u8.astype(np.float32) / 255.0
             image = images[0]
+        prof.end("3. VAE Decoding")
         timings["vae_decoding"] = time.perf_counter() - t
+        mem.snapshot("vae_decoding")
 
         return GenerationResult(
             image=image,
@@ -207,6 +225,7 @@ class Flux2Pipeline:
             duration_s=time.perf_counter() - t0,
             phase_timings=timings,
             images=images if images is not None and images.shape[0] > 1 else None,
+            memory_stats=mem.as_dict() if mem.enabled else None,
         )
 
     def _denoise(self, latents, embeddings, negative, sigma_pairs, guidance, cos, sin, g, cancel) -> torch.Tensor:

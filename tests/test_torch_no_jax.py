@@ -1,10 +1,12 @@
 """The PyTorch port never imports JAX, nor anything of the JAX package.
 
 A fresh interpreter imports the port's server, pipeline, quantization,
-trainer and CLI (and only the port: its configs, YAML schema, controller and
-safetensors helpers are its own copies), runs a tiny T2I generate on the CPU
-through the server, a tiny w8a8 pipeline built by the CLI's
-``build_pipeline`` and a one-step ``train-lora --random-init``, and reports
+trainer and CLI (and only the port: its configs, YAML schema, controller,
+registry and safetensors helpers are its own copies), runs a tiny T2I generate
+on the CPU through the server, a tiny w8a8 pipeline built by the CLI's
+``build_pipeline``, a one-step ``train-lora --random-init``, and ``t2i`` and
+``profile --compare`` from checkpoint directories it writes (the checkpoint
+loaders, registry, facade, profiler and memory telemetry), and reports
 whether any ``jax`` or ``flux2_tpu`` module was loaded. (The suite's conftest
 imports JAX, so this must run in a subprocess.)
 """
@@ -52,12 +54,33 @@ with tempfile.TemporaryDirectory() as tmp:
     hist = run_training(parse_args(["train-lora", "--config", cfg, "--random-init", "--device", "cpu"]), "cpu",
                         transformer_config=dataclasses.replace(tc, num_attention_heads=2, joint_attention_dim=96))
     ckpt = sorted(os.listdir(os.path.join(tmp, "out")))
+# checkpoints: the tiny dense pipeline written as checkpoint directories by
+# chip_smoke.py's writers, then t2i and profile from them through the CLI
+import chip_smoke
+from flux2_tpu_torch.cli import main as cli
+from flux2_tpu_torch.utils import inline_bpe_tokenizer
+dense = build_pipeline(argparse.Namespace(model="klein-4b", random_init=True), "cpu", torch.Generator().manual_seed(0),
+                       transformer_config=qtc, vae_config=vc,
+                       encoder_config=dataclasses.replace(TINY_DECODER, num_hidden_layers=28, vocab_size=600))
+with tempfile.TemporaryDirectory() as tmp:
+    dirs = {k: os.path.join(tmp, k) for k in ("t", "v", "e")}
+    chip_smoke._write_sharded(dirs["t"], chip_smoke._diffusers_transformer_state(dense.transformer), "m",
+                              dataclasses.asdict(qtc))
+    chip_smoke._write_sharded(dirs["v"], chip_smoke._autoencoder_decoder_state(dense.vae), "m", dataclasses.asdict(vc))
+    chip_smoke._write_sharded(dirs["e"], chip_smoke._qwen3_state(dense.text_encoder.decoder, 28), "m",
+                              dataclasses.asdict(dense.text_encoder.decoder.cfg))
+    inline_bpe_tokenizer().save_pretrained(dirs["e"])
+    flags = ["--transformer-dir", dirs["t"], "--vae-dir", dirs["v"], "--encoder-dir", dirs["e"], "--width", "32",
+             "--height", "32", "--steps", "1", "--device", "cpu"]
+    cli.main(["t2i", *flags, "-o", os.path.join(tmp, "x.png")])
+    cli.main(["profile", *flags, "--compare", "bf16,w8a8", "--runs", "1"])
+    ckpt_png = list(decode_png(open(os.path.join(tmp, "x.png"), "rb").read()).shape)
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
                   "flux2_tpu": sorted(m for m in sys.modules if m == "flux2_tpu" or m.startswith("flux2_tpu.")),
                   "image": list(res.image.shape), "png": list(decode_png(png).shape),
                   "w8a8_image": list(qres.image.shape),
                   "w8a8": sorted(set(quant.quantized_names(qpipe.transformer).values())),
-                  "train_steps": [r["step"] for r in hist], "checkpoints": ckpt}))
+                  "train_steps": [r["step"] for r in hist], "checkpoints": ckpt, "checkpoint_png": ckpt_png}))
 """
 
 
@@ -69,4 +92,5 @@ def test_port_runs_without_importing_jax():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report == {"jax": [], "flux2_tpu": [], "image": [32, 32, 3], "png": [32, 32, 3], "w8a8_image": [32, 32, 3],
-                      "w8a8": ["w8a8"], "train_steps": [1], "checkpoints": ["checkpoint_000001", "learning_curve.svg"]}
+                      "w8a8": ["w8a8"], "train_steps": [1], "checkpoints": ["checkpoint_000001", "learning_curve.svg"],
+                      "checkpoint_png": [32, 32, 3]}

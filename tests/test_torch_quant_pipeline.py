@@ -13,7 +13,8 @@
   qint8, 0.21 int4 relative L2) hold within ~10% from 4 to 16 heads; the
   tolerances are about 2-3x these.
 - ``cli.main.build_pipeline`` builds a w8a8 pipeline (DiT and encoder) that
-  serves requests, and refuses what it does not port.
+  serves requests, exits with JAX's message where no checkpoint is found, and
+  refuses what it does not port.
 """
 
 import argparse
@@ -170,9 +171,11 @@ def test_stream_dtype_is_bf16_under_a_quantized_x_embedder(monkeypatch):
     assert res.latents.dtype == torch.float32 and torch.isfinite(res.latents).all()
 
 
-def test_build_pipeline_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tcli.build_pipeline(_args(random_init=False), "cpu")
+def test_build_pipeline_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    monkeypatch.setenv("FLUX2_MODELS_DIR", str(tmp_path / "models"))
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "hf"))
+    with pytest.raises(SystemExit, match="transformer weights for klein-4b not found"):
+        tcli.build_pipeline(_args(random_init=False), "cpu")  # no checkpoint anywhere
     with pytest.raises(ValueError):
         tcli.build_pipeline(_args(quantization="fp3"), "cpu")
     with pytest.raises(ValueError):

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's JAX-free modules behave as the
-originals: model and encoder configs, the dev tokenizer, the training
-controller and state, safetensors IO, the leveled logger, and what
+originals: model, VAE and encoder configs, the registry's tables, the dev
+tokenizer, the training controller and state, safetensors IO (bf16 both
+ways), the leveled logger, and what
 ``train-lora`` takes from the JAX training CLI (YAML schema, checkpoint
 pruning, learning-curve SVG, training variant). Also: the port's entry points
 default to the card and take the CPU only when asked.
@@ -18,19 +19,23 @@ from contextlib import redirect_stderr
 
 import numpy as np
 import pytest
+import torch
 
 from flux2_tpu.cli import train as jtrain_cli
 from flux2_tpu.io import registry as jregistry
 from flux2_tpu.io import safetensors_io as jst
 from flux2_tpu.models.flux2 import config as jcfg
+from flux2_tpu.models.flux2 import vae as jvae
 from flux2_tpu.models.text_encoders import config as jenc
 from flux2_tpu.training import control as jcontrol
 from flux2_tpu.utils import dev_tokenizer as jtok
 from flux2_tpu.utils import logging as jlog
 from flux2_tpu_torch.cli import main as tcli
 from flux2_tpu_torch.cli import train_config as ttrain_cfg
+from flux2_tpu_torch.io import registry as tregistry
 from flux2_tpu_torch.io import safetensors_io as tst
 from flux2_tpu_torch.models.flux2 import config as tcfg
+from flux2_tpu_torch.models.flux2 import vae as tvae
 from flux2_tpu_torch.models.text_encoders import config as tenc
 from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
 from flux2_tpu_torch.training import control as tcontrol
@@ -89,9 +94,29 @@ def test_decoder_config_constants_and_json_equal_jax():
         jenc.DecoderConfig.from_json_dict(d, qk_norm=True, llama4=True))
 
 
+@pytest.mark.parametrize("d", [{}, {"block_out_channels": [8, 16], "layers_per_block": 1, "norm_num_groups": 4,
+                                  "latent_channels": 4, "norm_eps": 1e-5},
+                                 {"decoder_block_out_channels": [96, 192, 384, 384], "scaling_factor": 0.3}],
+                         ids=["defaults", "tiny", "small_decoder"])
+def test_vae_config_from_json_equals_jax(d):
+    port, ref = tvae.VAEConfig.from_json_dict(d), jvae.VAEConfig.from_json_dict(d)
+    assert _fields(port) == {f: getattr(ref, f) for f in _fields(port)}
+    assert _fields(tvae.FLUX2_VAE) == {f: getattr(jvae.FLUX2_VAE, f) for f in _fields(tvae.FLUX2_VAE)}
+
+
+def test_registry_tables_equal_jax():
+    assert dataclasses.asdict(tregistry.VAE_REPO) == dataclasses.asdict(jregistry.VAE_REPO)
+    assert dataclasses.asdict(tregistry.VAE_SMALL_DECODER_REPO) == dataclasses.asdict(jregistry.VAE_SMALL_DECODER_REPO)
+    assert {k: dataclasses.asdict(v) for k, v in tregistry.TEXT_ENCODER_REPOS.items()} == {
+        k: dataclasses.asdict(v) for k, v in jregistry.TEXT_ENCODER_REPOS.items()}
+    assert {(m.name, f): dataclasses.asdict(v) for (m, f), v in tregistry.PREQUANTIZED_TRANSFORMER_REPOS.items()} == {
+        (m.name, f): dataclasses.asdict(v) for (m, f), v in jregistry.PREQUANTIZED_TRANSFORMER_REPOS.items()}
+    assert tregistry.DEFAULT_MODELS_DIR == jregistry.DEFAULT_MODELS_DIR
+
+
 @pytest.mark.parametrize("name", [m.name for m in jcfg.Flux2Model])
 def test_training_variant_equals_jax(name):
-    assert ttrain_cfg.training_variant(tcfg.Flux2Model[name]).name == jregistry.training_variant(
+    assert tregistry.training_variant(tcfg.Flux2Model[name]).name == jregistry.training_variant(
         jcfg.Flux2Model[name]).name
 
 
@@ -183,17 +208,40 @@ def test_training_state_and_sentinels_cross_load(tmp_path):
 # -- safetensors, tokenizer, logging ------------------------------------------------
 
 
+def _as_torch(x) -> torch.Tensor:
+    """A loaded tensor as torch: the port's already are; JAX's numpy arrays
+    (bf16 through ml_dtypes) are carried through their bits."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(x).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(x))
+
+
+def _for_writer(writer, t: torch.Tensor):
+    """What each package's save_file takes: the port torch tensors, JAX numpy (bf16 via ml_dtypes)."""
+    if writer is tst:
+        return t
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 @pytest.mark.parametrize("writer,reader", [(tst, jst), (jst, tst)], ids=["port_to_jax", "jax_to_port"])
 def test_safetensors_cross_load(tmp_path, writer, reader):
-    rng = np.random.RandomState(0)
-    tensors = {"a.b": rng.randn(3, 4).astype(np.float32), "c": rng.randint(0, 9, (5,)).astype(np.int8)}
+    gen = torch.Generator().manual_seed(0)
+    tensors = {"a.b": torch.randn(3, 4, generator=gen), "c": torch.randint(0, 9, (5,), generator=gen).to(torch.int8),
+               "d": torch.randn(7, 3, generator=gen).bfloat16()}
     path = str(tmp_path / "x.safetensors")
-    writer.save_file(tensors, path, metadata={"k": "v"})
+    writer.save_file({k: _for_writer(writer, v) for k, v in tensors.items()}, path, metadata={"k": "v"})
     loaded = reader.load_file(path)
     assert sorted(loaded) == sorted(tensors)
     for name, value in tensors.items():
-        assert loaded[name].dtype == value.dtype and np.array_equal(loaded[name], value)
-    assert reader.load_metadata(path) == {"k": "v"} and sorted(reader.tensor_names(path)) == ["a.b", "c"]
+        got = _as_torch(loaded[name])
+        assert got.dtype == value.dtype and torch.equal(got, value)
+    assert reader.load_metadata(path) == {"k": "v"} and sorted(reader.tensor_names(path)) == ["a.b", "c", "d"]
     with open(path, "r+b") as f:  # truncate the payload: both refuse it
         f.truncate(os.path.getsize(path) - 4)
     assert not tst.payload_is_complete(path) and not jst.payload_is_complete(path)
