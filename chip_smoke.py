@@ -8,16 +8,23 @@ plain PyTorch version on the card: K1 (flash attention), K2 / K3 / K4 (the
 flash forward with the row LSE, and the dQ and dK/dV backward) at the training
 shapes, K5 / K6 / K7 (the W8A8, W4A8 and grouped int8/int4 quantized
 matmuls) and the int8 activation prologue of K5 and K6 (equal to the plain
-torch chain to the bit). Then, with random weights drawn on the card from a
-seed, at full
+torch chain to the bit); K1 also at the I2I slice's shapes (S = 8704, the KV
+extract pass's blocked span, 4608 queries over 8704 keys). Then, with random
+weights drawn on the card from a seed, at full
 Klein-4B width: the 1024^2 VAE decode (first and warm), one DiT forward per
 quantized runtime against the bf16 forward, bf16 serving through the port's
 entry point (Flux2Server -> Qwen3-4B encoder -> DiT -> VAE), one
-klein-4b-base request with classical CFG, w8a8 serving through the CLI's
+klein-4b-base request with classical CFG, I2I on the same pipeline (the
+1024^2 reference's VAE encode, TF32 on against off; one 1024^2 I2I image;
+strength 0.5; two I2I requests through Flux2Server with base64 PNG
+references), w8a8 serving through the CLI's
 build_pipeline (DiT and encoder quantized), one Klein-4B-base train step at
 512^2 on the kernels against the same step on plain attention, LoRA
 training through the CLI (train-lora --random-init: 5 steps at 512^2 with a
-checkpoint, then 2 steps at 1024^2), and a checkpoint round trip: Klein-4B,
+checkpoint, then 2 steps at 1024^2), `i2i --model klein-9b-kv --random-init`
+through cli.main at full Klein-9B width (the cached velocity against the
+extract velocity, the cache's size, KV s/step against uncached), and a
+checkpoint round trip: Klein-4B,
 the VAE and Qwen3-4B at its published shape (Qwen/Qwen3-4B's config.json)
 serve one 1024^2 request in memory, are written as checkpoint directories
 (the DiT in the Diffusers dialect, sharded) and read back by `t2i` through
@@ -36,7 +43,9 @@ plain version, and at the main path's shape its time alone (torch.profiler;
 for K5-K7 also CUDA events around its C entry), its wrapper's and the plain
 version's, its bound (operations or bytes over
 the H100's published peaks) and one PyTorch call that computes the same
-function, timed as a yardstick that the port never calls.
+function, timed as a yardstick that the port never calls; K1's entry also
+gives its launches per I2I and klein-9b-kv image and its times and bounds at
+the slice's three shapes.
 """
 
 from __future__ import annotations
@@ -167,22 +176,25 @@ def library_time(fn, label: str, card: str):
         return None
 
 
-def library_sdpa(q, k, v, card: str) -> tuple:
-    """The faster of F.scaled_dot_product_attention's flash and cuDNN backends
-    on the same inputs: (name, ms); timed as a yardstick, the port never calls it."""
+def library_sdpa(q, k, v, card: str, attn_mask=None) -> tuple:
+    """The fastest of F.scaled_dot_product_attention's flash and cuDNN backends
+    (with a boolean ``attn_mask``: its memory-efficient and cuDNN ones) on the
+    same inputs: (name, ms); timed as a yardstick, the port never calls it."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     best = ("F.scaled_dot_product_attention", None)
-    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
-        label = f"F.scaled_dot_product_attention[{backend.name}]"
+    backends = ((SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION) if attn_mask is None
+                else (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION))
+    for backend in backends:
+        label = f"F.scaled_dot_product_attention[{backend.name}]" + (" with attn_mask" if attn_mask is not None else "")
         with sdpa_kernel(backend):
-            ms = library_time(lambda: F.scaled_dot_product_attention(q, k, v), label, card)
+            ms = library_time(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask), label, card)
         if ms is None:
             continue
         log(f"[library] {label} q={list(q.shape)}: {ms:.4f} ms [{card}]")
         if best[1] is None or ms < best[1]:
-            best = (f"F.scaled_dot_product_attention[{backend.name}]", ms)
+            best = (label, ms)
     return best
 
 
@@ -231,6 +243,61 @@ def phase_kernel_check(card: str):
                 f"({bound_by}; {bound / alone:.1%} of it), {library} {library_ms} ms [{card}]")
             results[name].update(alone=alone, bound=bound, bound_by=bound_by, library=library,
                                  library_ms=library_ms)
+    results.update(_k1_slice_check(gen, card))
+    return results
+
+
+# K1 in the I2I slice's regimes, 1024^2 output and one 1024^2 reference:
+# Klein-4B I2I attends 512 text + 4096 output + 4096 reference tokens; the
+# klein-9b-kv extract pass the same at 32 heads, its reference queries blind
+# to the output keys; a cached step 4608 queries over 8704 keys.
+K1_SLICE_CASES = [
+    ("i2i_klein4b", (1, 24, 8704, 8704), None),
+    ("kv_extract", (1, 32, 8704, 8704), (512, 4608, 4608)),
+    ("kv_cached", (1, 32, 4608, 8704), None),
+]
+
+
+def _k1_slice_check(gen, card: str) -> dict:
+    """K1 at K1_SLICE_CASES against flash_attention_reference (full f32 logits:
+    ~20 GB at 32 heads, so the plain version is timed over 3 calls), each with
+    the kernel alone, its bound on the query-key pairs the span leaves and the
+    bytes of q, k, v and out, and SDPA beside it (with the span's boolean mask
+    where there is one)."""
+    from flux2_tpu_torch.ops import flash_attention as fa
+    from flux2_tpu_torch.utils.profile_step import kernel_time_ms
+
+    results = {}
+    for name, (b, h, s_q, s_k), span in K1_SLICE_CASES:
+        q = torch.randn(b, h, s_q, 128, device="cuda", generator=gen).bfloat16()
+        k = torch.randn(b, h, s_k, 128, device="cuda", generator=gen).bfloat16()
+        v = torch.randn(b, h, s_k, 128, device="cuda", generator=gen).bfloat16()
+        out = fa.flash_attention(q, k, v, blocked_span=span).float()
+        ref = fa.flash_attention_reference(q, k, v, blocked_span=span).float()
+        err = float((out - ref).abs().max())
+        rel = float((out - ref).norm() / ref.norm())
+        del out, ref
+        torch.cuda.empty_cache()
+        if not rel <= KERNEL_REL_TOL:
+            raise AssertionError(f"K1 {name}: relative L2 err {rel} > {KERNEL_REL_TOL} (or non-finite)")
+        alone = kernel_time_ms(lambda: fa.flash_attention(q, k, v, blocked_span=span), "flash_fwd_kernel")
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, blocked_span=span))
+        plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, blocked_span=span), reps=3, warmup=1)
+        pairs = s_q * s_k - ((span[1] - span[0]) * (s_k - span[2]) if span else 0)
+        flop = 4.0 * b * h * 128 * pairs
+        bound, bound_by = bound_ms(flop, attention_bytes(b, h, s_q, s_k, 2, 2, 0), BF16_FLOPS)
+        mask = None
+        if span is not None:  # True where a query may attend a key
+            mask = fa.blocked_span_bias(s_q, s_k, span, "cuda") == 0
+        library, library_ms = library_sdpa(q, k, v, card, attn_mask=mask)
+        log(f"[kernel] K1 {name} q={[b, h, s_q, 128]} s_k={s_k} span={span}: rel_l2_err={rel} (tol {KERNEL_REL_TOL}) "
+            f"max_abs_err={err}; alone {alone:.4f} ms ({flop / alone / 1e9:.1f} TFLOP/s on the {pairs} query-key "
+            f"pairs the span leaves), bound {bound:.4f} ms ({bound_by}; {bound / alone:.1%} of it), wrapper "
+            f"{ms:.4f} ms, plain f32 {plain_ms:.4f} ms, {library} {library_ms} ms [{card}]")
+        results[name] = {"err": err, "ms": ms, "plain_ms": plain_ms, "alone": alone, "bound": bound,
+                         "bound_by": bound_by, "library": library, "library_ms": library_ms}
+        del q, k, v, mask
+        torch.cuda.empty_cache()
     return results
 
 
@@ -686,6 +753,327 @@ def phase_cfg_serve(pipe, card: str) -> dict:
     return {"wall_s": wall, "s_per_step": r["denoising_s"] / r["steps"]}
 
 
+# -- I2I, img2img strength and the KV-cached klein-9b-kv path -------------------------------
+
+I2I_PROMPT = "the same lighthouse in winter, heavy snow, at night"
+
+
+def reference_image(size: int = 1024):
+    """A seeded RGB reference image, uint8 [size, size, 3]: 16 x 16 random
+    colours, bilinearly upsampled (smooth, as photographs are at that scale)."""
+    import torch.nn.functional as F
+
+    small = torch.rand(1, 3, 16, 16, generator=torch.Generator().manual_seed(SEED + 9))
+    img = F.interpolate(small, size=(size, size), mode="bilinear", align_corners=False)[0].permute(1, 2, 0)
+    return (img * 255.0).round().to(torch.uint8).numpy()
+
+
+def _s_per_step(res) -> float:
+    return res.phase_timings["denoising"] / res.num_steps
+
+
+def _png_of(image) -> bytes:
+    """The server's PNG of a generate() image."""
+    import numpy as np
+
+    from flux2_tpu_torch.io.png import encode_png
+
+    return encode_png(np.rint(np.clip(image, 0.0, 1.0) * 255.0).astype(np.uint8))
+
+
+def _filtered_png(image_u8) -> tuple:
+    """uint8 [H, W, 3] -> (PNG bytes with row filters, as users' files have
+    them, and the writer's name): Pillow's own choice of filters where Pillow
+    imports, else the Paeth filter (type 4) on every row."""
+    import io
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from flux2_tpu_torch.io import png as tpng
+
+    try:
+        from PIL import Image
+    except ImportError:
+        pass
+    else:
+        buf = io.BytesIO()
+        Image.fromarray(image_u8).save(buf, "PNG")
+        return buf.getvalue(), "Pillow"
+    x = image_u8.astype(np.int16)
+    a = np.pad(x, ((0, 0), (1, 0), (0, 0)))[:, :-1]  # left, up, up-left: zero outside the image
+    b = np.pad(x, ((1, 0), (0, 0), (0, 0)))[:-1]
+    c = np.pad(x, ((1, 0), (1, 0), (0, 0)))[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    h, w, _ = x.shape
+    rows = np.concatenate([np.full((h, 1), 4, np.uint8), ((x - pred) & 0xFF).astype(np.uint8).reshape(h, w * 3)], 1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (tpng.PNG_SIGNATURE + tpng._chunk(b"IHDR", ihdr) + tpng._chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + tpng._chunk(b"IEND", b"")), "the Paeth filter (Pillow not importable)"
+
+
+def _check_launches(label: str, counts: dict, flash: int) -> None:
+    want = {name: 0 for name in counts}
+    want["flash"] = flash
+    if counts != want:
+        raise AssertionError(f"{label} launched {counts}, want {want}")
+
+
+def phase_i2i(pipe, card: str) -> dict:
+    """On the bf16 Klein-4B pipeline: the 1024^2 reference's encode (first,
+    warm, and TF32 on against off), one 1024^2 I2I generate (exactly 100 K1
+    launches at S = 8704), its warm s/step against T2I's, strength 0.5 (2 of
+    4 steps, 50 launches), and two same-shape I2I requests through Flux2Server
+    (base64 PNG references with row filters, one with strength 0.5, the
+    reference's decode timed alone): two batches of one, the first PNG equal
+    to a direct generate's to the bit."""
+    import base64
+
+    import numpy as np
+
+    from flux2_tpu_torch.io.png import decode_image, decode_png
+    from flux2_tpu_torch.pipeline import pipeline as tpl
+    from flux2_tpu_torch.serve import Flux2Server
+
+    ref_u8 = reference_image()
+    ref = ref_u8.astype(np.float32) / 255.0
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        packed = pipe.encode_image_to_packed_sequence(ref)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if tuple(packed.shape) != (1, 4096, 128) or not torch.isfinite(packed).all():
+        raise AssertionError(f"encode gave {tuple(packed.shape)}, finite {bool(torch.isfinite(packed).all())}")
+    x = torch.tensor(ref, device="cuda")
+    by_tf32, tf32_ms = {}, {}
+    with torch.inference_mode(), tpl._full_f32():  # the pipeline's encode flags, then TF32 allowed: both restored
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            by_tf32[tf32] = tpl.encode_packed(pipe.vae_encoder, pipe.vae, x)
+            tf32_ms[tf32] = time_ms(lambda: tpl.encode_packed(pipe.vae_encoder, pipe.vae, x), reps=5, warmup=1)
+    tf32_rel = float((by_tf32[True] - by_tf32[False]).norm() / by_tf32[False].norm())
+    if not torch.equal(by_tf32[False], packed):
+        raise AssertionError("the pipeline's encode differs from encode_packed with TF32 off")
+    log(f"[i2i] 1024^2 reference encode (VAE encoder f32, TF32 off): first "
+        f"{times[0]:.4f} s, warm {statistics.median(times[1:]):.4f} s (median of {[round(t, 4) for t in times[1:]]}); "
+        f"packed latents TF32 on vs off: relative L2 {tf32_rel:.4e}; encode_packed alone TF32 on {tf32_ms[True]:.3f} "
+        f"ms, off {tf32_ms[False]:.3f} ms [{card}]")
+
+    lat, ids = pipe.encode_reference_images([ref])
+    i2i = dict(prompt=I2I_PROMPT, height=1024, width=1024, num_steps=4, seed=7, reference_latents=lat,
+               reference_ids=ids)
+    _zero_launches()
+    res = pipe.generate(**i2i)
+    counts = i2i_counts = _launch_counts()
+    _check_launches("Klein-4B 1024^2 I2I", counts, 25 * 4)
+    if tuple(res.latents.shape) != (1, 4096, 128) or not torch.isfinite(res.latents).all():
+        raise AssertionError(f"I2I latents {tuple(res.latents.shape)}, finite "
+                             f"{bool(torch.isfinite(res.latents).all())}")
+    warm_i2i = pipe.generate(**{**i2i, "decode": False})
+    warm_t2i = pipe.generate(prompt=I2I_PROMPT, height=1024, width=1024, num_steps=4, seed=7, decode=False)
+    log(f"[i2i] Klein-4B 1024^2 with one 1024^2 reference (S = 512 + 4096 + 4096 = 8704): launches {counts}; "
+        f"first {_s_per_step(res):.4f} s/step, warm {_s_per_step(warm_i2i):.4f} s/step against T2I "
+        f"{_s_per_step(warm_t2i):.4f} s/step on the same pipeline "
+        f"({_s_per_step(warm_i2i) / _s_per_step(warm_t2i):.2f}x); phases {({k: round(v, 4) for k, v in res.phase_timings.items()})} [{card}]")
+
+    init = pipe.encode_image_to_packed_sequence(ref)
+    _zero_launches()
+    strong = pipe.generate(**i2i, strength=0.5, init_latents=init)
+    counts = _launch_counts()
+    _check_launches("strength 0.5", counts, 25 * 2)
+    if strong.num_steps != 2 or not torch.isfinite(strong.latents).all():
+        raise AssertionError(f"strength 0.5 ran {strong.num_steps} steps, finite "
+                             f"{bool(torch.isfinite(strong.latents).all())}")
+    log(f"[i2i] strength 0.5, the reference as init: {strong.num_steps} of 4 steps, launches {counts}, "
+        f"{_s_per_step(strong):.4f} s/step [{card}]")
+
+    ref_png, writer = _filtered_png(ref_u8)
+    decode_s = {}
+    for name, fn in (("decode_image", decode_image), ("decode_png", decode_png)):
+        t0 = time.perf_counter()
+        got = fn(ref_png)
+        decode_s[name] = time.perf_counter() - t0
+        if not np.array_equal(got if got.dtype == np.uint8 else np.rint(got * 255.0).astype(np.uint8), ref_u8):
+            raise AssertionError(f"{name} of the 1024^2 reference PNG ({writer}) differs from the image")
+    log(f"[i2i] 1024^2 reference PNG written by {writer}, {len(ref_png)} bytes: decode_image (the server's reader; "
+        f"through {'Pillow' if writer == 'Pillow' else 'decode_png'}) {decode_s['decode_image']:.4f} s, decode_png "
+        f"(the port's decoder) {decode_s['decode_png']:.4f} s [{card}]")
+    b64 = base64.b64encode(ref_png).decode()
+    reqs = [{"prompt": I2I_PROMPT, "height": 1024, "width": 1024, "steps": 4, "seed": 7, "references": [b64]},
+            {"prompt": I2I_PROMPT, "height": 1024, "width": 1024, "steps": 4, "seed": 8, "strength": 0.5,
+             "references": [b64]}]
+    recorder = _RecordingPipeline(pipe)
+    server = Flux2Server(recorder, embeddings_fn=pipe.encode_prompt, batch_window_s=1.0)
+    try:
+        _zero_launches()
+        t0 = time.perf_counter()
+        pngs = _concurrent(server, reqs)
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+    finally:
+        server.shutdown()
+    _check_launches("two I2I requests", counts, 25 * 4 + 25 * 2)
+    if (server.batches_run, server.requests_served) != (2, 2) or [len(r.latents) for r in recorder.results] != [1, 1]:
+        raise AssertionError(f"{server.requests_served} I2I requests in {server.batches_run} batches of "
+                             f"{[len(r.latents) for r in recorder.results]}, want 2 batches of one")
+    for png in pngs:
+        img = decode_png(png)
+        if img.shape != (1024, 1024, 3) or int(img.max()) == int(img.min()):
+            raise AssertionError(f"I2I request: PNG {img.shape}, range {int(img.min())}..{int(img.max())}")
+    if pngs[0] != _png_of(res.image):
+        raise AssertionError("the first I2I request's PNG differs from the direct generate's")
+    log(f"[serve i2i] two same-shape 1024^2 I2I requests (base64 PNG reference by {writer}, one with strength 0.5): "
+        f"2 batches of one, {wall:.3f} s wall, launches {counts}; the first PNG equals the direct generate's to the "
+        f"bit [{card}]")
+    return {"encode_cold_s": times[0], "encode_warm_s": statistics.median(times[1:]), "tf32_rel": tf32_rel,
+            "i2i_s_per_step": _s_per_step(warm_i2i), "t2i_s_per_step": _s_per_step(warm_t2i),
+            "i2i_launches": i2i_counts["flash"], "decode_s": decode_s}
+
+
+class _KVSplit:
+    """While entered: counts the entries into ``Flux2Pipeline._denoise_kv_cached``
+    and the K1 launches made inside ``Flux2Transformer.forward_kv_extract`` and
+    ``forward_kv_cached`` (their class attributes wrapped; restored on exit)."""
+
+    def __enter__(self):
+        from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
+        from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
+
+        self.counts = {"kv_loops": 0, "extract": 0, "cached": 0}
+        wrapped = ((Flux2Pipeline, "_denoise_kv_cached", "kv_loops"),
+                   (Flux2Transformer, "forward_kv_extract", "extract"), (Flux2Transformer, "forward_kv_cached", "cached"))
+        self._saved = [(cls, name, getattr(cls, name)) for cls, name, _ in wrapped]
+        for cls, name, key in wrapped:
+            setattr(cls, name, self._counting(key, getattr(cls, name)))
+        return self
+
+    def _counting(self, key, fn):
+        def wrapped(*args, **kwargs):
+            before = _launch_counts()["flash"]
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.counts[key] += 1 if key == "kv_loops" else _launch_counts()["flash"] - before
+        return wrapped
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+
+
+def phase_kv_cli(card: str, workdir: str) -> dict:
+    """``i2i --model klein-9b-kv --random-init`` through cli.main in the
+    process (random Klein-9B and Qwen3-8B drawn on the card, a 1024^2 PNG
+    reference): exactly 32 + 3 x 32 K1 launches, measured apart (32 inside
+    forward_kv_extract, 96 inside forward_kv_cached, one entry into
+    _denoise_kv_cached), and a valid PNG. Then, on the same weights and step
+    0's inputs, one forward_kv_extract (32 launches) and one forward_kv_cached
+    (32): the cached velocity against the extract one (DIT_REL_TOL), the
+    cache's bytes, and the warm KV s/step against the uncached I2I path (the
+    model set to klein-9b: 128 launches, none in the KV functions)."""
+    import dataclasses
+
+    import numpy as np
+
+    from flux2_tpu_torch.cli import main as cli
+    from flux2_tpu_torch.io.png import decode_png, encode_png
+    from flux2_tpu_torch.ops import latents as lu
+    from flux2_tpu_torch.ops import scheduler as sch
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Model
+
+    ref_path, out = os.path.join(workdir, "ref.png"), os.path.join(workdir, "kv.png")
+    with open(ref_path, "wb") as f:
+        f.write(encode_png(reference_image()))
+    built, original = [], cli.build_pipeline
+
+    def recording_build(args, device, *a, **k):
+        built.append(original(args, device, *a, **k))
+        return built[-1]
+
+    cli.build_pipeline = recording_build
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _KVSplit() as split:
+            _zero_launches()
+            argv = ["i2i", "--model", "klein-9b-kv", "--random-init", "--reference", ref_path, "--height", "1024",
+                    "--width", "1024", "--steps", "4", "--prompt", I2I_PROMPT, "-o", out]
+            lines = _run_cli(argv, "i2i klein-9b-kv", card)
+            counts = _launch_counts()
+    finally:
+        cli.build_pipeline = original
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    _check_launches("i2i --model klein-9b-kv", counts, 32 + 3 * 32)
+    if split.counts != {"kv_loops": 1, "extract": 32, "cached": 3 * 32}:
+        raise AssertionError(f"i2i --model klein-9b-kv: {split.counts}, want one KV loop with 32 K1 launches in "
+                             f"forward_kv_extract and 96 in forward_kv_cached")
+    report = json.loads(lines[-1])
+    with open(out, "rb") as f:
+        img = decode_png(f.read())
+    if (lines[0] != f"saved {out}" or report["steps"] != 4 or img.shape != (1024, 1024, 3)
+            or int(img.max()) == int(img.min())):
+        raise AssertionError(f"i2i klein-9b-kv printed {lines}; PNG {img.shape}")
+    (pipe,) = built
+    c = pipe.transformer.config
+    weights_gib = sum(t.numel() * t.element_size() for t in pipe.transformer.state_dict().values()) / 2**30
+
+    # step 0's inputs: the CLI's seed (0), prompt, reference and first sigma
+    emb = pipe.encode_prompt(I2I_PROMPT)
+    lat, ids = pipe.encode_reference_images([reference_image().astype(np.float32) / 255.0])
+    x = lu.seeded_noise_seq(0, 1024, 1024, 1, device="cuda").bfloat16()
+    t0 = torch.full((1,), float(sch.set_timesteps(4, image_seq_len=4096).sigmas[0]), device="cuda")
+    txt_ids, img_ids = lu.text_position_ids(emb.shape[1]), lu.image_position_ids(1024, 1024)
+    extract_rope, cached_rope = pipe._rope([txt_ids, ids, img_ids]), pipe._rope([txt_ids, img_ids])
+    with torch.inference_mode():
+        _zero_launches()
+        v_extract, dkv, skv = pipe.transformer.forward_kv_extract(x, lat.bfloat16(), emb, t0, *extract_rope)
+        counts_extract = _launch_counts()
+        _zero_launches()
+        v_cached = pipe.transformer.forward_kv_cached(x, emb, t0, *cached_rope, dkv, skv)
+        counts_cached = _launch_counts()
+    _check_launches("one forward_kv_extract", counts_extract, 32)
+    _check_launches("one forward_kv_cached", counts_cached, 32)
+    rel = float((v_cached.float() - v_extract.float()).norm() / v_extract.float().norm())
+    cache_gib = sum(t.numel() * t.element_size() for kv in dkv + skv for t in kv) / 2**30
+    del dkv, skv, v_extract, v_cached
+    if not rel <= DIT_REL_TOL:
+        raise AssertionError(f"klein-9b-kv: cached velocity vs extract velocity relative L2 {rel} > {DIT_REL_TOL}")
+
+    i2i = dict(prompt=I2I_PROMPT, height=1024, width=1024, num_steps=4, reference_latents=lat, reference_ids=ids,
+               decode=False)
+    kv = pipe.generate(**i2i)
+    plain = dataclasses.replace(pipe, model=Flux2Model.KLEIN_9B)
+    with _KVSplit() as split_plain:
+        _zero_launches()
+        plain.generate(**i2i)
+        counts_plain = _launch_counts()
+    _check_launches("klein-9b I2I (uncached)", counts_plain, 32 * 4)
+    if split_plain.counts != {"kv_loops": 0, "extract": 0, "cached": 0}:
+        raise AssertionError(f"klein-9b I2I (uncached) went into the KV path: {split_plain.counts}")
+    uncached = plain.generate(**i2i)
+    log(f"[kv] i2i --model klein-9b-kv --random-init through cli.main ({c.num_layers} double + {c.num_single_layers} "
+        f"single blocks, {c.num_attention_heads} heads x {c.attention_head_dim}, joint {c.joint_attention_dim}; "
+        f"{weights_gib:.2f} GiB of DiT weights; Qwen3-8B encoder): launches {counts}; _denoise_kv_cached entered "
+        f"{split.counts['kv_loops']}x, K1 launches inside forward_kv_extract {split.counts['extract']}, inside "
+        f"forward_kv_cached {split.counts['cached']}; duration {report['duration_s']} s, phases {report['phases']}; "
+        f"peak device memory {peak_gib:.2f} GiB [{card}]")
+    log(f"[kv] one forward_kv_extract launched {counts_extract['flash']} K1, one forward_kv_cached "
+        f"{counts_cached['flash']}; the uncached klein-9b path entered the KV functions {split_plain.counts} [{card}]")
+    log(f"[kv] step 0, cached vs extract velocity: relative L2 {rel:.4e} (tol {DIT_REL_TOL}); cache "
+        f"{cache_gib:.3f} GiB ({2 * (c.num_layers + c.num_single_layers)} tensors [1, {c.num_attention_heads}, "
+        f"{lat.shape[1]}, 128] bf16) [{card}]")
+    log(f"[kv] warm 1024^2 I2I, 4 steps: KV-cached {_s_per_step(kv):.4f} s/step against uncached (klein-9b, launches "
+        f"{counts_plain}) {_s_per_step(uncached):.4f} s/step ({_s_per_step(uncached) / _s_per_step(kv):.2f}x) [{card}]")
+    result = {"kv_s_per_step": _s_per_step(kv), "uncached_s_per_step": _s_per_step(uncached), "rel": rel,
+              "cache_gib": cache_gib, "peak_gib": peak_gib, "counts": counts,
+              "split": {"extract": split.counts["extract"], "cached": split.counts["cached"]}}
+    del pipe, plain, built, kv, uncached, lat, emb, x
+    gc_cuda()
+    return result
+
+
 def encode_ms(extractor) -> float:
     """Median of 5 warm encodes of one prompt (the extractor itself: no prompt cache), CUDA events."""
     return time_ms(lambda: extractor("a warm encode of one prompt"), reps=5, warmup=2)
@@ -936,19 +1324,27 @@ def _diffusers_transformer_state(model) -> dict:
     return out
 
 
-def _autoencoder_decoder_state(vae) -> dict:
-    """The VAE decoder half in diffusers AutoencoderKL names."""
-    renames = (("mid_resnet1.", "decoder.mid_block.resnets.0."), ("mid_resnet2.", "decoder.mid_block.resnets.1."),
-               ("mid_attn.to_out.", "decoder.mid_block.attentions.0.to_out.0."),
-               ("mid_attn.", "decoder.mid_block.attentions.0."), ("norm_out.", "decoder.conv_norm_out."),
-               ("conv_in.", "decoder.conv_in."), ("conv_out.", "decoder.conv_out."),
-               ("bn_running_", "bn.running_"), ("post_quant_conv.", "post_quant_conv."))
+def _autoencoder_state(vae, encoder) -> dict:
+    """The VAE decoder and encoder (with quant_conv) in diffusers AutoencoderKL names."""
+    mid = (("mid_resnet1.", "mid_block.resnets.0."), ("mid_resnet2.", "mid_block.resnets.1."),
+           ("mid_attn.to_out.", "mid_block.attentions.0.to_out.0."), ("mid_attn.", "mid_block.attentions.0."),
+           ("norm_out.", "conv_norm_out."), ("conv_in.", "conv_in."), ("conv_out.", "conv_out."))
     out = {}
     for name, t in vae.state_dict().items():
         if name.startswith("up_blocks."):
             key = "decoder." + name.replace(".upsample.", ".upsamplers.0.conv.")
+        elif name.startswith(("bn_running_", "post_quant_conv.")):
+            key = name.replace("bn_running_", "bn.running_")
         else:
-            key = next(dst + name[len(src):] for src, dst in renames if name.startswith(src))
+            key = next("decoder." + dst + name[len(src):] for src, dst in mid if name.startswith(src))
+        out[key] = t
+    for name, t in encoder.state_dict().items():
+        if name.startswith("down_blocks."):
+            key = "encoder." + name.replace(".downsample.", ".downsamplers.0.conv.")
+        elif name.startswith("quant_conv."):
+            key = name
+        else:
+            key = next("encoder." + dst + name[len(src):] for src, dst in mid if name.startswith(src))
         out[key] = t
     return out
 
@@ -1083,7 +1479,8 @@ def phase_checkpoint_round_trip(card: str, workdir: str) -> dict:
         f"[{card}]")
     decoder = pipe.text_encoder.decoder
     free = shutil.disk_usage(workdir).free
-    need = sum(t.numel() * t.element_size() for m in (pipe.transformer, pipe.vae, decoder) for t in m.state_dict().values())
+    need = sum(t.numel() * t.element_size() for m in (pipe.transformer, pipe.vae, pipe.vae_encoder, decoder)
+               for t in m.state_dict().values())
     layers = enc_cfg.num_hidden_layers
     if free < 1.1 * need:
         layers = KLEIN_RECIPE_DEPTH  # layers 28-35 never reach the Klein embedding
@@ -1095,7 +1492,7 @@ def phase_checkpoint_round_trip(card: str, workdir: str) -> dict:
         "transformer": _write_sharded(dirs["transformer"], _diffusers_transformer_state(pipe.transformer),
                                       "diffusion_pytorch_model", {"_class_name": "Flux2Transformer2DModel",
                                                                   **dataclasses.asdict(pipe.transformer.config)}),
-        "vae": _write_sharded(dirs["vae"], _autoencoder_decoder_state(pipe.vae), "diffusion_pytorch_model",
+        "vae": _write_sharded(dirs["vae"], _autoencoder_state(pipe.vae, pipe.vae_encoder), "diffusion_pytorch_model",
                               {"_class_name": "AutoencoderKLFlux2", **dataclasses.asdict(pipe.vae.config)}),
         "text_encoder": _write_sharded(dirs["text_encoder"], _qwen3_state(decoder, layers), "model",
                                        dict(QWEN3_4B_CONFIG_JSON, num_hidden_layers=layers)),
@@ -1334,6 +1731,9 @@ def main() -> int:
     flash_launches = 25 * 4 * 3
     counts, bf16_peak = phase_serve(pipe, card, "bf16", {"flash": flash_launches})
     phase_cfg_serve(pipe, card)
+    t0 = time.perf_counter()
+    i2i = phase_i2i(pipe, card)
+    log(f"[i2i] phase: {time.perf_counter() - t0:.2f} s [{card}]")
     del pipe
     torch.cuda.empty_cache()
 
@@ -1361,6 +1761,11 @@ def main() -> int:
     gc_cuda()
 
     t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kv_") as workdir:
+        kv = phase_kv_cli(card, workdir)
+    log(f"[kv] phase: {time.perf_counter() - t0:.2f} s [{card}]")
+
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as workdir:
         phase_checkpoint_round_trip(card, workdir)
     log(f"[ckpt] checkpoint round trip and profile phase: {time.perf_counter() - t0:.2f} s [{card}]")
@@ -1381,6 +1786,18 @@ def main() -> int:
         "ms": k1["alone"], "wrapper_ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound"], "bound_by": k1["bound_by"],
         "library": k1["library"], "library_ms": k1["library_ms"],
+        # the I2I slice's paths, as counted in this run: a Klein-4B 1024^2 I2I
+        # image (S = 8704) and the klein-9b-kv CLI image (launches inside
+        # forward_kv_extract and inside forward_kv_cached), with K1's time and
+        # bound at their shapes
+        "launches_per_unit_i2i": {"klein4b_i2i_1024px": i2i["i2i_launches"], "klein9b_kv_1024px": kv["split"]},
+        "launches_kv_cli": kv["counts"]["flash"],
+        "slice_shapes": {name: {"q": list(shape[:3]) + [128], "s_k": shape[3], "span": span,
+                                "ms": checks[name]["alone"], "wrapper_ms": checks[name]["ms"],
+                                "plain_ms": checks[name]["plain_ms"], "bound_ms": checks[name]["bound"],
+                                "bound_by": checks[name]["bound_by"], "library": checks[name]["library"],
+                                "library_ms": checks[name]["library_ms"], "max_abs_err": checks[name]["err"]}
+                         for name, shape, span in K1_SLICE_CASES},
     }]
     for fmt, name, replaces, launches, per_unit, unit in (
         ("w8a8", "w8a8_matmul", "flux2_tpu/ops/quant_kernels.py:182", qcounts["w8a8"],
@@ -1434,6 +1851,11 @@ def main() -> int:
                         "bound_ms": big["bounds"][key][0], "bound_by": big["bounds"][key][1],
                         "library": big["library"][lib][0], "library_ms": big["library"][lib][1]})
     log(f"[vae] 1024^2 decode: first {decode['cold_s']:.4f} s, warm {decode['warm_s']:.4f} s [{card}]")
+    log(f"[i2i] 1024^2 encode: first {i2i['encode_cold_s']:.4f} s, warm {i2i['encode_warm_s']:.4f} s, TF32 on vs off "
+        f"{i2i['tf32_rel']:.4e}; Klein-4B s/step I2I {i2i['i2i_s_per_step']:.4f} vs T2I {i2i['t2i_s_per_step']:.4f}; "
+        f"klein-9b-kv s/step {kv['kv_s_per_step']:.4f} vs uncached {kv['uncached_s_per_step']:.4f}; 1024^2 reference "
+        f"PNG decode {i2i['decode_s']['decode_image']:.4f} s (decode_png {i2i['decode_s']['decode_png']:.4f} s) "
+        f"[{card}]")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,13 @@
-"""Command line of the PyTorch port: text-to-image and ``profile`` from
-checkpoint directories or random weights, bf16 or quantized, and LoRA
-training on random weights.
+"""Command line of the PyTorch port: text-to-image, multi-reference
+image-to-image (``i2i``) and ``profile`` from checkpoint directories or random
+weights, bf16 or quantized, and LoRA training on random weights.
 
 Port of ``flux2_tpu/cli/main.py``'s ``build_pipeline`` (``:84-164``): the
 checkpoint branch resolves each component's directory through the registry
 (``--transformer-dir``, ``--vae-dir``, ``--encoder-dir``, else the models dir,
 else the HF cache), reads its ``config.json``, maps BFL or Diffusers
-transformer weights, the Diffusers VAE decoder and HF Qwen3 straight onto the
-device (``io/weight_mapping.py``), and quantizes the DiT to
+transformer weights, the Diffusers VAE (decoder and encoder) and HF Qwen3
+straight onto the device (``io/weight_mapping.py``), and quantizes the DiT to
 ``--quantization`` and the encoder's layers to ``--encoder-quantization`` on
 the fly. Missing weights exit with JAX's messages. ``--random-init`` draws
 the same modules from a seed instead; where JAX's random-init pipeline has no
@@ -19,11 +19,17 @@ text encoder, the port attaches a random Qwen3 encoder of the model's family
     python -m flux2_tpu_torch.cli.main profile --transformer-dir T --vae-dir V \\
         --encoder-dir E --compare bf16,w8a8 --warmup 1 --runs 3
 
+    python -m flux2_tpu_torch.cli.main i2i --random-init --reference ref.png \\
+        --prompt "the same fox in snow" [--strength 0.6] -o out.png
+
 ``t2i`` prints ``saved <path>`` and JAX's JSON line (seed, steps, duration_s,
-phases, memory_gb); ``profile`` (JAX's ``cmd_profile`` / ``_profile_once``,
-``:720-778``) runs warmup and timed generations per configuration and prints
-JAX's report, table and JSON, ``--trace`` writing the phases as a Chrome
-trace.
+phases, memory_gb); ``i2i`` (JAX's ``cmd_i2i``, ``:419-451``: every
+``--reference`` VAE-encoded within ``--max-ref-megapixels``, the first also
+the img2img init when ``--strength`` < 1; klein-9b-kv takes the KV-cached
+path) prints the same two lines. ``profile`` (JAX's ``cmd_profile`` /
+``_profile_once``, ``:720-778``) runs warmup and timed generations per
+configuration and prints JAX's report, table and JSON, ``--trace`` writing
+the phases as a Chrome trace.
 
 ``train-lora`` takes the JAX command's flags (``:1016-1040``) and runs
 ``flux2_tpu_torch.cli.train.run_training``: with ``--random-init`` and no
@@ -32,7 +38,10 @@ what else it refuses, and why).
 
 Not ported yet, and refused by argparse or raising: prequantized checkpoints
 (on-the-fly quantization only), LoRA inference, the small decoder, memory
-profiles, ``--shard``, the Mistral encoder (Dev) and the other subcommands.
+profiles, ``--shard``, the Mistral encoder (Dev), the VLM flags
+``--upsample`` / ``--interpret``, checkpoint images (``--checkpoint-every``)
+and the other subcommands. Reference images are read by Pillow where it
+imports (any format it reads), else PNG only, by the port's own decoder.
 """
 
 from __future__ import annotations
@@ -83,8 +92,8 @@ def build_pipeline(
     ``args.quantization`` and the encoder's layers to
     ``args.encoder_quantization``: from checkpoint directories, or with
     ``args.random_init`` drawn from ``generator`` (seed 0 on the device by
-    default; DiT and VAE, then the encoder). The config overrides give
-    random-init runs at reduced size."""
+    default; DiT, VAE decoder and VAE encoder, then the text encoder). The
+    config overrides give random-init runs at reduced size."""
     fmt = getattr(args, "quantization", "bf16")
     enc_fmt = getattr(args, "encoder_quantization", "bf16") or "bf16"
     if fmt not in QUANTIZATIONS:
@@ -134,9 +143,11 @@ def _load_pipeline(args, model: Flux2Model, device: torch.device, fmt: str, enc_
         vdir = registry.find_model_path(registry.VAE_REPO, getattr(args, "vae_dir", None))
         if vdir is None:
             raise SystemExit("VAE weights not found; run `flux2 download` or pass --vae-dir")
-        vae = weight_mapping.load_vae(checkpoints.WeightsDir(vdir), _read_vae_config_json(vdir, FLUX2_VAE), device)
+        weights, vae_config = checkpoints.WeightsDir(vdir), _read_vae_config_json(vdir, FLUX2_VAE)
+        vae = weight_mapping.load_vae(weights, vae_config, device)
+        vae_encoder = weight_mapping.load_vae_encoder(weights, vae_config, device)
         _log_load("VAE", vdir, t0, device, "float32")
-    pipe = Flux2Pipeline(model=model, transformer=transformer, vae=vae, device=device)
+    pipe = Flux2Pipeline(model=model, transformer=transformer, vae=vae, device=device, vae_encoder=vae_encoder)
     if with_encoder:
         with profiler().phase("1. Load Text Encoder"):
             attach_text_encoder(pipe, getattr(args, "encoder_dir", None), getattr(args, "encoder_tokenizer_dir", None),
@@ -218,6 +229,14 @@ def _parser() -> argparse.ArgumentParser:
     _add_common(p)
     p.add_argument("-o", "--output", default="output.png")
 
+    p = sub.add_parser("i2i", help="multi-reference image-to-image")
+    _add_common(p)
+    p.add_argument("-o", "--output", default="output.png")
+    p.add_argument("--reference", action="append", required=True, help="reference image path (repeatable)")
+    p.add_argument("--strength", type=float, default=1.0)
+    p.add_argument("--max-ref-megapixels", type=float, default=1.0,
+                   help="VAE encode budget per reference image in MP (1.0 = 1024^2)")
+
     p = sub.add_parser("profile", help="benchmark generation (warmup + N runs)")
     _add_common(p)
     p.add_argument("--warmup", type=int, default=1)
@@ -278,21 +297,45 @@ def _generate(pipe: Flux2Pipeline, args, seed: int, decode: bool = True):
                          guidance=args.guidance, seed=seed, decode=decode)
 
 
-def cmd_t2i(args) -> None:
+def _report(res, path: str) -> None:
+    """Write the first image as a PNG and print JAX's ``t2i`` lines: ``saved
+    <path>``, then the JSON of seed, steps, duration and phases."""
     import numpy as np
 
     from flux2_tpu_torch.io.png import encode_png
 
-    pipe = build_pipeline(args, args.device)
-    res = _generate(pipe, args, args.seed)
-    with open(args.output, "wb") as f:
+    with open(path, "wb") as f:
         f.write(encode_png(np.rint(res.image * 255.0).astype(np.uint8)))
-    print(f"saved {args.output}")
+    print(f"saved {path}")
     out = {"seed": res.seed, "steps": res.num_steps, "duration_s": round(res.duration_s, 2),
            "phases": {k: round(v, 2) for k, v in res.phase_timings.items()}}
     if res.memory_stats and any(v["peak_gb"] for v in res.memory_stats.values()):
         out["memory_gb"] = {k: v["peak_gb"] for k, v in res.memory_stats.items()}
     print(json.dumps(out))
+
+
+def cmd_t2i(args) -> None:
+    pipe = build_pipeline(args, args.device)
+    _report(_generate(pipe, args, args.seed), args.output)
+
+
+def _load_image(path: str):
+    """Image file -> float32 [H, W, 3] in [0, 1] (``io.png.decode_image``)."""
+    from flux2_tpu_torch.io.png import decode_image
+
+    with open(path, "rb") as f:
+        return decode_image(f.read())
+
+
+def cmd_i2i(args) -> None:
+    pipe = build_pipeline(args, args.device)
+    refs = [_load_image(p) for p in args.reference]
+    ref_lat, ref_ids = pipe.encode_reference_images(refs, max_pixels=int(args.max_ref_megapixels * 1024 * 1024))
+    init = pipe.encode_image_to_packed_sequence(refs[0]) if args.strength < 1.0 else None
+    res = pipe.generate(prompt=args.prompt, height=args.height, width=args.width, num_steps=args.steps,
+                        guidance=args.guidance, seed=args.seed, reference_latents=ref_lat, reference_ids=ref_ids,
+                        strength=args.strength, init_latents=init)
+    _report(res, args.output)
 
 
 def _profile_once(args, quantization: Optional[str] = None):
@@ -358,6 +401,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         run_training(args, args.device)
     elif args.command == "profile":
         cmd_profile(args)
+    elif args.command == "i2i":
+        cmd_i2i(args)
     else:
         cmd_t2i(args)
     return 0

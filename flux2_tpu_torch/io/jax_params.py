@@ -30,7 +30,7 @@ import torch
 from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
 from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
 from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
-from flux2_tpu_torch.models.flux2.vae import VAEConfig, VAEDecoder
+from flux2_tpu_torch.models.flux2.vae import VAEConfig, VAEDecoder, VAEEncoder
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
 from flux2_tpu_torch.ops.quant import QTensor, W4A8Tensor, W8A8Tensor
 from flux2_tpu_torch.training.lora import LoRA, Adapter
@@ -147,21 +147,29 @@ def _resnet(p: dict, prefix: str, sd: dict) -> None:
         _conv(p["conv_shortcut"], f"{prefix}.conv_shortcut", sd)
 
 
-def vae_from_jax(params: dict, config) -> VAEDecoder:
-    """The decoder half of the JAX VAE. ``config`` is the port's ``VAEConfig``
-    or the JAX package's (its decoder fields are read)."""
-    config = VAEConfig(**{f.name: getattr(config, f.name) for f in dataclasses.fields(VAEConfig)})
-    dec = params["decoder"]
-    sd: Dict[str, torch.Tensor] = {}
-    _conv(params["post_quant_conv"], "post_quant_conv", sd)
-    _conv(dec["conv_in"], "conv_in", sd)
-    _resnet(dec["mid"]["resnet1"], "mid_resnet1", sd)
-    _resnet(dec["mid"]["resnet2"], "mid_resnet2", sd)
-    attn = dec["mid"]["attn"]
+def _port_vae_config(config) -> VAEConfig:
+    """The port's ``VAEConfig`` from the port's or the JAX package's."""
+    return VAEConfig(**{f.name: getattr(config, f.name) for f in dataclasses.fields(VAEConfig)})
+
+
+def _mid(mid: dict, sd: dict) -> None:
+    _resnet(mid["resnet1"], "mid_resnet1", sd)
+    _resnet(mid["resnet2"], "mid_resnet2", sd)
+    attn = mid["attn"]
     _norm(attn["group_norm"], "mid_attn.group_norm", sd)
     for name in ("to_q", "to_k", "to_v", "to_out"):
         sd[f"mid_attn.{name}.weight"] = _linear(attn[name]["kernel"])
         sd[f"mid_attn.{name}.bias"] = _tensor(attn[name]["bias"])
+
+
+def vae_from_jax(params: dict, config) -> VAEDecoder:
+    """The decoder half of the JAX VAE. ``config`` is the port's ``VAEConfig``
+    or the JAX package's."""
+    dec = params["decoder"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(params["post_quant_conv"], "post_quant_conv", sd)
+    _conv(dec["conv_in"], "conv_in", sd)
+    _mid(dec["mid"], sd)
     for i, blk in enumerate(dec["up_blocks"]):
         for j, r in enumerate(blk["resnets"]):
             _resnet(r, f"up_blocks.{i}.resnets.{j}", sd)
@@ -171,7 +179,24 @@ def vae_from_jax(params: dict, config) -> VAEDecoder:
     _conv(dec["conv_out"], "conv_out", sd)
     sd["bn_running_mean"] = _tensor(params["bn"]["running_mean"])
     sd["bn_running_var"] = _tensor(params["bn"]["running_var"])
-    return _load(VAEDecoder(config, device="cpu"), sd)
+    return _load(VAEDecoder(_port_vae_config(config), device="cpu"), sd)
+
+
+def vae_encoder_from_jax(params: dict, config) -> VAEEncoder:
+    """The encoder half of the JAX VAE and its ``quant_conv``."""
+    enc = params["encoder"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(enc["conv_in"], "conv_in", sd)
+    for i, blk in enumerate(enc["down_blocks"]):
+        for j, r in enumerate(blk["resnets"]):
+            _resnet(r, f"down_blocks.{i}.resnets.{j}", sd)
+        if "downsample" in blk:
+            _conv(blk["downsample"], f"down_blocks.{i}.downsample", sd)
+    _mid(enc["mid"], sd)
+    _norm(enc["norm_out"], "norm_out", sd)
+    _conv(enc["conv_out"], "conv_out", sd)
+    _conv(params["quant_conv"], "quant_conv", sd)
+    return _load(VAEEncoder(_port_vae_config(config), device="cpu"), sd)
 
 
 def decoder_from_jax(params: dict, config: DecoderConfig) -> Qwen3Decoder:

@@ -1,11 +1,12 @@
 """Checkpoint dialects -> the port's modules: BFL-native and Diffusers FLUX.2
-transformers, the Diffusers ``AutoencoderKL`` decoder half, HF Qwen3.
+transformers, the Diffusers ``AutoencoderKL`` (decoder and encoder), HF Qwen3.
 
 Port of ``flux2_tpu/io/weight_mapping.py``: ``dequantize_quanto`` (``:38-54``),
 ``is_bfl_format`` (``:57``), ``map_transformer_weights`` with ``_map_bfl`` and
-``_map_diffusers`` (``:71-232``), the decoder half of ``map_vae_weights``
-(``:353-389``), ``map_decoder_weights`` and ``strip_language_model_prefix``
-(``:397-439``).
+``_map_diffusers`` (``:71-232``), ``map_vae_weights`` (``:327-389``, split
+into ``map_vae_weights`` for the decoder and ``map_vae_encoder_weights`` for
+the encoder and ``quant_conv``), ``map_decoder_weights`` and
+``strip_language_model_prefix`` (``:397-439``).
 
 Where JAX transposes every linear to [in, out] and stacks the layers, each
 ``map_*`` here yields (port parameter name, tensor) pairs straight in torch's
@@ -31,7 +32,7 @@ from torch import nn
 
 from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
 from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
-from flux2_tpu_torch.models.flux2.vae import VAEConfig, VAEDecoder
+from flux2_tpu_torch.models.flux2.vae import VAEConfig, VAEDecoder, VAEEncoder
 from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
 
@@ -204,7 +205,7 @@ def load_transformer(weights: Mapping, config: Flux2TransformerConfig, device: "
     return model
 
 
-# -- VAE (diffusers AutoencoderKL names): the decoder half ---------------------------
+# -- VAE (diffusers AutoencoderKL names) ---------------------------------------------
 
 _VAE_RENAMES: Sequence[Tuple[re.Pattern, str]] = [(re.compile(a), b) for a, b in (
     (r"post_quant_conv\.(weight|bias)", r"post_quant_conv.\1"),
@@ -220,14 +221,36 @@ _VAE_RENAMES: Sequence[Tuple[re.Pattern, str]] = [(re.compile(a), b) for a, b in
 )]
 
 
-def map_vae_weights(weights: Mapping) -> Iterator[Item]:
-    """(port name, tensor) for the decoder's weights, ``post_quant_conv`` and
-    the ``bn`` statistics; the encoder's and ``quant_conv`` are skipped."""
+_VAE_ENCODER_RENAMES: Sequence[Tuple[re.Pattern, str]] = [(re.compile(a), b) for a, b in (
+    (r"quant_conv\.(weight|bias)", r"quant_conv.\1"),
+    (r"encoder\.down_blocks\.(\d+)\.downsamplers\.0\.conv\.(weight|bias)", r"down_blocks.\1.downsample.\2"),
+    (r"encoder\.down_blocks\.(.+)", r"down_blocks.\1"),
+    (r"encoder\.mid_block\.resnets\.0\.(.+)", r"mid_resnet1.\1"),
+    (r"encoder\.mid_block\.resnets\.1\.(.+)", r"mid_resnet2.\1"),
+    (r"encoder\.mid_block\.attentions\.0\.to_out(?:\.0)?\.(weight|bias)", r"mid_attn.to_out.\1"),
+    (r"encoder\.mid_block\.attentions\.0\.(.+)", r"mid_attn.\1"),
+    (r"encoder\.conv_norm_out\.(weight|bias)", r"norm_out.\1"),
+    (r"encoder\.(conv_in|conv_out)\.(weight|bias)", r"\1.\2"),
+)]
+
+
+def _renamed(weights: Mapping, renames) -> Iterator[Item]:
     for key in weights:
-        for pattern, repl in _VAE_RENAMES:
+        for pattern, repl in renames:
             if pattern.fullmatch(key):
                 yield pattern.sub(repl, key), weights[key]
                 break
+
+
+def map_vae_weights(weights: Mapping) -> Iterator[Item]:
+    """(port name, tensor) for the decoder's weights, ``post_quant_conv`` and
+    the ``bn`` statistics; the encoder's and ``quant_conv`` are skipped."""
+    return _renamed(weights, _VAE_RENAMES)
+
+
+def map_vae_encoder_weights(weights: Mapping) -> Iterator[Item]:
+    """(port name, tensor) for the encoder's weights and ``quant_conv``."""
+    return _renamed(weights, _VAE_ENCODER_RENAMES)
 
 
 def load_vae(weights: Mapping, config: VAEConfig, device: "torch.device | str") -> VAEDecoder:
@@ -236,6 +259,13 @@ def load_vae(weights: Mapping, config: VAEConfig, device: "torch.device | str") 
     vae = VAEDecoder(config, device=device)
     _raise_missing([n for n in fill(vae, map_vae_weights(weights)) if not n.startswith("bn_running_")])
     return vae
+
+
+def load_vae_encoder(weights: Mapping, config: VAEConfig, device: "torch.device | str") -> VAEEncoder:
+    """The float32 encoder of ``config`` (and ``quant_conv``) on ``device``."""
+    encoder = VAEEncoder(config, device=device)
+    _raise_missing(fill(encoder, map_vae_encoder_weights(weights)))
+    return encoder
 
 
 # -- Qwen3 (HF llama-style names) ---------------------------------------------------

@@ -1,12 +1,15 @@
 """FLUX.2 diffusion transformer (DiT) as a PyTorch module.
 
-Port of the T2I forward of ``flux2_tpu/models/flux2/transformer.py``:
-``sinusoidal_embedding``, ``time_guidance_embedding``, the modulation
-projections, ``double_block``, ``single_block``, ``forward`` and ``_final``,
-with JAX's unmerged LoRA (``_lmm``, ``forward(lora=, lora_scale=)``) and
-per-block remat (``remat=True`` / ``"block"``: ``torch.utils.checkpoint``).
-The KV-extract/KV-cached forwards, the ``"dots"`` remat policy and ring
-attention are not ported yet.
+Port of ``flux2_tpu/models/flux2/transformer.py``: ``sinusoidal_embedding``,
+``time_guidance_embedding``, the modulation projections, ``double_block``,
+``single_block``, ``forward`` and ``_final``, with JAX's unmerged LoRA
+(``_lmm``, ``forward(lora=, lora_scale=)``) and per-block remat
+(``remat=True`` / ``"block"``: ``torch.utils.checkpoint``); and the
+klein-9b-kv pair ``forward_kv_extract`` / ``forward_kv_cached``: step 0 runs
+[txt ; ref ; img] with the reference queries blind to the output keys and
+returns each block's post-RoPE reference K/V, steps 1+ run [txt ; img] with
+that K/V inserted between the text and image keys. The ``"dots"`` remat
+policy and ring attention are not ported yet.
 
 Linear weights are stored [out, in] (``F.linear``'s layout); the JAX package
 stores [in, out] stacked over layers, and ``flux2_tpu_torch.io.jax_params``
@@ -21,7 +24,7 @@ the card, the hand-written flash-attention kernel.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -84,6 +87,26 @@ def _swiglu(x, bp, w_in: str, w_out: str, lora, scale) -> torch.Tensor:
     return _lmm(F.silu(g) * v, getattr(bp, w_out), lora, w_out, scale)
 
 
+KV = Tuple[torch.Tensor, torch.Tensor]  # post-RoPE (k, v), [B, H, S, head_dim] each
+
+
+def _extract(k: torch.Tensor, v: torch.Tensor, span: Optional[Tuple[int, int]]) -> Optional[KV]:
+    """K/V of joint positions [start, start + length), copied so that the cache
+    does not keep the whole sequence's K/V alive."""
+    if span is None:
+        return None
+    start, length = span
+    return k[:, :, start : start + length].contiguous(), v[:, :, start : start + length].contiguous()
+
+
+def _insert(k: torch.Tensor, v: torch.Tensor, extra_kv: Optional[KV], at: int) -> KV:
+    """K/V with the cached ``extra_kv`` put in after the first ``at`` positions."""
+    if extra_kv is None:
+        return k, v
+    ck, cv = extra_kv
+    return (torch.cat([k[:, :, :at], ck, k[:, :, at:]], dim=2), torch.cat([v[:, :, :at], cv, v[:, :, at:]], dim=2))
+
+
 class DoubleBlock(nn.Module):
     """Double-stream block: per-stream AdaLN + projections, joint attention
     over [txt ; img], per-stream SwiGLU FFNs (JAX ``double_block``)."""
@@ -102,7 +125,11 @@ class DoubleBlock(nn.Module):
         self.ff_ctx_out = linear_weight(mlp, d, device, dtype, generator)
 
     def forward(self, img, txt, img_mod, txt_mod, rope_cos, rope_sin, lora: Optional[nn.ModuleDict] = None,
-                lora_scale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                lora_scale: float = 1.0, extra_kv: Optional[KV] = None,
+                kv_extract_span: Optional[Tuple[int, int]] = None, blocked_span: Optional[Tuple[int, int, int]] = None):
+        """(img, txt), and with ``kv_extract_span=(start, length)`` also the
+        post-RoPE K/V of those joint positions, taken before ``extra_kv`` (cached
+        post-RoPE reference K/V) is inserted between the text and image keys."""
         nh = self.num_heads
         s_txt = txt.shape[1]
         img_n = modulate(layer_norm(img), img_mod[:, 0, 0], img_mod[:, 0, 1])
@@ -121,7 +148,9 @@ class DoubleBlock(nn.Module):
         q = apply_rope(torch.cat([q_txt, q_img], dim=2), rope_cos, rope_sin)
         k = apply_rope(torch.cat([k_txt, k_img], dim=2), rope_cos, rope_sin)
         v = torch.cat([v_txt, v_img], dim=2)
-        attn = sdpa(q, k, v, bounded_logits=True)  # qk are RMS-normed above
+        extracted = _extract(k, v, kv_extract_span)
+        k, v = _insert(k, v, extra_kv, s_txt)
+        attn = sdpa(q, k, v, blocked_span=blocked_span, bounded_logits=True)  # qk are RMS-normed above
 
         img = img + gate(proj(_unheads(attn[:, :, s_txt:]), "to_out"), img_mod[:, 0, 2])
         txt = txt + gate(proj(_unheads(attn[:, :, :s_txt]), "add_out"), txt_mod[:, 0, 2])
@@ -130,6 +159,8 @@ class DoubleBlock(nn.Module):
         txt_n2 = modulate(layer_norm(txt), txt_mod[:, 1, 0], txt_mod[:, 1, 1])
         img = img + gate(_swiglu(img_n2, self, "ff_in", "ff_out", lora, lora_scale), img_mod[:, 1, 2])
         txt = txt + gate(_swiglu(txt_n2, self, "ff_ctx_in", "ff_ctx_out", lora, lora_scale), txt_mod[:, 1, 2])
+        if kv_extract_span is not None:
+            return img, txt, extracted
         return img, txt
 
 
@@ -150,8 +181,11 @@ class SingleBlock(nn.Module):
         self.out_attn = linear_weight(d, d, device, dtype, generator)
         self.out_mlp = linear_weight(mlp, d, device, dtype, generator)
 
-    def forward(self, x, mod, rope_cos, rope_sin, lora: Optional[nn.ModuleDict] = None,
-                lora_scale: float = 1.0) -> torch.Tensor:
+    def forward(self, x, mod, rope_cos, rope_sin, lora: Optional[nn.ModuleDict] = None, lora_scale: float = 1.0,
+                extra_kv: Optional[KV] = None, txt_len: int = 0, kv_extract_span: Optional[Tuple[int, int]] = None,
+                blocked_span: Optional[Tuple[int, int, int]] = None):
+        """x, and with ``kv_extract_span`` also the extracted K/V (as ``DoubleBlock``);
+        ``extra_kv`` goes in after the first ``txt_len`` keys."""
         nh = self.num_heads
 
         def proj(x, name):
@@ -161,10 +195,15 @@ class SingleBlock(nn.Module):
         q = apply_rope(rms_norm(_heads(proj(x_n, "to_q"), nh), self.norm_q), rope_cos, rope_sin)
         k = apply_rope(rms_norm(_heads(proj(x_n, "to_k"), nh), self.norm_k), rope_cos, rope_sin)
         v = _heads(proj(x_n, "to_v"), nh)
-        attn = _unheads(sdpa(q, k, v, bounded_logits=True))  # qk RMS-normed above
+        extracted = _extract(k, v, kv_extract_span)
+        k, v = _insert(k, v, extra_kv, txt_len)
+        attn = _unheads(sdpa(q, k, v, blocked_span=blocked_span, bounded_logits=True))  # qk RMS-normed above
         mlp = F.silu(proj(x_n, "mlp_gate")) * proj(x_n, "mlp_up")
         out = proj(attn, "out_attn") + proj(mlp, "out_mlp")
-        return x + gate(out, mod[:, 0, 2])
+        res = x + gate(out, mod[:, 0, 2])
+        if kv_extract_span is not None:
+            return res, extracted
+        return res
 
 
 class Flux2Transformer(nn.Module):
@@ -228,6 +267,21 @@ class Flux2Transformer(nn.Module):
         out = q_linear(F.silu(temb), weight)
         return out.reshape(out.shape[0], num_sets, 3, -1)
 
+    def _prelude(self, hidden_states, encoder_hidden_states, timestep, guidance):
+        """Embedded image and text streams, the time embedding and the three
+        modulations (JAX ``_prelude``)."""
+        img = q_linear(hidden_states, self.x_embedder)
+        # a quantized context embedder takes the stream's dtype (JAX: hidden_states')
+        ctx_w = self.context_embedder
+        ctx_dtype = ctx_w.dtype if isinstance(ctx_w, torch.Tensor) else hidden_states.dtype
+        txt = q_linear(encoder_hidden_states.to(ctx_dtype), ctx_w)
+        # back to the stream dtype when a quantized time embedding left it f32
+        temb = self.time_guidance_embedding(timestep, guidance).to(img.dtype)
+        img_mod = self._modulation(self.double_mod_img, temb, 2)
+        txt_mod = self._modulation(self.double_mod_txt, temb, 2)
+        single_mod = self._modulation(self.single_mod, temb, 1)
+        return img, txt, temb, img_mod, txt_mod, single_mod
+
     def _final(self, temb: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
         """AdaLN-continuous out: (scale, shift) in diffusers order, then proj_out."""
         scale, shift = q_linear(F.silu(temb), self.norm_out).chunk(2, dim=-1)
@@ -252,17 +306,8 @@ class Flux2Transformer(nn.Module):
         if remat not in (False, True, "block"):
             raise NotImplementedError(f"remat={remat!r}: only per-block recompute is ported (ROADMAP queue 13)")
         s_txt = encoder_hidden_states.shape[1]
-        img = q_linear(hidden_states, self.x_embedder)
-        # a quantized context embedder takes the stream's dtype (JAX: hidden_states')
-        ctx_w = self.context_embedder
-        ctx_dtype = ctx_w.dtype if isinstance(ctx_w, torch.Tensor) else hidden_states.dtype
-        txt = q_linear(encoder_hidden_states.to(ctx_dtype), ctx_w)
-        # back to the stream dtype when a quantized time embedding left it f32
-        temb = self.time_guidance_embedding(timestep, guidance).to(img.dtype)
-
-        img_mod = self._modulation(self.double_mod_img, temb, 2)
-        txt_mod = self._modulation(self.double_mod_txt, temb, 2)
-        single_mod = self._modulation(self.single_mod, temb, 1)
+        img, txt, temb, img_mod, txt_mod, single_mod = self._prelude(hidden_states, encoder_hidden_states, timestep,
+                                                                     guidance)
         rope_cos = rope_cos.to(torch.float32)
         rope_sin = rope_sin.to(torch.float32)
 
@@ -279,4 +324,68 @@ class Flux2Transformer(nn.Module):
         for i, block in enumerate(self.single_blocks):
             lb = lora.block("single_blocks", i) if lora is not None else None
             x = run(block, x, single_mod, rope_cos, rope_sin, lora_block=lb)
+        return self._final(temb, x[:, s_txt:])
+
+    def forward_kv_extract(
+        self,
+        hidden_states: torch.Tensor,  # [B, S_img, 128] output tokens
+        reference_hidden_states: torch.Tensor,  # [B, S_ref, 128] clean reference tokens
+        encoder_hidden_states: torch.Tensor,  # [B, S_txt, joint]
+        timestep: torch.Tensor,
+        rope_cos: torch.Tensor,  # [S_txt + S_ref + S_img, head_dim], ids in [txt ; ref ; img] order
+        rope_sin: torch.Tensor,
+        guidance: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, List[KV], List[KV]]:
+        """Step 0 of KV-cached denoising (JAX ``forward_kv_extract``): the joint
+        sequence is [txt ; ref ; img], and the reference queries see no output
+        key (blocked span (s_txt, s_txt + s_ref, s_txt + s_ref), which the
+        kernel applies in-tile), so their K/V do not depend on the output
+        latents. Returns (velocity [B, S_img, 128], the double blocks' and the
+        single blocks' post-RoPE reference (k, v), [B, H, S_ref, head_dim] each)."""
+        s_txt = encoder_hidden_states.shape[1]
+        s_ref = reference_hidden_states.shape[1]
+        img, txt, temb, img_mod, txt_mod, single_mod = self._prelude(hidden_states, encoder_hidden_states, timestep,
+                                                                     guidance)
+        ref = q_linear(reference_hidden_states, self.x_embedder)
+        img = torch.cat([ref, img], dim=1)  # image stream = [ref ; img]
+        blocked = (s_txt, s_txt + s_ref, s_txt + s_ref)
+        span = (s_txt, s_ref)
+        rope_cos = rope_cos.to(torch.float32)
+        rope_sin = rope_sin.to(torch.float32)
+        double_kv, single_kv = [], []
+        for block in self.double_blocks:
+            img, txt, kv = block(img, txt, img_mod, txt_mod, rope_cos, rope_sin, blocked_span=blocked,
+                                 kv_extract_span=span)
+            double_kv.append(kv)
+        x = torch.cat([txt, img], dim=1)
+        for block in self.single_blocks:
+            x, kv = block(x, single_mod, rope_cos, rope_sin, blocked_span=blocked, kv_extract_span=span)
+            single_kv.append(kv)
+        return self._final(temb, x[:, s_txt + s_ref :]), double_kv, single_kv
+
+    def forward_kv_cached(
+        self,
+        hidden_states: torch.Tensor,  # [B, S_img, 128]
+        encoder_hidden_states: torch.Tensor,
+        timestep: torch.Tensor,
+        rope_cos: torch.Tensor,  # [S_txt + S_img, head_dim], ids in [txt ; img] order (no reference)
+        rope_sin: torch.Tensor,
+        double_kv: List[KV],
+        single_kv: List[KV],
+        guidance: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Steps 1+ of KV-cached denoising (JAX ``forward_kv_cached``): only
+        [txt ; img] runs through the network; each attention takes the cached
+        reference K/V between the text and image keys (S_q = S_txt + S_img
+        queries over S_k = S_q + S_ref keys). Velocity [B, S_img, 128]."""
+        s_txt = encoder_hidden_states.shape[1]
+        img, txt, temb, img_mod, txt_mod, single_mod = self._prelude(hidden_states, encoder_hidden_states, timestep,
+                                                                     guidance)
+        rope_cos = rope_cos.to(torch.float32)
+        rope_sin = rope_sin.to(torch.float32)
+        for block, kv in zip(self.double_blocks, double_kv, strict=True):
+            img, txt = block(img, txt, img_mod, txt_mod, rope_cos, rope_sin, extra_kv=kv)
+        x = torch.cat([txt, img], dim=1)
+        for block, kv in zip(self.single_blocks, single_kv, strict=True):
+            x = block(x, single_mod, rope_cos, rope_sin, extra_kv=kv, txt_len=s_txt)
         return self._final(temb, x[:, s_txt:])

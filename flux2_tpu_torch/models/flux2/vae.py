@@ -1,18 +1,21 @@
-"""FLUX.2 32-channel KL VAE: the decoder, as a PyTorch module.
+"""FLUX.2 32-channel KL VAE: the decoder and the encoder, as PyTorch modules.
 
-Port of the decode path of ``flux2_tpu/models/flux2/vae.py``:
-``post_quant_conv``, ``conv_in``, mid (resnet, attention, resnet),
-``up_blocks`` with nearest-2x upsampling, ``norm_out`` and ``conv_out``, plus
-the patchified-latent BatchNorm statistics. NCHW activations and OIHW conv
-weights (the JAX package uses NHWC/HWIO inside and NCHW at its boundary, so
-``decode`` is NCHW -> NCHW in both).
+Port of ``flux2_tpu/models/flux2/vae.py``. ``VAEDecoder``: ``post_quant_conv``,
+``conv_in``, mid (resnet, attention, resnet), ``up_blocks`` with nearest-2x
+upsampling, ``norm_out`` and ``conv_out``, plus the patchified-latent
+BatchNorm statistics. ``VAEEncoder``: ``conv_in``, ``down_blocks`` (a
+stride-2 downsample after every level but the last, padded at the bottom and
+right only), mid, ``norm_out``, ``conv_out`` to the posterior's mean and
+log-variance, then ``quant_conv``. NCHW activations and OIHW conv weights
+(the JAX package uses NHWC/HWIO inside and NCHW at its boundary, so
+``encode`` is NCHW -> NCHW in both).
 
 Parameters are stored in float32, as JAX's ``from_random`` keeps them; the
 forward casts each weight to the activations' dtype, so a bf16 decode
 computes in bf16 with float32 GroupNorm statistics. The mid-block attention
 is plain torch on purpose: one head, C=512, 16384 tokens at 1024^2, so its
-dense f32 logits take 1 GiB, which fits. The encoder, tiled decode and the
-small decoder are not ported yet.
+dense f32 logits take 1 GiB, which fits; the encoder's is the same (JAX's is
+plain XLA too). Tiled decode and the small decoder are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ from flux2_tpu_torch.ops.normalization import group_norm
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
-    """The decoder's fields of ``flux2_tpu.models.flux2.vae.VAEConfig`` (that
-    module imports JAX, so the port keeps its own copy)."""
+    """The fields of ``flux2_tpu.models.flux2.vae.VAEConfig`` that the port
+    reads (that module imports JAX, so the port keeps its own copy)."""
 
     in_channels: int = 3
     out_channels: int = 3
@@ -147,6 +150,34 @@ class AttnBlock(nn.Module):
         return out.transpose(1, 2).reshape(b, c, h, w) + x
 
 
+class Downsample(Conv2d):
+    """3x3 stride-2 conv after a zero pad of one row at the bottom and one
+    column at the right (diffusers' ``downsample_padding=0``, JAX
+    ``_downsample_fwd``); a symmetric pad would shift every output by one input pixel."""
+
+    def __init__(self, c, device, generator):
+        super().__init__(c, c, 3, device, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(x, (0, 1, 0, 1))
+        return F.conv2d(x, self.weight.to(x.dtype), stride=2) + self.bias.to(x.dtype)[:, None, None]
+
+
+class DownBlock(nn.Module):
+    def __init__(self, cin, cout, num_resnets, downsample, groups, eps, device, generator):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            ResnetBlock(cin if j == 0 else cout, cout, groups, eps, device, generator)
+            for j in range(num_resnets)
+        )
+        self.downsample = Downsample(cout, device, generator) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for r in self.resnets:
+            x = r(x)
+        return self.downsample(x) if self.downsample is not None else x
+
+
 class UpBlock(nn.Module):
     def __init__(self, cin, cout, num_resnets, upsample, groups, eps, device, generator):
         super().__init__()
@@ -199,3 +230,51 @@ class VAEDecoder(nn.Module):
         for blk in self.up_blocks:
             h = blk(h)
         return self.conv_out(F.silu(self.norm_out(h)))
+
+
+class VAEEncoder(nn.Module):
+    """Image [B, 3, H, W] in [-1, 1] -> posterior moments [B, 64, H/8, W/8] or
+    latents [B, 32, H/8, W/8] (NCHW). Holds the encoder half and ``quant_conv``;
+    the BatchNorm statistics that normalize its latents live in ``VAEDecoder``."""
+
+    def __init__(self, config, device: "torch.device | str" = "cpu", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.config = config
+        g, eps = config.norm_num_groups, config.norm_eps
+        ch, lc = config.block_out_channels, config.latent_channels
+        self.conv_in = Conv2d(config.in_channels, ch[0], 3, device, generator)
+        blocks, prev = [], ch[0]
+        for i, c in enumerate(ch):
+            blocks.append(DownBlock(prev, c, config.layers_per_block, i < len(ch) - 1, g, eps, device, generator))
+            prev = c
+        self.down_blocks = nn.ModuleList(blocks)
+        self.mid_resnet1 = ResnetBlock(ch[-1], ch[-1], g, eps, device, generator)
+        self.mid_attn = AttnBlock(ch[-1], g, eps, device, generator)
+        self.mid_resnet2 = ResnetBlock(ch[-1], ch[-1], g, eps, device, generator)
+        self.norm_out = GroupNorm(ch[-1], g, eps, device)
+        self.conv_out = Conv2d(ch[-1], 2 * lc, 3, device, generator)
+        self.quant_conv = Conv2d(2 * lc, 2 * lc, 1, device, generator)
+
+    def encode_moments(self, x: torch.Tensor) -> torch.Tensor:
+        """Posterior moments, mean then log-variance along channels (JAX ``encode_moments``)."""
+        h = self.conv_in(x)
+        for blk in self.down_blocks:
+            h = blk(h)
+        h = self.mid_resnet2(self.mid_attn(self.mid_resnet1(h)))
+        h = self.conv_out(F.silu(self.norm_out(h)))
+        return self.quant_conv(h)
+
+    def encode(self, x: torch.Tensor, sample_posterior: bool = False,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Latents: the posterior mean, or with ``sample_posterior`` a draw
+        mean + exp(logvar / 2) * N(0, 1) from ``generator`` (JAX draws from a
+        PRNG key, so the two packages' samples differ). No scaling factor."""
+        moments = self.encode_moments(x)
+        lc = self.config.latent_channels
+        mean, logvar = moments[:, :lc], moments[:, lc:]
+        if not sample_posterior:
+            return mean
+        if generator is None:
+            raise ValueError("sample_posterior=True requires a torch.Generator")
+        eps = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+        return mean + torch.exp(0.5 * logvar) * eps

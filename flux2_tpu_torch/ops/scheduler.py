@@ -3,14 +3,15 @@
 The sigma schedule is host numpy math copied from
 ``flux2_tpu/ops/scheduler.py``: that module imports ``jax.numpy``, so the
 port carries its own copy. Both compute in float64 and store float32, so the
-two schedules are equal bit for bit (the tests check it).
+two schedules are equal bit for bit (the tests check it). ``set_custom_sigmas``
+(Turbo-LoRA style schedules) and img2img's ``scale_noise`` are copied too.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,6 +53,10 @@ class SigmaSchedule:
     def num_steps(self) -> int:
         return len(self.sigmas) - 1
 
+    @property
+    def initial_sigma(self) -> float:
+        return float(self.sigmas[0]) if len(self.sigmas) else 1.0
+
     def sigma_pairs(self) -> np.ndarray:
         """[n, 2] float32 array of (sigma, sigma_next) per step."""
         return np.stack([self.sigmas[:-1], self.sigmas[1:]], axis=-1)
@@ -78,9 +83,27 @@ def set_timesteps(
     return SigmaSchedule(sigmas=sigmas[t_start:], t_start=t_start, mu=mu)
 
 
+def set_custom_sigmas(custom_sigmas: Sequence[float]) -> SigmaSchedule:
+    """Schedule from an explicit sigma list; a terminal 0.0 is appended when
+    absent, so N sigmas always give N steps."""
+    sig = list(float(s) for s in custom_sigmas)
+    if not sig:
+        raise ValueError("custom sigmas must be non-empty")
+    if sig[-1] != 0.0:
+        sig.append(0.0)
+    return SigmaSchedule(sigmas=np.asarray(sig, dtype=np.float32), t_start=0, mu=float("nan"))
+
+
 def euler_step(
     sample: torch.Tensor, velocity: torch.Tensor, sigma: float, sigma_next: float
 ) -> torch.Tensor:
     """x_next = x + (sigma_next - sigma) * v, with dt rounded to float32 as in JAX."""
     dt = float(np.float32(sigma_next) - np.float32(sigma))
     return sample + dt * velocity.to(sample.dtype)
+
+
+def scale_noise(sample: torch.Tensor, sigma: float, noise: torch.Tensor) -> torch.Tensor:
+    """Flow-matching forward interpolation in the sample's dtype (img2img's
+    start): x_t = (1 - sigma) * x0 + sigma * noise."""
+    sigma = torch.tensor(sigma, dtype=sample.dtype, device=sample.device)
+    return (1.0 - sigma) * sample + sigma * noise.to(sample.dtype)

@@ -1,14 +1,19 @@
-"""FLUX.2 text-to-image pipeline in PyTorch.
+"""FLUX.2 generation pipeline in PyTorch: T2I, multi-reference I2I, img2img strength.
 
-Port of the T2I branch of ``flux2_tpu/pipeline/pipeline.py``: prompt ->
-text encoder (LRU-cached) -> seeded noise -> Euler denoising over the
-FLUX.2 sigma schedule -> VAE decode -> uint8, with JAX's classical CFG for
-the base models (cond and uncond as batch rows of one forward, the "" negative
-encoded through the same LRU). Where JAX compiles the denoise loop into one
-``lax.scan``, the port runs a Python loop over the schedule under
-``torch.inference_mode()``; cancellation is checked on the host between steps.
-I2I, img2img strength, step hooks, previews and checkpoint images are not
-ported yet.
+Port of ``flux2_tpu/pipeline/pipeline.py``: prompt -> text encoder
+(LRU-cached) -> seeded noise -> Euler denoising over the FLUX.2 sigma
+schedule (or ``custom_sigmas``) -> VAE decode -> uint8, with JAX's classical
+CFG for the base models (cond and uncond as batch rows of one forward, the ""
+negative encoded through the same LRU). I2I: reference images go through the
+VAE encoder (``encode_reference_images``) and their clean tokens follow the
+output tokens in every step, RoPE ids in [txt ; img ; ref] order; with
+``init_latents`` and ``strength`` < 1 the schedule is cut and the start is
+the init noised to its first sigma. klein-9b-kv with references extracts the
+references' K/V at step 0 and reuses them in steps 1+ (``_denoise_kv_cached``).
+Where JAX compiles the denoise loop into one ``lax.scan``, the port runs a
+Python loop over the schedule under ``torch.inference_mode()``; cancellation
+is checked on the host between steps. Step hooks, live previews, checkpoint
+images, tiled decode and the VLM prompt services are not ported yet.
 
 The noise comes from a ``torch.Generator`` seeded with ``seed``: JAX uses
 threefry, so one seed gives different images in the two packages. Pass
@@ -17,19 +22,20 @@ threefry, so one seed gives different images in the two packages. Pass
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import threading
 import time
 from collections import OrderedDict
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
 from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
-from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, VAEConfig, VAEDecoder
+from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, VAEConfig, VAEDecoder, VAEEncoder
 from flux2_tpu_torch.ops import latents as lu
 from flux2_tpu_torch.ops.quant import param_dtype
 from flux2_tpu_torch.ops import scheduler as sch
@@ -66,13 +72,15 @@ def _cancel_requested(cancel) -> bool:
 
 @dataclasses.dataclass
 class Flux2Pipeline:
-    """Holds the DiT, the VAE decoder and an optional text encoder; exposes generate()."""
+    """Holds the DiT, the VAE decoder, an optional VAE encoder (I2I and
+    img2img) and an optional text encoder; exposes generate()."""
 
     model: Flux2Model
     transformer: Flux2Transformer
     vae: VAEDecoder
     device: torch.device
     text_encoder: Optional[Callable[[str], torch.Tensor]] = None  # prompt -> [1, S, joint]
+    vae_encoder: Optional[VAEEncoder] = None
     max_pixels: int = 4096 * 4096
     # VAE compute dtype: the decode casts the VAE's float parameters and the
     # latents to it, as the JAX pipeline does (bf16 throughout, f32 GroupNorm
@@ -97,18 +105,19 @@ class Flux2Pipeline:
         transformer_config: Optional[Flux2TransformerConfig] = None,
         vae_config: Optional[VAEConfig] = None,
     ) -> "Flux2Pipeline":
-        """Random-init pipeline drawn on ``device`` (default generator: seed 0 there).
-        The VAE keeps float32 parameters, as JAX's ``from_random``."""
+        """Random-init pipeline drawn on ``device`` (default generator: seed 0
+        there): the DiT, the VAE decoder, then the VAE encoder, so the first two
+        draw what they drew before the encoder existed. The VAE keeps float32
+        parameters, as JAX's ``from_random``."""
         device = torch.device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         tc = transformer_config or model.transformer_config
-        return cls(
-            model=model,
-            transformer=Flux2Transformer(tc, device=device, dtype=dtype, generator=generator),
-            vae=VAEDecoder(vae_config or FLUX2_VAE, device=device, generator=generator),
-            device=device,
-        )
+        vc = vae_config or FLUX2_VAE
+        transformer = Flux2Transformer(tc, device=device, dtype=dtype, generator=generator)
+        vae = VAEDecoder(vc, device=device, generator=generator)
+        return cls(model=model, transformer=transformer, vae=vae, device=device,
+                   vae_encoder=VAEEncoder(vc, device=device, generator=generator))
 
     # -- phase 1: text encoding ------------------------------------------------
 
@@ -146,15 +155,24 @@ class Flux2Pipeline:
         num_steps: Optional[int] = None,
         guidance: Optional[float] = None,
         seed: int = 0,
+        reference_latents: Optional[torch.Tensor] = None,  # [B or 1, S_ref, 128] packed + normalized
+        reference_ids: Optional[np.ndarray] = None,  # [S_ref, 4]
+        strength: float = 1.0,
+        init_latents: Optional[torch.Tensor] = None,  # [B or 1, S_img, 128] packed + normalized
         noise: Optional[torch.Tensor] = None,  # [B, S_img, 128] initial noise (overrides seed)
+        custom_sigmas: Optional[Sequence[float]] = None,
         decode: bool = True,
         cancel: Optional[Any] = None,  # threading.Event-like or () -> bool
     ) -> GenerationResult:
-        """Text to image. The batch follows ``embeddings``' leading axis. A
-        base model (``uses_classical_cfg``) guides with ``negative_embeddings``,
-        or with the encoded "" prompt when an encoder is attached. Each phase
-        is timed by the shared profiler (when ``FLUX2_PROFILE=1``) and closed
-        by a device-memory snapshot (``memory_stats``), as in JAX."""
+        """Generate images: T2I by default; I2I with ``reference_latents`` and
+        ``reference_ids`` (``encode_reference_images``); img2img with
+        ``init_latents`` and ``strength`` < 1. ``custom_sigmas`` replaces the
+        schedule (and ``strength``'s cut). The batch follows ``embeddings``'
+        leading axis. A base model (``uses_classical_cfg``) guides with
+        ``negative_embeddings``, or with the encoded "" prompt when an encoder
+        is attached. Each phase is timed by the shared profiler (when
+        ``FLUX2_PROFILE=1``) and closed by a device-memory snapshot
+        (``memory_stats``), as in JAX."""
         prof = _profiler()
         mem = MemoryTelemetry(enabled=_mem_telemetry().enabled, device=self.device)  # per call
         t0 = time.perf_counter()
@@ -182,23 +200,46 @@ class Flux2Pipeline:
         mem.snapshot("text_encoding")
 
         _, _, num_patches = lu.latent_dims(height, width)
-        schedule = sch.set_timesteps(num_steps, image_seq_len=num_patches)
+        if custom_sigmas is not None:
+            schedule = sch.set_custom_sigmas(custom_sigmas)
+        else:
+            schedule = sch.set_timesteps(num_steps, image_seq_len=num_patches, strength=strength)
         batch = int(embeddings.shape[0])
         if noise is not None:
             latents = torch.as_tensor(noise).to(self.device, torch.float32)
         else:
             latents = lu.seeded_noise_seq(seed, height, width, batch, device=self.device)
+        if init_latents is not None and strength < 1.0:
+            # img2img: the encoded image noised to the schedule's first sigma
+            init = torch.as_tensor(init_latents).to(self.device)
+            latents = sch.scale_noise(init, schedule.initial_sigma, latents).to(torch.float32)
 
-        ids = np.concatenate([lu.text_position_ids(embeddings.shape[1]), lu.image_position_ids(height, width)])
-        cos, sin = rope_embeddings(torch.from_numpy(ids).to(self.device))
+        # RoPE ids in the sequence's order: [txt ; img ; ref] (the references
+        # follow the output tokens in every step); the KV path reorders them.
+        txt_ids, img_ids = lu.text_position_ids(embeddings.shape[1]), lu.image_position_ids(height, width)
+        if reference_latents is not None:
+            if reference_ids is None:
+                raise ValueError("reference_latents requires reference_ids")
+            reference_latents = torch.as_tensor(reference_latents).to(self.device)
+            reference_ids = np.asarray(reference_ids)
+        kv_cached = reference_latents is not None and self.model.supports_kv_cache
 
         t = time.perf_counter()
         prof.start("2. Denoising")
         g = (torch.full((batch,), guidance, dtype=torch.float32, device=self.device)
              if self.model.uses_guidance_embeds else None)
-        negative = negative_embeddings if self.model.uses_classical_cfg else None
-        latents = self._denoise(latents, embeddings, negative, schedule.sigma_pairs(), guidance, cos, sin, g,
-                                cancel)
+        if kv_cached:
+            # klein-9b-kv: step 0 extracts the references' K/V, steps 1+ reuse it
+            extract_rope = self._rope([txt_ids, reference_ids, img_ids])
+            cached_rope = self._rope([txt_ids, img_ids])
+            latents = self._denoise_kv_cached(latents, embeddings, reference_latents, schedule.sigma_pairs(),
+                                              extract_rope, cached_rope, g, cancel)
+        else:
+            ids = [txt_ids, img_ids] + ([reference_ids] if reference_latents is not None else [])
+            cos, sin = self._rope(ids)
+            negative = negative_embeddings if self.model.uses_classical_cfg else None
+            latents = self._denoise(latents, embeddings, negative, schedule.sigma_pairs(), guidance, cos, sin, g,
+                                    cancel, reference_latents)
         _sync(self.device)
         prof.end("2. Denoising")
         if schedule.num_steps:
@@ -228,16 +269,26 @@ class Flux2Pipeline:
             memory_stats=mem.as_dict() if mem.enabled else None,
         )
 
-    def _denoise(self, latents, embeddings, negative, sigma_pairs, guidance, cos, sin, g, cancel) -> torch.Tensor:
+    def _rope(self, ids: Sequence[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """cos/sin on the device for the concatenated position-id tables."""
+        return rope_embeddings(torch.from_numpy(np.concatenate(ids, axis=0)).to(self.device))
+
+    def _denoise(self, latents, embeddings, negative, sigma_pairs, guidance, cos, sin, g, cancel,
+                 reference_latents=None) -> torch.Tensor:
         """Euler loop over (sigma, sigma_next) pairs; latents stay float32. For
         a base model, cond and uncond are batch rows of one forward and
         ``v = v_uncond + guidance * (v_cond - v_uncond)`` in the forward's dtype,
-        as JAX's ``_denoise``; ``g`` is the guidance embedding's input or None."""
+        as JAX's ``_denoise``; ``g`` is the guidance embedding's input or None.
+        Reference tokens, broadcast over the batch, follow the output tokens in
+        every forward, and the velocity is sliced back to the output tokens."""
         use_cfg = self.model.uses_classical_cfg
         if use_cfg and negative is None:
             raise ValueError("classical CFG requires negative embeddings")
         dtype = param_dtype(self.transformer.x_embedder)  # bf16 when x_embedder is quantized
-        b = latents.shape[0]
+        b, s_img = latents.shape[:2]
+        ref = None
+        if reference_latents is not None:
+            ref = reference_latents.to(dtype).expand(b, -1, -1)
         if use_cfg:
             embeddings = torch.cat([embeddings, negative])
             g = torch.cat([g, g]) if g is not None else None
@@ -247,6 +298,8 @@ class Flux2Pipeline:
                     raise GenerationCancelled(f"cancelled at step {i + 1}/{len(sigma_pairs)}")
                 tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
                 x = latents.to(dtype)
+                if ref is not None:
+                    x = torch.cat([x, ref], dim=1)
                 if use_cfg:
                     v2 = self.transformer(torch.cat([x, x]), embeddings, torch.cat([tstep, tstep]), cos, sin,
                                           guidance=g)
@@ -255,8 +308,72 @@ class Flux2Pipeline:
                     v = v_uncond + scale * (v_cond - v_uncond)
                 else:
                     v = self.transformer(x, embeddings, tstep, cos, sin, guidance=g)
+                latents = sch.euler_step(latents, v[:, :s_img].to(torch.float32), sigma, sigma_next)
+        return latents
+
+    def _denoise_kv_cached(self, latents, embeddings, reference_latents, sigma_pairs, extract_rope, cached_rope, g,
+                           cancel) -> torch.Tensor:
+        """klein-9b-kv denoising (JAX ``_denoise_kv_cached``): step 0 runs
+        ``forward_kv_extract`` over [txt ; ref ; img] (``extract_rope``) and
+        keeps every block's reference K/V; steps 1+ run ``forward_kv_cached``
+        over [txt ; img] (``cached_rope``) with that cache. Classical CFG does
+        not apply: klein-9b-kv is distilled."""
+        dtype = param_dtype(self.transformer.x_embedder)
+        b = latents.shape[0]
+        ref = reference_latents.to(dtype).expand(b, -1, -1)
+        cache = None
+        with torch.inference_mode():
+            for i, (sigma, sigma_next) in enumerate(sigma_pairs):
+                if _cancel_requested(cancel):
+                    raise GenerationCancelled(f"cancelled at step {i + 1}/{len(sigma_pairs)}")
+                tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
+                x = latents.to(dtype)
+                if cache is None:
+                    v, double_kv, single_kv = self.transformer.forward_kv_extract(
+                        x, ref, embeddings, tstep, *extract_rope, guidance=g)
+                    cache = (double_kv, single_kv)
+                else:
+                    v = self.transformer.forward_kv_cached(x, embeddings, tstep, *cached_rope, *cache, guidance=g)
                 latents = sch.euler_step(latents, v.to(torch.float32), sigma, sigma_next)
         return latents
+
+    # -- VAE encode: I2I references and img2img init ----------------------------
+
+    def _require_vae_encoder(self) -> VAEEncoder:
+        if self.vae_encoder is None:
+            raise ValueError("no VAE encoder attached: I2I and img2img need one (Flux2Pipeline.vae_encoder)")
+        return self.vae_encoder
+
+    def encode_image_to_packed_sequence(self, image: np.ndarray, sample_posterior: bool = False,
+                                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Image [H, W, 3] in [0, 1] (float, or uint8 / 255) -> packed normalized
+        latents [1, S, 128] float32 on the device (JAX ``_encode_image_jit``),
+        the VAE in float32 with TF32 off (see ``_full_f32``)."""
+        encoder = self._require_vae_encoder()
+        x = np.asarray(image)
+        x = torch.tensor(x if x.dtype == np.uint8 else np.asarray(x, np.float32), device=self.device)
+        with torch.inference_mode(), _full_f32():
+            return encode_packed(encoder, self.vae, x, sample_posterior, generator)
+
+    def encode_reference_images(
+        self,
+        images: Sequence[np.ndarray],
+        max_pixels: int = 1024 * 1024,
+    ) -> Tuple[torch.Tensor, np.ndarray]:
+        """VAE-encode reference images for I2I: (packed reference latents [1,
+        S_ref, 128], position ids [S_ref, 4] with T = 10 * (i + 1) for image
+        i). Each image is first area-downscaled to at most ``max_pixels``,
+        sides a multiple of 32."""
+        self._require_vae_encoder()
+        if len(images) > self.model.max_reference_images:
+            raise ValueError(f"{len(images)} reference images > max {self.model.max_reference_images}")
+        seqs, hs, ws = [], [], []
+        for img in images:
+            img = _downscale_to_max_pixels(img, max_pixels, multiple=32)
+            seqs.append(self.encode_image_to_packed_sequence(img))
+            hs.append(img.shape[0] // 16)
+            ws.append(img.shape[1] // 16)
+        return torch.cat(seqs, dim=1), lu.reference_image_position_ids(hs, ws)
 
     def decode_latents_u8(self, latents_seq: torch.Tensor, height: int, width: int) -> torch.Tensor:
         """Packed sequence [B, S, 128] -> uint8 image [B, H, W, 3] on the device.
@@ -292,3 +409,53 @@ class Flux2Pipeline:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """cuDNN and cuBLAS in full f32 (no TF32) inside the block; the process's
+    flags are restored after it. The VAE encode runs under it: JAX encodes in f32, and
+    TF32 convolutions moved the 1024^2 packed latents by 1.4e-3 relative L2
+    on the H100 (PERF.md §6)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def encode_packed(encoder: VAEEncoder, vae: VAEDecoder, image: torch.Tensor, sample_posterior: bool = False,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Image [H, W, 3] (float in [0, 1], or uint8) -> packed normalized latents
+    [1, S, 128] float32, with ``vae``'s BatchNorm statistics; the math of JAX's
+    ``_encode_image_jit``, computed under the caller's precision flags."""
+    if image.dtype == torch.uint8:
+        image = image.to(torch.float32) / 255.0
+    # contiguous NCHW whatever the image's strides: a channels-last tensor
+    # takes other cuDNN kernels, whose latents differ in the last bits
+    x = (image[None].permute(0, 3, 1, 2) * 2.0 - 1.0).contiguous()
+    z = encoder.encode(x, sample_posterior=sample_posterior, generator=generator)
+    mean, var = vae.get_batchnorm_stats()
+    return lu.pack_patchified_to_sequence(lu.normalize_with_batchnorm(lu.patchify_latents(z), mean, var))
+
+
+def _downscale_to_max_pixels(image: np.ndarray, max_pixels: int, multiple: int = 32) -> np.ndarray:
+    """Area-downscale so H*W <= max_pixels, sides rounded down to a multiple
+    (JAX's copy: PIL's LANCZOS where PIL imports, else nearest sampling)."""
+    h, w = image.shape[:2]
+    scale = min(1.0, (max_pixels / (h * w)) ** 0.5)
+    nh = max(multiple, int(h * scale) // multiple * multiple)
+    nw = max(multiple, int(w * scale) // multiple * multiple)
+    if (nh, nw) == (h, w):
+        return image
+    try:
+        from PIL import Image
+
+        im = Image.fromarray((np.clip(image, 0, 1) * 255).astype(np.uint8))
+        return np.asarray(im.resize((nw, nh), Image.LANCZOS), dtype=np.float32) / 255.0
+    except ImportError:
+        # numpy fallback: nearest sampling
+        ys = (np.arange(nh) * h / nh).astype(int)
+        xs = (np.arange(nw) * w / nw).astype(int)
+        return image[ys][:, xs]

@@ -10,14 +10,21 @@ images above ``SATURATION_TOKENS`` image tokens run alone; smaller ones batch
 up to ``FILL_TOKENS`` image tokens. Those constants were measured on a TPU
 v5e and have not been re-measured on the H100.
 
-PNGs are written with the standard library (``flux2_tpu_torch.io.png``).
-The HTTP handler, chat, embed, previews, I2I references and the web UI are
-not ported yet.
+I2I: a request's ``"references"`` (base64 images, data URLs too; read by
+Pillow where it imports, else PNG only, by the port's own decoder) are
+VAE-encoded when its batch runs, and with ``"strength"`` < 1 the first
+reference is also the img2img init. Every I2I request runs as a batch of one:
+its references are its own, and its noise row assumes it. A non-numeric
+``"strength"`` is refused with ValueError before queueing. PNGs are written
+with the standard library (``flux2_tpu_torch.io.png``). The HTTP handler,
+chat, embed, previews and the web UI are not ported yet.
 """
 
 from __future__ import annotations
 
+import base64
 import collections
+import math
 import threading
 import time
 from typing import Optional
@@ -25,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from flux2_tpu_torch.io.png import encode_png
+from flux2_tpu_torch.io.png import decode_image, encode_png
 from flux2_tpu_torch.ops import latents as lu
 
 
@@ -34,11 +41,15 @@ class QueueFullError(RuntimeError):
 
 
 class _Pending:
-    __slots__ = ("req", "emb", "encode_s", "event", "cancelled", "image", "error", "enqueued_at")
+    __slots__ = ("req", "emb", "refs", "strength", "encode_s", "event", "cancelled", "image", "error",
+                 "enqueued_at")
 
-    def __init__(self, req: dict, emb: Optional[torch.Tensor], encode_s: float = 0.0):
+    def __init__(self, req: dict, emb: Optional[torch.Tensor], encode_s: float = 0.0, refs: Optional[list] = None,
+                 strength: float = 1.0):
         self.req = req
         self.emb = emb
+        self.refs = refs  # reference images [H, W, 3] float32 (I2I), or None
+        self.strength = strength  # the request's "strength", checked by generate_png
         self.encode_s = encode_s
         self.event = threading.Event()
         self.cancelled = threading.Event()
@@ -100,8 +111,14 @@ class Flux2Server:
     # -- micro-batching worker ------------------------------------------------
 
     def _shape_key(self, p: _Pending):
+        """Requests of one key may share a batch: (height, width, steps,
+        guidance, strength), and for an I2I request its own identity, so that
+        it always runs alone. JAX's key has no strength: there, T2I requests
+        of different strengths share a batch and all run the first one's."""
         req = p.req
-        return (int(req.get("height", 1024)), int(req.get("width", 1024)), req.get("steps"), req.get("guidance"))
+        key = (int(req.get("height", 1024)), int(req.get("width", 1024)), req.get("steps"), req.get("guidance"),
+               p.strength)
+        return key + (id(p),) if p.refs is not None else key
 
     def _batch_cap(self, key) -> int:
         h, w = key[0], key[1]
@@ -160,7 +177,7 @@ class Flux2Server:
 
     def _run_batch(self, batch):
         try:
-            h, w, steps, guidance = self._shape_key(batch[0])
+            h, w, steps, guidance, strength = self._shape_key(batch[0])[:5]
             req0 = batch[0].req
             emb = None
             if batch[0].emb is not None:
@@ -170,6 +187,14 @@ class Flux2Server:
             noise = torch.cat([
                 lu.seeded_noise_seq(int(p.req.get("seed", 0)), hv, wv, 1, device=device) for p in batch
             ])
+            # I2I (a batch of one by its key): the references are encoded here,
+            # and with strength < 1 the first one is also the init
+            ref_lat = ref_ids = init = None
+            refs = batch[0].refs
+            if refs is not None:
+                ref_lat, ref_ids = self.pipeline.encode_reference_images(refs)
+                if strength < 1.0:
+                    init = self.pipeline.encode_image_to_packed_sequence(refs[0])
             res = self.pipeline.generate(
                 prompt=req0.get("prompt", ""),
                 embeddings=emb,
@@ -179,6 +204,10 @@ class Flux2Server:
                 guidance=guidance,
                 seed=int(req0.get("seed", 0)),
                 noise=noise,
+                reference_latents=ref_lat,
+                reference_ids=ref_ids,
+                strength=strength,
+                init_latents=init,
                 cancel=_BatchCancel(batch),
             )
             images = res.images if res.images is not None else res.image[None]
@@ -204,13 +233,14 @@ class Flux2Server:
 
     def generate_png(self, req: dict) -> bytes:
         """One request ({"prompt", "height", "width", "steps", "guidance", "seed",
-        "timeout_s"}) -> PNG bytes. Blocks until its batch has run."""
+        "references", "strength", "timeout_s"}) -> PNG bytes. Blocks until its
+        batch has run."""
         emb, encode_s = None, 0.0
         if self.embeddings_fn is not None:
             t = time.perf_counter()
             emb = self.embeddings_fn(req.get("prompt", ""))
             encode_s = time.perf_counter() - t
-        pending = _Pending(req, emb, encode_s)
+        pending = _Pending(req, emb, encode_s, refs=_decode_references(req), strength=_strength(req))
         with self._queue_cv:
             if len(self._queue) >= self.max_queue:
                 raise QueueFullError(f"queue full ({self.max_queue} pending); retry later")
@@ -225,3 +255,29 @@ class Flux2Server:
         if pending.error is not None:
             raise pending.error
         return encode_png(np.rint(np.clip(pending.image, 0.0, 1.0) * 255.0).astype(np.uint8))
+
+
+def _strength(req: dict) -> float:
+    """The request's "strength" as a float (1.0 when absent); ValueError for
+    anything else, raised to the caller before the request is queued."""
+    value = req.get("strength", 1.0)
+    try:
+        strength = float(value)
+    except (TypeError, ValueError):
+        strength = math.nan
+    if isinstance(value, bool) or not math.isfinite(strength):
+        raise ValueError(f'"strength" must be a finite number (clamped to [0.01, 1]), got {value!r}')
+    return strength
+
+
+def _decode_references(req: dict) -> Optional[list]:
+    """The request's base64 reference images -> [H, W, 3] float32 arrays, or None."""
+    refs_b64 = req.get("references") or []
+    if not refs_b64:
+        return None
+    refs = []
+    for b in refs_b64:
+        if isinstance(b, str) and "," in b and b.lstrip().startswith("data:"):
+            b = b.split(",", 1)[1]  # a data URL
+        refs.append(decode_image(base64.b64decode(b)))
+    return refs

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (marker ``cuda``): K1 (flash attention),
 K2 / K3 / K4 (its forward with the LSE and its backward) and K5 / K6 / K7
-(quantized matmuls).
+(quantized matmuls); K1 at the I2I and klein-9b-kv shapes, and a tiny I2I and
+klein-9b-kv generate on the card with exact K1 launch counts.
 
 Skips without a CUDA device. Imports no JAX, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -58,6 +59,80 @@ def test_kernel_matches_reference(device, b, h, s_q, s_k, span):
     ref = tfa.flash_attention_reference(q, k, v, blocked_span=span).float()
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert float((out.float() - ref).norm() / ref.norm()) <= REL_TOL
+
+
+# The I2I slice's regimes at Klein-9B's 32 heads: the KV extract pass (512
+# text + 4096 reference + 4096 output tokens, the reference queries blind to
+# the output keys) and a cached step (4608 queries over 8704 keys).
+@pytest.mark.parametrize("s_q,s_k,span", [(8704, 8704, (512, 4608, 4608)), (4608, 8704, None)],
+                         ids=["kv_extract", "kv_cached"])
+def test_kernel_matches_reference_at_the_kv_shapes(device, s_q, s_k, span):
+    q, k, v = _qkv(device, 1, 32, s_q, s_k)
+    before = tfa.launches
+    out = tfa.flash_attention(q, k, v, blocked_span=span)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    for h in range(0, 32, 8):  # the plain f32 version over 8 heads at a time (its logits: 2.4 GB)
+        ref = tfa.flash_attention_reference(q[:, h : h + 8], k[:, h : h + 8], v[:, h : h + 8], blocked_span=span)
+        assert _rel(out[:, h : h + 8], ref) <= REL_TOL
+
+
+def _tiny_pipeline(device, model):
+    """A tiny random pipeline on the card (1 double + 2 single blocks, 2 heads; a 4-level VAE)."""
+    from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
+    from flux2_tpu_torch.models.flux2.vae import VAEConfig
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
+
+    tc = Flux2TransformerConfig(num_layers=1, num_single_layers=2, num_attention_heads=2, attention_head_dim=128,
+                                joint_attention_dim=96, guidance_embeds=False)
+    vc = VAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1, norm_num_groups=4)
+    return Flux2Pipeline.from_random(Flux2Model(model), device=device, generator=torch.Generator(device).manual_seed(0),
+                                     transformer_config=tc, vae_config=vc)
+
+
+@pytest.mark.parametrize("model,steps,launches,split", [
+    ("klein-4b", 2, 3 * 2, {"kv_loops": 0, "extract": 0, "cached": 0}),
+    ("klein-9b-kv", 3, 3 + 3 * 2, {"kv_loops": 1, "extract": 3, "cached": 3 * 2}),
+], ids=["i2i", "kv"])
+def test_tiny_i2i_generate_launches_k1_on_every_attention(device, monkeypatch, model, steps, launches, split):
+    """256^2 output and reference, 8 text tokens: I2I attends 8 + 256 + 256
+    tokens in each of the 3 blocks a step; klein-9b-kv extracts at step 0 (3
+    launches inside forward_kv_extract) and attends 264 queries over 520 keys
+    after it (3 a step inside forward_kv_cached), all in one _denoise_kv_cached."""
+    import numpy as np
+
+    from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
+
+    seen = {"kv_loops": 0, "extract": 0, "cached": 0}
+
+    def counting(cls, name, key):
+        fn = getattr(cls, name)
+
+        def wrapped(*args, **kwargs):
+            before = tfa.launch_counts()["flash"]
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seen[key] += 1 if key == "kv_loops" else tfa.launch_counts()["flash"] - before
+        monkeypatch.setattr(cls, name, wrapped)
+
+    counting(Flux2Pipeline, "_denoise_kv_cached", "kv_loops")
+    counting(Flux2Transformer, "forward_kv_extract", "extract")
+    counting(Flux2Transformer, "forward_kv_cached", "cached")
+    pipe = _tiny_pipeline(device, model)
+    ref = np.random.RandomState(0).rand(256, 256, 3).astype(np.float32)
+    lat, ids = pipe.encode_reference_images([ref])
+    emb = torch.randn(1, 8, 96, device=device, generator=torch.Generator(device).manual_seed(1))
+    before = tfa.launch_counts()
+    res = pipe.generate(embeddings=emb, height=256, width=256, num_steps=steps, seed=3, reference_latents=lat,
+                        reference_ids=ids)
+    after = tfa.launch_counts()
+    assert {c: after[c] - before[c] for c in after} == {"flash": launches, "flash_lse": 0, "flash_bwd_dq": 0,
+                                                        "flash_bwd_dkv": 0}
+    assert seen == split
+    assert res.latents.shape == (1, 256, 128) and torch.isfinite(res.latents).all()
+    assert res.image.shape == (256, 256, 3)
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(device):

@@ -6,8 +6,11 @@ registry and safetensors helpers are its own copies), runs a tiny T2I generate
 on the CPU through the server, a tiny w8a8 pipeline built by the CLI's
 ``build_pipeline``, a one-step ``train-lora --random-init``, and ``t2i`` and
 ``profile --compare`` from checkpoint directories it writes (the checkpoint
-loaders, registry, facade, profiler and memory telemetry), and reports
-whether any ``jax`` or ``flux2_tpu`` module was loaded. (The suite's conftest
+loaders, registry, facade, profiler and memory telemetry), I2I: a request with a
+base64 PNG reference through the server, a klein-9b-kv generate on the
+KV-cached path, and ``i2i`` from the checkpoint directories (the VAE
+encoder's loader), and reports whether any ``jax`` or ``flux2_tpu`` module
+was loaded. (The suite's conftest
 imports JAX, so this must run in a subprocess.)
 """
 
@@ -36,7 +39,16 @@ pipe = Flux2Pipeline.from_random(Flux2Model.KLEIN_4B, device="cpu", dtype=torch.
 res = pipe.generate(embeddings=torch.zeros(1, 4, 32), height=32, width=32, num_steps=1, seed=0)
 server = Flux2Server(pipe, embeddings_fn=lambda prompt: torch.ones(1, 4, 32))
 png = server.generate_png({"prompt": "x", "height": 32, "width": 32, "steps": 1})
+import base64
+from flux2_tpu_torch.io.png import encode_png
+ref_png = encode_png(decode_png(png))
+i2i_png = server.generate_png({"prompt": "x", "height": 32, "width": 32, "steps": 2, "strength": 0.5,
+                               "references": [base64.b64encode(ref_png).decode()]})
 server.shutdown()
+kv = dataclasses.replace(pipe, model=Flux2Model.KLEIN_9B_KV)
+ref_lat, ref_ids = kv.encode_reference_images([decode_png(ref_png) / 255.0])
+kv_res = kv.generate(embeddings=torch.zeros(1, 4, 32), height=32, width=32, num_steps=2, reference_latents=ref_lat,
+                     reference_ids=ref_ids)
 qtc = dataclasses.replace(tc, num_attention_heads=4, joint_attention_dim=192)
 args = argparse.Namespace(model="klein-4b", quantization="w8a8", encoder_quantization="w8a8", random_init=True)
 qpipe = build_pipeline(args, "cpu", torch.Generator().manual_seed(0), transformer_config=qtc, vae_config=vc,
@@ -66,7 +78,8 @@ with tempfile.TemporaryDirectory() as tmp:
     dirs = {k: os.path.join(tmp, k) for k in ("t", "v", "e")}
     chip_smoke._write_sharded(dirs["t"], chip_smoke._diffusers_transformer_state(dense.transformer), "m",
                               dataclasses.asdict(qtc))
-    chip_smoke._write_sharded(dirs["v"], chip_smoke._autoencoder_decoder_state(dense.vae), "m", dataclasses.asdict(vc))
+    chip_smoke._write_sharded(dirs["v"], chip_smoke._autoencoder_state(dense.vae, dense.vae_encoder), "m",
+                              dataclasses.asdict(vc))
     chip_smoke._write_sharded(dirs["e"], chip_smoke._qwen3_state(dense.text_encoder.decoder, 28), "m",
                               dataclasses.asdict(dense.text_encoder.decoder.cfg))
     inline_bpe_tokenizer().save_pretrained(dirs["e"])
@@ -75,12 +88,16 @@ with tempfile.TemporaryDirectory() as tmp:
     cli.main(["t2i", *flags, "-o", os.path.join(tmp, "x.png")])
     cli.main(["profile", *flags, "--compare", "bf16,w8a8", "--runs", "1"])
     ckpt_png = list(decode_png(open(os.path.join(tmp, "x.png"), "rb").read()).shape)
+    cli.main(["i2i", *flags, "--reference", os.path.join(tmp, "x.png"), "-o", os.path.join(tmp, "y.png")])
+    i2i_ckpt_png = list(decode_png(open(os.path.join(tmp, "y.png"), "rb").read()).shape)
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
                   "flux2_tpu": sorted(m for m in sys.modules if m == "flux2_tpu" or m.startswith("flux2_tpu.")),
                   "image": list(res.image.shape), "png": list(decode_png(png).shape),
                   "w8a8_image": list(qres.image.shape),
                   "w8a8": sorted(set(quant.quantized_names(qpipe.transformer).values())),
-                  "train_steps": [r["step"] for r in hist], "checkpoints": ckpt, "checkpoint_png": ckpt_png}))
+                  "train_steps": [r["step"] for r in hist], "checkpoints": ckpt, "checkpoint_png": ckpt_png,
+                  "i2i_png": list(decode_png(i2i_png).shape), "kv_latents": list(kv_res.latents.shape),
+                  "i2i_checkpoint_png": i2i_ckpt_png}))
 """
 
 
@@ -93,4 +110,5 @@ def test_port_runs_without_importing_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report == {"jax": [], "flux2_tpu": [], "image": [32, 32, 3], "png": [32, 32, 3], "w8a8_image": [32, 32, 3],
                       "w8a8": ["w8a8"], "train_steps": [1], "checkpoints": ["checkpoint_000001", "learning_curve.svg"],
-                      "checkpoint_png": [32, 32, 3]}
+                      "checkpoint_png": [32, 32, 3], "i2i_png": [32, 32, 3], "kv_latents": [1, 4, 128],
+                      "i2i_checkpoint_png": [32, 32, 3]}

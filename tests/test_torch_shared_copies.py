@@ -3,8 +3,11 @@ originals: model, VAE and encoder configs, the registry's tables, the dev
 tokenizer, the training controller and state, safetensors IO (bf16 both
 ways), the leveled logger, and what
 ``train-lora`` takes from the JAX training CLI (YAML schema, checkpoint
-pruning, learning-curve SVG, training variant). Also: the port's entry points
-default to the card and take the CPU only when asked.
+pruning, learning-curve SVG, training variant). The I2I slice's copies give
+JAX's results to the bit: custom sigma schedules, ``scale_noise``,
+``patchify_latents``, the reference position ids, the BatchNorm
+normalization and ``_downscale_to_max_pixels`` (both of its branches). Also:
+the port's entry points default to the card and take the CPU only when asked.
 
 ``jax_config`` builds the JAX package's config class from a port config's
 numbers; the other CPU parity tests use it wherever they feed one config to
@@ -27,6 +30,9 @@ from flux2_tpu.io import safetensors_io as jst
 from flux2_tpu.models.flux2 import config as jcfg
 from flux2_tpu.models.flux2 import vae as jvae
 from flux2_tpu.models.text_encoders import config as jenc
+from flux2_tpu.ops import latents as jlu
+from flux2_tpu.ops import scheduler as jsch
+from flux2_tpu.pipeline import pipeline as jpipeline
 from flux2_tpu.training import control as jcontrol
 from flux2_tpu.utils import dev_tokenizer as jtok
 from flux2_tpu.utils import logging as jlog
@@ -37,6 +43,9 @@ from flux2_tpu_torch.io import safetensors_io as tst
 from flux2_tpu_torch.models.flux2 import config as tcfg
 from flux2_tpu_torch.models.flux2 import vae as tvae
 from flux2_tpu_torch.models.text_encoders import config as tenc
+from flux2_tpu_torch.ops import latents as tlu
+from flux2_tpu_torch.ops import scheduler as tsch
+from flux2_tpu_torch.pipeline import pipeline as tpipeline
 from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
 from flux2_tpu_torch.training import control as tcontrol
 from flux2_tpu_torch.training.trainer import TrainConfig
@@ -175,6 +184,83 @@ def test_learning_curve_svg_is_byte_equal(tmp_path, n_losses, window):
     assert (tmp_path / "port.svg").read_bytes() == (tmp_path / "jax.svg").read_bytes()
 
 
+# -- I2I: schedules, latents, reference downscale ------------------------------------
+
+
+def _bits(x) -> np.ndarray:
+    """An array's raw bits (float32 or bf16) for equality to the bit."""
+    if isinstance(x, torch.Tensor):
+        return x.contiguous().view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32).numpy()
+    x = np.asarray(x)
+    return x.view(np.int16 if x.dtype.name == "bfloat16" else np.int32)
+
+
+@pytest.mark.parametrize("sigmas", [[1.0, 0.6, 0.2], [0.9, 0.5, 0.0], [0.3]])
+def test_custom_sigmas_equal_jax(sigmas):
+    port, ref = tsch.set_custom_sigmas(sigmas), jsch.set_custom_sigmas(sigmas)
+    assert port.sigmas.dtype == ref.sigmas.dtype == np.float32 and np.array_equal(port.sigmas, ref.sigmas)
+    assert (port.num_steps, port.t_start, port.initial_sigma) == (ref.num_steps, ref.t_start, ref.initial_sigma)
+    with pytest.raises(ValueError, match="non-empty"):
+        tsch.set_custom_sigmas([])
+
+
+@pytest.mark.parametrize("strength", [1.0, 0.75, 0.5, 0.3, 0.001])
+def test_strength_schedule_equals_jax(strength):
+    port, ref = tsch.set_timesteps(4, 4096, strength=strength), jsch.set_timesteps(4, 4096, strength=strength)
+    assert np.array_equal(port.sigmas, ref.sigmas) and port.t_start == ref.t_start
+    assert port.initial_sigma == ref.initial_sigma
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scale_noise_equals_jax(dtype):
+    import jax.numpy as jnp
+
+    rng = np.random.RandomState(0)
+    x, noise = rng.randn(2, 16, 128).astype(np.float32), rng.randn(2, 16, 128).astype(np.float32)
+    sigma = float(tsch.set_timesteps(4, 16, strength=0.5).initial_sigma)
+    ref = jsch.scale_noise(jnp.asarray(x, dtype), sigma, jnp.asarray(noise))
+    got = tsch.scale_noise(torch.from_numpy(x).to(getattr(torch, dtype)), sigma, torch.from_numpy(noise))
+    assert str(got.dtype) == f"torch.{dtype}" and np.array_equal(_bits(got), _bits(ref))
+
+
+def test_patchify_latents_equals_jax():
+    z = np.random.RandomState(1).randn(2, 32, 8, 12).astype(np.float32)
+    got = tlu.patchify_latents(torch.from_numpy(z))
+    assert np.array_equal(got.numpy(), np.asarray(jlu.patchify_latents(z)))
+    assert torch.equal(tlu.unpatchify_latents(got), torch.from_numpy(z))
+
+
+def test_position_ids_equal_jax():
+    port, ref = tlu.reference_image_position_ids([2, 3], [4, 1]), jlu.reference_image_position_ids([2, 3], [4, 1])
+    assert port.dtype == ref.dtype == np.int32 and np.array_equal(port, ref)
+    assert np.array_equal(tlu.reference_image_position_ids([2], [2], scale=7), jlu.reference_image_position_ids(
+        [2], [2], scale=7))
+    assert np.array_equal(tlu.combine_position_ids(5, 64, 96), jlu.combine_position_ids(5, 64, 96))
+
+
+def test_normalize_with_batchnorm_equals_jax():
+    rng = np.random.RandomState(2)
+    x = rng.randn(1, 128, 4, 6).astype(np.float32)
+    mean, var = rng.randn(128).astype(np.float32), (np.abs(rng.randn(128)) + 0.5).astype(np.float32)
+    got = tlu.normalize_with_batchnorm(torch.from_numpy(x), torch.from_numpy(mean), torch.from_numpy(var))
+    assert np.array_equal(_bits(got), _bits(jlu.normalize_with_batchnorm(x, mean, var)))
+    back = tlu.denormalize_with_batchnorm(got, torch.from_numpy(mean), torch.from_numpy(var))
+    assert float((back - torch.from_numpy(x)).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("branch", ["pil", "numpy"])
+@pytest.mark.parametrize("hw,max_pixels", [((64, 96), 64 * 64), ((100, 50), 40 * 40), ((64, 64), 64 * 64),
+                                           ((37, 300), 1024)])
+def test_downscale_to_max_pixels_equals_jax(hw, max_pixels, branch, monkeypatch):
+    if branch == "numpy":
+        monkeypatch.setitem(__import__("sys").modules, "PIL", None)  # JAX's ImportError fallback
+    img = np.random.RandomState(3).rand(*hw, 3).astype(np.float32)
+    port = tpipeline._downscale_to_max_pixels(img, max_pixels, multiple=32)
+    ref = jpipeline._downscale_to_max_pixels(img, max_pixels, multiple=32)
+    assert port.dtype == ref.dtype and port.shape == ref.shape and np.array_equal(port, ref)
+    assert port.shape[0] % 32 == 0 and port.shape[1] % 32 == 0
+
+
 # -- training control and state ----------------------------------------------------
 
 
@@ -274,8 +360,9 @@ def test_logging_equals_jax(capsys):
 # -- entry points default to the card -------------------------------------------------
 
 
-@pytest.mark.parametrize("argv", [["t2i", "--random-init"], ["train-lora", "--config", "x.yaml", "--random-init"]],
-                         ids=["t2i", "train-lora"])
+@pytest.mark.parametrize("argv", [["t2i", "--random-init"], ["train-lora", "--config", "x.yaml", "--random-init"],
+                                  ["i2i", "--random-init", "--reference", "ref.png"]],
+                         ids=["t2i", "train-lora", "i2i"])
 def test_cli_device_defaults_to_cuda(argv):
     assert tcli.parse_args(argv).device == "cuda"
     assert tcli.parse_args([*argv, "--device", "cpu"]).device == "cpu"
