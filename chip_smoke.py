@@ -29,7 +29,14 @@ the VAE and Qwen3-4B at its published shape (Qwen/Qwen3-4B's config.json)
 serve one 1024^2 request in memory, are written as checkpoint directories
 (the DiT in the Diffusers dialect, sharded) and read back by `t2i` through
 cli.main (latents and PNG equal to the bit), then `profile --compare
-bf16,w8a8` and `profile --trace` run on them. Every path runs with the launch
+bf16,w8a8` and `profile --trace` run on them. The editing slice (phase_edit,
+on the bf16 Klein-4B pipeline): RePaint inpainting at 1024^2 in the process
+and through `inpaint` (also with the image as reference at strength 0.5,
+and crop-and-stitch), `outpaint` 768^2 -> 1024^2, the per-step callbacks,
+checkpoint images, a cancel, the 2048^2 decode dense and tiled and `t2i
+--memory-profile conservative` at 2048^2, `t2i --small-decoder`,
+`auto_profile` on this card and a served request with a preview id; on
+klein-9b-kv, the RePaint hook as the identity. Every path runs with the launch
 counts set to 0 just before it and checks them just after. Any failure raises: the
 traceback is printed and the exit code is not 0. There is no CPU fallback.
 
@@ -44,8 +51,9 @@ for K5-K7 also CUDA events around its C entry), its wrapper's and the plain
 version's, its bound (operations or bytes over
 the H100's published peaks) and one PyTorch call that computes the same
 function, timed as a yardstick that the port never calls; K1's entry also
-gives its launches per I2I and klein-9b-kv image and its times and bounds at
-the slice's three shapes.
+gives its launches per I2I and klein-9b-kv image and on the editing paths,
+and its times and bounds at the slices' four shapes (S = 8704, the blocked
+span, 4608 x 8704, and outpainting's S = 6912).
 """
 
 from __future__ import annotations
@@ -255,6 +263,8 @@ K1_SLICE_CASES = [
     ("i2i_klein4b", (1, 24, 8704, 8704), None),
     ("kv_extract", (1, 32, 8704, 8704), (512, 4608, 4608)),
     ("kv_cached", (1, 32, 4608, 8704), None),
+    # outpainting a 768^2 image to a 1024^2 canvas: 512 text + 4096 canvas + 2304 reference tokens
+    ("outpaint_klein4b", (1, 24, 6912, 6912), None),
 ]
 
 
@@ -1044,6 +1054,24 @@ def phase_kv_cli(card: str, workdir: str) -> dict:
     i2i = dict(prompt=I2I_PROMPT, height=1024, width=1024, num_steps=4, reference_latents=lat, reference_ids=ids,
                decode=False)
     kv = pipe.generate(**i2i)
+    # the RePaint hook with mask 1 everywhere is the identity: the KV loop runs
+    # it after the extract step and each cached step, and the latents keep their bits
+    from flux2_tpu_torch.chains.inpaint import _blend_noise, repaint_step_hook
+
+    identity = (repaint_step_hook, {"image": lat.float(), "mask": torch.ones(1, lat.shape[1], 1, device="cuda"),
+                                    "noise": _blend_noise(SEED, tuple(lat.shape), "cuda")})
+    with _KVSplit() as split_hook:
+        _zero_launches()
+        hooked = pipe.generate(**i2i, step_hook=identity)
+        counts_hook = _launch_counts()
+    _check_launches("klein-9b-kv I2I with the identity RePaint hook", counts_hook, 32 + 3 * 32)
+    if split_hook.counts != split.counts or not torch.equal(hooked.latents, kv.latents):
+        raise AssertionError(f"klein-9b-kv with the identity hook: {split_hook.counts}; latents equal to the "
+                             f"unhooked call's: {torch.equal(hooked.latents, kv.latents)}")
+    log(f"[kv] klein-9b-kv I2I with the RePaint hook, mask 1 everywhere: K1 {split_hook.counts['extract']} inside "
+        f"forward_kv_extract + {split_hook.counts['cached']} inside forward_kv_cached, as without it; latents equal "
+        f"to the unhooked call's to the bit; {_s_per_step(hooked):.4f} s/step [{card}]")
+    del hooked
     plain = dataclasses.replace(pipe, model=Flux2Model.KLEIN_9B)
     with _KVSplit() as split_plain:
         _zero_launches()
@@ -1072,6 +1100,388 @@ def phase_kv_cli(card: str, workdir: str) -> dict:
     del pipe, plain, built, kv, uncached, lat, emb, x
     gc_cuda()
     return result
+
+
+# -- the editing slice: RePaint inpaint and outpaint, per-step callbacks, tiled decode, small decoder -----
+
+EDIT_PROMPT = "a red wooden door in an old stone wall"
+EDIT_SEED = SEED + 11
+
+
+def _grey_png(plane_u8) -> bytes:
+    """uint8 [H, W] -> an 8-bit grey PNG (colour type 0), filter 0 on every row."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from flux2_tpu_torch.io import png as tpng
+
+    h, w = plane_u8.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), plane_u8], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
+    return (tpng.PNG_SIGNATURE + tpng._chunk(b"IHDR", ihdr) + tpng._chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + tpng._chunk(b"IEND", b""))
+
+
+def _write_file(path: str, data: bytes) -> str:
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+def _read_png(path: str):
+    from flux2_tpu_torch.io.png import decode_png
+
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+class _HandedPipeline:
+    """While entered, ``cli.main.build_pipeline`` hands every command ``pipe``
+    (recorded: the ``_RecordingPipeline`` is what ``with`` gives) with the
+    command's ``--memory-profile`` attached by the CLI's own
+    ``memory_profile``, instead of drawing new weights."""
+
+    def __init__(self, pipe):
+        self.pipe, self.recorder = pipe, _RecordingPipeline(pipe)
+
+    def __enter__(self):
+        from flux2_tpu_torch.cli import main as cli
+
+        self._cli, self._original = cli, cli.build_pipeline
+
+        def hand(args, device, *a, **k):
+            self.pipe.memory_profile = cli.memory_profile(args)
+            return self.recorder
+
+        cli.build_pipeline = hand
+        return self.recorder
+
+    def __exit__(self, *exc):
+        self._cli.build_pipeline = self._original
+        self.pipe.memory_profile = None
+
+
+class _CountDecodes:
+    """While entered, counts the calls of ``decoder.decode`` (an instance attribute wraps it)."""
+
+    def __init__(self, decoder):
+        self.decoder, self.calls = decoder, 0
+
+    def __enter__(self):
+        decode = self.decoder.decode
+
+        def counting(z):
+            self.calls += 1
+            return decode(z)
+
+        self.decoder.decode = counting
+        return self
+
+    def __exit__(self, *exc):
+        del self.decoder.decode
+
+
+def _valid_image(label: str, image, shape) -> None:
+    """A generate() image: the shape, finite, in [0, 1], on the 1/255 grid."""
+    import numpy as np
+
+    scaled = image * 255.0
+    if (image.shape != shape or not np.isfinite(image).all() or image.min() < 0 or image.max() > 1
+            or float(np.abs(scaled - np.rint(scaled)).max()) > 1e-3 or float(image.max()) == float(image.min())):
+        raise AssertionError(f"{label}: image {image.shape}, range {image.min()}..{image.max()}")
+
+
+def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm_s: float) -> dict:
+    """The editing slice on the bf16 Klein-4B pipeline at 1024^2, 4 steps:
+    RePaint inpainting in the process (100 K1 launches; the tokens outside
+    the mask equal the source latents to the bit) and through ``inpaint``
+    (PNG equal to the chain's; with the image as reference and strength 0.5:
+    50 launches at S = 8704; crop-and-stitch: the pixels outside the crop are
+    the source's); ``outpaint`` 768^2 -> 1024^2 (100 launches at S = 6912);
+    the per-step callbacks (checkpoint images equal to the decode of what
+    on_latents saw; ``t2i --checkpoint-every 2``; a cancel after step 2: 75
+    launches); the 2048^2 decode dense and tiled (25 tile decodes, correlation
+    > 0.95), then ``t2i --memory-profile conservative`` at 2048^2; ``t2i
+    --small-decoder``; ``auto_profile`` on this card; a served request with a
+    preview id."""
+    import threading
+
+    import numpy as np
+
+    from flux2_tpu_torch.chains.inpaint import (MaskedInpaintingChain, expand_crop_region, mask_bounding_box,
+                                                pack_mask_for_latent_blending)
+    from flux2_tpu_torch.chains.outpaint import OutpaintingChain
+    from flux2_tpu_torch.cli import main as cli
+    from flux2_tpu_torch.io.png import decode_png, encode_png
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Model, GenerationCancelled
+    from flux2_tpu_torch.serve import Flux2Server
+    from flux2_tpu_torch.utils import memory, native
+
+    log(f"[edit] host image ops (utils/native.py): {native.path_name()} [{card}]")
+    src_u8 = reference_image()
+    src = src_u8.astype(np.float32) / 255.0
+    mask_u8 = np.zeros((1024, 1024), np.uint8)
+    mask_u8[256:768, 256:768] = 255  # a centred 512^2 square
+    mask = mask_u8.astype(np.float32) / 255.0
+    paths = {"src": _write_file(os.path.join(workdir, "src.png"), encode_png(src_u8)),
+             "mask": _write_file(os.path.join(workdir, "mask.png"), _grey_png(mask_u8)),
+             "src768": _write_file(os.path.join(workdir, "src768.png"), encode_png(reference_image(768)))}
+    launches, out = {}, {}
+
+    # 1. inpaint in the process (T2I mode)
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = MaskedInpaintingChain(pipe, EDIT_PROMPT, src, mask, seed=EDIT_SEED, steps=4).run()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    _check_launches("inpaint (T2I mode)", counts, 25 * 4)
+    launches["inpaint"] = counts["flash"]
+    source = pipe.encode_image_to_packed_sequence(src)
+    keep = pack_mask_for_latent_blending(mask, 1024, 1024)[0, :, 0].cuda() == 0
+    moved = float((res.latents[0, ~keep] - source[0, ~keep]).abs().max())
+    if not torch.equal(res.latents[0, keep], source[0, keep]) or not moved > 0:
+        raise AssertionError(f"inpaint: kept tokens equal to the source {torch.equal(res.latents[0, keep], source[0, keep])}"
+                             f", masked tokens moved by {moved}")
+    _valid_image("inpaint", res.image, (1024, 1024, 3))
+    out["inpaint_s_per_step"] = _s_per_step(res)
+    log(f"[edit] inpaint 1024^2, 512^2 mask, 4 steps: launches {counts}; {int(keep.sum())} of 4096 tokens kept, equal "
+        f"to the source latents to the bit; masked tokens moved up to {moved:.4f}; {wall:.3f} s wall, "
+        f"{out['inpaint_s_per_step']:.4f} s/step against T2I {t2i_s_per_step:.4f}; phases "
+        f"{ {k: round(v, 4) for k, v in res.phase_timings.items()} } [{card}]")
+
+    # 2. the inpaint subcommand, handed this pipeline
+    base = ["inpaint", "--random-init", "--image", paths["src"], "--mask", paths["mask"], "--prompt", EDIT_PROMPT,
+            "--seed", str(EDIT_SEED), "--steps", "4"]
+    with _HandedPipeline(pipe) as rec:
+        png_path = os.path.join(workdir, "inpaint.png")
+        _zero_launches()
+        _run_cli([*base, "-o", png_path], "inpaint", card, tag="edit")
+        _check_launches("inpaint subcommand", _launch_counts(), 25 * 4)
+        with open(png_path, "rb") as f:
+            if f.read() != _png_of(res.image):
+                raise AssertionError("the inpaint subcommand's PNG differs from the in-process chain's")
+        ref_path = os.path.join(workdir, "inpaint_ref.png")
+        _zero_launches()
+        t0 = time.perf_counter()
+        _run_cli([*base, "--use-image-as-reference", "--strength", "0.5", "-o", ref_path],
+                 "inpaint --use-image-as-reference --strength 0.5", card, tag="edit")
+        wall_ref = time.perf_counter() - t0
+        counts = _launch_counts()
+        _check_launches("inpaint --use-image-as-reference --strength 0.5", counts, 25 * 2)
+        launches["inpaint_reference_strength"] = counts["flash"]
+        s_ref = rec.calls[-1]["reference_latents"].shape[1]
+        if 512 + 4096 + s_ref != 8704 or rec.results[-1].num_steps != 2 or _read_png(ref_path).shape != (1024, 1024, 3):
+            raise AssertionError(f"inpaint with the image as reference: S = {512 + 4096 + s_ref}, "
+                                 f"{rec.results[-1].num_steps} steps")
+        out["inpaint_reference_s_per_step"] = _s_per_step(rec.results[-1])
+        crop_path = os.path.join(workdir, "inpaint_crop.png")
+        _zero_launches()
+        _run_cli([*base, "--crop-padding", "64", "--composite", "-o", crop_path], "inpaint --crop-padding 64 "
+                 "--composite", card, tag="edit")
+        counts = _launch_counts()
+        _check_launches("inpaint --crop-padding 64 --composite", counts, 25 * 4)
+        x0, y0, x1, y1 = expand_crop_region(mask_bounding_box(mask), 64, 1024, 1024)
+        outside = np.ones((1024, 1024), bool)
+        outside[y0:y1, x0:x1] = False
+        got = _read_png(crop_path)
+        crop_hw = (rec.calls[-1]["height"], rec.calls[-1]["width"])
+        if got.shape != (1024, 1024, 3) or not np.array_equal(got[outside], src_u8[outside]):
+            raise AssertionError(f"crop-and-stitch: {got.shape}, pixels outside the crop "
+                                 f"{np.array_equal(got[outside], src_u8[outside])} equal to the source")
+        log(f"[edit] inpaint subcommand: PNG equal to the in-process chain's to the bit; with --use-image-as-reference "
+            f"--strength 0.5: 2 of 4 steps at S = 8704, launches {launches['inpaint_reference_strength']}, "
+            f"{out['inpaint_reference_s_per_step']:.4f} s/step, {wall_ref:.3f} s of command (the source encoded "
+            f"twice, as init and as reference); --crop-padding 64 --composite: crop ({x0}, {y0}, {x1}, {y1}), "
+            f"generated at {crop_hw[0]}x{crop_hw[1]}, the {int(outside.sum())} pixels outside it equal the source's "
+            f"[{card}]")
+
+        # 3. the outpaint subcommand: 768^2 -> a 1024^2 canvas
+        out_path = os.path.join(workdir, "outpaint.png")
+        _zero_launches()
+        _run_cli(["outpaint", "--random-init", "--image", paths["src768"], "--top", "128", "--bottom", "128", "--left",
+                  "128", "--right", "128", "--prompt", EDIT_PROMPT, "--seed", str(EDIT_SEED), "--steps", "4", "-o",
+                  out_path], "outpaint", card, tag="edit")
+        counts = _launch_counts()
+        _check_launches("outpaint 768^2 -> 1024^2", counts, 25 * 4)
+        launches["outpaint"] = counts["flash"]
+        s_out = 512 + 4096 + rec.calls[-1]["reference_latents"].shape[1]
+        if s_out != 6912 or _read_png(out_path).shape != (1024, 1024, 3):
+            raise AssertionError(f"outpaint: S = {s_out}, PNG {_read_png(out_path).shape}")
+    warm = OutpaintingChain(pipe, reference_image(768).astype(np.float32) / 255.0, EDIT_PROMPT, top=128, bottom=128,
+                            left=128, right=128, seed=EDIT_SEED, steps=4).run()
+    out["outpaint_s_per_step"] = _s_per_step(warm)
+    log(f"[edit] outpaint 768^2 + 128 px a side -> 1024^2 (S = 512 + 4096 + 2304 = {s_out}): launches {counts}; "
+        f"{_s_per_step(rec.results[-1]):.4f} s/step first, {out['outpaint_s_per_step']:.4f} warm [{card}]")
+
+    # 4. per-step callbacks on a T2I generate
+    t2i = dict(prompt=EDIT_PROMPT, height=1024, width=1024, num_steps=4, seed=EDIT_SEED)
+    progress, lats, checkpoints = [], [], []
+    _zero_launches()
+    pipe.generate(**t2i, on_progress=lambda k, n: progress.append((k, n)),
+                  on_latents=lambda k, lat: lats.append((k, lat)), checkpoint_interval=1,
+                  on_checkpoint=lambda k, img: checkpoints.append((k, img)))
+    _check_launches("T2I with callbacks", _launch_counts(), 25 * 4)
+    if (progress != [(1, 4), (2, 4), (3, 4), (4, 4)] or [k for k, _ in lats] != [1, 2, 3, 4]
+            or any(lat.shape != (1, 4096, 128) or lat.dtype != np.float32 for _, lat in lats)
+            or [k for k, _ in checkpoints] != [1, 2, 3]):
+        raise AssertionError(f"callbacks: progress {progress}, latents {[(k, lat.shape) for k, lat in lats]}, "
+                             f"checkpoints {[k for k, _ in checkpoints]}")
+    for k, img in checkpoints:
+        dec = pipe.decode_latents_u8(torch.from_numpy(lats[k - 1][1]).cuda(), 1024, 1024)[0].cpu().numpy()
+        if not np.array_equal(img, dec.astype(np.float32) / 255.0):
+            raise AssertionError(f"checkpoint image of step {k} differs from the decode of on_latents' latents")
+    plain = [_s_per_step(pipe.generate(**t2i, decode=False)) for _ in range(2)]
+    with_latents = [_s_per_step(pipe.generate(**t2i, decode=False, on_latents=lambda k, lat: None)) for _ in range(2)]
+    out.update(t2i_s_per_step=min(plain), on_latents_s_per_step=min(with_latents))
+    log(f"[edit] T2I callbacks: on_progress {progress}; on_latents 4 host arrays [1, 4096, 128] float32; checkpoint "
+        f"images of steps 1-3 equal to the decode of on_latents' latents to the bit; warm s/step without on_latents "
+        f"{plain}, with {with_latents} (a 2 MiB device-to-host copy a step) [{card}]")
+    with _HandedPipeline(pipe):
+        ck_path = os.path.join(workdir, "x.png")
+        _zero_launches()
+        lines = _run_cli(["t2i", "--random-init", "--prompt", EDIT_PROMPT, "--seed", str(EDIT_SEED), "--steps", "4",
+                          "--checkpoint-every", "2", "-o", ck_path], "t2i --checkpoint-every 2", card, tag="edit")
+        _check_launches("t2i --checkpoint-every 2", _launch_counts(), 25 * 4)
+    step_path = os.path.join(workdir, "x_step_002.png")
+    if (lines[:2] != [f"saved {step_path}", f"saved {ck_path}"] or _read_png(step_path).shape != (1024, 1024, 3)
+            or sorted(f for f in os.listdir(workdir) if f.startswith("x")) != ["x.png", "x_step_002.png"]):
+        raise AssertionError(f"t2i --checkpoint-every 2 printed {lines}")
+    cancel = threading.Event()
+    _zero_launches()
+    try:
+        pipe.generate(**t2i, cancel=cancel, on_progress=lambda k, n: cancel.set() if k >= 2 else None)
+        raise AssertionError("the generate was not cancelled")
+    except GenerationCancelled as e:
+        message = str(e)
+    counts = _launch_counts()
+    _check_launches("cancel after step 2", counts, 25 * 3)
+    launches["cancel"] = counts["flash"]
+    if message != "cancelled at step 3/4":
+        raise AssertionError(f"cancel raised {message!r}")
+    log(f"[edit] cancel set by on_progress at step 2 of 4: GenerationCancelled({message!r}), launches {counts} "
+        f"(3 steps, as JAX) [{card}]")
+
+    # 6. the 2048^2 decode, dense and tiled
+    lat = torch.randn(1, 16384, 128, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 12))
+    vae = pipe._vae_in_compute_dtype()
+    decodes = {}
+    for name, profile in (("dense", None), ("tiled", memory.MemoryProfile.named("conservative"))):
+        pipe.memory_profile = profile
+        times, peaks = [], []
+        gc_cuda()  # the first decode allocates its memory; the warm ones reuse the allocator's cache
+        try:
+            with _CountDecodes(vae) as counted:
+                for _ in range(3):
+                    torch.cuda.reset_peak_memory_stats()
+                    before = torch.cuda.memory_allocated()
+                    t0 = time.perf_counter()
+                    u8 = pipe.decode_latents_u8(lat, 2048, 2048)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    peaks.append((torch.cuda.max_memory_allocated() - before) / 2**30)
+        finally:
+            pipe.memory_profile = None
+        decodes[name] = {"u8": u8[0].cpu().numpy(), "first_s": times[0], "warm_s": statistics.median(times[1:]),
+                         "peak_gib": max(peaks), "decoder_calls": counted.calls // 3}
+    if (decodes["tiled"]["decoder_calls"], decodes["dense"]["decoder_calls"]) != (25, 1):
+        raise AssertionError(f"2048^2 decodes: {decodes['tiled']['decoder_calls']} tile decodes, want 25")
+    a, b = decodes["dense"]["u8"].astype(np.float64).ravel(), decodes["tiled"]["u8"].astype(np.float64).ravel()
+    corr = float(np.corrcoef(a, b)[0, 1])
+    diff = np.abs(a - b)
+    if not corr > 0.95:
+        raise AssertionError(f"tiled 2048^2 decode: correlation {corr} with the dense one, want > 0.95")
+    out["decode_2048"] = {k: {kk: v for kk, v in d.items() if kk != "u8"} for k, d in decodes.items()}
+    log(f"[edit] 2048^2 decode, VAE bf16: dense first {decodes['dense']['first_s']:.4f} s, warm "
+        f"{decodes['dense']['warm_s']:.4f} s, peak {decodes['dense']['peak_gib']:.2f} GiB over the resident; tiled "
+        f"('conservative': 25 tiles of 64^2 latents, overlap 8) first {decodes['tiled']['first_s']:.4f} s, warm "
+        f"{decodes['tiled']['warm_s']:.4f} s, peak {decodes['tiled']['peak_gib']:.2f} GiB; uint8 tiled vs dense: "
+        f"correlation {corr:.6f} (> 0.95), max diff {int(diff.max())}, mean {float(diff.mean()):.4f} [{card}]")
+    del decodes, a, b, diff, u8, lat
+    with _HandedPipeline(pipe) as rec, _CountDecodes(vae) as counted:
+        big_path = os.path.join(workdir, "big.png")
+        _zero_launches()
+        _run_cli(["t2i", "--random-init", "--height", "2048", "--width", "2048", "--memory-profile", "conservative",
+                  "--prompt", EDIT_PROMPT, "--seed", str(EDIT_SEED), "--steps", "4", "-o", big_path],
+                 "t2i 2048^2 --memory-profile conservative", card, tag="edit")
+        counts = _launch_counts()
+    _check_launches("t2i 2048^2 --memory-profile conservative", counts, 25 * 4)
+    launches["t2i_2048_tiled"] = counts["flash"]
+    if counted.calls != 25 or _read_png(big_path).shape != (2048, 2048, 3):
+        raise AssertionError(f"t2i 2048^2 conservative: {counted.calls} tile decodes, want 25")
+    big = rec.results[-1]
+    out["t2i_2048"] = {"s_per_step": _s_per_step(big), "vae_decoding_s": big.phase_timings["vae_decoding"]}
+    log(f"[edit] t2i 2048^2 --memory-profile conservative (S = 512 + 16384 = 16896): launches {counts}, "
+        f"{counted.calls} tile decodes; {_s_per_step(big):.4f} s/step, decode {big.phase_timings['vae_decoding']:.4f} s "
+        f"[{card}]")
+    gc_cuda()
+
+    # 7. the small decoder: t2i --small-decoder --random-init, built by the CLI itself
+    built, original = [], cli.build_pipeline
+
+    def recording_build(args, device, *a, **k):
+        built.append(original(args, device, *a, **k))
+        return built[-1]
+
+    cli.build_pipeline = recording_build
+    try:
+        small_path = os.path.join(workdir, "small.png")
+        _zero_launches()
+        _run_cli(["t2i", "--small-decoder", "--random-init", "--prompt", EDIT_PROMPT, "--seed", str(EDIT_SEED),
+                  "--steps", "4", "-o", small_path], "t2i --small-decoder", card, tag="edit")
+        counts = _launch_counts()
+    finally:
+        cli.build_pipeline = original
+    _check_launches("t2i --small-decoder", counts, 25 * 4)
+    (small,) = built
+    widths = small.vae.config.effective_decoder_channels
+    if widths != (96, 192, 384, 384) or _read_png(small_path).shape != (1024, 1024, 3):
+        raise AssertionError(f"t2i --small-decoder: decoder widths {widths}")
+    small_lat = torch.randn(1, 4096, 128, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 4))
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        small.decode_latents_u8(small_lat, 1024, 1024)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["small_decode"] = {"first_s": times[0], "warm_s": statistics.median(times[1:])}
+    log(f"[edit] t2i --small-decoder --random-init: decoder widths {widths}, launches {counts}; 1024^2 decode first "
+        f"{times[0]:.4f} s, warm {out['small_decode']['warm_s']:.4f} s against the full decoder's warm "
+        f"{decode_warm_s:.4f} s ({decode_warm_s / out['small_decode']['warm_s']:.2f}x) [{card}]")
+    del small, built, small_lat
+    gc_cuda()
+
+    # 8. auto_profile on this card
+    total = memory.total_device_bytes()
+    for model in (Flux2Model.KLEIN_4B, Flux2Model.KLEIN_9B):
+        est = memory.estimate_generation_bytes(model, "bf16")
+        chosen = memory.auto_profile(model, "bf16")
+        out[f"auto_profile_{model.value}"] = chosen.name
+        log(f"[edit] auto_profile({model.value}, bf16): {chosen.name}; estimated {est / 2**30:.2f} GiB of "
+            f"{total / 2**30:.2f} GiB on this card ({est / total:.1%}) [{card}]")
+
+    # 9. a served request with a preview id, and one without
+    recorder = _RecordingPipeline(pipe)
+    server = Flux2Server(recorder, embeddings_fn=pipe.encode_prompt, batch_window_s=0.0)
+    req = {"prompt": EDIT_PROMPT, "height": 1024, "width": 1024, "steps": 4, "seed": EDIT_SEED}
+    try:
+        _zero_launches()
+        server.generate_png(req)
+        server.generate_png(dict(req, preview_id="edit-preview"))
+        counts = _launch_counts()
+    finally:
+        server.shutdown()
+    _check_launches("two served requests", counts, 2 * 25 * 4)
+    preview = server.get_preview("edit-preview")
+    hooks = [c.get("on_latents") for c in recorder.calls]
+    if (hooks[0] is not None or hooks[1] is None or preview is None or (preview["step"], preview["total"]) != (4, 4)
+            or decode_png(preview["png"]).shape != (128, 128, 3)):
+        raise AssertionError(f"previews: on_latents {hooks}, preview {preview and (preview['step'], preview['total'])}")
+    log(f"[edit] served 1024^2 requests: without a preview id no on_latents; with one, get_preview gives step "
+        f"{preview['step']}/{preview['total']}, a {len(preview['png'])}-byte 128^2 PNG; launches {counts} [{card}]")
+    out["launches"] = launches
+    return out
 
 
 def encode_ms(extractor) -> float:
@@ -1386,8 +1796,9 @@ def _write_sharded(path: str, state: dict, stem: str, config: dict) -> int:
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
-def _run_cli(argv: list, label: str, card: str) -> list:
-    """cli.main.main(argv) in this process; its standard output is logged and returned as lines."""
+def _run_cli(argv: list, label: str, card: str, tag: str = "ckpt") -> list:
+    """cli.main.main(argv) in this process; its standard output is logged
+    (``[tag label]``) and returned as lines."""
     import contextlib
     import io
 
@@ -1400,8 +1811,8 @@ def _run_cli(argv: list, label: str, card: str) -> list:
             raise AssertionError(f"{label} exited non-zero")
     lines = buf.getvalue().strip().splitlines()
     for line in lines:
-        log(f"[ckpt {label}] {line}")
-    log(f"[ckpt {label}] {time.perf_counter() - t0:.2f} s of command [{card}]")
+        log(f"[{tag} {label}] {line}")
+    log(f"[{tag} {label}] {time.perf_counter() - t0:.2f} s of command [{card}]")
     return lines
 
 
@@ -1613,16 +2024,18 @@ def gc_cuda() -> None:
 
 
 class _RecordingPipeline:
-    """Forwards to the pipeline and keeps every generate() result (final latents)."""
+    """Forwards to the pipeline and keeps every generate() call's arguments
+    (``calls``) and result (``results``, final latents)."""
 
     def __init__(self, pipe):
         self._pipe = pipe
-        self.results = []
+        self.results, self.calls = [], []
 
     def __getattr__(self, name):
         return getattr(self._pipe, name)
 
     def generate(self, **kwargs):
+        self.calls.append(kwargs)
         res = self._pipe.generate(**kwargs)
         self.results.append(res)
         return res
@@ -1734,6 +2147,10 @@ def main() -> int:
     t0 = time.perf_counter()
     i2i = phase_i2i(pipe, card)
     log(f"[i2i] phase: {time.perf_counter() - t0:.2f} s [{card}]")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_edit_") as workdir:
+        edit = phase_edit(pipe, card, workdir, i2i["t2i_s_per_step"], decode["warm_s"])
+    log(f"[edit] phase: {time.perf_counter() - t0:.2f} s [{card}]")
     del pipe
     torch.cuda.empty_cache()
 
@@ -1792,6 +2209,10 @@ def main() -> int:
         # bound at their shapes
         "launches_per_unit_i2i": {"klein4b_i2i_1024px": i2i["i2i_launches"], "klein9b_kv_1024px": kv["split"]},
         "launches_kv_cli": kv["counts"]["flash"],
+        # the editing slice's paths as counted in this run: inpaint, inpaint with the
+        # image as reference at strength 0.5 (S = 8704), outpaint (S = 6912), a
+        # cancel after step 2 of 4, and t2i at 2048^2 (S = 16896) with the tiled decode
+        "launches_edit": edit["launches"],
         "slice_shapes": {name: {"q": list(shape[:3]) + [128], "s_k": shape[3], "span": span,
                                 "ms": checks[name]["alone"], "wrapper_ms": checks[name]["ms"],
                                 "plain_ms": checks[name]["plain_ms"], "bound_ms": checks[name]["bound"],
@@ -1856,6 +2277,14 @@ def main() -> int:
         f"klein-9b-kv s/step {kv['kv_s_per_step']:.4f} vs uncached {kv['uncached_s_per_step']:.4f}; 1024^2 reference "
         f"PNG decode {i2i['decode_s']['decode_image']:.4f} s (decode_png {i2i['decode_s']['decode_png']:.4f} s) "
         f"[{card}]")
+    log(f"[edit] s/step at 1024^2: T2I {edit['t2i_s_per_step']:.4f} (with on_latents "
+        f"{edit['on_latents_s_per_step']:.4f}), inpaint {edit['inpaint_s_per_step']:.4f}, inpaint with the image as "
+        f"reference {edit['inpaint_reference_s_per_step']:.4f}, outpaint (S = 6912) {edit['outpaint_s_per_step']:.4f}; "
+        f"2048^2: t2i {edit['t2i_2048']['s_per_step']:.4f} s/step; decode dense "
+        f"{edit['decode_2048']['dense']['warm_s']:.4f} s / {edit['decode_2048']['dense']['peak_gib']:.2f} GiB, tiled "
+        f"{edit['decode_2048']['tiled']['warm_s']:.4f} s / {edit['decode_2048']['tiled']['peak_gib']:.2f} GiB; small "
+        f"decoder 1024^2 {edit['small_decode']['warm_s']:.4f} s against {decode['warm_s']:.4f} s; auto_profile "
+        f"klein-4b {edit['auto_profile_klein-4b']}, klein-9b {edit['auto_profile_klein-9b']} [{card}]")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,12 +36,30 @@ the phases as a Chrome trace.
 dataset directory, a LoRA trained on synthetic data (``cli/train.py`` says
 what else it refuses, and why).
 
+``inpaint`` and ``outpaint`` (JAX's ``cmd_inpaint`` / ``cmd_outpaint``,
+``:454-510``, with their flags and defaults, ``--steps`` 4) run the RePaint
+chains of ``flux2_tpu_torch/chains/`` and write ``-o``:
+
+    python -m flux2_tpu_torch.cli.main inpaint --random-init --image in.png \
+        --mask mask.png --prompt "a red door" [--crop-padding 64 --composite] -o out.png
+    python -m flux2_tpu_torch.cli.main outpaint --random-init --image in.png \
+        --left 128 --right 128 --prompt "a wider street" -o out.png
+
+``t2i`` and ``i2i`` also take ``--checkpoint-every N`` (intermediate images
+as ``<output>_step_NNN.png``); every generating command takes
+``--small-decoder`` (the distilled VAE decoder: ``FLUX2_VAE_SMALL_DECODER``
+with ``--random-init``, else the small-decoder repository's directory and
+``config.json``) and ``--memory-profile`` (``auto`` reads the card's memory;
+``conservative`` tiles the decode above 1024 px).
+
 Not ported yet, and refused by argparse or raising: prequantized checkpoints
-(on-the-fly quantization only), LoRA inference, the small decoder, memory
-profiles, ``--shard``, the Mistral encoder (Dev), the VLM flags
-``--upsample`` / ``--interpret``, checkpoint images (``--checkpoint-every``)
-and the other subcommands. Reference images are read by Pillow where it
-imports (any format it reads), else PNG only, by the port's own decoder.
+(on-the-fly quantization only), LoRA inference, ``--shard``, the Mistral
+encoder (Dev), the VLM flags ``--upsample`` / ``--interpret`` (``inpaint``'s
+``--enrich-prompt-with-vlm`` warns and keeps the prompt, as JAX without a
+loaded VLM; ``--upsample-prompt`` raises JAX's error for a pipeline without
+an encoder facade) and the other subcommands. Images are read by Pillow
+where it imports (any format it reads), else PNG only, by the port's own
+decoder; so are masks (grey, grey + alpha, RGB or RGBA PNGs without Pillow).
 """
 
 from __future__ import annotations
@@ -58,7 +76,7 @@ import torch
 
 from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
 from flux2_tpu_torch.models.text_encoders.config import QWEN3_4B, QWEN3_8B, DecoderConfig
-from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, VAEConfig
+from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, FLUX2_VAE_SMALL_DECODER, VAEConfig
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
 from flux2_tpu_torch.models.text_encoders.extractor import qwen3_extractor, quantize_encoder_params
 from flux2_tpu_torch.ops.quant import quantize_params
@@ -103,19 +121,36 @@ def build_pipeline(
     model = Flux2Model(args.model)
     device = torch.device(device)
     if not getattr(args, "random_init", False):
-        return _load_pipeline(args, model, device, fmt, enc_fmt)
+        pipe = _load_pipeline(args, model, device, fmt, enc_fmt)
+    else:
+        from flux2_tpu_torch.utils import inline_bpe_tokenizer
 
-    from flux2_tpu_torch.utils import inline_bpe_tokenizer
-
-    encoder_config = encoder_config or _encoder_config(model)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    pipe = Flux2Pipeline.from_random(model, device=device, generator=generator,
-                                     transformer_config=transformer_config, vae_config=vae_config)
-    quantize_params(pipe.transformer, fmt)
-    decoder = Qwen3Decoder(encoder_config, device=device, generator=generator)
-    pipe.text_encoder = qwen3_extractor(quantize_encoder_params(decoder, enc_fmt), inline_bpe_tokenizer())
+        encoder_config = encoder_config or _encoder_config(model)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        if vae_config is None and getattr(args, "small_decoder", False):
+            vae_config = FLUX2_VAE_SMALL_DECODER
+        pipe = Flux2Pipeline.from_random(model, device=device, generator=generator,
+                                         transformer_config=transformer_config, vae_config=vae_config)
+        quantize_params(pipe.transformer, fmt)
+        decoder = Qwen3Decoder(encoder_config, device=device, generator=generator)
+        pipe.text_encoder = qwen3_extractor(quantize_encoder_params(decoder, enc_fmt), inline_bpe_tokenizer())
+    pipe.memory_profile = memory_profile(args)
     return pipe
+
+
+def memory_profile(args: argparse.Namespace):
+    """The ``--memory-profile`` of ``args`` as a ``MemoryProfile`` (``auto``:
+    chosen by ``args.model``'s estimate against this card's memory), or None."""
+    name = getattr(args, "memory_profile", None)
+    if not name:
+        return None
+    from flux2_tpu_torch.utils import memory
+
+    profile = (memory.auto_profile(Flux2Model(args.model), getattr(args, "quantization", "bf16"))
+               if name == "auto" else memory.MemoryProfile.named(name))
+    flog.info(f"memory profile: {profile.name}")
+    return profile
 
 
 def _load_pipeline(args, model: Flux2Model, device: torch.device, fmt: str, enc_fmt: str) -> Flux2Pipeline:
@@ -140,10 +175,13 @@ def _load_pipeline(args, model: Flux2Model, device: torch.device, fmt: str, enc_
         _log_load("transformer", tdir, t0, device, fmt)
     with profiler().phase("5. Load VAE"):
         t0 = _load_start()
-        vdir = registry.find_model_path(registry.VAE_REPO, getattr(args, "vae_dir", None))
+        small = getattr(args, "small_decoder", False)
+        vdir = registry.find_model_path(registry.VAE_SMALL_DECODER_REPO if small else registry.VAE_REPO,
+                                        getattr(args, "vae_dir", None))
         if vdir is None:
             raise SystemExit("VAE weights not found; run `flux2 download` or pass --vae-dir")
-        weights, vae_config = checkpoints.WeightsDir(vdir), _read_vae_config_json(vdir, FLUX2_VAE)
+        weights = checkpoints.WeightsDir(vdir)
+        vae_config = _read_vae_config_json(vdir, FLUX2_VAE_SMALL_DECODER if small else FLUX2_VAE)
         vae = weight_mapping.load_vae(weights, vae_config, device)
         vae_encoder = weight_mapping.load_vae_encoder(weights, vae_config, device)
         _log_load("VAE", vdir, t0, device, "float32")
@@ -227,15 +265,51 @@ def _parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("t2i", help="text to image")
     _add_common(p)
-    p.add_argument("-o", "--output", default="output.png")
+    _add_output(p, checkpoints=True)
 
     p = sub.add_parser("i2i", help="multi-reference image-to-image")
     _add_common(p)
-    p.add_argument("-o", "--output", default="output.png")
+    _add_output(p, checkpoints=True)
     p.add_argument("--reference", action="append", required=True, help="reference image path (repeatable)")
     p.add_argument("--strength", type=float, default=1.0)
     p.add_argument("--max-ref-megapixels", type=float, default=1.0,
                    help="VAE encode budget per reference image in MP (1.0 = 1024^2)")
+
+    p = sub.add_parser("inpaint", help="RePaint masked inpainting")
+    _add_common(p)
+    _add_output(p)
+    p.add_argument("--image", required=True)
+    p.add_argument("--mask", required=True)
+    p.add_argument("--alpha-mask", action="store_true", help="transparent = inpaint")
+    p.add_argument("--strength", type=float, default=1.0)
+    p.add_argument("--crop-padding", type=int, help="crop-and-stitch padding px")
+    p.add_argument("--composite", action="store_true", help="pixel-composite onto original")
+    p.add_argument("--use-image-as-reference", action="store_true")
+    p.add_argument("--max-pixels", type=int, default=4 * 1024 * 1024,
+                   help="working-resolution cap in total pixels (inputs above it are Lanczos-downscaled to "
+                        "multiples of 32)")
+    p.add_argument("--upsample-prompt", action="store_true",
+                   help="text-encoder-only prompt rewriting (needs an encoder facade: not ported yet)")
+    p.add_argument("--enrich-prompt-with-vlm", action="store_true",
+                   help="image-aware prompt rewriting via a VLM; with none loaded (the port has none yet) it "
+                        "warns and keeps --prompt")
+    p.add_argument("--intent", default="replace", choices=["replace", "remove", "modify", "change-scene"],
+                   help="drives --enrich-prompt-with-vlm's VLM (none is ported yet: ignored)")
+
+    p = sub.add_parser("outpaint", help="BFL-style outpainting")
+    _add_common(p)
+    _add_output(p)
+    p.add_argument("--image", required=True)
+    p.add_argument("--top", type=int, default=0)
+    p.add_argument("--bottom", type=int, default=0)
+    p.add_argument("--left", type=int, default=0)
+    p.add_argument("--right", type=int, default=0)
+    p.add_argument("--max-pixels", type=int, default=4 * 1024 * 1024,
+                   help="canvas working-pixel cap (the canvas itself is never cropped)")
+    p.add_argument("--upsample-prompt", action="store_true",
+                   help="text-encoder-only prompt rewriting (needs an encoder facade: not ported yet)")
+    p.add_argument("--enrich-prompt-with-vlm", action="store_true",
+                   help="image-aware prompt rewriting via a VLM; with none loaded it warns and keeps --prompt")
 
     p = sub.add_parser("profile", help="benchmark generation (warmup + N runs)")
     _add_common(p)
@@ -272,7 +346,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--quantization", default="bf16", choices=QUANTIZATIONS)
     p.add_argument("--transformer-dir")
     p.add_argument("--vae-dir")
+    p.add_argument("--small-decoder", action="store_true", help="distilled VAE decoder (faster)")
     p.add_argument("--random-init", action="store_true", help="random weights (smoke test)")
+    p.add_argument("--memory-profile", choices=["auto", "performance", "balanced", "conservative"],
+                   help="memory/speed trade-off preset (VAE tiling threshold etc.)")
     p.add_argument("--encoder-dir", help="text-encoder weights dir (default: registry resolution)")
     p.add_argument("--encoder-tokenizer-dir", help="tokenizer dir when separate from weights")
     p.add_argument("--encoder-quantization", default="bf16", choices=ENCODER_QUANTIZATIONS)
@@ -288,6 +365,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu; the CPU only when asked")
 
 
+def _add_output(p: argparse.ArgumentParser, checkpoints: bool = False) -> None:
+    p.add_argument("-o", "--output", default="output.png")
+    if checkpoints:
+        p.add_argument("--checkpoint-every", type=int, metavar="N",
+                       help="save intermediate images every N denoising steps as <output>_step_NNN.png")
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return _parser().parse_args(argv)
 
@@ -297,16 +381,31 @@ def _generate(pipe: Flux2Pipeline, args, seed: int, decode: bool = True):
                          guidance=args.guidance, seed=seed, decode=decode)
 
 
-def _report(res, path: str) -> None:
-    """Write the first image as a PNG and print JAX's ``t2i`` lines: ``saved
-    <path>``, then the JSON of seed, steps, duration and phases."""
+def _save_png(image, path: str) -> None:
+    """Write an image [H, W, 3] in [0, 1] as a PNG (rounded to uint8) and
+    print ``saved <path>``."""
     import numpy as np
 
     from flux2_tpu_torch.io.png import encode_png
 
     with open(path, "wb") as f:
-        f.write(encode_png(np.rint(res.image * 255.0).astype(np.uint8)))
+        f.write(encode_png(np.rint(np.clip(image, 0.0, 1.0) * 255.0).astype(np.uint8)))
     print(f"saved {path}")
+
+
+def _checkpoint_callback(args):
+    """``--checkpoint-every N`` -> (N, a callback writing <output stem>_step_NNN.png), else (None, None)."""
+    interval = getattr(args, "checkpoint_every", None)
+    if not interval:
+        return None, None
+    stem, _ = os.path.splitext(args.output)
+    return interval, lambda step, image: _save_png(image, f"{stem}_step_{step:03d}.png")
+
+
+def _report(res, path: str) -> None:
+    """Write the first image as a PNG and print JAX's ``t2i`` lines: ``saved
+    <path>``, then the JSON of seed, steps, duration and phases."""
+    _save_png(res.image, path)
     out = {"seed": res.seed, "steps": res.num_steps, "duration_s": round(res.duration_s, 2),
            "phases": {k: round(v, 2) for k, v in res.phase_timings.items()}}
     if res.memory_stats and any(v["peak_gb"] for v in res.memory_stats.values()):
@@ -316,7 +415,10 @@ def _report(res, path: str) -> None:
 
 def cmd_t2i(args) -> None:
     pipe = build_pipeline(args, args.device)
-    _report(_generate(pipe, args, args.seed), args.output)
+    interval, on_ckpt = _checkpoint_callback(args)
+    res = pipe.generate(prompt=args.prompt, height=args.height, width=args.width, num_steps=args.steps,
+                        guidance=args.guidance, seed=args.seed, checkpoint_interval=interval, on_checkpoint=on_ckpt)
+    _report(res, args.output)
 
 
 def _load_image(path: str):
@@ -332,10 +434,86 @@ def cmd_i2i(args) -> None:
     refs = [_load_image(p) for p in args.reference]
     ref_lat, ref_ids = pipe.encode_reference_images(refs, max_pixels=int(args.max_ref_megapixels * 1024 * 1024))
     init = pipe.encode_image_to_packed_sequence(refs[0]) if args.strength < 1.0 else None
+    interval, on_ckpt = _checkpoint_callback(args)
     res = pipe.generate(prompt=args.prompt, height=args.height, width=args.width, num_steps=args.steps,
                         guidance=args.guidance, seed=args.seed, reference_latents=ref_lat, reference_ids=ref_ids,
-                        strength=args.strength, init_latents=init)
+                        strength=args.strength, init_latents=init, checkpoint_interval=interval,
+                        on_checkpoint=on_ckpt)
     _report(res, args.output)
+
+
+def _load_mask(path: str, alpha: bool):
+    """A mask file -> float32 in [0, 1]: RGBA [H, W, 4] with ``alpha``, else
+    grey [H, W], as JAX's ``convert("RGBA")`` / ``convert("L")``. Without
+    Pillow, PNG only: grey is Pillow's luma (R 19595 + G 38470 + B 7471 +
+    0x8000) >> 16, and a PNG without alpha gets alpha 255."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        from PIL import Image
+    except ImportError:
+        from flux2_tpu_torch.io.png import decode_png_pixels
+
+        px = decode_png_pixels(data).astype(np.uint32)
+        ch = px.shape[2]
+        rgb = px[..., :3] if ch >= 3 else np.repeat(px[..., :1], 3, axis=2)
+        if alpha:
+            a = px[..., -1:] if ch in (2, 4) else np.full_like(px[..., :1], 255)
+            return np.concatenate([rgb, a], axis=2).astype(np.float32) / 255.0
+        grey = px[..., 0] if ch <= 2 else (rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000) >> 16
+        return grey.astype(np.float32) / 255.0
+    import io
+
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert("RGBA" if alpha else "L"), np.float32) / 255.0
+
+
+def cmd_inpaint(args) -> None:
+    from flux2_tpu_torch.chains.inpaint import ALPHA_TRANSPARENT_INPAINT, GRAYSCALE_WHITE_INPAINT, MaskedInpaintingChain
+
+    pipe = build_pipeline(args, args.device)
+    chain = MaskedInpaintingChain(
+        pipeline=pipe,
+        prompt=args.prompt,
+        image=_load_image(args.image),
+        mask=_load_mask(args.mask, args.alpha_mask),
+        mask_convention=ALPHA_TRANSPARENT_INPAINT if args.alpha_mask else GRAYSCALE_WHITE_INPAINT,
+        steps=args.steps or 4,
+        guidance=args.guidance,
+        seed=args.seed,
+        strength=args.strength,
+        mask_crop_padding=args.crop_padding,
+        composite_on_original=args.composite,
+        use_image_as_reference=args.use_image_as_reference,
+        max_pixels=args.max_pixels,
+        upsample_prompt=args.upsample_prompt,
+        enrich_prompt_with_vlm=args.enrich_prompt_with_vlm,
+    )
+    _save_png(chain.run().image, args.output)
+
+
+def cmd_outpaint(args) -> None:
+    from flux2_tpu_torch.chains.outpaint import OutpaintingChain
+
+    pipe = build_pipeline(args, args.device)
+    chain = OutpaintingChain(
+        pipeline=pipe,
+        image=_load_image(args.image),
+        prompt=args.prompt,
+        top=args.top,
+        bottom=args.bottom,
+        left=args.left,
+        right=args.right,
+        steps=args.steps or 4,
+        guidance=args.guidance,
+        seed=args.seed,
+        max_pixels=args.max_pixels,
+        upsample_prompt=args.upsample_prompt,
+        enrich_prompt_with_vlm=args.enrich_prompt_with_vlm,
+    )
+    _save_png(chain.run().image, args.output)
 
 
 def _profile_once(args, quantization: Optional[str] = None):
@@ -403,6 +581,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         cmd_profile(args)
     elif args.command == "i2i":
         cmd_i2i(args)
+    elif args.command == "inpaint":
+        cmd_inpaint(args)
+    elif args.command == "outpaint":
+        cmd_outpaint(args)
     else:
         cmd_t2i(args)
     return 0

@@ -75,6 +75,15 @@ def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> uint8 [H, W, 3] (see the module docstring for what it
     reads). Checks the signature, each chunk's CRC and the IHDR fields;
     raises ValueError on anything else."""
+    px = decode_png_pixels(data)
+    if px.shape[2] in (1, 2):
+        return np.repeat(px[:, :, :1], 3, axis=2)
+    return px[:, :, :3].copy()
+
+
+def decode_png_pixels(data: bytes) -> np.ndarray:
+    """PNG bytes -> uint8 [H, W, C] as stored: C = 1 (grey), 2 (grey +
+    alpha), 3 (RGB) or 4 (RGBA)."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG: bad signature")
     pos, ihdr, idat = 8, None, b""
@@ -95,10 +104,7 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError(f"unsupported PNG header {ihdr}: 8-bit grey, grey+alpha, RGB or RGBA, not interlaced")
     w, h, ch = ihdr[0], ihdr[1], _CHANNELS[ihdr[3]]
     raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * ch)
-    px = _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
-    if ch in (1, 2):
-        return np.repeat(px[:, :, :1], 3, axis=2)
-    return px[:, :, :3].copy()
+    return _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
 
 
 def decode_image(data: bytes) -> np.ndarray:

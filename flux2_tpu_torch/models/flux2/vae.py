@@ -15,13 +15,16 @@ forward casts each weight to the activations' dtype, so a bf16 decode
 computes in bf16 with float32 GroupNorm statistics. The mid-block attention
 is plain torch on purpose: one head, C=512, 16384 tokens at 1024^2, so its
 dense f32 logits take 1 GiB, which fits; the encoder's is the same (JAX's is
-plain XLA too). Tiled decode and the small decoder are not ported yet.
+plain XLA too). ``decode_tiled`` decodes overlapping latent tiles and pastes
+them with JAX's halo crop, so peak memory follows the tile, not the image.
+``FLUX2_VAE_SMALL_DECODER`` is the distilled decoder's widths (96, 192, 384,
+384); ``VAEDecoder`` builds from ``effective_decoder_channels``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,6 +68,16 @@ class VAEConfig:
 
 
 FLUX2_VAE = VAEConfig()
+FLUX2_VAE_SMALL_DECODER = VAEConfig(decoder_block_out_channels=(96, 192, 384, 384))
+
+
+@dataclasses.dataclass(frozen=True)
+class TilingConfig:
+    """Spatial tiling for the decoder, in latent units (JAX ``TilingConfig``)."""
+
+    tile_size: int = 64  # 512 px out
+    tile_overlap: int = 8  # 64 px
+    min_tile_threshold: int = 128
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -278,3 +291,39 @@ class VAEEncoder(nn.Module):
             raise ValueError("sample_posterior=True requires a torch.Generator")
         eps = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
         return mean + torch.exp(0.5 * logvar) * eps
+
+
+def _tile_starts(total: int, tile: int, stride: int) -> List[int]:
+    """Tile origins along one axis: every ``stride``, the last one pulled back
+    so that it ends at ``total`` (JAX ``decode_tiled``'s ``tile_starts``)."""
+    starts, pos = [], 0
+    while True:
+        start = min(pos, max(0, total - tile))
+        starts.append(start)
+        if start + tile >= total:
+            return starts
+        pos += stride
+
+
+def decode_tiled(decoder: VAEDecoder, z: torch.Tensor, tiling: TilingConfig = TilingConfig()) -> torch.Tensor:
+    """Tiled decode of latents [B, C, h, w] (JAX ``vae.decode_tiled``): dense
+    ``decode`` when neither side exceeds ``min_tile_threshold``; else each
+    overlapping tile is decoded alone, its leading halo (half the overlap) is
+    cropped off unless it is the first tile of its row or column, and the
+    tiles are pasted row by row, so a later tile overwrites the trailing
+    edge of the one before. GroupNorm's statistics are the tile's own, so
+    the result is close to the dense decode, not equal to it."""
+    _, _, h, w = z.shape
+    if h <= tiling.min_tile_threshold and w <= tiling.min_tile_threshold:
+        return decoder.decode(z)
+    ts, ov = tiling.tile_size, tiling.tile_overlap
+    up = 2 ** (len(decoder.config.effective_decoder_channels) - 1)  # latent -> pixel scale
+    canvas = torch.zeros(z.shape[0], decoder.config.out_channels, h * up, w * up, dtype=z.dtype, device=z.device)
+    for iy, y0 in enumerate(_tile_starts(h, ts, ts - ov)):
+        for ix, x0 in enumerate(_tile_starts(w, ts, ts - ov)):
+            out = decoder.decode(z[:, :, y0 : y0 + ts, x0 : x0 + ts])
+            sy = 0 if iy == 0 else (ov // 2) * up
+            sx = 0 if ix == 0 else (ov // 2) * up
+            canvas[:, :, y0 * up + sy : y0 * up + out.shape[2], x0 * up + sx : x0 * up + out.shape[3]] = (
+                out[:, :, sy:, sx:].to(canvas.dtype))
+    return canvas

@@ -11,9 +11,14 @@ output tokens in every step, RoPE ids in [txt ; img ; ref] order; with
 the init noised to its first sigma. klein-9b-kv with references extracts the
 references' K/V at step 0 and reuses them in steps 1+ (``_denoise_kv_cached``).
 Where JAX compiles the denoise loop into one ``lax.scan``, the port runs a
-Python loop over the schedule under ``torch.inference_mode()``; cancellation
-is checked on the host between steps. Step hooks, live previews, checkpoint
-images, tiled decode and the VLM prompt services are not ported yet.
+Python loop over the schedule under ``torch.inference_mode()``. After each
+step's Euler update, in both loops and in JAX's order: the step hook
+(``step_hook``, structured or legacy), the cancel check, ``on_progress`` and
+``on_latents`` (live previews); every ``checkpoint_interval``-th step's
+latents are kept and decoded after the loop (``on_checkpoint``). The decode
+is tiled above the memory profile's threshold (``memory_profile``). The VLM
+prompt services are not ported: ``upsample_prompt`` raises JAX's error for a
+pipeline without a text encoder facade.
 
 The noise comes from a ``torch.Generator`` seeded with ``seed``: JAX uses
 threefry, so one seed gives different images in the two packages. Pass
@@ -35,7 +40,7 @@ import torch
 
 from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
 from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
-from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, VAEConfig, VAEDecoder, VAEEncoder
+from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, VAEConfig, VAEDecoder, VAEEncoder, decode_tiled
 from flux2_tpu_torch.ops import latents as lu
 from flux2_tpu_torch.ops.quant import param_dtype
 from flux2_tpu_torch.ops import scheduler as sch
@@ -48,8 +53,31 @@ from flux2_tpu_torch.utils.profiler import shared as _profiler
 DECODE_BATCH_BUDGET_PIXELS = 1024 * 1024
 
 
+# A step hook rewrites the latent sequence after every step's Euler update (the
+# port of JAX's ``StepHook``, ``flux2_tpu/pipeline/pipeline.py:75-104``). Two forms:
+#   - structured: a ``(fn, state)`` pair, ``fn(state, latents, sigma, sigma_next,
+#     step_idx) -> latents`` with ``state`` a dict of tensors on the latents' device
+#     (``chains.inpaint.repaint_step_hook``);
+#   - legacy: a bare callable ``hook(latents, sigma, sigma_next, step_idx)``.
+# ``latents`` is float32 [B, S, 128]; ``sigma`` and ``sigma_next`` are 0-d float32
+# tensors on the latents' device (JAX's traced scalars), ``step_idx`` the step's
+# index from 0 (an int where JAX passes a traced int32).
+StepHook = Callable[..., torch.Tensor]
+
+
+def _normalize_hook(step_hook):
+    """Split ``step_hook`` into (fn, state); state is None for a legacy hook."""
+    if step_hook is None:
+        return None, None
+    if isinstance(step_hook, tuple):
+        if len(step_hook) != 2 or not callable(step_hook[0]):
+            raise TypeError("structured step_hook must be (fn, state_pytree)")
+        return step_hook
+    return step_hook, None
+
+
 class GenerationCancelled(RuntimeError):
-    """Raised when the ``cancel`` flag is set between two denoising steps."""
+    """Raised when the ``cancel`` flag is found set after a denoising step."""
 
 
 @dataclasses.dataclass
@@ -70,6 +98,43 @@ def _cancel_requested(cancel) -> bool:
     return bool(getattr(cancel, "is_set", cancel)())
 
 
+class _StepEnd:
+    """What follows each step's Euler update, in the order of JAX's scan body
+    and progress callback (``flux2_tpu/pipeline/pipeline.py:788-797``,
+    ``:1028-1054``): the step hook, the cancel check, ``on_progress``,
+    ``on_latents``; then, every ``collect_every``-th step below the last, a
+    copy of the latents for a checkpoint image (``checkpoints``: (step, latents))."""
+
+    def __init__(self, step_hook, cancel, on_progress, on_latents, sigma_pairs: np.ndarray, device: torch.device,
+                 collect_every: Optional[int] = None):
+        self.hook, self.state = _normalize_hook(step_hook)
+        self.cancel, self.on_progress, self.on_latents = cancel, on_progress, on_latents
+        self.total = len(sigma_pairs)
+        self.collect_every = collect_every
+        self.checkpoints: list = []
+        # the hook's sigmas: float32 on the device, copied there once a call
+        self.sigmas = (torch.tensor(sigma_pairs, dtype=torch.float32, device=device)
+                       if self.hook is not None else None)
+
+    def __call__(self, latents: torch.Tensor, step_idx: int) -> torch.Tensor:
+        if self.hook is not None:
+            sigma, sigma_next = self.sigmas[step_idx, 0], self.sigmas[step_idx, 1]
+            if self.state is not None:
+                latents = self.hook(self.state, latents, sigma, sigma_next, step_idx)
+            else:
+                latents = self.hook(latents, sigma, sigma_next, step_idx)
+        step = step_idx + 1
+        if _cancel_requested(self.cancel):
+            raise GenerationCancelled(f"cancelled at step {step}/{self.total}")
+        if self.on_progress is not None:
+            self.on_progress(step, self.total)
+        if self.on_latents is not None:
+            self.on_latents(step, latents.to("cpu", copy=True).numpy())
+        if self.collect_every and step % self.collect_every == 0 and step < self.total:
+            self.checkpoints.append((step, latents.clone()))  # an in-place hook must not reach it
+        return latents
+
+
 @dataclasses.dataclass
 class Flux2Pipeline:
     """Holds the DiT, the VAE decoder, an optional VAE encoder (I2I and
@@ -86,6 +151,8 @@ class Flux2Pipeline:
     # latents to it, as the JAX pipeline does (bf16 throughout, f32 GroupNorm
     # statistics); float32 for full-precision comparisons.
     vae_compute_dtype: torch.dtype = torch.bfloat16
+    # utils.memory.MemoryProfile: the decode is tiled above its vae_tile_threshold_px
+    memory_profile: Optional[Any] = None
 
     PROMPT_CACHE_SIZE = 8
 
@@ -143,6 +210,13 @@ class Flux2Pipeline:
                 cache.popitem(last=False)
             return emb
 
+    def upsample_prompt(self, prompt: str) -> str:
+        """JAX's BFL prompt upsampling chats through the attached text encoder
+        facade (``flux2_tpu/pipeline/pipeline.py:331-370``). The port has no
+        facade with a chat surface yet, so it raises JAX's error for a
+        pipeline without one."""
+        raise ValueError("prompt upsampling requires an attached text encoder facade")
+
     # -- phases 2 + 3: denoise + decode ------------------------------------------
 
     def generate(
@@ -163,6 +237,12 @@ class Flux2Pipeline:
         custom_sigmas: Optional[Sequence[float]] = None,
         decode: bool = True,
         cancel: Optional[Any] = None,  # threading.Event-like or () -> bool
+        step_hook: Optional[StepHook] = None,
+        on_progress: Optional[Callable[[int, int], None]] = None,
+        on_latents: Optional[Callable[[int, np.ndarray], None]] = None,  # per-step packed latents, on the host
+        checkpoint_interval: Optional[int] = None,
+        on_checkpoint: Optional[Callable[[int, np.ndarray], None]] = None,
+        upsample: bool = False,
     ) -> GenerationResult:
         """Generate images: T2I by default; I2I with ``reference_latents`` and
         ``reference_ids`` (``encode_reference_images``); img2img with
@@ -172,7 +252,17 @@ class Flux2Pipeline:
         ``negative_embeddings``, or with the encoded "" prompt when an encoder
         is attached. Each phase is timed by the shared profiler (when
         ``FLUX2_PROFILE=1``) and closed by a device-memory snapshot
-        (``memory_stats``), as in JAX."""
+        (``memory_stats``), as in JAX.
+
+        After each step (k of n): ``step_hook`` rewrites the latents; a set
+        ``cancel`` raises ``GenerationCancelled("cancelled at step k/n")``;
+        ``on_progress(k, n)``; ``on_latents(k, latents)`` with the latents
+        copied to the host (a device-to-host copy a step). With
+        ``checkpoint_interval`` N and ``on_checkpoint``, the latents of steps
+        N, 2N, ... below n stay on the device and are decoded after the loop:
+        ``on_checkpoint(step, image)``, the image [H, W, 3] float32 in 1/255
+        steps (first batch row). ``upsample`` applies only when the prompt is
+        encoded here, as in JAX."""
         prof = _profiler()
         mem = MemoryTelemetry(enabled=_mem_telemetry().enabled, device=self.device)  # per call
         t0 = time.perf_counter()
@@ -188,6 +278,8 @@ class Flux2Pipeline:
         t = time.perf_counter()
         prof.start("1. Text Encoding")
         if embeddings is None:
+            if upsample:
+                prompt = self.upsample_prompt(prompt or "")
             embeddings = self.encode_prompt(prompt or "")
         if self.model.uses_classical_cfg and negative_embeddings is None and self.text_encoder is not None:
             negative_embeddings = self.encode_prompt("")
@@ -228,24 +320,31 @@ class Flux2Pipeline:
         prof.start("2. Denoising")
         g = (torch.full((batch,), guidance, dtype=torch.float32, device=self.device)
              if self.model.uses_guidance_embeds else None)
+        step_end = _StepEnd(step_hook, cancel, on_progress, on_latents, schedule.sigma_pairs(), self.device,
+                            checkpoint_interval if on_checkpoint is not None else None)
         if kv_cached:
             # klein-9b-kv: step 0 extracts the references' K/V, steps 1+ reuse it
             extract_rope = self._rope([txt_ids, reference_ids, img_ids])
             cached_rope = self._rope([txt_ids, img_ids])
             latents = self._denoise_kv_cached(latents, embeddings, reference_latents, schedule.sigma_pairs(),
-                                              extract_rope, cached_rope, g, cancel)
+                                              extract_rope, cached_rope, g, step_end)
         else:
             ids = [txt_ids, img_ids] + ([reference_ids] if reference_latents is not None else [])
             cos, sin = self._rope(ids)
             negative = negative_embeddings if self.model.uses_classical_cfg else None
             latents = self._denoise(latents, embeddings, negative, schedule.sigma_pairs(), guidance, cos, sin, g,
-                                    cancel, reference_latents)
+                                    step_end, reference_latents)
         _sync(self.device)
         prof.end("2. Denoising")
         if schedule.num_steps:
             prof.record_step((time.perf_counter() - t) / schedule.num_steps)
         timings["denoising"] = time.perf_counter() - t
         mem.snapshot("denoising")
+
+        # checkpoint images: decoded after the loop, as JAX decodes after its scan
+        for step, kept in step_end.checkpoints:
+            u8 = self.decode_latents_u8(kept, height, width).cpu().numpy()
+            on_checkpoint(step, u8[0].astype(np.float32) / 255.0)
 
         t = time.perf_counter()
         prof.start("3. VAE Decoding")
@@ -273,14 +372,15 @@ class Flux2Pipeline:
         """cos/sin on the device for the concatenated position-id tables."""
         return rope_embeddings(torch.from_numpy(np.concatenate(ids, axis=0)).to(self.device))
 
-    def _denoise(self, latents, embeddings, negative, sigma_pairs, guidance, cos, sin, g, cancel,
+    def _denoise(self, latents, embeddings, negative, sigma_pairs, guidance, cos, sin, g, step_end,
                  reference_latents=None) -> torch.Tensor:
         """Euler loop over (sigma, sigma_next) pairs; latents stay float32. For
         a base model, cond and uncond are batch rows of one forward and
         ``v = v_uncond + guidance * (v_cond - v_uncond)`` in the forward's dtype,
         as JAX's ``_denoise``; ``g`` is the guidance embedding's input or None.
         Reference tokens, broadcast over the batch, follow the output tokens in
-        every forward, and the velocity is sliced back to the output tokens."""
+        every forward, and the velocity is sliced back to the output tokens.
+        ``step_end`` (``_StepEnd``) runs after every Euler update."""
         use_cfg = self.model.uses_classical_cfg
         if use_cfg and negative is None:
             raise ValueError("classical CFG requires negative embeddings")
@@ -294,8 +394,6 @@ class Flux2Pipeline:
             g = torch.cat([g, g]) if g is not None else None
         with torch.inference_mode():
             for i, (sigma, sigma_next) in enumerate(sigma_pairs):
-                if _cancel_requested(cancel):
-                    raise GenerationCancelled(f"cancelled at step {i + 1}/{len(sigma_pairs)}")
                 tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
                 x = latents.to(dtype)
                 if ref is not None:
@@ -309,23 +407,23 @@ class Flux2Pipeline:
                 else:
                     v = self.transformer(x, embeddings, tstep, cos, sin, guidance=g)
                 latents = sch.euler_step(latents, v[:, :s_img].to(torch.float32), sigma, sigma_next)
+                latents = step_end(latents, i)
         return latents
 
     def _denoise_kv_cached(self, latents, embeddings, reference_latents, sigma_pairs, extract_rope, cached_rope, g,
-                           cancel) -> torch.Tensor:
+                           step_end) -> torch.Tensor:
         """klein-9b-kv denoising (JAX ``_denoise_kv_cached``): step 0 runs
         ``forward_kv_extract`` over [txt ; ref ; img] (``extract_rope``) and
         keeps every block's reference K/V; steps 1+ run ``forward_kv_cached``
         over [txt ; img] (``cached_rope``) with that cache. Classical CFG does
-        not apply: klein-9b-kv is distilled."""
+        not apply: klein-9b-kv is distilled. ``step_end`` runs after every
+        Euler update, step 0's included."""
         dtype = param_dtype(self.transformer.x_embedder)
         b = latents.shape[0]
         ref = reference_latents.to(dtype).expand(b, -1, -1)
         cache = None
         with torch.inference_mode():
             for i, (sigma, sigma_next) in enumerate(sigma_pairs):
-                if _cancel_requested(cancel):
-                    raise GenerationCancelled(f"cancelled at step {i + 1}/{len(sigma_pairs)}")
                 tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
                 x = latents.to(dtype)
                 if cache is None:
@@ -335,6 +433,7 @@ class Flux2Pipeline:
                 else:
                     v = self.transformer.forward_kv_cached(x, embeddings, tstep, *cached_rope, *cache, guidance=g)
                 latents = sch.euler_step(latents, v.to(torch.float32), sigma, sigma_next)
+                latents = step_end(latents, i)
         return latents
 
     # -- VAE encode: I2I references and img2img init ----------------------------
@@ -375,17 +474,26 @@ class Flux2Pipeline:
             ws.append(img.shape[1] // 16)
         return torch.cat(seqs, dim=1), lu.reference_image_position_ids(hs, ws)
 
+    def _tiled(self, height: int, width: int) -> bool:
+        """Whether a decode at this size is tiled: the memory profile's
+        ``vae_tile_threshold_px`` is below its longer side (JAX ``decode_latents``)."""
+        return bool(self.memory_profile is not None
+                    and max(height, width) > self.memory_profile.vae_tile_threshold_px)
+
     def decode_latents_u8(self, latents_seq: torch.Tensor, height: int, width: int) -> torch.Tensor:
         """Packed sequence [B, S, 128] -> uint8 image [B, H, W, 3] on the device.
 
-        Dense batched decode while B*H*W <= 1024^2, image by image above it."""
+        Tiled (``decode_tiled``) above the memory profile's threshold; else a
+        dense batched decode while B*H*W <= 1024^2, image by image above it."""
         with torch.inference_mode():
             patched = lu.unpack_sequence_to_patchified(latents_seq, height, width)
             mean, var = self.vae.get_batchnorm_stats()
             z = lu.unpatchify_latents(lu.denormalize_with_batchnorm(patched, mean, var))
             z = z.to(self.vae_compute_dtype)
             vae = self._vae_in_compute_dtype()
-            if z.shape[0] * height * width > DECODE_BATCH_BUDGET_PIXELS:
+            if self._tiled(height, width):
+                img = decode_tiled(vae, z)
+            elif z.shape[0] * height * width > DECODE_BATCH_BUDGET_PIXELS:
                 img = torch.cat([vae.decode(z[i : i + 1]) for i in range(z.shape[0])])
             else:
                 img = vae.decode(z)

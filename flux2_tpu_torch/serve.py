@@ -16,14 +16,23 @@ VAE-encoded when its batch runs, and with ``"strength"`` < 1 the first
 reference is also the img2img init. Every I2I request runs as a batch of one:
 its references are its own, and its noise row assumes it. A non-numeric
 ``"strength"`` is refused with ValueError before queueing. PNGs are written
-with the standard library (``flux2_tpu_torch.io.png``). The HTTP handler,
-chat, embed, previews and the web UI are not ported yet.
+with the standard library (``flux2_tpu_torch.io.png``).
+
+Live previews: a request with a ``"preview_id"`` makes its batch pass
+``on_latents`` to ``generate`` (a batch without one passes none, and pays no
+device-to-host copy a step); after each step its row's latents become a small
+PNG (``packed_to_rgb_preview``: three latent channels at h/8 x w/8, no VAE)
+that ``get_preview(preview_id)`` returns with the step and the total. The
+store keeps at most 256 previews; past that, those older than 300 s go, then
+the oldest. The HTTP handler (``/preview`` among its routes), chat, embed and
+the web UI are not ported yet.
 """
 
 from __future__ import annotations
 
 import base64
 import collections
+import functools
 import math
 import threading
 import time
@@ -40,9 +49,24 @@ class QueueFullError(RuntimeError):
     pass
 
 
+PREVIEW_CAP = 256  # previews kept
+PREVIEW_MAX_AGE_S = 300.0  # age past which a preview may go once the store is over its cap
+
+
+def packed_to_rgb_preview(seq: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Packed latent row [S, 128] -> [height/8, width/8, 3] RGB in [0, 1]: the
+    first three latent channels, stretched between their 2nd and 98th
+    percentiles (JAX ``packed_to_rgb_preview``: no VAE decode per step)."""
+    patchified = lu.unpack_sequence_to_patchified(torch.from_numpy(np.asarray(seq, np.float32))[None], height, width)
+    lat = lu.unpatchify_latents(patchified)[0].numpy()  # [C, h/8, w/8]
+    rgb = np.transpose(lat[:3], (1, 2, 0))
+    lo, hi = np.percentile(rgb, 2.0), np.percentile(rgb, 98.0)
+    return np.clip((rgb - lo) / max(hi - lo, 1e-6), 0.0, 1.0)
+
+
 class _Pending:
     __slots__ = ("req", "emb", "refs", "strength", "encode_s", "event", "cancelled", "image", "error",
-                 "enqueued_at")
+                 "enqueued_at", "preview_id")
 
     def __init__(self, req: dict, emb: Optional[torch.Tensor], encode_s: float = 0.0, refs: Optional[list] = None,
                  strength: float = 1.0):
@@ -56,6 +80,7 @@ class _Pending:
         self.image = None
         self.error = None
         self.enqueued_at = time.time()
+        self.preview_id = req.get("preview_id")  # opt-in live previews
 
 
 class _BatchCancel:
@@ -95,6 +120,8 @@ class Flux2Server:
         self.batch_window_s = batch_window_s
         self.max_queue = max_queue
         self.max_wait_s = max_wait_s
+        self._previews: dict = {}  # preview id -> {"step", "total", "png", "t"}
+        self._previews_lock = threading.Lock()
         self._queue: list = []
         self._queue_cv = threading.Condition()
         self._shutdown = False
@@ -195,6 +222,8 @@ class Flux2Server:
                 ref_lat, ref_ids = self.pipeline.encode_reference_images(refs)
                 if strength < 1.0:
                     init = self.pipeline.encode_image_to_packed_sequence(refs[0])
+            watchers = [(i, p.preview_id) for i, p in enumerate(batch) if p.preview_id]
+            on_latents = functools.partial(self._preview_dispatch, watchers, hv, wv, steps or 0) if watchers else None
             res = self.pipeline.generate(
                 prompt=req0.get("prompt", ""),
                 embeddings=emb,
@@ -209,6 +238,7 @@ class Flux2Server:
                 strength=strength,
                 init_latents=init,
                 cancel=_BatchCancel(batch),
+                on_latents=on_latents,
             )
             images = res.images if res.images is not None else res.image[None]
             pt = res.phase_timings
@@ -229,12 +259,37 @@ class Flux2Server:
             for p in batch:
                 p.event.set()
 
+    # -- live previews ------------------------------------------------------------
+
+    def _preview_dispatch(self, watchers, height: int, width: int, total: int, step: int, lat: np.ndarray) -> None:
+        """``on_latents`` of a batch with previews: one PNG per watching row."""
+        for row, pid in watchers:
+            png = encode_png(np.rint(packed_to_rgb_preview(lat[row], height, width) * 255.0).astype(np.uint8))
+            self._store_preview(pid, step, total, png)
+
+    def _store_preview(self, pid, step: int, total: int, png: bytes) -> None:
+        now = time.time()
+        with self._previews_lock:
+            self._previews[str(pid)[:64]] = {"step": step, "total": total, "png": png, "t": now}
+            if len(self._previews) > PREVIEW_CAP:
+                # the stale ones first, then the oldest: age alone never shrinks
+                # the store under a stream of fresh ids
+                for k in [k for k, v in self._previews.items() if now - v["t"] > PREVIEW_MAX_AGE_S]:
+                    del self._previews[k]
+                while len(self._previews) > PREVIEW_CAP:
+                    del self._previews[min(self._previews, key=lambda k: self._previews[k]["t"])]
+
+    def get_preview(self, pid):
+        """The latest preview of ``pid`` ({"step", "total", "png", "t"}), or None."""
+        with self._previews_lock:
+            return self._previews.get(pid)
+
     # -- request path -----------------------------------------------------------
 
     def generate_png(self, req: dict) -> bytes:
         """One request ({"prompt", "height", "width", "steps", "guidance", "seed",
-        "references", "strength", "timeout_s"}) -> PNG bytes. Blocks until its
-        batch has run."""
+        "references", "strength", "preview_id", "timeout_s"}) -> PNG bytes.
+        Blocks until its batch has run."""
         emb, encode_s = None, 0.0
         if self.embeddings_fn is not None:
             t = time.perf_counter()

@@ -1,9 +1,20 @@
-"""Device-memory telemetry: the telemetry part of ``flux2_tpu/utils/memory.py``
-(``MemorySnapshot``, ``MemoryTelemetry``, ``telemetry()``), with
+"""Device memory: the port of ``flux2_tpu/utils/memory.py``.
+
+Feasibility: ``estimate_generation_bytes``, ``check_feasibility`` and
+``recommended_quantization``, with JAX's tables and arithmetic. Memory
+profiles: ``MemoryProfile``, ``MEMORY_PROFILES`` and ``auto_profile``; the
+pipeline reads a profile's ``vae_tile_threshold_px`` (the decode is tiled
+above it), while ``remat`` and ``max_checkpoint_latents`` are carried as data,
+as JAX's pipeline carries them. A device's bytes come from
+``torch.cuda.get_device_properties(...).total_memory``: where no CUDA device
+exists the caller passes ``hbm_bytes``, or the functions raise (JAX falls
+back to 16 GiB a device, a TPU v5e's). JAX's last suggestion, to shard over
+more chips, names an API the port lacks and is left out.
+
+Telemetry: ``MemorySnapshot``, ``MemoryTelemetry``, ``telemetry()``, with
 ``device_memory_stats`` read from ``torch.cuda.memory_stats`` (zeros on the
 CPU, as JAX's backends without memory stats give). Also the host's peak
-resident set, which the checkpoint loaders report. Memory profiles and
-``auto_profile`` are not ported yet.
+resident set, which the checkpoint loaders report.
 """
 
 from __future__ import annotations
@@ -11,9 +22,22 @@ from __future__ import annotations
 import dataclasses
 import os
 import resource
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+
+from flux2_tpu_torch.models.flux2.config import Flux2Model
+
+BYTES_PER_PARAM = {"bf16": 2.0, "qint8": 1.06, "int4": 0.56, "mxfp8": 1.12, "mxfp4": 0.62, "nvfp4": 0.56, "nf4": 0.56}
+
+APPROX_PARAMS = {
+    Flux2Model.DEV: 32e9,
+    Flux2Model.KLEIN_9B: 9e9,
+    Flux2Model.KLEIN_9B_BASE: 9e9,
+    Flux2Model.KLEIN_9B_KV: 9e9,
+    Flux2Model.KLEIN_4B: 4e9,
+    Flux2Model.KLEIN_4B_BASE: 4e9,
+}
 
 
 def device_memory_stats(device: "torch.device | str | None" = None) -> Dict[str, int]:
@@ -28,6 +52,107 @@ def device_memory_stats(device: "torch.device | str | None" = None) -> Dict[str,
         "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
         "bytes_limit": torch.cuda.get_device_properties(device).total_memory,
     }
+
+
+def total_device_bytes() -> int:
+    """The summed memory of every CUDA device; raises where there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass hbm_bytes= (the device memory to plan for)")
+    return sum(torch.cuda.get_device_properties(i).total_memory for i in range(torch.cuda.device_count()))
+
+
+@dataclasses.dataclass
+class FeasibilityReport:
+    feasible: bool
+    required_gb: float
+    available_gb: float
+    suggestions: List[str]
+
+
+def estimate_generation_bytes(
+    model: Flux2Model,
+    quantization: str = "bf16",
+    height: int = 1024,
+    width: int = 1024,
+    num_reference_images: int = 0,
+) -> float:
+    """Rough transformer + activations + VAE estimate for one generation (JAX's formula)."""
+    params = APPROX_PARAMS[model] * BYTES_PER_PARAM.get(quantization, 2.0)
+    cfg = model.transformer_config
+    seq = 512 + (height // 16) * (width // 16) * (1 + num_reference_images)
+    # live activations: a few sequence-sized buffers at inner_dim + attention workspace
+    acts = 12 * seq * cfg.inner_dim * 2
+    vae = 2e9  # decode workspace at 1MP
+    return params + acts + vae
+
+
+def check_feasibility(
+    model: Flux2Model,
+    quantization: str = "bf16",
+    height: int = 1024,
+    width: int = 1024,
+    num_reference_images: int = 0,
+    hbm_bytes: Optional[int] = None,
+) -> FeasibilityReport:
+    """Pre-check with actionable suggestions; ``hbm_bytes`` defaults to the
+    CUDA devices' total memory."""
+    required = estimate_generation_bytes(model, quantization, height, width, num_reference_images)
+    available = hbm_bytes if hbm_bytes is not None else total_device_bytes()
+    suggestions: List[str] = []
+    if required > available:
+        if quantization == "bf16":
+            suggestions.append("use --quantization qint8 (-47%) or int4 (-72%)")
+        if height * width > 1024 * 1024:
+            suggestions.append("reduce resolution (activation memory scales with tokens)")
+        if num_reference_images > 1:
+            suggestions.append("fewer reference images, or klein-9b-kv (caches reference K/V)")
+    return FeasibilityReport(
+        feasible=required <= available,
+        required_gb=required / 1024**3,
+        available_gb=available / 1024**3,
+        suggestions=suggestions,
+    )
+
+
+def recommended_quantization(model: Flux2Model, hbm_bytes: Optional[int] = None) -> str:
+    """The largest format that fits."""
+    for fmt in ("bf16", "qint8", "int4"):
+        if check_feasibility(model, fmt, hbm_bytes=hbm_bytes).feasible:
+            return fmt
+    return "int4"
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryProfile:
+    """A named bundle of memory/speed knobs (JAX ``MemoryProfile``)."""
+
+    name: str
+    remat: Union[bool, str]  # transformer remat policy (False / 'dots' / 'block'); carried, not read
+    vae_tile_threshold_px: int  # tile the VAE decode above this edge length
+    max_checkpoint_latents: int  # cap on retained every-Nth checkpoint latents; carried, not read
+
+    @staticmethod
+    def named(name: str) -> "MemoryProfile":
+        return MEMORY_PROFILES[name]
+
+
+MEMORY_PROFILES: Dict[str, MemoryProfile] = {
+    "performance": MemoryProfile("performance", False, 2048, 32),
+    "balanced": MemoryProfile("balanced", "dots", 2048, 16),
+    "conservative": MemoryProfile("conservative", "block", 1024, 4),
+}
+
+
+def auto_profile(model: Flux2Model, quantization: str = "bf16", hbm_bytes: Optional[int] = None) -> MemoryProfile:
+    """Pick a profile by the estimated 1024^2 working set's share of device memory."""
+    required = estimate_generation_bytes(model, quantization)
+    available = hbm_bytes if hbm_bytes is not None else total_device_bytes()
+    ratio = required / max(available, 1)
+    if ratio < 0.5:
+        return MEMORY_PROFILES["performance"]
+    if ratio < 0.8:
+        return MEMORY_PROFILES["balanced"]
+    return MEMORY_PROFILES["conservative"]
 
 
 @dataclasses.dataclass

@@ -135,6 +135,46 @@ def test_tiny_i2i_generate_launches_k1_on_every_attention(device, monkeypatch, m
     assert res.image.shape == (256, 256, 3)
 
 
+def test_tiny_inpaint_keeps_the_source_tokens_to_the_bit(device):
+    """A 256^2 RePaint inpaint on the card, the source as I2I reference: the
+    tokens outside the mask equal the clean source latents to the bit (the
+    hook's float32 blend at sigma_next == 0), those inside moved; K1 launched
+    3 times a step."""
+    import numpy as np
+
+    from flux2_tpu_torch.chains.inpaint import MaskedInpaintingChain, pack_mask_for_latent_blending
+
+    pipe = _tiny_pipeline(device, "klein-4b")
+    image = np.random.RandomState(2).rand(256, 256, 3).astype(np.float32)
+    mask = np.zeros((256, 256), np.float32)
+    mask[64:192, 64:192] = 1.0
+    emb = torch.randn(1, 8, 96, device=device, generator=torch.Generator(device).manual_seed(1))
+    before = tfa.launch_counts()["flash"]
+    res = MaskedInpaintingChain(pipe, "x", image, mask, embeddings=emb, use_image_as_reference=True, steps=4).run()
+    assert tfa.launch_counts()["flash"] - before == 3 * 4
+    source = pipe.encode_image_to_packed_sequence(image)
+    keep = pack_mask_for_latent_blending(mask, 256, 256)[0, :, 0].to(device) == 0
+    assert torch.equal(res.latents[0, keep], source[0, keep])
+    assert float((res.latents[0, ~keep] - source[0, ~keep]).abs().max()) > 0.1
+
+
+def test_cancel_after_step_2_of_4_runs_3_steps_of_k1(device):
+    """on_progress sets the flag at step 2: the flag is read after step 3, as
+    JAX reads it, so 3 steps of 3 K1 launches run."""
+    import threading
+
+    from flux2_tpu_torch.pipeline.pipeline import GenerationCancelled
+
+    pipe = _tiny_pipeline(device, "klein-4b")
+    cancel = threading.Event()
+    emb = torch.randn(1, 8, 96, device=device, generator=torch.Generator(device).manual_seed(1))
+    before = tfa.launch_counts()["flash"]
+    with pytest.raises(GenerationCancelled, match=r"^cancelled at step 3/4$"):
+        pipe.generate(embeddings=emb, height=256, width=256, num_steps=4, cancel=cancel,
+                      on_progress=lambda k, n: cancel.set() if k >= 2 else None)
+    assert tfa.launch_counts()["flash"] - before == 3 * 3
+
+
 def test_wrapper_raises_on_what_the_kernel_does_not_take(device):
     q, k, v = _qkv(device, 1, 2, 256, 256)
     with pytest.raises(TypeError):

@@ -293,8 +293,8 @@ def test_i2i_flags_equal_jax():
                                                                      jdefaults["max_ref_megapixels"]) == (1.0, 1.0)
 
 
-@pytest.mark.parametrize("extra", [[], ["--upsample"], ["--interpret", "c.png"], ["--checkpoint-every", "2"]],
-                         ids=["no_reference", "upsample", "interpret", "checkpoint_every"])
+@pytest.mark.parametrize("extra", [[], ["--upsample"], ["--interpret", "c.png"], ["--lora", "x.safetensors"]],
+                         ids=["no_reference", "upsample", "interpret", "lora"])
 def test_unported_i2i_flags_are_refused(extra, capsys):
     argv = ["i2i", *extra] if not extra else ["i2i", "--reference", "a.png", *extra]
     if extra:

@@ -9,9 +9,12 @@ on the CPU through the server, a tiny w8a8 pipeline built by the CLI's
 loaders, registry, facade, profiler and memory telemetry), I2I: a request with a
 base64 PNG reference through the server, a klein-9b-kv generate on the
 KV-cached path, and ``i2i`` from the checkpoint directories (the VAE
-encoder's loader), and reports whether any ``jax`` or ``flux2_tpu`` module
-was loaded. (The suite's conftest
-imports JAX, so this must run in a subprocess.)
+encoder's loader), the editing slice: an inpaint and an outpaint through the
+chains (``utils/native.py``'s image ops), a generate with a step hook and
+every callback, a tiled decode under a memory profile and ``auto_profile``
+(``utils/memory.py``), and reports whether any ``jax`` or ``flux2_tpu``
+module was loaded. (The suite's conftest imports JAX, so this must run in a
+subprocess.)
 """
 
 import json
@@ -90,6 +93,25 @@ with tempfile.TemporaryDirectory() as tmp:
     ckpt_png = list(decode_png(open(os.path.join(tmp, "x.png"), "rb").read()).shape)
     cli.main(["i2i", *flags, "--reference", os.path.join(tmp, "x.png"), "-o", os.path.join(tmp, "y.png")])
     i2i_ckpt_png = list(decode_png(open(os.path.join(tmp, "y.png"), "rb").read()).shape)
+# the editing slice: chains, hooks and callbacks, tiled decode, memory profiles
+import numpy as np
+from flux2_tpu_torch.chains.inpaint import MaskedInpaintingChain
+from flux2_tpu_torch.chains.outpaint import OutpaintingChain
+from flux2_tpu_torch.utils import memory, native
+src = np.random.RandomState(0).rand(32, 32, 3).astype(np.float32)
+mask = np.zeros((32, 32), np.float32)
+mask[8:24, 8:24] = 1.0
+inpainted = MaskedInpaintingChain(pipe, "x", src, mask, embeddings=torch.zeros(1, 4, 32), steps=2,
+                                  mask_crop_padding=4, composite_on_original=True).run()
+outpainted = OutpaintingChain(pipe, src, "x", left=32, steps=2, embeddings=torch.zeros(1, 4, 32)).run()
+seen = []
+pipe.generate(embeddings=torch.zeros(1, 4, 32), height=32, width=32, num_steps=2,
+              step_hook=lambda lat, s, sn, i: lat, on_progress=lambda k, n: seen.append(k),
+              on_latents=lambda k, lat: seen.append(lat.shape), checkpoint_interval=1,
+              on_checkpoint=lambda k, img: seen.append(img.shape))
+pipe.memory_profile = dataclasses.replace(memory.MemoryProfile.named("conservative"), vae_tile_threshold_px=16)
+tiled = pipe.decode_latents_u8(torch.zeros(1, 4, 128), 32, 32)
+profile = memory.auto_profile(Flux2Model.KLEIN_4B, hbm_bytes=80 * 2**30).name
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
                   "flux2_tpu": sorted(m for m in sys.modules if m == "flux2_tpu" or m.startswith("flux2_tpu.")),
                   "image": list(res.image.shape), "png": list(decode_png(png).shape),
@@ -97,7 +119,10 @@ print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.starts
                   "w8a8": sorted(set(quant.quantized_names(qpipe.transformer).values())),
                   "train_steps": [r["step"] for r in hist], "checkpoints": ckpt, "checkpoint_png": ckpt_png,
                   "i2i_png": list(decode_png(i2i_png).shape), "kv_latents": list(kv_res.latents.shape),
-                  "i2i_checkpoint_png": i2i_ckpt_png}))
+                  "i2i_checkpoint_png": i2i_ckpt_png, "inpaint": list(inpainted.image.shape),
+                  "outpaint": list(outpainted.image.shape), "callbacks": [list(x) if isinstance(x, tuple) else x
+                                                                         for x in seen],
+                  "tiled": list(tiled.shape), "auto_profile": profile, "native": native.path_name() != "numpy"}))
 """
 
 
@@ -111,4 +136,6 @@ def test_port_runs_without_importing_jax():
     assert report == {"jax": [], "flux2_tpu": [], "image": [32, 32, 3], "png": [32, 32, 3], "w8a8_image": [32, 32, 3],
                       "w8a8": ["w8a8"], "train_steps": [1], "checkpoints": ["checkpoint_000001", "learning_curve.svg"],
                       "checkpoint_png": [32, 32, 3], "i2i_png": [32, 32, 3], "kv_latents": [1, 4, 128],
-                      "i2i_checkpoint_png": [32, 32, 3]}
+                      "i2i_checkpoint_png": [32, 32, 3], "inpaint": [32, 32, 3], "outpaint": [32, 64, 3],
+                      "callbacks": [1, [1, 4, 128], 2, [1, 4, 128], [32, 32, 3]], "tiled": [1, 32, 32, 3],
+                      "auto_profile": "performance", "native": True}

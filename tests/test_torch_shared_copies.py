@@ -6,8 +6,13 @@ ways), the leveled logger, and what
 pruning, learning-curve SVG, training variant). The I2I slice's copies give
 JAX's results to the bit: custom sigma schedules, ``scale_noise``,
 ``patchify_latents``, the reference position ids, the BatchNorm
-normalization and ``_downscale_to_max_pixels`` (both of its branches). Also:
-the port's entry points default to the card and take the CPU only when asked.
+normalization and ``_downscale_to_max_pixels`` (both of its branches). The
+editing slice's copies: the chains' mask and crop geometry and outpaint
+canvas (equal to the bit), their float helpers (within 1e-6), and
+``utils/native.py``'s numpy path (equal to JAX's fallback to the bit) and its
+C++ path (within 1e-6 of it); the memory estimates are held in
+tests/test_torch_hooks.py. Also: the port's entry points default to the card
+and take the CPU only when asked.
 
 ``jax_config`` builds the JAX package's config class from a port config's
 numbers; the other CPU parity tests use it wherever they feed one config to
@@ -24,6 +29,9 @@ import numpy as np
 import pytest
 import torch
 
+from flux2_tpu.chains import inpaint as jinpaint
+from flux2_tpu.chains import outpaint as joutpaint
+from flux2_tpu.chains.subject_mask import _dilate, _inward_ramp
 from flux2_tpu.cli import train as jtrain_cli
 from flux2_tpu.io import registry as jregistry
 from flux2_tpu.io import safetensors_io as jst
@@ -36,6 +44,9 @@ from flux2_tpu.pipeline import pipeline as jpipeline
 from flux2_tpu.training import control as jcontrol
 from flux2_tpu.utils import dev_tokenizer as jtok
 from flux2_tpu.utils import logging as jlog
+from flux2_tpu.utils import native as jnative
+from flux2_tpu_torch.chains import inpaint as tinpaint
+from flux2_tpu_torch.chains import outpaint as toutpaint
 from flux2_tpu_torch.cli import main as tcli
 from flux2_tpu_torch.cli import train_config as ttrain_cfg
 from flux2_tpu_torch.io import registry as tregistry
@@ -51,6 +62,7 @@ from flux2_tpu_torch.training import control as tcontrol
 from flux2_tpu_torch.training.trainer import TrainConfig
 from flux2_tpu_torch.utils import dev_tokenizer as ttok
 from flux2_tpu_torch.utils import logging as tlog
+from flux2_tpu_torch.utils import native as tnative
 
 
 def jax_config(cfg):
@@ -261,6 +273,148 @@ def test_downscale_to_max_pixels_equals_jax(hw, max_pixels, branch, monkeypatch)
     assert port.shape[0] % 32 == 0 and port.shape[1] % 32 == 0
 
 
+# -- the editing chains' host helpers and native image ops -----------------------------
+
+
+def _masks() -> dict:
+    """Seeded masks of both conventions: grey [H, W] with a soft edge, RGB, RGBA with transparent holes."""
+    rng = np.random.RandomState(11)
+    grey = np.zeros((80, 96), np.float32)
+    grey[20:52, 30:70] = 1.0
+    grey[52:60, 30:70] = np.linspace(1.0, 0.0, 8, dtype=np.float32)[:, None]
+    rgba = rng.rand(80, 96, 4).astype(np.float32)
+    rgba[..., 3] = 1.0
+    rgba[10:30, 5:45, 3] = 0.0
+    rgba[30:34, 5:45, 3] = 0.4
+    return {"grey": (grey, jinpaint.GRAYSCALE_WHITE_INPAINT),
+            "rgb": (np.repeat(grey[..., None], 3, axis=2) * rng.uniform(0.9, 1.0, (80, 96, 3)).astype(np.float32),
+                    jinpaint.GRAYSCALE_WHITE_INPAINT),
+            "alpha": (rgba, jinpaint.ALPHA_TRANSPARENT_INPAINT)}
+
+
+def _geometry_cases():
+    masks = _masks()
+    img = np.random.RandomState(12).rand(80, 96, 3).astype(np.float32)
+    gen = np.random.RandomState(13).rand(32, 64, 3).astype(np.float32)
+    yield "resolve_chain_dimensions", lambda m: [m.resolve_chain_dimensions(w, h, mp) for w, h, mp in (
+        (96, 80, 4 << 20), (4000, 3000, 4 << 20), (1000, 37, 1 << 20), (17, 17, 1 << 20), (1023, 2049, 2 << 20))]
+    for name, (mask, conv) in masks.items():
+        yield f"mask_bounding_box_{name}", lambda m, mask=mask, conv=conv: (
+            m.mask_bounding_box(mask, conv), m.mask_bounding_box(mask, conv, threshold=0.3),
+            m.mask_bounding_box(np.zeros_like(mask), conv) if conv == jinpaint.GRAYSCALE_WHITE_INPAINT else None)
+        yield f"pack_mask_{name}", lambda m, mask=mask, conv=conv: [
+            np.asarray(m.pack_mask_for_latent_blending(mask, th, tw, conv)) for th, tw in ((64, 96), (80, 96), (32, 32))]
+        yield f"composite_{name}", lambda m, mask=mask, conv=conv: (
+            m.composite_on_original(img, gen, mask[32:64, 16:80], (16, 32, 80, 64), conv),
+            m.composite_on_original(img, np.random.RandomState(14).rand(80, 96, 3).astype(np.float32), mask, None,
+                                    conv))
+    yield "expand_crop_region", lambda m: [m.expand_crop_region(b, p, 96, 80) for b, p in (
+        ((30, 20, 70, 60), 8), ((0, 0, 5, 5), 0), ((90, 70, 96, 80), 16), ((10, 10, 11, 79), 3), ((1, 1, 95, 79), 40))]
+    yield "resize_rgb_pil", lambda m: m._resize_rgb(img, 48, 40)
+    yield "round_up_32", lambda m: [m.round_up_32(v) for v in (0, 1, 31, 32, 33, 128, 129)]
+    yield "build_outpaint_canvas", lambda m: [m.build_outpaint_canvas(img, t, b, l, r, seed) for t, b, l, r, seed in (
+        (32, 0, 32, 64, 0), (0, 32, 0, 0, 1234), (64, 64, 64, 64, -5), (32, 32, 0, 0, 2**40 + 7))]
+    yield "build_smart_mask", lambda m: [m.build_smart_mask(*args) for args in (
+        (96, 160, 32, 32, 96, 64, 32), (80, 96, 0, 0, 64, 80, 32), (80, 96, 32, 0, 64, 80, 8),
+        (64, 64, 16, 16, 32, 32, 64), (48, 48, 0, 16, 48, 1, 32))]
+
+
+GEOMETRY_CASES = dict(_geometry_cases())
+CHAIN_MODULES = {name: (tinpaint, jinpaint) for name in GEOMETRY_CASES}
+CHAIN_MODULES.update({name: (toutpaint, joutpaint) for name in GEOMETRY_CASES
+                      if name in ("round_up_32", "build_outpaint_canvas", "build_smart_mask")})
+FLOAT_HELPERS = ("composite_grey", "composite_rgb", "composite_alpha")
+
+
+def _flatten(x) -> list:
+    if isinstance(x, (list, tuple)):
+        return [y for v in x for y in _flatten(v)]
+    return [x]
+
+
+@pytest.mark.parametrize("name", list(GEOMETRY_CASES))
+def test_chain_host_helper_equals_jax(name, monkeypatch):
+    """Geometry and canvases equal to the bit; the composites and the latent
+    masks within 1e-6 (through the native ops, each package its own build)."""
+    port_mod, jax_mod = CHAIN_MODULES[name]
+    got, ref = _flatten(GEOMETRY_CASES[name](port_mod)), _flatten(GEOMETRY_CASES[name](jax_mod))
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        if isinstance(b, np.ndarray) or hasattr(b, "shape"):
+            a, b = np.asarray(a), np.asarray(b)
+            assert a.shape == b.shape and a.dtype == b.dtype, name
+            if name in FLOAT_HELPERS or name.startswith("pack_mask"):
+                np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+            else:
+                assert np.array_equal(a, b), name
+        else:
+            assert a == b, name
+
+
+def test_resize_rgb_numpy_branch_equals_jax(monkeypatch):
+    monkeypatch.setitem(__import__("sys").modules, "PIL", None)  # JAX's ImportError fallback
+    img = np.random.RandomState(15).rand(50, 70, 3).astype(np.float32)
+    assert np.array_equal(tinpaint._resize_rgb(img, 32, 96), jinpaint._resize_rgb(img, 32, 96))
+
+
+def _native_cases():
+    rng = np.random.RandomState(16)
+    plane, img = rng.rand(97, 53).astype(np.float32), rng.rand(31, 41, 3).astype(np.float32)
+    orig, gen, m = rng.rand(40, 30, 3).astype(np.float32), rng.rand(40, 30, 3).astype(np.float32), rng.rand(40, 30)
+    u8 = (rng.rand(20, 24, 3) * 255).astype(np.uint8)
+    return {
+        "area_resize": lambda n: [n.area_resize(plane, dh, dw) for dh, dw in ((8, 8), (97, 53), (5, 13), (40, 30))],
+        "resize_bilinear": lambda n: [n.resize_bilinear(img, dh, dw) for dh, dw in ((17, 23), (31, 41), (64, 9))],
+        "u8_to_f32": lambda n: n.u8_to_f32(u8),
+        "f32_to_u8": lambda n: n.f32_to_u8(np.concatenate([img, -img, img * 3.0], axis=0)),
+        "soft_composite": lambda n: n.soft_composite(orig, gen, m.astype(np.float32)),
+    }
+
+
+NATIVE_CASES = _native_cases()
+
+
+@pytest.mark.parametrize("name", list(NATIVE_CASES))
+@pytest.mark.parametrize("path", ["numpy", "cpp"])
+def test_native_op_equals_jax(name, path, monkeypatch):
+    """Each path against JAX's same path: the numpy fallbacks (forced in both)
+    equal to the bit; the port's C++ build within 1e-6 of JAX's (one source,
+    JAX's built with -march=native). The two paths differ from each other by
+    up to ~2e-6 (bilinear: float32 weights in C++, float64 in numpy)."""
+    if path == "numpy":
+        monkeypatch.setattr(jnative, "_load", lambda: None)
+        monkeypatch.setattr(tnative, "_load", lambda: None)
+    else:
+        assert tnative.available() and jnative.available(), "g++ should build native/image_ops.cpp"
+    for a, b in zip(_flatten(NATIVE_CASES[name](tnative)), _flatten(NATIVE_CASES[name](jnative))):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if path == "numpy" or a.dtype == np.uint8:
+            assert np.array_equal(a, b), name
+        else:
+            np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+
+
+def test_native_dilate_ramp_equals_jax_numpy_reference(monkeypatch):
+    """Without the library both return None (callers keep their fallback); the
+    port's C++ build equals JAX's iterated-erosion reference within 1e-6."""
+    monkeypatch.setattr(jnative, "_load", lambda: None)
+    mask = (np.random.RandomState(17).rand(48, 64) > 0.85).astype(np.float32)
+    assert jnative.dilate_ramp(mask, 3, 4) is None
+    for dilation, ramp in ((0, 0), (2, 0), (0, 3), (3, 4), (8, 16)):
+        got = tnative.dilate_ramp(mask, dilation, ramp)
+        np.testing.assert_allclose(got, _inward_ramp(_dilate(mask, dilation), ramp), atol=1e-6, rtol=0)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
+    assert tnative.dilate_ramp(mask, 3, 4) is None
+
+
+def test_native_builds_under_build_not_native():
+    """The port's library lives in build/native/, named by the source's hash;
+    it never loads the JAX package's native/libflux2_image_ops.so."""
+    path = tnative.library_path()
+    assert path.parent.parts[-2:] == ("build", "native") and tnative.available()
+    assert tnative.path_name() == path.name and path.exists()
+
+
 # -- training control and state ----------------------------------------------------
 
 
@@ -361,8 +515,10 @@ def test_logging_equals_jax(capsys):
 
 
 @pytest.mark.parametrize("argv", [["t2i", "--random-init"], ["train-lora", "--config", "x.yaml", "--random-init"],
-                                  ["i2i", "--random-init", "--reference", "ref.png"]],
-                         ids=["t2i", "train-lora", "i2i"])
+                                  ["i2i", "--random-init", "--reference", "ref.png"],
+                                  ["inpaint", "--random-init", "--image", "a.png", "--mask", "m.png"],
+                                  ["outpaint", "--random-init", "--image", "a.png", "--left", "64"]],
+                         ids=["t2i", "train-lora", "i2i", "inpaint", "outpaint"])
 def test_cli_device_defaults_to_cuda(argv):
     assert tcli.parse_args(argv).device == "cuda"
     assert tcli.parse_args([*argv, "--device", "cpu"]).device == "cpu"
