@@ -36,7 +36,14 @@ and crop-and-stitch), `outpaint` 768^2 -> 1024^2, the per-step callbacks,
 checkpoint images, a cancel, the 2048^2 decode dense and tiled and `t2i
 --memory-profile conservative` at 2048^2, `t2i --small-decoder`,
 `auto_profile` on this card and a served request with a preview id; on
-klein-9b-kv, the RePaint hook as the identity. Every path runs with the launch
+klein-9b-kv, the RePaint hook as the identity. The serving slice (phase_http,
+phase_mask, on the same pipeline): the port's HTTP handler over Flux2Server on
+127.0.0.1 (every route and error; /generate at 1024^2 equal to the in-process
+generate to the bit, a 256^2 batch of three, previews, /embed equal to
+encode_prompt, cancel_all mid-batch), `python -m flux2_tpu_torch.serve
+--random-init --quantization w8a8 --precompile 256` in a process of its own,
+then `mask-subject` on a 1024^2 synthetic composite (the committed U-Net on
+the card against the CPU) and `inpaint` with that mask. Every path runs with the launch
 counts set to 0 just before it and checks them just after. Any failure raises: the
 traceback is printed and the exit code is not 0. There is no CPU fallback.
 
@@ -61,6 +68,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -693,6 +701,7 @@ def build_pipeline():
     pipe = Flux2Pipeline.from_random(Flux2Model.KLEIN_4B, device="cuda", generator=gen)
     tokenizer = inline_bpe_tokenizer()
     pipe.text_encoder = qwen3_extractor(Qwen3Decoder(QWEN3_4B, device="cuda", generator=gen), tokenizer)
+    pipe.text_encoder_name = "qwen3-4b"
     torch.cuda.synchronize()
     return pipe, type(tokenizer).__name__
 
@@ -746,9 +755,9 @@ def phase_cfg_serve(pipe, card: str) -> dict:
     if img.shape != (1024, 1024, 3) or int(img.max()) == int(img.min()):
         raise AssertionError(f"CFG request: PNG {img.shape}, range {int(img.min())}..{int(img.max())}")
     (res,) = recorder.results
-    if tuple(res.latents.shape) != (1, 4096, 128) or not torch.isfinite(res.latents).all():
-        raise AssertionError(f"CFG request: latents {tuple(res.latents.shape)}, finite "
-                             f"{bool(torch.isfinite(res.latents).all())}")
+    if tuple(res.latents_device.shape) != (1, 4096, 128) or not torch.isfinite(res.latents_device).all():
+        raise AssertionError(f"CFG request: latents {tuple(res.latents_device.shape)}, finite "
+                             f"{bool(torch.isfinite(res.latents_device).all())}")
     want = {name: 0 for name in counts}
     want["flash"] = 25 * 4
     if counts != want:
@@ -783,12 +792,10 @@ def _s_per_step(res) -> float:
 
 
 def _png_of(image) -> bytes:
-    """The server's PNG of a generate() image."""
-    import numpy as np
+    """The server's PNG of a generate() image (JAX's pixels: ``to_u8`` truncates)."""
+    from flux2_tpu_torch.io.png import encode_png, to_u8
 
-    from flux2_tpu_torch.io.png import encode_png
-
-    return encode_png(np.rint(np.clip(image, 0.0, 1.0) * 255.0).astype(np.uint8))
+    return encode_png(to_u8(image))
 
 
 def _filtered_png(image_u8) -> tuple:
@@ -879,9 +886,9 @@ def phase_i2i(pipe, card: str) -> dict:
     res = pipe.generate(**i2i)
     counts = i2i_counts = _launch_counts()
     _check_launches("Klein-4B 1024^2 I2I", counts, 25 * 4)
-    if tuple(res.latents.shape) != (1, 4096, 128) or not torch.isfinite(res.latents).all():
-        raise AssertionError(f"I2I latents {tuple(res.latents.shape)}, finite "
-                             f"{bool(torch.isfinite(res.latents).all())}")
+    if tuple(res.latents_device.shape) != (1, 4096, 128) or not torch.isfinite(res.latents_device).all():
+        raise AssertionError(f"I2I latents {tuple(res.latents_device.shape)}, finite "
+                             f"{bool(torch.isfinite(res.latents_device).all())}")
     warm_i2i = pipe.generate(**{**i2i, "decode": False})
     warm_t2i = pipe.generate(prompt=I2I_PROMPT, height=1024, width=1024, num_steps=4, seed=7, decode=False)
     log(f"[i2i] Klein-4B 1024^2 with one 1024^2 reference (S = 512 + 4096 + 4096 = 8704): launches {counts}; "
@@ -894,9 +901,9 @@ def phase_i2i(pipe, card: str) -> dict:
     strong = pipe.generate(**i2i, strength=0.5, init_latents=init)
     counts = _launch_counts()
     _check_launches("strength 0.5", counts, 25 * 2)
-    if strong.num_steps != 2 or not torch.isfinite(strong.latents).all():
+    if strong.num_steps != 2 or not torch.isfinite(strong.latents_device).all():
         raise AssertionError(f"strength 0.5 ran {strong.num_steps} steps, finite "
-                             f"{bool(torch.isfinite(strong.latents).all())}")
+                             f"{bool(torch.isfinite(strong.latents_device).all())}")
     log(f"[i2i] strength 0.5, the reference as init: {strong.num_steps} of 4 steps, launches {counts}, "
         f"{_s_per_step(strong):.4f} s/step [{card}]")
 
@@ -926,9 +933,10 @@ def phase_i2i(pipe, card: str) -> dict:
     finally:
         server.shutdown()
     _check_launches("two I2I requests", counts, 25 * 4 + 25 * 2)
-    if (server.batches_run, server.requests_served) != (2, 2) or [len(r.latents) for r in recorder.results] != [1, 1]:
+    if ((server.batches_run, server.requests_served) != (2, 2)
+            or [len(r.latents_device) for r in recorder.results] != [1, 1]):
         raise AssertionError(f"{server.requests_served} I2I requests in {server.batches_run} batches of "
-                             f"{[len(r.latents) for r in recorder.results]}, want 2 batches of one")
+                             f"{[len(r.latents_device) for r in recorder.results]}, want 2 batches of one")
     for png in pngs:
         img = decode_png(png)
         if img.shape != (1024, 1024, 3) or int(img.max()) == int(img.min()):
@@ -1065,9 +1073,9 @@ def phase_kv_cli(card: str, workdir: str) -> dict:
         hooked = pipe.generate(**i2i, step_hook=identity)
         counts_hook = _launch_counts()
     _check_launches("klein-9b-kv I2I with the identity RePaint hook", counts_hook, 32 + 3 * 32)
-    if split_hook.counts != split.counts or not torch.equal(hooked.latents, kv.latents):
+    if split_hook.counts != split.counts or not torch.equal(hooked.latents_device, kv.latents_device):
         raise AssertionError(f"klein-9b-kv with the identity hook: {split_hook.counts}; latents equal to the "
-                             f"unhooked call's: {torch.equal(hooked.latents, kv.latents)}")
+                             f"unhooked call's: {torch.equal(hooked.latents_device, kv.latents_device)}")
     log(f"[kv] klein-9b-kv I2I with the RePaint hook, mask 1 everywhere: K1 {split_hook.counts['extract']} inside "
         f"forward_kv_extract + {split_hook.counts['cached']} inside forward_kv_cached, as without it; latents equal "
         f"to the unhooked call's to the bit; {_s_per_step(hooked):.4f} s/step [{card}]")
@@ -1240,9 +1248,9 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
     launches["inpaint"] = counts["flash"]
     source = pipe.encode_image_to_packed_sequence(src)
     keep = pack_mask_for_latent_blending(mask, 1024, 1024)[0, :, 0].cuda() == 0
-    moved = float((res.latents[0, ~keep] - source[0, ~keep]).abs().max())
-    if not torch.equal(res.latents[0, keep], source[0, keep]) or not moved > 0:
-        raise AssertionError(f"inpaint: kept tokens equal to the source {torch.equal(res.latents[0, keep], source[0, keep])}"
+    moved = float((res.latents_device[0, ~keep] - source[0, ~keep]).abs().max())
+    if not torch.equal(res.latents_device[0, keep], source[0, keep]) or not moved > 0:
+        raise AssertionError(f"inpaint: kept tokens equal to the source {torch.equal(res.latents_device[0, keep], source[0, keep])}"
                              f", masked tokens moved by {moved}")
     _valid_image("inpaint", res.image, (1024, 1024, 3))
     out["inpaint_s_per_step"] = _s_per_step(res)
@@ -1481,6 +1489,432 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
     log(f"[edit] served 1024^2 requests: without a preview id no on_latents; with one, get_preview gives step "
         f"{preview['step']}/{preview['total']}, a {len(preview['png'])}-byte 128^2 PNG; launches {counts} [{card}]")
     out["launches"] = launches
+    return out
+
+
+class _Http:
+    """Requests to a server on 127.0.0.1: each on its own connection, the
+    status, headers and body returned whatever the status."""
+
+    def __init__(self, port: int):
+        self.port = port
+
+    def __call__(self, method: str, path: str, payload=None, raw: bytes = None, timeout: float = 600.0):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=timeout)
+        try:
+            body = raw if raw is not None else (json.dumps(payload).encode() if payload is not None else None)
+            conn.request(method, path, body=body, headers={"Content-Type": "application/json"} if body else {})
+            resp = conn.getresponse()
+            return resp.status, dict(resp.getheaders()), resp.read()
+        finally:
+            conn.close()
+
+
+def _serve_thread(server):
+    """(ThreadingHTTPServer over ``server`` on 127.0.0.1:0 serving in a thread, its _Http)."""
+    from http.server import ThreadingHTTPServer
+
+    from flux2_tpu_torch.serve import make_handler
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, _Http(httpd.server_address[1])
+
+
+def _expect(label: str, status: int, want: int, body: bytes) -> None:
+    if status != want:
+        raise AssertionError(f"{label}: HTTP {status}, want {want}: {body[:300]!r}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+HTTP_PROMPT = "a lighthouse on a cliff at dusk, over HTTP"
+
+
+def phase_http(pipe, card: str) -> dict:
+    """The HTTP layer on the bf16 Klein-4B pipeline: the port's ``make_handler``
+    over ``Flux2Server(pipe, embeddings_fn=pipe.encode_prompt)`` on a
+    ThreadingHTTPServer at 127.0.0.1:0. GET /health, /info (cuda, the card
+    count, klein-4b), /models (the card's memory), / (the page); POST /generate
+    at 1024^2, 4 steps, as PNG and as JSON, pixels equal to an in-process
+    generate's to the bit (K1 exactly 100 each); three concurrent 256^2 POSTs
+    in one batch (K1 100); /preview 404 before the first step, then 200 with
+    X-Step in 1..4 and X-Total-Steps 4; /embed equal to encode_prompt to the
+    bit (npy) and its stats (json); /chat and streaming /chat 503; bad JSON
+    400; a full queue 503; a tiny timeout_s 504; cancel_all during a 1024^2
+    batch: 400 "cancelled at step k/4" after 25 k launches. Every request runs
+    with the launch counts set to 0 just before it and checked just after.
+    Then ``python -m flux2_tpu_torch.serve --random-init --quantization w8a8
+    --precompile 256`` in a process of its own: two identical 256^2 requests,
+    valid PNGs equal to each other."""
+    import base64
+    import io
+
+    import numpy as np
+
+    from flux2_tpu_torch.io.png import decode_png, encode_png, to_u8
+    from flux2_tpu_torch.serve import _DEMO_HTML, Flux2Server, _Pending
+
+    out = {}
+    server = Flux2Server(pipe, embeddings_fn=pipe.encode_prompt, batch_window_s=2.0)
+    httpd, http = _serve_thread(server)
+    try:
+        def counted(label, flash, method, path, payload=None, raw=None):
+            _zero_launches()
+            t0 = time.perf_counter()
+            status, headers, body = http(method, path, payload, raw)
+            wall = time.perf_counter() - t0
+            counts = _launch_counts()
+            _check_launches(label, counts, flash)
+            out.setdefault("launches", {})[label] = counts["flash"]
+            return status, headers, body, wall
+
+        status, _, body, _ = counted("GET /health", 0, "GET", "/health")
+        _expect("GET /health", status, 200, body)
+        status, _, body, _ = counted("GET /info", 0, "GET", "/info")
+        _expect("GET /info", status, 200, body)
+        info = json.loads(body)
+        if (info["backend"], info["devices"], info["model"]) != ("cuda", torch.cuda.device_count(), "klein-4b"):
+            raise AssertionError(f"/info: {info}")
+        status, _, body, _ = counted("GET /models", 0, "GET", "/models")
+        _expect("GET /models", status, 200, body)
+        models = json.loads(body)
+        limit = torch.cuda.get_device_properties(0).total_memory
+        if models["memory"]["bytes_limit"] != limit or models["loaded"]["model"] != "klein-4b":
+            raise AssertionError(f"/models: memory {models['memory']}, loaded {models['loaded']}")
+        status, headers, body, _ = counted("GET /", 0, "GET", "/")
+        _expect("GET /", status, 200, body)
+        if body != _DEMO_HTML.encode() or headers["Content-Type"] != "text/html; charset=utf-8":
+            raise AssertionError("GET /: not the web UI")
+        log(f"[http] /health, /info {info['backend']} x{info['devices']}, /models (memory "
+            f"{models['memory']['bytes_limit'] / 2**30:.2f} GiB, recommended {models['recommended_quantization']}), "
+            f"/ ({len(body)} bytes): launches 0 [{card}]")
+
+        # /generate at 1024^2: PNG and JSON, against the in-process generate
+        req = {"prompt": HTTP_PROMPT, "height": 1024, "width": 1024, "steps": 4, "seed": 21}
+        walls = {"png": [], "json": [], "in_process": []}
+        for rep in range(3):
+            status, headers, body, wall = counted("POST /generate (PNG)", 100, "POST", "/generate", req)
+            _expect("POST /generate", status, 200, body)
+            walls["png"].append(wall)
+            png = body
+            status, headers, body, wall = counted("POST /generate (json)", 100, "POST", "/generate",
+                                                  dict(req, format="json"))
+            _expect("POST /generate json", status, 200, body)
+            walls["json"].append(wall)
+            json_png = base64.b64decode(json.loads(body)["image_png_base64"])
+            _zero_launches()
+            t0 = time.perf_counter()
+            direct = server.generate_png(req)
+            walls["in_process"].append(time.perf_counter() - t0)
+            _check_launches("generate_png in the process", _launch_counts(), 100)
+        res = pipe.generate(prompt=HTTP_PROMPT, height=1024, width=1024, num_steps=4, seed=21)
+        want = to_u8(res.image)
+        for label, data in (("PNG", png), ("json", json_png), ("generate_png", direct)):
+            if not np.array_equal(decode_png(data), want):
+                raise AssertionError(f"/generate {label}: pixels differ from the in-process generate's")
+        image_u8 = decode_png(png)
+        t_encode = [time.perf_counter()]
+        for _ in range(5):
+            encode_png(image_u8)
+            t_encode.append(time.perf_counter())
+        out["encode_png_s"] = statistics.median(b - a for a, b in zip(t_encode, t_encode[1:]))
+        out["generate_s"] = {k: statistics.median(v[1:]) for k, v in walls.items()}
+        log(f"[http] POST /generate 1024^2, 4 steps: PNG and json bodies and generate_png equal to the in-process "
+            f"generate to the bit; K1 100 each; warm median of 2 (first in brackets): PNG "
+            f"{out['generate_s']['png']:.4f} s ({walls['png'][0]:.4f}), json {out['generate_s']['json']:.4f} s "
+            f"({walls['json'][0]:.4f}), in-process generate_png {out['generate_s']['in_process']:.4f} s "
+            f"({walls['in_process'][0]:.4f}); the stdlib PNG encode of the 1024^2 image alone "
+            f"{out['encode_png_s']:.4f} s; PNG {len(png)} bytes, json {len(body)} [{card}]")
+
+        # three concurrent 256^2 requests: one batch
+        small = [{"prompt": f"a small red fox over HTTP, variant {i}", "height": 256, "width": 256, "steps": 4,
+                  "seed": 30 + i} for i in range(3)]
+        for p in small:
+            pipe.encode_prompt(p["prompt"])  # encoded before, so the three reach the queue together
+        batches, results = server.batches_run, [None] * 3
+        _zero_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda i=i: results.__setitem__(i, http("POST", "/generate", small[i])))
+                   for i in range(3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        _check_launches("three concurrent 256^2 requests", _launch_counts(), 100)
+        for r in results:
+            _expect("POST /generate 256^2", r[0], 200, r[2])
+            if decode_png(r[2]).shape != (256, 256, 3):
+                raise AssertionError("256^2 request: wrong shape")
+        if server.batches_run != batches + 1:
+            raise AssertionError(f"three 256^2 requests ran in {server.batches_run - batches} batches, want 1")
+        out["batch3_256_s"] = wall
+        log(f"[http] three concurrent 256^2 POSTs: one batch, K1 100, {wall:.4f} s wall (with the 2 s window) "
+            f"[{card}]")
+
+        # /preview: 404 before the first step, then 200 with the step
+        status, _, body, _ = counted("GET /preview (before)", 0, "GET", "/preview?id=http-preview")
+        _expect("GET /preview before the first step", status, 404, body)
+        seen, answer = [], []
+        sender = threading.Thread(target=lambda: answer.append(http("POST", "/generate",
+                                                                    dict(req, preview_id="http-preview"))))
+        _zero_launches()
+        sender.start()
+        while sender.is_alive():
+            st, headers, body = http("GET", "/preview?id=http-preview")
+            if st == 200:
+                seen.append((int(headers["X-Step"]), int(headers["X-Total-Steps"]), decode_png(body).shape))
+            time.sleep(0.02)
+        sender.join()
+        _check_launches("a request with a preview id", _launch_counts(), 100)
+        _expect("POST /generate with a preview id", answer[0][0], 200, answer[0][2])
+        if not seen or any(not 1 <= k <= 4 or n != 4 or shape != (128, 128, 3) for k, n, shape in seen):
+            raise AssertionError(f"/preview while running: {seen}")
+        log(f"[http] /preview: 404 before the first step; while running, steps {sorted(set(k for k, _, _ in seen))} "
+            f"of 4 seen in {len(seen)} polls, 128^2 PNGs [{card}]")
+
+        # /embed
+        prompt = "a bowl of ramen, embedded over HTTP"
+        status, headers, body, wall = counted("POST /embed (npy)", 0, "POST", "/embed",
+                                              {"prompt": prompt, "format": "npy"})
+        _expect("POST /embed npy", status, 200, body)
+        got = np.load(io.BytesIO(body))
+        ref = pipe.encode_prompt(prompt).to(torch.float32).cpu().numpy()
+        if got.dtype != np.float32 or not np.array_equal(got, ref):
+            raise AssertionError(f"/embed npy: {got.dtype} {got.shape}, equal {np.array_equal(got, ref)}")
+        status, _, body, wall_hit = counted("POST /embed (json)", 0, "POST", "/embed", {"prompt": prompt})
+        _expect("POST /embed json", status, 200, body)
+        stats = json.loads(body)
+        norms = np.linalg.norm(ref[0], axis=-1)
+        want_stats = {"shape": list(ref.shape), "dtype": "float32", "seq_len": int(ref.shape[-2]),
+                      "dim": int(ref.shape[-1]), "mean": float(ref.mean()), "std": float(ref.std()),
+                      "min": float(ref.min()), "max": float(ref.max()), "token_norm_mean": float(norms.mean()),
+                      "token_norm_max": float(norms.max())}
+        if stats != want_stats:
+            raise AssertionError(f"/embed json {stats} != {want_stats}")
+        out["embed_s"] = {"miss": wall, "hit": wall_hit}
+        log(f"[http] POST /embed: npy {list(got.shape)} float32 equal to encode_prompt to the bit ({wall:.4f} s, a "
+            f"new prompt), json stats equal ({wall_hit:.4f} s, an LRU hit) [{card}]")
+
+        # /chat: no encoder facade, so 503 both ways; errors
+        messages = [{"role": "user", "content": "hello"}]
+        for stream in (False, True):
+            status, _, body, _ = counted("POST /chat", 0, "POST", "/chat", {"messages": messages, "stream": stream})
+            _expect(f"POST /chat stream={stream}", status, 503, body)
+        status, _, body, _ = counted("bad JSON", 0, "POST", "/generate", raw=b"{bad json")
+        _expect("POST /generate with bad JSON", status, 400, body)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+
+    # a full queue (503) and a tiny timeout (504) on a server whose worker is stopped
+    idle = Flux2Server(pipe, embeddings_fn=pipe.encode_prompt, max_queue=1)
+    idle.shutdown()
+    httpd, http = _serve_thread(idle)
+    try:
+        _zero_launches()
+        status, _, body = http("POST", "/generate", dict(req, timeout_s=1e-6))
+        _expect("POST /generate timeout_s=1e-6", status, 504, body)
+        status, _, body = http("POST", "/generate", req)  # the abandoned request still fills the one slot
+        _expect("POST /generate to a full queue", status, 503, body)
+        _check_launches("504 and 503", _launch_counts(), 0)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    log(f"[http] bad JSON 400, /chat 503 (JSON and streaming), timeout_s=1e-6 504, a full queue 503: launches 0 "
+        f"[{card}]")
+
+    # cancel_all while a 1024^2 batch runs
+    server = Flux2Server(pipe, embeddings_fn=pipe.encode_prompt)
+    httpd, http = _serve_thread(server)
+    try:
+        answer = []
+        sender = threading.Thread(target=lambda: answer.append(http("POST", "/generate",
+                                                                    dict(req, seed=22, preview_id="cancel"))))
+        _zero_launches()
+        sender.start()
+        deadline = time.time() + 120
+        while server.get_preview("cancel") is None and time.time() < deadline:
+            time.sleep(0.005)
+        cancelled = server.cancel_all()
+        sender.join(timeout=120)
+        counts = _launch_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+    status, _, body = answer[0]
+    _expect("a request cancelled by cancel_all", status, 400, body)
+    error = json.loads(body)["error"]
+    m = re.fullmatch(r"GenerationCancelled: cancelled at step (\d)/4", error)
+    if m is None or cancelled != 1 or not 1 <= int(m.group(1)) < 4:
+        raise AssertionError(f"cancel_all: {cancelled} cancelled, answer {error!r}")
+    _check_launches("cancel_all during a 1024^2 batch", counts, 25 * int(m.group(1)))
+    out["cancel_step"] = int(m.group(1))
+    log(f"[http] cancel_all during a 1024^2 batch: 400 {error!r}, K1 {counts['flash']} launches [{card}]")
+
+    # python -m flux2_tpu_torch.serve in a process of its own, w8a8
+    out["serve_process"] = _serve_process(card)
+    return out
+
+
+def _serve_process(card: str) -> dict:
+    """``python -m flux2_tpu_torch.serve --random-init --quantization w8a8
+    --precompile 256 --port P``: its "serving on" line within 600 s, then two
+    identical 256^2 requests whose PNGs must be valid and equal; then stopped."""
+    import queue
+
+    from flux2_tpu_torch.io.png import decode_png
+
+    port = _free_port()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "flux2_tpu_torch.serve", "--random-init", "--quantization", "w8a8",
+                             "--precompile", "256", "--port", str(port)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(line) for line in proc.stdout], daemon=True).start()
+    try:
+        ready, seen = None, []
+        deadline = time.time() + 600
+        while ready is None:
+            try:
+                line = lines.get(timeout=max(0.1, deadline - time.time()))
+            except queue.Empty:
+                raise AssertionError(f"serve printed no 'serving on' line in 600 s: {seen[-5:]}") from None
+            seen.append(line.rstrip())
+            if line.strip():
+                log(f"[http serve] {line.rstrip()}")
+            if "serving on" in line:
+                ready = time.perf_counter() - t0
+            elif proc.poll() is not None and lines.empty():
+                raise AssertionError(f"serve exited {proc.returncode}: {seen[-5:]}")
+        http = _Http(port)
+        req = {"prompt": "a harbour at dawn, w8a8 over HTTP", "height": 256, "width": 256, "steps": 4, "seed": 3}
+        bodies, walls = [], []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            status, headers, body = http("POST", "/generate", req)
+            walls.append(time.perf_counter() - t1)
+            _expect("serve process POST /generate", status, 200, body)
+            bodies.append(body)
+        images = [decode_png(b) for b in bodies]
+        if images[0].shape != (256, 256, 3) or int(images[0].max()) == int(images[0].min()) or bodies[0] != bodies[1]:
+            raise AssertionError(f"serve process: {images[0].shape}, equal {bodies[0] == bodies[1]}")
+        precompile = [line for line in seen if line.startswith("precompiled")]
+        log(f"[http serve] `python -m flux2_tpu_torch.serve --random-init --quantization w8a8 --precompile 256`: "
+            f"'serving on' after {ready:.2f} s ({precompile}); two identical 256^2 requests: equal PNGs, "
+            f"{walls[0]:.4f} s and {walls[1]:.4f} s [{card}]")
+        return {"ready_s": ready, "request_s": walls}
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+MASK_SEED = 10_001
+SEG_REL_TOL = 1e-4  # the U-Net's probability, card against CPU, relative L2, both float32 without TF32
+
+
+def phase_mask(pipe, card: str, workdir: str) -> dict:
+    """Subject masks at 1024^2: a ``synth_composite`` (seed 10001) written as a
+    PNG; ``mask-subject`` on it through cli.main on the card; its PNG equal to
+    ``subject_mask`` computed in the process, through the same writer, to the
+    bit; the raw subject mask's IoU > 0.5 on JAX's fixture (the same seed at
+    256^2; JAX's criterion), the 1024^2 composite's logged; the U-Net's probability on the card against the same weights
+    on the CPU in float32 (both with TF32 off) within ``SEG_REL_TOL``; which
+    resize ran; then ``inpaint --mask`` with that mask on the composite at
+    1024^2, 4 steps: K1 exactly 100, the tokens the mask keeps equal to the
+    composite's latents to the bit."""
+    import numpy as np
+
+    from flux2_tpu_torch.chains import segmenter as seg
+    from flux2_tpu_torch.chains.inpaint import pack_mask_for_latent_blending
+    from flux2_tpu_torch.chains.subject_mask import default_segmenter, subject_mask
+    from flux2_tpu_torch.io.png import decode_image, encode_png, to_u8
+
+    out = {"resize": seg.resize_path()}
+    image, truth = seg.synth_composite(np.random.RandomState(MASK_SEED), size=1024)
+    image_path = _write_file(os.path.join(workdir, "composite.png"), encode_png(to_u8(image)))
+    mask_path = os.path.join(workdir, "mask.png")
+    _zero_launches()
+    t0 = time.perf_counter()
+    lines = _run_cli(["mask-subject", "--image", image_path, "-o", mask_path], "mask-subject", card, tag="mask")
+    out["command_s"] = time.perf_counter() - t0
+    _check_launches("mask-subject", _launch_counts(), 0)
+    report = json.loads(lines[-1])
+    loaded = decode_image(open(image_path, "rb").read())
+    model = default_segmenter("cuda")
+    mask = subject_mask(loaded, segmenter=model)
+    if not np.array_equal(_read_png(mask_path), to_u8(np.repeat(mask[..., None], 3, axis=-1))):
+        raise AssertionError("mask-subject's PNG differs from subject_mask in the process")
+    if report["segmenter"] != "unet":
+        raise AssertionError(f"mask-subject: {report}")
+    # JAX's criterion (tests/test_segmenter.py): seed 10001's composite at the
+    # working size, the raw mask's IoU > 0.5; at 1024^2 the same seed's finer
+    # texture defeats the trained U-Net in both packages (IoU 0.2172 on the CPU)
+    fixture, fixture_truth = seg.synth_composite(np.random.RandomState(MASK_SEED))
+    out["iou"] = seg.iou(subject_mask(fixture, segmenter=model, dilation_px=0, ramp_px=0,
+                                      invert_for_change_scene=False), fixture_truth)
+    if not out["iou"] > 0.5:
+        raise AssertionError(f"subject mask IoU {out['iou']} <= 0.5 on JAX's 256^2 fixture")
+    out["iou_1024"] = seg.iou(subject_mask(loaded, segmenter=model, dilation_px=0, ramp_px=0,
+                                           invert_for_change_scene=False), truth)
+
+    small = seg._resize_np(loaded, seg.WORK_RES, seg.WORK_RES)[None]
+    on_card = model.predict(small)
+    on_cpu = seg.load_default("cpu").predict(small)
+    out["prob_rel_l2"] = float(np.linalg.norm(on_card - on_cpu) / np.linalg.norm(on_cpu))
+    flips = int(((on_card >= 0.5) != (on_cpu >= 0.5)).sum())
+    if not out["prob_rel_l2"] <= SEG_REL_TOL:
+        raise AssertionError(f"U-Net on the card vs the CPU: relative L2 {out['prob_rel_l2']} > {SEG_REL_TOL}")
+    x = torch.from_numpy(small).cuda().permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        out["unet_ms"] = time_ms(lambda: model.model(x), reps=20, warmup=3)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        subject_mask(loaded, segmenter=model)
+    out["subject_mask_s"] = (time.perf_counter() - t0) / 3
+    log(f"[mask] mask-subject 1024^2 composite (seed {MASK_SEED}): {report}; PNG equal to subject_mask in the "
+        f"process; raw-mask IoU {out['iou']:.4f} on JAX's 256^2 fixture (> 0.5), {out['iou_1024']:.4f} on the 1024^2 "
+        f"composite; resize "
+        f"{out['resize']}; U-Net card vs CPU (f32, TF32 off) relative L2 {out['prob_rel_l2']:.3e} (tol "
+        f"{SEG_REL_TOL}), {flips} of 65536 pixels flip at 0.5; U-Net forward at 256^2 {out['unet_ms']:.4f} ms "
+        f"warm; subject_mask {out['subject_mask_s']:.4f} s; the command {out['command_s']:.3f} s; launches 0 "
+        f"[{card}]")
+
+    out_path = os.path.join(workdir, "inpainted.png")
+    with _HandedPipeline(pipe) as rec:
+        _zero_launches()
+        _run_cli(["inpaint", "--random-init", "--image", image_path, "--mask", mask_path, "--prompt",
+                  "a sunlit meadow around the subject", "--seed", str(EDIT_SEED), "--steps", "4", "-o", out_path],
+                 "inpaint --mask <subject mask>", card, tag="mask")
+        counts = _launch_counts()
+    _check_launches("inpaint with the subject mask", counts, 25 * 4)
+    res = rec.results[-1]
+    out["inpaint_launches"] = counts["flash"]
+    source = pipe.encode_image_to_packed_sequence(loaded)
+    plane = _read_png(mask_path)[..., 0].astype(np.float32) / 255.0  # the mask as inpaint read it
+    keep = pack_mask_for_latent_blending(plane, 1024, 1024)[0, :, 0].cuda() == 0
+    if not torch.equal(res.latents_device[0, keep], source[0, keep]) or not int(keep.sum()) > 0:
+        raise AssertionError(f"inpaint with the subject mask: {int(keep.sum())} kept tokens equal to the source "
+                             f"{torch.equal(res.latents_device[0, keep], source[0, keep])}")
+    _valid_image("inpaint with the subject mask", _read_png(out_path).astype(np.float32) / 255.0, (1024, 1024, 3))
+    out["inpaint_s_per_step"] = _s_per_step(res)
+    log(f"[mask] inpaint --mask <subject mask> 1024^2, 4 steps: launches {counts}; {int(keep.sum())} of 4096 tokens "
+        f"kept, equal to the composite's latents to the bit; {out['inpaint_s_per_step']:.4f} s/step [{card}]")
     return out
 
 
@@ -1880,7 +2314,7 @@ def phase_checkpoint_round_trip(card: str, workdir: str) -> dict:
     tokenizer = inline_bpe_tokenizer()
     pipe.text_encoder = qwen3_extractor(Qwen3Decoder(enc_cfg, device="cuda", generator=gen), tokenizer)
     res = pipe.generate(height=1024, width=1024, **ROUND_TRIP)
-    latents = res.latents.cpu()
+    latents = res.latents_device.cpu()
     png = encode_png(np.rint(res.image * 255.0).astype(np.uint8))
     log(f"[ckpt] in-memory request, published-shape Qwen3-4B ({enc_cfg.num_hidden_layers} layers, head_dim "
         f"{enc_cfg.head_dim}, intermediate {enc_cfg.intermediate_size}): {res.duration_s:.3f} s, phases "
@@ -1946,7 +2380,7 @@ def phase_checkpoint_round_trip(card: str, workdir: str) -> dict:
         phases = tprof.shared().phases
         (rec,) = built
         built = None  # the profile runs below must free each pipeline
-        got = rec.results[0].latents.cpu()
+        got = rec.results[0].latents_device.cpu()
         if not torch.equal(got, latents):
             raise AssertionError(f"t2i from the checkpoint: latents differ from the in-memory request's, max abs "
                                  f"{float((got - latents).abs().max())}")
@@ -2096,12 +2530,12 @@ def phase_serve(pipe, card: str, label: str, expected: dict):
         if int(img.max()) == int(img.min()):
             raise AssertionError("constant image")
     for res in recorder.results:
-        if not torch.isfinite(res.latents).all():
+        if not torch.isfinite(res.latents_device).all():
             raise AssertionError("non-finite final latents")
     if (server.batches_run, server.requests_served) != (3, 5):
         raise AssertionError(f"{server.requests_served} requests in {server.batches_run} batches, want 5 in 3")
-    if [len(r.latents) for r in recorder.results] != [1, 1, 3]:
-        raise AssertionError(f"batch sizes {[len(r.latents) for r in recorder.results]}, want [1, 1, 3]")
+    if [len(r.latents_device) for r in recorder.results] != [1, 1, 3]:
+        raise AssertionError(f"batch sizes {[len(r.latents_device) for r in recorder.results]}, want [1, 1, 3]")
     want = {name: expected.get(name, 0) for name in counts}
     if counts != want:
         raise AssertionError(f"{label} serve launched {counts}, want {want}")
@@ -2151,6 +2585,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_edit_") as workdir:
         edit = phase_edit(pipe, card, workdir, i2i["t2i_s_per_step"], decode["warm_s"])
     log(f"[edit] phase: {time.perf_counter() - t0:.2f} s [{card}]")
+    t0 = time.perf_counter()
+    http = phase_http(pipe, card)
+    log(f"[http] phase: {time.perf_counter() - t0:.2f} s [{card}]")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mask_") as workdir:
+        mask = phase_mask(pipe, card, workdir)
+    log(f"[mask] phase: {time.perf_counter() - t0:.2f} s [{card}]")
     del pipe
     torch.cuda.empty_cache()
 
@@ -2213,6 +2654,9 @@ def main() -> int:
         # image as reference at strength 0.5 (S = 8704), outpaint (S = 6912), a
         # cancel after step 2 of 4, and t2i at 2048^2 (S = 16896) with the tiled decode
         "launches_edit": edit["launches"],
+        # this slice's paths: one 1024^2 POST /generate, and the inpaint on a subject mask
+        "launches_http_generate_1024px": http["launches"]["POST /generate (PNG)"],
+        "launches_mask_inpaint": mask["inpaint_launches"],
         "slice_shapes": {name: {"q": list(shape[:3]) + [128], "s_k": shape[3], "span": span,
                                 "ms": checks[name]["alone"], "wrapper_ms": checks[name]["ms"],
                                 "plain_ms": checks[name]["plain_ms"], "bound_ms": checks[name]["bound"],

@@ -52,12 +52,24 @@ with ``--random-init``, else the small-decoder repository's directory and
 ``config.json``) and ``--memory-profile`` (``auto`` reads the card's memory;
 ``conservative`` tiles the decode above 1024 px).
 
+The small subcommands (JAX's, with their flags): ``info`` (the backend as
+torch sees it, ``cuda, devices: N`` or ``cpu, devices: 1``, probed under a
+20 s watchdog; then one line per model), ``download [--quantization F]
+[--token T]`` (``registry.download``), ``training-control
+pause|resume|stop|checkpoint --output-dir D`` (sentinel files),
+``beacons`` (runtime manifests) and ``mask-subject --image I -o M``
+(``chains/subject_mask.py``: the committed U-Net on ``--device``; the mask
+PNG is white where ``inpaint`` regenerates). The global flags
+``--models-dir``, ``--token`` and ``--beacon`` set ``FLUX2_MODELS_DIR``,
+``HF_TOKEN`` and ``FLUX2_RUNTIME_BEACON``; ``t2i`` writes a beacon manifest
+while it denoises. Every PNG is written with JAX's pixels (``io.png.to_u8``).
+
 Not ported yet, and refused by argparse or raising: prequantized checkpoints
 (on-the-fly quantization only), LoRA inference, ``--shard``, the Mistral
 encoder (Dev), the VLM flags ``--upsample`` / ``--interpret`` (``inpaint``'s
 ``--enrich-prompt-with-vlm`` warns and keeps the prompt, as JAX without a
 loaded VLM; ``--upsample-prompt`` raises JAX's error for a pipeline without
-an encoder facade) and the other subcommands. Images are read by Pillow
+an encoder facade), ``export-quantized`` and ``evaluate-lora``. Images are read by Pillow
 where it imports (any format it reads), else PNG only, by the port's own
 decoder; so are masks (grey, grey + alpha, RGB or RGBA PNGs without Pillow).
 """
@@ -74,6 +86,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from flux2_tpu_torch.io import registry
 from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
 from flux2_tpu_torch.models.text_encoders.config import QWEN3_4B, QWEN3_8B, DecoderConfig
 from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, FLUX2_VAE_SMALL_DECODER, VAEConfig
@@ -135,6 +148,7 @@ def build_pipeline(
         quantize_params(pipe.transformer, fmt)
         decoder = Qwen3Decoder(encoder_config, device=device, generator=generator)
         pipe.text_encoder = qwen3_extractor(quantize_encoder_params(decoder, enc_fmt), inline_bpe_tokenizer())
+        pipe.text_encoder_name = registry.ENCODER_FOR_MODEL[model]
     pipe.memory_profile = memory_profile(args)
     return pipe
 
@@ -156,7 +170,7 @@ def memory_profile(args: argparse.Namespace):
 def _load_pipeline(args, model: Flux2Model, device: torch.device, fmt: str, enc_fmt: str) -> Flux2Pipeline:
     """JAX ``build_pipeline``'s checkpoint branch (``:105-164``), with
     on-the-fly quantization only; each component is timed as JAX's phases."""
-    from flux2_tpu_torch.io import checkpoints, registry, weight_mapping
+    from flux2_tpu_torch.io import checkpoints, weight_mapping
 
     with_encoder = not getattr(args, "no_text_encoder", False)
     if with_encoder:
@@ -215,7 +229,6 @@ def attach_text_encoder(pipe: Flux2Pipeline, encoder_dir: Optional[str] = None, 
     """Load the model family's Qwen3 encoder onto the pipeline's device and
     attach it: explicit ``encoder_dir``, then the models dir, then the HF
     cache (JAX ``attach_text_encoder``, ``:276-309``, without the VLM loader)."""
-    from flux2_tpu_torch.io import registry
     from flux2_tpu_torch.models.text_encoders import facade
 
     t0 = _load_start()
@@ -233,6 +246,7 @@ def attach_text_encoder(pipe: Flux2Pipeline, encoder_dir: Optional[str] = None, 
         enc = facade.load_qwen3(edir, tokenizer_dir, size="4b" if "4b" in name else "8b",
                                 quantization=quantization, device=pipe.device)
     pipe.text_encoder = enc.extractor
+    pipe.text_encoder_name = name
     _log_load(f"text encoder {enc.name} ({enc.config.num_hidden_layers} layers, {enc.config.hidden_size} hidden)",
               edir, t0, pipe.device, quantization)
 
@@ -337,6 +351,32 @@ def _parser() -> argparse.ArgumentParser:
                    help="resume even when the saved optimizer state does not match (unmatched state restarts)")
     p.add_argument("--shard", help="mesh spec 'data,fsdp,tp[,sp]' or 'auto'")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu; the CPU only when asked")
+
+    p = sub.add_parser("download", help="download model weights from HF")
+    p.add_argument("--model", default="klein-4b", choices=[m.value for m in Flux2Model])
+    p.add_argument("--quantization", default="bf16", choices=QUANTIZATIONS)
+    p.add_argument("--token", help="HF token (or env HF_TOKEN)")
+    p.add_argument("--models-dir", help="custom models directory (env FLUX2_MODELS_DIR)")
+
+    p = sub.add_parser("info", help="models / device info")
+    p.add_argument("--models-dir", help="custom models directory (env FLUX2_MODELS_DIR)")
+    p.add_argument("--beacon", action="store_true", help="write a runtime activity beacon manifest")
+
+    p = sub.add_parser("mask-subject", help="auto-segmentation subject mask")
+    p.add_argument("--image", required=True)
+    p.add_argument("-o", "--output", default="mask.png")
+    p.add_argument("--threshold", type=float, default=0.5)
+    p.add_argument("--dilation", type=int, default=8)
+    p.add_argument("--ramp", type=int, default=16)
+    p.add_argument("--keep-scene", action="store_true", help="mask the subject instead of the scene")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu; the CPU only when asked")
+
+    p = sub.add_parser("training-control", help="pause/resume/stop/checkpoint a training run")
+    p.add_argument("action", choices=["pause", "resume", "stop", "checkpoint"])
+    p.add_argument("--output-dir", required=True)
+
+    sub.add_parser("beacons", help="list/GC runtime activity beacons")
     return parser
 
 
@@ -356,6 +396,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no-text-encoder", action="store_true",
                    help="skip encoder load (requires precomputed embeddings via the library API)")
     p.add_argument("--models-dir", help="custom models directory (env FLUX2_MODELS_DIR)")
+    p.add_argument("--token", help="HF token for gated models (env HF_TOKEN)")
+    p.add_argument("--beacon", action="store_true",
+                   help="write a runtime activity beacon manifest (env FLUX2_RUNTIME_BEACON=1)")
     p.add_argument("--prompt", default="")
     p.add_argument("--width", type=int, default=1024)
     p.add_argument("--height", type=int, default=1024)
@@ -382,14 +425,12 @@ def _generate(pipe: Flux2Pipeline, args, seed: int, decode: bool = True):
 
 
 def _save_png(image, path: str) -> None:
-    """Write an image [H, W, 3] in [0, 1] as a PNG (rounded to uint8) and
-    print ``saved <path>``."""
-    import numpy as np
-
-    from flux2_tpu_torch.io.png import encode_png
+    """Write an image [H, W, 3] in [0, 1] as a PNG, its pixels JAX's
+    ``_save_image``'s (``io.png.to_u8``: truncated), and print ``saved <path>``."""
+    from flux2_tpu_torch.io.png import encode_png, to_u8
 
     with open(path, "wb") as f:
-        f.write(encode_png(np.rint(np.clip(image, 0.0, 1.0) * 255.0).astype(np.uint8)))
+        f.write(encode_png(to_u8(image)))
     print(f"saved {path}")
 
 
@@ -414,10 +455,15 @@ def _report(res, path: str) -> None:
 
 
 def cmd_t2i(args) -> None:
+    from flux2_tpu_torch.utils.beacon import RuntimeBeacon
+
     pipe = build_pipeline(args, args.device)
     interval, on_ckpt = _checkpoint_callback(args)
-    res = pipe.generate(prompt=args.prompt, height=args.height, width=args.width, num_steps=args.steps,
-                        guidance=args.guidance, seed=args.seed, checkpoint_interval=interval, on_checkpoint=on_ckpt)
+    with RuntimeBeacon("generate", model=args.model) as beacon:
+        beacon.update(phase="denoising", total_steps=args.steps or pipe.model.default_steps)
+        res = pipe.generate(prompt=args.prompt, height=args.height, width=args.width, num_steps=args.steps,
+                            guidance=args.guidance, seed=args.seed, checkpoint_interval=interval,
+                            on_checkpoint=on_ckpt)
     _report(res, args.output)
 
 
@@ -569,24 +615,132 @@ def cmd_profile(args) -> None:
         print(f"chrome trace -> {args.trace} (open in Perfetto)")
 
 
+def cmd_mask_subject(args) -> None:
+    """A subject mask of ``--image`` (the committed U-Net on ``--device``, else
+    the saliency heuristic), written as a grey RGB PNG (JAX ``cmd_mask_subject``)."""
+    import numpy as np
+
+    from flux2_tpu_torch.chains.subject_mask import default_segmenter, subject_mask
+
+    image = _load_image(args.image)
+    model = default_segmenter(args.device)
+    mask = subject_mask(image, segmenter=model, threshold=args.threshold, dilation_px=args.dilation,
+                        ramp_px=args.ramp, invert_for_change_scene=not args.keep_scene)
+    _save_png(np.repeat(mask[..., None], 3, axis=-1), args.output)
+    covered = float((mask > 0.5).mean())
+    print(json.dumps({
+        "mask_coverage": round(covered, 3),
+        "convention": "white = regenerate",
+        "segmenter": "unet" if model is not None else "saliency-heuristic",
+    }))
+    if model is None and not args.quiet:
+        print(
+            "note: trained segmenter weights missing — falling back to the "
+            "saliency heuristic (busy backgrounds degrade it); pass a model "
+            "via chains.subject_mask.subject_mask(segmenter=...)"
+        )
+
+
+def cmd_download(args) -> None:
+    """The transformer (its ``--quantization`` variant where one is published),
+    the VAE and the model's text encoder, through ``registry.download``."""
+    model = Flux2Model(args.model)
+    fmt = getattr(args, "quantization", "bf16") or "bf16"
+    spec, on_the_fly = registry.variant_for_quantization(model, fmt)
+    if on_the_fly:
+        print(f"no pre-quantized {fmt} repo for {model.value}; downloading bf16 (quantize on load)")
+    print(f"downloading {spec.repo_id} (~{spec.approx_size_gb} GB, gated={spec.gated})")
+    path = registry.download(spec, token=args.token)
+    print(f"transformer -> {path}")
+    vpath = registry.download(registry.VAE_REPO, token=args.token)
+    print(f"vae -> {vpath}")
+    enc = registry.TEXT_ENCODER_REPOS[registry.ENCODER_FOR_MODEL[model]]
+    epath = registry.download(enc, token=args.token)
+    print(f"text encoder -> {epath}")
+
+
+def _backend_line() -> str:
+    """``cuda, devices: N`` where torch sees a CUDA device, else ``cpu, devices: 1``."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return f"cuda, devices: {n}" if n else "cpu, devices: 1"
+
+
+def cmd_info(args) -> None:
+    """The backend, the models dir and one line per model (JAX ``cmd_info``).
+    The device probe runs under a 20 s watchdog, as JAX's, so ``info`` answers
+    even when the driver hangs."""
+    import threading
+
+    probe: dict = {}
+
+    def _probe():
+        try:
+            probe["msg"] = _backend_line()
+        except Exception as e:
+            probe["msg"] = f"unavailable ({e})"
+
+    t = threading.Thread(target=_probe, daemon=True)
+    t.start()
+    t.join(20.0)
+    print(f"flux2-tpu — backend: {probe.get('msg', 'unavailable (init timed out — tunnel down?)')}")
+    print(f"models dir: {registry.models_dir()}")
+    for model in Flux2Model:
+        spec = registry.TRANSFORMER_REPOS[model]
+        found = registry.find_model_path(spec)
+        cfg = model.transformer_config
+        print(
+            f"  {model.value:<16} {cfg.num_layers}+{cfg.num_single_layers} blocks, "
+            f"D={cfg.inner_dim:<5} steps={model.default_steps:<3} "
+            f"guidance={model.default_guidance:<4} "
+            f"{'[downloaded]' if found else '[not downloaded]'}"
+            f"{' [gated]' if spec.gated else ''}"
+        )
+
+
+def cmd_training_control(args) -> None:
+    """Write (or, for ``resume``, clear the pause of) a training run's sentinel file."""
+    from flux2_tpu_torch.training.control import TrainingController
+
+    if args.action == "resume":
+        TrainingController.clear_sentinel(args.output_dir, "pause")
+        print("cleared pause sentinel")
+    else:
+        path = TrainingController.write_sentinel(args.output_dir, args.action)
+        print(f"wrote {path}")
+
+
+def cmd_beacons(args) -> None:
+    """Remove the manifests of dead processes and list the live ones."""
+    from flux2_tpu_torch.utils import beacon
+
+    removed = beacon.gc_stale_manifests()
+    active = beacon.list_active()
+    print(f"gc removed {removed} stale manifest(s); {len(active)} active:")
+    for m in active:
+        print(f"  pid {m.get('pid')} {m.get('task')} {m.get('model')} {m.get('phase')} "
+              f"step {m.get('step')}/{m.get('total_steps')}")
+
+
+COMMANDS = {"t2i": cmd_t2i, "i2i": cmd_i2i, "inpaint": cmd_inpaint, "outpaint": cmd_outpaint,
+            "profile": cmd_profile, "download": cmd_download, "info": cmd_info, "mask-subject": cmd_mask_subject,
+            "training-control": cmd_training_control, "beacons": cmd_beacons}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
+    # the flags' environment counterparts (JAX's main): a set flag wins over the environment
     if getattr(args, "models_dir", None):
         os.environ["FLUX2_MODELS_DIR"] = args.models_dir
+    if getattr(args, "token", None):
+        os.environ["HF_TOKEN"] = args.token
+    if getattr(args, "beacon", False):
+        os.environ["FLUX2_RUNTIME_BEACON"] = "1"
     if args.command == "train-lora":
         from flux2_tpu_torch.cli.train import run_training
 
         run_training(args, args.device)
-    elif args.command == "profile":
-        cmd_profile(args)
-    elif args.command == "i2i":
-        cmd_i2i(args)
-    elif args.command == "inpaint":
-        cmd_inpaint(args)
-    elif args.command == "outpaint":
-        cmd_outpaint(args)
     else:
-        cmd_t2i(args)
+        COMMANDS[args.command](args)
     return 0
 
 

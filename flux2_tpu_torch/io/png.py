@@ -2,6 +2,9 @@
 
 The JAX server writes PNGs with Pillow; the port's hosts may have none, so
 it writes the same image itself: one IDAT chunk, filter type 0 on every row.
+``to_u8`` is the float-to-pixel conversion of every JAX writer (the CLI's
+``_save_image``, the server's PNGs and previews): clip to [0, 1], scale by
+255 and truncate; the port's PNG writers all go through it.
 ``decode_png`` reads 8-bit, non-interlaced grey, grey + alpha, RGB and RGBA
 with any of the five row filters (what Pillow and most encoders write) and
 returns RGB, the alpha dropped as Pillow's ``convert("RGB")`` drops it.
@@ -23,6 +26,12 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+
+def to_u8(image: np.ndarray) -> np.ndarray:
+    """Float image in [0, 1] -> uint8 as the JAX package's writers convert it:
+    ``(np.clip(image, 0, 1) * 255).astype(np.uint8)``, truncating."""
+    return (np.clip(image, 0, 1) * 255).astype(np.uint8)
 
 
 def encode_png(image_u8: np.ndarray) -> bytes:

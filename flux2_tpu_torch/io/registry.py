@@ -1,20 +1,24 @@
-"""Model registry, local half: the HF repos of each model, and where their
-weights are found on disk.
+"""Model registry and downloader: the HF repos of each model, where their
+weights are found on disk, and how they are fetched.
 
-The port's own copy of the local half of ``flux2_tpu/io/registry.py``
-(``tests/test_torch_registry.py`` holds the tables against it): the repo
-tables, ``variant_for_quantization``, ``training_variant``,
+The port's own copy of ``flux2_tpu/io/registry.py`` (``tests/test_torch_registry.py``
+and ``tests/test_torch_shared_copies.py`` hold it against the original): the
+repo tables (transformers, pre-quantized variants, VAE, text encoders and their
+quantized variants), ``variant_for_quantization``, ``training_variant``,
 ``distilled_sibling``, ``models_dir`` (env ``FLUX2_MODELS_DIR``),
 ``local_model_path``, ``find_model_path`` (explicit dir, then the models dir,
-then the HF cache's snapshots) and ``verify_completeness``. ``download`` needs
-the network and is not ported: it raises.
+then the HF cache's snapshots), ``verify_completeness``, ``download``
+(``huggingface_hub.snapshot_download``; ``RuntimeError`` where that package
+does not import), and the memory tables ``QUANT_PRESETS``,
+``recommended_preset``, ``MODEL_MIN_MEMORY_GB`` and
+``recommended_format_for_model``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from flux2_tpu_torch.models.flux2.config import Flux2Model
 
@@ -92,6 +96,22 @@ TEXT_ENCODER_REPOS: Dict[str, RepoSpec] = {
     "qwen35-vlm": RepoSpec("Qwen/Qwen3.5-4B", approx_size_gb=9),
 }
 
+# Quantized encoder-variant repos the registry can name (the port quantizes
+# on the fly; the table is what the server's model inventory lists).
+ENCODER_VARIANT_REPOS: Dict[str, Dict[str, str]] = {
+    "mistral-small-3.2": {
+        "bf16": "mistralai/Mistral-Small-3.2-24B-Instruct-2506",
+        "8bit": "lmstudio-community/Mistral-Small-3.2-24B-Instruct-2506-MLX-8bit",
+        "6bit": "lmstudio-community/Mistral-Small-3.2-24B-Instruct-2506-MLX-6bit",
+        "4bit": "lmstudio-community/Mistral-Small-3.2-24B-Instruct-2506-MLX-4bit",
+    },
+    "qwen3-4b": {"bf16": "Qwen/Qwen3-4B", "8bit": "lmstudio-community/Qwen3-4B-MLX-8bit", "4bit": "lmstudio-community/Qwen3-4B-MLX-4bit"},
+    "qwen3-8b": {"bf16": "Qwen/Qwen3-8B", "8bit": "lmstudio-community/Qwen3-8B-MLX-8bit", "4bit": "lmstudio-community/Qwen3-8B-MLX-4bit"},
+    "qwen3-vl-4b": {"bf16": "Qwen/Qwen3-VL-4B-Instruct", "8bit": "lmstudio-community/Qwen3-VL-4B-Instruct-MLX-8bit", "4bit": "lmstudio-community/Qwen3-VL-4B-Instruct-MLX-4bit"},
+    "qwen3-vl-8b": {"bf16": "Qwen/Qwen3-VL-8B-Instruct", "8bit": "lmstudio-community/Qwen3-VL-8B-Instruct-MLX-8bit", "4bit": "lmstudio-community/Qwen3-VL-8B-Instruct-MLX-4bit"},
+    "qwen35-vlm": {"bf16": "Qwen/Qwen3.5-4B", "8bit": "mlx-community/Qwen3.5-4B-MLX-8bit", "4bit": "mlx-community/Qwen3.5-4B-MLX-4bit"},
+}
+
 ENCODER_FOR_MODEL: Dict[Flux2Model, str] = {
     Flux2Model.DEV: "mistral-small-3.2",
     Flux2Model.KLEIN_4B: "qwen3-4b",
@@ -147,7 +167,63 @@ def verify_completeness(path: str) -> Tuple[bool, List[str]]:
 
 
 def download(spec: RepoSpec, token: Optional[str] = None, base_dir: Optional[str] = None) -> str:
-    raise NotImplementedError(
-        f"downloading {spec.repo_id} needs the network and is not ported to flux2_tpu_torch; put the weights "
-        f"under {local_model_path(spec, base_dir)} or pass the directory"
+    """Download a model snapshot through ``huggingface_hub`` (network
+    required) into ``local_model_path(spec, base_dir)``; returns that path."""
+    try:
+        from huggingface_hub import snapshot_download
+    except ImportError as e:
+        raise RuntimeError("huggingface_hub not available") from e
+    target = local_model_path(spec, base_dir)
+    os.makedirs(target, exist_ok=True)
+    patterns = [f"{spec.subfolder}/*"] if spec.subfolder else None
+    snapshot_download(
+        spec.repo_id,
+        local_dir=os.path.dirname(target) if spec.subfolder else target,
+        allow_patterns=patterns,
+        token=token or os.environ.get("HF_TOKEN"),
     )
+    return target
+
+
+# Quantization presets: (text-encoder quant, transformer quant) pairs with the
+# estimated total working memory.
+QUANT_PRESETS: Dict[str, Dict[str, Any]] = {
+    "high-quality": {"text_encoder": "bf16", "transformer": "bf16", "approx_gb": 90},
+    "balanced": {"text_encoder": "8bit", "transformer": "qint8", "approx_gb": 57},
+    "memory-efficient": {"text_encoder": "4bit", "transformer": "qint8", "approx_gb": 47},
+    "minimal": {"text_encoder": "4bit", "transformer": "qint8", "approx_gb": 47},
+    "ultra-minimal": {"text_encoder": "4bit", "transformer": "int4", "approx_gb": 30},
+}
+
+
+def recommended_preset(ram_gb: float) -> str:
+    """A memory budget in GB -> the name of the preset that fits it."""
+    if ram_gb >= 96:
+        return "high-quality"
+    if ram_gb >= 64:
+        return "balanced"
+    if ram_gb >= 48:
+        return "memory-efficient"
+    if ram_gb >= 32:
+        return "minimal"
+    return "ultra-minimal"
+
+
+# Per-model minimum memory by transformer format, GB.
+MODEL_MIN_MEMORY_GB: Dict[Flux2Model, Dict[str, float]] = {
+    Flux2Model.DEV: {"bf16": 72, "qint8": 69, "int4": 28},
+    Flux2Model.KLEIN_4B: {"bf16": 18, "qint8": 15, "int4": 13},
+    Flux2Model.KLEIN_4B_BASE: {"bf16": 18, "qint8": 15, "int4": 13},
+    Flux2Model.KLEIN_9B: {"bf16": 28, "qint8": 20, "int4": 16},
+    Flux2Model.KLEIN_9B_BASE: {"bf16": 28, "qint8": 20, "int4": 16},
+    Flux2Model.KLEIN_9B_KV: {"bf16": 29, "qint8": 21, "int4": 17},
+}
+
+
+def recommended_format_for_model(model: Flux2Model, ram_gb: float) -> str:
+    """The highest-fidelity transformer format that fits the budget."""
+    table = MODEL_MIN_MEMORY_GB[model]
+    for fmt in ("bf16", "qint8", "int4"):
+        if ram_gb >= table[fmt]:
+            return fmt
+    return "int4"

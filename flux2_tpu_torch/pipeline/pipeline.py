@@ -83,13 +83,19 @@ class GenerationCancelled(RuntimeError):
 @dataclasses.dataclass
 class GenerationResult:
     image: np.ndarray  # [H, W, 3] float32 in [0, 1], 1/255 steps (first batch row)
-    latents: torch.Tensor  # final packed latents [B, S, 128] float32, on the device
+    latents_device: torch.Tensor  # final packed latents [B, S, 128] float32, on the device
     seed: int
     num_steps: int
     duration_s: float
     phase_timings: Dict[str, float]
     images: Optional[np.ndarray] = None  # [B, H, W, 3] when batch > 1
     memory_stats: Optional[Dict[str, Dict[str, float]]] = None  # per-phase device memory (GiB)
+
+    @property
+    def latents(self) -> np.ndarray:
+        """The final packed latents [B, S, 128] as a host array (JAX's
+        ``GenerationResult.latents``), copied from the device when read."""
+        return self.latents_device.cpu().numpy()
 
 
 def _cancel_requested(cancel) -> bool:
@@ -145,6 +151,7 @@ class Flux2Pipeline:
     vae: VAEDecoder
     device: torch.device
     text_encoder: Optional[Callable[[str], torch.Tensor]] = None  # prompt -> [1, S, joint]
+    text_encoder_name: Optional[str] = None  # the registry's key of the attached encoder ("qwen3-4b")
     vae_encoder: Optional[VAEEncoder] = None
     max_pixels: int = 4096 * 4096
     # VAE compute dtype: the decode casts the VAE's float parameters and the
@@ -359,7 +366,7 @@ class Flux2Pipeline:
 
         return GenerationResult(
             image=image,
-            latents=latents,
+            latents_device=latents,
             seed=seed,
             num_steps=schedule.num_steps,
             duration_s=time.perf_counter() - t0,
@@ -480,13 +487,14 @@ class Flux2Pipeline:
         return bool(self.memory_profile is not None
                     and max(height, width) > self.memory_profile.vae_tile_threshold_px)
 
-    def decode_latents_u8(self, latents_seq: torch.Tensor, height: int, width: int) -> torch.Tensor:
-        """Packed sequence [B, S, 128] -> uint8 image [B, H, W, 3] on the device.
+    def decode_latents(self, latents_seq: torch.Tensor, height: int, width: int) -> torch.Tensor:
+        """Packed sequence [B, S, 128] -> float32 image [B, H, W, 3] in [0, 1]
+        on the device (JAX ``decode_latents``: not quantized to 1/255).
 
         Tiled (``decode_tiled``) above the memory profile's threshold; else a
         dense batched decode while B*H*W <= 1024^2, image by image above it."""
         with torch.inference_mode():
-            patched = lu.unpack_sequence_to_patchified(latents_seq, height, width)
+            patched = lu.unpack_sequence_to_patchified(torch.as_tensor(latents_seq).to(self.device), height, width)
             mean, var = self.vae.get_batchnorm_stats()
             z = lu.unpatchify_latents(lu.denormalize_with_batchnorm(patched, mean, var))
             z = z.to(self.vae_compute_dtype)
@@ -497,7 +505,13 @@ class Flux2Pipeline:
                 img = torch.cat([vae.decode(z[i : i + 1]) for i in range(z.shape[0])])
             else:
                 img = vae.decode(z)
-            img = torch.clamp(img.to(torch.float32) * 0.5 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
+            return torch.clamp(img.to(torch.float32) * 0.5 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
+
+    def decode_latents_u8(self, latents_seq: torch.Tensor, height: int, width: int) -> torch.Tensor:
+        """Packed sequence [B, S, 128] -> uint8 image [B, H, W, 3] on the device:
+        ``decode_latents`` rounded to the nearest level, as JAX's device-side convert."""
+        img = self.decode_latents(latents_seq, height, width)
+        with torch.inference_mode():
             return torch.clamp(img * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
 
     def _vae_in_compute_dtype(self) -> VAEDecoder:

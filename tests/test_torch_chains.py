@@ -104,7 +104,7 @@ def test_inpaint_chain_matches_jax(mode, jax_draws):
     ref = jax_inpaint(mode)
     res = tinpaint.MaskedInpaintingChain(pipeline=tpipe, embeddings=_port_emb(), **_chain_kwargs(mode)).run()
     assert res.num_steps == ref.num_steps == (2 if mode == "strength" else 4)
-    np.testing.assert_allclose(res.latents.numpy(), np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
+    np.testing.assert_allclose(res.latents, np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
     assert res.image.shape == ref.image.shape and np.max(np.abs(res.image - ref.image)) <= LEVEL
 
 
@@ -120,8 +120,8 @@ def test_kept_tokens_land_on_the_source_latents(mode, jax_draws):
         "mask_convention", tinpaint.GRAYSCALE_WHITE_INPAINT))[0, :, 0]
     keep = mask == 0
     assert keep.any() and not keep.all()
-    assert torch.equal(res.latents[0, keep], source[0, keep])
-    assert float((res.latents[0, ~keep] - source[0, ~keep]).abs().max()) > 0.1
+    assert torch.equal(res.latents_device[0, keep], source[0, keep])
+    assert float((res.latents_device[0, ~keep] - source[0, ~keep]).abs().max()) > 0.1
 
 
 def test_crop_and_stitch_leaves_the_rest_of_the_image_untouched(jax_draws):
@@ -150,7 +150,7 @@ def test_outpaint_chain_matches_jax(jax_draws):
     res = toutpaint.OutpaintingChain(pipeline=tpipe, image=_image(32, 64), prompt="", top=20, left=32, right=5,
                                      seed=1234, embeddings=_port_emb()).run()
     assert res.image.shape == ref.image.shape == (64, 128, 3) and tuple(res.latents.shape) == (1, 32, 128)
-    np.testing.assert_allclose(res.latents.numpy(), np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
+    np.testing.assert_allclose(res.latents, np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
     assert np.max(np.abs(res.image - ref.image)) <= LEVEL
 
 
@@ -219,7 +219,19 @@ def _png_file(path, image_u8: np.ndarray, mode: str = None) -> str:
 
 
 def _u8(x: np.ndarray) -> np.ndarray:
-    return np.rint(np.clip(x, 0.0, 1.0) * 255.0).astype(np.uint8)
+    """The pixels JAX's CLI writer (``_save_image``: clip, scale, truncate)
+    stores for ``x`` ([H, W], RGB or RGBA), read back as written."""
+    import contextlib
+    import os
+    import tempfile
+
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
+        path = os.path.join(d, "x.png")
+        jcli._save_image(x, path)
+        with Image.open(path) as im:
+            return np.asarray(im)
 
 
 @pytest.fixture

@@ -386,7 +386,7 @@ def test_tree_latents_match_jax_build_pipeline(tree):
     noise = np.array(_seeded_noise_seq(1234, 64, 64, 1))
     ref = jpipe.generate(prompt=prompt, height=64, width=64, num_steps=2, seed=1234, decode=False)
     res = tpipe.generate(prompt=prompt, height=64, width=64, num_steps=2, noise=torch.from_numpy(noise), decode=False)
-    np.testing.assert_allclose(res.latents.numpy(), np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
+    np.testing.assert_allclose(res.latents, np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
 
 
 def test_t2i_from_tree_writes_png_and_jax_json(tree, tmp_path, capsys):

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card (marker ``cuda``): K1 (flash attention),
 K2 / K3 / K4 (its forward with the LSE and its backward) and K5 / K6 / K7
 (quantized matmuls); K1 at the I2I and klein-9b-kv shapes, and a tiny I2I and
-klein-9b-kv generate on the card with exact K1 launch counts.
+klein-9b-kv generate on the card with exact K1 launch counts; a tiny POST
+/generate over HTTP equal to the in-process generate, and the subject U-Net
+on the card against the CPU.
 
 Skips without a CUDA device. Imports no JAX, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -131,7 +133,7 @@ def test_tiny_i2i_generate_launches_k1_on_every_attention(device, monkeypatch, m
     assert {c: after[c] - before[c] for c in after} == {"flash": launches, "flash_lse": 0, "flash_bwd_dq": 0,
                                                         "flash_bwd_dkv": 0}
     assert seen == split
-    assert res.latents.shape == (1, 256, 128) and torch.isfinite(res.latents).all()
+    assert res.latents_device.shape == (1, 256, 128) and torch.isfinite(res.latents_device).all()
     assert res.image.shape == (256, 256, 3)
 
 
@@ -154,8 +156,8 @@ def test_tiny_inpaint_keeps_the_source_tokens_to_the_bit(device):
     assert tfa.launch_counts()["flash"] - before == 3 * 4
     source = pipe.encode_image_to_packed_sequence(image)
     keep = pack_mask_for_latent_blending(mask, 256, 256)[0, :, 0].to(device) == 0
-    assert torch.equal(res.latents[0, keep], source[0, keep])
-    assert float((res.latents[0, ~keep] - source[0, ~keep]).abs().max()) > 0.1
+    assert torch.equal(res.latents_device[0, keep], source[0, keep])
+    assert float((res.latents_device[0, ~keep] - source[0, ~keep]).abs().max()) > 0.1
 
 
 def test_cancel_after_step_2_of_4_runs_3_steps_of_k1(device):
@@ -173,6 +175,53 @@ def test_cancel_after_step_2_of_4_runs_3_steps_of_k1(device):
         pipe.generate(embeddings=emb, height=256, width=256, num_steps=4, cancel=cancel,
                       on_progress=lambda k, n: cancel.set() if k >= 2 else None)
     assert tfa.launch_counts()["flash"] - before == 3 * 3
+
+
+def test_http_generate_pixels_equal_the_in_process_generate(device):
+    """POST /generate at 256^2 through the port's handler on a tiny card
+    pipeline: the PNG's pixels equal the in-process generate written through
+    JAX's conversion (``to_u8``) to the bit; K1 3 launches a step."""
+    import json
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from flux2_tpu_torch.io.png import decode_png, to_u8
+    from flux2_tpu_torch.serve import Flux2Server, make_handler
+
+    pipe = _tiny_pipeline(device, "klein-4b")
+    emb = torch.randn(1, 8, 96, device=device, generator=torch.Generator(device).manual_seed(1))
+    server = Flux2Server(pipe, embeddings_fn=lambda prompt: emb)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        req = {"prompt": "x", "height": 256, "width": 256, "steps": 4, "seed": 9}
+        before = tfa.launch_counts()["flash"]
+        post = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/generate",
+                                      data=json.dumps(req).encode(), method="POST")
+        with urllib.request.urlopen(post) as r:
+            png = r.read()
+        assert tfa.launch_counts()["flash"] - before == 3 * 4
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+    res = pipe.generate(embeddings=emb, height=256, width=256, num_steps=4, seed=9)
+    assert np.array_equal(decode_png(png), to_u8(res.image))
+
+
+def test_segmenter_on_the_card_matches_the_cpu(device):
+    """The committed U-Net on the card against the same weights on the CPU,
+    both float32 with TF32 off: the probabilities within 1e-4 relative L2."""
+    import numpy as np
+
+    from flux2_tpu_torch.chains import segmenter as seg
+
+    small = seg.synth_composite(np.random.RandomState(10_001))[0][None]
+    on_card, on_cpu = seg.load_default(device).predict(small), seg.load_default("cpu").predict(small)
+    assert float(np.linalg.norm(on_card - on_cpu) / np.linalg.norm(on_cpu)) <= 1e-4
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(device):

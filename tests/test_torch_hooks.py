@@ -127,17 +127,17 @@ def hooked_runs(kind: str, dtype: str) -> tuple:
 @pytest.mark.parametrize("kind", ["legacy", "repaint"])
 def test_hooked_latents_match_jax(kind):
     ref, _, res, _ = hooked_runs(kind, "float32")
-    np.testing.assert_allclose(res.latents.numpy(), np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
+    np.testing.assert_allclose(res.latents, np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
     assert np.max(np.abs(res.image - ref.image)) <= 1.0 / 255 + 1e-6
     if kind == "legacy":  # the hook ran after the last step: exactly 0 there
-        assert float(res.latents[:, :8].abs().max()) == 0.0 and float(res.latents[:, 8:].abs().max()) > 0.0
+        assert float(np.abs(res.latents[:, :8]).max()) == 0.0 and float(np.abs(res.latents[:, 8:]).max()) > 0.0
 
 
 @pytest.mark.parametrize("kind", ["legacy", "repaint"])
 def test_bf16_hooked_latents_match_jax_bf16(kind):
     ref, _, res, _ = hooked_runs(kind, "bfloat16")
-    assert res.latents.dtype == torch.float32  # the hook's arithmetic stays float32
-    diff = np.abs(res.latents.numpy() - np.asarray(ref.latents, np.float32))
+    assert res.latents_device.dtype == torch.float32  # the hook's arithmetic stays float32
+    diff = np.abs(res.latents - np.asarray(ref.latents, np.float32))
     assert diff.max() <= BF16_LATENT_MAX and diff.mean() <= BF16_LATENT_MEAN, (diff.max(), diff.mean())
 
 
@@ -147,7 +147,7 @@ def test_repaint_hook_lands_kept_tokens_on_the_source():
     state = _repaint_state()
     keep = state["mask"][0, :, 0] == 0.0
     assert keep.any() and not keep.all()
-    assert np.array_equal(res.latents.numpy()[0, keep], state["image"][0, keep])
+    assert np.array_equal(res.latents[0, keep], state["image"][0, keep])
 
 
 def test_progress_and_checkpoint_callbacks_equal_jax():
@@ -190,8 +190,8 @@ def test_kv_cached_path_runs_hook_and_callbacks_as_jax():
                          reference_latents=jlat, reference_ids=jids, step_hook=jhook, **jseen.kwargs())
     res = tpipe.generate(embeddings=torch.from_numpy(emb), height=64, width=64, num_steps=STEPS, noise=_noise(),
                          reference_latents=tlat, reference_ids=tids, step_hook=thook, **tseen.kwargs())
-    np.testing.assert_allclose(res.latents.numpy(), np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
-    assert float(res.latents[:, :4].abs().max()) == 0.0 and float(res.latents[:, 4:].abs().max()) > 0.0
+    np.testing.assert_allclose(res.latents, np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
+    assert float(np.abs(res.latents[:, :4]).max()) == 0.0 and float(np.abs(res.latents[:, 4:]).max()) > 0.0
     assert tseen.progress == jseen.progress == [(1, 4), (2, 4), (3, 4), (4, 4)]
     assert [k for k, _ in tseen.checkpoints] == [k for k, _ in jseen.checkpoints] == [2]
     for (_, t), (_, j) in zip(tseen.latents, jseen.latents):

@@ -92,8 +92,8 @@ def test_i2i_latents_match_golden_and_jax():
                          reference_latents=jlat, reference_ids=jids)
     res = tpipe.generate(embeddings=torch.from_numpy(emb), height=64, width=64, num_steps=3, noise=_noise(),
                          reference_latents=tlat, reference_ids=tids)
-    np.testing.assert_allclose(res.latents.numpy(), np.load(GOLDEN_I2I), atol=LATENT_TOL, rtol=0)
-    np.testing.assert_allclose(res.latents.numpy(), np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
+    np.testing.assert_allclose(res.latents, np.load(GOLDEN_I2I), atol=LATENT_TOL, rtol=0)
+    np.testing.assert_allclose(res.latents, np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
     assert np.max(np.abs(res.image - ref.image)) <= 1.0 / 255 + 1e-6
 
 
@@ -109,8 +109,8 @@ def test_strength_latents_match_golden_and_jax():
     res = tpipe.generate(embeddings=torch.from_numpy(emb), height=64, width=64, num_steps=4, noise=_noise(),
                          init_latents=tinit, strength=0.5, decode=False)
     assert res.num_steps == ref.num_steps == 2
-    np.testing.assert_allclose(res.latents.numpy(), np.load(GOLDEN_STRENGTH), atol=LATENT_TOL, rtol=0)
-    np.testing.assert_allclose(res.latents.numpy(), np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
+    np.testing.assert_allclose(res.latents, np.load(GOLDEN_STRENGTH), atol=LATENT_TOL, rtol=0)
+    np.testing.assert_allclose(res.latents, np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
 
 
 def test_custom_sigmas_latents_match_golden_and_jax():
@@ -121,8 +121,8 @@ def test_custom_sigmas_latents_match_golden_and_jax():
     res = tpipe.generate(embeddings=torch.from_numpy(emb), height=64, width=64, custom_sigmas=[1.0, 0.6, 0.2],
                          noise=_noise(), decode=False)
     assert res.num_steps == ref.num_steps == 3
-    np.testing.assert_allclose(res.latents.numpy(), np.load(GOLDEN_SIGMAS), atol=LATENT_TOL, rtol=0)
-    np.testing.assert_allclose(res.latents.numpy(), np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
+    np.testing.assert_allclose(res.latents, np.load(GOLDEN_SIGMAS), atol=LATENT_TOL, rtol=0)
+    np.testing.assert_allclose(res.latents, np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
 
 
 def test_two_references_of_different_sizes_encode_as_jax():
@@ -167,7 +167,7 @@ def test_i2i_with_classical_cfg_matches_jax():
     res = tbase.generate(embeddings=torch.from_numpy(emb), negative_embeddings=torch.from_numpy(neg), guidance=3.5,
                          height=64, width=64, num_steps=2, noise=_noise(), reference_latents=tlat,
                          reference_ids=tids, decode=False)
-    np.testing.assert_allclose(res.latents.numpy(), np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
+    np.testing.assert_allclose(res.latents, np.asarray(ref.latents), atol=LATENT_TOL, rtol=0)
 
 
 def test_bf16_i2i_matches_jax_bf16():
@@ -184,7 +184,7 @@ def test_bf16_i2i_matches_jax_bf16():
                        reference_latents=jlat, reference_ids=jids, decode=False)
     res = tbf.generate(embeddings=torch.from_numpy(emb), height=64, width=64, num_steps=3, noise=_noise(),
                        reference_latents=tlat, reference_ids=tids, decode=False)
-    diff = np.abs(res.latents.numpy() - np.asarray(ref.latents, np.float32))
+    diff = np.abs(res.latents - np.asarray(ref.latents, np.float32))
     assert diff.max() <= BF16_LATENT_MAX and diff.mean() <= BF16_LATENT_MEAN, (diff.max(), diff.mean())
 
 

@@ -144,8 +144,8 @@ def test_kv_pipeline_latents_match_golden_and_jax():
     noise = torch.from_numpy(np.array(_seeded_noise_seq(1234, 64, 64, 1)))
     res = tpipe.generate(embeddings=torch.from_numpy(emb), height=64, width=64, num_steps=3, noise=noise,
                          reference_latents=tlat, reference_ids=tids, decode=False)
-    np.testing.assert_allclose(res.latents.numpy(), np.load(GOLDEN_KV), atol=1e-3, rtol=0)
-    np.testing.assert_allclose(res.latents.numpy(), np.asarray(ref.latents), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(res.latents, np.load(GOLDEN_KV), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(res.latents, np.asarray(ref.latents), atol=1e-3, rtol=0)
 
 
 @pytest.mark.parametrize("model,with_refs,calls", [
@@ -180,4 +180,4 @@ def test_generate_takes_the_kv_loop_only_for_a_kv_model_with_references(monkeypa
         refs = {"reference_latents": lat, "reference_ids": ids}
     res = pipe.generate(embeddings=torch.zeros(1, 4, 96), height=32, width=32, num_steps=3, seed=1, decode=False,
                         **refs)
-    assert seen == calls and torch.isfinite(res.latents).all()
+    assert seen == calls and torch.isfinite(res.latents_device).all()

@@ -12,8 +12,10 @@ KV-cached path, and ``i2i`` from the checkpoint directories (the VAE
 encoder's loader), the editing slice: an inpaint and an outpaint through the
 chains (``utils/native.py``'s image ops), a generate with a step hook and
 every callback, a tiled decode under a memory profile and ``auto_profile``
-(``utils/memory.py``), and reports whether any ``jax`` or ``flux2_tpu``
-module was loaded. (The suite's conftest imports JAX, so this must run in a
+(``utils/memory.py``), the serving slice: /generate, /models and /info through
+``serve.make_handler`` on localhost, a runtime beacon, ``mask-subject`` and
+``subject_mask`` on the committed U-Net, a ``utils/quality.py`` metric, and
+reports whether any ``jax`` or ``flux2_tpu`` module was loaded. (The suite's conftest imports JAX, so this must run in a
 subprocess.)
 """
 
@@ -112,6 +114,38 @@ pipe.generate(embeddings=torch.zeros(1, 4, 32), height=32, width=32, num_steps=2
 pipe.memory_profile = dataclasses.replace(memory.MemoryProfile.named("conservative"), vae_tile_threshold_px=16)
 tiled = pipe.decode_latents_u8(torch.zeros(1, 4, 128), 32, 32)
 profile = memory.auto_profile(Flux2Model.KLEIN_4B, hbm_bytes=80 * 2**30).name
+# the serving slice: the HTTP layer, beacons, quality metrics, the segmenter and mask-subject
+import http.client, threading
+from http.server import ThreadingHTTPServer
+from flux2_tpu_torch.serve import make_handler
+from flux2_tpu_torch.utils import beacon, quality
+from flux2_tpu_torch.chains import segmenter
+from flux2_tpu_torch.chains.subject_mask import subject_mask
+pipe.memory_profile = None
+served = Flux2Server(pipe, embeddings_fn=lambda prompt: torch.ones(1, 4, 32))
+httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(served))
+threading.Thread(target=httpd.serve_forever, daemon=True).start()
+answers = []
+for method, path, body in (("POST", "/generate", {"prompt": "x", "height": 32, "width": 32, "steps": 1}),
+                           ("GET", "/models", None), ("GET", "/info", None)):
+    conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=60)
+    conn.request(method, path, body=json.dumps(body) if body else None)
+    resp = conn.getresponse()
+    answers.append([resp.status, resp.getheader("Content-Type"), len(resp.read()) > 0])
+    conn.close()
+httpd.shutdown()
+served.shutdown()
+with tempfile.TemporaryDirectory() as tmp:
+    os.environ["FLUX2_BEACON_DIR"] = tmp
+    with beacon.RuntimeBeacon("generate", model="klein-4b", force=True):
+        beacons = len(beacon.list_active())
+    mask_path = os.path.join(tmp, "m.png")
+    with open(mask_path, "wb") as f:
+        f.write(encode_png((src[:16, :16] * 255).astype("uint8")))
+    cli.main(["mask-subject", "--image", mask_path, "--device", "cpu", "-o", mask_path])
+    mask_png = list(decode_png(open(mask_path, "rb").read()).shape)
+segmented = list(subject_mask(src, device="cpu").shape)
+psnr = round(quality.psnr(src, src * 0.5), 3)
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
                   "flux2_tpu": sorted(m for m in sys.modules if m == "flux2_tpu" or m.startswith("flux2_tpu.")),
                   "image": list(res.image.shape), "png": list(decode_png(png).shape),
@@ -122,7 +156,9 @@ print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.starts
                   "i2i_checkpoint_png": i2i_ckpt_png, "inpaint": list(inpainted.image.shape),
                   "outpaint": list(outpainted.image.shape), "callbacks": [list(x) if isinstance(x, tuple) else x
                                                                          for x in seen],
-                  "tiled": list(tiled.shape), "auto_profile": profile, "native": native.path_name() != "numpy"}))
+                  "tiled": list(tiled.shape), "auto_profile": profile, "native": native.path_name() != "numpy",
+                  "http": answers, "beacons": beacons, "mask_png": mask_png, "segmented": segmented,
+                  "psnr": psnr}))
 """
 
 
@@ -138,4 +174,7 @@ def test_port_runs_without_importing_jax():
                       "checkpoint_png": [32, 32, 3], "i2i_png": [32, 32, 3], "kv_latents": [1, 4, 128],
                       "i2i_checkpoint_png": [32, 32, 3], "inpaint": [32, 32, 3], "outpaint": [32, 64, 3],
                       "callbacks": [1, [1, 4, 128], 2, [1, 4, 128], [32, 32, 3]], "tiled": [1, 32, 32, 3],
-                      "auto_profile": "performance", "native": True}
+                      "auto_profile": "performance", "native": True,
+                      "http": [[200, "image/png", True], [200, "application/json", True],
+                               [200, "application/json", True]],
+                      "beacons": 1, "mask_png": [16, 16, 3], "segmented": [32, 32], "psnr": 10.716}

@@ -49,7 +49,7 @@ def test_t2i_latents_match_golden_and_image_matches_jax(pipes):
     ref = jpipe.generate(embeddings=jnp.asarray(emb), height=64, width=64, num_steps=3, seed=1234)
     res = tpipe.generate(embeddings=torch.from_numpy(emb), height=64, width=64, num_steps=3,
                          noise=torch.from_numpy(noise))
-    np.testing.assert_allclose(res.latents.numpy(), np.load(GOLDEN), atol=1e-3, rtol=0)
+    np.testing.assert_allclose(res.latents, np.load(GOLDEN), atol=1e-3, rtol=0)
     assert res.image.shape == (64, 64, 3) and res.num_steps == 3
     assert set(res.phase_timings) == {"text_encoding", "denoising", "vae_decoding"}
     assert np.max(np.abs(res.image - ref.image)) <= 1.0 / 255 + 1e-6

@@ -168,7 +168,7 @@ def test_stream_dtype_is_bf16_under_a_quantized_x_embedder(monkeypatch):
     assert isinstance(pipe.transformer.x_embedder, tq.W8A8Tensor)
     res = pipe.generate(embeddings=emb, height=32, width=32, num_steps=1, decode=False)
     assert seen == [torch.float32, torch.bfloat16]
-    assert res.latents.dtype == torch.float32 and torch.isfinite(res.latents).all()
+    assert res.latents_device.dtype == torch.float32 and torch.isfinite(res.latents_device).all()
 
 
 def test_build_pipeline_refuses_what_is_not_ported(tmp_path, monkeypatch):

@@ -75,6 +75,11 @@ def test_verify_completeness_finds_a_truncated_file(tmp_path):
     assert treg.verify_completeness(path) == jreg.verify_completeness(path) == (False, ["b.safetensors"])
 
 
-def test_download_is_refused_without_the_network():
-    with pytest.raises(NotImplementedError, match="needs the network"):
-        treg.download(treg.VAE_REPO)
+def test_download_is_refused_without_the_network(monkeypatch):
+    """Without ``huggingface_hub`` (the only way the registry reaches the
+    network), ``download`` raises JAX's RuntimeError; the fetch itself is
+    tested with ``snapshot_download`` patched (tests/test_torch_cli_small.py)."""
+    monkeypatch.setitem(__import__("sys").modules, "huggingface_hub", None)
+    for reg in (treg, jreg):
+        with pytest.raises(RuntimeError, match="huggingface_hub not available"):
+            reg.download(reg.VAE_REPO)

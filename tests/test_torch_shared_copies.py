@@ -11,8 +11,12 @@ editing slice's copies: the chains' mask and crop geometry and outpaint
 canvas (equal to the bit), their float helpers (within 1e-6), and
 ``utils/native.py``'s numpy path (equal to JAX's fallback to the bit) and its
 C++ path (within 1e-6 of it); the memory estimates are held in
-tests/test_torch_hooks.py. Also: the port's entry points default to the card
-and take the CPU only when asked.
+tests/test_torch_hooks.py. The serving slice's copies, equal to the bit: the
+web UI (``_DEMO_HTML``), the registry's memory and encoder-variant tables and
+functions, ``utils/beacon.py``, every ``utils/quality.py`` metric, and the
+subject mask's morphology, saliency heuristic, ``synth_composite`` and
+``iou``. Also: the port's entry points default to the card and take the CPU
+only when asked.
 
 ``jax_config`` builds the JAX package's config class from a port config's
 numbers; the other CPU parity tests use it wherever they feed one config to
@@ -31,7 +35,9 @@ import torch
 
 from flux2_tpu.chains import inpaint as jinpaint
 from flux2_tpu.chains import outpaint as joutpaint
-from flux2_tpu.chains.subject_mask import _dilate, _inward_ramp
+from flux2_tpu import serve as jserve
+from flux2_tpu.chains import segmenter as jseg
+from flux2_tpu.chains import subject_mask as jsubject
 from flux2_tpu.cli import train as jtrain_cli
 from flux2_tpu.io import registry as jregistry
 from flux2_tpu.io import safetensors_io as jst
@@ -42,11 +48,17 @@ from flux2_tpu.ops import latents as jlu
 from flux2_tpu.ops import scheduler as jsch
 from flux2_tpu.pipeline import pipeline as jpipeline
 from flux2_tpu.training import control as jcontrol
+from flux2_tpu.utils import beacon as jbeacon
 from flux2_tpu.utils import dev_tokenizer as jtok
 from flux2_tpu.utils import logging as jlog
 from flux2_tpu.utils import native as jnative
+from flux2_tpu.utils import quality as jquality
+from flux2_tpu_torch import serve as tserve
 from flux2_tpu_torch.chains import inpaint as tinpaint
 from flux2_tpu_torch.chains import outpaint as toutpaint
+from flux2_tpu_torch.chains import segmenter as tseg
+from flux2_tpu_torch.chains import subject_mask as tsubject
+from flux2_tpu_torch.chains.subject_mask import _dilate, _inward_ramp
 from flux2_tpu_torch.cli import main as tcli
 from flux2_tpu_torch.cli import train_config as ttrain_cfg
 from flux2_tpu_torch.io import registry as tregistry
@@ -60,9 +72,11 @@ from flux2_tpu_torch.pipeline import pipeline as tpipeline
 from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
 from flux2_tpu_torch.training import control as tcontrol
 from flux2_tpu_torch.training.trainer import TrainConfig
+from flux2_tpu_torch.utils import beacon as tbeacon
 from flux2_tpu_torch.utils import dev_tokenizer as ttok
 from flux2_tpu_torch.utils import logging as tlog
 from flux2_tpu_torch.utils import native as tnative
+from flux2_tpu_torch.utils import quality as tquality
 
 
 def jax_config(cfg):
@@ -133,6 +147,18 @@ def test_registry_tables_equal_jax():
     assert {(m.name, f): dataclasses.asdict(v) for (m, f), v in tregistry.PREQUANTIZED_TRANSFORMER_REPOS.items()} == {
         (m.name, f): dataclasses.asdict(v) for (m, f), v in jregistry.PREQUANTIZED_TRANSFORMER_REPOS.items()}
     assert tregistry.DEFAULT_MODELS_DIR == jregistry.DEFAULT_MODELS_DIR
+
+
+def test_registry_memory_tables_equal_jax():
+    assert tregistry.ENCODER_VARIANT_REPOS == jregistry.ENCODER_VARIANT_REPOS
+    assert tregistry.QUANT_PRESETS == jregistry.QUANT_PRESETS
+    assert {m.name: v for m, v in tregistry.MODEL_MIN_MEMORY_GB.items()} == {
+        m.name: v for m, v in jregistry.MODEL_MIN_MEMORY_GB.items()}
+    for gb in (0, 12.9, 13, 16, 20, 28, 29, 31.9, 32, 47.5, 48, 64, 72, 95.9, 96, 640):
+        assert tregistry.recommended_preset(gb) == jregistry.recommended_preset(gb)
+        for m in jcfg.Flux2Model:
+            assert tregistry.recommended_format_for_model(tcfg.Flux2Model[m.name], gb) == \
+                jregistry.recommended_format_for_model(m, gb)
 
 
 @pytest.mark.parametrize("name", [m.name for m in jcfg.Flux2Model])
@@ -394,6 +420,75 @@ def test_native_op_equals_jax(name, path, monkeypatch):
             np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
 
 
+def test_subject_mask_morphology_copies_equal_jax():
+    """The port's ``_dilate`` / ``_inward_ramp`` (the reference the native ops
+    are held against below) and ``saliency_foreground`` equal JAX's to the bit."""
+    mask = (np.random.RandomState(18).rand(37, 29) > 0.8).astype(np.float32)
+    for r in (0, 1, 4):
+        assert np.array_equal(tsubject._dilate(mask, r), jsubject._dilate(mask, r))
+        assert np.array_equal(tsubject._inward_ramp(mask, r), jsubject._inward_ramp(mask, r))
+    image = np.random.RandomState(19).rand(31, 45, 3).astype(np.float32)
+    assert np.array_equal(tsubject.saliency_foreground(image), jsubject.saliency_foreground(image))
+
+
+@pytest.mark.parametrize("seed,size", [(10_001, 256), (3, 64)])
+def test_synth_composite_and_iou_equal_jax(seed, size):
+    (img, mask), (jimg, jmask) = (m.synth_composite(np.random.RandomState(seed), size) for m in (tseg, jseg))
+    assert np.array_equal(img, jimg) and np.array_equal(mask, jmask) and img.dtype == jimg.dtype
+    pred = np.random.RandomState(seed + 1).rand(size, size).astype(np.float32)
+    assert tseg.iou(pred, mask) == jseg.iou(pred, jmask) and tseg.iou(pred, mask, 0.7) == jseg.iou(pred, jmask, 0.7)
+
+
+def test_demo_html_equals_jax():
+    assert tserve._DEMO_HTML == jserve._DEMO_HTML
+
+
+def _quality_cases():
+    rng = np.random.RandomState(20)
+    a, b = rng.rand(24, 36, 3), rng.rand(24, 36, 3).astype(np.float32)
+    chart = jquality.color_chart_image(cell=16)
+    return {
+        "psnr": lambda q: q.psnr(a, b),
+        "psnr_equal": lambda q: q.psnr(a, a),
+        "psnr_255": lambda q: q.psnr(a * 255, b * 255, max_val=255.0),
+        "mean_rgb_delta": lambda q: q.mean_rgb_delta(a, b),
+        "srgb_to_lab": lambda q: q.srgb_to_lab(a),
+        "delta_e_cie76": lambda q: q.delta_e_cie76(a, b),
+        "color_chart_image": lambda q: q.color_chart_image(cell=8, cols=4),
+        "measure_color_chart": lambda q: q.measure_color_chart(chart + 0.01 * a[:1, :1]),
+        "color_chart_delta_e": lambda q: q.color_chart_delta_e(np.clip(chart + 0.02, 0, 1)),
+        "compare_images": lambda q: q.compare_images(a, b),
+        "histogram_similarity": lambda q: q.histogram_similarity(a, b, bins=16),
+        "color_moment_similarity": lambda q: q.color_moment_similarity(a, b),
+        "color_checker_srgb": lambda q: q.COLOR_CHECKER_SRGB,
+    }
+
+
+QUALITY_CASES = _quality_cases()
+
+
+@pytest.mark.parametrize("name", list(QUALITY_CASES))
+def test_quality_metric_equals_jax(name):
+    got, ref = QUALITY_CASES[name](tquality), QUALITY_CASES[name](jquality)
+    if isinstance(ref, np.ndarray):
+        assert got.dtype == ref.dtype and np.array_equal(got, ref)
+    else:
+        assert got == ref and type(got) is type(ref)
+
+
+def test_beacon_dir_and_switch_equal_jax(monkeypatch, tmp_path):
+    monkeypatch.delenv("FLUX2_BEACON_DIR", raising=False)
+    monkeypatch.setenv("XDG_STATE_HOME", str(tmp_path / "state"))
+    assert tbeacon.beacon_dir() == jbeacon.beacon_dir() == str(tmp_path / "state" / "ai-runtime-beacons")
+    monkeypatch.setenv("FLUX2_BEACON_DIR", str(tmp_path / "b"))
+    assert tbeacon.beacon_dir() == jbeacon.beacon_dir() == str(tmp_path / "b")
+    for value, on in (("1", True), ("0", False), ("yes", False)):
+        monkeypatch.setenv("FLUX2_RUNTIME_BEACON", value)
+        assert tbeacon.enabled() is jbeacon.enabled() is on
+    assert tbeacon.list_active() == jbeacon.list_active() == [] and tbeacon.gc_stale_manifests() == 0
+    assert not tbeacon.RuntimeBeacon("generate").active  # off unless enabled or forced
+
+
 def test_native_dilate_ramp_equals_jax_numpy_reference(monkeypatch):
     """Without the library both return None (callers keep their fallback); the
     port's C++ build equals JAX's iterated-erosion reference within 1e-6."""
@@ -517,8 +612,9 @@ def test_logging_equals_jax(capsys):
 @pytest.mark.parametrize("argv", [["t2i", "--random-init"], ["train-lora", "--config", "x.yaml", "--random-init"],
                                   ["i2i", "--random-init", "--reference", "ref.png"],
                                   ["inpaint", "--random-init", "--image", "a.png", "--mask", "m.png"],
-                                  ["outpaint", "--random-init", "--image", "a.png", "--left", "64"]],
-                         ids=["t2i", "train-lora", "i2i", "inpaint", "outpaint"])
+                                  ["outpaint", "--random-init", "--image", "a.png", "--left", "64"],
+                                  ["mask-subject", "--image", "a.png"]],
+                         ids=["t2i", "train-lora", "i2i", "inpaint", "outpaint", "mask-subject"])
 def test_cli_device_defaults_to_cuda(argv):
     assert tcli.parse_args(argv).device == "cuda"
     assert tcli.parse_args([*argv, "--device", "cpu"]).device == "cpu"
