@@ -43,7 +43,17 @@ generate to the bit, a 256^2 batch of three, previews, /embed equal to
 encode_prompt, cancel_all mid-batch), `python -m flux2_tpu_torch.serve
 --random-init --quantization w8a8 --precompile 256` in a process of its own,
 then `mask-subject` on a 1024^2 synthetic composite (the committed U-Net on
-the card against the CPU) and `inpaint` with that mask. Every path runs with the launch
+the card against the CPU) and `inpaint` with that mask. The LoRA / prequantized
+slice (phase_lora_prequant, on the checkpoint phase's directories): a rank-16
+LoRA written from a seed in both key dialects with a Turbo sidecar, `t2i
+--lora` (2 steps, K1 50, equal to an in-process merge and generate to the bit,
+the two dialects merging to the same bits, merged vs unmerged velocity),
+`export-quantized` qint8 with the LoRA baked and int4, `t2i` w8a8 / w4a8 from
+those files (K5 206 / K6 205 a forward; the w8a8 DiT equal to an in-memory
+qint8 -> w8a8 to the bit), `FLUX2_PALLAS_DEQUANT=1 t2i --quantization qint8
+--lora` (the QTensor merge, K7 202 a forward), `--dequantize-runtime`, and
+QLoRA steps through the library on a w8a8 and a qint8 Klein-4B base (K5 406 /
+K7 402 a step, the kernels' input gradient against the plain route). Every path runs with the launch
 counts set to 0 just before it and checks them just after. Any failure raises: the
 traceback is printed and the exit code is not 0. There is no CPU fallback.
 
@@ -2325,7 +2335,7 @@ def phase_checkpoint_round_trip(card: str, workdir: str) -> dict:
     decoder = pipe.text_encoder.decoder
     free = shutil.disk_usage(workdir).free
     need = sum(t.numel() * t.element_size() for m in (pipe.transformer, pipe.vae, pipe.vae_encoder, decoder)
-               for t in m.state_dict().values())
+               for t in m.state_dict().values()) + PREQUANT_DISK_BYTES  # phase_lora_prequant's files too
     layers = enc_cfg.num_hidden_layers
     if free < 1.1 * need:
         layers = KLEIN_RECIPE_DEPTH  # layers 28-35 never reach the Klein embedding
@@ -2447,7 +2457,560 @@ def phase_checkpoint_round_trip(card: str, workdir: str) -> dict:
     finally:
         cli.build_pipeline = original
         tprof._shared = None
-    return {"load": load, "phases": phases, "written": written, "compare": stats, "t2i": report, "process": proc}
+    return {"load": load, "phases": phases, "written": written, "compare": stats, "t2i": report, "process": proc,
+            "dirs": dirs}
+
+
+# -- LoRA inference, prequantized checkpoints and QLoRA ------------------------------------
+
+LORA_RANK = 16
+LORA_USER_SCALE = 0.8
+LORA_SIDECAR = {"activation_keyword": "CHIPSTYLE", "scheduler": {"num_steps": 2}}
+LORA_REQUEST = {"prompt": "a lighthouse on a cliff at dusk, with a LoRA", "seed": 6}
+# Disk the phase adds beside the checkpoint: the qint8 file (~4.5 GB at
+# Klein-4B), the int4 file (~2.5 GB) and two LoRA files (~0.13 GB each).
+PREQUANT_DISK_BYTES = 7.5e9
+QLORA_STEPS = 3
+# A QLoRA train step on a quantized Klein-4B base under remat: the forward runs
+# every projection that passes its kernel's gate once (206 for K5 and its
+# prologue, 202 for K7: FORWARD_LAUNCHES), and torch.utils.checkpoint recomputes
+# each block whole in the backward, its 200 projections (5 double blocks x 12,
+# 20 single blocks x 7) all on the kernel again; the backward itself launches
+# none (dy @ dequantize(w), ops.quant.KernelLinear). Attention: STEP_LAUNCHES.
+QLORA_RECOMPUTED = 5 * 12 + 20 * 7
+QLORA_STEP_LAUNCHES = {"w8a8": {"w8a8": FORWARD_LAUNCHES["w8a8"] + QLORA_RECOMPUTED,
+                                "quantize_rows": FORWARD_LAUNCHES["w8a8"] + QLORA_RECOMPUTED},
+                       "qint8": {"dequant_int8": FORWARD_LAUNCHES["qint8"] + QLORA_RECOMPUTED}}
+# The kernel route's input gradient (dy @ dequantize(w) after the kernel's
+# forward) against autograd of the dequantize-then-F.linear route, relative L2:
+# the two differ by the forward's int8 activation rounding (K5, K6) or f32
+# summation order (K7) carried through dy.
+XGRAD_REL_TOL = 1e-2
+
+
+def _bfl_lora_state(config, rank: int, gen: torch.Generator) -> dict:
+    """A BFL-native LoRA on every default target of every block, drawn from
+    ``gen`` on the CPU: A [r, in] ~ N(0, 1/in), B [out, r] ~ N(0, 4e-4), f32."""
+    d, mlp = config.inner_dim, config.mlp_hidden_dim
+    dims = {"img_attn.qkv": (d, 3 * d), "txt_attn.qkv": (d, 3 * d), "img_attn.proj": (d, d),
+            "txt_attn.proj": (d, d), "img_mlp.0": (d, 2 * mlp), "img_mlp.2": (mlp, d), "txt_mlp.0": (d, 2 * mlp),
+            "txt_mlp.2": (mlp, d)}
+    out = {}
+
+    def pair(key, d_in, d_out):
+        out[f"{key}.lora_A.weight"] = torch.randn(rank, d_in, generator=gen) * d_in**-0.5
+        out[f"{key}.lora_B.weight"] = torch.randn(d_out, rank, generator=gen) * 2e-2
+
+    for i in range(config.num_layers):
+        for name, (d_in, d_out) in dims.items():
+            pair(f"double_blocks.{i}.{name}", d_in, d_out)
+    for i in range(config.num_single_layers):
+        pair(f"single_blocks.{i}.linear1", d, 3 * d + 2 * mlp)
+        pair(f"single_blocks.{i}.linear2", d + mlp, d)
+    return out
+
+
+def _diffusers_lora_state(bfl: dict, config) -> dict:
+    """The same adapters in the Diffusers dialect: each fused qkv as three pairs
+    sharing A, linear1 / linear2 as the fused to_qkv_mlp_proj / to_out."""
+    d = config.inner_dim
+    double = {"img_attn.proj": "attn.to_out.0", "txt_attn.proj": "attn.to_add_out", "img_mlp.0": "ff.linear_in",
+              "img_mlp.2": "ff.linear_out", "txt_mlp.0": "ff_context.linear_in", "txt_mlp.2": "ff_context.linear_out"}
+    qkv = {"img_attn.qkv": ("attn.to_q", "attn.to_k", "attn.to_v"),
+           "txt_attn.qkv": ("attn.add_q_proj", "attn.add_k_proj", "attn.add_v_proj")}
+    out = {}
+
+    def put(key, a, b):
+        out[f"transformer.{key}.lora_A.weight"] = a.clone()
+        out[f"transformer.{key}.lora_B.weight"] = b.contiguous()
+
+    for i in range(config.num_layers):
+        src = f"double_blocks.{i}."
+        for fused, names in qkv.items():
+            a, b = bfl[src + fused + ".lora_A.weight"], bfl[src + fused + ".lora_B.weight"]
+            for j, name in enumerate(names):
+                put(f"transformer_blocks.{i}.{name}", a, b[j * d:(j + 1) * d])
+        for name, target in double.items():
+            put(f"transformer_blocks.{i}.{target}", bfl[src + name + ".lora_A.weight"],
+                bfl[src + name + ".lora_B.weight"])
+    for i in range(config.num_single_layers):
+        for name, target in (("linear1", "attn.to_qkv_mlp_proj"), ("linear2", "attn.to_out")):
+            put(f"single_transformer_blocks.{i}.{target}", bfl[f"single_blocks.{i}.{name}.lora_A.weight"],
+                bfl[f"single_blocks.{i}.{name}.lora_B.weight"])
+    return out
+
+
+def _write_lora(path: str, state: dict) -> int:
+    from flux2_tpu_torch.io import safetensors_io
+
+    safetensors_io.save_file(state, path)
+    with open(os.path.splitext(path)[0] + ".json", "w") as f:
+        json.dump(LORA_SIDECAR, f)
+    return os.path.getsize(path)
+
+
+def _dit_state(model) -> dict:
+    """Every parameter and buffer of a DiT by name (quantized weights' codes and scales too)."""
+    return dict(model.named_parameters()) | dict(model.named_buffers())
+
+
+def _states_equal(a, b) -> bool:
+    sa, sb = _dit_state(a), _dit_state(b)
+    return sorted(sa) == sorted(sb) and all(sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _velocity_inputs(gen):
+    """A 1024^2 DiT forward's inputs on the card: latents, 512 text tokens, sigma, RoPE."""
+    import numpy as np
+
+    from flux2_tpu_torch.ops import latents as lu
+    from flux2_tpu_torch.ops.rope import rope_embeddings
+
+    x = torch.randn(1, 4096, 128, device="cuda", generator=gen).bfloat16()
+    emb = torch.randn(1, 512, 7680, device="cuda", generator=gen).bfloat16()
+    ids = np.concatenate([lu.text_position_ids(512), lu.image_position_ids(1024, 1024)])
+    cos, sin = rope_embeddings(torch.from_numpy(ids).cuda())
+    return x, emb, torch.tensor([0.7], device="cuda"), cos, sin
+
+
+def _velocity(model, inputs, **kw) -> torch.Tensor:
+    with torch.inference_mode():
+        v = model(*inputs, **kw).float()
+    torch.cuda.synchronize()
+    return v
+
+
+def _run_cli_logged(argv: list, label: str, card: str) -> tuple:
+    """``_run_cli`` with the command's log lines (standard error) captured,
+    logged and returned with its standard output's lines."""
+    import contextlib
+    import io
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        lines = _run_cli(argv, label, card, tag="lora")
+    for line in err.getvalue().strip().splitlines():
+        log(f"[lora {label}] {line}")
+    return lines, err.getvalue()
+
+
+def _expect_counts(label: str, counts: dict, want: dict) -> None:
+    full = {name: 0 for name in counts}
+    full.update(want)
+    if counts != full:
+        raise AssertionError(f"{label} launched {counts}, want {full}")
+
+
+def _xgrad_check(w, k: int, label: str, card: str) -> float:
+    """The R2 check: x.grad through one quantized projection on its kernel
+    (ops.quant.KernelLinear) against autograd of the plain route, at a 512^2
+    training shape (1056 rows)."""
+    from flux2_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    x0 = torch.randn(1, 1056, k, device="cuda", generator=gen).bfloat16()
+
+    def grad(plain: bool):
+        x = x0.clone().requires_grad_(True)
+        route = tq.kernel_route
+        if plain:
+            tq.kernel_route = lambda x_, w_: None
+        try:
+            y = tq.q_linear(x, w)
+        finally:
+            tq.kernel_route = route
+        y.float().square().sum().backward()
+        return x.grad
+
+    _zero_launches()
+    gk = grad(False)
+    counts = _launch_counts()
+    gp = grad(True)
+    rel = _rel_l2(gk, gp)
+    kernel = {"w8a8": "w8a8", "w4a8": "w4a8"}.get(w.format, "dequant_int8")
+    if counts[kernel] != 1 or not bool(torch.isfinite(gk).all()) or float(gk.abs().max()) == 0 or rel > XGRAD_REL_TOL:
+        raise AssertionError(f"{label}: x.grad through the kernel vs the plain route, relative L2 {rel} (tol "
+                             f"{XGRAD_REL_TOL}); launches {counts}")
+    log(f"[qlora] R2 {label}: x.grad through {kernel} (one launch) vs the plain route, relative L2 {rel:.3e} (tol "
+        f"{XGRAD_REL_TOL}) [{card}]")
+    return rel
+
+
+def _wrapper_host_us(card: str) -> dict:
+    """The host's time per call of q_linear on a W8A8 weight at the shape of
+    PERF.md's wrapper figures, (M, K, N) = (16, 512, 2560), under
+    inference_mode (the R2 check only) and with x requiring grad (through
+    KernelLinear.apply), beside the parent's q_linear restated, w8a8_matmul
+    alone and F.linear."""
+    import torch.nn.functional as F
+
+    from flux2_tpu_torch.ops import quant as tq
+    from flux2_tpu_torch.ops import quant_kernels as qk
+    from flux2_tpu_torch.utils.quant_candidate import host_us
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    x = torch.randn(16, 512, device="cuda", generator=gen).bfloat16()
+    w = (torch.randn(2560, 512, device="cuda", generator=gen) * 512**-0.5).bfloat16()
+    w8 = tq.to_w8a8(w)
+    xg = x.clone().requires_grad_(True)
+
+    def parent_q_linear(x, w):
+        """The parent's q_linear for a quantized weight, restated: the gate, then the kernel."""
+        if isinstance(w, torch.Tensor):
+            return F.linear(x, w)
+        route = tq.kernel_route(x, w) if x.is_cuda else None
+        if route == "w8a8":
+            return qk.w8a8_matmul(x, w)
+        return F.linear(x, tq.dequantize_any(w, x.dtype))
+
+    with torch.inference_mode():  # as the pipeline serves
+        times = {"F.linear (bf16)": host_us(lambda: F.linear(x, w)),
+                 "w8a8_matmul": host_us(lambda: qk.w8a8_matmul(x, w8)),
+                 "q_linear before R2": host_us(lambda: parent_q_linear(x, w8)),
+                 "q_linear": host_us(lambda: tq.q_linear(x, w8))}
+    times["q_linear, x requiring grad (KernelLinear)"] = host_us(lambda: tq.q_linear(xg, w8))
+    log("[host] us of host a call at (M,K,N)=(16,512,2560): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+        + f" [{card}]")
+    return times
+
+
+def _qlora_run(fmt: str, card: str, bf16_s_per_step: float) -> dict:
+    """QLoRA through the library on a random Klein-4B-base DiT quantized to
+    ``fmt``: init_train_state and QLORA_STEPS steps of make_train_step at 512^2,
+    bs 1, rank 16, remat, with exact launch counts; one step's loss and LoRA
+    gradient against the same step with each kernel's plain version in its
+    place (the train-step limits), and against q_linear's dequantize-then-
+    F.linear route (the loss at the train-step limit; the gradient at the
+    format's forward limit, QUANT_DIT_REL_TOL: that route leaves out the int8
+    activation rounding of K5, which moved the w8a8 gradient by 5.3e-2 at
+    full Klein-4B width on an H100); the R2 check."""
+    from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
+    from flux2_tpu_torch.ops import quant as tq
+    from flux2_tpu_torch.ops import quant_kernels as qk
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Model
+    from flux2_tpu_torch.training import lora as lora_mod
+    from flux2_tpu_torch.training import trainer
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    model = Flux2Transformer(Flux2Model.KLEIN_4B_BASE.transformer_config, device="cuda", generator=gen)
+    tq.quantize_params(model, fmt)
+    tcfg = trainer.TrainConfig(rank=16, alpha=16.0, remat=True)
+    latents, emb, sigmas, noise, cos, sin = _klein_train_inputs(gen, 512)
+    batch = {"latents": latents, "embeddings": emb, "rope_cos": cos, "rope_sin": sin}
+    state = trainer.init_train_state(model, tcfg, gen)
+    step = trainer.make_train_step(model, tcfg)
+    torch.cuda.synchronize()
+    _zero_launches()
+    times, history = [], []
+    for _ in range(QLORA_STEPS):
+        t0 = time.perf_counter()
+        m = step(state.lora, state.optimizer, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        history.append({k: float(v) for k, v in m.items()})
+    counts = _launch_counts()
+    want = {name: n * QLORA_STEPS for name, n in {**STEP_LAUNCHES, **QLORA_STEP_LAUNCHES[fmt]}.items()}
+    _expect_counts(f"QLoRA on a {fmt} base, {QLORA_STEPS} steps", counts, want)
+    if not all(h["loss"] == h["loss"] and h["grad_norm"] > 0 for h in history):
+        raise AssertionError(f"QLoRA on a {fmt} base: {history}")
+
+    # one step's loss and LoRA gradient, kernel route against q_linear's plain route
+    lora = lora_mod.init_lora(model, lora_mod.LoRAConfig(16, 16.0), gen)
+    with torch.no_grad():  # b != 0, so that every adapter leaf has a gradient to compare
+        for name, p in lora.named_parameters():
+            if name.endswith(".b"):
+                p.normal_(generator=gen).mul_(1e-2)
+
+    def run():
+        for p in lora.parameters():
+            p.grad = None
+        loss = trainer.flow_matching_loss(model, lora, tcfg, latents, emb, noise, sigmas, cos, sin)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {n: p.grad.detach().clone() for n, p in lora.named_parameters()}
+
+    def rel(other):
+        (loss_o, grads_o) = other
+        diff = sum(float((grads_k[n] - grads_o[n]).square().sum()) for n in grads_k)
+        return abs(loss_k - loss_o) / abs(loss_o), (diff / sum(float(g.square().sum()) for g in grads_o.values())) ** 0.5
+
+    loss_k, grads_k = run()
+    kernel = {"w8a8": "w8a8_matmul", "qint8": "dequant_matmul"}[fmt]
+    launch = getattr(qk, kernel)
+    setattr(qk, kernel, getattr(qk, kernel + "_reference"))  # the kernel's plain version in its place
+    try:
+        plain = run()
+    finally:
+        setattr(qk, kernel, launch)
+    route = tq.kernel_route
+    tq.kernel_route = lambda x, w: None  # q_linear's dequantize-then-F.linear route: no activation rounding
+    try:
+        dense = run()
+    finally:
+        tq.kernel_route = route
+    (rel_loss, rel_grad), (rel_loss_d, rel_grad_d) = rel(plain), rel(dense)
+    zero = [n for n, g in grads_k.items() if not bool(g.any())]
+    if (rel_loss > TRAIN_LOSS_REL_TOL or rel_grad > TRAIN_GRAD_REL_TOL or rel_loss_d > TRAIN_LOSS_REL_TOL
+            or rel_grad_d > QUANT_DIT_REL_TOL[fmt] or zero):
+        raise AssertionError(f"QLoRA on a {fmt} base: kernel route vs its plain version: loss {loss_k} vs {plain[0]} "
+                             f"(relative {rel_loss}, tol {TRAIN_LOSS_REL_TOL}), gradient relative L2 {rel_grad} (tol "
+                             f"{TRAIN_GRAD_REL_TOL}); vs the dequantize route: loss relative {rel_loss_d} (tol "
+                             f"{TRAIN_LOSS_REL_TOL}), gradient {rel_grad_d} (tol {QUANT_DIT_REL_TOL[fmt]}); zero "
+                             f"gradients: {zero[:4]}")
+    w = model.double_blocks[0].to_q
+    xgrad = _xgrad_check(w, w.orig_in, f"{fmt} double_blocks.0.to_q", card)
+    s_per_step = statistics.mean(times[1:])
+    log(f"[qlora] Klein-4B-base on a {fmt} base ({tq.param_bytes(model) / 2**30:.2f} GiB), 512^2 bs 1, rank 16, "
+        f"remat: {QLORA_STEPS} steps {[round(t, 4) for t in times]} s, losses {[round(h['loss'], 5) for h in history]}, "
+        f"grad norms {[round(h['grad_norm'], 5) for h in history]}; {s_per_step:.4f} s/step warm against bf16 "
+        f"{bf16_s_per_step:.4f} (train-lora, 512^2); launches {counts} (a step: {STEP_LAUNCHES} + "
+        f"{QLORA_STEP_LAUNCHES[fmt]}); one step on the kernels vs their plain versions: loss {loss_k:.6f} vs "
+        f"{plain[0]:.6f} (relative {rel_loss:.3e}, tol {TRAIN_LOSS_REL_TOL}), LoRA gradient relative L2 "
+        f"{rel_grad:.3e} (tol {TRAIN_GRAD_REL_TOL}); vs q_linear's dequantize route: loss relative {rel_loss_d:.3e} "
+        f"(tol {TRAIN_LOSS_REL_TOL}), gradient {rel_grad_d:.3e} (tol {QUANT_DIT_REL_TOL[fmt]}, the {fmt} forward's "
+        f"limit) [{card}]")
+    del model, state, lora, grads_k, plain, dense
+    gc_cuda()
+    return {"counts": counts, "s_per_step": s_per_step, "rel_loss": rel_loss, "rel_grad": rel_grad,
+            "rel_loss_dequant_route": rel_loss_d, "rel_grad_dequant_route": rel_grad_d, "xgrad_rel": xgrad}
+
+
+def phase_lora_prequant(card: str, workdir: str, dirs: dict, bf16_train_s_per_step: float) -> dict:
+    """LoRA inference, prequantized checkpoints and QLoRA at full Klein-4B
+    width, on the checkpoint directories ``phase_checkpoint_round_trip`` wrote:
+    a rank-16 LoRA written from a seed in both dialects; ``t2i --lora`` (its
+    Turbo steps, K1 50) equal to an in-process merge and generate to the bit,
+    both dialects merging to the same bits, the merged velocity against the
+    unmerged ``forward(lora=)``; ``export-quantized`` (qint8 with the LoRA
+    baked, int4) and ``t2i`` from those files (w8a8: K5 206 a forward, its
+    weights equal to an in-memory qint8 -> w8a8 of the merged weights; w4a8:
+    K6 205); ``FLUX2_PALLAS_DEQUANT=1 t2i --quantization qint8 --lora`` (the
+    slice-wise QTensor merge, K7 202 a forward); ``--dequantize-runtime`` (no
+    K5-K7); then QLoRA through the library on a w8a8 and a qint8 base."""
+    from flux2_tpu_torch.cli import main as cli
+    from flux2_tpu_torch.io import checkpoints as tck
+    from flux2_tpu_torch.io import weight_mapping
+    from flux2_tpu_torch.io.png import encode_png, to_u8
+    from flux2_tpu_torch.ops import quant as tq
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Model
+    from flux2_tpu_torch.training import lora_loader
+    from flux2_tpu_torch.utils import profiler as tprof
+
+    out = {"launches": {}}
+    tdir = dirs["transformer"]
+    dir_flags = ["--transformer-dir", tdir, "--vae-dir", dirs["vae"], "--encoder-dir", dirs["text_encoder"]]
+    request = ["--prompt", LORA_REQUEST["prompt"], "--seed", str(LORA_REQUEST["seed"])]
+    config = cli._read_config_json(tdir, Flux2Model.KLEIN_4B.transformer_config)
+
+    # 1. the LoRA, from a seed, in both dialects, each with the Turbo sidecar
+    t0 = time.perf_counter()
+    bfl = _bfl_lora_state(config, LORA_RANK, torch.Generator().manual_seed(SEED + 12))
+    files = {"bfl": os.path.join(workdir, "lora_bfl.safetensors"),
+             "diffusers": os.path.join(workdir, "lora_diffusers.safetensors")}
+    sizes = {"bfl": _write_lora(files["bfl"], bfl),
+             "diffusers": _write_lora(files["diffusers"], _diffusers_lora_state(bfl, config))}
+    del bfl
+    log(f"[lora] rank-{LORA_RANK} LoRA on every default target of every block written in both dialects "
+        f"({', '.join(f'{k} {v / 1e9:.3f} GB' for k, v in sizes.items())}) with the sidecar {LORA_SIDECAR} in "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+    # 2. in process: the checkpoint's pipeline, the unmerged forward, the BFL merge, a generate
+    pipe = cli.build_pipeline(cli.parse_args(["t2i", *dir_flags]), "cuda")
+    inputs = _velocity_inputs(torch.Generator(device="cuda").manual_seed(SEED + 15))
+    v_base = _velocity(pipe.transformer, inputs)
+    t0 = time.perf_counter()
+    loaded = {k: lora_loader.load_lora_file(f, config, user_scale=LORA_USER_SCALE) for k, f in files.items()}
+    load_s = (time.perf_counter() - t0) / 2
+    v_unmerged = _velocity(pipe.transformer, inputs, lora=lora_loader.to_stacked_lora(loaded["diffusers"], config, "cuda"),
+                           lora_scale=loaded["diffusers"].scale)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lora_loader.merge_loras_into_params(pipe.transformer, [loaded["bfl"]], config)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    v_merged = _velocity(pipe.transformer, inputs)
+    merge_rel, lora_effect = _rel_l2(v_merged, v_unmerged), _rel_l2(v_merged, v_base)
+    if merge_rel > DIT_REL_TOL or lora_effect <= merge_rel:
+        raise AssertionError(f"merged velocity vs the unmerged forward(lora=): relative L2 {merge_rel} (tol "
+                             f"{DIT_REL_TOL}); the LoRA moves it by {lora_effect} from the base")
+    overrides, keywords, _ = lora_loader.merge_runtime_semantics([loaded["bfl"]])
+    pipe.lora_num_steps, pipe.lora_keywords = overrides.num_steps, keywords
+    res = pipe.generate(height=1024, width=1024, **LORA_REQUEST)
+    png = encode_png(to_u8(res.image))
+    log(f"[lora] load {load_s:.3f} s a file; merge {merge_s:.3f} s (rank {LORA_RANK}, {len(loaded['bfl'].pairs)} "
+        f"targets x 25 blocks, scale {loaded['bfl'].scale:.3f}); 1024^2 velocity merged vs unmerged forward(lora=) "
+        f"relative L2 {merge_rel:.3e} (tol {DIT_REL_TOL}), the LoRA moves it {lora_effect:.3e} from the base; "
+        f"in-process generate {res.num_steps} steps, final_prompt {res.final_prompt!r} [{card}]")
+
+    # 3. t2i --lora through cli.main: Turbo steps, keyword, PNG and merged weights equal to the bit
+    built = []
+    original = cli.build_pipeline
+
+    def recording_build(args, device, *a, **k):
+        built.append(_RecordingPipeline(original(args, device, *a, **k)))
+        return built[-1]
+
+    def run(label, argv, want, check=None):
+        """One cli.main command with its launches counted and checked; its pipeline is freed after ``check``."""
+        built.clear()
+        cli.build_pipeline = recording_build
+        try:
+            _zero_launches()
+            lines, err = _run_cli_logged(argv, label, card)
+            counts = _launch_counts()
+        finally:
+            cli.build_pipeline = original
+        _expect_counts(label, counts, want)
+        out["launches"][label] = counts
+        if check is not None:
+            check(built[0] if built else None, lines, err)
+        built.clear()
+        gc_cuda()
+        return lines, err
+
+    def check_lora_t2i(rec, lines, err):
+        with open(lines[0].split(" ", 1)[1], "rb") as f:
+            if f.read() != png:
+                raise AssertionError("t2i --lora: the PNG differs from the in-process merge and generate")
+        if not _states_equal(rec.transformer, pipe.transformer):
+            raise AssertionError("t2i --lora (Diffusers dialect): the merged DiT differs from the BFL merge")
+        got = rec.results[0]
+        if got.num_steps != 2 or not got.final_prompt.startswith("CHIPSTYLE, "):
+            raise AssertionError(f"t2i --lora: {got.num_steps} steps, final_prompt {got.final_prompt!r}")
+        if f"merged LoRA {files['diffusers']} (scale {loaded['diffusers'].scale:.3f})" not in err:
+            raise AssertionError("t2i --lora: no merge line")
+
+    run("t2i --lora", ["t2i", *dir_flags, *request, "--lora", f"{files['diffusers']}:{LORA_USER_SCALE}", "-o",
+                       os.path.join(workdir, "lora.png")], {"flash": 25 * 2}, check_lora_t2i)
+    log(f"[lora t2i] --lora (Diffusers dialect) through cli.main: 2 Turbo steps, K1 50, the keyword in final_prompt, "
+        f"PNG equal to the in-process generate and DiT equal to the BFL file's merge, both to the bit [{card}]")
+
+    # 4. export-quantized qint8 with the LoRA baked, then t2i --quantization w8a8 from the file
+    t0 = time.perf_counter()
+    lines, _ = run("export-quantized qint8 --lora", ["export-quantized", "--transformer-dir", tdir, "--quantization",
+                                                     "qint8", "--lora", f"{files['diffusers']}:{LORA_USER_SCALE}"], {})
+    export_s = time.perf_counter() - t0
+    want_lines = [f"baked LoRA {files['diffusers']} (scale {loaded['diffusers'].scale:.3f})",
+                  f"exported qint8 checkpoint -> {tck.prequantized_path(tdir, 'qint8')} ("]
+    if len(lines) != 2 or lines[0] != want_lines[0] or not lines[1].startswith(want_lines[1]):
+        raise AssertionError(f"export-quantized printed {lines}")
+    qint8_gb = os.path.getsize(tck.prequantized_path(tdir, "qint8")) / 1e9
+    tq.quantize_params(pipe.transformer, "qint8")  # the in-memory route: merged bf16 -> qint8 -> w8a8
+    tq.quantize_params(pipe.transformer, "w8a8")
+    v_w8a8 = {}
+
+    def check_w8a8(rec, lines, err):
+        if f"loaded prequantized qint8 transformer from {tck.prequantized_path(tdir, 'qint8')}" not in err:
+            raise AssertionError("t2i --quantization w8a8 did not read the prequantized file")
+        if not _states_equal(rec.transformer, pipe.transformer):
+            raise AssertionError("t2i w8a8 from the file: the DiT differs from the in-memory qint8 -> w8a8")
+        v_w8a8["v"] = _velocity(rec.transformer, inputs)
+
+    tprof._shared = tprof.PhaseProfiler(enabled=True)
+    try:
+        k5 = FORWARD_LAUNCHES["w8a8"] * 4
+        run("t2i w8a8 (prequantized)", ["t2i", *dir_flags, *request, "--quantization", "w8a8", "-o",
+                                        os.path.join(workdir, "w8a8.png")],
+            {"flash": 100, "w8a8": k5, "quantize_rows": k5}, check_w8a8)
+        cli_load_s = tprof.shared().phases["4. Load Transformer"]
+    finally:
+        tprof._shared = None
+    w8a8_rel = _rel_l2(v_w8a8["v"], v_merged)
+    if w8a8_rel > QUANT_DIT_REL_TOL["w8a8"]:
+        raise AssertionError(f"w8a8 (qint8 file -> w8a8) velocity vs bf16: {w8a8_rel} (tol "
+                             f"{QUANT_DIT_REL_TOL['w8a8']})")
+    del pipe
+    gc_cuda()
+    # the two loads alone, in process, in turns, twice: the prequantized file, the checkpoint quantized on the fly
+    def load_prequant():
+        tree, _ = tck.load_prequantized(tck.prequantized_path(tdir, "qint8"), expected_source_dir=tdir)
+        return tq.quantize_params(tck.transformer_from_tree(tree, config, "cuda"), "w8a8")
+
+    def load_dense():
+        return tq.quantize_params(weight_mapping.load_transformer(tck.WeightsDir(tdir), config, "cuda"), "w8a8")
+
+    load_times = {"prequantized": [], "dense": []}
+    for _ in range(2):
+        for name, load in (("prequantized", load_prequant), ("dense", load_dense)):
+            t0 = time.perf_counter()
+            model = load()
+            torch.cuda.synchronize()
+            load_times[name].append(time.perf_counter() - t0)
+            del model
+            gc_cuda()
+    prequant_load_s, dense_load_s = load_times["prequantized"], load_times["dense"]
+    log(f"[lora export] export-quantized qint8 --lora: {export_s:.2f} s of command, {qint8_gb:.3f} GB; t2i w8a8 "
+        f"from it: K5 {k5} (206 a forward), DiT equal to the in-memory qint8 -> w8a8 of the merged weights to the "
+        f"bit, velocity vs bf16 relative L2 {w8a8_rel:.4e} (tol {QUANT_DIT_REL_TOL['w8a8']}); load phase in the "
+        f"CLI {cli_load_s:.3f} s; in process, in turns: prequantized file -> w8a8 "
+        f"{[round(t, 3) for t in prequant_load_s]} s, dense checkpoint + on-the-fly w8a8 "
+        f"{[round(t, 3) for t in dense_load_s]} s [{card}]")
+
+    # 5. int4 -> w4a8; the QTensor merge on K7; --dequantize-runtime
+    t0 = time.perf_counter()
+    run("export-quantized int4", ["export-quantized", "--transformer-dir", tdir, "--quantization", "int4"], {})
+    int4_s, int4_gb = time.perf_counter() - t0, os.path.getsize(tck.prequantized_path(tdir, "int4")) / 1e9
+
+    def check_w4a8(rec, lines, err):
+        if f"loaded prequantized int4 transformer from {tck.prequantized_path(tdir, 'int4')}" not in err:
+            raise AssertionError("t2i --quantization w4a8 did not read the prequantized int4 file")
+        v_w8a8["w4a8"] = _rel_l2(_velocity(rec.transformer, inputs), v_base)
+
+    k6 = FORWARD_LAUNCHES["w4a8"] * 4
+    run("t2i w4a8 (prequantized)", ["t2i", *dir_flags, *request, "--quantization", "w4a8", "-o",
+                                    os.path.join(workdir, "w4a8.png")],
+        {"flash": 100, "w4a8": k6, "quantize_rows": k6}, check_w4a8)
+    if v_w8a8["w4a8"] > QUANT_DIT_REL_TOL["w4a8"]:
+        raise AssertionError(f"w4a8 (int4 file) velocity vs bf16: {v_w8a8['w4a8']} (tol {QUANT_DIT_REL_TOL['w4a8']})")
+
+    def check_qtensor_merge(rec, lines, err):
+        kinds = {(type(w).__name__, w.format) for w in (rec.transformer.get_submodule(n)
+                                                        for n in tq.quantized_names(rec.transformer))}
+        if kinds != {("QTensor", "qint8")} or "merged LoRA" not in err:
+            raise AssertionError(f"t2i qint8 --lora: weights {kinds}")
+
+    os.environ["FLUX2_PALLAS_DEQUANT"] = "1"
+    try:
+        k7 = FORWARD_LAUNCHES["qint8"] * 2
+        run("t2i qint8 --lora (K7)", ["t2i", *dir_flags, *request, "--quantization", "qint8", "--lora",
+                                      f"{files['bfl']}:{LORA_USER_SCALE}", "-o", os.path.join(workdir, "k7.png")],
+            {"flash": 50, "dequant_int8": k7}, check_qtensor_merge)
+
+        def check_dense(rec, lines, err):
+            if tq.quantized_names(rec.transformer) or "dequantized to bf16 at load" not in err:
+                raise AssertionError("t2i --dequantize-runtime left quantized weights")
+
+        run("t2i qint8 --dequantize-runtime", ["t2i", *dir_flags, *request, "--quantization", "qint8",
+                                               "--dequantize-runtime", "-o", os.path.join(workdir, "deq.png")],
+            {"flash": 100}, check_dense)
+    finally:
+        del os.environ["FLUX2_PALLAS_DEQUANT"]
+    log(f"[lora export] export-quantized int4: {int4_s:.2f} s, {int4_gb:.3f} GB; t2i w4a8 from it: K6 {k6} (205 a "
+        f"forward), velocity vs bf16 {v_w8a8['w4a8']:.4e} (tol {QUANT_DIT_REL_TOL['w4a8']}); FLUX2_PALLAS_DEQUANT=1 "
+        f"t2i qint8 --lora (the LoRA merged into the file's QTensors): K7 {k7} (202 a forward, 2 Turbo steps); "
+        f"--dequantize-runtime: no K5-K7 launch [{card}]")
+    for name in ("lora_diffusers", "lora_bfl"):
+        os.unlink(os.path.join(workdir, name + ".safetensors"))
+
+    # 6. QLoRA through the library, on a w8a8 and on a qint8 base (K7)
+    out["qlora"] = {"w8a8": _qlora_run("w8a8", card, bf16_train_s_per_step)}
+    os.environ["FLUX2_PALLAS_DEQUANT"] = "1"
+    try:
+        out["qlora"]["qint8"] = _qlora_run("qint8", card, bf16_train_s_per_step)
+    finally:
+        del os.environ["FLUX2_PALLAS_DEQUANT"]
+    w = tq.to_w4a8(torch.randn(3072, 3072, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
+                   .mul_(3072**-0.5).bfloat16())
+    out["xgrad_w4a8"] = _xgrad_check(w, 3072, "w4a8 [3072, 3072]", card)
+    out["host_us"] = _wrapper_host_us(card)
+    out.update(load_s=load_s, merge_s=merge_s, merge_rel=merge_rel, export_s=export_s, qint8_gb=qint8_gb,
+               w8a8_rel=w8a8_rel, prequant_load_s=prequant_load_s, dense_load_s=dense_load_s, cli_load_s=cli_load_s,
+               int4_gb=int4_gb, w4a8_rel=v_w8a8["w4a8"])
+    return out
 
 
 def gc_cuda() -> None:
@@ -2625,8 +3188,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as workdir:
-        phase_checkpoint_round_trip(card, workdir)
-    log(f"[ckpt] checkpoint round trip and profile phase: {time.perf_counter() - t0:.2f} s [{card}]")
+        ckpt = phase_checkpoint_round_trip(card, workdir)
+        log(f"[ckpt] checkpoint round trip and profile phase: {time.perf_counter() - t0:.2f} s [{card}]")
+        gc_cuda()
+        t0 = time.perf_counter()
+        lora = phase_lora_prequant(card, workdir, ckpt["dirs"], train["s_per_step"])
+    log(f"[lora] LoRA, prequantized checkpoints and QLoRA phase: {time.perf_counter() - t0:.2f} s [{card}]")
 
     # Each kernel at the main path's shape ((1, 24, 4608, 128) for K1-K4, the
     # 1024^2 image projections (4096, 3072, 3072) for K5-K7): "ms" is the kernel
@@ -2657,6 +3224,8 @@ def main() -> int:
         # this slice's paths: one 1024^2 POST /generate, and the inpaint on a subject mask
         "launches_http_generate_1024px": http["launches"]["POST /generate (PNG)"],
         "launches_mask_inpaint": mask["inpaint_launches"],
+        # the LoRA / prequantized slice: each cli.main command of phase_lora_prequant
+        "launches_lora_prequant": {label: c["flash"] for label, c in lora["launches"].items() if c["flash"]},
         "slice_shapes": {name: {"q": list(shape[:3]) + [128], "s_k": shape[3], "span": span,
                                 "ms": checks[name]["alone"], "wrapper_ms": checks[name]["ms"],
                                 "plain_ms": checks[name]["plain_ms"], "bound_ms": checks[name]["bound"],
@@ -2683,6 +3252,13 @@ def main() -> int:
                  "bound_by": first["bound"][1], "library": first["library"], "library_ms": first["library_ms"]}
         if "route_ms" in first:
             entry["dequantize_then_linear_ms"] = first["route_ms"]
+        # the LoRA / prequantized slice: t2i from the prequantized files, the QTensor merge on K7, QLoRA steps
+        counter = COUNTER[fmt]
+        entry["launches_lora_prequant"] = {label: c[counter] for label, c in lora["launches"].items() if c[counter]}
+        qlora = {base: r["counts"][counter] for base, r in lora["qlora"].items() if r["counts"][counter]}
+        if qlora:
+            entry["launches_qlora"] = qlora
+            entry["launches_per_qlora_step"] = FORWARD_LAUNCHES[fmt] + QLORA_RECOMPUTED
         kernels.append(entry)
     # K5's and K6's activation prologue at K5's main shape (block = K = 3072);
     # launches from the w8a8 serving run (one before each K5 launch).
@@ -2694,7 +3270,10 @@ def main() -> int:
                     "unit": "1024^2 w8a8 forward (and one per K6 launch under w4a8)",
                     "max_abs_err": max(r["err"] for r in qchecks["prologue"].values()), "ms": pro["alone"],
                     "wrapper_ms": pro["ms"], "plain_ms": pro["plain_ms"], "bound_ms": pro["bound"][0],
-                    "bound_by": pro["bound"][1], "library": None, "library_ms": None})
+                    "bound_by": pro["bound"][1], "library": None, "library_ms": None,
+                    "launches_lora_prequant": {label: c["quantize_rows"] for label, c in lora["launches"].items()
+                                               if c["quantize_rows"]},
+                    "launches_qlora": lora["qlora"]["w8a8"]["counts"]["quantize_rows"]})
     # K2 vs the plain f32 forward with LSE; K3 and K4 vs the plain f32 backward,
     # which computes dq, dk and dv at once, as does their library call. Launches
     # from the 512^2 training run.
@@ -2714,7 +3293,8 @@ def main() -> int:
                         "ms": big["alone"][mark], "wrapper_ms": big["fwd_ms"] if key == "k2" else big["bwd_ms"],
                         "plain_ms": big["fwd_plain_ms"] if key == "k2" else big["bwd_plain_ms"],
                         "bound_ms": big["bounds"][key][0], "bound_by": big["bounds"][key][1],
-                        "library": big["library"][lib][0], "library_ms": big["library"][lib][1]})
+                        "library": big["library"][lib][0], "library_ms": big["library"][lib][1],
+                        "launches_qlora": {base: r["counts"][counter] for base, r in lora["qlora"].items()}})
     log(f"[vae] 1024^2 decode: first {decode['cold_s']:.4f} s, warm {decode['warm_s']:.4f} s [{card}]")
     log(f"[i2i] 1024^2 encode: first {i2i['encode_cold_s']:.4f} s, warm {i2i['encode_warm_s']:.4f} s, TF32 on vs off "
         f"{i2i['tf32_rel']:.4e}; Klein-4B s/step I2I {i2i['i2i_s_per_step']:.4f} vs T2I {i2i['t2i_s_per_step']:.4f}; "

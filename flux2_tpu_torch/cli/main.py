@@ -64,12 +64,25 @@ PNG is white where ``inpaint`` regenerates). The global flags
 ``HF_TOKEN`` and ``FLUX2_RUNTIME_BEACON``; ``t2i`` writes a beacon manifest
 while it denoises. Every PNG is written with JAX's pixels (``io.png.to_u8``).
 
-Not ported yet, and refused by argparse or raising: prequantized checkpoints
-(on-the-fly quantization only), LoRA inference, ``--shard``, the Mistral
+Every generating command takes ``--lora path[:scale]`` (repeatable: each
+file merged into the DiT in turn, its sidecar's Turbo overrides and
+activation keyword applied; a W8A8 / W4A8 DiT raises JAX's ``TypeError``) and
+``--dequantize-runtime``. ``export-quantized --quantization F [--lora L]``
+writes the checkpoint's DiT, LoRAs baked in, as a prequantized file beside
+it (``<transformer dir>/tpu-prequantized/F/transformer.safetensors``, JAX's
+layout), which a quantized ``t2i`` then reads (qint8 for w8a8, int4 for
+w4a8), as JAX's does:
+
+    python -m flux2_tpu_torch.cli.main export-quantized --transformer-dir T \\
+        --quantization qint8 --lora style.safetensors:0.8
+    python -m flux2_tpu_torch.cli.main t2i --transformer-dir T --vae-dir V \\
+        --encoder-dir E --quantization w8a8 --prompt "a red fox" -o fox.png
+
+Not ported yet, and refused by argparse or raising: ``--shard``, the Mistral
 encoder (Dev), the VLM flags ``--upsample`` / ``--interpret`` (``inpaint``'s
 ``--enrich-prompt-with-vlm`` warns and keeps the prompt, as JAX without a
 loaded VLM; ``--upsample-prompt`` raises JAX's error for a pipeline without
-an encoder facade), ``export-quantized`` and ``evaluate-lora``. Images are read by Pillow
+an encoder facade) and ``evaluate-lora``. Images are read by Pillow
 where it imports (any format it reads), else PNG only, by the port's own
 decoder; so are masks (grey, grey + alpha, RGB or RGBA PNGs without Pillow).
 """
@@ -92,7 +105,7 @@ from flux2_tpu_torch.models.text_encoders.config import QWEN3_4B, QWEN3_8B, Deco
 from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, FLUX2_VAE_SMALL_DECODER, VAEConfig
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
 from flux2_tpu_torch.models.text_encoders.extractor import qwen3_extractor, quantize_encoder_params
-from flux2_tpu_torch.ops.quant import quantize_params
+from flux2_tpu_torch.ops.quant import dequantize_params, quantize_params
 from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
 from flux2_tpu_torch.utils import logging as flog
 from flux2_tpu_torch.utils.profiler import shared as profiler
@@ -149,8 +162,50 @@ def build_pipeline(
         decoder = Qwen3Decoder(encoder_config, device=device, generator=generator)
         pipe.text_encoder = qwen3_extractor(quantize_encoder_params(decoder, enc_fmt), inline_bpe_tokenizer())
         pipe.text_encoder_name = registry.ENCODER_FOR_MODEL[model]
+    apply_loras(pipe, getattr(args, "lora", None) or [])
     pipe.memory_profile = memory_profile(args)
     return pipe
+
+
+def _lora_spec(spec: str):
+    """``path[:scale]`` -> (path, scale), as JAX splits it."""
+    parts = spec.split(":")
+    return parts[0], float(parts[1]) if len(parts) > 1 else 1.0
+
+
+def apply_loras(pipe: Flux2Pipeline, specs: Sequence[str]) -> None:
+    """Merge each ``--lora path[:scale]`` into the DiT, one file at a time, and
+    set the pipeline's LoRA runtime semantics (Turbo scheduler overrides,
+    activation keywords), with JAX's log lines (``build_pipeline``,
+    ``:166-198``). A W8A8 / W4A8 DiT raises JAX's ``TypeError``: merge into
+    the storage format first (``export-quantized --lora``)."""
+    if not specs:
+        return
+    from flux2_tpu_torch.training import lora_loader
+
+    config = pipe.transformer.config
+    loaded_loras = []
+    for spec in specs:
+        path, scale = _lora_spec(spec)
+        loaded = lora_loader.load_lora_file(path, config, user_scale=scale)
+        lora_loader.merge_loras_into_params(pipe.transformer, [loaded], config)
+        loaded_loras.append(loaded)
+        flog.info(f"merged LoRA {path} (scale {loaded.scale:.3f})")
+    overrides, keywords, warnings = lora_loader.merge_runtime_semantics(loaded_loras)
+    for w in warnings:
+        flog.warning(w)
+    pipe.lora_custom_sigmas = overrides.custom_sigmas
+    pipe.lora_num_steps = overrides.num_steps
+    pipe.lora_guidance = overrides.guidance
+    pipe.lora_keywords = keywords
+    if overrides.num_steps or overrides.custom_sigmas or overrides.guidance is not None:
+        flog.info(
+            f"LoRA scheduler overrides active: steps={overrides.num_steps} "
+            f"guidance={overrides.guidance} custom_sigmas="
+            f"{'yes' if overrides.custom_sigmas else 'no'}"
+        )
+    if keywords:
+        flog.info(f"LoRA activation keyword(s): {', '.join(keywords)}")
 
 
 def memory_profile(args: argparse.Namespace):
@@ -168,8 +223,12 @@ def memory_profile(args: argparse.Namespace):
 
 
 def _load_pipeline(args, model: Flux2Model, device: torch.device, fmt: str, enc_fmt: str) -> Flux2Pipeline:
-    """JAX ``build_pipeline``'s checkpoint branch (``:105-164``), with
-    on-the-fly quantization only; each component is timed as JAX's phases."""
+    """JAX ``build_pipeline``'s checkpoint branch (``:105-164``); each
+    component is timed as JAX's phases. A quantized DiT is read from the
+    prequantized file beside the checkpoint when there is one (the storage
+    format: qint8 for w8a8, int4 for w4a8), checked against the checkpoint's
+    fingerprint and converted to the runtime format, or to bf16 under
+    ``--dequantize-runtime``; else it is quantized on the fly."""
     from flux2_tpu_torch.io import checkpoints, weight_mapping
 
     with_encoder = not getattr(args, "no_text_encoder", False)
@@ -183,10 +242,25 @@ def _load_pipeline(args, model: Flux2Model, device: torch.device, fmt: str, enc_
                 f"transformer weights for {model.value} not found; run "
                 f"`flux2 download --model {model.value}` or pass --transformer-dir"
             )
-        transformer = weight_mapping.load_transformer(
-            checkpoints.WeightsDir(tdir), _read_config_json(tdir, model.transformer_config), device)
-        quantize_params(transformer, fmt)
-        _log_load("transformer", tdir, t0, device, fmt)
+        tconfig = _read_config_json(tdir, model.transformer_config)
+        storage_fmt = {"w8a8": "qint8", "w4a8": "int4"}.get(fmt, fmt)
+        prequant = checkpoints.prequantized_path(tdir, storage_fmt)
+        if fmt != "bf16" and os.path.exists(prequant):
+            tree, _ = checkpoints.load_prequantized(prequant, expected_source_dir=tdir)
+            transformer = checkpoints.transformer_from_tree(tree, tconfig, device)
+            del tree
+            flog.info(f"loaded prequantized {storage_fmt} transformer from {prequant}")
+            if fmt in ("w8a8", "w4a8"):
+                quantize_params(transformer, fmt)
+                flog.info(f"converted to the {fmt} runtime format (int8 tensor cores)")
+            elif getattr(args, "dequantize_runtime", False):
+                dequantize_params(transformer)
+                flog.info("dequantized to bf16 at load (speed-first runtime)")
+            _log_load("transformer", os.path.dirname(prequant), t0, device, fmt)
+        else:
+            transformer = weight_mapping.load_transformer(checkpoints.WeightsDir(tdir), tconfig, device)
+            quantize_params(transformer, fmt)
+            _log_load("transformer", tdir, t0, device, fmt)
     with profiler().phase("5. Load VAE"):
         t0 = _load_start()
         small = getattr(args, "small_decoder", False)
@@ -325,6 +399,15 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--enrich-prompt-with-vlm", action="store_true",
                    help="image-aware prompt rewriting via a VLM; with none loaded it warns and keeps --prompt")
 
+    p = sub.add_parser("export-quantized", help="export a prequantized checkpoint")
+    p.add_argument("--model", default="klein-4b", choices=[m.value for m in Flux2Model])
+    p.add_argument("--quantization", required=True, choices=["qint8", "int4", "nf4", "mxfp8", "mxfp4", "nvfp4"])
+    p.add_argument("--transformer-dir")
+    p.add_argument("--lora", action="append", metavar="PATH[:SCALE]",
+                   help="bake this LoRA into the exported weights (repeatable)")
+    p.add_argument("--models-dir", help="custom models directory (env FLUX2_MODELS_DIR)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu; the CPU only when asked")
+
     p = sub.add_parser("profile", help="benchmark generation (warmup + N runs)")
     _add_common(p)
     p.add_argument("--warmup", type=int, default=1)
@@ -388,6 +471,11 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--vae-dir")
     p.add_argument("--small-decoder", action="store_true", help="distilled VAE decoder (faster)")
     p.add_argument("--random-init", action="store_true", help="random weights (smoke test)")
+    p.add_argument(
+        "--dequantize-runtime", action="store_true",
+        help="load quantized checkpoints but run bf16 (fast); default keeps weights quantized in device memory",
+    )
+    p.add_argument("--lora", action="append", help="path[:scale], repeatable")
     p.add_argument("--memory-profile", choices=["auto", "performance", "balanced", "conservative"],
                    help="memory/speed trade-off preset (VAE tiling threshold etc.)")
     p.add_argument("--encoder-dir", help="text-encoder weights dir (default: registry resolution)")
@@ -562,6 +650,34 @@ def cmd_outpaint(args) -> None:
     _save_png(chain.run().image, args.output)
 
 
+def cmd_export_quantized(args) -> None:
+    """The checkpoint's DiT in bf16, each ``--lora`` baked in, quantized to
+    ``--quantization`` and written atomically beside the checkpoint
+    (``io.checkpoints.export_prequantized``), with JAX's printed lines."""
+    from flux2_tpu_torch.io import checkpoints, weight_mapping
+
+    model = Flux2Model(args.model)
+    tdir = registry.find_model_path(registry.TRANSFORMER_REPOS[model], args.transformer_dir)
+    if tdir is None:
+        raise SystemExit("transformer weights not found")
+    tconfig = _read_config_json(tdir, model.transformer_config)
+    transformer = weight_mapping.load_transformer(checkpoints.WeightsDir(tdir), tconfig, torch.device(args.device))
+    lora_specs = args.lora or []
+    if lora_specs:
+        from flux2_tpu_torch.training import lora_loader
+
+        for spec in lora_specs:
+            lpath, scale = _lora_spec(spec)
+            loaded = lora_loader.load_lora_file(lpath, tconfig, user_scale=scale)
+            lora_loader.merge_loras_into_params(transformer, [loaded], tconfig)
+            print(f"baked LoRA {lpath} (scale {loaded.scale:.3f})")
+    quantize_params(transformer, args.quantization)
+    path = checkpoints.export_prequantized(transformer, tdir, args.quantization, source_dir=tdir,
+                                           lora_baked=bool(lora_specs))
+    size_gb = os.path.getsize(path) / 1e9
+    print(f"exported {args.quantization} checkpoint -> {path} ({size_gb:.2f} GB)")
+
+
 def _profile_once(args, quantization: Optional[str] = None):
     """One profiled configuration: build, warmup, N timed runs -> stats dict."""
     import numpy as np
@@ -722,7 +838,8 @@ def cmd_beacons(args) -> None:
 
 
 COMMANDS = {"t2i": cmd_t2i, "i2i": cmd_i2i, "inpaint": cmd_inpaint, "outpaint": cmd_outpaint,
-            "profile": cmd_profile, "download": cmd_download, "info": cmd_info, "mask-subject": cmd_mask_subject,
+            "profile": cmd_profile, "export-quantized": cmd_export_quantized, "download": cmd_download,
+            "info": cmd_info, "mask-subject": cmd_mask_subject,
             "training-control": cmd_training_control, "beacons": cmd_beacons}
 
 

@@ -17,11 +17,14 @@ tests.
 JAX's random-init base is f32; the port's is bf16, as the checkpoint branch
 trains and as the kernels take it. What this slice does not carry raises
 ``SystemExit`` naming its ROADMAP queue: a dataset directory or control
-images (the VAE encoder, queue 11), validation prompts, VLM scoring and
-validation-loss datasets (queues 13 and 15), pipeline parallelism and
-``--shard`` (queue 16), a quantized base (QLoRA, queue 12), adapter dropout
-(queue 13) and checkpoint directories (queue 13: JAX trains on real data
-whenever it loads checkpoints, and real data needs the VAE encoder).
+images (``training/data.py`` and ``_prepare_real_data`` are not ported,
+queue 13), validation prompts, VLM scoring and validation-loss datasets
+(queues 13 and 15), pipeline parallelism and ``--shard`` (queue 16),
+``--quantization`` (queue 13: JAX quantizes the base only when it loads
+checkpoints, and its ``--random-init`` base ignores the flag; the library's
+``init_train_state`` / ``make_train_step`` do train on a quantized base),
+adapter dropout (queue 13) and checkpoint directories (queue 13: JAX trains
+on real data whenever it loads checkpoints).
 """
 
 from __future__ import annotations
@@ -50,9 +53,9 @@ def _refuse_unsupported(cfg, args: argparse.Namespace) -> None:
         if getattr(args, flag, None):
             refuse(f"--{flag.replace('_', '-')} (reading checkpoints)", "13")
     if cfg.dataset_dir and os.path.isdir(cfg.dataset_dir):
-        refuse(f"real-data training (dataset {cfg.dataset_dir} needs the VAE encoder)", "11")
+        refuse(f"real-data training (dataset {cfg.dataset_dir}: training/data.py and _prepare_real_data)", "13")
     if cfg.control_dir:
-        refuse("I2I control-image training (needs the VAE encoder)", "11")
+        refuse("I2I control-image training (training/data.py and _prepare_real_data)", "13")
     if cfg.validation_prompts or cfg.vlm_scoring:
         refuse("validation previews and VLM scoring", "13/15")
     if cfg.validation_dataset_dir:
@@ -60,7 +63,9 @@ def _refuse_unsupported(cfg, args: argparse.Namespace) -> None:
     if cfg.pp > 1 or cfg.pp_tp > 1 or cfg.pp_microbatches or cfg.pp_over_dcn or getattr(args, "shard", None):
         refuse("pipeline parallelism and --shard", "16")
     if (getattr(args, "quantization", None) or "bf16") != "bf16":
-        refuse(f"training on a {args.quantization} base (QLoRA)", "12")
+        # JAX quantizes the base only in its checkpoint branch; its --random-init base ignores --quantization
+        refuse(f"training on a {args.quantization} base from checkpoints (QLoRA; with --random-init JAX trains "
+               "an unquantized base)", "13")
     if cfg.lora_dropout:
         refuse("adapter dropout (lora.dropout > 0)", "13")
 

@@ -1,8 +1,10 @@
 """Load the JAX package's parameter pytrees into the port's modules.
 
 Each function takes ``flux2_tpu``'s parameter dict (leaves as numpy arrays,
-or anything ``np.asarray`` accepts) and returns the port's module holding the
-same weights, on the CPU, so both packages compute the same function. Pure
+or anything ``np.asarray`` accepts; the transformer's may also be torch
+tensors in JAX's layout, as ``io/checkpoints.load_prequantized`` reads them)
+and returns the port's module holding the same weights, on the CPU unless a
+device is given, so both packages compute the same function. Pure
 numpy + torch: JAX stores linear weights [in, out] (stacked [L, in, out] for
 layers) and convolutions HWIO; the port stores [out, in] and OIHW.
 
@@ -41,6 +43,8 @@ _ML_DTYPES = {"bfloat16": (np.uint16, torch.bfloat16), "float8_e4m3fn": (np.uint
 
 
 def _tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
     a = np.asarray(x)
     if a.dtype.name in _ML_DTYPES:
         bits, dtype = _ML_DTYPES[a.dtype.name]
@@ -54,7 +58,9 @@ def _linear(x) -> torch.Tensor:
 
 
 def _layer(x, i):
-    return np.asarray(x) if i is None else np.asarray(x)[i]
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    return x if i is None else x[i]
 
 
 def _quantized(leaf, i=None):
@@ -97,7 +103,10 @@ def _carry(leaf, i=None):
     return _quantized(leaf, i) if _is_quantized_leaf(leaf) else _linear(_layer(leaf, i))
 
 
-def transformer_from_jax(params: dict, config: Flux2TransformerConfig) -> Flux2Transformer:
+def transformer_from_jax(params: dict, config: Flux2TransformerConfig,
+                         device: "torch.device | str" = "cpu") -> Flux2Transformer:
+    """The port's DiT holding ``params`` (JAX's tree: numpy leaves, or torch
+    tensors already in JAX's layout, as a prequantized file gives them)."""
     dtype = _tensor(params["double_blocks"]["norm_q"]).dtype  # norm scales are never quantized
     sd = {
         "x_embedder": _carry(params["x_embedder"]["kernel"]),
@@ -117,15 +126,15 @@ def transformer_from_jax(params: dict, config: Flux2TransformerConfig) -> Flux2T
         for name, leaf in params[stack].items():
             for i in range(n):
                 sd[f"{stack}.{i}.{name}"] = _stacked(leaf, i)
-    return _load(Flux2Transformer(config, device="cpu", dtype=dtype), sd)
+    return _load(Flux2Transformer(config, device=device, dtype=dtype), sd)
 
 
 def _stacked(leaf, i):
     """Layer ``i`` of a stacked leaf: [L, in, out] linears (dense or quantized)
     transpose; [L, head_dim] norm scales do not."""
-    if _is_quantized_leaf(leaf) or np.asarray(leaf).ndim == 3:
+    if _is_quantized_leaf(leaf) or _layer(leaf, None).ndim == 3:
         return _carry(leaf, i)
-    return _tensor(np.asarray(leaf)[i])
+    return _tensor(_layer(leaf, i))
 
 
 def _conv(p: dict, prefix: str, sd: dict) -> None:

@@ -59,6 +59,12 @@ _NF4_VALUES = np.array(
 
 W4A8_BLOCK = 512
 
+# XLA computes log2(x) as log(x) times this f32 constant, so an exact power of
+# two comes out a little above or below its exponent (log2(2^-13) =
+# -12.999999) and the microscaling exponent's ceil moves with it: bf16
+# weights hit such group maxima often. The port takes the same product.
+_LOG2_E = float(np.float32(1.0 / np.log(2.0)))
+
 # JAX writes the W8A8 / W4A8 weight scales as ``amax / 127.0`` and ``/ 7.0``
 # inside ``jax.jit``, where XLA's simplifier turns a division by a constant
 # into a multiply by its f32 reciprocal; the port writes that multiply
@@ -157,8 +163,15 @@ def _encode_e2m1(x: torch.Tensor) -> torch.Tensor:
     return torch.argmin(torch.abs(x[..., None] - vals), dim=-1).to(torch.uint8)
 
 
-def quantize(w: torch.Tensor, fmt: str, group_size: Optional[int] = None) -> QTensor:
-    """Quantize a weight [.., N, K] along K (JAX ``quantize`` on the transpose)."""
+def quantize(w: torch.Tensor, fmt: str, group_size: Optional[int] = None, in_jit: bool = False) -> QTensor:
+    """Quantize a weight [.., N, K] along K (JAX ``quantize`` on the transpose).
+    ``in_jit`` divides by the constants (levels, the format's max) as XLA
+    does inside ``jax.jit``, by a multiply with their f32 reciprocal: JAX's
+    LoRA merge requantizes there (``_merge_qtensor_slicewise``)."""
+
+    def by(x: torch.Tensor, c: float) -> torch.Tensor:
+        return x * (1.0 / c) if in_jit else x / c
+
     if fmt == "bf16":
         raise ValueError("bf16 is the unquantized format")
     if fmt not in GROUP_SIZES:
@@ -173,7 +186,7 @@ def quantize(w: torch.Tensor, fmt: str, group_size: Optional[int] = None) -> QTe
         levels = 255 if fmt == "qint8" else 15
         wmin = torch.amin(wf, dim=-1, keepdim=True)
         wmax = torch.amax(wf, dim=-1, keepdim=True)
-        scale = (wmax - wmin) / levels
+        scale = by(wmax - wmin, levels)
         scale = torch.where(scale == 0, 1.0, scale)
         q = torch.clamp(torch.round((wf - wmin) / scale), 0, levels).to(torch.uint8)
         q = q.reshape(*lead, d_out, d_in)
@@ -191,10 +204,10 @@ def quantize(w: torch.Tensor, fmt: str, group_size: Optional[int] = None) -> QTe
     amax = torch.where(amax == 0, 1.0, amax)
     target_max = 448.0 if fmt == "mxfp8" else 6.0  # e4m3 max / e2m1 max
     if fmt == "nvfp4":  # float (e4m3-representable) scale
-        scale = (amax / target_max).to(torch.float8_e4m3fn).to(torch.float32)
+        scale = by(amax, target_max).to(torch.float8_e4m3fn).to(torch.float32)
         scale = torch.where(scale == 0, 2.0**-16, scale)
     else:  # power-of-two shared scale (OCP microscaling)
-        scale = torch.exp2(torch.ceil(torch.log2(amax / target_max)))
+        scale = torch.exp2(torch.ceil(torch.log(by(amax, target_max)) * _LOG2_E))
     scaled = wf / scale
     if fmt == "mxfp8":
         q = scaled.to(torch.float8_e4m3fn).reshape(*lead, d_out, d_in)
@@ -323,23 +336,45 @@ def q_linear(x: torch.Tensor, w: "torch.Tensor | QuantizedWeight") -> torch.Tens
     """``x @ w.T`` for a dense [N, K] weight or a quantized one (JAX ``q_matmul``).
 
     On a CUDA tensor a quantized weight that passes its gate launches its
-    kernel, which raises on failure; nothing falls back. Every other case
-    dequantizes in ``x``'s dtype and calls ``F.linear``. Mixed dense dtypes
-    promote, as ``x @ w`` does in JAX (a bf16 stream under a quantized
-    x_embedder meets f32 weights in a float32 model)."""
+    kernel, which raises on failure; nothing falls back. When ``x`` requires
+    grad the kernel runs inside ``KernelLinear``, so the gradient reaches
+    ``x``. Every other case dequantizes in ``x``'s dtype and calls
+    ``F.linear``. Mixed dense dtypes promote, as ``x @ w`` does in JAX (a
+    bf16 stream under a quantized x_embedder meets f32 weights in a float32
+    model)."""
     if isinstance(w, torch.Tensor):
         if x.dtype != w.dtype:
             dtype = torch.promote_types(x.dtype, w.dtype)
             return F.linear(x.to(dtype), w.to(dtype))
         return F.linear(x, w)
     route = kernel_route(x, w) if x.is_cuda else None
-    if route == "w8a8":
-        return qk.w8a8_matmul(x, w)
-    if route == "w4a8":
-        return qk.w4a8_matmul(x, w)
-    if route == "dequant":
-        return qk.dequant_matmul(x, w)
-    return F.linear(x, dequantize_any(w, x.dtype))
+    if route is None:
+        return F.linear(x, dequantize_any(w, x.dtype))
+    kernel = getattr(qk, _ROUTE_KERNELS[route])
+    if torch.is_grad_enabled() and x.requires_grad:
+        return KernelLinear.apply(x, w, kernel)
+    return kernel(x, w)
+
+
+class KernelLinear(torch.autograd.Function):
+    """A quantized projection whose forward is a hand-written kernel (K5 with
+    its prologue, K6 or K7, passed in as ``kernel``) and whose backward is
+    ``dx = dy @ dequantize_any(w)`` in dy's dtype: what autodiff gives for
+    JAX's differentiable ``x @ dequantize(w)``. The activation rounding of K5
+    and K6 is in the forward only, and the weight is a frozen buffer, so no
+    weight gradient is formed; the dense weight lives for one backward call."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w, kernel) -> torch.Tensor:
+        ctx.w = w
+        return kernel(x, w)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        return torch.matmul(dy, dequantize_any(ctx.w, dy.dtype)), None, None
+
+
+_ROUTE_KERNELS = {"w8a8": "w8a8_matmul", "w4a8": "w4a8_matmul", "dequant": "dequant_matmul"}
 
 
 def param_dtype(w: "torch.Tensor | QuantizedWeight") -> torch.dtype:

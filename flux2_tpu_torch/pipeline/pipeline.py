@@ -90,6 +90,7 @@ class GenerationResult:
     phase_timings: Dict[str, float]
     images: Optional[np.ndarray] = None  # [B, H, W, 3] when batch > 1
     memory_stats: Optional[Dict[str, Dict[str, float]]] = None  # per-phase device memory (GiB)
+    final_prompt: Optional[str] = None  # the prompt actually encoded (after LoRA keyword prefixing)
 
     @property
     def latents(self) -> np.ndarray:
@@ -160,6 +161,13 @@ class Flux2Pipeline:
     vae_compute_dtype: torch.dtype = torch.bfloat16
     # utils.memory.MemoryProfile: the decode is tiled above its vae_tile_threshold_px
     memory_profile: Optional[Any] = None
+    # LoRA runtime semantics of merged LoRAs (Turbo scheduler overrides and
+    # activation keywords, set by cli.main.build_pipeline): explicit generate()
+    # arguments win, then these, then the model's defaults.
+    lora_custom_sigmas: Optional[Sequence[float]] = None
+    lora_num_steps: Optional[int] = None
+    lora_guidance: Optional[float] = None
+    lora_keywords: Sequence[str] = ()
 
     PROMPT_CACHE_SIZE = 8
 
@@ -269,7 +277,12 @@ class Flux2Pipeline:
         N, 2N, ... below n stay on the device and are decoded after the loop:
         ``on_checkpoint(step, image)``, the image [H, W, 3] float32 in 1/255
         steps (first batch row). ``upsample`` applies only when the prompt is
-        encoded here, as in JAX."""
+        encoded here, as in JAX.
+
+        ``num_steps``, ``guidance`` and ``custom_sigmas`` left None take the
+        merged LoRAs' overrides (``lora_num_steps``, ...), then the model's
+        defaults; a prompt encoded here is prefixed with each of
+        ``lora_keywords`` it lacks, and ``final_prompt`` reports it."""
         prof = _profiler()
         mem = MemoryTelemetry(enabled=_mem_telemetry().enabled, device=self.device)  # per call
         t0 = time.perf_counter()
@@ -278,16 +291,22 @@ class Flux2Pipeline:
         if height * width > self.max_pixels:
             raise ValueError(f"{width}x{height} exceeds max pixels {self.max_pixels}")
         if num_steps is None:
-            num_steps = self.model.default_steps
+            num_steps = self.lora_num_steps if self.lora_num_steps else self.model.default_steps
         if guidance is None:
-            guidance = self.model.default_guidance
+            guidance = self.lora_guidance if self.lora_guidance is not None else self.model.default_guidance
+        if custom_sigmas is None and self.lora_custom_sigmas:
+            custom_sigmas = self.lora_custom_sigmas
 
         t = time.perf_counter()
         prof.start("1. Text Encoding")
+        final_prompt = prompt
         if embeddings is None:
+            for kw in self.lora_keywords or ():  # the merged LoRAs' activation keywords
+                if kw and kw.lower() not in (final_prompt or "").lower():
+                    final_prompt = f"{kw}, {final_prompt}" if final_prompt else kw
             if upsample:
-                prompt = self.upsample_prompt(prompt or "")
-            embeddings = self.encode_prompt(prompt or "")
+                final_prompt = self.upsample_prompt(final_prompt or "")
+            embeddings = self.encode_prompt(final_prompt or "")
         if self.model.uses_classical_cfg and negative_embeddings is None and self.text_encoder is not None:
             negative_embeddings = self.encode_prompt("")
         embeddings = torch.as_tensor(embeddings).to(self.device)
@@ -373,6 +392,7 @@ class Flux2Pipeline:
             phase_timings=timings,
             images=images if images is not None and images.shape[0] > 1 else None,
             memory_stats=mem.as_dict() if mem.enabled else None,
+            final_prompt=final_prompt,
         )
 
     def _rope(self, ids: Sequence[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:

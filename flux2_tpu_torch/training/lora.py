@@ -7,9 +7,13 @@ target: ``lora.double_blocks[i]["to_q"].a``. Each keeps JAX's orientation,
 plain stack of the port's (``flux2_tpu_torch.io.jax_params.lora_from_jax``).
 
 Training applies them UNMERGED (``transformer.forward(lora=...)``:
-y = x W^T + scale * (x a) b); ``merge_into_params`` folds them into a dense
-base for inference. A quantized base (QTensor merge, QLoRA training) is
-ROADMAP queue 12 and raises.
+y = x W^T + scale * (x a) b), on a dense or a quantized base (QLoRA: the
+base projections run their kernels, ``ops.quant.KernelLinear`` carries the
+gradient to x). ``merge_into_params`` folds them into the base for
+inference: a dense weight in float32, a stored ``QTensor`` dequantized,
+summed and requantized in its format one block at a time (JAX's
+``_merge_qtensor_slicewise``); a runtime W8A8 / W4A8 weight raises JAX's
+``TypeError``.
 """
 
 from __future__ import annotations
@@ -88,12 +92,11 @@ class LoRA(nn.Module):
                      for name in (getattr(self, group)[0].keys() if len(getattr(self, group)) else ()))
 
 
-def _dims(w, group: str, leaf: str) -> Tuple[int, int]:
-    """(in, out) of a base weight stored [out, in]."""
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            f"LoRA on a quantized base ({group}.{leaf} is {type(w).__name__}) is QLoRA, ROADMAP queue 12")
-    return w.shape[1], w.shape[0]
+def _dims(w) -> Tuple[int, int]:
+    """(in, out) of a base weight stored [out, in], dense or quantized."""
+    if isinstance(w, torch.Tensor):
+        return w.shape[1], w.shape[0]
+    return w.orig_in, w.q.shape[-2]
 
 
 def init_lora(
@@ -109,7 +112,7 @@ def init_lora(
     blocks: Dict[str, list] = {group: [{} for _ in getattr(transformer, group)] for group in GROUPS}
     for group, leaf in config.targets:
         for i, block in enumerate(getattr(transformer, group)):
-            d_in, d_out = _dims(getattr(block, leaf), group, leaf)
+            d_in, d_out = _dims(getattr(block, leaf))
             bound = d_in**-0.5
             a = torch.rand(d_in, config.rank, generator=generator, device=device, dtype=torch.float32)
             blocks[group][i][leaf] = Adapter(a.mul_(2 * bound).sub_(bound),
@@ -119,18 +122,53 @@ def init_lora(
 
 @torch.no_grad()
 def merge_into_params(transformer: nn.Module, lora: LoRA, scale: float) -> nn.Module:
-    """Fold the adapters into the dense base IN PLACE (the port holds one copy
-    of the weights, where JAX returns a new pytree): W[out, in] +=
-    scale * (a @ b)^T, computed in float32 and cast back to W's dtype."""
+    """Fold the adapters into the base IN PLACE (the port holds one copy of
+    the weights, where JAX returns a new pytree): W[out, in] +=
+    scale * (a @ b)^T, the product in float32 (TF32 off). A dense W is summed
+    in float32 and cast back to its dtype; a stored QTensor is dequantized,
+    summed and requantized in its format and group size, and the new module
+    takes the old one's place (the float32 transient is one block's [N, K]);
+    a W8A8 / W4A8 weight raises ``TypeError``, as in JAX."""
+    from flux2_tpu_torch.ops import quant
+
     for group in GROUPS:
         for i, adapters in enumerate(getattr(lora, group)):
             block = getattr(transformer, group)[i]
             for leaf, ad in adapters.items():
                 w = getattr(block, leaf)
-                _dims(w, group, leaf)
-                delta = (ad.a.float() @ ad.b.float()).T
-                w.copy_((w.float() + scale * delta.to(w.device)).to(w.dtype))
+                if isinstance(w, (quant.W8A8Tensor, quant.W4A8Tensor)):
+                    raise TypeError(
+                        f"cannot merge LoRA into runtime-format leaf {group}/{leaf} "
+                        f"({type(w).__name__}); merge into the storage-format or "
+                        "bf16 params before converting to w8a8/w4a8"
+                    )
+                device = w.device if isinstance(w, torch.Tensor) else w.q.device
+                delta = _delta(ad.a.to(device), ad.b.to(device))
+                if isinstance(w, torch.Tensor):
+                    w.copy_((w.float() + scale * delta).to(w.dtype))
+                else:
+                    quant._replace(block, leaf, _merge_qtensor(w, delta, scale))
     return transformer
+
+
+def _delta(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a @ b)^T [out, in] in float32, with TF32 off for the product."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return (a.float() @ b.float()).T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def _merge_qtensor(w, delta: torch.Tensor, scale: float):
+    """dequantize -> add -> requantize one block's stored QTensor: JAX's
+    ``_merge_qtensor_slicewise`` on one slice of its ``lax.map``, so with
+    XLA's in-``jit`` arithmetic (the fused dequantize, the reciprocal scale)."""
+    from flux2_tpu_torch.ops import quant
+
+    dense = quant.dequantize(w, torch.float32, fused=True)
+    return quant.quantize(dense + scale * delta, w.format, group_size=w.group_size, in_jit=True)
 
 
 def num_lora_params(lora: LoRA) -> int:

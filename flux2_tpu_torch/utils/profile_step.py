@@ -1,7 +1,7 @@
 """Where the device time of the port's served and training paths goes, on one CUDA card.
 
     python3 -m flux2_tpu_torch.utils.profile_step [--quantization w8a8|w4a8|qint8|int4]
-    python3 -m flux2_tpu_torch.utils.profile_step --train
+    python3 -m flux2_tpu_torch.utils.profile_step --train [--quantization w8a8|...]
 
 Draws a random full-width Klein-4B DiT and FLUX.2 VAE decoder (bf16, on the
 card, from seed 0; the DiT quantized with ``quantize_params`` under
@@ -24,7 +24,9 @@ With ``--train`` it profiles instead one LoRA train step of the full-width
 Klein-4B base (rank 16 on every attention and FFN target, AdamW, per-block
 remat: ``trainer.make_train_step``) on synthetic data with 32 text tokens,
 at 512^2 and at 1024^2 (batch 1), and splits the device time into K2
-(``flash_fwd_lse_kernel``), K3 + K4 (``flash_bwd_*``), GEMMs and the rest.
+(``flash_fwd_lse_kernel``), K3 + K4 (``flash_bwd_*``), GEMMs and the rest;
+with ``--quantization`` the base is quantized (QLoRA: K5 / K6 / K7 forward,
+``dy @ dequantize(w)`` backward).
 
 Each line carries the card's name and power limit; the last line is one JSON
 object with every number.
@@ -131,10 +133,13 @@ def _card() -> str:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def profile_train(card: str) -> list:
-    """One LoRA train step of the full-width Klein-4B base at 512^2 and 1024^2."""
+def profile_train(card: str, fmt: str = "bf16") -> list:
+    """One LoRA train step of the full-width Klein-4B base at 512^2 and 1024^2,
+    the base quantized to ``fmt`` (QLoRA: the quantized projections run
+    their kernels forward and ``dy @ dequantize(w)`` backward)."""
     from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
     from flux2_tpu_torch.ops import latents as lu
+    from flux2_tpu_torch.ops.quant import quantize_params
     from flux2_tpu_torch.ops.rope import rope_embeddings
     from flux2_tpu_torch.pipeline.pipeline import Flux2Model
     from flux2_tpu_torch.training import trainer
@@ -143,6 +148,9 @@ def profile_train(card: str) -> list:
     gen = torch.Generator(device=device).manual_seed(SEED)
     config = Flux2Model.KLEIN_4B_BASE.transformer_config
     model = Flux2Transformer(config, device=device, generator=gen)
+    quantize_params(model, fmt)
+    if fmt in ("qint8", "int4"):
+        os.environ["FLUX2_PALLAS_DEQUANT"] = "1"
     cfg = trainer.TrainConfig(rank=16, alpha=16.0, remat=True)
     state = trainer.init_train_state(model, cfg, gen)
     step = trainer.make_train_step(model, cfg)
@@ -155,7 +163,7 @@ def profile_train(card: str) -> list:
                  "embeddings": torch.randn(1, 32, config.joint_attention_dim, device=device, generator=gen),
                  "rope_cos": cos, "rope_sin": sin}
         rows.append(measure(lambda: step(state.lora, state.optimizer, batch, gen),
-                            f"LoRA train step {size}^2 bs=1 ({32 + s_img} tokens, rank 16, remat)", card))
+                            f"LoRA train step {size}^2 bs=1 ({32 + s_img} tokens, rank 16, remat, {fmt} base)", card))
     return rows
 
 
@@ -168,11 +176,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
     if args.train:
-        if fmt != "bf16":
-            raise SystemExit("--train profiles the bf16 base only (training on a quantized base is ROADMAP queue 12)")
         card = _card()
-        rows = profile_train(card)
-        print(json.dumps({"card": card, "torch": torch.__version__, "train": True, "rows": rows}), flush=True)
+        rows = profile_train(card, fmt)
+        print(json.dumps({"card": card, "torch": torch.__version__, "train": True, "quantization": fmt,
+                          "rows": rows}), flush=True)
         return 0
 
     from flux2_tpu_torch.ops import latents as lu

@@ -500,3 +500,103 @@ def test_quantized_wrappers_bump_the_prologue_and_their_own_counter(device):
         torch.cuda.synchronize()
         assert {c: tqk.launches[c] - before[c] for c in before} == {
             c: int(c in (counter, "quantize_rows")) for c in before}
+
+
+# -- QLoRA's input gradient (R2), LoRA inference and prequantized checkpoints ----------
+
+
+@pytest.mark.parametrize("fmt", ["w8a8", "w4a8", "qint8"])
+def test_kernel_route_carries_the_input_gradient(device, fmt, monkeypatch):
+    """q_linear on K5 / K6 / K7 under autograd (ops.quant.KernelLinear): x.grad
+    within 1e-2 relative L2 of autograd's on the dequantize-then-F.linear route
+    (they differ by the forward's rounding carried through dy), not zero, and
+    the kernel launched once."""
+    x0, w = _qmm_inputs(device, 1056, 3072, 3072)
+    qw = {"w8a8": tq.to_w8a8, "w4a8": tq.to_w4a8}.get(fmt, lambda t: tq.quantize(t, "qint8"))(w)
+    monkeypatch.setenv("FLUX2_PALLAS_DEQUANT", "1")
+    counter = {"w8a8": "w8a8", "w4a8": "w4a8"}.get(fmt, "dequant_int8")
+
+    def grad():
+        x = x0.clone().requires_grad_(True)
+        y = tq.q_linear(x, qw)
+        y.float().square().sum().backward()
+        return x.grad
+
+    before = tqk.launches[counter]
+    kernel_grad = grad()
+    assert tqk.launches[counter] == before + 1
+    monkeypatch.setattr(tq, "kernel_route", lambda x, w: None)
+    plain_grad = grad()
+    assert tqk.launches[counter] == before + 1
+    assert float(kernel_grad.abs().max()) > 0 and torch.isfinite(kernel_grad).all()
+    assert _rel(kernel_grad, plain_grad) <= REL_TOL
+
+
+def _tiny_cli_pipeline(device, quantization="bf16"):
+    """A tiny random-init pipeline built by cli.main.build_pipeline on the card
+    (1 double + 2 single blocks, 2 heads, a 28-layer tiny Qwen3 encoder)."""
+    import argparse
+    import dataclasses
+
+    from flux2_tpu_torch.cli import main as cli
+    from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
+    from flux2_tpu_torch.models.flux2.vae import VAEConfig
+    from flux2_tpu_torch.models.text_encoders.config import TINY_DECODER
+
+    tc = Flux2TransformerConfig(num_layers=1, num_single_layers=2, num_attention_heads=2, attention_head_dim=128,
+                                joint_attention_dim=192, guidance_embeds=False)
+    vc = VAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1, norm_num_groups=4)
+    args = argparse.Namespace(model="klein-4b", quantization=quantization, random_init=True)
+    return cli.build_pipeline(args, device, torch.Generator(device).manual_seed(0), transformer_config=tc,
+                              vae_config=vc, encoder_config=dataclasses.replace(TINY_DECODER, num_hidden_layers=28,
+                                                                                vocab_size=600))
+
+
+def test_tiny_lora_t2i_runs_its_turbo_steps_on_k1(device, tmp_path):
+    """A LoRA with a Turbo sidecar (num_steps 2) merged through cli.main's
+    apply_loras: 3 K1 launches a step for 2 steps, the keyword prefixed."""
+    import chip_smoke
+    from flux2_tpu_torch.cli import main as cli
+
+    pipe = _tiny_cli_pipeline(device)
+    path = str(tmp_path / "lora.safetensors")
+    chip_smoke._write_lora(path, chip_smoke._bfl_lora_state(pipe.transformer.config, 4, torch.Generator().manual_seed(1)))
+    before = pipe.transformer.double_blocks[0].to_q.clone()
+    cli.apply_loras(pipe, [f"{path}:0.8"])
+    assert not torch.equal(before, pipe.transformer.double_blocks[0].to_q)
+    counts = tfa.launch_counts()
+    res = pipe.generate(prompt="a fox", height=256, width=256, seed=0)
+    assert tfa.launch_counts()["flash"] - counts["flash"] == 3 * 2 and res.num_steps == 2
+    assert res.final_prompt == "CHIPSTYLE, a fox" and torch.isfinite(res.latents_device).all()
+
+
+def test_tiny_prequantized_w8a8_forward_launches_k5(device, tmp_path):
+    """A qint8 DiT exported on the card, read back (JAX's layout) and converted
+    to w8a8: equal to the in-memory conversion to the bit, one K5 launch per
+    weight that passes K5's gate in a forward."""
+    import numpy as np
+
+    from flux2_tpu_torch.io import checkpoints as tck
+    from flux2_tpu_torch.ops import latents as lu
+    from flux2_tpu_torch.ops.rope import rope_embeddings
+
+    pipe = _tiny_cli_pipeline(device)
+    model = tq.quantize_params(pipe.transformer, "qint8", min_size=1)
+    path = tck.export_prequantized(model, str(tmp_path), "qint8")
+    tree, meta = tck.load_prequantized(path)
+    loaded = tq.quantize_params(tck.transformer_from_tree(tree, model.config, device), "w8a8")
+    tq.quantize_params(model, "w8a8")
+    state, want = dict(loaded.named_buffers()) | dict(loaded.named_parameters()), dict(model.named_buffers())
+    want.update(model.named_parameters())
+    assert sorted(state) == sorted(want) and all(torch.equal(state[k], want[k]) for k in want)
+    g = torch.Generator(device).manual_seed(2)
+    x = torch.randn(1, 256, 128, device=device, generator=g).bfloat16()
+    emb = torch.randn(1, 8, 192, device=device, generator=g).bfloat16()
+    ids = np.concatenate([lu.text_position_ids(8), lu.image_position_ids(256, 256)])
+    cos, sin = rope_embeddings(torch.from_numpy(ids).to(device))
+    gated = sum(tq.kernel_route(torch.empty(8, loaded.get_submodule(n).orig_in, device=device, dtype=torch.bfloat16),
+                                loaded.get_submodule(n)) == "w8a8" for n in tq.quantized_names(loaded))
+    before = tqk.launches["w8a8"]
+    with torch.inference_mode():
+        v = loaded(x, emb, torch.tensor([0.5], device=device), cos, sin)
+    assert tqk.launches["w8a8"] - before == gated > 0 and torch.isfinite(v).all()

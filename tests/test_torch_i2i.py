@@ -293,8 +293,8 @@ def test_i2i_flags_equal_jax():
                                                                      jdefaults["max_ref_megapixels"]) == (1.0, 1.0)
 
 
-@pytest.mark.parametrize("extra", [[], ["--upsample"], ["--interpret", "c.png"], ["--lora", "x.safetensors"]],
-                         ids=["no_reference", "upsample", "interpret", "lora"])
+@pytest.mark.parametrize("extra", [[], ["--upsample"], ["--interpret", "c.png"], ["--shard", "auto"]],
+                         ids=["no_reference", "upsample", "interpret", "shard"])
 def test_unported_i2i_flags_are_refused(extra, capsys):
     argv = ["i2i", *extra] if not extra else ["i2i", "--reference", "a.png", *extra]
     if extra:

@@ -117,15 +117,37 @@ def test_flat_names_round_trip_through_jax_layout(jax_params):
     assert all(np.array_equal(again[k], flat[k]) for k in flat)
 
 
-def test_quantized_base_raises_naming_queue_12(jax_params):
-    model = transformer_from_jax(jax_params, CONFIG)
+@pytest.mark.parametrize("fmt", ["qint8", "int4", "w8a8"])  # w4a8 takes no weight at this width (K < 512)
+def test_init_lora_on_quantized_base_follows_jax(jax_params, fmt):
+    """QLoRA: adapters on a quantized base take (orig_in, N) from each weight,
+    as JAX's ``init_lora`` reads a QTensor's."""
+    bf16 = jax.tree_util.tree_map(lambda x: jnp.asarray(x).astype(jnp.bfloat16), jax_params)
+    model = transformer_from_jax(jax.tree_util.tree_map(np.asarray, bf16), CONFIG)
+    tq.quantize_params(model, fmt)
+    assert tq.quantized_names(model)
+    lora = tlora.init_lora(model, tlora.LoRAConfig(rank=4), torch.Generator().manual_seed(0))
+    ref = jlora.init_lora(jax.random.PRNGKey(0), jax.tree_util.tree_map(np.asarray, bf16), jlora.LoRAConfig(4))
+    flat, ref_flat = lora_to_flat(lora), jtrainer._flatten(ref)
+    assert {k: v.shape for k, v in flat.items()} == {k: tuple(v.shape) for k, v in ref_flat.items()}
+    assert all(not v.any() for k, v in flat.items() if k.endswith(".b"))
+
+
+def test_merge_into_quantized_base_stays_quantized_and_keeps_the_delta(jax_params):
+    """JAX's ``test_merge_into_params_quantized_base`` on the port: a qint8
+    leaf dequantizes, adds and requantizes in place, within int8 noise."""
+    bf16 = jax.tree_util.tree_map(lambda x: jnp.asarray(x).astype(jnp.bfloat16), jax_params)
+    model = transformer_from_jax(jax.tree_util.tree_map(np.asarray, bf16), CONFIG)
     tq.quantize_params(model, "qint8")
-    with pytest.raises(NotImplementedError, match="queue 12"):
-        tlora.init_lora(model, tlora.LoRAConfig(rank=4), torch.Generator().manual_seed(0))
-    dense = transformer_from_jax(jax_params, CONFIG)
-    lora = tlora.init_lora(dense, tlora.LoRAConfig(rank=4), torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="queue 12"):
-        tlora.merge_into_params(model, lora, 1.0)
+    lora = tlora.init_lora(model, tlora.LoRAConfig(rank=4), torch.Generator().manual_seed(0))
+    for blk in lora.double_blocks:
+        blk["to_q"].b.data.fill_(0.01)
+    before = [tq.dequantize(b.to_q, torch.float32) for b in model.double_blocks]
+    tlora.merge_into_params(model, lora, 1.0)
+    for i, blk in enumerate(model.double_blocks):
+        assert isinstance(blk.to_q, tq.QTensor) and blk.to_q.format == "qint8"
+        delta = (lora.double_blocks[i]["to_q"].a @ lora.double_blocks[i]["to_q"].b).T.detach()
+        err = (tq.dequantize(blk.to_q, torch.float32) - before[i] - delta).abs()
+        assert float(err.max()) < 0.01
 
 
 def test_remat_dots_is_not_ported(jax_params):

@@ -14,7 +14,9 @@ chains (``utils/native.py``'s image ops), a generate with a step hook and
 every callback, a tiled decode under a memory profile and ``auto_profile``
 (``utils/memory.py``), the serving slice: /generate, /models and /info through
 ``serve.make_handler`` on localhost, a runtime beacon, ``mask-subject`` and
-``subject_mask`` on the committed U-Net, a ``utils/quality.py`` metric, and
+``subject_mask`` on the committed U-Net, a ``utils/quality.py`` metric, the
+LoRA / prequantized slice: ``export-quantized`` with a LoRA baked, ``t2i``
+w8a8 from the file and ``t2i --lora`` (the loader), and
 reports whether any ``jax`` or ``flux2_tpu`` module was loaded. (The suite's conftest imports JAX, so this must run in a
 subprocess.)
 """
@@ -27,6 +29,7 @@ import sys
 SCRIPT = r"""
 import argparse, dataclasses, json, sys
 import torch
+torch.set_num_threads(1)  # tiny ops beside the suite's other workers: a thread a core oversubscribes the host
 from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
 from flux2_tpu_torch.models.text_encoders.config import TINY_DECODER
 from flux2_tpu_torch.cli.main import build_pipeline
@@ -95,6 +98,17 @@ with tempfile.TemporaryDirectory() as tmp:
     ckpt_png = list(decode_png(open(os.path.join(tmp, "x.png"), "rb").read()).shape)
     cli.main(["i2i", *flags, "--reference", os.path.join(tmp, "x.png"), "-o", os.path.join(tmp, "y.png")])
     i2i_ckpt_png = list(decode_png(open(os.path.join(tmp, "y.png"), "rb").read()).shape)
+    # LoRA inference and prequantized checkpoints: a LoRA written by chip_smoke's writer (with its Turbo
+    # sidecar), export-quantized with the LoRA baked, t2i w8a8 from the file, t2i --lora
+    lora_path = os.path.join(tmp, "lora.safetensors")
+    chip_smoke._write_lora(lora_path, chip_smoke._bfl_lora_state(qtc, 2, torch.Generator().manual_seed(0)))
+    cli.main(["export-quantized", "--transformer-dir", dirs["t"], "--quantization", "qint8", "--lora", lora_path,
+              "--device", "cpu"])
+    cli.main(["t2i", *flags, "--quantization", "w8a8", "-o", os.path.join(tmp, "q.png")])
+    cli.main(["t2i", *flags, "--lora", f"{lora_path}:0.5", "-o", os.path.join(tmp, "l.png")])
+    from flux2_tpu_torch.io import checkpoints as tck
+    prequant = sorted(tck.load_prequantized(tck.prequantized_path(dirs["t"], "qint8"), dirs["t"])[1].items())[:2]
+    lora_pngs = [list(decode_png(open(os.path.join(tmp, f), "rb").read()).shape) for f in ("q.png", "l.png")]
 # the editing slice: chains, hooks and callbacks, tiled decode, memory profiles
 import numpy as np
 from flux2_tpu_torch.chains.inpaint import MaskedInpaintingChain
@@ -158,7 +172,7 @@ print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.starts
                                                                          for x in seen],
                   "tiled": list(tiled.shape), "auto_profile": profile, "native": native.path_name() != "numpy",
                   "http": answers, "beacons": beacons, "mask_png": mask_png, "segmented": segmented,
-                  "psnr": psnr}))
+                  "psnr": psnr, "lora_pngs": lora_pngs, "prequant": [k for k, _ in prequant]}))
 """
 
 
@@ -177,4 +191,5 @@ def test_port_runs_without_importing_jax():
                       "auto_profile": "performance", "native": True,
                       "http": [[200, "image/png", True], [200, "application/json", True],
                                [200, "application/json", True]],
-                      "beacons": 1, "mask_png": [16, 16, 3], "segmented": [32, 32], "psnr": 10.716}
+                      "beacons": 1, "mask_png": [16, 16, 3], "segmented": [32, 32], "psnr": 10.716,
+                      "lora_pngs": [[32, 32, 3], [32, 32, 3]], "prequant": ["format", "lora_baked"]}

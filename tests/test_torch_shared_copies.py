@@ -15,8 +15,9 @@ tests/test_torch_hooks.py. The serving slice's copies, equal to the bit: the
 web UI (``_DEMO_HTML``), the registry's memory and encoder-variant tables and
 functions, ``utils/beacon.py``, every ``utils/quality.py`` metric, and the
 subject mask's morphology, saliency heuristic, ``synth_composite`` and
-``iou``. Also: the port's entry points default to the card and take the CPU
-only when asked.
+``iou``. The LoRA / prequantized slice's: the loader's Diffusers leaf table,
+the prequantized directory and path and the source fingerprint. Also: the
+port's entry points default to the card and take the CPU only when asked.
 
 ``jax_config`` builds the JAX package's config class from a port config's
 numbers; the other CPU parity tests use it wherever they feed one config to
@@ -562,6 +563,29 @@ def _for_writer(writer, t: torch.Tensor):
 
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+def test_lora_and_prequantized_tables_equal_jax(tmp_path):
+    """The LoRA loader's Diffusers leaf table, the prequantized directory name,
+    path and the source fingerprint: the same in both packages, so each finds
+    and accepts the other's files."""
+    from flux2_tpu.io import checkpoints as jck
+    from flux2_tpu.training import lora_loader as jloader
+    from flux2_tpu_torch.io import checkpoints as tck
+    from flux2_tpu_torch.training import lora_loader as tloader
+
+    assert tloader._DIFFUSERS_LEAF == jloader._DIFFUSERS_LEAF
+    assert tck.PREQUANT_DIRNAME == jck.PREQUANT_DIRNAME == "tpu-prequantized"
+    assert tck.prequantized_path("m", "int4") == jck.prequantized_path("m", "int4")
+    for name, shape in (("b.safetensors", (3, 2)), ("a.safetensors", (5,)), ("config.json", None)):
+        if shape:
+            tst.save_file({"w": torch.zeros(shape)}, str(tmp_path / name))
+        else:
+            (tmp_path / name).write_text("{}")
+    os.utime(tmp_path / "a.safetensors", (1_700_000_000.75, 1_700_000_000.75))
+    assert tck.source_fingerprint(str(tmp_path)) == jck.source_fingerprint(str(tmp_path))
+    assert tck.source_fingerprint(str(tmp_path)).startswith("a.safetensors:") and "config" not in \
+        tck.source_fingerprint(str(tmp_path))
 
 
 @pytest.mark.parametrize("writer,reader", [(tst, jst), (jst, tst)], ids=["port_to_jax", "jax_to_port"])

@@ -125,21 +125,24 @@ def test_main_entry_point_runs_train_lora(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,yaml_kw,queue", [
-    ([], {}, "13"),  # no --random-init: training from checkpoints (it needs real data: the VAE encoder)
+    ([], {}, "13"),  # no --random-init: training from checkpoints (it needs real data: training/data.py)
     (["--random-init", "--transformer-dir", "/nonexistent"], {}, "13"),
-    (["--random-init", "--dataset-dir", "{tmp}"], {}, "11"),
-    (["--random-init"], {"extra": "control_dir: {tmp}\n"}, "11"),
+    (["--random-init", "--dataset-dir", "{tmp}"], {}, "13"),
+    (["--random-init"], {"extra": "control_dir: {tmp}\n"}, "13"),
     (["--random-init"], {"extra": "validation: {{prompts: [a red fox]}}\n"}, "13/15"),
     (["--random-init"], {"extra": "validation: {{vlm_scoring: {{enabled: true}}}}\n"}, "13/15"),
     (["--random-init"], {"extra": "validation_dataset_dir: {tmp}\n"}, "13"),
     (["--random-init"], {"extra": "lora_dropout: 0.1\n"}, "13"),
     (["--random-init", "--shard", "auto"], {}, "16"),
     (["--random-init"], {"training": ", pp: 5"}, "16"),
-    (["--random-init", "--quantization", "w8a8"], {}, "12"),
+    (["--random-init", "--quantization", "w8a8"], {}, "13"),
 ], ids=["checkpoints", "transformer_dir", "dataset", "control_dir", "validation_prompts", "vlm_scoring",
         "validation_dataset", "lora_dropout", "shard", "pp", "quantized_base"])
 def test_unsupported_options_raise_naming_their_queue(tmp_path, flags, yaml_kw, queue):
     cfg = _yaml(tmp_path, **{k: v.format(tmp=tmp_path) for k, v in yaml_kw.items()})
-    with pytest.raises(SystemExit, match=f"queue {queue}"):
+    with pytest.raises(SystemExit, match=f"queue {queue}") as refused:
         _run(["--config", cfg, *(f.format(tmp=tmp_path) for f in flags)])
     assert not os.path.exists(tmp_path / "out")
+    assert "VAE encoder" not in str(refused.value)  # ported in the ninth slice: not a reason any more
+    if "dataset-dir" in flags or "control_dir" in yaml_kw.get("extra", ""):
+        assert "training/data.py and _prepare_real_data" in str(refused.value)
