@@ -53,7 +53,16 @@ those files (K5 206 / K6 205 a forward; the w8a8 DiT equal to an in-memory
 qint8 -> w8a8 to the bit), `FLUX2_PALLAS_DEQUANT=1 t2i --quantization qint8
 --lora` (the QTensor merge, K7 202 a forward), `--dequantize-runtime`, and
 QLoRA steps through the library on a w8a8 and a qint8 Klein-4B base (K5 406 /
-K7 402 a step, the kernels' input gradient against the plain route). Every path runs with the launch
+K7 402 a step, the kernels' input gradient against the plain route). The real-data training slice
+(phase_train_real, on the same directories and a dataset written from a seed: six PNGs in two aspect
+ratios, [trigger] captions, control images for two, a two-item held-out set): `train-lora
+--random-init` on the dataset at 512^2 (control images, caption and control dropout, DOP every 2
+steps, EMA, both disk caches, previews at steps 0/2/4 with the pixel scorer and best/, the held-out
+loss; the cached latents equal to direct encodes to the bit, the base's bytes unchanged) and its
+--resume from step 2 (both caches hit, the uninterrupted run's LoRA to the bit); `train-lora` from the
+checkpoints with --quantization w8a8 and qint8 (QLoRA from the CLI, the first step's loss against the
+kernel's plain version); remat "dots" against True at 1024^2 (s/step, peak memory, step 1's loss and
+gradient); `evaluate-lora --no-vlm` (JAX's JSON keys). Every path runs with the launch
 counts set to 0 just before it and checks them just after. Any failure raises: the
 traceback is printed and the exit code is not 0. There is no CPU fallback.
 
@@ -2461,6 +2470,454 @@ def phase_checkpoint_round_trip(card: str, workdir: str) -> dict:
             "dirs": dirs}
 
 
+# -- real-data LoRA training -----------------------------------------------------------------
+
+DATASET_CAPTIONS = ("a photo of [trigger] on a wooden table", "[trigger] in a garden at dawn",
+                    "a close-up of [trigger], studio light", "[trigger] beside a mountain lake",
+                    "a sketch of [trigger]", "[trigger] on a beach at noon")
+
+
+def write_dataset(root: str, seed: int, sizes, captions=DATASET_CAPTIONS, control=(), manifest: bool = False) -> dict:
+    """A training dataset written from ``seed``: one PNG per (width, height) of
+    ``sizes`` (smooth colour fields with noise), its caption (``[trigger]``
+    placeholders) as a ``.txt`` sidecar or, with ``manifest``, one
+    ``manifest.jsonl``; the items of ``control`` (indices) also get a control
+    image of their size in ``<root>_control``. Returns the directories."""
+    import numpy as np
+
+    from flux2_tpu_torch.io.png import encode_png
+
+    rng = np.random.RandomState(seed)
+    control_dir = root + "_control"
+    os.makedirs(root, exist_ok=True)
+    records = []
+    for i, (w, h) in enumerate(sizes):
+        for directory, name in [(root, f"image_{i:02d}.png")] + ([(control_dir, f"image_{i:02d}.png")]
+                                                                  if i in control else []):
+            os.makedirs(directory, exist_ok=True)
+            yy, xx = np.mgrid[0:h, 0:w] / max(w, h)
+            base = np.stack([np.sin(2 * np.pi * (rng.uniform(0.5, 3) * xx + rng.uniform(0.5, 3) * yy + rng.uniform()))
+                             for _ in range(3)], axis=-1)
+            img = np.clip(127.5 + 100 * base + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+            _write_file(os.path.join(directory, name), encode_png(img))
+        caption = captions[i % len(captions)]
+        records.append({"image": f"image_{i:02d}.png", "caption": caption})
+        if i in control:
+            records[-1]["control"] = os.path.relpath(os.path.join(control_dir, f"image_{i:02d}.png"), root)
+        if not manifest:
+            with open(os.path.join(root, f"image_{i:02d}.txt"), "w") as f:
+                f.write(caption)
+    if manifest:
+        with open(os.path.join(root, "manifest.jsonl"), "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in records)
+    return {"dataset": root, "control": control_dir if control else None}
+
+
+VAL_CAPTIONS = ("a watercolour of a lighthouse", "a red bicycle against a brick wall")
+TRIGGER = "sks"
+TRAIN_REAL_STEPS = 4
+TRAIN_REAL_YAML = """model: {{name: klein-4b}}
+lora: {{rank: 16, alpha: 16, target_layers: attention_ffn}}
+dataset: {{path: {data}, image_size: 512, trigger_word: sks{control}{validation}}}
+training: {{optimizer: adamw, learning_rate: 1.0e-4, warmup_steps: 0, lr_scheduler: constant, batch_size: 1,
+  max_steps: {steps}, log_every: 1, caption_dropout: {caption_dropout}}}
+loss: {{diff_output_preservation: {dop}, diff_output_preservation_multiplier: 0.5,
+  diff_output_preservation_every_n_steps: 2}}
+memory: {{gradient_checkpointing: {remat}, cache_latents: true, cache_text_embeddings: true}}
+ema: {{enabled: {ema}, decay: 0.9}}
+checkpoints: {{output: {out}, save_every: 2}}
+{validation_block}"""
+PREVIEW = {"prompt": "a portrait of sks, studio light", "is_512": True}
+
+
+def _train_real_yaml(path: str, data: dict, out: str, *, steps: int, control: bool, validation: bool,
+                     remat: str = "true") -> str:
+    """A train-lora YAML in the reference schema: the dataset at 512^2 with the
+    trigger; with ``control``, its control directory, control and caption
+    dropout, DOP every 2 steps and the EMA; with ``validation``, one preview
+    prompt (512^2, 4 steps, every 2 steps, the step-0 baseline, the pixel
+    scorer) and the held-out dataset."""
+    text = TRAIN_REAL_YAML.format(
+        data=data["dataset"], steps=steps, out=out, remat=remat,
+        control=f", control_path: {data['control']}, control_dropout: 0.25" if control else "",
+        validation=f", validation_path: {data['validation']}" if validation else "",
+        caption_dropout=0.25 if control else 0.0, dop="true" if control else "false", ema="true" if control else "false",
+        validation_block=(f"validation: {{prompts: [{json.dumps(PREVIEW)}], every_n_steps: 2, steps: 4, size: 512,\n"
+                          "  vlm_scoring: {enabled: true, compare_to_baseline: true}}\n") if validation else "")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+class _Calls:
+    """Counts the calls of ``owner.name`` (a method or function) while active."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.n = owner, name, 0
+
+    def __enter__(self):
+        self.original = getattr(self.owner, self.name)
+        original = self.original
+
+        def counted(*args, **kw):
+            self.n += 1
+            return original(*args, **kw)
+
+        setattr(self.owner, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.original)
+
+
+def _set_launches(counts: dict) -> None:
+    """Put the kernels' counts back (after launches that compared a kernel with its plain version)."""
+    from flux2_tpu_torch.ops import flash_attention as fa
+    from flux2_tpu_torch.ops import quant_kernels as qk
+
+    fa.launches, fa.launches_lse = counts["flash"], counts["flash_lse"]
+    fa.launches_dq, fa.launches_dkv = counts["flash_bwd_dq"], counts["flash_bwd_dkv"]
+    qk.launches.update({k: counts[k] for k in qk.launches})
+
+
+class _FirstStepAgainstPlain:
+    """Wraps ``trainer.make_train_step`` so that, before the first step, the
+    same step's loss (its draws from a copy of the step's generator) runs
+    with the quantized kernel's plain version in its place; those launches
+    are taken back out of the counts."""
+
+    def __init__(self, kernel: str):
+        self.kernel, self.pair = kernel, None
+
+    def __enter__(self):
+        from flux2_tpu_torch.training import trainer
+
+        self.make = trainer.make_train_step
+        trainer.make_train_step = self._make
+        return self
+
+    def __exit__(self, *exc):
+        from flux2_tpu_torch.training import trainer
+
+        trainer.make_train_step = self.make
+
+    def _make(self, transformer, tcfg):
+        from flux2_tpu_torch.ops import quant_kernels as qk
+        from flux2_tpu_torch.training import trainer
+
+        step = self.make(transformer, tcfg)
+
+        def first_checked(lora, optimizer, batch, gen):
+            if self.pair is not None:
+                return step(lora, optimizer, batch, gen)
+            g = torch.Generator(gen.device)
+            g.set_state(gen.get_state())
+            saved = _launch_counts()
+            launch = getattr(qk, self.kernel)
+            setattr(qk, self.kernel, getattr(qk, self.kernel + "_reference"))
+            try:
+                with torch.no_grad():
+                    sigmas, noise = trainer._draw(tcfg, g, batch["latents"])
+                    plain = trainer.flow_matching_loss(transformer, lora, tcfg, batch["latents"], batch["embeddings"],
+                                                       noise, sigmas, batch["rope_cos"], batch["rope_sin"],
+                                                       guidance=batch.get("guidance"), control=batch.get("control"))
+                    plain = float(plain)
+            finally:
+                setattr(qk, self.kernel, launch)
+                _set_launches(saved)
+            metrics = step(lora, optimizer, batch, gen)
+            self.pair = (float(metrics["loss"]), plain)
+            return metrics
+
+        return first_checked
+
+
+def _train(argv: list, label: str, card: str) -> tuple:
+    """``train-lora`` through the port's parser and run_training in this
+    process: (history, launches, seconds, peak GiB, captured log lines)."""
+    import contextlib
+    import io
+
+    from flux2_tpu_torch.cli.main import parse_args
+    from flux2_tpu_torch.cli.train import run_training
+
+    args = parse_args(["train-lora", *argv, "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    err = io.StringIO()
+    _zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        history = run_training(args, "cuda")
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    for line in err.getvalue().strip().splitlines():
+        log(f"[train-real {label}] {line}")
+    if not history or not all(r["loss"] == r["loss"] and abs(r["loss"]) < float("inf") and r["grad_norm"] > 0
+                              for r in history):
+        raise AssertionError(f"{label}: a loss is not finite or a gradient norm is 0: {history}")
+    for r in history:
+        log(f"[train-real {label}] step {r['step']}: loss {r['loss']:.6f}, dop_loss {r['dop_loss']:.6f}, grad_norm "
+            f"{r['grad_norm']:.6f}, {r['seconds']:.4f} s [{card}]")
+    return history, counts, wall, torch.cuda.max_memory_allocated() / 2**30, err.getvalue()
+
+
+def _loras_equal(a: dict, b: dict) -> tuple:
+    import numpy as np
+
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"LoRA names differ: {sorted(a)[:3]} vs {sorted(b)[:3]}")
+    equal = all(np.array_equal(a[k], b[k]) for k in a)
+    rel = max(float(np.linalg.norm(a[k] - b[k]) / max(np.linalg.norm(b[k]), 1e-30)) for k in a)
+    return equal, rel
+
+
+def _phase_random_real(card: str, workdir: str, data: dict) -> dict:
+    """A: ``train-lora --random-init`` on the dataset (control images, caption
+    and control dropout, DOP every 2 steps, EMA, both disk caches, previews at
+    steps 0, 2 and 4, the held-out loss), then ``--resume`` from step 2 in the
+    same output directory."""
+    import numpy as np
+    import safetensors.numpy
+
+    from flux2_tpu_torch.cli import train as cli_train
+    from flux2_tpu_torch.models.text_encoders.extractor import EmbeddingExtractor
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
+    from flux2_tpu_torch.training import data as td
+
+    out = os.path.join(workdir, "real")
+    cfg = _train_real_yaml(os.path.join(workdir, "real.yaml"), data, out, steps=TRAIN_REAL_STEPS, control=True,
+                           validation=True)
+    captured = {}
+    build = cli_train._build_random_pipeline
+
+    def capture(*a, **kw):
+        pipe = build(*a, **kw)
+        torch.cuda.synchronize()
+        captured["pipe"] = pipe
+        captured["base"] = [t.clone() for t in pipe.transformer.state_dict().values()]
+        captured["k5_per_encode"] = _encode_launches_w8a8(pipe.text_encoder.decoder)
+        return pipe
+
+    cli_train._build_random_pipeline = capture
+    try:
+        with _Calls(Flux2Pipeline, "encode_image_to_packed_sequence") as vae, _Calls(EmbeddingExtractor, "__call__") as enc:
+            history, counts, wall, peak, err = _train(["--config", cfg, "--random-init"], "A", card)
+        pipe, k5 = captured["pipe"], captured["k5_per_encode"]
+        base_unchanged = all(torch.equal(a, b) for a, b in zip(captured.pop("base"), pipe.transformer.state_dict().values()))
+        if not base_unchanged:
+            raise AssertionError("A: the training base's bytes changed across the run (validation merged into it: R5)")
+        # 2 paired items (one per bucket) + their control images; captions: 2 items, "" (caption dropout), 2 DOP,
+        # 2 held-out items, the preview prompt and the "" of its classical CFG on the validation pipeline
+        steps, dop_steps, passes, val_passes, n_val = TRAIN_REAL_STEPS, TRAIN_REAL_STEPS // 2, 3, 2, 2
+        want = {"flash_lse": 50 * (steps + dop_steps), "flash_bwd_dq": 25 * (steps + dop_steps),
+                "flash_bwd_dkv": 25 * (steps + dop_steps),
+                "flash": 25 * dop_steps + 100 * passes + 25 * n_val * val_passes,
+                "w8a8": 9 * k5, "quantize_rows": 9 * k5}
+        if (vae.n, enc.n) != (4 + 2, 9):
+            raise AssertionError(f"A: {vae.n} VAE encodes (want 4 + 2 held-out) and {enc.n} caption encodes (want 9)")
+        _expect_counts("A: train-lora --random-init on the dataset", counts, want)
+        cache = os.path.join(out, "latent_cache")
+        npy = sorted(f for f in os.listdir(cache) if f.endswith(".npy"))
+        buckets = td.scaled_buckets(512)
+        items = [it for it in td.load_dataset(data["dataset"], trigger=TRIGGER, control_dir=data["control"],
+                                              buckets=buckets) if it.control_path]
+        lc = td.LatentCache(cache, "flux2-vae32-v1")
+        images = items + [td.DatasetItem(it.control_path, "", it.bucket) for it in items]
+        if len(npy) != len(images) or sorted(lc._key(it) + ".npy" for it in images) != npy:
+            raise AssertionError(f"A: latent cache holds {npy}, want one .npy per image ({len(images)})")
+        worst = 0.0
+        for it in images:
+            direct = pipe.encode_image_to_packed_sequence(td.load_image(it.image_path, *it.bucket)).cpu().numpy()
+            cached = np.load(os.path.join(cache, lc._key(it) + ".npy"))
+            if not np.array_equal(direct, cached):
+                raise AssertionError(f"A: the cached latents of {it.image_path} differ from a direct encode "
+                                     f"(max abs {np.abs(direct - cached).max()})")
+        pngs = sorted(os.listdir(os.path.join(out, "validation")))
+        want_png = [f"val_{s:06d}_p0_0.png" for s in (0, 2, 4)]
+        meta = json.load(open(os.path.join(out, "checkpoint_000004", "training_state.json")))
+        if pngs != want_png or not os.path.isdir(os.path.join(out, "best")) or len(meta["val_loss_history"]) != 2:
+            raise AssertionError(f"A: validation PNGs {pngs} (want {want_png}), best/ "
+                                 f"{os.path.isdir(os.path.join(out, 'best'))}, val_loss_history "
+                                 f"{meta['val_loss_history']}")
+        opt_keys = sorted(safetensors.numpy.load_file(os.path.join(out, "checkpoint_000002", "optimizer.safetensors")))
+        if not all(k.startswith("[1][") for k in opt_keys) or "[1][0].count" not in opt_keys:
+            raise AssertionError(f"A: optimizer.safetensors holds {opt_keys[:4]}, not JAX's optax tree paths")
+        log(f"[train-real A] train-lora --random-init, Klein-4B-base + random w8a8 Qwen3-4B, {len(items)} paired items "
+            f"in 2 buckets at 512^2, {steps} steps (DOP on {dop_steps}), previews at 0/2/4, held-out loss at 2/4: "
+            f"{wall:.2f} s; losses {[round(r['loss'], 5) for r in history]}; {statistics.mean(r['seconds'] for r in history[1:]):.4f} "
+            f"s/step warm; peak {peak:.2f} GiB; {vae.n} VAE encodes, {enc.n} caption encodes ({k5} K5 each); "
+            f"launches {counts}; cached latents equal to direct encodes to the bit ({len(images)}); the base's bytes "
+            f"unchanged (R5); val_loss_history {[round(v['loss'], 5) for v in meta['val_loss_history']]}; optimizer "
+            f"keys JAX's ({len(opt_keys)}) [{card}]")
+        final = safetensors.numpy.load_file(os.path.join(out, "checkpoint_000004", "lora.safetensors"))
+        del pipe
+        captured.clear()
+        gc_cuda()
+
+        # the same run resumed from step 2: both disk caches hit, the LoRA of the uninterrupted run
+        with _Calls(Flux2Pipeline, "encode_image_to_packed_sequence") as vae, _Calls(EmbeddingExtractor, "__call__") as enc:
+            history_r, counts_r, wall_r, _, _ = _train(
+                ["--config", cfg, "--random-init", "--resume", os.path.join(out, "checkpoint_000002")], "A resume", card)
+        k5 = captured["k5_per_encode"]
+        want_r = {"flash_lse": 50 * 3, "flash_bwd_dq": 25 * 3, "flash_bwd_dkv": 25 * 3, "flash": 25 + 100 + 25 * n_val,
+                  "w8a8": 2 * k5, "quantize_rows": 2 * k5}  # the preview prompt and its "" only
+        if [r["step"] for r in history_r] != [3, 4] or vae.n or enc.n != 2:
+            raise AssertionError(f"A resume: steps {[r['step'] for r in history_r]}, {vae.n} VAE encodes (want 0), "
+                                 f"{enc.n} caption encodes (want 2: the preview prompt and its '')")
+        _expect_counts("A resume", counts_r, want_r)
+        equal, rel = _loras_equal(safetensors.numpy.load_file(os.path.join(out, "checkpoint_000004", "lora.safetensors")),
+                                  final)
+        if not equal and rel > 1e-6:
+            raise AssertionError(f"A resume: the LoRA differs from the uninterrupted run's: relative {rel}")
+        log(f"[train-real A resume] --resume checkpoint_000002 (JAX-keyed optimizer state, strict): steps 3-4 in "
+            f"{wall_r:.2f} s, {vae.n} VAE encodes and no caption encode (both disk caches hit); launches {counts_r}; "
+            f"final LoRA {'equal to the bit to' if equal else f'within {rel:.3e} relative of'} the uninterrupted "
+            f"run's [{card}]")
+    finally:
+        cli_train._build_random_pipeline = build
+        captured.clear()
+        gc_cuda()
+    return {"counts": counts, "counts_resume": counts_r, "s_per_step": statistics.mean(r["seconds"] for r in history[1:]),
+            "wall_s": wall, "peak_gib": peak, "resume_equal": equal}
+
+
+def _phase_qlora_cli(card: str, workdir: str, data: dict, dir_flags: list) -> dict:
+    """B: ``train-lora`` from the checkpoint directories on the dataset with
+    ``--quantization w8a8`` and, under FLUX2_PALLAS_DEQUANT=1, ``qint8``
+    (QLoRA from the CLI): 3 steps each, exact launches, the first step's loss
+    against the same step with the kernel's plain version in its place."""
+    out = {}
+    for fmt, kernel, counter in (("w8a8", "w8a8_matmul", "w8a8"), ("qint8", "dequant_matmul", "dequant_int8")):
+        run_dir = os.path.join(workdir, f"qlora_{fmt}")
+        cfg = _train_real_yaml(os.path.join(workdir, f"qlora_{fmt}.yaml"), data, run_dir, steps=QLORA_STEPS,
+                               control=False, validation=False)
+        if fmt == "qint8":
+            os.environ["FLUX2_PALLAS_DEQUANT"] = "1"
+        try:
+            with _FirstStepAgainstPlain(kernel) as first:
+                history, counts, wall, peak, _ = _train(["--config", cfg, *dir_flags, "--quantization", fmt],
+                                                        f"B {fmt}", card)
+        finally:
+            os.environ.pop("FLUX2_PALLAS_DEQUANT", None)
+        want = {name: n * QLORA_STEPS for name, n in {**STEP_LAUNCHES, **QLORA_STEP_LAUNCHES[fmt]}.items()}
+        _expect_counts(f"B: train-lora --quantization {fmt} from checkpoints", counts, want)
+        loss_k, loss_p = first.pair
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        if rel > TRAIN_LOSS_REL_TOL:
+            raise AssertionError(f"B {fmt}: first-step loss {loss_k} vs {loss_p} with the plain {kernel} (relative "
+                                 f"{rel}, tol {TRAIN_LOSS_REL_TOL})")
+        s_per_step = statistics.mean(r["seconds"] for r in history[1:])
+        log(f"[train-real B {fmt}] train-lora from checkpoints, --quantization {fmt}, 6 items in 2 buckets at 512^2, "
+            f"{QLORA_STEPS} steps in {wall:.2f} s (load, encodes, steps); {s_per_step:.4f} s/step warm; peak "
+            f"{peak:.2f} GiB; launches {counts} ({QLORA_STEP_LAUNCHES[fmt][counter]} {counter} a step); first-step "
+            f"loss {loss_k:.6f} vs {loss_p:.6f} with the plain {kernel} (relative {rel:.3e}, tol "
+            f"{TRAIN_LOSS_REL_TOL}) [{card}]")
+        out[fmt] = {"counts": counts, "s_per_step": s_per_step, "rel_loss": rel, "peak_gib": peak}
+        gc_cuda()
+    return out
+
+
+def _phase_remat_dots(card: str, tdir: str) -> dict:
+    """C: ``remat: "dots"`` against ``remat: True`` on the Klein-4B DiT read
+    from its checkpoint (bf16), a rank-16 LoRA, 1024^2: two loss + backward
+    steps of each, in turns; step 1's loss and LoRA gradient compared, s/step
+    and peak memory of the warm step, launches."""
+    from flux2_tpu_torch.cli.main import _read_config_json
+    from flux2_tpu_torch.io import checkpoints as tck
+    from flux2_tpu_torch.io import weight_mapping
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Model
+    from flux2_tpu_torch.training import lora as lora_mod
+    from flux2_tpu_torch.training import trainer
+
+    model = weight_mapping.load_transformer(tck.WeightsDir(tdir), _read_config_json(tdir, Flux2Model.KLEIN_4B.transformer_config),
+                                            "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    lora = lora_mod.init_lora(model, lora_mod.LoRAConfig(16, 16.0), gen)
+    with torch.no_grad():  # b != 0: every adapter leaf has a gradient
+        for name, p in lora.named_parameters():
+            if name.endswith(".b"):
+                p.normal_(generator=gen).mul_(1e-2)
+    latents, emb, sigmas, noise, cos, sin = _klein_train_inputs(gen, 1024)
+    rows = {True: [], "dots": []}
+    for _ in range(2):
+        for remat in (True, "dots"):
+            tcfg = trainer.TrainConfig(rank=16, alpha=16.0, remat=remat)
+            for p in lora.parameters():
+                p.grad = None
+            gc_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = trainer.flow_matching_loss(model, lora, tcfg, latents, emb, noise, sigmas, cos, sin)
+            loss.backward()
+            torch.cuda.synchronize()
+            rows[remat].append({"s": time.perf_counter() - t0, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                                "counts": _launch_counts(), "loss": float(loss.detach()),
+                                "grads": [p.grad.detach().clone() for p in lora.parameters()]})
+    for remat, want in ((True, STEP_LAUNCHES), ("dots", STEP_LAUNCHES)):
+        for r in rows[remat]:
+            _expect_counts(f"C: a 1024^2 step under remat={remat!r}", r["counts"], want)
+    a, b = rows[True][0], rows["dots"][0]
+    equal = a["loss"] == b["loss"] and all(torch.equal(x, y) for x, y in zip(a["grads"], b["grads"]))
+    rel_grad = (sum(float((x - y).square().sum()) for x, y in zip(a["grads"], b["grads"]))
+                / sum(float(x.square().sum()) for x in a["grads"])) ** 0.5
+    rel_loss = abs(a["loss"] - b["loss"]) / abs(a["loss"])
+    if not equal and (rel_loss > 1e-3 or rel_grad > 1e-3):
+        raise AssertionError(f"C: dots vs True at step 1: loss relative {rel_loss}, LoRA gradient relative L2 {rel_grad}")
+    warm = {k: v[1] for k, v in rows.items()}
+    log(f"[train-real C] remat dots vs True, Klein-4B from its checkpoint (bf16), 1024^2 (4128 tokens), rank 16, "
+        f"loss + backward in turns: warm s/step dots {warm['dots']['s']:.4f} vs True {warm[True]['s']:.4f}; peak "
+        f"memory dots {warm['dots']['peak_gib']:.2f} GiB vs True {warm[True]['peak_gib']:.2f} GiB; step 1 "
+        f"{'equal to the bit' if equal else f'loss relative {rel_loss:.3e}, LoRA gradient relative L2 {rel_grad:.3e}'}"
+        f" (loss {a['loss']:.6f}); launches a step, both: {warm['dots']['counts']} [{card}]")
+    del model, lora, rows
+    gc_cuda()
+    return {"s_per_step": {"dots": warm["dots"]["s"], "true": warm[True]["s"]},
+            "peak_gib": {"dots": warm["dots"]["peak_gib"], "true": warm[True]["peak_gib"]}, "equal": equal,
+            "rel_grad": rel_grad, "counts": warm["dots"]["counts"]}
+
+
+def _phase_evaluate_lora(card: str, workdir: str, data: dict, dir_flags: list) -> dict:
+    """D: ``evaluate-lora --no-vlm`` from the checkpoints on the dataset, 512^2, 2 samples."""
+    out = os.path.join(workdir, "lora_eval")
+    _zero_launches()
+    lines = _run_cli(["evaluate-lora", *dir_flags, "--dataset", data["dataset"], "--width", "512", "--height", "512",
+                      "--max-samples", "2", "--no-vlm", "--output-dir", out], "evaluate-lora", card, tag="train-real D")
+    counts = _launch_counts()
+    _expect_counts("D: evaluate-lora", counts, {"flash": 2 * 25 * 4})
+    result = json.loads(lines[-1])
+    keys = ["scene_score", "style_score", "recommended_rank", "recommended_steps", "recommended_timestep_sampling",
+            "recommended_alpha", "recommended_learning_rate", "recommended_warmup_steps", "recommended_loss_weighting",
+            "recommended_target_layers", "notes"]
+    samples = [ln for ln in lines if re.match(r"\[\d/2\] scene=", ln)]
+    if list(result) != keys or len(samples) != 2 or sorted(os.listdir(out)) != ["baseline_000.png", "baseline_001.png"]:
+        raise AssertionError(f"D: evaluate-lora printed {result} / {samples}, wrote {sorted(os.listdir(out))}")
+    log(f"[train-real D] evaluate-lora --no-vlm: JAX's keys, 2 samples, 2 baseline PNGs; launches {counts} [{card}]")
+    return {"counts": counts, "result": result}
+
+
+def phase_train_real(card: str, workdir: str, dirs: dict) -> dict:
+    """Real-data LoRA training at full Klein-4B-base width on the checkpoint
+    phase's directories and a dataset written from a seed (six PNGs in two
+    aspect ratios, captions with [trigger], control images for two, a
+    two-item held-out set): A random-init on the dataset and its resume, B
+    QLoRA from the CLI (w8a8, qint8), C remat dots against True, D
+    evaluate-lora."""
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "train_real")
+    data = write_dataset(os.path.join(root, "dataset"), SEED + 20, [(512, 512), (384, 672)] * 3, control=(0, 1))
+    data["validation"] = write_dataset(os.path.join(root, "held_out"), SEED + 21, [(512, 512)] * 2,
+                                       captions=VAL_CAPTIONS)["dataset"]
+    dir_flags = ["--transformer-dir", dirs["transformer"], "--vae-dir", dirs["vae"], "--encoder-dir", dirs["text_encoder"]]
+    a = _phase_random_real(card, root, data)
+    b = _phase_qlora_cli(card, root, data, dir_flags)
+    c = _phase_remat_dots(card, dirs["transformer"])
+    d = _phase_evaluate_lora(card, root, data, dir_flags)
+    log(f"[train-real] phase: {time.perf_counter() - t0:.2f} s [{card}]")
+    return {"random": a, "qlora": b, "dots": c, "evaluate": d}
+
+
 # -- LoRA inference, prequantized checkpoints and QLoRA ------------------------------------
 
 LORA_RANK = 16
@@ -3191,6 +3648,8 @@ def main() -> int:
         ckpt = phase_checkpoint_round_trip(card, workdir)
         log(f"[ckpt] checkpoint round trip and profile phase: {time.perf_counter() - t0:.2f} s [{card}]")
         gc_cuda()
+        real = phase_train_real(card, workdir, ckpt["dirs"])
+        gc_cuda()
         t0 = time.perf_counter()
         lora = phase_lora_prequant(card, workdir, ckpt["dirs"], train["s_per_step"])
     log(f"[lora] LoRA, prequantized checkpoints and QLoRA phase: {time.perf_counter() - t0:.2f} s [{card}]")
@@ -3226,6 +3685,11 @@ def main() -> int:
         "launches_mask_inpaint": mask["inpaint_launches"],
         # the LoRA / prequantized slice: each cli.main command of phase_lora_prequant
         "launches_lora_prequant": {label: c["flash"] for label, c in lora["launches"].items() if c["flash"]},
+        # the real-data training slice: DOP's no-grad base forward, the previews and the held-out loss
+        # (train-lora --random-init on the dataset, then its resume), and evaluate-lora's baselines
+        "launches_train_real": {"random_init": real["random"]["counts"]["flash"],
+                                "random_init_resume": real["random"]["counts_resume"]["flash"],
+                                "evaluate_lora": real["evaluate"]["counts"]["flash"]},
         "slice_shapes": {name: {"q": list(shape[:3]) + [128], "s_k": shape[3], "span": span,
                                 "ms": checks[name]["alone"], "wrapper_ms": checks[name]["ms"],
                                 "plain_ms": checks[name]["plain_ms"], "bound_ms": checks[name]["bound"],
@@ -3256,6 +3720,14 @@ def main() -> int:
         counter = COUNTER[fmt]
         entry["launches_lora_prequant"] = {label: c[counter] for label, c in lora["launches"].items() if c[counter]}
         qlora = {base: r["counts"][counter] for base, r in lora["qlora"].items() if r["counts"][counter]}
+        # the real-data training slice: QLoRA from the CLI, and the random w8a8 caption encoder (K5)
+        real_launches = {f"train_lora_{base}": r["counts"][counter] for base, r in real["qlora"].items()
+                         if r["counts"][counter]}
+        if fmt == "w8a8":
+            real_launches.update(random_init_captions=real["random"]["counts"]["w8a8"],
+                                 random_init_resume=real["random"]["counts_resume"]["w8a8"])
+        if real_launches:
+            entry["launches_train_real"] = real_launches
         if qlora:
             entry["launches_qlora"] = qlora
             entry["launches_per_qlora_step"] = FORWARD_LAUNCHES[fmt] + QLORA_RECOMPUTED
@@ -3273,7 +3745,10 @@ def main() -> int:
                     "bound_by": pro["bound"][1], "library": None, "library_ms": None,
                     "launches_lora_prequant": {label: c["quantize_rows"] for label, c in lora["launches"].items()
                                                if c["quantize_rows"]},
-                    "launches_qlora": lora["qlora"]["w8a8"]["counts"]["quantize_rows"]})
+                    "launches_qlora": lora["qlora"]["w8a8"]["counts"]["quantize_rows"],
+                    "launches_train_real": {"train_lora_w8a8": real["qlora"]["w8a8"]["counts"]["quantize_rows"],
+                                            "random_init_captions": real["random"]["counts"]["quantize_rows"],
+                                            "random_init_resume": real["random"]["counts_resume"]["quantize_rows"]}})
     # K2 vs the plain f32 forward with LSE; K3 and K4 vs the plain f32 backward,
     # which computes dq, dk and dv at once, as does their library call. Launches
     # from the 512^2 training run.
@@ -3294,7 +3769,12 @@ def main() -> int:
                         "plain_ms": big["fwd_plain_ms"] if key == "k2" else big["bwd_plain_ms"],
                         "bound_ms": big["bounds"][key][0], "bound_by": big["bounds"][key][1],
                         "library": big["library"][lib][0], "library_ms": big["library"][lib][1],
-                        "launches_qlora": {base: r["counts"][counter] for base, r in lora["qlora"].items()}})
+                        "launches_qlora": {base: r["counts"][counter] for base, r in lora["qlora"].items()},
+                        "launches_train_real": {
+                            "random_init": real["random"]["counts"][counter],
+                            "random_init_resume": real["random"]["counts_resume"][counter],
+                            **{f"train_lora_{base}": r["counts"][counter] for base, r in real["qlora"].items()},
+                            "remat_dots_1024px_step": real["dots"]["counts"][counter]}})
     log(f"[vae] 1024^2 decode: first {decode['cold_s']:.4f} s, warm {decode['warm_s']:.4f} s [{card}]")
     log(f"[i2i] 1024^2 encode: first {i2i['encode_cold_s']:.4f} s, warm {i2i['encode_warm_s']:.4f} s, TF32 on vs off "
         f"{i2i['tf32_rel']:.4e}; Klein-4B s/step I2I {i2i['i2i_s_per_step']:.4f} vs T2I {i2i['t2i_s_per_step']:.4f}; "

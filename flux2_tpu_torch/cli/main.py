@@ -1,6 +1,7 @@
 """Command line of the PyTorch port: text-to-image, multi-reference
 image-to-image (``i2i``) and ``profile`` from checkpoint directories or random
-weights, bf16 or quantized, and LoRA training on random weights.
+weights, bf16 or quantized, LoRA training (``train-lora``) and its gap
+analysis (``evaluate-lora``).
 
 Port of ``flux2_tpu/cli/main.py``'s ``build_pipeline`` (``:84-164``): the
 checkpoint branch resolves each component's directory through the registry
@@ -32,9 +33,21 @@ configuration and prints JAX's report, table and JSON, ``--trace`` writing
 the phases as a Chrome trace.
 
 ``train-lora`` takes the JAX command's flags (``:1016-1040``) and runs
-``flux2_tpu_torch.cli.train.run_training``: with ``--random-init`` and no
-dataset directory, a LoRA trained on synthetic data (``cli/train.py`` says
-what else it refuses, and why).
+``flux2_tpu_torch.cli.train.run_training``: on a dataset directory from
+checkpoint directories (``--quantization`` quantizes the base: QLoRA), on a
+dataset with random weights (``--random-init``), or on synthetic data
+(``--random-init`` and no dataset), with validation previews, the held-out
+loss and ``--resume`` of either package's checkpoints. It refuses pipeline
+parallelism and ``--shard`` (ROADMAP queue 16) and ``--quantization`` with
+``--random-init`` (a recorded difference: JAX ignores the flag there).
+``evaluate-lora --dataset D [--no-vlm]`` (JAX's ``cmd_evaluate_lora``,
+``:544-595``) generates a baseline per dataset image, scores it (the pixel
+scorer: no VLM is ported yet) and prints JAX's lines and JSON:
+
+    python -m flux2_tpu_torch.cli.main train-lora --config lora.yaml \
+        --transformer-dir T --vae-dir V --encoder-dir E [--quantization w8a8]
+    python -m flux2_tpu_torch.cli.main evaluate-lora --transformer-dir T \
+        --vae-dir V --encoder-dir E --dataset D --no-vlm
 
 ``inpaint`` and ``outpaint`` (JAX's ``cmd_inpaint`` / ``cmd_outpaint``,
 ``:454-510``, with their flags and defaults, ``--steps`` 4) run the RePaint
@@ -82,7 +95,7 @@ Not ported yet, and refused by argparse or raising: ``--shard``, the Mistral
 encoder (Dev), the VLM flags ``--upsample`` / ``--interpret`` (``inpaint``'s
 ``--enrich-prompt-with-vlm`` warns and keeps the prompt, as JAX without a
 loaded VLM; ``--upsample-prompt`` raises JAX's error for a pipeline without
-an encoder facade) and ``evaluate-lora``. Images are read by Pillow
+an encoder facade). Images are read by Pillow
 where it imports (any format it reads), else PNG only, by the port's own
 decoder; so are masks (grey, grey + alpha, RGB or RGBA PNGs without Pillow).
 """
@@ -321,6 +334,7 @@ def attach_text_encoder(pipe: Flux2Pipeline, encoder_dir: Optional[str] = None, 
                                 quantization=quantization, device=pipe.device)
     pipe.text_encoder = enc.extractor
     pipe.text_encoder_name = name
+    pipe.text_encoder_quantization = quantization
     _log_load(f"text encoder {enc.name} ({enc.config.num_hidden_layers} layers, {enc.config.hidden_size} hidden)",
               edir, t0, pipe.device, quantization)
 
@@ -417,17 +431,27 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--compare", metavar="FMT,FMT,...",
                    help="cross-config comparison over quantization formats (e.g. bf16,w8a8)")
 
+    p = sub.add_parser("evaluate-lora", help="LoRA training-need gap analysis")
+    _add_common(p)
+    p.add_argument("--dataset", required=True, help="images + .txt captions (or manifest.jsonl)")
+    p.add_argument("--output-dir", default="lora_eval")
+    p.add_argument("--max-samples", type=int, default=4)
+    p.add_argument("--no-vlm", action="store_true", help="skip VLM scoring (pixel-stat fallback)")
+
     p = sub.add_parser("train-lora", help="flow-matching LoRA training")
     p.add_argument("--config", required=True, help="YAML training config")
     p.add_argument("--output-dir")
     p.add_argument("--resume")
     p.add_argument("--max-steps", type=int)
-    p.add_argument("--random-init", action="store_true", help="random weights; synthetic data (required for now)")
+    p.add_argument("--random-init", action="store_true",
+                   help="random weights; with an existing dataset.path runs the full real data path, else a synthetic "
+                        "smoke run")
     p.add_argument("--dataset-dir", help="override the YAML's dataset.path")
     p.add_argument("--transformer-dir", help="base-variant transformer weights dir")
     p.add_argument("--vae-dir")
     p.add_argument("--encoder-dir")
     p.add_argument("--encoder-tokenizer-dir")
+    # nf4 included: the QLoRA storage format trains on a quantized base
     p.add_argument("--quantization", default="bf16", choices=["bf16", "qint8", "w8a8", "int4", "nf4", "w4a8"])
     p.add_argument("--encoder-quantization", default=None, choices=list(ENCODER_QUANTIZATIONS))
     p.add_argument("--allow-partial-resume", action="store_true",
@@ -757,6 +781,77 @@ def cmd_mask_subject(args) -> None:
         )
 
 
+def cmd_evaluate_lora(args) -> None:
+    """LoRA training-need gap analysis (JAX ``cmd_evaluate_lora``, ``:544-595``):
+    read the dataset's captions, generate a baseline image per sample with
+    the base model, score it against the dataset image (the VLM scorer when
+    one is loaded, else ``_pixel_scorer``), and print JAX's per-sample lines
+    and the JSON recommendation of ``evaluate_training_need``. Under
+    ``--random-init`` the random encoder embeds each caption, as ``t2i``'s
+    does (JAX embeds ``hash(prompt)``)."""
+    from flux2_tpu_torch.training.data import load_dataset
+    from flux2_tpu_torch.training.validation import evaluate_training_need
+
+    entries = load_dataset(args.dataset)
+    if not entries:
+        raise SystemExit(f"no (image, caption) pairs found under {args.dataset}")
+    entries = entries[: args.max_samples]
+
+    pipe = build_pipeline(args, args.device)
+    scorer = _vlm_scorer(pipe) if not args.no_vlm else None
+
+    baseline_scores = []
+    os.makedirs(args.output_dir, exist_ok=True)
+    for i, entry in enumerate(entries):
+        ref_img = _load_image(entry.image_path)
+        res = pipe.generate(prompt=entry.caption, height=args.height, width=args.width, num_steps=args.steps,
+                            seed=args.seed + i)
+        _save_png(res.image, os.path.join(args.output_dir, f"baseline_{i:03d}.png"))
+        if scorer is not None:
+            scene, style = scorer(res.image, [ref_img], entry.caption)
+        else:
+            scene, style = _pixel_scorer(res.image, ref_img)
+        baseline_scores.append((scene, style))
+        print(f"[{i+1}/{len(entries)}] scene={scene:.1f} style={style:.1f}  {entry.caption[:60]}")
+
+    gap = evaluate_training_need(baseline_scores)
+    print(json.dumps({
+        "scene_score": round(gap.scene_score, 2),
+        "style_score": round(gap.style_score, 2),
+        "recommended_rank": gap.recommended_rank,
+        "recommended_steps": gap.recommended_steps,
+        "recommended_timestep_sampling": gap.recommended_timestep_sampling,
+        "recommended_alpha": gap.recommended_alpha,
+        "recommended_learning_rate": gap.recommended_learning_rate,
+        "recommended_warmup_steps": gap.recommended_warmup_steps,
+        "recommended_loss_weighting": gap.recommended_loss_weighting,
+        "recommended_target_layers": gap.recommended_target_layers,
+        "notes": gap.notes,
+    }))
+
+
+def _vlm_scorer(pipe):
+    """The VLM scene/style scorer of a loaded scoring service, else None (the
+    caller falls back to the pixel scorer). No VLM is ported yet (ROADMAP
+    item 8), so a pipeline carries no service and this returns None, as
+    JAX's does with no VLM on disk."""
+    service = getattr(pipe, "vlm_service", None)
+    if service is None or not hasattr(service, "score_validation_image"):
+        return None
+    return service.score_validation_image
+
+
+def _pixel_scorer(image, reference):
+    """Headless fallback scorer: luminance-histogram + color-moment
+    similarity mapped to the 0-10 scene/style axes (JAX's, over the port's
+    copy of ``utils/quality.py``)."""
+    from flux2_tpu_torch.utils.quality import color_moment_similarity, histogram_similarity
+
+    scene = 10.0 * histogram_similarity(image, reference)
+    style = 10.0 * color_moment_similarity(image, reference)
+    return float(scene), float(style)
+
+
 def cmd_download(args) -> None:
     """The transformer (its ``--quantization`` variant where one is published),
     the VAE and the model's text encoder, through ``registry.download``."""
@@ -839,7 +934,7 @@ def cmd_beacons(args) -> None:
 
 COMMANDS = {"t2i": cmd_t2i, "i2i": cmd_i2i, "inpaint": cmd_inpaint, "outpaint": cmd_outpaint,
             "profile": cmd_profile, "export-quantized": cmd_export_quantized, "download": cmd_download,
-            "info": cmd_info, "mask-subject": cmd_mask_subject,
+            "info": cmd_info, "mask-subject": cmd_mask_subject, "evaluate-lora": cmd_evaluate_lora,
             "training-control": cmd_training_control, "beacons": cmd_beacons}
 
 

@@ -1,38 +1,54 @@
-"""``train-lora --random-init``: LoRA training of the FLUX.2 DiT on synthetic data.
+"""``train-lora``: LoRA training of the FLUX.2 DiT, on a dataset or on synthetic data.
 
-Port of the random-init synthetic branch of ``flux2_tpu/cli/train.py``
-(``run_training`` :608, ``_prepare_synthetic_data`` :499, ``_save`` :1130):
-the training variant of the YAML's model (klein-4b -> klein-4b-base), a
-random bf16 base drawn on ``device`` from seed 0, synthetic latents and
-text embeddings, and the step loop with JAX's per-step batch draws, log
-lines, checkpoints, learning-curve SVG, EMA, loss-plateau early stop,
-``TrainingController`` stop / pause / checkpoint sentinels and ``--resume``
-of the port's own checkpoints.
+Port of ``flux2_tpu/cli/train.py`` (``run_training`` :608,
+``_prepare_real_data`` :323, ``_build_random_pipeline`` :553,
+``_prepare_synthetic_data`` :499, ``_make_scorer`` :1109, ``_save`` :1130).
+The training variant of the YAML's model (klein-4b -> klein-4b-base) trains;
+its base comes from one of three branches:
 
-The YAML schema, the SVG writer, the checkpoint pruning and the training
-variant (``cli/train_config.py``) and the controller (``training/control.py``)
-are the port's own copies of the JAX package's, held against them by the CPU
-tests.
+- checkpoint directories (``--transformer-dir``, ``--vae-dir``,
+  ``--encoder-dir``, ``--encoder-tokenizer-dir``, else the registry) through
+  ``cli.main.build_pipeline``, the DiT quantized to ``--quantization``
+  (QLoRA: the base projections run their kernels, ``ops.quant.KernelLinear``)
+  and the encoder to ``--encoder-quantization`` or the YAML's
+  ``model.quantization``; this branch needs a dataset, as JAX's;
+- ``--random-init`` with an existing dataset directory: a random bf16
+  pipeline with a random W8A8 Qwen3 encoder at the family's conditioning
+  shape and the dev tokenizer, on the real data path;
+- ``--random-init`` alone: a random bf16 DiT on synthetic tensors.
+
+The data path (``_prepare_real_data``): aspect-ratio buckets, control
+images, VAE latents through ``training/data.py``'s ``LatentCache`` (JAX's
+file names, so one cache serves both packages) or in memory, caption
+embeddings with a disk cache keyed as JAX's, the "" embedding for caption
+dropout, DOP preservation captions, and ``sample_batch`` making JAX's
+``RandomState`` draws in JAX's order. The loop: per-step draws, epochs,
+``dop_every_n_steps``, EMA, JAX's log line, checkpoints in JAX's files
+(optimizer state included), pruning, the learning-curve SVG, the loss
+plateau stop, the ``TrainingController`` sentinels, ``--resume`` of either
+package's checkpoints, a ``RuntimeBeacon``; validation previews
+(``training/validation.py``: the distilled sibling when its weights are on
+disk, else the training base, with the LoRA or its EMA merged into a copy so
+the training base is never touched), the pixel scorer until a VLM is ported,
+``best/``, the tracker's early stops; and the held-out loss on
+``validation_path`` with its overfit-gap and stagnation stops.
 
 JAX's random-init base is f32; the port's is bf16, as the checkpoint branch
-trains and as the kernels take it. What this slice does not carry raises
-``SystemExit`` naming its ROADMAP queue: a dataset directory or control
-images (``training/data.py`` and ``_prepare_real_data`` are not ported,
-queue 13), validation prompts, VLM scoring and validation-loss datasets
-(queues 13 and 15), pipeline parallelism and ``--shard`` (queue 16),
-``--quantization`` (queue 13: JAX quantizes the base only when it loads
-checkpoints, and its ``--random-init`` base ignores the flag; the library's
-``init_train_state`` / ``make_train_step`` do train on a quantized base),
-adapter dropout (queue 13) and checkpoint directories (queue 13: JAX trains
-on real data whenever it loads checkpoints).
+trains and as the kernels take it. Refused with ``SystemExit``: pipeline
+parallelism and ``--shard`` (ROADMAP queue 16), and ``--quantization`` with
+``--random-init`` (a recorded difference: JAX's random-init base ignores the
+flag). ``lora.dropout`` warns and trains without it, as JAX does.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import hashlib
 import json
 import os
+import shutil
 import time
 from typing import List, Optional
 
@@ -43,31 +59,206 @@ from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
 
 
 def _refuse_unsupported(cfg, args: argparse.Namespace) -> None:
-    """SystemExit, naming the ROADMAP queue, for what the port does not carry yet."""
-    def refuse(what: str, queue: str) -> None:
-        raise SystemExit(f"train-lora in flux2_tpu_torch: {what} is not ported yet (ROADMAP queue {queue})")
-
-    if not getattr(args, "random_init", False):
-        refuse("training from checkpoints (pass --random-init)", "13")
-    for flag in ("transformer_dir", "vae_dir", "encoder_dir", "encoder_tokenizer_dir"):
-        if getattr(args, flag, None):
-            refuse(f"--{flag.replace('_', '-')} (reading checkpoints)", "13")
-    if cfg.dataset_dir and os.path.isdir(cfg.dataset_dir):
-        refuse(f"real-data training (dataset {cfg.dataset_dir}: training/data.py and _prepare_real_data)", "13")
-    if cfg.control_dir:
-        refuse("I2I control-image training (training/data.py and _prepare_real_data)", "13")
-    if cfg.validation_prompts or cfg.vlm_scoring:
-        refuse("validation previews and VLM scoring", "13/15")
-    if cfg.validation_dataset_dir:
-        refuse("the validation-loss dataset", "13")
+    """SystemExit for what the port does not carry: pipeline parallelism and
+    ``--shard`` (ROADMAP queue 16), and ``--quantization`` with ``--random-init``."""
     if cfg.pp > 1 or cfg.pp_tp > 1 or cfg.pp_microbatches or cfg.pp_over_dcn or getattr(args, "shard", None):
-        refuse("pipeline parallelism and --shard", "16")
-    if (getattr(args, "quantization", None) or "bf16") != "bf16":
-        # JAX quantizes the base only in its checkpoint branch; its --random-init base ignores --quantization
-        refuse(f"training on a {args.quantization} base from checkpoints (QLoRA; with --random-init JAX trains "
-               "an unquantized base)", "13")
-    if cfg.lora_dropout:
-        refuse("adapter dropout (lora.dropout > 0)", "13")
+        raise SystemExit("train-lora in flux2_tpu_torch: pipeline parallelism and --shard are not ported yet "
+                         "(ROADMAP queue 16)")
+    if getattr(args, "random_init", False) and (getattr(args, "quantization", None) or "bf16") != "bf16":
+        raise SystemExit(f"train-lora in flux2_tpu_torch: --quantization {args.quantization} with --random-init is "
+                         "refused (a recorded difference: JAX's random-init base ignores the flag and trains an "
+                         "unquantized base; QLoRA quantizes a base read from checkpoints)")
+
+
+def resolve_encoder_quantization(flag_value, yaml_value) -> str:
+    """model.quantization in the YAML is TEXT-ENCODER quantization only
+    (TrainingConfigYAML.swift:33-35); an explicit CLI flag wins (the
+    train-lora flag defaults to None exactly so the YAML applies).
+    Reference spellings int8/qint8 map to the weight-only qint8 runtime."""
+    if flag_value:
+        return flag_value
+    return {
+        "int8": "qint8", "qint8": "qint8", "int4": "int4", "nf4": "nf4",
+        "bf16": "bf16", "w8a8": "w8a8", "w4a8": "w4a8", "mxfp8": "mxfp8",
+    }.get((yaml_value or "bf16").lower(), "bf16")
+
+
+def _build_random_pipeline(train_model, device: torch.device, transformer_config: Optional[Flux2TransformerConfig] = None,
+                           vae_config=None):
+    """Random-init pipeline WITH a working text encoder for checkpoint-free
+    real-data runs (``--random-init`` + an existing dataset.path), JAX's
+    ``_build_random_pipeline``: the encoder is random at the model family's
+    conditioning shape (klein-4b -> Qwen3-4B [9,18,27] concat 7680, klein-9b
+    -> Qwen3-8B; a config of another joint width gets a 3-layer decoder at
+    hidden = joint/3 reading layers (1, 2, 3)), drawn first from seed 7 and
+    quantized to W8A8 before the DiT and VAE are drawn (seed 0); tokenization
+    runs the dev tokenizer's BPE and chat template. The Dev model (Mistral
+    encoder) exits, as in JAX."""
+    from flux2_tpu_torch.models.text_encoders import config as tenc_cfg
+    from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
+    from flux2_tpu_torch.models.text_encoders.extractor import EmbeddingExtractor, quantize_encoder_params
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
+    from flux2_tpu_torch.utils import inline_bpe_tokenizer
+
+    tconfig = transformer_config or train_model.transformer_config
+    joint = tconfig.joint_attention_dim
+    by_dim = {3 * tenc_cfg.QWEN3_4B.hidden_size: tenc_cfg.QWEN3_4B, 3 * tenc_cfg.QWEN3_8B.hidden_size: tenc_cfg.QWEN3_8B}
+    if joint == 3 * tenc_cfg.MISTRAL_SMALL_3_2.hidden_size:
+        raise SystemExit("random-init real-data training for dev needs the Mistral-24B encoder resident (multi-chip "
+                         "mesh); use a klein model for single-chip checkpoint-free runs")
+    if joint in by_dim:
+        enc_cfg, layers = by_dim[joint], tenc_cfg.QWEN3_HIDDEN_LAYERS
+    else:
+        if joint % 3:
+            raise SystemExit(f"joint_attention_dim {joint} is not 3*hidden")
+        enc_cfg = tenc_cfg.DecoderConfig(vocab_size=512, hidden_size=joint // 3, intermediate_size=2 * joint // 3,
+                                         num_hidden_layers=3, num_attention_heads=2, num_key_value_heads=1,
+                                         head_dim=64, qk_norm=True)
+        layers = (1, 2, 3)
+    decoder = Qwen3Decoder(enc_cfg, device=device, generator=torch.Generator(device).manual_seed(7))
+    extractor = EmbeddingExtractor(quantize_encoder_params(decoder, "w8a8"), inline_bpe_tokenizer(), tuple(layers))
+    pipe = Flux2Pipeline.from_random(train_model, device=device, transformer_config=tconfig, vae_config=vae_config)
+    pipe.text_encoder = extractor
+    return pipe
+
+
+def _prepare_real_data(pipe, cfg, tconfig: Flux2TransformerConfig):
+    """VAE-encode the dataset and encode its captions through ``pipe`` (JAX's
+    ``_prepare_real_data``); both stay on the host, as JAX's do, and a batch
+    goes to the pipeline's device when drawn. Returns (sample_batch(rng, bs)
+    -> batch dict, items): latents [B, S, 128] and embeddings [B, S_txt,
+    joint] float32, optional control / dop_embeddings / guidance, and the
+    RoPE of [txt ; img (; control on reference ids, T=10)]."""
+    from flux2_tpu_torch.ops import latents as lu
+    from flux2_tpu_torch.ops.rope import rope_embeddings
+    from flux2_tpu_torch.training import data as td
+    from flux2_tpu_torch.utils import logging as flog
+
+    device = pipe.device
+    resolutions = [int(r) for r in (cfg.bucket_resolutions or [cfg.resolution])]
+    buckets = []
+    for r in resolutions:
+        for b in td.scaled_buckets(r):
+            if b not in buckets:
+                buckets.append(b)
+    buckets = tuple(buckets)
+    if len(resolutions) > 1:
+        flog.info(f"multi-resolution bucketing: {resolutions} -> {len(buckets)} buckets")
+    items = td.load_dataset(cfg.dataset_dir, trigger=cfg.trigger_word, control_dir=cfg.control_dir, buckets=buckets)
+    if not items:
+        raise SystemExit(f"no (image, caption) pairs found under {cfg.dataset_dir}")
+    if cfg.control_dir:
+        paired = [it for it in items if it.control_path]
+        if len(paired) < len(items):
+            flog.warning(f"{len(items) - len(paired)} item(s) have no control image; "
+                         f"training I2I on the {len(paired)} paired item(s)")
+        items = paired
+        if not items:
+            raise SystemExit(f"control_dir {cfg.control_dir} matches no dataset images")
+    flog.info(f"dataset: {len(items)} items in {len(td.group_by_bucket(items))} buckets")
+
+    # VAE latents through the disk cache; memory.cache_latents=false keeps them in memory only
+    cache = td.LatentCache(cfg.cache_dir or os.path.join(cfg.output_dir, "latent_cache"),
+                           encoder_version="flux2-vae32-v1")
+
+    def encode(image):
+        return pipe.encode_image_to_packed_sequence(image).cpu().numpy()
+
+    def encode_item(it):
+        if cfg.cache_latents:
+            return cache.get_or_encode(it, encode)
+        w, h = it.bucket
+        return encode(td.load_image(it.image_path, w, h))
+
+    latents = {it.image_path: np.asarray(encode_item(it), np.float32)[0] for it in items}
+    flog.info(f"encoded {len(latents)} latents"
+              + (f" -> {cache.cache_dir}" if cfg.cache_latents else " (in-memory, cache_latents: false)"))
+
+    # captions (and DOP preservation captions) through the text encoder
+    if pipe.text_encoder is None:
+        raise SystemExit("training needs the text encoder (it encodes captions)")
+    emb_cache = {}
+    emb_dir = None
+    if cfg.cache_text_embeddings:
+        emb_dir = os.path.join(cfg.cache_dir or os.path.join(cfg.output_dir, "latent_cache"), "text_embeddings")
+        os.makedirs(emb_dir, exist_ok=True)
+
+    def embed(caption: str) -> np.ndarray:
+        if caption not in emb_cache:
+            path = None
+            if emb_dir is not None:
+                # JAX's key: quantization and recipe change the values at the same shape
+                recipe = getattr(pipe.text_encoder, "recipe", "mistral")
+                tag = f"{pipe.text_encoder_name or 'enc'}|{recipe}|{pipe.text_encoder_quantization}|{caption}"
+                path = os.path.join(emb_dir, hashlib.sha256(tag.encode()).hexdigest()[:24] + ".npy")
+                if os.path.exists(path):
+                    emb_cache[caption] = np.load(path)
+                    return emb_cache[caption]
+            emb_cache[caption] = pipe.encode_prompt(caption).float().cpu().numpy()[0]
+            if path is not None:
+                np.save(path, emb_cache[caption])
+        return emb_cache[caption]
+
+    for it in items:
+        embed(it.caption)
+    if cfg.caption_dropout > 0:
+        embed("")  # unconditional embedding for caption dropout
+    dop_caps = {}
+    if cfg.dop_weight > 0 and cfg.trigger_word:
+        # DOP preservation caption: trigger -> class swap (SimpleLoRATrainer.swift:524-605)
+        for it in items:
+            dop_caps[it.image_path] = it.caption.replace(cfg.trigger_word, cfg.dop_preservation_class)
+            embed(dop_caps[it.image_path])
+    flog.info(f"encoded {len(emb_cache)} caption embedding(s)")
+
+    # I2I control images: clean latents at the item's bucket dims
+    control = {}
+    if cfg.control_dir:
+        for it in items:
+            citem = td.DatasetItem(image_path=it.control_path, caption="", bucket=it.bucket)
+            control[it.image_path] = np.asarray(encode_item(citem), np.float32)[0]
+
+    s_txt = next(iter(emb_cache.values())).shape[0]
+    rope_cache = {}
+
+    def rope_for(bucket, with_control):
+        k = (bucket, with_control)
+        if k not in rope_cache:
+            w, h = bucket
+            ids = [lu.text_position_ids(s_txt), lu.image_position_ids(h, w)]
+            if with_control:  # control tokens ride reference-image position ids (T=10)
+                ids.append(lu.reference_image_position_ids([h // 16], [w // 16]))
+            rope_cache[k] = rope_embeddings(torch.from_numpy(np.concatenate(ids, axis=0)).to(device))
+        return rope_cache[k]
+
+    grouped = td.group_by_bucket(items)
+    bucket_list = list(grouped.keys())
+    weights = np.asarray([len(grouped[b]) for b in bucket_list], np.float64)
+    weights /= weights.sum()
+
+    def stack(arrays) -> torch.Tensor:
+        return torch.from_numpy(np.stack(arrays)).to(device)
+
+    def sample_batch(rng: np.random.RandomState, bs: int) -> dict:
+        b = bucket_list[rng.choice(len(bucket_list), p=weights)]
+        group = grouped[b]
+        chosen = [group[i] for i in rng.randint(0, len(group), size=bs)]
+        # caption dropout: train some samples on the empty caption (LoRATrainingConfig.swift:246)
+        caps = ["" if cfg.caption_dropout > 0 and rng.uniform() < cfg.caption_dropout else it.caption
+                for it in chosen]
+        batch = {"latents": stack([latents[it.image_path] for it in chosen]),
+                 "embeddings": stack([embed(c) for c in caps])}
+        use_control = bool(control) and rng.uniform() >= cfg.control_dropout
+        if use_control:
+            batch["control"] = stack([control[it.image_path] for it in chosen])
+        if dop_caps:
+            batch["dop_embeddings"] = stack([embed(dop_caps[it.image_path]) for it in chosen])
+        if tconfig.guidance_embeds:
+            batch["guidance"] = torch.ones(bs, device=device)
+        batch["rope_cos"], batch["rope_sin"] = rope_for(b, use_control)
+        return batch
+
+    return sample_batch, items
 
 
 def _prepare_synthetic_data(cfg, tconfig: Flux2TransformerConfig, device: torch.device):
@@ -125,22 +316,82 @@ def _save(cfg, tstate, state, tcfg) -> str:
     return path
 
 
+def _make_scorer(pipe):
+    """VLM scene/style scorer when available, else the pixel-stat fallback
+    averaged over the reference set (LoRAEvaluator.swift scoring)."""
+    from flux2_tpu_torch.cli.main import _pixel_scorer, _vlm_scorer
+
+    vlm = _vlm_scorer(pipe)
+    if vlm is not None:
+        return vlm
+
+    def scorer(image, refs, prompt):
+        if not len(refs):
+            return 0.0, 0.0
+        pairs = [_pixel_scorer(image, r) for r in refs]
+        return float(np.mean([p[0] for p in pairs])), float(np.mean([p[1] for p in pairs]))
+
+    return scorer
+
+
+def _checkpoint_pipeline(args, cfg, train_model, device: torch.device):
+    """JAX's checkpoint branch: ``cli.main.build_pipeline`` for the training
+    variant, the DiT quantized to ``--quantization`` (QLoRA)."""
+    from flux2_tpu_torch.cli.main import build_pipeline
+
+    build_args = argparse.Namespace(
+        model=train_model.value, quantization=getattr(args, "quantization", "bf16") or "bf16",
+        transformer_dir=getattr(args, "transformer_dir", None), vae_dir=getattr(args, "vae_dir", None),
+        small_decoder=False, random_init=False, encoder_dir=getattr(args, "encoder_dir", None),
+        encoder_tokenizer_dir=getattr(args, "encoder_tokenizer_dir", None),
+        encoder_quantization=resolve_encoder_quantization(getattr(args, "encoder_quantization", None),
+                                                          cfg.encoder_quantization),
+        no_text_encoder=False, lora=[], memory_profile=None, dequantize_runtime=False)
+    return build_pipeline(build_args, device)
+
+
+def _validation_base(pipe, train_model, device: torch.device):
+    """(model, DiT) the previews run: the distilled sibling's bf16 weights and
+    ``config.json`` when they are on disk, else the training base (JAX's
+    warning). Either is only ever copied, never merged into."""
+    from flux2_tpu_torch.cli.main import _read_config_json
+    from flux2_tpu_torch.io import checkpoints, registry, weight_mapping
+    from flux2_tpu_torch.utils import logging as flog
+
+    sib = registry.distilled_sibling(train_model)
+    if sib != train_model:
+        sdir = registry.find_model_path(registry.TRANSFORMER_REPOS[sib])
+        if sdir is not None:
+            sconfig = _read_config_json(sdir, sib.transformer_config)
+            transformer = weight_mapping.load_transformer(checkpoints.WeightsDir(sdir), sconfig, device)
+            flog.info(f"validation previews use the distilled sibling {sib.value}")
+            return sib, transformer
+        flog.warning(f"distilled sibling {sib.value} weights not found; validating with the training base variant")
+    return train_model, pipe.transformer
+
+
 def run_training(
     args: argparse.Namespace,
     device: "torch.device | str",
     transformer_config: Optional[Flux2TransformerConfig] = None,
+    vae_config=None,
 ) -> List[dict]:
-    """Train as ``flux2 train-lora --random-init`` does, on ``device``; returns
-    one dict per step run here (step, loss, dop_loss, grad_norm, lr, seconds).
-    ``transformer_config`` replaces the model's (tests run a tiny one)."""
+    """Train as ``flux2 train-lora`` does, on ``device``; returns one dict per
+    step run here (step, loss, dop_loss, grad_norm, lr, seconds).
+    ``transformer_config`` / ``vae_config`` replace the random-init branches'
+    (tests run tiny ones)."""
     from flux2_tpu_torch.cli.train_config import YAMLTrainingConfig, write_learning_curve_svg
     from flux2_tpu_torch.io.registry import training_variant
     from flux2_tpu_torch.models.flux2.config import Flux2Model
-    from flux2_tpu_torch.training.control import TrainingController, TrainingState, config_hash
-    from flux2_tpu_torch.utils import logging as flog
     from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
+    from flux2_tpu_torch.training import data as td
     from flux2_tpu_torch.training import lora as lora_mod
     from flux2_tpu_torch.training import trainer
+    from flux2_tpu_torch.training.control import TrainingController, TrainingState, config_hash
+    from flux2_tpu_torch.training.validation import ValidationConfig, ValidationTracker, run_validation
+    from flux2_tpu_torch.utils import logging as flog
+    from flux2_tpu_torch.utils.beacon import RuntimeBeacon
 
     cfg = YAMLTrainingConfig.from_yaml(args.config).override(
         output_dir=args.output_dir, max_steps=args.max_steps, dataset_dir=getattr(args, "dataset_dir", None))
@@ -149,20 +400,97 @@ def run_training(
     train_model = training_variant(requested)
     if train_model != requested:
         flog.info(f"resolved training variant: {requested.value} -> {train_model.value}")
-    if getattr(args, "encoder_quantization", None) or cfg.encoder_quantization:
-        flog.warning("encoder quantization has no effect here: synthetic data needs no text encoder")
-    if cfg.dop_weight > 0:
-        flog.warning("dop_weight > 0 has no effect here: synthetic batches carry no preservation captions")
     os.makedirs(cfg.output_dir, exist_ok=True)
 
+    # --- base model ---
     device = torch.device(device)
-    tconfig = transformer_config or train_model.transformer_config
-    transformer = Flux2Transformer(tconfig, device=device, dtype=torch.bfloat16,
-                                   generator=torch.Generator(device).manual_seed(0))
-    flog.warning("training against random-init base (smoke test): synthetic tensors")
-    sample_batch = _prepare_synthetic_data(cfg, tconfig, device)
+    has_dataset = bool(cfg.dataset_dir and os.path.isdir(cfg.dataset_dir))
+    pipe = None
+    if getattr(args, "random_init", False):
+        if has_dataset:
+            pipe = _build_random_pipeline(train_model, device, transformer_config, vae_config)
+            flog.warning("random-init weights + real dataset: full data path, untrained outputs "
+                         "(checkpoint-free e2e mode)")
+            transformer = pipe.transformer
+        else:
+            if getattr(args, "encoder_quantization", None) or cfg.encoder_quantization:
+                flog.warning("encoder quantization has no effect here: synthetic data needs no text encoder")
+            if cfg.dop_weight > 0:
+                flog.warning("dop_weight > 0 has no effect here: synthetic batches carry no preservation captions")
+            transformer = Flux2Transformer(transformer_config or train_model.transformer_config, device=device,
+                                           dtype=torch.bfloat16, generator=torch.Generator(device).manual_seed(0))
+            flog.warning("training against random-init base (smoke test): synthetic tensors")
+    else:
+        pipe = _checkpoint_pipeline(args, cfg, train_model, device)
+        transformer = pipe.transformer
+    tconfig = transformer.config
+
+    # --- data ---
+    if pipe is not None:
+        if not has_dataset:
+            raise SystemExit("train-lora needs dataset_dir (images + .txt captions or manifest.jsonl); "
+                             "use --random-init for a checkpoint-free smoke run")
+        sample_batch, items = _prepare_real_data(pipe, cfg, tconfig)
+    else:
+        sample_batch, items = _prepare_synthetic_data(cfg, tconfig, device), []
+    if cfg.epochs > 0 and items and getattr(args, "max_steps", None) is None:
+        # epochs -> steps given the effective batch; an explicit --max-steps beats YAML epochs
+        eff = cfg.batch_size * max(1, cfg.grad_accumulation)
+        steps = cfg.epochs * max(1, -(-len(items) // eff))
+        flog.info(f"epochs={cfg.epochs} -> {steps} steps ({len(items)} items, effective batch {eff})")
+        cfg = dataclasses.replace(cfg, max_steps=steps)
     tcfg = _train_config(cfg)
 
+    # --- validation previews (the LoRA merged into a copy of the base per pass) ---
+    val_every = cfg.validation_every or cfg.save_every
+    val_enabled = pipe is not None and bool(cfg.validation_prompts)
+    if val_every <= 0 and (val_enabled or cfg.validation_dataset_dir):
+        flog.warning("validation is configured but validation_every/save_every are 0 — no validation passes (or "
+                     "validation-based early stops) will run; set validation_every: N to re-enable them")
+        val_enabled = False
+    if cfg.vlm_scoring:  # the vlm_scoring block's knobs own the tracker
+        tracker = ValidationTracker(
+            patience=cfg.vlm_early_stopping_patience if cfg.vlm_early_stopping else 0,
+            scene_weight=cfg.vlm_scene_weight, min_delta=cfg.vlm_early_stopping_min_delta,
+            degradation_threshold=cfg.vlm_degradation_threshold)
+    else:
+        tracker = ValidationTracker(patience=cfg.early_stop_patience)
+    val_cfg = ValidationConfig(
+        prompts=tuple(cfg.validation_prompts), every_n_steps=val_every,
+        width=cfg.validation_width or cfg.validation_size, height=cfg.validation_height or cfg.validation_size,
+        steps=cfg.validation_steps, seed=cfg.validation_seed, guidance=cfg.validation_guidance,
+        early_stop_patience=cfg.early_stop_patience, trigger_word=cfg.trigger_word)
+    val_pipe = val_base = scorer = None
+    ref_images = []
+    if val_enabled:
+        val_model, val_base = _validation_base(pipe, train_model, device)
+        val_pipe = Flux2Pipeline(model=val_model, transformer=val_base, vae=pipe.vae, device=device,
+                                 text_encoder=pipe.text_encoder, text_encoder_name=pipe.text_encoder_name,
+                                 vae_encoder=pipe.vae_encoder)
+        scorer = _make_scorer(pipe)
+        if cfg.vlm_reference_images:
+            from flux2_tpu_torch.io.png import decode_image
+
+            for p in list(cfg.vlm_reference_images)[: cfg.vlm_max_reference_images]:
+                with open(p, "rb") as f:
+                    ref_images.append(decode_image(f.read()))
+        else:
+            ref_images = [td.load_image(it.image_path, *it.bucket) for it in items[: cfg.vlm_max_reference_images]]
+
+    # --- validation loss on a held-out dataset (overfit / stagnation stops) ---
+    val_loss_fn = None
+    val_batches = []
+    if pipe is not None and cfg.validation_dataset_dir:
+        vcfg = dataclasses.replace(cfg, dataset_dir=cfg.validation_dataset_dir, dop_weight=0.0, control_dir=None,
+                                   caption_dropout=0.0, cache_dir=os.path.join(cfg.output_dir, "val_latent_cache"))
+        val_sample, val_items = _prepare_real_data(pipe, vcfg, tconfig)
+        val_loss_fn = trainer.make_eval_loss(transformer, tcfg)
+        vr = np.random.RandomState(cfg.validation_seed)
+        n_val = min(4, max(1, len(val_items)))
+        val_batches = [val_sample(vr, cfg.batch_size) for _ in range(n_val)]  # FIXED: comparable across steps
+        flog.info(f"validation loss: {len(val_items)} held-out item(s), {n_val} fixed batch(es)")
+
+    # --- state / resume ---
     controller = TrainingController(cfg.output_dir)
     if args.resume:
         state_path = os.path.join(args.resume, "training_state.json")
@@ -188,9 +516,11 @@ def run_training(
     flog.info(f"LoRA rank {tcfg.rank} on {len(state.lora.targets())} targets: "
               f"{lora_mod.num_lora_params(state.lora):,} parameters")
     step_fn = trainer.make_train_step(transformer, tcfg)
+    lora_scale = lora_mod.LoRAConfig(tcfg.rank, tcfg.alpha).scale
 
     history: List[dict] = []
     plateau_best, plateau_bad = float("inf"), 0
+    gap_bad, best_val, val_bad = 0, float("inf"), 0
     bs = cfg.batch_size * max(1, cfg.grad_accumulation)
     # Per-step draws (step-seeded RandomState and generator), so a resumed run
     # draws what an uninterrupted one would; the persisted seed wins on resume.
@@ -198,48 +528,122 @@ def run_training(
     if args.resume and rng_seed != cfg.seed:
         flog.warning(f"resume: using the checkpoint's rng_seed={rng_seed} (YAML seed differs)")
     t_start = time.time() - (tstate.elapsed_s if args.resume else 0.0)
+    val_dir = os.path.join(cfg.output_dir, "validation")
+    val_ref_cache: dict = {}  # per-prompt I2I reference encodes, reused across passes
+    val_emb_cache: dict = {}  # per-prompt embeddings (the prompt set is run-constant)
+    if args.resume and tstate.validation_scores:
+        tracker.seed_from_history(tstate.validation_scores)
 
-    for step in range(tstate.step + 1, cfg.max_steps + 1):
-        if controller.should_stop():
-            flog.info("stop requested — checkpointing and exiting")
-            break
-        controller.wait_while_paused()
-        seed = (rng_seed * 1_000_003 + step) % (2**32)
-        batch = sample_batch(np.random.RandomState(seed), bs)
-        t0 = time.perf_counter()
-        lr = state.optimizer.schedule(state.optimizer.count)
-        metrics = step_fn(state.lora, state.optimizer, batch, torch.Generator(device).manual_seed(seed))
-        if tcfg.use_ema:
-            trainer.ema_update(state.ema, state.lora, tcfg.ema_decay)
-        loss = float(metrics["loss"])  # waits for the step
-        row = {"step": step, "loss": loss, "dop_loss": float(metrics["dop_loss"]),
-               "grad_norm": float(metrics["grad_norm"]), "lr": lr, "seconds": time.perf_counter() - t0}
-        history.append(row)
-        tstate.step = step
-        tstate.elapsed_s = time.time() - t_start
-        tstate.record_loss(loss)
+    def validate(step: int, eval_lora):
+        """One preview pass; with a LoRA, on a merged COPY of the base (R5)."""
+        val_pipe.transformer = val_base
+        if eval_lora is not None:
+            val_pipe.transformer = lora_mod.merge_into_params(copy.deepcopy(val_base), eval_lora, lora_scale)
+        try:
+            return run_validation(val_pipe, val_cfg, step, embeddings_fn=val_pipe.encode_prompt, scorer=scorer,
+                                  reference_images=ref_images, output_dir=val_dir, ref_cache=val_ref_cache,
+                                  emb_cache=val_emb_cache)
+        finally:
+            val_pipe.transformer = val_base
 
-        if step % max(1, cfg.log_every) == 0 or step == 1:
-            eta = tstate.eta_seconds(cfg.max_steps)
-            flog.info(f"step {step}/{cfg.max_steps} loss {loss:.4f} grad_norm {row['grad_norm']:.4f} "
-                      f"{row['seconds']:.3f} s/step eta {eta and round(eta)}s")
+    with RuntimeBeacon("train-lora", model=cfg.model) as beacon:
+        if val_enabled and not args.resume and cfg.vlm_compare_to_baseline:
+            flog.info("generating baseline validation images (no LoRA)")
+            for r in validate(0, None):
+                tstate.record_validation(0, r.scene, r.style, r.prompt)
 
-        if cfg.early_stop_loss_patience > 0 and step % 20 == 0 and len(tstate.loss_history) >= 20:
-            ma = float(np.mean(tstate.loss_history[-20:]))
-            if ma < plateau_best - cfg.early_stop_min_delta:
-                plateau_best, plateau_bad = ma, 0
-            else:
-                plateau_bad += 1
-                if plateau_bad >= cfg.early_stop_loss_patience:
-                    flog.info(f"early stop: loss plateau ({plateau_bad} checks without "
-                              f"{cfg.early_stop_min_delta} improvement on the 20-step mean)")
+        for step in range(tstate.step + 1, cfg.max_steps + 1):
+            if controller.should_stop():
+                flog.info("stop requested — checkpointing and exiting")
+                break
+            controller.wait_while_paused()
+            seed = (rng_seed * 1_000_003 + step) % (2**32)
+            batch = sample_batch(np.random.RandomState(seed), bs)
+            if cfg.dop_every_n_steps > 1 and step % cfg.dop_every_n_steps:
+                batch.pop("dop_embeddings", None)  # DOP only every Nth step
+            t0 = time.perf_counter()
+            lr = state.optimizer.schedule(state.optimizer.count)
+            metrics = step_fn(state.lora, state.optimizer, batch, torch.Generator(device).manual_seed(seed))
+            if tcfg.use_ema:
+                trainer.ema_update(state.ema, state.lora, tcfg.ema_decay)
+            loss = float(metrics["loss"])  # waits for the step
+            history.append({"step": step, "loss": loss, "dop_loss": float(metrics["dop_loss"]),
+                            "grad_norm": float(metrics["grad_norm"]), "lr": lr, "seconds": time.perf_counter() - t0})
+            tstate.step = step
+            tstate.elapsed_s = time.time() - t_start
+            tstate.record_loss(loss)
+            beacon.update(phase="training", step=step, total_steps=cfg.max_steps)
+
+            if step % max(1, cfg.log_every) == 0 or step == 1:
+                eta = tstate.eta_seconds(cfg.max_steps)
+                flog.info(f"step {step}/{cfg.max_steps} loss {loss:.4f} eta {eta and round(eta)}s")
+
+            if cfg.early_stop_loss_patience > 0 and step % 20 == 0 and len(tstate.loss_history) >= 20:
+                ma = float(np.mean(tstate.loss_history[-20:]))
+                if ma < plateau_best - cfg.early_stop_min_delta:
+                    plateau_best, plateau_bad = ma, 0
+                else:
+                    plateau_bad += 1
+                    if plateau_bad >= cfg.early_stop_loss_patience:
+                        flog.info(f"early stop: loss plateau ({plateau_bad} checks without "
+                                  f"{cfg.early_stop_min_delta} improvement on the 20-step mean)")
+                        break
+
+            saved_path = None
+            if (cfg.save_every > 0 and step % cfg.save_every == 0) or controller.consume_checkpoint_request():
+                saved_path = _save(cfg, tstate, state, tcfg)
+                if cfg.learning_curve:
+                    write_learning_curve_svg(tstate.loss_history, os.path.join(cfg.output_dir, "learning_curve.svg"),
+                                             smoothing_window=cfg.learning_curve_smoothing)
+
+            eval_lora = state.ema if (tcfg.use_ema and state.ema is not None) else state.lora
+            if val_enabled and val_every > 0 and step % val_every == 0:
+                records = validate(step, eval_lora)
+                for r in records:
+                    tstate.record_validation(step, r.scene, r.style, r.prompt)
+                stop_early = tracker.record(step, records)
+                mean = tracker.mean_combined(records)
+                flog.info(f"validation @ {step}: combined {mean:.2f} (best {tracker.best_score:.2f} @ "
+                          f"{tracker.best_step})")
+                if tracker.best_step == step and cfg.vlm_save_best_checkpoint:
+                    if saved_path is None:  # improved at a non-save step: checkpoint so best/ holds these weights
+                        saved_path = _save(cfg, tstate, state, tcfg)
+                    best_dir = os.path.join(cfg.output_dir, "best")
+                    shutil.rmtree(best_dir, ignore_errors=True)
+                    shutil.copytree(saved_path, best_dir)
+                    flog.info(f"best checkpoint -> {best_dir}")
+                if stop_early:
+                    flog.info(f"early stop: {cfg.early_stop_patience} non-improving validation(s)")
                     break
 
-        if (cfg.save_every > 0 and step % cfg.save_every == 0) or controller.consume_checkpoint_request():
-            _save(cfg, tstate, state, tcfg)
-            if cfg.learning_curve:
-                write_learning_curve_svg(tstate.loss_history, os.path.join(cfg.output_dir, "learning_curve.svg"),
-                                         smoothing_window=cfg.learning_curve_smoothing)
+            if val_loss_fn is not None and val_every > 0 and step % val_every == 0:
+                vloss = float(np.mean([
+                    float(val_loss_fn(eval_lora, vb, torch.Generator(device).manual_seed(cfg.validation_seed + i)))
+                    for i, vb in enumerate(val_batches)]))
+                train_ma = float(np.mean(tstate.loss_history[-20:])) if tstate.loss_history else vloss
+                gap = vloss - train_ma
+                tstate.record_val_loss(step, vloss, gap)
+                flog.info(f"val loss @ {step}: {vloss:.4f} (train MA {train_ma:.4f}, gap {gap:+.4f})")
+                stop = False
+                if cfg.early_stop_on_overfit:
+                    if gap > cfg.early_stop_max_val_gap:
+                        gap_bad += 1
+                        if gap_bad >= cfg.early_stop_gap_patience:
+                            flog.info(f"early stop: val-train gap {gap:.3f} > {cfg.early_stop_max_val_gap} for "
+                                      f"{gap_bad} check(s) (overfitting)")
+                            stop = True
+                    else:
+                        gap_bad = 0
+                if cfg.early_stop_on_val_stagnation:
+                    if vloss < best_val - cfg.early_stop_min_val_improvement:
+                        best_val, val_bad = vloss, 0
+                    else:
+                        val_bad += 1
+                        if val_bad >= cfg.early_stop_val_stagnation_patience:
+                            flog.info(f"early stop: val loss stagnant for {val_bad} check(s)")
+                            stop = True
+                if stop:
+                    break
 
     _save(cfg, tstate, state, tcfg)
     if cfg.learning_curve:

@@ -3,13 +3,15 @@
 Port of ``flux2_tpu/models/flux2/transformer.py``: ``sinusoidal_embedding``,
 ``time_guidance_embedding``, the modulation projections, ``double_block``,
 ``single_block``, ``forward`` and ``_final``, with JAX's unmerged LoRA
-(``_lmm``, ``forward(lora=, lora_scale=)``) and per-block remat
-(``remat=True`` / ``"block"``: ``torch.utils.checkpoint``); and the
+(``_lmm``, ``forward(lora=, lora_scale=)``) and JAX's remat policies
+(``remat=True`` / ``"block"``: ``torch.utils.checkpoint`` around each block;
+``"dots"``: the same with a selective policy that keeps the 2-D products'
+outputs, see ``_dots_policy``); and the
 klein-9b-kv pair ``forward_kv_extract`` / ``forward_kv_cached``: step 0 runs
 [txt ; ref ; img] with the reference queries blind to the output keys and
 returns each block's post-RoPE reference K/V, steps 1+ run [txt ; img] with
-that K/V inserted between the text and image keys. The ``"dots"`` remat
-policy and ring attention are not ported yet.
+that K/V inserted between the text and image keys. Ring attention is not
+ported yet.
 
 Linear weights are stored [out, in] (``F.linear``'s layout); the JAX package
 stores [in, out] stacked over layers, and ``flux2_tpu_torch.io.jax_params``
@@ -29,13 +31,30 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
 from flux2_tpu_torch.ops.attention import sdpa
 from flux2_tpu_torch.ops.normalization import gate, layer_norm, modulate, rms_norm
 from flux2_tpu_torch.ops.quant import q_linear
 from flux2_tpu_torch.ops.rope import apply_rope
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """JAX's ``checkpoint_dots_with_no_batch_dims``: keep the outputs of the
+    2-D products (aten ``mm`` / ``addmm``: ``F.linear`` and the LoRA's
+    ``x @ a``, ``@ b``) for the backward and recompute everything else: the
+    batched products (``bmm``), the attention (K2 on the card, the Pallas call
+    inside JAX's remat), the elementwise glue, and the quantized routes'
+    kernel launches, which no policy sees (as JAX's Pallas ``q_matmul`` is no
+    dot)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 def linear_weight(d_in: int, d_out: int, device, dtype, generator: Optional[torch.Generator]) -> nn.Parameter:
@@ -299,12 +318,13 @@ class Flux2Transformer(nn.Module):
         lora=None,  # flux2_tpu_torch.training.lora.LoRA
         lora_scale: float = 1.0,
     ) -> torch.Tensor:
-        """Velocity [B, S_img, 128]. ``remat``: False, or True / "block" to
+        """Velocity [B, S_img, 128]. ``remat``: False; True / "block" to
         recompute each block in the backward (``torch.utils.checkpoint``,
-        non-reentrant; JAX ``_remat_wrap``). ``lora`` adds the unmerged
+        non-reentrant; JAX ``_remat_wrap``); "dots" to recompute each block
+        but its 2-D products (``_dots_policy``). ``lora`` adds the unmerged
         adapters scaled by ``lora_scale``."""
-        if remat not in (False, True, "block"):
-            raise NotImplementedError(f"remat={remat!r}: only per-block recompute is ported (ROADMAP queue 13)")
+        if remat not in (False, True, "block", "dots"):
+            raise ValueError(f"remat={remat!r}: choose False, True, 'block' or 'dots'")
         s_txt = encoder_hidden_states.shape[1]
         img, txt, temb, img_mod, txt_mod, single_mod = self._prelude(hidden_states, encoder_hidden_states, timestep,
                                                                      guidance)
@@ -313,6 +333,8 @@ class Flux2Transformer(nn.Module):
 
         def run(block, *args, lora_block):
             kw = {"lora": lora_block, "lora_scale": lora_scale}
+            if remat == "dots":
+                return checkpoint(block, *args, use_reentrant=False, context_fn=_dots_context, **kw)
             if remat:
                 return checkpoint(block, *args, use_reentrant=False, **kw)
             return block(*args, **kw)

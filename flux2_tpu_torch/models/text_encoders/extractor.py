@@ -71,6 +71,7 @@ class EmbeddingExtractor:
     tokenizer: ChatTokenizer
     hidden_layers: Tuple[int, ...] = QWEN3_HIDDEN_LAYERS
     max_length: int = MAX_SEQUENCE_LENGTH
+    recipe = "klein"  # JAX's ``EmbeddingExtractor.recipe`` (keys train-lora's caption cache)
 
     def __call__(self, prompt: str) -> torch.Tensor:
         ids, mask = prepare_klein_input_ids(self.tokenizer, prompt, self.max_length)

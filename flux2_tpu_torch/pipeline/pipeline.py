@@ -153,6 +153,7 @@ class Flux2Pipeline:
     device: torch.device
     text_encoder: Optional[Callable[[str], torch.Tensor]] = None  # prompt -> [1, S, joint]
     text_encoder_name: Optional[str] = None  # the registry's key of the attached encoder ("qwen3-4b")
+    text_encoder_quantization: str = "bf16"  # the attached encoder's format (keys train-lora's caption cache)
     vae_encoder: Optional[VAEEncoder] = None
     max_pixels: int = 4096 * 4096
     # VAE compute dtype: the decode casts the VAE's float parameters and the

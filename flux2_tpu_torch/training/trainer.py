@@ -16,8 +16,9 @@ The optimizer follows optax's semantics, not torch's defaults:
 ``clip_by_global_norm`` keeps g when ||g|| < max and else takes
 (g / ||g||) * max (no epsilon); the schedule is read at the update count
 before the increment, so with warmup step 1 has lr 0; AdamW decays every
-adapter leaf. Its state keys are the port's own (``Optimizer.state_arrays``):
-a resume across packages carries the LoRA and EMA, not the moments.
+adapter leaf. ``optimizer.safetensors`` holds JAX's optax tree paths
+(``Optimizer.state_arrays``), so either package resumes the other's
+checkpoint, moments and counts included; the port's older keys still load.
 
 Random draws come from a ``torch.Generator``, not threefry: one seed gives
 other sigmas and noise than JAX's, so tests inject both. A step draws the
@@ -293,34 +294,81 @@ class Optimizer:
                 mu.copy_((1 - b2) * g + b2 * mu)
             p.add_(-lr * (update + wd * p))
 
+    # optax's state of chain(clip_by_global_norm, adamw | lion): [0] is empty,
+    # [1][0] the moments' ScaleByAdamState / ScaleByLionState, [1][2] the
+    # schedule's count (JAX's ``_opt_state_by_path`` keys).
+    COUNT_KEYS = ("[1][0].count", "[1][2].count")
+
+    def _stacks(self) -> Dict[str, list]:
+        """JAX's stacked leaf path ``['group']['leaf']['a']`` -> the indices of
+        its per-block parameters, in block order."""
+        stacks: Dict[str, list] = {}
+        for i, name in enumerate(self.names):
+            group, block, leaf, ab = name.split(".")
+            stacks.setdefault(f"['{group}']['{leaf}']['{ab}']", []).append((int(block), i))
+        return {path: [i for _, i in sorted(pairs)] for path, pairs in stacks.items()}
+
     def state_arrays(self) -> Dict[str, torch.Tensor]:
-        """Flat state for ``optimizer.safetensors``: ``count``, ``mu.<param>``, ``nu.<param>``."""
-        out = {"count": torch.tensor([self.count], dtype=torch.int64)}
-        for prefix, moments in (("mu", self.mu), ("nu", self.nu)):
-            out.update({f"{prefix}.{n}": m for n, m in zip(self.names, moments)})
+        """Flat state for ``optimizer.safetensors`` under JAX's optax tree paths:
+        the two int32 counts, ``[1][0].mu[...]`` (and ``.nu[...]`` for AdamW)
+        stacked over the blocks as JAX's leaves are."""
+        out = {k: torch.tensor(self.count, dtype=torch.int32) for k in self.COUNT_KEYS}
+        for slot, moments in (("mu", self.mu), ("nu", self.nu)):
+            if moments:
+                out.update({f"[1][0].{slot}{path}": torch.stack([moments[i] for i in idx])
+                            for path, idx in self._stacks().items()})
         return out
 
     def load_state_arrays(self, saved: Dict[str, "object"], allow_partial: bool = False) -> None:
-        """Restore from ``state_arrays`` output; refuse on any missing, extra or
-        misshapen entry unless ``allow_partial`` (those then keep fresh state)."""
+        """Restore from JAX's path keys (written by either package) or from the
+        port's keys of PRs 3-12 (``count``, ``mu.<param>``, ``nu.<param>``);
+        refuse on any missing, extra or misshapen entry unless ``allow_partial``
+        (those then keep fresh state). Sizes are compared, as JAX's loader does:
+        a count round-trips () <-> (1,)."""
+        if "count" in saved or any(k.startswith(("mu.", "nu.")) for k in saved):
+            return self._load_port_keys(saved, allow_partial)
         expected = {k: tuple(v.shape) for k, v in self.state_arrays().items()}
+        ok = self._check(saved, expected, allow_partial, "")
+        counts = [k for k in self.COUNT_KEYS if ok(k)]
+        if counts:
+            self.count = int(torch.as_tensor(saved[counts[0]]).reshape(-1)[0])
+        stacks = self._stacks()
+        for slot, moments in (("mu", self.mu), ("nu", self.nu)):
+            for path, idx in stacks.items():
+                key = f"[1][0].{slot}{path}"
+                if moments and ok(key):
+                    full = torch.as_tensor(saved[key]).reshape(expected[key])
+                    for j, i in enumerate(idx):
+                        moments[i].copy_(full[j].to(moments[i].device, moments[i].dtype))
+
+    @staticmethod
+    def _check(saved, expected: Dict[str, tuple], allow_partial: bool, hint: str):
+        """Raise on missing / extra / misshapen (by size) keys unless
+        ``allow_partial``; returns ``ok(key)``: restorable from ``saved``."""
+        size = lambda shape: int(math.prod(shape))  # noqa: E731
         missing = sorted(set(expected) - set(saved))
         extra = sorted(set(saved) - set(expected))
-        misshapen = sorted(k for k in set(expected) & set(saved) if tuple(saved[k].shape) != expected[k])
+        misshapen = sorted(k for k in set(expected) & set(saved) if size(tuple(saved[k].shape)) != size(expected[k]))
         if (missing or extra or misshapen) and not allow_partial:
             raise ValueError(
                 f"optimizer state does not match (missing={missing[:4]}, unexpected={extra[:4]}, "
-                f"shape-mismatch={misshapen[:4]}): the optimizer or config changed since the save, or the "
-                "checkpoint's optimizer.safetensors was written by the JAX package (optax keys; a resume across "
-                "packages carries the LoRA and EMA only). Match it, or resume with allow_partial=True "
-                "(--allow-partial-resume) to start the unmatched state fresh")
-        ok = lambda k: k in saved and k not in misshapen  # noqa: E731
+                f"shape-mismatch={misshapen[:4]}): the optimizer or config changed since the save{hint}. Match it, "
+                "or resume with allow_partial=True (--allow-partial-resume) to start the unmatched state fresh")
+        return lambda k: k in saved and k not in misshapen
+
+    def _load_port_keys(self, saved, allow_partial: bool) -> None:
+        """The port's keys of PRs 3-12: ``count`` and one ``mu.<param>`` /
+        ``nu.<param>`` per block's adapter."""
+        expected = {"count": (1,)}
+        for prefix, moments in (("mu", self.mu), ("nu", self.nu)):
+            expected.update({f"{prefix}.{n}": tuple(m.shape) for n, m in zip(self.names, moments)})
+        ok = self._check(saved, expected, allow_partial, " (a checkpoint in the port's keys of PRs 3-12)")
         if ok("count"):
             self.count = int(torch.as_tensor(saved["count"]).reshape(-1)[0])
         for prefix, moments in (("mu", self.mu), ("nu", self.nu)):
             for n, m in zip(self.names, moments):
                 if ok(f"{prefix}.{n}"):
-                    m.copy_(torch.as_tensor(saved[f"{prefix}.{n}"]).to(m.device, m.dtype))
+                    m.copy_(torch.as_tensor(saved[f"{prefix}.{n}"]).reshape(m.shape).to(m.device, m.dtype))
 
 
 def make_optimizer(cfg: TrainConfig, lora: lora_mod.LoRA) -> Optimizer:
@@ -451,7 +499,7 @@ def _np(tensors: Dict[str, torch.Tensor]):
 
 def save_checkpoint(path: str, state: TrainState, train_cfg: TrainConfig, extra: Optional[dict] = None) -> None:
     """lora.safetensors (+ lora_ema.safetensors) in JAX's flat names and
-    stacked shapes, optimizer.safetensors in the port's keys, and
+    stacked shapes, optimizer.safetensors in JAX's optax tree paths, and
     training_state.json with JAX's keys (+ ``extra``)."""
     from flux2_tpu_torch.io import safetensors_io
     from flux2_tpu_torch.io.jax_params import lora_to_flat
@@ -471,8 +519,8 @@ def save_checkpoint(path: str, state: TrainState, train_cfg: TrainConfig, extra:
 
 def load_checkpoint(path: str, cfg: TrainConfig, device: "torch.device | str",
                     allow_partial: bool = False) -> TrainState:
-    """Restore the LoRA (written by either package), the port's optimizer state
-    (strict, see ``Optimizer.load_state_arrays``) and the EMA."""
+    """Restore the LoRA, the optimizer state (strict, see
+    ``Optimizer.load_state_arrays``) and the EMA, written by either package."""
     from flux2_tpu_torch.io import safetensors_io
     from flux2_tpu_torch.io.jax_params import lora_from_flat
 

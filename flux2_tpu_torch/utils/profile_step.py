@@ -21,12 +21,14 @@ batch 3, and for a warm VAE decode at 1024^2, it prints:
 - the GEMM FLOP that ``torch.profiler`` counts for ``aten::mm``-family ops.
 
 With ``--train`` it profiles instead one LoRA train step of the full-width
-Klein-4B base (rank 16 on every attention and FFN target, AdamW, per-block
-remat: ``trainer.make_train_step``) on synthetic data with 32 text tokens,
-at 512^2 and at 1024^2 (batch 1), and splits the device time into K2
-(``flash_fwd_lse_kernel``), K3 + K4 (``flash_bwd_*``), GEMMs and the rest;
-with ``--quantization`` the base is quantized (QLoRA: K5 / K6 / K7 forward,
-``dy @ dequantize(w)`` backward).
+Klein-4B base (rank 16 on every attention and FFN target, AdamW:
+``trainer.make_train_step``) on synthetic data with 32 text tokens, at
+512^2 and at 1024^2 (batch 1), under each remat policy (``True``: each
+block recomputed whole; ``"dots"``: recomputed but its 2-D products), with
+the peak device memory of the measured steps, and splits the device time
+into K2 (``flash_fwd_lse_kernel``), K3 + K4 (``flash_bwd_*``), GEMMs and the
+rest; with ``--quantization`` the base is quantized (QLoRA: K5 / K6 / K7
+forward, ``dy @ dequantize(w)`` backward).
 
 Each line carries the card's name and power limit; the last line is one JSON
 object with every number.
@@ -35,6 +37,7 @@ object with every number.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -134,9 +137,10 @@ def _card() -> str:
 
 
 def profile_train(card: str, fmt: str = "bf16") -> list:
-    """One LoRA train step of the full-width Klein-4B base at 512^2 and 1024^2,
-    the base quantized to ``fmt`` (QLoRA: the quantized projections run
-    their kernels forward and ``dy @ dequantize(w)`` backward)."""
+    """One LoRA train step of the full-width Klein-4B base at 512^2 and 1024^2
+    under remat True and "dots", the base quantized to ``fmt`` (QLoRA: the
+    quantized projections run their kernels forward and ``dy @
+    dequantize(w)`` backward)."""
     from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
     from flux2_tpu_torch.ops import latents as lu
     from flux2_tpu_torch.ops.quant import quantize_params
@@ -153,7 +157,6 @@ def profile_train(card: str, fmt: str = "bf16") -> list:
         os.environ["FLUX2_PALLAS_DEQUANT"] = "1"
     cfg = trainer.TrainConfig(rank=16, alpha=16.0, remat=True)
     state = trainer.init_train_state(model, cfg, gen)
-    step = trainer.make_train_step(model, cfg)
     rows = []
     for size in (512, 1024):
         s_img = (size // 16) ** 2
@@ -162,8 +165,15 @@ def profile_train(card: str, fmt: str = "bf16") -> list:
         batch = {"latents": torch.randn(1, s_img, 128, device=device, generator=gen),
                  "embeddings": torch.randn(1, 32, config.joint_attention_dim, device=device, generator=gen),
                  "rope_cos": cos, "rope_sin": sin}
-        rows.append(measure(lambda: step(state.lora, state.optimizer, batch, gen),
-                            f"LoRA train step {size}^2 bs=1 ({32 + s_img} tokens, rank 16, remat, {fmt} base)", card))
+        for remat in (True, "dots"):
+            step = trainer.make_train_step(model, dataclasses.replace(cfg, remat=remat))
+            torch.cuda.reset_peak_memory_stats()
+            row = measure(lambda: step(state.lora, state.optimizer, batch, gen),
+                          f"LoRA train step {size}^2 bs=1 ({32 + s_img} tokens, rank 16, remat={remat!r}, {fmt} base)",
+                          card)
+            row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            print(f"[profile] peak device memory {row['peak_gib']:.2f} GiB [{card}]", flush=True)
+            rows.append(row)
     return rows
 
 

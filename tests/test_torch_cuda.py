@@ -2,8 +2,9 @@
 K2 / K3 / K4 (its forward with the LSE and its backward) and K5 / K6 / K7
 (quantized matmuls); K1 at the I2I and klein-9b-kv shapes, and a tiny I2I and
 klein-9b-kv generate on the card with exact K1 launch counts; a tiny POST
-/generate over HTTP equal to the in-process generate, and the subject U-Net
-on the card against the CPU.
+/generate over HTTP equal to the in-process generate, the subject U-Net
+on the card against the CPU, and a tiny real-data ``train-lora`` and a
+``remat: "dots"`` step against ``remat=True`` on the kernels.
 
 Skips without a CUDA device. Imports no JAX, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -600,3 +601,68 @@ def test_tiny_prequantized_w8a8_forward_launches_k5(device, tmp_path):
     with torch.inference_mode():
         v = loaded(x, emb, torch.tensor([0.5], device=device), cos, sin)
     assert tqk.launches["w8a8"] - before == gated > 0 and torch.isfinite(v).all()
+
+
+def test_tiny_real_data_training_on_the_card(device, tmp_path):
+    """train-lora --random-init on a dataset at a tiny size on the card: the
+    real data path (VAE encodes, the random encoder, control images) and two
+    steps on K2 / K3 / K4 (2 blocks: K2 4, K3 2, K4 2 a step under remat)."""
+    import chip_smoke
+    from flux2_tpu_torch.cli.main import parse_args
+    from flux2_tpu_torch.cli.train import run_training
+    from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
+    from flux2_tpu_torch.models.flux2.vae import VAEConfig
+
+    data = chip_smoke.write_dataset(str(tmp_path / "data"), 0, [(64, 64), (64, 96)], control=(0, 1))
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(f"model: {{name: klein-4b}}\nlora: {{rank: 4}}\ndataset: {{path: {data['dataset']}, image_size: 64, "
+                   f"control_path: {data['control']}}}\ntraining: {{max_steps: 2}}\ncheckpoints: {{output: "
+                   f"{tmp_path / 'out'}, save_every: 0}}\n")
+    tc = Flux2TransformerConfig(num_layers=1, num_single_layers=1, num_attention_heads=2, attention_head_dim=128,
+                                joint_attention_dim=96, guidance_embeds=True)
+    vc = VAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1, norm_num_groups=4)
+    tfa.reset_launches()
+    history = run_training(parse_args(["train-lora", "--config", str(cfg), "--random-init"]), device,
+                           transformer_config=tc, vae_config=vc)
+    assert [r["step"] for r in history] == [1, 2] and all(r["loss"] == r["loss"] and r["grad_norm"] > 0
+                                                          for r in history)
+    assert tfa.launch_counts() == {"flash": 0, "flash_lse": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+
+
+def test_tiny_remat_dots_step_equals_block_remat_on_the_card(device):
+    """remat "dots" against True on the kernels: the same loss and LoRA
+    gradient to the bit, and the same K2 / K3 / K4 launches (the policy keeps
+    the 2-D products only; the attention is recomputed)."""
+    import numpy as np
+
+    from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
+    from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
+    from flux2_tpu_torch.ops import latents as lu
+    from flux2_tpu_torch.ops.rope import rope_embeddings
+    from flux2_tpu_torch.training import lora as tlora
+    from flux2_tpu_torch.training import trainer
+
+    tc = Flux2TransformerConfig(num_layers=1, num_single_layers=2, num_attention_heads=2, attention_head_dim=128,
+                                joint_attention_dim=96, guidance_embeds=False)
+    g = torch.Generator(device).manual_seed(5)
+    model = Flux2Transformer(tc, device=device, generator=g)
+    lora = tlora.init_lora(model, tlora.LoRAConfig(4, 8.0), g)
+    with torch.no_grad():
+        for name, p in lora.named_parameters():
+            if name.endswith(".b"):
+                p.normal_(generator=g).mul_(1e-2)
+    ids = np.concatenate([lu.text_position_ids(16), lu.image_position_ids(256, 256)])
+    cos, sin = rope_embeddings(torch.from_numpy(ids).to(device))
+    lat, noise = (torch.randn(1, 256, 128, device=device, generator=g) for _ in range(2))
+    emb = torch.randn(1, 16, 96, device=device, generator=g)
+    out = {}
+    for remat in (True, "dots"):
+        for p in lora.parameters():
+            p.grad = None
+        tfa.reset_launches()
+        loss = trainer.flow_matching_loss(model, lora, trainer.TrainConfig(rank=4, alpha=8.0, remat=remat), lat, emb,
+                                          noise, torch.tensor([0.4], device=device), cos, sin)
+        loss.backward()
+        out[remat] = (float(loss.detach()), [p.grad.clone() for p in lora.parameters()], tfa.launch_counts())
+    assert out[True][0] == out["dots"][0] and all(torch.equal(a, b) for a, b in zip(out[True][1], out["dots"][1]))
+    assert out[True][2] == out["dots"][2] == {"flash": 0, "flash_lse": 6, "flash_bwd_dq": 3, "flash_bwd_dkv": 3}

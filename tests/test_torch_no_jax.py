@@ -16,7 +16,10 @@ every callback, a tiled decode under a memory profile and ``auto_profile``
 ``serve.make_handler`` on localhost, a runtime beacon, ``mask-subject`` and
 ``subject_mask`` on the committed U-Net, a ``utils/quality.py`` metric, the
 LoRA / prequantized slice: ``export-quantized`` with a LoRA baked, ``t2i``
-w8a8 from the file and ``t2i --lora`` (the loader), and
+w8a8 from the file and ``t2i --lora`` (the loader), the real-data training
+slice: ``train-lora`` from the checkpoint directories on a dataset with a
+preview and the held-out loss (``training/data.py``,
+``training/validation.py``) and ``evaluate-lora``, and
 reports whether any ``jax`` or ``flux2_tpu`` module was loaded. (The suite's conftest imports JAX, so this must run in a
 subprocess.)
 """
@@ -109,6 +112,20 @@ with tempfile.TemporaryDirectory() as tmp:
     from flux2_tpu_torch.io import checkpoints as tck
     prequant = sorted(tck.load_prequantized(tck.prequantized_path(dirs["t"], "qint8"), dirs["t"])[1].items())[:2]
     lora_pngs = [list(decode_png(open(os.path.join(tmp, f), "rb").read()).shape) for f in ("q.png", "l.png")]
+    # the real-data training slice: train-lora from the directories on a dataset (training/data.py, the
+    # previews of training/validation.py, the held-out loss), then evaluate-lora
+    data = chip_smoke.write_dataset(os.path.join(tmp, "data"), 0, [(32, 32), (32, 48)])
+    cfg = os.path.join(tmp, "real.yaml")
+    with open(cfg, "w") as f:
+        f.write(f"model: {{name: klein-4b}}\nlora: {{rank: 2}}\ndataset: {{path: {data['dataset']}, image_size: 32, "
+                f"validation_path: {data['dataset']}}}\ntraining: {{max_steps: 1}}\ncheckpoints: {{output: "
+                f"{tmp}/real, save_every: 1}}\nvalidation: {{prompts: [a fox], steps: 1, size: 32}}\n")
+    cli.main(["train-lora", "--config", cfg, "--transformer-dir", dirs["t"], "--vae-dir", dirs["v"], "--encoder-dir",
+              dirs["e"], "--device", "cpu"])
+    real = sorted(os.listdir(os.path.join(tmp, "real")))
+    cli.main(["evaluate-lora", *flags, "--dataset", data["dataset"], "--max-samples", "1", "--no-vlm", "--output-dir",
+              os.path.join(tmp, "eval")])
+    evaluated = sorted(os.listdir(os.path.join(tmp, "eval")))
 # the editing slice: chains, hooks and callbacks, tiled decode, memory profiles
 import numpy as np
 from flux2_tpu_torch.chains.inpaint import MaskedInpaintingChain
@@ -172,7 +189,8 @@ print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.starts
                                                                          for x in seen],
                   "tiled": list(tiled.shape), "auto_profile": profile, "native": native.path_name() != "numpy",
                   "http": answers, "beacons": beacons, "mask_png": mask_png, "segmented": segmented,
-                  "psnr": psnr, "lora_pngs": lora_pngs, "prequant": [k for k, _ in prequant]}))
+                  "psnr": psnr, "lora_pngs": lora_pngs, "prequant": [k for k, _ in prequant], "real": real,
+                  "evaluated": evaluated}))
 """
 
 
@@ -192,4 +210,7 @@ def test_port_runs_without_importing_jax():
                       "http": [[200, "image/png", True], [200, "application/json", True],
                                [200, "application/json", True]],
                       "beacons": 1, "mask_png": [16, 16, 3], "segmented": [32, 32], "psnr": 10.716,
-                      "lora_pngs": [[32, 32, 3], [32, 32, 3]], "prequant": ["format", "lora_baked"]}
+                      "lora_pngs": [[32, 32, 3], [32, 32, 3]], "prequant": ["format", "lora_baked"],
+                      "real": ["best", "checkpoint_000001", "latent_cache", "learning_curve.svg", "val_latent_cache",
+                               "validation"],
+                      "evaluated": ["baseline_000.png"]}

@@ -16,7 +16,9 @@ web UI (``_DEMO_HTML``), the registry's memory and encoder-variant tables and
 functions, ``utils/beacon.py``, every ``utils/quality.py`` metric, and the
 subject mask's morphology, saliency heuristic, ``synth_composite`` and
 ``iou``. The LoRA / prequantized slice's: the loader's Diffusers leaf table,
-the prequantized directory and path and the source fingerprint. Also: the
+the prequantized directory and path and the source fingerprint. The
+real-data training slice's: ``resolve_encoder_quantization`` (``training/data.py``
+and ``training/validation.py`` are held in their own files). Also: the
 port's entry points default to the card and take the CPU only when asked.
 
 ``jax_config`` builds the JAX package's config class from a port config's
@@ -199,6 +201,15 @@ def test_yaml_training_config_equals_jax(tmp_path):
     assert "unknown config section 'bogus_section'" in port_err.getvalue()
     assert port_err.getvalue() == jax_err.getvalue()
     assert _fields(port.override(max_steps=7, output_dir=None)) == _fields(ref.override(max_steps=7, output_dir=None))
+
+
+@pytest.mark.parametrize("flag,yaml_value", [(None, None), (None, "int8"), (None, "QINT8"), (None, "nf4"), (None, "w8a8"),
+                                             (None, "fp8"), ("w4a8", "int8"), ("bf16", None), (None, "int4")])
+def test_resolve_encoder_quantization_equals_jax(flag, yaml_value):
+    from flux2_tpu_torch.cli import train as ttrain_cli
+
+    assert ttrain_cli.resolve_encoder_quantization(flag, yaml_value) == jtrain_cli.resolve_encoder_quantization(
+        flag, yaml_value)
 
 
 def test_prune_checkpoints_equals_jax(tmp_path):
@@ -637,8 +648,10 @@ def test_logging_equals_jax(capsys):
                                   ["i2i", "--random-init", "--reference", "ref.png"],
                                   ["inpaint", "--random-init", "--image", "a.png", "--mask", "m.png"],
                                   ["outpaint", "--random-init", "--image", "a.png", "--left", "64"],
-                                  ["mask-subject", "--image", "a.png"]],
-                         ids=["t2i", "train-lora", "i2i", "inpaint", "outpaint", "mask-subject"])
+                                  ["mask-subject", "--image", "a.png"], ["evaluate-lora", "--dataset", "d"],
+                                  ["train-lora", "--config", "x.yaml", "--transformer-dir", "t"]],
+                         ids=["t2i", "train-lora", "i2i", "inpaint", "outpaint", "mask-subject", "evaluate-lora",
+                              "train-lora-checkpoints"])
 def test_cli_device_defaults_to_cuda(argv):
     assert tcli.parse_args(argv).device == "cuda"
     assert tcli.parse_args([*argv, "--device", "cpu"]).device == "cpu"

@@ -4,12 +4,16 @@ A 1-double / 1-single-block DiT (2 heads of 128, joint dim 96) trains a rank-4
 LoRA on 32x32 synthetic data for a few steps: checkpoints, the learning-curve
 SVG, the log lines, pruning, the stop sentinel, and ``--resume`` (a run cut at
 step 2 and resumed ends where an uninterrupted run does, bit for bit: the
-same per-step draws, the same optimizer state). Every option the port does
-not carry yet raises ``SystemExit`` naming its ROADMAP queue.
+same per-step draws, the same optimizer state). Pipeline parallelism and
+``--shard`` raise ``SystemExit`` naming their ROADMAP queue, and
+``--quantization`` with ``--random-init`` names its recorded difference;
+``lora.dropout`` warns as JAX does and trains (R3); the step line is JAX's
+(R4). Real data, checkpoints and validation: tests/test_torch_train_real.py.
 """
 
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -124,25 +128,39 @@ def test_main_entry_point_runs_train_lora(tmp_path, monkeypatch):
     assert seen["device"] == "cpu" and seen["args"].config == "x.yaml" and seen["args"].random_init
 
 
-@pytest.mark.parametrize("flags,yaml_kw,queue", [
-    ([], {}, "13"),  # no --random-init: training from checkpoints (it needs real data: training/data.py)
-    (["--random-init", "--transformer-dir", "/nonexistent"], {}, "13"),
-    (["--random-init", "--dataset-dir", "{tmp}"], {}, "13"),
-    (["--random-init"], {"extra": "control_dir: {tmp}\n"}, "13"),
-    (["--random-init"], {"extra": "validation: {{prompts: [a red fox]}}\n"}, "13/15"),
-    (["--random-init"], {"extra": "validation: {{vlm_scoring: {{enabled: true}}}}\n"}, "13/15"),
-    (["--random-init"], {"extra": "validation_dataset_dir: {tmp}\n"}, "13"),
-    (["--random-init"], {"extra": "lora_dropout: 0.1\n"}, "13"),
-    (["--random-init", "--shard", "auto"], {}, "16"),
-    (["--random-init"], {"training": ", pp: 5"}, "16"),
-    (["--random-init", "--quantization", "w8a8"], {}, "13"),
-], ids=["checkpoints", "transformer_dir", "dataset", "control_dir", "validation_prompts", "vlm_scoring",
-        "validation_dataset", "lora_dropout", "shard", "pp", "quantized_base"])
-def test_unsupported_options_raise_naming_their_queue(tmp_path, flags, yaml_kw, queue):
+@pytest.mark.parametrize("flags,yaml_kw,reason", [
+    (["--random-init", "--shard", "auto"], {}, "queue 16"),
+    (["--random-init"], {"training": ", pp: 5"}, "queue 16"),
+    # a recorded difference: JAX's random-init base ignores --quantization
+    (["--random-init", "--quantization", "w8a8"], {}, "recorded difference"),
+], ids=["shard", "pp", "quantized_base"])
+def test_unsupported_options_raise_naming_their_queue(tmp_path, flags, yaml_kw, reason):
     cfg = _yaml(tmp_path, **{k: v.format(tmp=tmp_path) for k, v in yaml_kw.items()})
-    with pytest.raises(SystemExit, match=f"queue {queue}") as refused:
+    with pytest.raises(SystemExit, match=reason):
         _run(["--config", cfg, *(f.format(tmp=tmp_path) for f in flags)])
     assert not os.path.exists(tmp_path / "out")
-    assert "VAE encoder" not in str(refused.value)  # ported in the ninth slice: not a reason any more
-    if "dataset-dir" in flags or "control_dir" in yaml_kw.get("extra", ""):
-        assert "training/data.py and _prepare_real_data" in str(refused.value)
+
+
+def test_lora_dropout_warns_as_jax_and_trains(tmp_path, capsys):
+    """R3: JAX parses lora.dropout, warns that adapter dropout is not applied, and trains."""
+    from flux2_tpu.cli.train import YAMLTrainingConfig as JaxYAML
+
+    cfg = _yaml(tmp_path, steps=1, extra="lora_dropout: 0.1\n")
+    JaxYAML.from_yaml(cfg)
+    jax_err = capsys.readouterr().err
+    history = _run(["--config", cfg, "--random-init"])
+    err = capsys.readouterr().err
+    warning = next(line for line in jax_err.splitlines() if "lora.dropout" in line)
+    assert warning in err.splitlines() and [r["step"] for r in history] == [1]
+
+
+def test_step_log_line_is_jax_format(tmp_path, capsys):
+    """R4: JAX's ``step {s}/{n} loss {l:.4f} eta {e}s``; grad_norm and seconds stay in the history."""
+    history = _run(["--config", _yaml(tmp_path), "--random-init"])
+    lines = [line for line in capsys.readouterr().err.splitlines() if " loss " in line and "step " in line]
+    assert len(lines) == 3
+    for line, row in zip(lines, history):
+        eta = line.rsplit(" eta ", 1)[1]
+        assert line == f"[flux2:info] step {row['step']}/3 loss {row['loss']:.4f} eta {eta}"
+        assert eta.endswith("s") and re.fullmatch(r"(\d+|\d+\.\d+|None)s", eta)
+        assert row["grad_norm"] > 0 and row["seconds"] > 0
