@@ -62,7 +62,18 @@ loss; the cached latents equal to direct encodes to the bit, the base's bytes un
 --resume from step 2 (both caches hit, the uninterrupted run's LoRA to the bit); `train-lora` from the
 checkpoints with --quantization w8a8 and qint8 (QLoRA from the CLI, the first step's loss against the
 kernel's plain version); remat "dots" against True at 1024^2 (s/step, peak memory, step 1's loss and
-gradient); `evaluate-lora --no-vlm` (JAX's JSON keys). Every path runs with the launch
+gradient); `evaluate-lora --no-vlm` (JAX's JSON keys). The Dev / text-generation slice (phase_dev,
+last, once every Klein pipeline is freed): K1 at Dev's (1, 48, 4608, 128); K5, K6 and the prologue at
+Mistral's projections as a decode token (M = 1), a 37-token prefill and a 512-token encode, equal to
+their plain versions to the bit, with their bounds and a dense bf16 F.linear; Mistral Small 3.2 at the
+published width (40 layers, intermediate 32768) random on the card with the byte-fallback Tekken
+tokenizer: two prompts encoded to [1, 512, 15360], prefill + 16 decode_steps against forward_logits,
+upsample_prompt and chat (32 tokens, streamed), then w8a8 in place (the encode against bf16, a greedy
+decode at exactly 280 K5 launches a token); the Dev DiT at full width in bf16 (a 1024^2 forward on K1
+against plain attention, a 4-step 1024^2 generate from the Mistral embeddings: 224 K1 launches); and
+`t2i --model dev --random-init --quantization w8a8 --encoder-quantization w8a8 --steps 2 --upsample`
+in a process of its own (the PNG, the "[upsample] final prompt:" line, exact K1 and K5 counts). /chat
+answers 200 on the random-init server (phase_http). Every path runs with the launch
 counts set to 0 just before it and checks them just after. Any failure raises: the
 traceback is printed and the exit code is not 0. There is no CPU fallback.
 
@@ -710,17 +721,25 @@ def phase_quant_model_check(pipe, card: str) -> dict:
 
 
 def build_pipeline():
-    """Full-width Klein-4B DiT + FLUX.2 VAE + Qwen3-4B encoder, random, bf16, drawn on the card."""
+    """Full-width Klein-4B DiT + FLUX.2 VAE + Qwen3-4B encoder, random, bf16, drawn on the card; the
+    encoder with the dev tokenizer in an encoder registry (the chat surface), as ``t2i --random-init``
+    attaches it."""
     from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
-    from flux2_tpu_torch.models.text_encoders.extractor import QWEN3_4B, qwen3_extractor
+    from flux2_tpu_torch.models.text_encoders.extractor import QWEN3_4B
     from flux2_tpu_torch.pipeline.pipeline import Flux2Model, Flux2Pipeline
     from flux2_tpu_torch.utils import inline_bpe_tokenizer
+
+    from flux2_tpu_torch.models.text_encoders import facade
+    from flux2_tpu_torch.models.text_encoders.config import QWEN3_HIDDEN_LAYERS
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     pipe = Flux2Pipeline.from_random(Flux2Model.KLEIN_4B, device="cuda", generator=gen)
     tokenizer = inline_bpe_tokenizer()
-    pipe.text_encoder = qwen3_extractor(Qwen3Decoder(QWEN3_4B, device="cuda", generator=gen), tokenizer)
-    pipe.text_encoder_name = "qwen3-4b"
+    # a registry of the pipeline's own: the in-process CLI runs of later phases register theirs in facade.shared
+    registry = facade.TextEncoders()
+    enc = registry.attach("qwen3-4b", Qwen3Decoder(QWEN3_4B, device="cuda", generator=gen), QWEN3_4B, tokenizer,
+                          QWEN3_HIDDEN_LAYERS, recipe="klein")
+    pipe.text_encoder, pipe.text_encoder_name, pipe.encoders = enc.extractor, enc.name, registry
     torch.cuda.synchronize()
     return pipe, type(tokenizer).__name__
 
@@ -1567,8 +1586,9 @@ def phase_http(pipe, card: str) -> dict:
     generate's to the bit (K1 exactly 100 each); three concurrent 256^2 POSTs
     in one batch (K1 100); /preview 404 before the first step, then 200 with
     X-Step in 1..4 and X-Total-Steps 4; /embed equal to encode_prompt to the
-    bit (npy) and its stats (json); /chat and streaming /chat 503; bad JSON
-    400; a full queue 503; a tiny timeout_s 504; cancel_all during a 1024^2
+    bit (npy) and its stats (json); /chat 200 on the random Qwen3-4B (JSON,
+    and chunked with the \\x1e trailer), 503 on the same pipeline without an
+    encoder (JSON and streaming); bad JSON 400; a full queue 503; a tiny timeout_s 504; cancel_all during a 1024^2
     batch: 400 "cancelled at step k/4" after 25 k launches. Every request runs
     with the launch counts set to 0 just before it and checked just after.
     Then ``python -m flux2_tpu_torch.serve --random-init --quantization w8a8
@@ -1724,11 +1744,27 @@ def phase_http(pipe, card: str) -> dict:
         log(f"[http] POST /embed: npy {list(got.shape)} float32 equal to encode_prompt to the bit ({wall:.4f} s, a "
             f"new prompt), json stats equal ({wall_hit:.4f} s, an LRU hit) [{card}]")
 
-        # /chat: no encoder facade, so 503 both ways; errors
+        # /chat: the random Qwen3-4B through facade.shared (bf16: no kernel of the port), JSON and streamed
         messages = [{"role": "user", "content": "hello"}]
-        for stream in (False, True):
-            status, _, body, _ = counted("POST /chat", 0, "POST", "/chat", {"messages": messages, "stream": stream})
-            _expect(f"POST /chat stream={stream}", status, 503, body)
+        chat = {"messages": messages, "max_tokens": 8, "temperature": 0.0}
+        status, _, body, wall = counted("POST /chat (json)", 0, "POST", "/chat", chat)
+        _expect("POST /chat json", status, 200, body)
+        reply = json.loads(body)
+        # "tokens" counts the streamed pieces: the dev tokenizer's 512 ids decode the random model's other
+        # 151424 to "", which the think filter holds back, as JAX's
+        if set(reply) != {"reply", "tokens", "duration_s", "tok_per_s"} or not 0 <= reply["tokens"] <= 8:
+            raise AssertionError(f"/chat json: {reply}")
+        status, headers, body, wall_stream = counted("POST /chat (stream)", 0, "POST", "/chat", dict(chat, stream=True))
+        _expect("POST /chat stream", status, 200, body)
+        visible, sep, trailer = body.decode("utf-8", errors="replace").partition("\x1e")
+        stats = json.loads(trailer) if sep else {}
+        if headers.get("Transfer-Encoding") != "chunked" or set(stats) != {"tokens", "duration_s", "tok_per_s"}:
+            raise AssertionError(f"/chat stream: headers {headers}, trailer {trailer!r}")
+        out["chat"] = {"json_s": wall, "stream_s": wall_stream, "tokens": reply["tokens"],
+                       "tok_per_s": reply["tok_per_s"]}
+        log(f"[http] POST /chat on the random-init Qwen3-4B: 200 JSON ({reply['tokens']} tokens, {wall:.4f} s, "
+            f"{reply['tok_per_s']} tok/s) and 200 chunked with the \\x1e trailer {stats} ({wall_stream:.4f} s) "
+            f"[{card}]")
         status, _, body, _ = counted("bad JSON", 0, "POST", "/generate", raw=b"{bad json")
         _expect("POST /generate with bad JSON", status, 400, body)
     finally:
@@ -1736,8 +1772,12 @@ def phase_http(pipe, card: str) -> dict:
         httpd.server_close()
         server.shutdown()
 
-    # a full queue (503) and a tiny timeout (504) on a server whose worker is stopped
-    idle = Flux2Server(pipe, embeddings_fn=pipe.encode_prompt, max_queue=1)
+    # a full queue (503) and a tiny timeout (504) on a server whose worker is stopped; /chat 503 on a
+    # pipeline without an encoder, as a --no-text-encoder server's
+    import dataclasses
+
+    bare = dataclasses.replace(pipe, text_encoder=None, text_encoder_name=None, encoders=None)
+    idle = Flux2Server(bare, embeddings_fn=pipe.encode_prompt, max_queue=1)
     idle.shutdown()
     httpd, http = _serve_thread(idle)
     try:
@@ -1746,12 +1786,16 @@ def phase_http(pipe, card: str) -> dict:
         _expect("POST /generate timeout_s=1e-6", status, 504, body)
         status, _, body = http("POST", "/generate", req)  # the abandoned request still fills the one slot
         _expect("POST /generate to a full queue", status, 503, body)
+        for stream in (False, True):
+            status, _, body = http("POST", "/chat", {"messages": [{"role": "user", "content": "hi"}],
+                                                     "stream": stream})
+            _expect(f"POST /chat stream={stream} without an encoder", status, 503, body)
         _check_launches("504 and 503", _launch_counts(), 0)
     finally:
         httpd.shutdown()
         httpd.server_close()
-    log(f"[http] bad JSON 400, /chat 503 (JSON and streaming), timeout_s=1e-6 504, a full queue 503: launches 0 "
-        f"[{card}]")
+    log(f"[http] bad JSON 400, /chat 503 without an encoder (JSON and streaming), timeout_s=1e-6 504, a full queue "
+        f"503: launches 0 [{card}]")
 
     # cancel_all while a 1024^2 batch runs
     server = Flux2Server(pipe, embeddings_fn=pipe.encode_prompt)
@@ -2214,13 +2258,13 @@ def _autoencoder_state(vae, encoder) -> dict:
 
 def _qwen3_state(decoder, layers: int) -> dict:
     """The first ``layers`` layers in HF Qwen3 names, tied embeddings (no
-    lm_head); ``model.norm`` as ones (the hidden-state path never reads it)."""
+    lm_head), and ``model.norm`` (the decoder's ``final_norm``)."""
     names = {"input_norm": "input_layernorm", "post_attn_norm": "post_attention_layernorm",
              "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj", "v_proj": "self_attn.v_proj",
              "o_proj": "self_attn.o_proj", "q_norm": "self_attn.q_norm", "k_norm": "self_attn.k_norm",
              "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj", "down_proj": "mlp.down_proj"}
     out = {"model.embed_tokens.weight": decoder.embed_tokens,
-           "model.norm.weight": torch.ones(decoder.cfg.hidden_size, dtype=decoder.embed_tokens.dtype)}
+           "model.norm.weight": decoder.final_norm}
     for i in range(layers):
         for attr, name in names.items():
             out[f"model.layers.{i}.{name}.weight"] = getattr(decoder.layers[i], attr)
@@ -3470,6 +3514,475 @@ def phase_lora_prequant(card: str, workdir: str, dirs: dict, bf16_train_s_per_st
     return out
 
 
+# -- the Dev / text-generation slice ------------------------------------------------------------------
+
+# Mistral Small 3.2 at the published width (mistralai/Mistral-Small-3.2-24B-Instruct-2506's text_config:
+# intermediate 32768; the built-in MISTRAL_SMALL_3_2, JAX's, has 14336).
+MISTRAL_PUBLISHED_INTERMEDIATE = 32768
+# K5, K6 and the prologue at Mistral's projections: (name, M, K, N) for a decode token (M = 1), a
+# 37-token prefill and a 512-token encode.
+MISTRAL_QMM_SHAPES = [
+    ("decode_q_proj", 1, 5120, 4096),
+    ("decode_k_proj", 1, 5120, 1024),
+    ("decode_gate_proj", 1, 5120, 32768),
+    ("decode_down_proj", 1, 32768, 5120),
+    ("prefill37_gate_proj", 37, 5120, 32768),
+    ("encode_down_proj", 512, 32768, 5120),
+]
+DEV_K1_SHAPE = (1, 48, 4608, 4608)  # Dev's 48 heads over 512 text + 4096 image tokens (1024^2)
+# A w8a8 Mistral encode against the bf16 one, relative L2 of the [1, 512, 15360] conditioning: the
+# DiT's w8a8 limit (QUANT_DIT_REL_TOL); 40 layers of per-token int8 activations and per-channel int8
+# weights, each a relative rounding of at most 1/254.
+ENCODE_W8A8_REL_TOL = 0.1
+# prefill + decode_step logits against forward_logits on the same tokens, bf16, relative L2 a row. A
+# decode step multiplies one row (M = 1), the forward 51: cuBLAS takes other kernels, so already layer
+# 0's k_proj differs (max abs 1.2e-4) and the bf16 roundings part ways, more with depth: 6.1e-3 after 1
+# layer, 1.2e-2 after 10, 1.8e-2 after 40 on this random Mistral (phase_dev_encoder logs the error of
+# the first 1 and 10 layers beside the 40's). A cache or mask error is O(1): a token written one slot
+# late is checked to exceed the limit.
+TEACHER_FORCED_REL_TOL = 3e-2
+DEV_PROMPTS = ("a red fox in fresh snow at dawn, telephoto", "a lighthouse on a cliff at dusk")
+DEV_STEPS = 4
+# t2i in a process of its own, counting the launches of the whole command
+DEV_CLI_CHILD = r"""
+import json, sys, time
+from flux2_tpu_torch.cli import main as cli
+from flux2_tpu_torch.models.text_encoders import generation
+from flux2_tpu_torch.ops import flash_attention as fa, quant_kernels as qk
+made, real = [], generation.generate
+def counted(*a, **k):
+    t0 = time.perf_counter()
+    out = real(*a, **k)
+    made.append([len(out), time.perf_counter() - t0])
+    return out
+generation.generate = counted
+rc = cli.main(sys.argv[1:])
+print("LAUNCHES " + json.dumps({"counts": {**fa.launch_counts(), **qk.launches}, "generated": made}), flush=True)
+sys.exit(rc)
+"""
+
+
+def _w8a8_launches(module, m: int) -> int:
+    """K5 launches of one pass through ``module`` at M rows: its weights that
+    take K5 once quantized to w8a8, counted on a meta-device copy of its shapes."""
+    from flux2_tpu_torch.ops import quant as tq
+    from flux2_tpu_torch.ops import quant_kernels as qk
+
+    tq.quantize_params(module, "w8a8")
+    n = 0
+    for name in tq.quantized_names(module):
+        w = module.get_submodule(name)
+        n += qk.w8a8_supported(torch.empty(m, w.orig_in, device="meta", dtype=torch.bfloat16), w)
+    return n
+
+
+def phase_dev_kernels(card: str) -> dict:
+    """K1 at Dev's (1, 48, 4608, 128) against its plain f32 version (relative L2,
+    KERNEL_REL_TOL), alone, its bound and cuDNN's SDPA; K5, K6 and the prologue
+    (per row and per 512-block) at MISTRAL_QMM_SHAPES equal to their plain
+    versions to the bit (at M = 1 the C entry also writes into a 128-row
+    buffer of canaries, which must keep all rows past 0), each alone
+    (torch.profiler), as its wrapper, its bound and a dense bf16 F.linear of
+    the same product (torch._int_mm takes no M <= 16)."""
+    from flux2_tpu_torch.ops import flash_attention as fa
+    from flux2_tpu_torch.ops import quant as tq
+    from flux2_tpu_torch.ops import quant_kernels as qk
+    from flux2_tpu_torch.utils import quant_candidate as qc
+    from flux2_tpu_torch.utils.profile_step import kernel_time_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    b, h, s_q, s_k = DEV_K1_SHAPE
+    q, k, v = (torch.randn(b, h, s, 128, device="cuda", generator=gen).bfloat16() for s in (s_q, s_k, s_k))
+    before = fa.launches
+    out = fa.flash_attention(q, k, v).float()
+    torch.cuda.synchronize()
+    if fa.launches != before + 1:
+        raise AssertionError("K1 at 48 heads: the wrapper did not launch its kernel")
+    ref = fa.flash_attention_reference(q, k, v).float()
+    rel, err = float((out - ref).norm() / ref.norm()), float((out - ref).abs().max())
+    del out, ref
+    if not rel <= KERNEL_REL_TOL:
+        raise AssertionError(f"K1 dev_1024px: relative L2 err {rel} > {KERNEL_REL_TOL} (or non-finite)")
+    flop = 4.0 * b * h * s_q * s_k * 128
+    alone = kernel_time_ms(lambda: fa.flash_attention(q, k, v), "flash_fwd_kernel")
+    ms = time_ms(lambda: fa.flash_attention(q, k, v))
+    plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v), reps=3, warmup=1)
+    bound, bound_by = bound_ms(flop, attention_bytes(b, h, s_q, s_k, 2, 2, 0), BF16_FLOPS)
+    library, library_ms = library_sdpa(q, k, v, card)
+    log(f"[dev kernel] K1 dev_1024px q={[b, h, s_q, 128]}: rel_l2_err={rel} (tol {KERNEL_REL_TOL}) max_abs_err={err}; "
+        f"alone {alone:.4f} ms ({flop / alone / 1e9:.1f} TFLOP/s), bound {bound:.4f} ms ({bound_by}; "
+        f"{bound / alone:.1%} of it), wrapper {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, {library} {library_ms} ms "
+        f"[{card}]")
+    results = {"k1": {"err": err, "rel": rel, "alone": alone, "ms": ms, "plain_ms": plain_ms, "bound": bound,
+                      "bound_by": bound_by, "library": library, "library_ms": library_ms}}
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    rows = {}
+    for name, m, kk, n in MISTRAL_QMM_SHAPES:
+        x = torch.randn(m, kk, device="cuda", generator=gen).bfloat16()
+        w = (torch.randn(n, kk, device="cuda", generator=gen) * kk**-0.5).bfloat16()
+        row = {"dense_ms": library_time(lambda: torch.nn.functional.linear(x, w), "F.linear bf16", card)}
+        for fmt, quantize, kernel, plain, mark in (
+                ("w8a8", tq.to_w8a8, qk.w8a8_matmul, qk.w8a8_matmul_reference, "w8a8_kernel"),
+                ("w4a8", tq.to_w4a8, qk.w4a8_matmul, qk.w4a8_matmul_reference, "w4a8_kernel")):
+            qw = quantize(w)
+            before = dict(qk.launches)
+            out = kernel(x, qw)
+            torch.cuda.synchronize()
+            launched = {c: qk.launches[c] - before[c] for c in before if qk.launches[c] != before[c]}
+            if launched != {fmt: 1, "quantize_rows": 1}:
+                raise AssertionError(f"{fmt} {name}: the wrapper launched {launched}")
+            if not torch.equal(out, plain(x, qw)):
+                raise AssertionError(f"{fmt} {name} (M,K,N)=({m},{kk},{n}): not equal to its plain version "
+                                     f"(max abs {float((out.float() - plain(x, qw).float()).abs().max())})")
+            if m == 1:  # a decode row is 1 of a 128-row tile: its C entry writes into a 128-row canary buffer
+                buf = torch.full((128, n), 7.0, device="cuda", dtype=torch.bfloat16)
+                qc.call(qk._kernel(qc.ENTRY[fmt]), qc.entry_args(fmt, x, qw), buf)
+                torch.cuda.synchronize()
+                if not (torch.equal(buf[:1], out) and bool((buf[1:] == 7.0).all())):
+                    raise AssertionError(f"{fmt} {name}: the epilogue stored past row 0 of an M = 1 product")
+            a = kernel_time_ms(lambda: kernel(x, qw), mark)
+            wms = time_ms(lambda: kernel(x, qw))
+            pms = time_ms(lambda: plain(x, qw), reps=5)
+            codes = qw.q.numel()  # int8 codes (w8a8) or packed bytes (w4a8)
+            scales = 4 * qw.scale.numel()
+            xb = m * kk + 4 * m * (1 if fmt == "w8a8" else kk // 512)
+            bnd = bound_ms(2.0 * m * n * kk, xb + codes + scales + 2 * m * n, INT8_OPS)
+            log(f"[dev kernel] {fmt} {name} (M,K,N)=({m},{kk},{n}): equal to its plain version to the bit; alone "
+                f"{a:.4f} ms ({(xb + codes + scales + 2 * m * n) / a / 1e6:.1f} GB/s), bound {bnd[0]:.4f} ms "
+                f"({bnd[1]}; {bnd[0] / a:.1%} of it), wrapper {wms:.4f} ms, plain {pms:.4f} ms, dense bf16 "
+                f"F.linear {row['dense_ms']} ms [{card}]")
+            row[fmt] = {"alone": a, "ms": wms, "plain_ms": pms, "bound": bnd, "err": 0.0}
+            del qw
+        for block, plain in ((kk, lambda: qk.quantize_rows(x)), (512, lambda: qk.quantize_row_blocks(x, 512))):
+            xq, xs = qk.quantize_activations(x, block)
+            ref_q, ref_s = plain()
+            if not (torch.equal(xq, ref_q) and torch.equal(xs.reshape(ref_s.shape).view(torch.int32),
+                                                           ref_s.view(torch.int32))):
+                raise AssertionError(f"prologue {name} block {block}: not equal to the plain chain")
+            a = kernel_time_ms(lambda: qk.quantize_activations(x, block), PROLOGUE_MARK)
+            nbytes = 2 * m * kk + m * kk + 4 * m * (kk // block)
+            bnd = bound_ms(0.0, nbytes, INT8_OPS)
+            log(f"[dev kernel] prologue {name} (M,K)=({m},{kk}) block {block}: equal to the plain chain to the bit; "
+                f"alone {a:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}; {bnd[0] / a:.1%} of it), plain chain "
+                f"{time_ms(plain):.4f} ms [{card}]")
+            row[f"prologue_{block}"] = {"alone": a, "bound": bnd}
+        rows[name] = row
+        del x, w
+        torch.cuda.empty_cache()
+    results["qmm"] = rows
+    return results
+
+
+def phase_dev_encoder(card: str) -> dict:
+    """Mistral Small 3.2 at the published width (40 layers, 5120 hidden, 32 x 128
+    heads, 8 KV heads, intermediate 32768, vocab 131072), random bf16 from a seed
+    on the card, with the byte-fallback Tekken tokenizer, registered in
+    facade.shared: two prompts encoded to [1, 512, 15360]; prefill + 16
+    decode_steps against forward_logits on the same tokens; upsample_prompt
+    and chat with max_tokens 32, streamed; then quantize_encoder_params(w8a8)
+    in place: the encode against bf16, and a greedy 16-token decode with
+    exactly 280 K5 launches a token. Returns the bf16 embeddings and the
+    numbers; the encoder is unloaded."""
+    import dataclasses
+
+    from flux2_tpu_torch.models.text_encoders import facade, generation
+    from flux2_tpu_torch.models.text_encoders.config import MISTRAL_HIDDEN_LAYERS, MISTRAL_SMALL_3_2
+    from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder, init_kv_cache
+    from flux2_tpu_torch.models.text_encoders.extractor import build_messages, quantize_encoder_params
+    from flux2_tpu_torch.models.text_encoders.tekken import TekkenTokenizer
+    from flux2_tpu_torch.ops import quant as tq
+
+    cfg = dataclasses.replace(MISTRAL_SMALL_3_2, intermediate_size=MISTRAL_PUBLISHED_INTERMEDIATE)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    decoder = Qwen3Decoder(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 20))
+    torch.cuda.synchronize()
+    tok = TekkenTokenizer.byte_fallback()
+    enc = facade.shared.attach("mistral", decoder, cfg, tok, MISTRAL_HIDDEN_LAYERS, recipe="mistral")
+    log(f"[dev encoder] random Mistral Small 3.2 at the published width drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s: {tq.param_bytes(decoder) / 2**30:.2f} GiB, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated [{card}]")
+
+    embeds = []
+    for prompt in DEV_PROMPTS:
+        e = enc.extractor(prompt)
+        if tuple(e.shape) != (1, 512, 15360) or not torch.isfinite(e).all():
+            raise AssertionError(f"Mistral encode: {tuple(e.shape)}, finite {bool(torch.isfinite(e).all())}")
+        embeds.append(e)
+    out["encode_ms"] = time_ms(lambda: enc.extractor(DEV_PROMPTS[0]), reps=3, warmup=1)
+    log(f"[dev encoder] two prompts -> [1, 512, 15360] finite; a warm 512-token encode {out['encode_ms']:.3f} ms "
+        f"[{card}]")
+
+    # teacher forcing: a chat prompt and 16 tokens drawn from the vocabulary
+    prompt_ids = tok.apply_chat_template([{"role": "user", "content": DEV_PROMPTS[0]}], add_generation_prompt=True)
+    extra = torch.randint(0, cfg.vocab_size, (16,), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(SEED + 21))
+    ids = torch.cat([torch.tensor(prompt_ids, device="cuda"), extra])[None]
+    p = len(prompt_ids)
+    with torch.inference_mode():
+        full = decoder.forward_logits(ids)
+        cache = init_kv_cache(cfg, 1, ids.shape[1], torch.bfloat16, "cuda")
+        rows = [decoder.prefill(ids[:, :p], cache)[0]]
+        rows += [decoder.decode_step(ids[:, t:t + 1], cache)[0] for t in range(p, ids.shape[1])]
+        rels = [float((r - full[:, p - 1 + i]).norm() / full[:, p - 1 + i].norm()) for i, r in enumerate(rows)]
+        if max(rels) > TEACHER_FORCED_REL_TOL or not all(torch.isfinite(r).all() for r in rows):
+            raise AssertionError(f"prefill + decode_step vs forward_logits: relative L2 {rels} > "
+                                 f"{TEACHER_FORCED_REL_TOL}")
+        by_depth = {}
+        layers = decoder.layers
+        try:  # the same check through the first layers only: how the bf16 difference grows with depth
+            for depth in (1, 10):
+                decoder.layers, decoder.cfg = layers[:depth], dataclasses.replace(cfg, num_hidden_layers=depth)
+                ref_d = decoder.forward_logits(ids)
+                c = init_kv_cache(decoder.cfg, 1, ids.shape[1], torch.bfloat16, "cuda")
+                got = [decoder.prefill(ids[:, :p], c)[0]] + [decoder.decode_step(ids[:, t:t + 1], c)[0]
+                                                             for t in range(p, ids.shape[1])]
+                by_depth[depth] = max(float((r - ref_d[:, p - 1 + i]).norm() / ref_d[:, p - 1 + i].norm())
+                                      for i, r in enumerate(got))
+        finally:
+            decoder.layers, decoder.cfg = layers, cfg
+        by_depth[cfg.num_hidden_layers] = max(rels)
+        late = init_kv_cache(cfg, 1, ids.shape[1] + 1, torch.bfloat16, "cuda")
+        decoder.prefill(ids[:, :p], late)
+        late.length += 1  # the first decoded token one slot (and one position) late
+        wrong = decoder.decode_step(ids[:, p:p + 1], late)[0]
+        wrong_rel = float((wrong - full[:, p]).norm() / full[:, p].norm())
+        if not wrong_rel > TEACHER_FORCED_REL_TOL:
+            raise AssertionError(f"the tolerance {TEACHER_FORCED_REL_TOL} would pass a token one slot late "
+                                 f"({wrong_rel})")
+        up_ids = torch.tensor([tok.apply_chat_template(build_messages(DEV_PROMPTS[1], "upsampling_t2i"),
+                                                       add_generation_prompt=True)], device="cuda")
+        out["prefill_tokens"] = up_ids.shape[1]
+        out["prefill_ms"] = time_ms(lambda: decoder.prefill(up_ids, init_kv_cache(cfg, 1, up_ids.shape[1] + 1,
+                                                                                    torch.bfloat16, "cuda")),
+                                    reps=3, warmup=1)
+
+        def step_ms():
+            cache = init_kv_cache(cfg, 1, p + 1, torch.bfloat16, "cuda")
+            decoder.prefill(ids[:, :p], cache)
+            tok1 = ids[:, p:p + 1]
+
+            def one():
+                cache.length = p
+                decoder.decode_step(tok1, cache)
+            return time_ms(one, reps=10, warmup=2)
+        out["decode_step_ms_bf16"] = step_ms()
+    out.update(teacher_forced_rel=max(rels), teacher_forced_by_depth=by_depth, one_slot_late_rel=wrong_rel)
+    log(f"[dev encoder] prefill ({p} tokens) + 16 decode_steps vs forward_logits: relative L2 max {max(rels):.3e} "
+        f"(tol {TEACHER_FORCED_REL_TOL}; through the first 1 / 10 / 40 layers "
+        f"{' / '.join(f'{v:.3e}' for v in by_depth.values())}; a token one slot late gives {wrong_rel:.3e}); prefill of the {out['prefill_tokens']}-token upsampling prompt "
+        f"{out['prefill_ms']:.3f} ms; a bf16 decode_step {out['decode_step_ms_bf16']:.3f} ms [{card}]")
+
+    params = dataclasses.replace(generation.GenerateParameters.upsampling(), max_tokens=32)
+    made = []
+    t0 = time.perf_counter()
+    text = generation.upsample_prompt(decoder, tok, DEV_PROMPTS[1], gen_params=params, seed=SEED, on_token=made.append)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    pieces = []
+    t0 = time.perf_counter()
+    reply = facade.shared.chat([{"role": "user", "content": "Describe a lighthouse in one sentence."}], "mistral",
+                               params=generation.GenerateParameters(max_tokens=32), seed=SEED,
+                               on_token=pieces.append, enable_thinking=True)
+    torch.cuda.synchronize()
+    chat_s = time.perf_counter() - t0
+    if not 1 <= len(made) <= 32 or not 1 <= len(pieces) <= 32 or not isinstance(reply, str) or not text:
+        raise AssertionError(f"upsample {len(made)} tokens, chat {len(pieces)} pieces")
+    out.update(upsample={"tokens": len(made), "s": up_s, "tok_per_s": len(made) / up_s},
+               chat={"tokens": len(pieces), "s": chat_s, "tok_per_s": len(pieces) / chat_s})
+    log(f"[dev encoder] upsample_prompt (max_tokens 32, streamed): {len(made)} tokens in {up_s:.3f} s "
+        f"({len(made) / up_s:.2f} tok/s, its {out['prefill_tokens']}-token prefill included); chat: {len(pieces)} "
+        f"tokens in {chat_s:.3f} s ({len(pieces) / chat_s:.2f} tok/s) [{card}]")
+
+    t0 = time.perf_counter()
+    quantize_encoder_params(decoder, "w8a8")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    if tq.is_quantized(decoder.lm_head) or not tq.quantized_names(decoder):
+        raise AssertionError("quantize_encoder_params: the layers quantized, the LM head dense")
+    eq = enc.extractor(DEV_PROMPTS[0])
+    rel = float((eq.float() - embeds[0].float()).norm() / embeds[0].float().norm())
+    if not rel <= ENCODE_W8A8_REL_TOL:
+        raise AssertionError(f"w8a8 encode vs bf16: relative L2 {rel} > {ENCODE_W8A8_REL_TOL}")
+    out["encode_ms_w8a8"] = time_ms(lambda: enc.extractor(DEV_PROMPTS[0]), reps=3, warmup=1)
+    per_pass = _w8a8_launches(Qwen3Decoder(cfg, device="meta").layers, 1)
+    with torch.inference_mode():
+        cache = init_kv_cache(cfg, 1, p + 1, torch.bfloat16, "cuda")
+        decoder.prefill(ids[:, :p], cache)
+        tok1 = ids[:, p:p + 1]
+
+        def one():
+            cache.length = p
+            decoder.decode_step(tok1, cache)
+        out["decode_step_ms_w8a8"] = time_ms(one, reps=10, warmup=2)
+    _zero_launches()
+    t0 = time.perf_counter()
+    greedy = generation.generate(decoder, prompt_ids, generation.GenerateParameters(max_tokens=16, temperature=0.0))
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    counts = _launch_counts()
+    n = len(greedy)
+    _expect_counts("greedy w8a8 decode", counts, {"w8a8": per_pass * (1 + n), "quantize_rows": per_pass * (1 + n)})
+    if per_pass != 280 or n != 16:
+        raise AssertionError(f"{per_pass} K5 launches a pass (want 280), {n} tokens (want 16)")
+    out.update(w8a8_rel=rel, quantize_s=quant_s, greedy={"tokens": n, "s": greedy_s, "counts": counts,
+                                                         "k5_per_token": (counts["w8a8"] - per_pass) / n})
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[dev encoder] quantize_encoder_params w8a8 in place {quant_s:.2f} s ({tq.param_bytes(decoder) / 2**30:.2f} "
+        f"GiB); encode vs bf16 relative L2 {rel:.4e} (tol {ENCODE_W8A8_REL_TOL}), warm encode "
+        f"{out['encode_ms_w8a8']:.3f} ms; greedy decode of {n} tokens {greedy_s:.3f} s ({n / greedy_s:.2f} tok/s, "
+        f"prefill included), launches {counts}: K5 {per_pass} for the prefill and {per_pass} a token; a w8a8 "
+        f"decode_step {out['decode_step_ms_w8a8']:.3f} ms; peak device memory {out['peak_gib']:.2f} GiB [{card}]")
+    facade.shared.unload_all()
+    del enc, decoder, full, rows, eq
+    gc_cuda()
+    out["embeddings"] = [e.detach() for e in embeds]
+    return out
+
+
+def phase_dev_dit(card: str, workdir: str, embeddings) -> dict:
+    """The Dev DiT at full width (8 double + 48 single blocks, 48 heads, joint
+    15360) in bf16 from a seed on the card, with the FLUX.2 VAE: one 1024^2
+    forward on K1 against plain attention (DIT_REL_TOL), then a 1024^2 generate
+    of DEV_STEPS steps at guidance 4.0 from the Mistral embeddings, decoded to a
+    PNG: exactly 56 K1 launches a step; s/step and the peak per step."""
+    import numpy as np
+
+    from flux2_tpu_torch.ops import latents as lu
+    from flux2_tpu_torch.ops import quant as tq
+    from flux2_tpu_torch.ops.rope import rope_embeddings
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Model, Flux2Pipeline
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = Flux2Pipeline.from_random(Flux2Model.DEV, device="cuda",
+                                     generator=torch.Generator(device="cuda").manual_seed(SEED + 22))
+    torch.cuda.synchronize()
+    cfg = pipe.transformer.config
+    log(f"[dev dit] random Dev DiT ({cfg.num_layers} + {cfg.num_single_layers} blocks, {cfg.num_attention_heads} "
+        f"heads, joint {cfg.joint_attention_dim}) + FLUX.2 VAE drawn in {time.perf_counter() - t0:.2f} s: DiT "
+        f"{tq.param_bytes(pipe.transformer) / 2**30:.2f} GiB, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated [{card}]")
+    emb = embeddings[0]
+    noise = lu.seeded_noise_seq(SEED, 1024, 1024, 1, device="cuda").bfloat16()
+    ids = np.concatenate([lu.text_position_ids(512), lu.image_position_ids(1024, 1024)])
+    cos, sin = rope_embeddings(torch.from_numpy(ids).cuda())
+    t = torch.full((1,), 0.7, device="cuda")
+    g = torch.full((1,), 4.0, device="cuda")
+    with torch.inference_mode():
+        _zero_launches()
+        v_kernel = pipe.transformer(noise, emb, t, cos, sin, guidance=g).float()
+        torch.cuda.synchronize()
+        _expect_counts("Dev forward", _launch_counts(), {"flash": cfg.num_layers + cfg.num_single_layers})
+        os.environ["FLUX2_DISABLE_FLASH"] = "1"
+        try:
+            v_plain = pipe.transformer(noise, emb, t, cos, sin, guidance=g).float()
+        finally:
+            del os.environ["FLUX2_DISABLE_FLASH"]
+    rel = float((v_kernel - v_plain).norm() / v_plain.norm())
+    if not torch.isfinite(v_kernel).all() or rel > DIT_REL_TOL:
+        raise AssertionError(f"Dev DiT with K1 vs plain attention: relative L2 {rel} > {DIT_REL_TOL}")
+    del v_kernel, v_plain
+    log(f"[dev dit] 1024^2 forward, K1 vs plain attention: relative L2 {rel:.3e} (tol {DIT_REL_TOL}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    gc_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = []
+    _zero_launches()
+    res = pipe.generate(embeddings=emb, height=1024, width=1024, num_steps=DEV_STEPS, guidance=4.0, seed=SEED,
+                        on_progress=lambda k, n: peaks.append(torch.cuda.max_memory_allocated() / 2**30))
+    counts = _launch_counts()
+    want = DEV_STEPS * (cfg.num_layers + cfg.num_single_layers)
+    _expect_counts(f"Dev 1024^2 generate of {DEV_STEPS} steps", counts, {"flash": want})
+    _valid_image("Dev 1024^2 image", res.image, (1024, 1024, 3))
+    path = _write_file(os.path.join(workdir, "dev_1024.png"), _png_of(res.image))
+    out = {"forward_rel": rel, "s_per_step": _s_per_step(res), "launches": counts["flash"], "peaks_gib": peaks,
+           "phases": res.phase_timings}
+    log(f"[dev dit] 1024^2 generate, {DEV_STEPS} steps at guidance 4.0 from the Mistral embeddings: K1 "
+        f"{counts['flash']} launches ({want} = {DEV_STEPS} x 56), {out['s_per_step']:.4f} s/step, phases "
+        f"{ {k: round(v, 4) for k, v in res.phase_timings.items()} }, peak device memory after each step "
+        f"{[round(x, 2) for x in peaks]} GiB; {path} [{card}]")
+    del pipe, res
+    gc_cuda()
+    return out
+
+
+def phase_dev_cli(card: str, workdir: str) -> dict:
+    """``t2i --model dev --random-init --quantization w8a8 --encoder-quantization
+    w8a8 --steps 2 --upsample`` at 1024^2 in a process of its own (the launch
+    counts read there, from 0): the PNG, the "[upsample] final prompt:" line,
+    K1 2 x 56 and K5 (and the prologue) 2 x 440 for the DiT plus 280 for each
+    Mistral pass: the upsample's prefill, one a generated token, the encode."""
+    from flux2_tpu_torch.io.png import decode_png
+    from flux2_tpu_torch.models.flux2.config import Flux2Model
+    from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
+    from flux2_tpu_torch.models.text_encoders.config import MISTRAL_SMALL_3_2
+    from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
+
+    dit_pass = _w8a8_launches(Flux2Transformer(Flux2Model.DEV.transformer_config, device="meta"), 4096)
+    enc_pass = _w8a8_launches(Qwen3Decoder(MISTRAL_SMALL_3_2, device="meta").layers, 1)
+    out_png = os.path.join(workdir, "dev_cli.png")
+    argv = ["t2i", "--model", "dev", "--random-init", "--quantization", "w8a8", "--encoder-quantization", "w8a8",
+            "--steps", "2", "--upsample", "--prompt", DEV_PROMPTS[0], "-o", out_png]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", DEV_CLI_CHILD, *argv], capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).strip().splitlines():
+        if not line.startswith("LAUNCHES "):  # the random model's rewrite is random bytes: escaped
+            log(f"[dev cli] {line[:300] if line.isprintable() else ascii(line)[:300]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"t2i --model dev exited {proc.returncode}")
+    report = json.loads(next(l for l in proc.stdout.splitlines() if l.startswith("LAUNCHES "))[len("LAUNCHES "):])
+    (n, gen_s), = report["generated"]
+    counts = report["counts"]
+    k5 = 2 * dit_pass + enc_pass * (n + 2)
+    _expect_counts("t2i --model dev", counts, {"flash": 2 * 56, "w8a8": k5, "quantize_rows": k5})
+    if "[upsample] final prompt: " not in proc.stdout:
+        raise AssertionError("t2i --upsample printed no '[upsample] final prompt:' line")
+    with open(out_png, "rb") as f:
+        img = decode_png(f.read())
+    if img.shape != (1024, 1024, 3) or int(img.max()) == int(img.min()):
+        raise AssertionError(f"t2i --model dev: PNG {img.shape}")
+    log(f"[dev cli] t2i --model dev --random-init w8a8/w8a8 --steps 2 --upsample in its own process: {wall:.2f} s "
+        f"wall; the upsample generated {n} tokens in {gen_s:.3f} s ({n / gen_s:.2f} tok/s with its prefill); "
+        f"launches {counts} (K5 a DiT forward {dit_pass}, a Mistral pass {enc_pass}); 1024^2 PNG written [{card}]")
+    return {"wall_s": wall, "tokens": n, "upsample_s": gen_s, "counts": counts, "dit_pass": dit_pass,
+            "enc_pass": enc_pass}
+
+
+def phase_dev(card: str) -> dict:
+    """The Dev / text-generation slice: A kernels, B the Mistral encoder and
+    generation, C the Dev DiT from B's embeddings, D ``t2i --model dev`` in a
+    process of its own; each part's seconds."""
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dev_") as workdir:
+        for name, fn in (("kernels", lambda: phase_dev_kernels(card)), ("encoder", lambda: phase_dev_encoder(card)),
+                         ("dit", lambda: phase_dev_dit(card, workdir, out["encoder"]["embeddings"])),
+                         ("cli", lambda: phase_dev_cli(card, workdir))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            secs[name] = time.perf_counter() - t0
+            gc_cuda()
+    out["encoder"].pop("embeddings")
+    out["seconds"] = secs
+    log(f"[dev] phase: {sum(secs.values()):.2f} s ({ {k: round(v, 2) for k, v in secs.items()} }) [{card}]")
+    return out
+
+
+def drop_encoders() -> None:
+    """After a phase whose pipelines are gone: the encoders that ``cli.main``
+    registered in ``facade.shared`` (JAX's registry keeps them, as the
+    port's does) go too, then gc_cuda."""
+    from flux2_tpu_torch.models.text_encoders import facade
+
+    facade.shared.unload_all()
+    gc_cuda()
+
+
 def gc_cuda() -> None:
     import gc
 
@@ -3613,7 +4126,7 @@ def main() -> int:
         mask = phase_mask(pipe, card, workdir)
     log(f"[mask] phase: {time.perf_counter() - t0:.2f} s [{card}]")
     del pipe
-    torch.cuda.empty_cache()
+    drop_encoders()
 
     from flux2_tpu_torch.cli.main import build_pipeline as cli_build_pipeline
 
@@ -3628,7 +4141,7 @@ def main() -> int:
                                                            "quantize_rows": w8a8_launches})
     log(f"[serve] peak device memory: w8a8 {w8a8_peak:.2f} GiB vs bf16 {bf16_peak:.2f} GiB [{card}]")
     del qpipe
-    torch.cuda.empty_cache()
+    drop_encoders()
 
     phase_train_grad_check(card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
@@ -3642,17 +4155,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_kv_") as workdir:
         kv = phase_kv_cli(card, workdir)
     log(f"[kv] phase: {time.perf_counter() - t0:.2f} s [{card}]")
+    drop_encoders()
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as workdir:
         ckpt = phase_checkpoint_round_trip(card, workdir)
         log(f"[ckpt] checkpoint round trip and profile phase: {time.perf_counter() - t0:.2f} s [{card}]")
-        gc_cuda()
+        drop_encoders()
         real = phase_train_real(card, workdir, ckpt["dirs"])
-        gc_cuda()
+        drop_encoders()
         t0 = time.perf_counter()
         lora = phase_lora_prequant(card, workdir, ckpt["dirs"], train["s_per_step"])
     log(f"[lora] LoRA, prequantized checkpoints and QLoRA phase: {time.perf_counter() - t0:.2f} s [{card}]")
+    drop_encoders()  # every Klein pipeline is gone: the Dev phase takes the card
+    dev = phase_dev(card)
 
     # Each kernel at the main path's shape ((1, 24, 4608, 128) for K1-K4, the
     # 1024^2 image projections (4096, 3072, 3072) for K5-K7): "ms" is the kernel
@@ -3690,6 +4206,15 @@ def main() -> int:
         "launches_train_real": {"random_init": real["random"]["counts"]["flash"],
                                 "random_init_resume": real["random"]["counts_resume"]["flash"],
                                 "evaluate_lora": real["evaluate"]["counts"]["flash"]},
+        # the Dev / text-generation slice: a 4-step 1024^2 Dev image (56 a step) and t2i --model dev in its
+        # own process (2 steps), with K1's time and bound at Dev's 48 heads
+        "launches_dev": {"dev_1024px_4_steps": dev["dit"]["launches"],
+                         "t2i_dev_cli_2_steps": dev["cli"]["counts"]["flash"]},
+        "dev_shape": {"q": list(DEV_K1_SHAPE[:3]) + [128], "s_k": DEV_K1_SHAPE[3], "ms": dev["kernels"]["k1"]["alone"],
+                      "wrapper_ms": dev["kernels"]["k1"]["ms"], "plain_ms": dev["kernels"]["k1"]["plain_ms"],
+                      "bound_ms": dev["kernels"]["k1"]["bound"], "bound_by": dev["kernels"]["k1"]["bound_by"],
+                      "library": dev["kernels"]["k1"]["library"], "library_ms": dev["kernels"]["k1"]["library_ms"],
+                      "max_abs_err": dev["kernels"]["k1"]["err"]},
         "slice_shapes": {name: {"q": list(shape[:3]) + [128], "s_k": shape[3], "span": span,
                                 "ms": checks[name]["alone"], "wrapper_ms": checks[name]["ms"],
                                 "plain_ms": checks[name]["plain_ms"], "bound_ms": checks[name]["bound"],
@@ -3731,6 +4256,20 @@ def main() -> int:
         if qlora:
             entry["launches_qlora"] = qlora
             entry["launches_per_qlora_step"] = FORWARD_LAUNCHES[fmt] + QLORA_RECOMPUTED
+        if fmt in ("w8a8", "w4a8"):  # the Dev / text-generation slice: Mistral's shapes, M = 1 decode rows
+            entry["dev_shapes"] = {name: {"m_k_n": [m, k, n], "ms": dev["kernels"]["qmm"][name][fmt]["alone"],
+                                          "wrapper_ms": dev["kernels"]["qmm"][name][fmt]["ms"],
+                                          "plain_ms": dev["kernels"]["qmm"][name][fmt]["plain_ms"],
+                                          "bound_ms": dev["kernels"]["qmm"][name][fmt]["bound"][0],
+                                          "bound_by": dev["kernels"]["qmm"][name][fmt]["bound"][1],
+                                          "dense_bf16_linear_ms": dev["kernels"]["qmm"][name]["dense_ms"],
+                                          "max_abs_err": 0.0}
+                                   for name, m, k, n in MISTRAL_QMM_SHAPES}
+        if fmt == "w8a8":
+            entry["launches_dev"] = {"mistral_w8a8_greedy_16_tokens": dev["encoder"]["greedy"]["counts"]["w8a8"],
+                                     "t2i_dev_cli": dev["cli"]["counts"]["w8a8"]}
+            entry["launches_per_decode_token"] = dev["encoder"]["greedy"]["k5_per_token"]
+            entry["launches_per_dev_forward"] = dev["cli"]["dit_pass"]
         kernels.append(entry)
     # K5's and K6's activation prologue at K5's main shape (block = K = 3072);
     # launches from the w8a8 serving run (one before each K5 launch).
@@ -3748,7 +4287,14 @@ def main() -> int:
                     "launches_qlora": lora["qlora"]["w8a8"]["counts"]["quantize_rows"],
                     "launches_train_real": {"train_lora_w8a8": real["qlora"]["w8a8"]["counts"]["quantize_rows"],
                                             "random_init_captions": real["random"]["counts"]["quantize_rows"],
-                                            "random_init_resume": real["random"]["counts_resume"]["quantize_rows"]}})
+                                            "random_init_resume": real["random"]["counts_resume"]["quantize_rows"]},
+                    "launches_dev": {"mistral_w8a8_greedy_16_tokens":
+                                     dev["encoder"]["greedy"]["counts"]["quantize_rows"],
+                                     "t2i_dev_cli": dev["cli"]["counts"]["quantize_rows"]},
+                    "dev_shapes": {f"{name}_block_{block}": {"m_k": [m, k], "ms": dev["kernels"]["qmm"][name][
+                                       f"prologue_{block}"]["alone"],
+                                   "bound_ms": dev["kernels"]["qmm"][name][f"prologue_{block}"]["bound"][0]}
+                                   for name, m, k, _ in MISTRAL_QMM_SHAPES for block in (k, 512)}})
     # K2 vs the plain f32 forward with LSE; K3 and K4 vs the plain f32 backward,
     # which computes dq, dk and dv at once, as does their library call. Launches
     # from the 512^2 training run.

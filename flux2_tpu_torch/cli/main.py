@@ -7,13 +7,29 @@ Port of ``flux2_tpu/cli/main.py``'s ``build_pipeline`` (``:84-164``): the
 checkpoint branch resolves each component's directory through the registry
 (``--transformer-dir``, ``--vae-dir``, ``--encoder-dir``, else the models dir,
 else the HF cache), reads its ``config.json``, maps BFL or Diffusers
-transformer weights, the Diffusers VAE (decoder and encoder) and HF Qwen3
-straight onto the device (``io/weight_mapping.py``), and quantizes the DiT to
+transformer weights, the Diffusers VAE (decoder and encoder) and HF Qwen3 or
+Mistral Small 3.2 (Dev's encoder, its ``tekken.json``) straight onto the
+device (``io/weight_mapping.py``), and quantizes the DiT to
 ``--quantization`` and the encoder's layers to ``--encoder-quantization`` on
 the fly. Missing weights exit with JAX's messages. ``--random-init`` draws
 the same modules from a seed instead; where JAX's random-init pipeline has no
-text encoder, the port attaches a random Qwen3 encoder of the model's family
-(as ``chip_smoke.py`` serves it).
+text encoder, the port attaches a random encoder of the model's family (as
+``chip_smoke.py`` serves it): Qwen3 with the dev tokenizer for Klein, Mistral
+at the built-in ``MISTRAL_SMALL_3_2`` shape with a Tekken tokenizer whose
+ranks fill its vocabulary for Dev. The DiT is quantized before the encoder is
+drawn, so a bf16 Dev DiT (~63 GB) never shares the card with the encoder.
+The encoder registers in ``facade.shared``, which gives the pipeline its
+chat and upsampling surface.
+
+``t2i --upsample`` rewrites the prompt through that encoder with the BFL
+protocol first and prints ``[upsample] final prompt: ...`` when it changed
+(``i2i --upsample`` describes the references with a VLM: it raises JAX's
+"requires a VLM" error until the vision half of ROADMAP item 8 lands, and
+``--interpret`` exits naming it). Dev on one 80 GB card:
+
+    python -m flux2_tpu_torch.cli.main t2i --model dev --random-init \
+        --quantization w8a8 --encoder-quantization w8a8 --upsample \
+        --prompt "a red fox" -o fox.png
 
     python -m flux2_tpu_torch.cli.main t2i --transformer-dir T --vae-dir V \\
         --encoder-dir E --prompt "a red fox" -o fox.png
@@ -91,11 +107,11 @@ w4a8), as JAX's does:
     python -m flux2_tpu_torch.cli.main t2i --transformer-dir T --vae-dir V \\
         --encoder-dir E --quantization w8a8 --prompt "a red fox" -o fox.png
 
-Not ported yet, and refused by argparse or raising: ``--shard``, the Mistral
-encoder (Dev), the VLM flags ``--upsample`` / ``--interpret`` (``inpaint``'s
+Not ported yet, and refused by argparse or raising: ``--shard`` and the VLM
+uses (``--interpret``, ``i2i --upsample``; ``inpaint``'s
 ``--enrich-prompt-with-vlm`` warns and keeps the prompt, as JAX without a
-loaded VLM; ``--upsample-prompt`` raises JAX's error for a pipeline without
-an encoder facade). Images are read by Pillow
+loaded VLM; ``--upsample-prompt``, the text-only rewrite, runs).
+Images are read by Pillow
 where it imports (any format it reads), else PNG only, by the port's own
 decoder; so are masks (grey, grey + alpha, RGB or RGBA PNGs without Pillow).
 """
@@ -114,10 +130,11 @@ import torch
 
 from flux2_tpu_torch.io import registry
 from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
-from flux2_tpu_torch.models.text_encoders.config import QWEN3_4B, QWEN3_8B, DecoderConfig
+from flux2_tpu_torch.models.text_encoders.config import (
+    MISTRAL_HIDDEN_LAYERS, MISTRAL_SMALL_3_2, QWEN3_4B, QWEN3_8B, QWEN3_HIDDEN_LAYERS, DecoderConfig)
 from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, FLUX2_VAE_SMALL_DECODER, VAEConfig
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
-from flux2_tpu_torch.models.text_encoders.extractor import qwen3_extractor, quantize_encoder_params
+from flux2_tpu_torch.models.text_encoders.extractor import quantize_encoder_params
 from flux2_tpu_torch.ops.quant import dequantize_params, quantize_params
 from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
 from flux2_tpu_torch.utils import logging as flog
@@ -128,12 +145,13 @@ ENCODER_QUANTIZATIONS = ("bf16", "qint8", "w8a8", "int4", "w4a8", "mxfp8")
 
 
 def _encoder_config(model: Flux2Model) -> DecoderConfig:
-    """The Qwen3 encoder of a Klein model (JAX ``registry.ENCODER_FOR_MODEL``)."""
+    """The built-in shape of a model's encoder (JAX ``registry.ENCODER_FOR_MODEL``):
+    Qwen3-4B / 8B for Klein, Mistral Small 3.2 for Dev."""
     if "4b" in model.value:
         return QWEN3_4B
     if "9b" in model.value:
         return QWEN3_8B
-    raise NotImplementedError(f"{model.value}'s text encoder (Mistral-24B) is not ported yet")
+    return MISTRAL_SMALL_3_2
 
 
 def build_pipeline(
@@ -162,8 +180,6 @@ def build_pipeline(
     if not getattr(args, "random_init", False):
         pipe = _load_pipeline(args, model, device, fmt, enc_fmt)
     else:
-        from flux2_tpu_torch.utils import inline_bpe_tokenizer
-
         encoder_config = encoder_config or _encoder_config(model)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -171,10 +187,10 @@ def build_pipeline(
             vae_config = FLUX2_VAE_SMALL_DECODER
         pipe = Flux2Pipeline.from_random(model, device=device, generator=generator,
                                          transformer_config=transformer_config, vae_config=vae_config)
-        quantize_params(pipe.transformer, fmt)
-        decoder = Qwen3Decoder(encoder_config, device=device, generator=generator)
-        pipe.text_encoder = qwen3_extractor(quantize_encoder_params(decoder, enc_fmt), inline_bpe_tokenizer())
-        pipe.text_encoder_name = registry.ENCODER_FOR_MODEL[model]
+        quantize_params(pipe.transformer, fmt)  # before the encoder is drawn: the peak is one component's
+        if not getattr(args, "no_text_encoder", False):
+            decoder = Qwen3Decoder(encoder_config, device=device, generator=generator)
+            attach_random_encoder(pipe, quantize_encoder_params(decoder, enc_fmt), enc_fmt)
     apply_loras(pipe, getattr(args, "lora", None) or [])
     pipe.memory_profile = memory_profile(args)
     return pipe
@@ -245,8 +261,6 @@ def _load_pipeline(args, model: Flux2Model, device: torch.device, fmt: str, enc_
     from flux2_tpu_torch.io import checkpoints, weight_mapping
 
     with_encoder = not getattr(args, "no_text_encoder", False)
-    if with_encoder:
-        _encoder_config(model)  # refuse Dev (Mistral) before loading anything
     with profiler().phase("4. Load Transformer"):
         t0 = _load_start()
         tdir = registry.find_model_path(registry.TRANSFORMER_REPOS[model], getattr(args, "transformer_dir", None))
@@ -311,10 +325,35 @@ def _read_vae_config_json(vae_dir: str, default: VAEConfig) -> VAEConfig:
     return default
 
 
+def attach_random_encoder(pipe: Flux2Pipeline, decoder: Qwen3Decoder, quantization: str) -> None:
+    """Register a random-init encoder in ``facade.shared`` and attach it with
+    its recipe: Mistral (``llama4_scaling_beta`` set) as "mistral" with
+    ``tekken.random_init_tokenizer`` over its vocabulary, else Qwen3 under its
+    registry name with the dev tokenizer."""
+    from flux2_tpu_torch.models.text_encoders import facade
+
+    cfg = decoder.cfg
+    if cfg.llama4_scaling_beta is not None:
+        from flux2_tpu_torch.models.text_encoders.tekken import random_init_tokenizer
+
+        enc = facade.shared.attach("mistral", decoder, cfg, random_init_tokenizer(cfg.vocab_size),
+                                   MISTRAL_HIDDEN_LAYERS, recipe="mistral")
+    else:
+        from flux2_tpu_torch.utils import inline_bpe_tokenizer
+
+        enc = facade.shared.attach(registry.ENCODER_FOR_MODEL[pipe.model], decoder, cfg, inline_bpe_tokenizer(),
+                                   QWEN3_HIDDEN_LAYERS, recipe="klein")
+    pipe.text_encoder = enc.extractor
+    pipe.text_encoder_name = enc.name
+    pipe.text_encoder_quantization = quantization
+    pipe.encoders = facade.shared
+
+
 def attach_text_encoder(pipe: Flux2Pipeline, encoder_dir: Optional[str] = None, tokenizer_dir: Optional[str] = None,
                         quantization: str = "bf16") -> None:
-    """Load the model family's Qwen3 encoder onto the pipeline's device and
-    attach it: explicit ``encoder_dir``, then the models dir, then the HF
+    """Load the model family's encoder (Qwen3, or Mistral for Dev) onto the
+    pipeline's device, register it in ``facade.shared`` and attach it with
+    the facade: explicit ``encoder_dir``, then the models dir, then the HF
     cache (JAX ``attach_text_encoder``, ``:276-309``, without the VLM loader)."""
     from flux2_tpu_torch.models.text_encoders import facade
 
@@ -333,8 +372,9 @@ def attach_text_encoder(pipe: Flux2Pipeline, encoder_dir: Optional[str] = None, 
         enc = facade.load_qwen3(edir, tokenizer_dir, size="4b" if "4b" in name else "8b",
                                 quantization=quantization, device=pipe.device)
     pipe.text_encoder = enc.extractor
-    pipe.text_encoder_name = name
+    pipe.text_encoder_name = enc.name
     pipe.text_encoder_quantization = quantization
+    pipe.encoders = facade.shared
     _log_load(f"text encoder {enc.name} ({enc.config.num_hidden_layers} layers, {enc.config.hidden_size} hidden)",
               edir, t0, pipe.device, quantization)
 
@@ -391,7 +431,7 @@ def _parser() -> argparse.ArgumentParser:
                    help="working-resolution cap in total pixels (inputs above it are Lanczos-downscaled to "
                         "multiples of 32)")
     p.add_argument("--upsample-prompt", action="store_true",
-                   help="text-encoder-only prompt rewriting (needs an encoder facade: not ported yet)")
+                   help="text-encoder-only prompt rewriting (no VLM)")
     p.add_argument("--enrich-prompt-with-vlm", action="store_true",
                    help="image-aware prompt rewriting via a VLM; with none loaded (the port has none yet) it "
                         "warns and keeps --prompt")
@@ -409,7 +449,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--max-pixels", type=int, default=4 * 1024 * 1024,
                    help="canvas working-pixel cap (the canvas itself is never cropped)")
     p.add_argument("--upsample-prompt", action="store_true",
-                   help="text-encoder-only prompt rewriting (needs an encoder facade: not ported yet)")
+                   help="text-encoder-only prompt rewriting (no VLM)")
     p.add_argument("--enrich-prompt-with-vlm", action="store_true",
                    help="image-aware prompt rewriting via a VLM; with none loaded it warns and keeps --prompt")
 
@@ -487,6 +527,13 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
+class _VisionNotPorted(argparse.Action):
+    """``--interpret``: JAX's flag, refused by the parser until its VLM is ported."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} needs a VLM: the vision half of ROADMAP item 8 (8b) is not ported yet")
+
+
 def _add_common(p: argparse.ArgumentParser) -> None:
     """The flags of JAX's ``_add_common`` (``:813-876``) that the port runs."""
     p.add_argument("--model", default="klein-4b", choices=[m.value for m in Flux2Model])
@@ -512,6 +559,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--beacon", action="store_true",
                    help="write a runtime activity beacon manifest (env FLUX2_RUNTIME_BEACON=1)")
     p.add_argument("--prompt", default="")
+    p.add_argument("--upsample", action="store_true", help="VLM prompt upsampling (BFL protocol)")
+    p.add_argument("--interpret", action=_VisionNotPorted, metavar="IMAGE",
+                   help="VLM-describe this image and inject into the prompt (the vision half of ROADMAP item 8: "
+                        "not ported yet, exits)")
     p.add_argument("--width", type=int, default=1024)
     p.add_argument("--height", type=int, default=1024)
     p.add_argument("--steps", type=int)
@@ -574,9 +625,15 @@ def cmd_t2i(args) -> None:
     with RuntimeBeacon("generate", model=args.model) as beacon:
         beacon.update(phase="denoising", total_steps=args.steps or pipe.model.default_steps)
         res = pipe.generate(prompt=args.prompt, height=args.height, width=args.width, num_steps=args.steps,
-                            guidance=args.guidance, seed=args.seed, checkpoint_interval=interval,
-                            on_checkpoint=on_ckpt)
+                            guidance=args.guidance, seed=args.seed, upsample=args.upsample,
+                            checkpoint_interval=interval, on_checkpoint=on_ckpt)
+    _print_upsampled(res)
     _report(res, args.output)
+
+
+def _print_upsampled(res) -> None:
+    if res.was_upsampled:
+        print(f"[upsample] final prompt: {res.final_prompt}")
 
 
 def _load_image(path: str):
@@ -595,8 +652,10 @@ def cmd_i2i(args) -> None:
     interval, on_ckpt = _checkpoint_callback(args)
     res = pipe.generate(prompt=args.prompt, height=args.height, width=args.width, num_steps=args.steps,
                         guidance=args.guidance, seed=args.seed, reference_latents=ref_lat, reference_ids=ref_ids,
-                        strength=args.strength, init_latents=init, checkpoint_interval=interval,
+                        strength=args.strength, init_latents=init, upsample=args.upsample,
+                        upsample_images=refs if args.upsample else None, checkpoint_interval=interval,
                         on_checkpoint=on_ckpt)
+    _print_upsampled(res)
     _report(res, args.output)
 
 
@@ -832,9 +891,9 @@ def cmd_evaluate_lora(args) -> None:
 
 def _vlm_scorer(pipe):
     """The VLM scene/style scorer of a loaded scoring service, else None (the
-    caller falls back to the pixel scorer). No VLM is ported yet (ROADMAP
-    item 8), so a pipeline carries no service and this returns None, as
-    JAX's does with no VLM on disk."""
+    caller falls back to the pixel scorer). The VLMs are the vision half of
+    ROADMAP item 8 (8b), not ported yet, so a pipeline carries no service and
+    this returns None, as JAX's does with no VLM on disk."""
     service = getattr(pipe, "vlm_service", None)
     if service is None or not hasattr(service, "score_validation_image"):
         return None

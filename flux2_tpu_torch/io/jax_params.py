@@ -209,10 +209,12 @@ def vae_encoder_from_jax(params: dict, config) -> VAEEncoder:
 
 
 def decoder_from_jax(params: dict, config: DecoderConfig) -> Qwen3Decoder:
-    """The hidden-state path of the JAX decoder (``final_norm`` and
-    ``lm_head`` are not used by it and are not loaded)."""
+    """The JAX decoder: embedding, layers (dense or quantized), ``final_norm``
+    and, untied, ``lm_head``."""
     embed = _tensor(params["embed_tokens"])
-    sd: Dict[str, object] = {"embed_tokens": embed}
+    sd: Dict[str, object] = {"embed_tokens": embed, "final_norm": _tensor(params["final_norm"])}
+    if not config.tie_word_embeddings:
+        sd["lm_head"] = _carry(params["lm_head"])
     for name, leaf in params["layers"].items():
         for i in range(config.num_hidden_layers):
             sd[f"layers.{i}.{name}"] = _stacked(leaf, i)

@@ -1,12 +1,15 @@
 """Checkpoint dialects -> the port's modules: BFL-native and Diffusers FLUX.2
-transformers, the Diffusers ``AutoencoderKL`` (decoder and encoder), HF Qwen3.
+transformers, the Diffusers ``AutoencoderKL`` (decoder and encoder), HF Qwen3
+and Mistral (text-only, or a Mistral3 VLM's language model).
 
 Port of ``flux2_tpu/io/weight_mapping.py``: ``dequantize_quanto`` (``:38-54``),
 ``is_bfl_format`` (``:57``), ``map_transformer_weights`` with ``_map_bfl`` and
 ``_map_diffusers`` (``:71-232``), ``map_vae_weights`` (``:327-389``, split
 into ``map_vae_weights`` for the decoder and ``map_vae_encoder_weights`` for
-the encoder and ``quant_conv``), ``map_decoder_weights`` and
-``strip_language_model_prefix`` (``:397-439``).
+the encoder and ``quant_conv``), ``map_decoder_weights`` (the final norm and
+an untied ``lm_head`` too) and ``strip_language_model_prefix``
+(``:397-440``), with the ``model.language_model.`` nesting of newer VLM
+checkpoints (JAX reads it for Qwen3.5, ``:568-569``).
 
 Where JAX transposes every linear to [in, out] and stacks the layers, each
 ``map_*`` here yields (port parameter name, tensor) pairs straight in torch's
@@ -268,7 +271,7 @@ def load_vae_encoder(weights: Mapping, config: VAEConfig, device: "torch.device 
     return encoder
 
 
-# -- Qwen3 (HF llama-style names) ---------------------------------------------------
+# -- Qwen3 and Mistral (HF llama-style names) ---------------------------------------------------
 
 _DECODER_LAYER = {
     "input_layernorm.weight": "input_norm",
@@ -288,7 +291,8 @@ _DECODER_KEY = re.compile(r"layers\.(\d+)\.(.+)")
 
 def strip_language_model_prefix(names: Iterable[str]) -> dict:
     """checkpoint name -> name without ``language_model.`` (the
-    Mistral3ForConditionalGeneration layout), for every name."""
+    Mistral3ForConditionalGeneration layout, JAX's function of that name),
+    for every name."""
     pre = "language_model."
     names = list(names)
     if not any(k.startswith(pre) for k in names):
@@ -296,23 +300,35 @@ def strip_language_model_prefix(names: Iterable[str]) -> dict:
     return {k: k[len(pre):] if k.startswith(pre) else k for k in names}
 
 
+# Where a decoder's layers sit: text-only ``model.*``; VLM checkpoints nest
+# ``model.language_model.*`` (newer transformers) or, once
+# ``language_model.`` is stripped, ``model.*`` again (JAX's order).
+_DECODER_PREFIXES = ("model.language_model.", "model.", "")
+
+
 def map_decoder_weights(weights: Mapping) -> Iterator[Item]:
-    """(port name, tensor) for the decoder's hidden-state path: the embedding
-    and the layers. ``norm.weight`` and ``lm_head`` (tied or not) are not
-    used by it and are skipped. Quanto pairs are folded."""
+    """(port name, tensor) for the decoder: the embedding, the layers, the
+    final ``norm`` and, untied, ``lm_head`` (``lm_head.weight`` at the top
+    level, after ``language_model.`` is stripped). Quanto pairs are folded."""
     renamed = strip_language_model_prefix(_base_names(weights))
-    pre = "model." if any(k.startswith("model.") for k in renamed.values()) else ""
+    names = set(renamed.values())
+    pre = next(p for p in _DECODER_PREFIXES if p + "embed_tokens.weight" in names or not p)
     for key, v in quanto_items(weights):
         name = renamed[key]
+        if name == "lm_head.weight":
+            yield "lm_head", v
+            continue
         if not name.startswith(pre):
             continue
         name = name[len(pre):]
         if name == "embed_tokens.weight":
             yield "embed_tokens", v
-            continue
-        m = _DECODER_KEY.fullmatch(name)
-        if m and m.group(2) in _DECODER_LAYER:
-            yield f"layers.{m.group(1)}.{_DECODER_LAYER[m.group(2)]}", v
+        elif name == "norm.weight":
+            yield "final_norm", v
+        else:
+            m = _DECODER_KEY.fullmatch(name)
+            if m and m.group(2) in _DECODER_LAYER:
+                yield f"layers.{m.group(1)}.{_DECODER_LAYER[m.group(2)]}", v
 
 
 def load_decoder(weights: Mapping, cfg: DecoderConfig, device: "torch.device | str",

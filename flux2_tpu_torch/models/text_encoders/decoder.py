@@ -1,18 +1,26 @@
-"""Qwen3 causal GQA decoder for the FLUX.2 Klein conditioning, as a PyTorch module.
+"""The generic causal GQA decoder (Qwen3 and Mistral Small 3.2) as a PyTorch module.
 
-Port of the hidden-state path of ``flux2_tpu/models/text_encoders/decoder.py``:
-per-head qk-RMSNorm before RoPE, the HF half-split LLM RoPE (not the DiT's
-interleaved pairs), grouped-query attention with an additive causal + key
-padding mask (finite ``NEG_INF``, so a fully masked row never turns NaN),
-and ``forward_hidden_states`` / ``extract_hidden_layers``. The attention is
-plain torch with float32 logits, as in JAX (an einsum there, no Pallas).
-Every layer matmul goes through ``q_linear`` (JAX's ``mm``), so layer weights
-may be quantized (``extractor.quantize_encoder_params``). Generation (KV
-cache, logits) and Mistral's llama4 query scaling are not ported yet.
+Port of ``flux2_tpu/models/text_encoders/decoder.py``: per-head qk-RMSNorm
+before RoPE (Qwen3), Llama-4 query scaling ``1 + beta * log1p(floor(pos /
+original_max))`` applied to q after RoPE (Mistral), the HF half-split LLM
+RoPE (not the DiT's interleaved pairs), grouped-query attention with an
+additive mask (finite ``NEG_INF``, so a fully masked row never turns NaN),
+``forward_hidden_states`` / ``extract_hidden_layers`` (the conditioning
+path), ``final_norm`` and the LM head (tied to ``embed_tokens`` or not),
+``forward_logits``, and generation over a preallocated KV cache:
+``init_kv_cache``, ``prefill`` (also from ``inputs_embeds``) and
+``decode_step``. As in JAX the cache has a static ``max_len`` and a step
+attends to every slot ``<= pos`` through the mask; the port writes the new
+keys and values into the cache in place, where JAX returns a new cache.
+The attention is plain torch with float32 logits, as in JAX (an einsum
+there, no Pallas). Every layer matmul and the untied head go through
+``q_linear`` (JAX's ``mm``), so they may be quantized
+(``extractor.quantize_encoder_params`` quantizes the layers only).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -46,11 +54,37 @@ def apply_llm_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> tor
     return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
 
 
+def llama4_attention_scale(positions: torch.Tensor, beta: float, original_max: int) -> torch.Tensor:
+    """1 + beta * log(1 + floor(pos / original_max)), f32: [S] -> [S, 1]."""
+    floored = torch.floor(positions.to(torch.float32) / original_max)
+    return (1.0 + beta * torch.log1p(floored))[:, None]
+
+
 def causal_padding_mask(attention_mask: torch.Tensor, s: int) -> torch.Tensor:
     """Additive f32 mask [B, 1, S, S]: causal + key-side padding."""
     causal = torch.tril(torch.ones(s, s, dtype=torch.bool, device=attention_mask.device))
     allowed = causal[None, None] & (attention_mask[:, None, None, :] > 0)
     return torch.where(allowed, 0.0, NEG_INF).to(torch.float32)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Static-length KV cache [L, B, kv_heads, max_len, head_dim] and the
+    number of slots filled (JAX's ``KVCache``, updated in place)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int = 0
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+
+def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+                  device: "torch.device | str" = "cpu") -> KVCache:
+    shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
 
 
 class DecoderLayer(nn.Module):
@@ -72,7 +106,10 @@ class DecoderLayer(nn.Module):
             self.q_norm = ones_weight(hd, device, dtype)
             self.k_norm = ones_weight(hd, device, dtype)
 
-    def forward(self, x, cos, sin, mask) -> torch.Tensor:
+    def forward(self, x, cos, sin, mask, q_scale=None, cache_kv=None, cache_pos: int = 0) -> torch.Tensor:
+        """One layer over x [B, S, H]. With ``cache_kv`` (this layer's [B, kv,
+        max_len, hd] slices) the new keys and values are written at
+        ``cache_pos`` and the attention reads the whole cache."""
         cfg = self.cfg
         b, s, _ = x.shape
         nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -85,6 +122,13 @@ class DecoderLayer(nn.Module):
             k = rms_norm(k, self.k_norm, cfg.rms_norm_eps)
         q = apply_llm_rope(q, cos, sin)
         k = apply_llm_rope(k, cos, sin)
+        if q_scale is not None:
+            q = q * q_scale.to(q.dtype)
+        if cache_kv is not None:
+            ck, cv = cache_kv
+            ck[:, :, cache_pos:cache_pos + s] = k
+            cv[:, :, cache_pos:cache_pos + s] = v
+            k, v = ck, cv
         rep = nh // nkv
         if rep > 1:
             k = k.repeat_interleave(rep, dim=1)
@@ -99,7 +143,9 @@ class DecoderLayer(nn.Module):
 
 
 class Qwen3Decoder(nn.Module):
-    """Token ids -> hidden states of every layer (the conditioning encoder)."""
+    """Token ids -> hidden states of every layer (the conditioning encoder),
+    logits, and KV-cached generation. Despite its name it is the generic
+    decoder: a config with ``llama4_scaling_beta`` is Mistral's."""
 
     def __init__(
         self,
@@ -109,8 +155,6 @@ class Qwen3Decoder(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if cfg.llama4_scaling_beta is not None:
-            raise NotImplementedError("llama4 query scaling (Mistral) is not ported yet")
         self.cfg = cfg
         emb = torch.empty(cfg.vocab_size, cfg.hidden_size, device=device, dtype=dtype)
         if generator is not None:
@@ -119,18 +163,31 @@ class Qwen3Decoder(nn.Module):
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, device, dtype, generator) for _ in range(cfg.num_hidden_layers)
         )
+        self.final_norm = ones_weight(cfg.hidden_size, device, dtype)
+        if not cfg.tie_word_embeddings:  # drawn last, as JAX's init_params draws it
+            self.lm_head = linear_weight(cfg.hidden_size, cfg.vocab_size, device, dtype, generator)
 
-    def forward_hidden_states(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    def _q_scale(self, positions: torch.Tensor) -> Optional[torch.Tensor]:
+        cfg = self.cfg
+        if cfg.llama4_scaling_beta is None:
+            return None
+        return llama4_attention_scale(positions, cfg.llama4_scaling_beta, cfg.original_max_position_embeddings)
+
+    def forward_hidden_states(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                              inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, S] ids and mask (1 = token, 0 = pad) -> ALL hidden states
-        [L+1, B, S, H]; index 0 is the embedding output, i >= 1 layer i's output."""
+        [L+1, B, S, H]; index 0 is the embedding output, i >= 1 layer i's output.
+        ``inputs_embeds`` [B, S, H] replaces the token embeddings (VLM merge)."""
         s = input_ids.shape[1]
-        x = self.embed_tokens[input_ids]
+        x = inputs_embeds if inputs_embeds is not None else self.embed_tokens[input_ids]
         # absolute positions 0..S-1 whatever the padding, as the JAX package
-        cos, sin = llm_rope_cos_sin(torch.arange(s, device=x.device), self.cfg.head_dim, self.cfg.rope_theta)
+        positions = torch.arange(s, device=x.device)
+        cos, sin = llm_rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
         mask = causal_padding_mask(attention_mask, s)
+        q_scale = self._q_scale(positions)
         states = [x]
         for layer in self.layers:
-            x = layer(x, cos, sin, mask)
+            x = layer(x, cos, sin, mask, q_scale)
             states.append(x)
         return torch.stack(states)
 
@@ -141,3 +198,53 @@ class Qwen3Decoder(nn.Module):
         All layers run, as in JAX."""
         hs = self.forward_hidden_states(input_ids, attention_mask)
         return torch.cat([hs[i] for i in layer_indices], dim=-1)
+
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        """Vocabulary projection of final-normed states, float32 (JAX ``_logits``)."""
+        if self.cfg.tie_word_embeddings:
+            return F.linear(h, self.embed_tokens).float()
+        return q_linear(h, self.lm_head).float()
+
+    def forward_logits(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full forward to vocabulary logits [B, S, V] float32."""
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        hs = self.forward_hidden_states(input_ids, attention_mask)
+        return self.logits(rms_norm(hs[-1], self.final_norm, self.cfg.rms_norm_eps))
+
+    def _cached(self, x: torch.Tensor, positions: torch.Tensor, mask: torch.Tensor, cache: KVCache) -> torch.Tensor:
+        """Every layer over x [B, S, H] at ``positions``, writing the cache from
+        slot ``positions[0]``; returns the last token's logits [B, V]."""
+        cos, sin = llm_rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        q_scale = self._q_scale(positions)
+        pos = cache.length
+        for i, layer in enumerate(self.layers):
+            x = layer(x, cos, sin, mask, q_scale, cache_kv=(cache.k[i], cache.v[i]), cache_pos=pos)
+        cache.length = pos + x.shape[1]
+        return self.logits(rms_norm(x[:, -1], self.final_norm, self.cfg.rms_norm_eps))
+
+    def prefill(self, input_ids: torch.Tensor, cache: KVCache,
+                inputs_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, KVCache]:
+        """Fill an empty cache with a prompt [B, S] (or its ``inputs_embeds``,
+        VLM image-token splicing); returns the last token's logits [B, V]
+        and the cache, ``length`` S."""
+        if cache.length:
+            raise ValueError(f"prefill takes an empty cache, this one holds {cache.length} slots")
+        s = input_ids.shape[1]
+        x = inputs_embeds if inputs_embeds is not None else self.embed_tokens[input_ids]
+        positions = torch.arange(s, device=x.device)
+        key_idx = torch.arange(cache.max_len, device=x.device)
+        mask = torch.where(positions[:, None] >= key_idx[None, :], 0.0, NEG_INF).to(torch.float32)
+        return self._cached(x, positions, mask[None, None], cache), cache
+
+    def decode_step(self, token: torch.Tensor, cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+        """One token [B, 1] at position ``cache.length``, attending to the cache
+        slots ``<= pos``; returns its logits [B, V] and the cache, one longer."""
+        pos = cache.length
+        if pos >= cache.max_len:
+            raise ValueError(f"the KV cache is full ({cache.max_len} slots)")
+        x = self.embed_tokens[token]
+        positions = torch.full((1,), pos, device=x.device, dtype=torch.long)
+        key_idx = torch.arange(cache.max_len, device=x.device)
+        mask = torch.where(key_idx <= pos, 0.0, NEG_INF).to(torch.float32)
+        return self._cached(x, positions, mask[None, None, None], cache), cache

@@ -429,7 +429,9 @@ def quantize_params(module: nn.Module, fmt: str, min_size: int = 1 << 16) -> nn.
         return module
     if fmt not in ("w8a8", "w4a8") and fmt not in GROUP_SIZES:
         raise ValueError(f"unknown quantization format {fmt}")
-    for mod, attr, name, w, layers in list(_weights(module)):
+    # the list holds no weight: each dense weight is freed as its quantized one replaces it
+    for mod, attr, name, layers in [(mod, attr, name, layers) for mod, attr, name, _, layers in _weights(module)]:
+        w = getattr(mod, attr)
         if is_quantized(w):
             if isinstance(w, QTensor) and fmt in ("w8a8", "w4a8"):
                 _replace(mod, attr, to_w8a8(w) if fmt == "w8a8" else to_w4a8(w))

@@ -16,9 +16,12 @@ step's Euler update, in both loops and in JAX's order: the step hook
 (``step_hook``, structured or legacy), the cancel check, ``on_progress`` and
 ``on_latents`` (live previews); every ``checkpoint_interval``-th step's
 latents are kept and decoded after the loop (``on_checkpoint``). The decode
-is tiled above the memory profile's threshold (``memory_profile``). The VLM
-prompt services are not ported: ``upsample_prompt`` raises JAX's error for a
-pipeline without a text encoder facade.
+is tiled above the memory profile's threshold (``memory_profile``).
+``upsample=True`` rewrites the prompt through the attached encoder facade
+(``encoders``, ``text_encoder_name``) with the BFL protocol before it is
+encoded (``final_prompt``, ``was_upsampled``). The VLM services
+(``interpret_images``, vision upsampling) are the vision half of ROADMAP item
+8: no VLM is attached, so they raise JAX's "requires a VLM" errors.
 
 The noise comes from a ``torch.Generator`` seeded with ``seed``: JAX uses
 threefry, so one seed gives different images in the two packages. Pass
@@ -90,7 +93,8 @@ class GenerationResult:
     phase_timings: Dict[str, float]
     images: Optional[np.ndarray] = None  # [B, H, W, 3] when batch > 1
     memory_stats: Optional[Dict[str, Dict[str, float]]] = None  # per-phase device memory (GiB)
-    final_prompt: Optional[str] = None  # the prompt actually encoded (after LoRA keyword prefixing)
+    final_prompt: Optional[str] = None  # the prompt actually encoded (after LoRA keywords and upsampling)
+    was_upsampled: bool = False
 
     @property
     def latents(self) -> np.ndarray:
@@ -154,6 +158,9 @@ class Flux2Pipeline:
     text_encoder: Optional[Callable[[str], torch.Tensor]] = None  # prompt -> [1, S, joint]
     text_encoder_name: Optional[str] = None  # the registry's key of the attached encoder ("qwen3-4b")
     text_encoder_quantization: str = "bf16"  # the attached encoder's format (keys train-lora's caption cache)
+    encoders: Optional[Any] = None  # facade.TextEncoders holding the attached encoder (chat / upsample surface)
+    vlm: Optional[Any] = None  # a vision service with analyze_image() (ROADMAP item 8b)
+    vlm_loader: Optional[Callable[[], Any]] = None  # lazy VLM load
     vae_encoder: Optional[VAEEncoder] = None
     max_pixels: int = 4096 * 4096
     # VAE compute dtype: the decode casts the VAE's float parameters and the
@@ -226,12 +233,66 @@ class Flux2Pipeline:
                 cache.popitem(last=False)
             return emb
 
-    def upsample_prompt(self, prompt: str) -> str:
-        """JAX's BFL prompt upsampling chats through the attached text encoder
-        facade (``flux2_tpu/pipeline/pipeline.py:331-370``). The port has no
-        facade with a chat surface yet, so it raises JAX's error for a
-        pipeline without one."""
-        raise ValueError("prompt upsampling requires an attached text encoder facade")
+    # -- VLM prompt services (interpret / upsample) -------------------------------
+
+    VLM_ANALYSIS_PROMPT = (
+        "Describe this image in detail. Focus on the main subject, colors, "
+        "style, and any notable elements."
+    )
+
+    def _get_vlm(self):
+        """The vision service, loaded by ``vlm_loader`` on first use."""
+        if self.vlm is None and self.vlm_loader is not None:
+            self.vlm = self.vlm_loader()
+        return self.vlm
+
+    def interpret_images(self, images: Sequence[np.ndarray], prompt: str, seed: int = 0) -> str:
+        """VLM descriptions of ``images`` injected before the prompt (JAX's
+        ``interpret_images``); raises JAX's error with no VLM."""
+        vlm = self._get_vlm()
+        if vlm is None:
+            raise ValueError(
+                "image interpretation requires a VLM (Mistral+Pixtral); none "
+                "attached and no vlm_loader configured"
+            )
+        descs = []
+        for i, img in enumerate(images):
+            d = vlm.analyze_image(np.asarray(img), self.VLM_ANALYSIS_PROMPT, seed=seed).strip()
+            if d:
+                descs.append(f"Interpret image {i + 1}: {d}")
+        if not descs:
+            return prompt
+        return "\n".join(descs) + f"\n\nUser request: {prompt}"
+
+    def upsample_prompt(self, prompt: str, images: Optional[Sequence[np.ndarray]] = None,
+                        mode: str = "upsampling_t2i", seed: int = 0) -> str:
+        """The BFL prompt rewrite (``--upsample``, JAX's ``upsample_prompt``):
+        text-only, a chat through the attached encoder facade; with reference
+        ``images`` each is described by the VLM first and the enriched
+        request is upsampled in T2I mode."""
+        if self.encoders is None or self.text_encoder_name is None:
+            raise ValueError("prompt upsampling requires an attached text encoder facade")
+        if images:
+            vlm = self._get_vlm()
+            if vlm is None:
+                raise ValueError(
+                    "vision upsampling requires a VLM (Mistral+Pixtral); none "
+                    "attached and no vlm_loader configured"
+                )
+            descs = []
+            for i, img in enumerate(images):
+                d = vlm.analyze_image(np.asarray(img), self.VLM_ANALYSIS_PROMPT, seed=seed).strip()
+                if d:
+                    descs.append(f"Image {i + 1}: {d}")
+            if descs:
+                prompt = (
+                    "Reference images context:\n" + "\n".join(descs)
+                    + f"\n\nUser request: {prompt}\n\n"
+                    + "Generate an image that combines elements from the "
+                    + "reference images according to the user's request."
+                )
+            mode = "upsampling_t2i"
+        return self.encoders.upsample_prompt(prompt, self.text_encoder_name, mode=mode, seed=seed)
 
     # -- phases 2 + 3: denoise + decode ------------------------------------------
 
@@ -259,6 +320,8 @@ class Flux2Pipeline:
         checkpoint_interval: Optional[int] = None,
         on_checkpoint: Optional[Callable[[int, np.ndarray], None]] = None,
         upsample: bool = False,
+        upsample_images: Optional[Sequence[np.ndarray]] = None,
+        interpret_images: Optional[Sequence[np.ndarray]] = None,
     ) -> GenerationResult:
         """Generate images: T2I by default; I2I with ``reference_latents`` and
         ``reference_ids`` (``encode_reference_images``); img2img with
@@ -277,8 +340,10 @@ class Flux2Pipeline:
         ``checkpoint_interval`` N and ``on_checkpoint``, the latents of steps
         N, 2N, ... below n stay on the device and are decoded after the loop:
         ``on_checkpoint(step, image)``, the image [H, W, 3] float32 in 1/255
-        steps (first batch row). ``upsample`` applies only when the prompt is
-        encoded here, as in JAX.
+        steps (first batch row). ``interpret_images`` (VLM descriptions put
+        before the prompt) and ``upsample`` (the BFL rewrite, with vision when
+        ``upsample_images`` is given) apply only when the prompt is encoded
+        here, in that order after the LoRA keywords, as in JAX.
 
         ``num_steps``, ``guidance`` and ``custom_sigmas`` left None take the
         merged LoRAs' overrides (``lora_num_steps``, ...), then the model's
@@ -301,12 +366,17 @@ class Flux2Pipeline:
         t = time.perf_counter()
         prof.start("1. Text Encoding")
         final_prompt = prompt
+        was_upsampled = False
         if embeddings is None:
             for kw in self.lora_keywords or ():  # the merged LoRAs' activation keywords
                 if kw and kw.lower() not in (final_prompt or "").lower():
                     final_prompt = f"{kw}, {final_prompt}" if final_prompt else kw
+            if interpret_images:
+                final_prompt = self.interpret_images(interpret_images, final_prompt or "", seed=seed)
             if upsample:
-                final_prompt = self.upsample_prompt(final_prompt or "")
+                rewritten = self.upsample_prompt(final_prompt or "", images=upsample_images, seed=seed)
+                was_upsampled = rewritten != final_prompt
+                final_prompt = rewritten
             embeddings = self.encode_prompt(final_prompt or "")
         if self.model.uses_classical_cfg and negative_embeddings is None and self.text_encoder is not None:
             negative_embeddings = self.encode_prompt("")
@@ -394,6 +464,7 @@ class Flux2Pipeline:
             images=images if images is not None and images.shape[0] > 1 else None,
             memory_stats=mem.as_dict() if mem.enabled else None,
             final_prompt=final_prompt,
+            was_upsampled=was_upsampled,
         )
 
     def _rope(self, ids: Sequence[np.ndarray]) -> Tuple[torch.Tensor, torch.Tensor]:

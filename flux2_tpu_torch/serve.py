@@ -19,9 +19,9 @@ JAX's byte for byte):
                                  timeout_s, 400 otherwise
   POST /embed                    {"prompt", "format": "json"|"npy"}: the conditioning
                                  embeddings' stats, or the [1, S, dim] float32 array
-  POST /chat                     chat on the attached encoder (JSON, or chunked with
-                                 a \\x1e stats trailer); 503 without one, which is
-                                 always so until the port has an encoder facade
+  POST /chat                     chat on the attached encoder through its facade
+                                 (JSON, or chunked with a \\x1e stats trailer);
+                                 503 without one (--no-text-encoder)
 
 Micro-batching (``Flux2Server.generate_png``): the prompt is encoded on the
 caller's thread (``embeddings_fn``), the request is queued, and one worker
@@ -54,9 +54,9 @@ store keeps at most 256 previews; past that, those older than 300 s go, then
 the oldest.
 
 ``main`` takes JAX's flags and ``--device`` (``cuda`` unless asked for the
-CPU). With ``--random-init`` the pipeline carries a random Qwen3 encoder
-(``cli.main.build_pipeline``), so ``/embed`` answers where JAX's random-init
-server answers 503. ``--tp`` > 1 is refused until the port has parallelism.
+CPU). With ``--random-init`` the pipeline carries a random encoder of the
+model's family in ``facade.shared`` (``cli.main.build_pipeline``), so
+``/embed`` and ``/chat`` answer where JAX's random-init server answers 503. ``--tp`` > 1 is refused until the port has parallelism.
 """
 
 from __future__ import annotations
@@ -381,7 +381,7 @@ class Flux2Server:
 
     def chat_available(self) -> bool:
         """True with a ``chat_fn``, or with an encoder facade (``pipeline.encoders``)
-        and its name: the port has no facade yet, so only ``chat_fn`` chats."""
+        and the attached encoder's name in it."""
         return self.chat_fn is not None or (
             getattr(self.pipeline, "encoders", None) is not None
             and getattr(self.pipeline, "text_encoder_name", None) is not None
@@ -390,12 +390,13 @@ class Flux2Server:
     def chat(self, messages, *, max_tokens: int = 512, temperature: float = 0.7,
              seed: int = 0, on_token=None, thinking: bool = False) -> dict:
         """One chat turn -> {"reply", "tokens", "duration_s", "tok_per_s"},
-        ``on_token(piece)`` called per token. Through ``chat_fn``; without one,
-        ``ChatUnavailableError`` (the port's pipeline has no encoder facade with
-        a chat surface yet)."""
+        ``on_token(piece)`` called per streamed piece (JAX ``chat``). Through
+        ``chat_fn``, else the pipeline's encoder facade (``encoders.chat`` on
+        ``text_encoder_name``), under ``chip_lock`` either way; with neither,
+        ``ChatUnavailableError`` (a ``--no-text-encoder`` server)."""
         if not isinstance(messages, list) or not messages:
             raise ValueError("messages must be a non-empty list of {role, content}")
-        if self.chat_fn is None:
+        if not self.chat_available():
             raise ChatUnavailableError(_NO_CHAT)
         t0 = time.time()
         ntok = [0]
@@ -406,8 +407,17 @@ class Flux2Server:
                 on_token(piece)
 
         with self.chip_lock:  # decoding and image batches share the card
-            reply = self.chat_fn(messages, max_tokens=max_tokens, temperature=temperature, seed=seed,
-                                 on_token=counting)
+            if self.chat_fn is not None:
+                reply = self.chat_fn(messages, max_tokens=max_tokens, temperature=temperature, seed=seed,
+                                     on_token=counting)
+            else:
+                from flux2_tpu_torch.models.text_encoders.generation import GenerateParameters
+
+                pipe = self.pipeline
+                reply = pipe.encoders.chat(
+                    messages, pipe.text_encoder_name,
+                    params=GenerateParameters(max_tokens=int(max_tokens), temperature=float(temperature)),
+                    seed=int(seed), on_token=counting, enable_thinking=thinking)
         dur = max(time.time() - t0, 1e-6)
         with self.lock:
             self.chats_served += 1

@@ -311,3 +311,97 @@ def test_small_command_flags_equal_jax(argv):
                                              "dequantize_runtime"}
     assert {k: port[k] for k in shared} == {k: ref[k] for k in shared}
     assert set(port) - set(ref) <= {"command", "device"}
+
+
+# -- python -m flux2_tpu_torch.cli.encoders (JAX's flux-encoders) ------------------------------------
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one thread for the encoder commands' many tiny ops (beside the
+    suite's other workers a thread a core oversubscribes the host)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def encoder_tree(tmp_path_factory):
+    """The tiny checkpoint tree of test_torch_checkpoints (its HF Qwen3 with the dev tokenizer)."""
+    from tests.test_torch_checkpoints import write_tiny_tree
+
+    return write_tiny_tree(tmp_path_factory.mktemp("enc_tree"))["text_encoder"]
+
+
+def _encoders_both(argv: list, stdin: str = None) -> tuple:
+    """(port lines, JAX lines) of one flux-encoders command; the port on the CPU."""
+    from flux2_tpu.cli import encoders as jenc
+    from flux2_tpu_torch.cli import encoders as tenc
+
+    lines = []
+    for main, extra in ((tenc.main, ["--device", "cpu"] if argv[0] != "models" else []), (jenc.main, [])):
+        if stdin is not None:
+            sys.stdin = io.StringIO(stdin)
+        try:
+            lines.append(_run(main, argv + extra))
+        finally:
+            sys.stdin = sys.__stdin__
+    return tuple(lines)
+
+
+def test_encoders_models_lines_equal_jax(clean_env):
+    port, ref = _encoders_both(["models"])
+    assert port == ref and any("mistral-small-3.2" in line for line in port)
+
+
+@pytest.mark.parametrize("command", [
+    ["generate", "--prompt", "a red fox", "--max-tokens", "3", "--temperature", "0"],
+    ["upsample", "--prompt", "a red fox"],
+    ["chat", "--max-tokens", "3", "--temperature", "0"],
+], ids=["generate", "upsample", "chat"])
+def test_encoders_text_commands_print_as_jax(command, encoder_tree, one_thread, monkeypatch):
+    """Greedy generate, upsample and chat print JAX's lines. upsample samples
+    ``GenerateParameters.upsampling()`` (256 tokens at 0.7, whatever
+    --max-tokens says, as JAX's); both packages' preset is patched to 3
+    greedy tokens here. The encoder is the tiny tree's Qwen3, bf16 in both."""
+    from flux2_tpu.models.text_encoders import generation as jgen
+    from flux2_tpu_torch.models.text_encoders import generation as tgen
+
+    for cls in (jgen.GenerateParameters, tgen.GenerateParameters):
+        monkeypatch.setattr(cls, "upsampling", classmethod(lambda c: c(max_tokens=3, temperature=0.0)))
+    argv = [command[0], "--family", "qwen3-4b", "--encoder-dir", encoder_tree, *command[1:]]
+    port, ref = _encoders_both(argv, stdin="hello there\n\n" if command[0] == "chat" else None)
+    assert port == ref and port
+
+
+def test_encoders_embed_and_compare_as_jax(encoder_tree, tmp_path, one_thread):
+    out, jout = str(tmp_path / "p.npy"), str(tmp_path / "j.npy")
+    from flux2_tpu.cli import encoders as jenc
+    from flux2_tpu_torch.cli import encoders as tenc
+
+    port = _run(tenc.main, ["embed", "--encoder-dir", encoder_tree, "--prompt", "a red fox", "-o", out,
+                            "--device", "cpu"])
+    ref = _run(jenc.main, ["embed", "--encoder-dir", encoder_tree, "--prompt", "a red fox", "-o", jout])
+    # numpy has no bfloat16 without ml_dtypes: the port saves the bf16 embeddings as float32, exactly
+    assert json.loads(port[0]) == {**json.loads(ref[0]), "output": out, "dtype": "float32"}
+    assert json.loads(ref[0])["dtype"] == "bfloat16"
+    a, b = np.load(out), np.load(jout)  # JAX's bf16 file loads as raw 2-byte records: widen them to float32
+    b = (np.frombuffer(b.tobytes(), np.uint16).astype(np.uint32) << 16).view(np.float32).reshape(b.shape)
+    assert a.dtype == np.float32 and a.shape == (1, 512, 192)
+    # bf16 in both, rounded at other points by XLA and torch over 28 layers: 2.23e-2 measured
+    assert float(np.linalg.norm(a - b) / np.linalg.norm(b)) <= 5e-2
+    port, ref = _encoders_both(["compare", "--encoder-dir", encoder_tree, "--encoder-dir-b", encoder_tree,
+                                "--prompt", "a red fox"])
+    stats, jstats = json.loads("\n".join(port)), json.loads("\n".join(ref))
+    assert stats.keys() == jstats.keys() and stats["cosine_similarity"] == pytest.approx(1.0)
+    assert stats["max_abs_diff"] == jstats["max_abs_diff"] == 0.0
+
+
+def test_encoders_vision_and_a_missing_dir_exit(capsys):
+    from flux2_tpu_torch.cli import encoders as tenc
+
+    with pytest.raises(SystemExit, match="vision half of ROADMAP item 8"):
+        tenc.main(["vision", "--image", "a.png"])
+    with pytest.raises(SystemExit, match="pass --encoder-dir"):
+        tenc.main(["generate", "--prompt", "x"])

@@ -3,8 +3,10 @@ K2 / K3 / K4 (its forward with the LSE and its backward) and K5 / K6 / K7
 (quantized matmuls); K1 at the I2I and klein-9b-kv shapes, and a tiny I2I and
 klein-9b-kv generate on the card with exact K1 launch counts; a tiny POST
 /generate over HTTP equal to the in-process generate, the subject U-Net
-on the card against the CPU, and a tiny real-data ``train-lora`` and a
-``remat: "dots"`` step against ``remat=True`` on the kernels.
+on the card against the CPU, a tiny real-data ``train-lora`` and a
+``remat: "dots"`` step against ``remat=True`` on the kernels; K5, K6 and
+the prologue at Mistral's M = 1 decode shapes (equal to the bit), K1 at
+Dev's 48 heads, and a tiny Mistral's KV-cached decode on the card.
 
 Skips without a CUDA device. Imports no JAX, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -666,3 +668,69 @@ def test_tiny_remat_dots_step_equals_block_remat_on_the_card(device):
         out[remat] = (float(loss.detach()), [p.grad.clone() for p in lora.parameters()], tfa.launch_counts())
     assert out[True][0] == out["dots"][0] and all(torch.equal(a, b) for a, b in zip(out[True][1], out["dots"][1]))
     assert out[True][2] == out["dots"][2] == {"flash": 0, "flash_lse": 6, "flash_bwd_dq": 3, "flash_bwd_dkv": 3}
+
+
+# -- the Dev / text-generation slice -------------------------------------------------------------------
+
+# Mistral Small 3.2's projections at the published width, as a decode token (M = 1), a 37-token
+# prefill and a 512-token encode give them: (M, K, N).
+MISTRAL_SHAPES = [(1, 5120, 4096), (1, 5120, 1024), (1, 5120, 32768), (1, 32768, 5120), (37, 5120, 32768),
+                  (512, 32768, 5120)]
+
+
+@pytest.mark.parametrize("m,k,n", MISTRAL_SHAPES)
+def test_k5_k6_and_the_prologue_at_the_mistral_shapes_equal_their_plain_versions(device, m, k, n):
+    """A decode row is 1 row of a 128-row tile: the rows past M must read as
+    zeros and never be stored, and row 0's scale is the only one read. K5,
+    K6 and the prologue (per row, and per 512-block) equal to the bit."""
+    x, w = _qmm_inputs(device, m, k, n)
+    for fmt, kernel, plain in (("w8a8", tqk.w8a8_matmul, tqk.w8a8_matmul_reference),
+                               ("w4a8", tqk.w4a8_matmul, tqk.w4a8_matmul_reference)):
+        qw = tq.to_w8a8(w) if fmt == "w8a8" else tq.to_w4a8(w)
+        out = kernel(x, qw)
+        torch.cuda.synchronize()
+        assert out.shape == (m, n) and torch.equal(out, plain(x, qw)), fmt
+    for block, plain in ((k, lambda: tqk.quantize_rows(x)), (512, lambda: tqk.quantize_row_blocks(x, 512))):
+        xq, xs = tqk.quantize_activations(x, block)
+        ref_q, ref_s = plain()
+        assert torch.equal(xq, ref_q) and torch.equal(xs.reshape(ref_s.shape), ref_s)
+
+
+def test_k1_at_48_heads_matches_reference(device):
+    """Dev's 48 heads (hidden 6144) at a small sequence."""
+    q, k, v = _qkv(device, 1, 48, 640, 640)
+    before = tfa.launches
+    out = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    assert _rel(out, tfa.flash_attention_reference(q, k, v)) <= REL_TOL
+
+
+def test_mistral_decode_on_the_card(device):
+    """A tiny llama4 Mistral in bf16 on the card: prefill + 8 decode_steps
+    against forward_logits on the same tokens (relative L2 1e-2 a row: the
+    cache holds bf16 keys, as forward_logits' stream); under w8a8 a greedy
+    decode launches K5 7 times a layer for the prefill and for each step
+    (the widths pass K5's gate; the LM head stays dense)."""
+    from flux2_tpu_torch.models.text_encoders import generation as gen
+    from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
+    from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder, init_kv_cache
+    from flux2_tpu_torch.models.text_encoders.extractor import quantize_encoder_params
+
+    cfg = DecoderConfig(vocab_size=1300, hidden_size=512, intermediate_size=1024, num_hidden_layers=3,
+                        num_attention_heads=8, num_key_value_heads=4, head_dim=64, rms_norm_eps=1e-5,
+                        llama4_scaling_beta=0.1, original_max_position_embeddings=8)
+    dec = Qwen3Decoder(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
+    ids = torch.randint(0, 1300, (1, 20), device=device, generator=torch.Generator(device=device).manual_seed(1))
+    with torch.inference_mode():
+        full = dec.forward_logits(ids)
+        cache = init_kv_cache(cfg, 1, 24, torch.bfloat16, device)
+        rows = [dec.prefill(ids[:, :12], cache)[0]]
+        rows += [dec.decode_step(ids[:, t:t + 1], cache)[0] for t in range(12, 20)]
+    for i, row in enumerate(rows):
+        assert _rel(row, full[:, 11 + i]) <= REL_TOL
+    quantize_encoder_params(dec, "w8a8")
+    before = tqk.launches["w8a8"]
+    out = gen.generate(dec, ids[0].tolist(), gen.GenerateParameters(max_tokens=6, temperature=0.0))
+    torch.cuda.synchronize()
+    assert len(out) == 6 and tqk.launches["w8a8"] - before == 7 * 3 * (1 + 6)  # the prefill, then 6 steps

@@ -19,8 +19,10 @@ LoRA / prequantized slice: ``export-quantized`` with a LoRA baked, ``t2i``
 w8a8 from the file and ``t2i --lora`` (the loader), the real-data training
 slice: ``train-lora`` from the checkpoint directories on a dataset with a
 preview and the held-out loss (``training/data.py``,
-``training/validation.py``) and ``evaluate-lora``, and
-reports whether any ``jax`` or ``flux2_tpu`` module was loaded. (The suite's conftest imports JAX, so this must run in a
+``training/validation.py``) and ``evaluate-lora``, the Dev / text-generation
+slice: ``t2i --model dev --random-init --upsample`` at a tiny size (Mistral,
+Tekken, the KV-cached decode) and ``python -m flux2_tpu_torch.cli.encoders
+generate``, and reports whether any ``jax`` or ``flux2_tpu`` module was loaded. (The suite's conftest imports JAX, so this must run in a
 subprocess.)
 """
 
@@ -177,6 +179,32 @@ with tempfile.TemporaryDirectory() as tmp:
     mask_png = list(decode_png(open(mask_path, "rb").read()).shape)
 segmented = list(subject_mask(src, device="cpu").shape)
 psnr = round(quality.psnr(src, src * 0.5), 3)
+# the Dev / text-generation slice: t2i --model dev --random-init --upsample at a tiny size (a 31-layer
+# Mistral, the Tekken tokenizer, the KV-cached decode), and the flux-encoders CLI's generate from a
+# Qwen3 checkpoint directory
+import contextlib, io
+from flux2_tpu_torch.cli import encoders
+real_build = cli.build_pipeline
+mistral = dataclasses.replace(TINY_DECODER, num_hidden_layers=31, qk_norm=False, tie_word_embeddings=False,
+                              llama4_scaling_beta=0.1, vocab_size=1300)
+cli.build_pipeline = lambda a, d: real_build(a, d, transformer_config=dataclasses.replace(qtc, guidance_embeds=True),
+                                             vae_config=vc, encoder_config=mistral)
+with tempfile.TemporaryDirectory() as tmp:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["t2i", "--model", "dev", "--random-init", "--upsample", "--prompt", "a fox", "--width", "32",
+                  "--height", "32", "--steps", "1", "--device", "cpu", "-o", os.path.join(tmp, "d.png")])
+    dev_png = list(decode_png(open(os.path.join(tmp, "d.png"), "rb").read()).shape)
+    dev_upsampled = "[upsample] final prompt: " in out.getvalue()
+    enc_dir = os.path.join(tmp, "e")
+    chip_smoke._write_sharded(enc_dir, chip_smoke._qwen3_state(dense.text_encoder.decoder, 28), "m",
+                              dataclasses.asdict(dense.text_encoder.decoder.cfg))
+    inline_bpe_tokenizer().save_pretrained(enc_dir)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        encoders.main(["generate", "--encoder-dir", enc_dir, "--prompt", "a fox", "--max-tokens", "2",
+                       "--temperature", "0", "--device", "cpu"])
+    generated = len(out.getvalue()) > 0
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
                   "flux2_tpu": sorted(m for m in sys.modules if m == "flux2_tpu" or m.startswith("flux2_tpu.")),
                   "image": list(res.image.shape), "png": list(decode_png(png).shape),
@@ -190,7 +218,8 @@ print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.starts
                   "tiled": list(tiled.shape), "auto_profile": profile, "native": native.path_name() != "numpy",
                   "http": answers, "beacons": beacons, "mask_png": mask_png, "segmented": segmented,
                   "psnr": psnr, "lora_pngs": lora_pngs, "prequant": [k for k, _ in prequant], "real": real,
-                  "evaluated": evaluated}))
+                  "evaluated": evaluated, "dev_png": dev_png, "dev_upsampled": dev_upsampled,
+                  "generated": generated}))
 """
 
 
@@ -213,4 +242,5 @@ def test_port_runs_without_importing_jax():
                       "lora_pngs": [[32, 32, 3], [32, 32, 3]], "prequant": ["format", "lora_baked"],
                       "real": ["best", "checkpoint_000001", "latent_cache", "learning_curve.svg", "val_latent_cache",
                                "validation"],
-                      "evaluated": ["baseline_000.png"]}
+                      "evaluated": ["baseline_000.png"], "dev_png": [32, 32, 3], "dev_upsampled": True,
+                      "generated": True}

@@ -180,8 +180,16 @@ def test_build_pipeline_refuses_what_is_not_ported(tmp_path, monkeypatch):
         tcli.build_pipeline(_args(quantization="fp3"), "cpu")
     with pytest.raises(ValueError):
         tcli.build_pipeline(_args(encoder_quantization="nf4"), "cpu")  # not an encoder choice in JAX
-    with pytest.raises(NotImplementedError):
-        tcli.build_pipeline(_args(model=Flux2Model.DEV.value), "cpu", encoder_config=None,
-                            transformer_config=TINY_DIT, vae_config=TINY_VAE)
+    # Dev builds since the Mistral encoder is ported: a tiny llama4 Mistral (31 layers: the recipe reads
+    # hidden layers 10, 20 and 30; joint = 3 x its hidden) with the Mistral recipe, quantized as asked
+    mistral = dataclasses.replace(TINY_QWEN3, num_hidden_layers=31, qk_norm=False, tie_word_embeddings=False,
+                                  llama4_scaling_beta=0.1, vocab_size=1300)
+    dev = tcli.build_pipeline(_args(model=Flux2Model.DEV.value, encoder_quantization="w8a8"), "cpu",
+                              torch.Generator().manual_seed(0), encoder_config=mistral,
+                              transformer_config=dataclasses.replace(TINY_DIT, guidance_embeds=True),
+                              vae_config=TINY_VAE)
+    assert dev.text_encoder_name == "mistral" and dev.text_encoder.recipe == "mistral"
+    assert tq.quantized_names(dev.text_encoder.decoder) and not tq.is_quantized(dev.text_encoder.decoder.lm_head)
+    assert dev.encode_prompt("a fox").shape == (1, 512, TINY_DIT.joint_attention_dim)
     with pytest.raises(SystemExit):
         tcli._parser().parse_args(["t2i", "--random-init", "--shard", "auto"])

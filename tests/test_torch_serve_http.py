@@ -21,6 +21,7 @@ package's, on the CPU.
 """
 
 import base64
+import dataclasses
 import io
 import json
 import socket
@@ -392,6 +393,84 @@ def test_chat_unavailable_without_chat_fn_and_through_chat_fn(pipe):
     seen = []
     out = server.chat(MESSAGES, on_token=seen.append)
     assert out["reply"] == "ab" and out["tokens"] == 2 and seen == ["a", "b"] and server.chats_served == 1
+
+
+class _WordTokenizer:
+    """A deterministic stub chat tokenizer (JAX's test has one of its kind)."""
+
+    pad_token_id = 0
+    eos_token_id = None
+
+    def apply_chat_template(self, messages, add_generation_prompt=False):
+        text = " ".join(m["content"] for m in messages)
+        return [sum(map(ord, w)) % 200 + 3 for w in text.split()][:16]
+
+    def decode(self, tokens):
+        return " ".join(f"t{t}" for t in tokens)
+
+
+def test_chat_through_a_tiny_qwen3_facade_equals_jax(pipe):
+    """JAX's test_serving_chat_and_models on both packages: a tiny Qwen3 (JAX's
+    perturbed init, carried across) attached through each facade; /chat over
+    localhost answers JSON and a chunked stream with the \\x1e trailer, the
+    greedy replies and token counts equal to JAX's server's, /models reports
+    chat available, and the port counts the chats."""
+    import jax
+    import jax.numpy as jnp
+
+    from flux2_tpu.models.text_encoders import decoder as jdec
+    from flux2_tpu.models.text_encoders import facade as jfacade
+    from flux2_tpu_torch.io.jax_params import decoder_from_jax
+    from flux2_tpu_torch.models.text_encoders import facade as tfacade
+    from flux2_tpu_torch.models.text_encoders.config import TINY_DECODER
+    from tests.test_torch_shared_copies import jax_config
+    from tests.test_torch_transformer import perturbed_numpy
+
+    params = perturbed_numpy(jdec.init_params(jax.random.PRNGKey(0), jax_config(TINY_DECODER), dtype=jnp.float32), 0)
+    jenc, tenc = jfacade.TextEncoders(), tfacade.TextEncoders()
+    jenc.attach("qwen3-tiny", jax.tree_util.tree_map(jnp.asarray, params), jax_config(TINY_DECODER),
+                _WordTokenizer(), (1, 2, 3), recipe="klein")
+    tenc.attach("qwen3-tiny", decoder_from_jax(params, TINY_DECODER), TINY_DECODER, _WordTokenizer(), (1, 2, 3),
+                recipe="klein")
+    servers = {"jax": jserve.Flux2Server(types.SimpleNamespace(encoders=jenc, text_encoder_name="qwen3-tiny")),
+               "port": tserve.Flux2Server(dataclasses.replace(pipe, encoders=tenc, text_encoder_name="qwen3-tiny"))}
+    answers = {}
+    for name, server in servers.items():
+        httpd = _serve_with(PACKAGES[name].make_handler, server)
+        try:
+            port = httpd.server_address[1]
+            status, _, body = _raw(port, "POST", "/chat", _post({"messages": [{"role": "user", "content": "hello world"}],
+                                                                 "max_tokens": 4, "temperature": 0.0}))
+            assert status == "HTTP/1.1 200 OK", body
+            out = json.loads(body)
+            assert set(out) == {"reply", "tokens", "duration_s", "tok_per_s"} and out["reply"] and out["tokens"] >= 1
+            status, headers, raw = _raw(port, "POST", "/chat", _post({"messages": [{"role": "user", "content": "hello"}],
+                                                                      "max_tokens": 4, "temperature": 0.0,
+                                                                      "stream": True}))
+            assert status == "HTTP/1.1 200 OK" and ("Transfer-Encoding", "chunked") in headers
+            visible, _, trailer = _dechunk(raw).decode().partition("\x1e")
+            stats = json.loads(trailer)
+            assert visible.strip() and stats["tokens"] >= 1
+            if name == "port":
+                assert server.chats_served == 2 and server.chat_available()
+                assert server.models()["loaded"]["chat_available"] is True
+            answers[name] = (out["reply"], out["tokens"], visible, stats["tokens"])
+        finally:
+            _close(httpd)
+            server.shutdown()
+    assert answers["port"] == answers["jax"]
+
+
+def _dechunk(raw: bytes) -> bytes:
+    """The payload of a chunked HTTP body."""
+    out = b""
+    while raw:
+        size, _, raw = raw.partition(b"\r\n")
+        n = int(size, 16)
+        if n == 0:
+            break
+        out, raw = out + raw[:n], raw[n + 2:]
+    return out
 
 
 def test_cancel_all_covers_running_batch(pipe):

@@ -659,3 +659,34 @@ def test_cli_device_defaults_to_cuda(argv):
 
 def test_from_random_defaults_to_cuda():
     assert inspect.signature(Flux2Pipeline.from_random).parameters["device"].default == "cuda"
+
+
+# -- the Dev / text-generation slice: the Tekken tokenizer and the BFL system prompts -------------------
+
+
+@pytest.mark.parametrize("text", ["", "a red fox", "héllo — テスト 🚀\n\ttabs", "[IMG]<s>[INST]"])
+def test_tekken_copy_equals_jax(text):
+    """``models/text_encoders/tekken.py`` is a copy of JAX's: the byte
+    fallback and the goldens' fixture give JAX's ids, decodes and chat ids
+    (the full cases in tests/test_torch_tekken.py)."""
+    from flux2_tpu.models.text_encoders.tekken import TekkenTokenizer as JTekken
+    from flux2_tpu_torch.models.text_encoders.tekken import TekkenTokenizer
+
+    fixture = os.path.join(os.path.dirname(__file__), "goldens", "tekken_fixture.json")
+    for port, ref in ((TekkenTokenizer.byte_fallback(), JTekken.byte_fallback()),
+                      (TekkenTokenizer.from_pretrained(fixture), JTekken.from_pretrained(fixture))):
+        ids = port.encode(text, add_special_tokens=True)
+        assert ids == ref.encode(text, add_special_tokens=True)
+        assert port.decode(ids, skip_special_tokens=False) == ref.decode(ids, skip_special_tokens=False)
+        messages = [{"role": "system", "content": text}, {"role": "user", "content": text}]
+        assert port.apply_chat_template(messages) == ref.apply_chat_template(messages)
+        assert (port.vocab_size, port.pad_token_id, port.eos_token_id) == (ref.vocab_size, ref.pad_token_id,
+                                                                           ref.eos_token_id)
+
+
+def test_bfl_system_prompts_equal_jax():
+    from flux2_tpu.models.text_encoders import extractor as jext
+    from flux2_tpu_torch.models.text_encoders import extractor as text
+
+    for name in ("SYSTEM_MESSAGE_EMBEDDINGS", "SYSTEM_MESSAGE_UPSAMPLING_T2I", "SYSTEM_MESSAGE_UPSAMPLING_I2I"):
+        assert getattr(text, name) == getattr(jext, name)
