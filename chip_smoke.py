@@ -73,7 +73,19 @@ decode at exactly 280 K5 launches a token); the Dev DiT at full width in bf16 (a
 against plain attention, a 4-step 1024^2 generate from the Mistral embeddings: 224 K1 launches); and
 `t2i --model dev --random-init --quantization w8a8 --encoder-quantization w8a8 --steps 2 --upsample`
 in a process of its own (the PNG, the "[upsample] final prompt:" line, exact K1 and K5 counts). /chat
-answers 200 on the random-init server (phase_http). Every path runs with the launch
+answers 200 on the random-init server (phase_http). The VLM slice (phase_vlm, after phase_dev, while
+the checkpoint phase's Klein-4B directories still exist): A, Mistral Small 3.2 at the published width
+with Pixtral at its built-in width, random on the card: the tower and projector on a 1008^2 image (1296
+image tokens), two images' prefill logits apart, a 1024^2 image refused (73 x 73 patches: an odd grid),
+a greedy 32-token analyze_image in bf16 and with the LM at w8a8 (exactly 280 K5 and prologue launches a
+pass); B, the built-in Qwen3.5 (32 layers) with its vision tower at out_hidden_size 2048 on a 1024^2
+image: prefill, a decode step and chat tokens/s, prefill + 16 steps against forward_logits, the
+chunked Gated DeltaNet against the sequential recurrence in f32 at S = 1024 (also under strong decay,
+where JAX's chunked form gives NaN), compare_images_for_flux and score_validation_image; C, a random
+Qwen3.5-VL checkpoint at full width (depth cut to 4 LM layers and 2 vision blocks) under the registry's
+qwen35-vlm path, then `t2i --interpret`, `i2i --upsample`, `flux-encoders vision --image` / `--image2`,
+`inpaint --enrich-prompt-with-vlm --intent remove` and `evaluate-lora` (VLM scoring) from the Klein-4B
+directories, each with its VLM replies in use. Every path runs with the launch
 counts set to 0 just before it and checks them just after. Any failure raises: the
 traceback is printed and the exit code is not 0. There is no CPU fallback.
 
@@ -97,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import statistics
@@ -2200,97 +2213,7 @@ QWEN3_4B_CONFIG_JSON = {
     "max_position_embeddings": 40960, "torch_dtype": "bfloat16",
 }
 KLEIN_RECIPE_DEPTH = 28  # the Klein recipe reads hidden layers 9, 18 and 27
-SHARD_BYTES = 5 * 10**9  # the largest safetensors file written
 ROUND_TRIP = {"prompt": "a lighthouse on a cliff at dusk, from a checkpoint", "seed": 5}
-
-
-def _diffusers_transformer_state(model) -> dict:
-    """The DiT in the Diffusers dialect (Flux2Transformer2DModel names): the
-    inverse of the port's map, written out here on its own so the round trip
-    checks the map rather than restating it."""
-    double = {"to_q": "attn.to_q", "to_k": "attn.to_k", "to_v": "attn.to_v", "to_out": "attn.to_out.0",
-              "add_q": "attn.add_q_proj", "add_k": "attn.add_k_proj", "add_v": "attn.add_v_proj",
-              "add_out": "attn.to_add_out", "norm_q": "attn.norm_q", "norm_k": "attn.norm_k",
-              "norm_added_q": "attn.norm_added_q", "norm_added_k": "attn.norm_added_k", "ff_in": "ff.linear_in",
-              "ff_out": "ff.linear_out", "ff_ctx_in": "ff_context.linear_in", "ff_ctx_out": "ff_context.linear_out"}
-    top = {"x_embedder": "x_embedder", "context_embedder": "context_embedder",
-           "time_linear1": "time_guidance_embed.timestep_embedder.linear_1",
-           "time_linear2": "time_guidance_embed.timestep_embedder.linear_2",
-           "double_mod_img": "double_stream_modulation_img.linear",
-           "double_mod_txt": "double_stream_modulation_txt.linear",
-           "single_mod": "single_stream_modulation.linear", "norm_out": "norm_out.linear", "proj_out": "proj_out"}
-    out = {f"{name}.weight": getattr(model, attr) for attr, name in top.items()}
-    for i, blk in enumerate(model.double_blocks):
-        for attr, name in double.items():
-            out[f"transformer_blocks.{i}.{name}.weight"] = getattr(blk, attr)
-    for i, blk in enumerate(model.single_blocks):
-        p = f"single_transformer_blocks.{i}.attn."
-        out[p + "to_qkv_mlp_proj.weight"] = torch.cat([blk.to_q, blk.to_k, blk.to_v, blk.mlp_gate, blk.mlp_up])
-        out[p + "to_out.weight"] = torch.cat([blk.out_attn, blk.out_mlp], dim=1)
-        out[p + "norm_q.weight"], out[p + "norm_k.weight"] = blk.norm_q, blk.norm_k
-    return out
-
-
-def _autoencoder_state(vae, encoder) -> dict:
-    """The VAE decoder and encoder (with quant_conv) in diffusers AutoencoderKL names."""
-    mid = (("mid_resnet1.", "mid_block.resnets.0."), ("mid_resnet2.", "mid_block.resnets.1."),
-           ("mid_attn.to_out.", "mid_block.attentions.0.to_out.0."), ("mid_attn.", "mid_block.attentions.0."),
-           ("norm_out.", "conv_norm_out."), ("conv_in.", "conv_in."), ("conv_out.", "conv_out."))
-    out = {}
-    for name, t in vae.state_dict().items():
-        if name.startswith("up_blocks."):
-            key = "decoder." + name.replace(".upsample.", ".upsamplers.0.conv.")
-        elif name.startswith(("bn_running_", "post_quant_conv.")):
-            key = name.replace("bn_running_", "bn.running_")
-        else:
-            key = next("decoder." + dst + name[len(src):] for src, dst in mid if name.startswith(src))
-        out[key] = t
-    for name, t in encoder.state_dict().items():
-        if name.startswith("down_blocks."):
-            key = "encoder." + name.replace(".downsample.", ".downsamplers.0.conv.")
-        elif name.startswith("quant_conv."):
-            key = name
-        else:
-            key = next("encoder." + dst + name[len(src):] for src, dst in mid if name.startswith(src))
-        out[key] = t
-    return out
-
-
-def _qwen3_state(decoder, layers: int) -> dict:
-    """The first ``layers`` layers in HF Qwen3 names, tied embeddings (no
-    lm_head), and ``model.norm`` (the decoder's ``final_norm``)."""
-    names = {"input_norm": "input_layernorm", "post_attn_norm": "post_attention_layernorm",
-             "q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj", "v_proj": "self_attn.v_proj",
-             "o_proj": "self_attn.o_proj", "q_norm": "self_attn.q_norm", "k_norm": "self_attn.k_norm",
-             "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj", "down_proj": "mlp.down_proj"}
-    out = {"model.embed_tokens.weight": decoder.embed_tokens,
-           "model.norm.weight": decoder.final_norm}
-    for i in range(layers):
-        for attr, name in names.items():
-            out[f"model.layers.{i}.{name}.weight"] = getattr(decoder.layers[i], attr)
-    return out
-
-
-def _write_sharded(path: str, state: dict, stem: str, config: dict) -> int:
-    """``state`` as safetensors files of at most SHARD_BYTES each (copied off
-    the card one file at a time) with its config.json; returns bytes written."""
-    from flux2_tpu_torch.io import safetensors_io
-
-    os.makedirs(path, exist_ok=True)
-    shards, size = [[]], 0
-    for name, t in state.items():
-        nbytes = t.numel() * t.element_size()
-        if shards[-1] and size + nbytes > SHARD_BYTES:
-            shards.append([])
-            size = 0
-        shards[-1].append(name)
-        size += nbytes
-    for i, names in enumerate(shards):
-        safetensors_io.save_file({n: state[n].detach().cpu() for n in names},
-                                 os.path.join(path, f"{stem}-{i + 1:05d}-of-{len(shards):05d}.safetensors"))
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(config, f)
-    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
 def _run_cli(argv: list, label: str, card: str, tag: str = "ckpt") -> list:
@@ -2307,8 +2230,8 @@ def _run_cli(argv: list, label: str, card: str, tag: str = "ckpt") -> list:
         if cli.main(argv) != 0:
             raise AssertionError(f"{label} exited non-zero")
     lines = buf.getvalue().strip().splitlines()
-    for line in lines:
-        log(f"[{tag} {label}] {line}")
+    for line in lines:  # a random model's text is random bytes: escaped
+        log(f"[{tag} {label}] {line if line.isprintable() else ascii(line)}")
     log(f"[{tag} {label}] {time.perf_counter() - t0:.2f} s of command [{card}]")
     return lines
 
@@ -2370,6 +2293,7 @@ def phase_checkpoint_round_trip(card: str, workdir: str) -> dict:
     from flux2_tpu_torch.utils import inline_bpe_tokenizer
     from flux2_tpu_torch.utils import memory as tmem
     from flux2_tpu_torch.utils import profiler as tprof
+    from flux2_tpu_torch.utils import synthetic
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     pipe = Flux2Pipeline.from_random(Flux2Model.KLEIN_4B, device="cuda", generator=gen)
@@ -2397,13 +2321,14 @@ def phase_checkpoint_round_trip(card: str, workdir: str) -> dict:
     dirs = {k: os.path.join(workdir, k) for k in ("transformer", "vae", "text_encoder")}
     t0 = time.perf_counter()
     written = {
-        "transformer": _write_sharded(dirs["transformer"], _diffusers_transformer_state(pipe.transformer),
-                                      "diffusion_pytorch_model", {"_class_name": "Flux2Transformer2DModel",
-                                                                  **dataclasses.asdict(pipe.transformer.config)}),
-        "vae": _write_sharded(dirs["vae"], _autoencoder_state(pipe.vae, pipe.vae_encoder), "diffusion_pytorch_model",
-                              {"_class_name": "AutoencoderKLFlux2", **dataclasses.asdict(pipe.vae.config)}),
-        "text_encoder": _write_sharded(dirs["text_encoder"], _qwen3_state(decoder, layers), "model",
-                                       dict(QWEN3_4B_CONFIG_JSON, num_hidden_layers=layers)),
+        "transformer": synthetic.write_sharded(
+            dirs["transformer"], synthetic.diffusers_transformer_state(pipe.transformer), "diffusion_pytorch_model",
+            {"_class_name": "Flux2Transformer2DModel", **dataclasses.asdict(pipe.transformer.config)}),
+        "vae": synthetic.write_sharded(
+            dirs["vae"], synthetic.autoencoder_state(pipe.vae, pipe.vae_encoder), "diffusion_pytorch_model",
+            {"_class_name": "AutoencoderKLFlux2", **dataclasses.asdict(pipe.vae.config)}),
+        "text_encoder": synthetic.write_sharded(dirs["text_encoder"], synthetic.qwen3_state(decoder, layers), "model",
+                                                dict(QWEN3_4B_CONFIG_JSON, num_hidden_layers=layers)),
     }
     tokenizer.save_pretrained(dirs["text_encoder"])
     log(f"[ckpt] wrote {', '.join(f'{k} {v / 2**30:.2f} GiB' for k, v in written.items())} in "
@@ -2515,46 +2440,6 @@ def phase_checkpoint_round_trip(card: str, workdir: str) -> dict:
 
 
 # -- real-data LoRA training -----------------------------------------------------------------
-
-DATASET_CAPTIONS = ("a photo of [trigger] on a wooden table", "[trigger] in a garden at dawn",
-                    "a close-up of [trigger], studio light", "[trigger] beside a mountain lake",
-                    "a sketch of [trigger]", "[trigger] on a beach at noon")
-
-
-def write_dataset(root: str, seed: int, sizes, captions=DATASET_CAPTIONS, control=(), manifest: bool = False) -> dict:
-    """A training dataset written from ``seed``: one PNG per (width, height) of
-    ``sizes`` (smooth colour fields with noise), its caption (``[trigger]``
-    placeholders) as a ``.txt`` sidecar or, with ``manifest``, one
-    ``manifest.jsonl``; the items of ``control`` (indices) also get a control
-    image of their size in ``<root>_control``. Returns the directories."""
-    import numpy as np
-
-    from flux2_tpu_torch.io.png import encode_png
-
-    rng = np.random.RandomState(seed)
-    control_dir = root + "_control"
-    os.makedirs(root, exist_ok=True)
-    records = []
-    for i, (w, h) in enumerate(sizes):
-        for directory, name in [(root, f"image_{i:02d}.png")] + ([(control_dir, f"image_{i:02d}.png")]
-                                                                  if i in control else []):
-            os.makedirs(directory, exist_ok=True)
-            yy, xx = np.mgrid[0:h, 0:w] / max(w, h)
-            base = np.stack([np.sin(2 * np.pi * (rng.uniform(0.5, 3) * xx + rng.uniform(0.5, 3) * yy + rng.uniform()))
-                             for _ in range(3)], axis=-1)
-            img = np.clip(127.5 + 100 * base + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
-            _write_file(os.path.join(directory, name), encode_png(img))
-        caption = captions[i % len(captions)]
-        records.append({"image": f"image_{i:02d}.png", "caption": caption})
-        if i in control:
-            records[-1]["control"] = os.path.relpath(os.path.join(control_dir, f"image_{i:02d}.png"), root)
-        if not manifest:
-            with open(os.path.join(root, f"image_{i:02d}.txt"), "w") as f:
-                f.write(caption)
-    if manifest:
-        with open(os.path.join(root, "manifest.jsonl"), "w") as f:
-            f.writelines(json.dumps(r) + "\n" for r in records)
-    return {"dataset": root, "control": control_dir if control else None}
 
 
 VAL_CAPTIONS = ("a watercolour of a lighthouse", "a red bicycle against a brick wall")
@@ -2948,6 +2833,8 @@ def phase_train_real(card: str, workdir: str, dirs: dict) -> dict:
     two-item held-out set): A random-init on the dataset and its resume, B
     QLoRA from the CLI (w8a8, qint8), C remat dots against True, D
     evaluate-lora."""
+    from flux2_tpu_torch.utils.synthetic import write_dataset
+
     t0 = time.perf_counter()
     root = os.path.join(workdir, "train_real")
     data = write_dataset(os.path.join(root, "dataset"), SEED + 20, [(512, 512), (384, 672)] * 3, control=(0, 1))
@@ -3085,7 +2972,7 @@ def _velocity(model, inputs, **kw) -> torch.Tensor:
     return v
 
 
-def _run_cli_logged(argv: list, label: str, card: str) -> tuple:
+def _run_cli_logged(argv: list, label: str, card: str, tag: str = "lora") -> tuple:
     """``_run_cli`` with the command's log lines (standard error) captured,
     logged and returned with its standard output's lines."""
     import contextlib
@@ -3093,9 +2980,9 @@ def _run_cli_logged(argv: list, label: str, card: str) -> tuple:
 
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        lines = _run_cli(argv, label, card, tag="lora")
+        lines = _run_cli(argv, label, card, tag=tag)
     for line in err.getvalue().strip().splitlines():
-        log(f"[lora {label}] {line}")
+        log(f"[{tag} {label}] {line[:300] if line.isprintable() else ascii(line)[:300]}")
     return lines, err.getvalue()
 
 
@@ -3973,6 +3860,557 @@ def phase_dev(card: str) -> dict:
     return out
 
 
+# -- the VLM slice ------------------------------------------------------------------------------------
+
+# Pixtral at a 1008^2 image: 72 x 72 patches of 14 px, merged 2x2 into 1296 image tokens. A 1024^2 image
+# gives 73 x 73 patches: an odd grid the 2x2 merger cannot tile (the port's ValueError).
+VLM_PIXTRAL_SIDE = 1008
+VLM_ODD_SIDE = 1024
+VLM_TOKENS = 32
+VLM_PROMPT = "Describe this image in detail."
+# Qwen3.5 at a 1024^2 image: 64 x 64 patches of 16 px, merged 2x2 into 1024 image tokens.
+VLM_QWEN35_SIDE = 1024
+VLM_TEACHER_STEPS = 16
+# prefill + 16 decode steps against forward_logits of the whole sequence, relative L2 the worst row. With
+# the weights in f32 (TF32 off) both paths run f32 and differ only in summation order: a cache, mask or
+# position error is O(1e-1) and more. The bf16 model is held against that f32 forward: this random Qwen3.5
+# amplifies bf16 rounding (a first chip run measured its bf16 forward_logits 0.149 from the f32 one, the
+# service's path 0.091: f32 conv and KV caches, JAX's init_hybrid_cache, make it f32 after layer 3), so
+# the bound is the bf16 forward's own distance with a third of margin.
+VLM_TEACHER_FORCED_F32_TOL = 1e-3
+VLM_TEACHER_FORCED_REL_TOL = 0.2
+# the chunked Gated DeltaNet against the sequential recurrence, f32 (TF32 off), over S >= 1024 tokens of
+# one layer's q, k, v and beta: max abs error of y (and of the final state) over max |y| (|state|). Once
+# with the layer's own g, once with g drawn in DELTA_STRONG_G: there a 64-token chunk's decay sums past
+# -88.72 (log of float32's largest), the exponent JAX's chunked form takes above the diagonal overflows
+# (its NaN), while neighbouring tokens still interact (ratios 0.1-0.2).
+DELTA_S = 1024
+DELTA_REL_TOL = 1e-4
+DELTA_STRONG_G = (0.1, 0.2)
+# the CLI's Qwen3.5-VL checkpoint: full width, the depth cut to one period of the hybrid stack (3
+# DeltaNet layers + 1 full-attention layer) and 2 vision blocks
+VLM_CLI_LM_LAYERS = 4
+VLM_CLI_VISION_DEPTH = 2
+VLM_CLI_SIDE = 512
+
+
+def _number(tag: str, what: str, value: float, unit: str, card: str, note: str = "") -> float:
+    """Log one measured number on a line of its own; returns it."""
+    log(f"[{tag}] {what}: {value:.6g} {unit}{f' ({note})' if note else ''} [{card}]")
+    return value
+
+
+class _ReplyRecorder:
+    """Records every reply a VLM service's ``chat`` / ``analyze_image`` gives
+    (patched on the class for the block)."""
+
+    def __init__(self, *classes):
+        self.classes, self.replies, self.saved = classes, [], []
+
+    def __enter__(self):
+        for cls in self.classes:
+            for name in ("chat", "analyze_image"):
+                if name in vars(cls):
+                    real = vars(cls)[name]
+                    self.saved.append((cls, name, real))
+                    setattr(cls, name, self._wrap(real, f"{cls.__name__}.{name}"))
+        return self
+
+    def _wrap(self, real, label):
+        def wrapped(svc, *a, **k):
+            reply = real(svc, *a, **k)
+            self.replies.append((label, reply))
+            return reply
+        return wrapped
+
+    def __exit__(self, *exc):
+        for cls, name, real in self.saved:
+            setattr(cls, name, real)
+
+
+def _k5_prefill_against_plain(svc, image, per_pass: int, card: str) -> dict:
+    """Every K5 call of one w8a8 VLM prefill (the image tokens and the prompt:
+    M = 1320 rows, ten full 128-row tiles and a ragged one, at K 5120 and
+    32768) held against ``w8a8_matmul_reference`` on the same activations:
+    equal to the bit, as K5 is at the served shapes."""
+    from flux2_tpu_torch.ops import quant_kernels as qk
+
+    real, shapes = qk.w8a8_matmul, {}
+
+    def held(x, w):
+        y = real(x, w)
+        ref = qk.w8a8_matmul_reference(x, w)
+        mkn = (x.numel() // x.shape[-1], x.shape[-1], w.q.shape[0])
+        if not torch.equal(y, ref):
+            raise AssertionError(f"K5 in the VLM prefill, (M,K,N)={mkn}: max abs "
+                                 f"{float((y.float() - ref.float()).abs().max())} from its plain version, want equal")
+        shapes[mkn] = shapes.get(mkn, 0) + 1
+        return y
+    qk.w8a8_matmul = held
+    try:
+        with torch.inference_mode():
+            svc.prefill(image, VLM_PROMPT, 1)
+    finally:
+        qk.w8a8_matmul = real
+    calls = sum(shapes.values())
+    if calls != per_pass:
+        raise AssertionError(f"the w8a8 VLM prefill made {calls} K5 calls, want {per_pass}")
+    log(f"[vlm A] w8a8 prefill: all {calls} K5 calls equal to w8a8_matmul_reference to the bit, (M,K,N) x calls "
+        f"{ {'x'.join(map(str, k)): v for k, v in sorted(shapes.items())} } [{card}]")
+    _number("vlm A", "w8a8 prefill, K5 calls equal to their plain version to the bit", calls, "", card)
+    return {"calls": calls, "shapes": {"x".join(map(str, k)): v for k, v in shapes.items()}}
+
+
+def phase_vlm_mistral(card: str) -> dict:
+    """A: Mistral Small 3.2 at the published width with Pixtral at its built-in
+    width (24 blocks, hidden 1024), random from a seed on the card: the tower
+    and projector on a 1008^2 image (1296 image tokens), greedy
+    ``analyze_image`` of 32 tokens in bf16, the prefill logits of two
+    different images apart, a 1024^2 image refused (odd patch grid), then the
+    LM quantized to w8a8 in place: every K5 call of a prefill equal to its
+    plain version to the bit, then the same analysis at exactly 280 K5 (and
+    prologue) launches a pass (the prefill and each stepped token)."""
+    import dataclasses
+
+    import numpy as np
+
+    from flux2_tpu_torch.models.text_encoders import generation
+    from flux2_tpu_torch.models.text_encoders.config import MISTRAL_SMALL_3_2
+    from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
+    from flux2_tpu_torch.models.text_encoders.extractor import quantize_encoder_params
+    from flux2_tpu_torch.models.text_encoders.pixtral import PixtralVision, PixtralVisionConfig
+    from flux2_tpu_torch.models.text_encoders.tekken import random_init_tokenizer
+    from flux2_tpu_torch.models.text_encoders.vlm_service import MistralVLMService
+    from flux2_tpu_torch.ops import quant as tq
+
+    cfg = dataclasses.replace(MISTRAL_SMALL_3_2, intermediate_size=MISTRAL_PUBLISHED_INTERMEDIATE)
+    vcfg = PixtralVisionConfig(text_hidden_size=cfg.hidden_size)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    decoder = Qwen3Decoder(cfg, device="cuda", generator=gen)
+    vision = PixtralVision.from_random(vcfg, "cuda", gen)
+    torch.cuda.synchronize()
+    svc = MistralVLMService(decoder, cfg, vision, vcfg, random_init_tokenizer(cfg.vocab_size))
+    log(f"[vlm A] random Mistral Small 3.2 (published width) + Pixtral ({vcfg.num_hidden_layers} blocks, hidden "
+        f"{vcfg.hidden_size}) drawn in {time.perf_counter() - t0:.2f} s: Pixtral {tq.param_bytes(vision) / 2**30:.2f} "
+        f"GiB, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated [{card}]")
+    images = [reference_image(VLM_PIXTRAL_SIDE), np.ascontiguousarray(reference_image(VLM_PIXTRAL_SIDE)[::-1])]
+    images = [im.astype(np.float32) / 255.0 for im in images]
+    feats = svc.encode_image(images[0])
+    n_img = (VLM_PIXTRAL_SIDE // vcfg.patch_size // 2) ** 2
+    if tuple(feats.shape) != (1, n_img, cfg.hidden_size) or not torch.isfinite(feats).all():
+        raise AssertionError(f"Pixtral: {tuple(feats.shape)}, want (1, {n_img}, {cfg.hidden_size}), finite")
+    out = {"image_tokens": n_img, "tower_ms": time_ms(lambda: svc.encode_image(images[0]), reps=3, warmup=1)}
+    with torch.inference_mode():
+        rows = [svc.prefill(im, VLM_PROMPT, 1)[0].float() for im in images]
+    out["logit_diff"] = float((rows[0] - rows[1]).abs().max())
+    if not all(torch.isfinite(r).all() for r in rows) or not out["logit_diff"] > 0:
+        raise AssertionError(f"two images' prefill logits: max abs difference {out['logit_diff']}")
+    out["prefill_ms"] = time_ms(lambda: svc.prefill(images[0], VLM_PROMPT, 1), reps=3, warmup=1)
+    try:
+        svc.encode_image(reference_image(VLM_ODD_SIDE).astype(np.float32) / 255.0)
+    except ValueError as e:
+        if "even patch grid" not in str(e):
+            raise
+        out["odd_grid_error"] = str(e)
+    else:
+        raise AssertionError(f"a {VLM_ODD_SIDE}^2 image (73 x 73 patches) was not refused")
+    log(f"[vlm A] Pixtral + projector at {VLM_PIXTRAL_SIDE}^2 -> (1, {n_img}, {cfg.hidden_size}), finite; "
+        f"{VLM_ODD_SIDE}^2 refused: {out['odd_grid_error']} [{card}]")
+    _number("vlm A", f"Pixtral + projector at {VLM_PIXTRAL_SIDE}^2, warm", out["tower_ms"], "ms", card)
+    _number("vlm A", f"bf16 prefill of {n_img} image + prompt tokens, tower included", out["prefill_ms"], "ms", card)
+    _number("vlm A", "two images' last logits, max abs difference", out["logit_diff"], "", card)
+
+    greedy = generation.GenerateParameters(max_tokens=VLM_TOKENS, temperature=0.0)
+    for fmt in ("bf16", "w8a8"):
+        if fmt == "w8a8":
+            quantize_encoder_params(decoder, "w8a8")
+            per_pass = _w8a8_launches(Qwen3Decoder(cfg, device="meta").layers, 1)
+            out["k5_prefill"] = _k5_prefill_against_plain(svc, images[0], per_pass, card)
+        made = []
+        real = generation.decode_loop
+
+        def counting(*a, **k):
+            res = real(*a, **k)
+            made.append(len(res))
+            return res
+        generation.decode_loop = counting
+        try:
+            _zero_launches()
+            t0 = time.perf_counter()
+            reply = svc.analyze_image(images[0], VLM_PROMPT, gen_params=greedy)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = _launch_counts()
+        finally:
+            generation.decode_loop = real
+        n = made[0]
+        if not 1 <= n <= VLM_TOKENS or not isinstance(reply, str):
+            raise AssertionError(f"{fmt} analyze_image: {n} tokens")
+        want = {} if fmt == "bf16" else {"w8a8": per_pass * (1 + n), "quantize_rows": per_pass * (1 + n)}
+        _expect_counts(f"Mistral VLM {fmt} analyze_image", counts, want)
+        if fmt == "w8a8" and per_pass != 280:
+            raise AssertionError(f"{per_pass} K5 launches a Mistral pass, want 280")
+        with torch.inference_mode():  # one decode step at the analysis' length, its slot rewritten each time
+            _, cache, _ = svc.prefill(images[0], VLM_PROMPT, 1)
+            length, tok1 = cache.length, torch.zeros(1, 1, dtype=torch.long, device="cuda")
+
+            def one():
+                cache.length = length
+                decoder.decode_step(tok1, cache)
+            step_ms = time_ms(one, reps=10, warmup=2)
+        del cache
+        out[fmt] = {"tokens": n, "s": secs, "tok_per_s": n / secs, "counts": counts, "reply_chars": len(reply),
+                    "decode_step_ms": step_ms}
+        log(f"[vlm A] {fmt} analyze_image, greedy: {n} tokens, launches {counts}"
+            f"{f' (280 x (1 + {n}))' if fmt == 'w8a8' else ''}; reply {ascii(reply[:60])} [{card}]")
+        _number("vlm A", f"{fmt} analyze_image of {n} tokens, tower and prefill included", secs, "s", card)
+        _number("vlm A", f"{fmt} analyze_image", n / secs, "tok/s", card, "tower and prefill included")
+        _number("vlm A", f"{fmt} decode_step after the {length}-token image prompt", step_ms, "ms", card)
+    out["peak_gib"] = _number("vlm A", "peak device memory", torch.cuda.max_memory_allocated() / 2**30, "GiB", card)
+    del svc, decoder, vision, feats, rows
+    gc_cuda()
+    return out
+
+
+def phase_vlm_qwen35(card: str) -> dict:
+    """B: the built-in Qwen35TextConfig (32 layers: 24 Gated DeltaNet + 8 full
+    attention, hidden 2048, vocab 248320) with the built-in
+    Qwen35VisionConfig at out_hidden_size 2048, random from a seed on the
+    card: a 1024^2 image (1024 image tokens) -> prefill, a decode step and
+    greedy chat tokens/s; prefill + 16 steps against forward_logits
+    (VLM_TEACHER_FORCED_REL_TOL); the chunked DeltaNet against the sequential
+    recurrence in f32 at S = 1024 (a layer's own q/k/v/g/beta, and with g
+    drawn in DELTA_STRONG_G, where JAX's chunked form overflows);
+    compare_images_for_flux and score_validation_image."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from flux2_tpu_torch.models.text_encoders.facade import HFTokenizerAdapter
+    from flux2_tpu_torch.models.text_encoders.qwen35 import (Qwen35LM, Qwen35TextConfig, gated_delta_update,
+                                                             gated_delta_update_chunked, init_hybrid_cache)
+    from flux2_tpu_torch.models.text_encoders.qwen35_vision import Qwen35Vision, Qwen35VisionConfig
+    from flux2_tpu_torch.models.text_encoders.vlm_service import Qwen35VLMService
+    from flux2_tpu_torch.ops import quant as tq
+    from flux2_tpu_torch.pipeline.pipeline import _full_f32
+    from flux2_tpu_torch.utils.synthetic import vocab_tokenizer
+
+    lm_cfg = Qwen35TextConfig()
+    v_cfg = dataclasses.replace(Qwen35VisionConfig(), out_hidden_size=lm_cfg.hidden_size)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    lm = Qwen35LM.from_random(lm_cfg, "cuda", gen)
+    vision = Qwen35Vision.from_random(v_cfg, "cuda", gen)
+    tok = HFTokenizerAdapter(vocab_tokenizer(lm_cfg.vocab_size))
+    svc = Qwen35VLMService(lm, lm_cfg, vision, v_cfg, tok)
+    torch.cuda.synchronize()
+    log(f"[vlm B] random Qwen3.5 ({lm_cfg.num_hidden_layers} layers, hidden {lm_cfg.hidden_size}, vocab "
+        f"{lm_cfg.vocab_size}) + vision tower ({v_cfg.depth} blocks, hidden {v_cfg.hidden_size}, out "
+        f"{v_cfg.out_hidden_size}) drawn in {time.perf_counter() - t0:.2f} s: LM {tq.param_bytes(lm) / 2**30:.2f} "
+        f"GiB, tower {tq.param_bytes(vision) / 2**30:.2f} GiB [{card}]")
+    image = reference_image(VLM_QWEN35_SIDE).astype(np.float32) / 255.0
+    other = np.ascontiguousarray(image[:, ::-1])
+    from flux2_tpu_torch.models.text_encoders.extractor import chat_ids
+
+    text_ids = chat_ids(tok, [{"role": "system", "content": "You are terse."},
+                              {"role": "user", "content": VLM_PROMPT}], add_generation_prompt=True)
+    ids, merged = svc._merged_inputs(text_ids, image)
+    p = ids.shape[1]
+    n_img = int((ids == v_cfg.image_token_id).sum())
+    if n_img != 1024:
+        raise AssertionError(f"{n_img} image tokens for a 1024^2 image, want 1024")
+    out = {"image_tokens": n_img, "prompt_tokens": p}
+    out["tower_ms"] = time_ms(lambda: svc._merged_inputs(text_ids, image), reps=3, warmup=1)
+    out["prefill_ms"] = time_ms(lambda: svc.prefill(ids, merged, p + 1), reps=3, warmup=1)
+    with torch.inference_mode():
+        extra = torch.randint(0, lm_cfg.vocab_size, (1, VLM_TEACHER_STEPS), device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(SEED + 32))
+        ids_all, emb_all = torch.cat([ids, extra], 1), torch.cat([merged, lm.embed_tokens[extra]], 1)
+        lm32 = copy.deepcopy(lm).float()  # the same weights in f32
+
+        def teacher(model, dtype, embeds):
+            """The prefill and 16 steps of ``model`` over a hybrid cache of ``dtype``: logits rows p - 1 ... p + 15."""
+            cache = init_hybrid_cache(lm_cfg, 1, p + VLM_TEACHER_STEPS, dtype=dtype, device="cuda")
+            rows = [model.forward_cached(ids, cache, 0, inputs_embeds=embeds[:, :p])[0]]
+            return rows + [model.forward_cached(extra[:, i:i + 1], cache, p + i)[0] for i in range(VLM_TEACHER_STEPS)]
+
+        def rel(rows, ref):
+            return max(float((r - ref[:, p - 1 + i]).norm() / ref[:, p - 1 + i].norm()) for i, r in enumerate(rows))
+        with _full_f32():
+            full32 = lm32.forward_logits(ids_all, inputs_embeds=emb_all.float())
+            exact = rel(teacher(lm32, torch.float32, emb_all.float()), full32)
+        del lm32
+        full = lm.forward_logits(ids_all, inputs_embeds=emb_all)  # bf16 throughout
+        rows32, rows16 = teacher(lm, torch.float32, emb_all), teacher(lm, torch.bfloat16, emb_all)
+        teacher_forced = {"f32_model_vs_f32_forward": exact, "service_vs_f32_forward": rel(rows32, full32),
+                          "forward_vs_f32_forward": rel([full[:, p - 1 + i] for i in range(len(rows16))], full32),
+                          "bf16_cache_vs_forward": rel(rows16, full), "service_vs_forward": rel(rows32, full)}
+        if not all(torch.isfinite(r).all() for r in rows32 + rows16):
+            raise AssertionError("Qwen3.5 prefill + decode: non-finite logits")
+        if not (exact <= VLM_TEACHER_FORCED_F32_TOL and teacher_forced["service_vs_f32_forward"]
+                <= VLM_TEACHER_FORCED_REL_TOL):
+            raise AssertionError(f"Qwen3.5 prefill + {VLM_TEACHER_STEPS} steps vs forward_logits: {teacher_forced} "
+                                 f"(limits: f32 {VLM_TEACHER_FORCED_F32_TOL}, the bf16 service against the f32 "
+                                 f"forward {VLM_TEACHER_FORCED_REL_TOL})")
+        del full, full32, rows16
+        cache = svc.prefill(ids, merged, p + 1)[1]
+        tok1 = extra[:, :1]
+
+        def one():
+            for lc in cache:  # back to the prefill's length: the step rewrites the same slot
+                if "len" in lc:
+                    lc["len"] = p
+            lm.forward_cached(tok1, cache, p)
+        out["decode_step_ms"] = time_ms(one, reps=10, warmup=2)
+    out["teacher_forced"] = teacher_forced
+    t0 = time.perf_counter()
+    reply = svc.chat("You are terse.", VLM_PROMPT, image=image, max_tokens=VLM_TOKENS)
+    torch.cuda.synchronize()
+    out["chat"] = {"s": time.perf_counter() - t0, "reply_chars": len(reply)}
+    log(f"[vlm B] 1024^2 image -> {n_img} image tokens ({p} with the prompt) [{card}]")
+    _number("vlm B", "tower + merge (preprocessing included), warm", out["tower_ms"], "ms", card)
+    _number("vlm B", f"prefill of {p} tokens", out["prefill_ms"], "ms", card)
+    _number("vlm B", "decode step", out["decode_step_ms"], "ms", card)
+    _number("vlm B", "decode", 1000 / out["decode_step_ms"], "tok/s", card, "one step's time")
+    _number("vlm B", f"greedy chat of at most {VLM_TOKENS} tokens, tower and prefill included", out["chat"]["s"], "s",
+            card)
+    for name, value in teacher_forced.items():
+        _number("vlm B", f"prefill + {VLM_TEACHER_STEPS} steps, relative L2 (worst row), {name}", value, "", card,
+                f"limits {VLM_TEACHER_FORCED_F32_TOL} for f32_model_vs_f32_forward, {VLM_TEACHER_FORCED_REL_TOL} "
+                "for service_vs_f32_forward")
+
+    # the chunked delta rule against the sequential recurrence, f32, on layer 0's own projections
+    layer = copy.deepcopy(lm.layers[0].linear_attn).float()
+    x = torch.randn(1, DELTA_S, lm_cfg.hidden_size, device="cuda", generator=gen)
+    captured = {}
+
+    def capture(q, k, v, g, beta, state):
+        captured.update(q=q, k=k, v=v, g=g, beta=beta, state=state)
+        return gated_delta_update_chunked(q, k, v, g, beta, state)
+    from flux2_tpu_torch.models.text_encoders import qwen35 as q35
+
+    f32_exp_max = math.log(torch.finfo(torch.float32).max)
+    with torch.inference_mode(), _full_f32():
+        real = q35.gated_delta_update_chunked
+        q35.gated_delta_update_chunked = capture
+        try:
+            layer(x)
+        finally:
+            q35.gated_delta_update_chunked = real
+        c = captured
+        strong = torch.empty_like(c["g"]).uniform_(*DELTA_STRONG_G, generator=gen)
+    deltas = {}
+    for label, g in (("layer 0", c["g"]), ("layer 0, strong decay", strong)):
+        with torch.inference_mode(), _full_f32():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y_c, s_c = gated_delta_update_chunked(c["q"], c["k"], c["v"], g, c["beta"], c["state"])
+            torch.cuda.synchronize()
+            chunked_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            y_s, s_s = gated_delta_update(c["q"], c["k"], c["v"], g, c["beta"], c["state"])
+            torch.cuda.synchronize()
+            seq_ms = (time.perf_counter() - t0) * 1e3
+            y_max, s_max = float(y_s.abs().max()), float(s_s.abs().max())
+            err = max(float((y_c - y_s).abs().max()) / y_max, float((s_c - s_s).abs().max()) / s_max)
+            # the largest exponent lg_t - lg_i (i > t) of a chunk: minus the decay summed over its last 63 tokens
+            logs = torch.log(g[:, :DELTA_S // 64 * 64]).reshape(g.shape[0], -1, 64, g.shape[-1])
+            span = float(-logs[:, :, 1:].sum(2).max())
+            g_min, g_max = float(g.min()), float(g.max())
+            if not (torch.isfinite(y_c).all() and err <= DELTA_REL_TOL):
+                raise AssertionError(f"chunked vs sequential DeltaNet ({label}): {err} of max |y| > {DELTA_REL_TOL}")
+            if g is strong and not (g_max <= DELTA_STRONG_G[1] and span > f32_exp_max):
+                raise AssertionError(f"the strong-decay case: g up to {g_max}, chunk exponents up to {span}; want "
+                                     f"g <= {DELTA_STRONG_G[1]} and an exponent past {f32_exp_max:.2f}")
+            deltas[label] = {"rel_err": err, "g_max": g_max, "g_min": g_min, "exponent_max": span,
+                             "chunked_ms": chunked_ms, "sequential_ms": seq_ms, "y_max_abs": y_max}
+            log(f"[vlm B] DeltaNet {label}, S = {DELTA_S}, f32: |y| up to {y_max:.3e}, g in [{g_min:.3e}, "
+                f"{g_max:.3e}] [{card}]")
+            _number("vlm B", f"DeltaNet {label}, largest in-chunk exponent JAX's chunked form takes", span, "", card,
+                    f"exp overflows float32 past {f32_exp_max:.2f}")
+            _number("vlm B", f"DeltaNet {label}, chunked vs sequential, max abs over max |y|", err, "", card,
+                    f"tol {DELTA_REL_TOL}")
+            _number("vlm B", f"DeltaNet {label}, chunked, one call", chunked_ms, "ms", card)
+            _number("vlm B", f"DeltaNet {label}, sequential, one call", seq_ms, "ms", card)
+    out["delta"] = deltas
+    del layer, x, captured, c, strong
+
+    t0 = time.perf_counter()
+    result = svc.compare_images_for_flux(image, other)
+    compare_s = time.perf_counter() - t0
+    if set(result) != {"scene_score", "scene_reason", "style_score", "style_reason"}:
+        raise AssertionError(f"compare_images_for_flux: {result}")
+    t0 = time.perf_counter()
+    scores = svc.score_validation_image(image, [other], "a red fox")
+    score_s = time.perf_counter() - t0
+    if len(scores) != 2 or not all(isinstance(s, float) for s in scores):
+        raise AssertionError(f"score_validation_image: {scores}")
+    out.update(compare={"s": compare_s, "result": result}, score={"s": score_s, "scores": list(scores)},
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[vlm B] compare_images_for_flux -> {result}; score_validation_image -> {scores} [{card}]")
+    _number("vlm B", "compare_images_for_flux, two 1024^2 images, max_tokens 300", compare_s, "s", card)
+    _number("vlm B", "score_validation_image", score_s, "s", card)
+    _number("vlm B", "peak device memory", out["peak_gib"], "GiB", card)
+    del svc, lm, vision, rows32, cache, merged
+    gc_cuda()
+    return out
+
+
+def _vlm_cli(argv: list, label: str, card: str, recorder: _ReplyRecorder, flash: int, encoders: bool = False):
+    """One command in this process with its launch counts from 0: K1 ``flash``
+    and nothing else; the VLM replies it used must be non-empty."""
+    import contextlib
+    import io
+
+    from flux2_tpu_torch.cli import encoders as enc_cli
+
+    before = len(recorder.replies)
+    _zero_launches()
+    t0 = time.perf_counter()
+    if encoders:
+        buf, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            if enc_cli.main(argv) != 0:
+                raise AssertionError(f"{label} exited non-zero")
+        lines, stderr = buf.getvalue().strip().splitlines(), err.getvalue()
+        for line in lines + stderr.strip().splitlines():
+            log(f"[vlm C {label}] {line[:300] if line.isprintable() else ascii(line)[:300]}")
+    else:
+        lines, stderr = _run_cli_logged(argv, label, card, tag="vlm C")
+    secs = time.perf_counter() - t0
+    counts = _launch_counts()
+    _expect_counts(f"C: {label}", counts, {"flash": flash} if flash else {})
+    replies = recorder.replies[before:]
+    if not replies or not all(r.strip() for _, r in replies):
+        raise AssertionError(f"C: {label}: VLM replies {replies}")
+    if "falling back" in stderr:
+        raise AssertionError(f"C: {label} fell back to the caller's prompt")
+    log(f"[vlm C {label}] {len(replies)} VLM repl{'y' if len(replies) == 1 else 'ies'} "
+        f"({', '.join(sorted({lbl for lbl, _ in replies}))}), launches {counts} [{card}]")
+    _number(f"vlm C {label}", "command", secs, "s", card)
+    return {"s": secs, "counts": counts, "replies": len(replies), "lines": lines, "stderr": stderr}
+
+
+def phase_vlm_cli(card: str, workdir: str, dirs: dict) -> dict:
+    """C: a random Qwen3.5-VL checkpoint at full width (depth cut to one period
+    of the hybrid stack, 3 DeltaNet + 1 full-attention layer, and 2 vision
+    blocks) written at the registry's qwen35-vlm path under a models dir, the
+    dev tokenizer's chat template over a vocabulary-wide tokenizer; then, from
+    the checkpoint phase's Klein-4B directories through cli.main at 512^2 and
+    2 steps: ``t2i --interpret``, ``i2i --reference --upsample``, ``inpaint
+    --enrich-prompt-with-vlm --intent remove`` and ``evaluate-lora`` (VLM
+    scoring), and ``flux-encoders vision --image`` / ``--image2``: each with
+    its VLM replies non-empty and in use (no fallback), K1 50 launches a
+    generating command."""
+    import dataclasses
+
+    import numpy as np
+
+    from flux2_tpu_torch.io import registry
+    from flux2_tpu_torch.models.text_encoders import facade
+    from flux2_tpu_torch.models.text_encoders.qwen35 import Qwen35TextConfig
+    from flux2_tpu_torch.models.text_encoders.qwen35_vision import Qwen35VisionConfig
+    from flux2_tpu_torch.models.text_encoders.vlm_service import Qwen35VLMService
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
+    from flux2_tpu_torch.utils.synthetic import vocab_tokenizer, write_dataset, write_qwen35_vl_checkpoint
+
+    lm_cfg = dataclasses.replace(Qwen35TextConfig(), num_hidden_layers=VLM_CLI_LM_LAYERS)
+    v_cfg = dataclasses.replace(Qwen35VisionConfig(), depth=VLM_CLI_VISION_DEPTH, out_hidden_size=lm_cfg.hidden_size)
+    models = os.path.join(workdir, "vlm_models")
+    saved_env = os.environ.get("FLUX2_MODELS_DIR")
+    os.environ["FLUX2_MODELS_DIR"] = models
+    vdir = registry.local_model_path(registry.TEXT_ENCODER_REPOS["qwen35-vlm"])
+    t0 = time.perf_counter()
+    nbytes = write_qwen35_vl_checkpoint(vdir, lm_cfg, v_cfg, torch.Generator(device="cuda").manual_seed(SEED + 33),
+                                        vocab_tokenizer(lm_cfg.vocab_size))
+    log(f"[vlm C] CUT: a Qwen3.5-VL checkpoint at full width with {VLM_CLI_LM_LAYERS} of 32 LM layers and "
+        f"{VLM_CLI_VISION_DEPTH} of 24 vision blocks: {nbytes / 2**30:.2f} GiB written in "
+        f"{time.perf_counter() - t0:.2f} s to {vdir} [{card}]")
+    if registry.find_model_path(registry.TEXT_ENCODER_REPOS["qwen35-vlm"]) != vdir:
+        raise AssertionError("the registry does not find the written Qwen3.5-VL checkpoint")
+    ref = os.path.join(workdir, "vlm_ref.png")
+    _write_file(ref, _png_of(reference_image(VLM_CLI_SIDE).astype(np.float32) / 255.0))
+    other = os.path.join(workdir, "vlm_other.png")
+    _write_file(other, _png_of(reference_image(VLM_CLI_SIDE)[:, ::-1].astype(np.float32) / 255.0))
+    mask = np.zeros((VLM_CLI_SIDE, VLM_CLI_SIDE), np.uint8)
+    mask[128:384, 128:384] = 255
+    mask_path = _write_file(os.path.join(workdir, "vlm_mask.png"), _grey_png(mask))
+    data = write_dataset(os.path.join(workdir, "vlm_data"), SEED + 34, [(VLM_CLI_SIDE, VLM_CLI_SIDE)])
+    dir_flags = ["--transformer-dir", dirs["transformer"], "--vae-dir", dirs["vae"], "--encoder-dir",
+                 dirs["text_encoder"]]
+    size = ["--width", str(VLM_CLI_SIDE), "--height", str(VLM_CLI_SIDE), "--steps", "2"]
+    prompts = []
+    real_generate = Flux2Pipeline.generate
+
+    def recording_generate(pipe, *a, **k):
+        res = real_generate(pipe, *a, **k)
+        prompts.append(res.final_prompt)
+        return res
+    out = {}
+    Flux2Pipeline.generate = recording_generate
+    try:
+        with _ReplyRecorder(Qwen35VLMService) as rec:
+            for label, argv, flash, encoders in (
+                    ("t2i --interpret", ["t2i", *dir_flags, *size, "--interpret", ref, "--prompt", "a red fox",
+                                         "-o", os.path.join(workdir, "vlm_t2i.png")], 50, False),
+                    ("i2i --upsample", ["i2i", *dir_flags, *size, "--reference", ref, "--upsample", "--prompt",
+                                        "the same scene at night", "-o", os.path.join(workdir, "vlm_i2i.png")], 50,
+                     False),
+                    ("vision --image", ["vision", "--encoder-dir", vdir, "--image", ref], 0, True),
+                    ("vision --image2", ["vision", "--encoder-dir", vdir, "--image", ref, "--image2", other], 0, True),
+                    ("inpaint --enrich-prompt-with-vlm", ["inpaint", *dir_flags, "--image", ref, "--mask", mask_path,
+                                                          "--enrich-prompt-with-vlm", "--intent", "remove",
+                                                          "--prompt", "an empty table", "--steps", "2", "-o",
+                                                          os.path.join(workdir, "vlm_inpaint.png")], 50, False),
+                    ("evaluate-lora", ["evaluate-lora", *dir_flags, *size, "--dataset", data["dataset"],
+                                       "--max-samples", "1", "--output-dir", os.path.join(workdir, "vlm_eval")], 50,
+                     False)):
+                facade.shared.unload_vlm()  # each command loads the VLM itself
+                n_prompts = len(prompts)
+                res = _vlm_cli(argv, label, card, rec, flash, encoders)
+                if label == "t2i --interpret":
+                    reply = rec.replies[-1][1].strip()
+                    if prompts[n_prompts:] != [f"Interpret image 1: {reply}\n\nUser request: a red fox"]:
+                        raise AssertionError(f"t2i --interpret: final prompt {prompts[n_prompts:]}")
+                if label.startswith("inpaint") and "VLM-enriched inpaint prompt: " not in res["stderr"]:
+                    raise AssertionError("inpaint: no 'VLM-enriched inpaint prompt:' line")
+                if label == "vision --image2" and set(json.loads("\n".join(res["lines"]))) != {
+                        "scene_score", "scene_reason", "style_score", "style_reason"}:
+                    raise AssertionError(f"vision --image2 printed {res['lines']}")
+                if label == "evaluate-lora" and not any(re.match(r"\[1/1\] scene=", ln) for ln in res["lines"]):
+                    raise AssertionError(f"evaluate-lora printed {res['lines']}")
+                out[label] = {k: v for k, v in res.items() if k not in ("lines", "stderr")}
+    finally:
+        Flux2Pipeline.generate = real_generate
+        facade.shared.unload_vlm()
+        if saved_env is None:
+            os.environ.pop("FLUX2_MODELS_DIR", None)
+        else:
+            os.environ["FLUX2_MODELS_DIR"] = saved_env
+    return out
+
+
+def phase_vlm(card: str, workdir: str, dirs: dict) -> dict:
+    """The VLM slice: A the Mistral VLM, B the Qwen3.5 VLM, C the CLI end to
+    end on the Klein-4B checkpoint directories; each part's seconds."""
+    out, secs = {}, {}
+    for name, fn in (("mistral", lambda: phase_vlm_mistral(card)), ("qwen35", lambda: phase_vlm_qwen35(card)),
+                     ("cli", lambda: phase_vlm_cli(card, workdir, dirs))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t0
+        gc_cuda()
+    out["seconds"] = secs
+    for name, value in secs.items():
+        _number("vlm", f"part {name}", value, "s", card)
+    _number("vlm", "phase", sum(secs.values()), "s", card)
+    return out
+
+
 def drop_encoders() -> None:
     """After a phase whose pipelines are gone: the encoders that ``cli.main``
     registered in ``facade.shared`` (JAX's registry keeps them, as the
@@ -4166,9 +4604,12 @@ def main() -> int:
         drop_encoders()
         t0 = time.perf_counter()
         lora = phase_lora_prequant(card, workdir, ckpt["dirs"], train["s_per_step"])
-    log(f"[lora] LoRA, prequantized checkpoints and QLoRA phase: {time.perf_counter() - t0:.2f} s [{card}]")
-    drop_encoders()  # every Klein pipeline is gone: the Dev phase takes the card
-    dev = phase_dev(card)
+        log(f"[lora] LoRA, prequantized checkpoints and QLoRA phase: {time.perf_counter() - t0:.2f} s [{card}]")
+        drop_encoders()  # every Klein pipeline is gone: the Dev phase takes the card
+        dev = phase_dev(card)
+        drop_encoders()  # the Dev DiT and its Mistral are gone: the VLM phase takes the card
+        vlm = phase_vlm(card, workdir, ckpt["dirs"])  # C reads the Klein-4B checkpoint directories
+        drop_encoders()
 
     # Each kernel at the main path's shape ((1, 24, 4608, 128) for K1-K4, the
     # 1024^2 image projections (4096, 3072, 3072) for K5-K7): "ms" is the kernel
@@ -4210,6 +4651,8 @@ def main() -> int:
         # own process (2 steps), with K1's time and bound at Dev's 48 heads
         "launches_dev": {"dev_1024px_4_steps": dev["dit"]["launches"],
                          "t2i_dev_cli_2_steps": dev["cli"]["counts"]["flash"]},
+        # the VLM slice: each generating command of phase_vlm C (Klein-4B, 512^2, 2 steps; the VLM runs none)
+        "launches_vlm_cli": {label: r["counts"]["flash"] for label, r in vlm["cli"].items() if r["counts"]["flash"]},
         "dev_shape": {"q": list(DEV_K1_SHAPE[:3]) + [128], "s_k": DEV_K1_SHAPE[3], "ms": dev["kernels"]["k1"]["alone"],
                       "wrapper_ms": dev["kernels"]["k1"]["ms"], "plain_ms": dev["kernels"]["k1"]["plain_ms"],
                       "bound_ms": dev["kernels"]["k1"]["bound"], "bound_by": dev["kernels"]["k1"]["bound_by"],
@@ -4269,6 +4712,9 @@ def main() -> int:
             entry["launches_dev"] = {"mistral_w8a8_greedy_16_tokens": dev["encoder"]["greedy"]["counts"]["w8a8"],
                                      "t2i_dev_cli": dev["cli"]["counts"]["w8a8"]}
             entry["launches_per_decode_token"] = dev["encoder"]["greedy"]["k5_per_token"]
+            # the VLM slice: the w8a8 Mistral VLM's greedy analyze_image (280 a pass: the prefill and each token)
+            entry["launches_vlm"] = {"mistral_vlm_w8a8_analyze_image": vlm["mistral"]["w8a8"]["counts"]["w8a8"],
+                                     "tokens_stepped": vlm["mistral"]["w8a8"]["tokens"]}
             entry["launches_per_dev_forward"] = dev["cli"]["dit_pass"]
         kernels.append(entry)
     # K5's and K6's activation prologue at K5's main shape (block = K = 3072);
@@ -4291,6 +4737,8 @@ def main() -> int:
                     "launches_dev": {"mistral_w8a8_greedy_16_tokens":
                                      dev["encoder"]["greedy"]["counts"]["quantize_rows"],
                                      "t2i_dev_cli": dev["cli"]["counts"]["quantize_rows"]},
+                    "launches_vlm": {"mistral_vlm_w8a8_analyze_image":
+                                     vlm["mistral"]["w8a8"]["counts"]["quantize_rows"]},
                     "dev_shapes": {f"{name}_block_{block}": {"m_k": [m, k], "ms": dev["kernels"]["qmm"][name][
                                        f"prologue_{block}"]["alone"],
                                    "bound_ms": dev["kernels"]["qmm"][name][f"prologue_{block}"]["bound"][0]}

@@ -22,9 +22,14 @@
 The mask geometry is host numpy, copied from JAX's module (the copies are
 held against it by ``tests/test_torch_shared_copies.py``). The blend noise
 comes from a ``torch.Generator`` (``_blend_noise``), where JAX draws it from
-``PRNGKey(seed)``: one seed blends other noise in the two packages. The port
-has no VLM yet, so ``enrich_prompt_with_vlm`` warns and keeps the prompt, as
-JAX does without a loaded VLM.
+``PRNGKey(seed)``: one seed blends other noise in the two packages.
+
+``enrich_prompt_with_vlm`` rewrites the prompt through the pipeline's
+ALREADY-LOADED VLM (``chains/vlm_prompt.py``, the system prompt of
+``intent``); it never loads one. JAX's precedence: the VLM's prompt wins
+over ``upsample_prompt`` and is not upsampled again; no VLM, precomputed
+embeddings, or an empty or failed VLM reply warn and keep the caller's
+prompt and upsample flag.
 """
 
 from __future__ import annotations
@@ -145,18 +150,54 @@ def _resize_rgb(img: np.ndarray, h: int, w: int) -> np.ndarray:
     return np.asarray(im.resize((w, h), Image.LANCZOS), np.float32) / 255.0
 
 
-def resolve_prompt(prompt: str, upsample_prompt: bool, enrich_prompt_with_vlm: bool,
-                   embeddings: Optional[torch.Tensor]) -> Tuple[str, bool]:
-    """(final prompt, upsample flag) as JAX's chains resolve them when no VLM
-    is loaded: VLM enrichment warns and keeps the caller's prompt and flag."""
-    if enrich_prompt_with_vlm:
-        if embeddings is not None:
-            flog.warning("enrich_prompt_with_vlm ignored: precomputed embeddings were passed, so the prompt never "
-                         "reaches the encoder — drop embeddings= to let the VLM-enriched prompt take effect")
-        else:
-            flog.warning("enrich_prompt_with_vlm=True but no VLM is loaded — falling back to the caller's prompt "
-                         "(the port has no VLM yet)")
-    return prompt, upsample_prompt
+def _vlm_builder_from_pipeline(pipe):
+    """The pipeline's already-loaded vision service as a VLMPromptBuilder, or
+    None. Never loads one (``vlm_loader`` is not consulted): the caller owns
+    the VLM's lifecycle."""
+    from flux2_tpu_torch.chains.vlm_prompt import VLMPromptBuilder
+
+    vlm = getattr(pipe, "vlm", None)
+    if vlm is None:
+        return None
+    if hasattr(vlm, "chat"):  # Qwen35VLMService.chat(system, user, image=)
+        return VLMPromptBuilder(vlm_chat=lambda s, u, img: vlm.chat(s, u, image=np.asarray(img)))
+    if hasattr(vlm, "analyze_image"):  # MistralVLMService
+        return VLMPromptBuilder(vlm_chat=lambda s, u, img: vlm.analyze_image(np.asarray(img), f"{s}\n\n{u}"))
+    return None
+
+
+def _normalize_intent(intent):
+    from flux2_tpu_torch.chains.vlm_prompt import InpaintIntent
+
+    if isinstance(intent, InpaintIntent):
+        return intent
+    return InpaintIntent(str(intent).replace("-", "_"))
+
+
+def resolve_prompt(chain, build, kind: str, no_vlm_hint: str = "", both_hint: str = "") -> Tuple[str, bool]:
+    """(final prompt, downstream upsample flag) of a chain with JAX's
+    precedence: VLM enrichment wins over upsampling; no VLM, precomputed
+    embeddings or an empty reply fall back to the caller's prompt and flag.
+    ``build(builder)`` asks the VLM for the prompt."""
+    if not chain.enrich_prompt_with_vlm:
+        return chain.prompt, chain.upsample_prompt
+    if chain.embeddings is not None:
+        flog.warning("enrich_prompt_with_vlm ignored: precomputed embeddings were passed, so the prompt never "
+                     "reaches the encoder — drop embeddings= to let the VLM-enriched prompt take effect")
+        return chain.prompt, chain.upsample_prompt
+    builder = chain.vlm_builder or _vlm_builder_from_pipeline(chain.pipeline)
+    if builder is None or not builder.is_loaded:
+        flog.warning(f"enrich_prompt_with_vlm=True but no VLM is loaded — falling back to the caller's prompt"
+                     f"{no_vlm_hint}")
+        return chain.prompt, chain.upsample_prompt
+    if chain.upsample_prompt:
+        flog.warning(f"both enrich_prompt_with_vlm and upsample_prompt are set — VLM wins{both_hint}")
+    built = build(builder)
+    if not built:
+        flog.warning("VLM returned no prompt — falling back to the caller's prompt")
+        return chain.prompt, chain.upsample_prompt
+    flog.info(f"VLM-enriched {kind} prompt: {built}")
+    return built, False  # the prompt is final: never upsampled again
 
 
 @dataclasses.dataclass
@@ -178,12 +219,19 @@ class MaskedInpaintingChain:
     composite_on_original: bool = False
     max_pixels: int = 4 * 1024 * 1024
     embeddings: Optional[torch.Tensor] = None  # precomputed conditioning
-    upsample_prompt: bool = False  # text-only rewriting (raises: the port has no encoder facade yet)
-    enrich_prompt_with_vlm: bool = False  # image-aware rewriting: warns and keeps the prompt (no VLM yet)
+    upsample_prompt: bool = False  # text-only rewriting; loses to enrich_prompt_with_vlm
+    enrich_prompt_with_vlm: bool = False  # image-aware rewriting through a loaded VLM
+    intent: object = "replace"  # InpaintIntent or its value ("change-scene" too)
+    vlm_builder: Optional[object] = None  # an explicit VLMPromptBuilder
+
+    def _resolve_final_prompt_and_upsample(self) -> Tuple[str, bool]:
+        return resolve_prompt(
+            self, lambda b: b.build_inpaint_prompt(_normalize_intent(self.intent), self.prompt, self.image),
+            "inpaint", no_vlm_hint=" (attach one to the pipeline or pass vlm_builder= before run())",
+            both_hint=" (image-aware enrichment supersedes text-only upsampling)")
 
     def run(self) -> GenerationResult:
-        final_prompt, use_upsample = resolve_prompt(self.prompt, self.upsample_prompt, self.enrich_prompt_with_vlm,
-                                                    self.embeddings)
+        final_prompt, use_upsample = self._resolve_final_prompt_and_upsample()
         work_image, work_mask = self.image, self.mask
         crop_rect = None
         if self.mask_crop_padding is not None:

@@ -5,13 +5,16 @@ mid-grey Gaussian noise (numpy's ``RandomState``, the same draw as JAX's) with
 the original pasted at (left, top); the "smart mask" is 1.0 in the new strips,
 with a linear transition band inside the keep region on the sides that have
 a strip. The original image is the I2I reference, so attention continues its
-style into the strips, and the RePaint inpainting chain does the rest.
+style into the strips, and the RePaint inpainting chain does the rest. With
+``enrich_prompt_with_vlm`` the pipeline's loaded VLM sees the original image
+and the extended sides and writes the prompt (JAX's precedence, as in
+``chains/inpaint.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,8 +77,16 @@ class OutpaintingChain:
     transition_pixels: int = 32
     max_pixels: int = 4 * 1024 * 1024
     embeddings: Optional[torch.Tensor] = None
-    upsample_prompt: bool = False  # text-only rewriting (raises: the port has no encoder facade yet)
-    enrich_prompt_with_vlm: bool = False  # warns and keeps the prompt (no VLM yet)
+    upsample_prompt: bool = False  # text-only rewriting; loses to enrich_prompt_with_vlm
+    # image-aware rewriting through a loaded VLM, resolved here on the ORIGINAL
+    # image and the extended sides; the inner inpaint chain runs without it
+    enrich_prompt_with_vlm: bool = False
+    vlm_builder: Optional[object] = None
+
+    def _resolve_final_prompt_and_upsample(self) -> Tuple[str, bool]:
+        sides = [name for name, pad in (("top", self.top), ("bottom", self.bottom), ("left", self.left),
+                                        ("right", self.right)) if pad > 0]
+        return resolve_prompt(self, lambda b: b.build_outpaint_prompt(self.prompt, self.image, sides), "outpaint")
 
     def run(self) -> GenerationResult:
         if min(self.top, self.bottom, self.left, self.right) < 0:
@@ -90,8 +101,7 @@ class OutpaintingChain:
                              "paddings")
         canvas = build_outpaint_canvas(self.image, t, b, l, r, self.seed)
         mask = build_smart_mask(canvas_h, canvas_w, l, t, w, h, self.transition_pixels)
-        final_prompt, use_upsample = resolve_prompt(self.prompt, self.upsample_prompt, self.enrich_prompt_with_vlm,
-                                                    self.embeddings)
+        final_prompt, use_upsample = self._resolve_final_prompt_and_upsample()
         return MaskedInpaintingChain(
             pipeline=self.pipeline,
             prompt=final_prompt,

@@ -11,6 +11,7 @@ for):
     python -m flux2_tpu_torch.cli.encoders upsample --family mistral --encoder-dir E --prompt P [--i2i]
     python -m flux2_tpu_torch.cli.encoders compare --family qwen3-4b --encoder-dir A \\
         --family-b qwen3-4b --encoder-dir-b B --prompt P
+    python -m flux2_tpu_torch.cli.encoders vision --encoder-dir VLM --image a.png [--image2 b.png]
     python -m flux2_tpu_torch.cli.encoders models
 
 ``generate`` prints the reply; ``chat`` streams each reply from standard
@@ -18,8 +19,11 @@ input until an empty line; ``embed`` saves the conditioning as ``.npy`` and
 prints its shape, dtype and path as JSON (float32: numpy has no bfloat16
 without ``ml_dtypes``, which JAX's file takes); ``upsample`` prints
 the rewritten prompt; ``compare`` prints ``compare_embeddings``' JSON;
-``models`` lists the registry's encoder repositories. ``vision`` exits: the
-VLMs are the vision half of ROADMAP item 8 (8b), not ported yet.
+``models`` lists the registry's encoder repositories. ``vision`` loads the
+VLM of ``--encoder-dir`` (Qwen3.5-VL or the Mistral/Pixtral VLM, told apart
+by ``facade.detect_vlm_family``) and prints its description of ``--image``,
+or with ``--image2`` the FLUX.2 comparison of the two as JSON (JAX's
+``cmd_vision``).
 """
 
 from __future__ import annotations
@@ -93,7 +97,29 @@ def cmd_upsample(args):
 
 
 def cmd_vision(args):
-    raise SystemExit("vision: VLM image analysis is the vision half of ROADMAP item 8 (8b), not ported yet")
+    """VLM image analysis: --image and --prompt -> the description; with
+    --image2, the comparison of --image (the reference) and --image2."""
+    from flux2_tpu_torch.io.png import decode_image
+    from flux2_tpu_torch.models.text_encoders.facade import detect_vlm_family, shared
+
+    with open(args.image, "rb") as f:
+        image = decode_image(f.read())
+    if not shared.is_vlm_loaded:
+        if not args.encoder_dir:
+            raise SystemExit(
+                "pass --encoder-dir pointing at a VLM checkpoint (Mistral-Small "
+                "w/ Pixtral tower, or Qwen3.5-VL for --image2 comparison)"
+            )
+        if detect_vlm_family(args.encoder_dir) == "qwen35":
+            shared.load_qwen35_vlm(args.encoder_dir, args.tokenizer_dir, device=args.device)
+        else:
+            shared.load_mistral_vlm(args.encoder_dir, args.tokenizer_dir, device=args.device)
+    if getattr(args, "image2", None):
+        with open(args.image2, "rb") as f:
+            generated = decode_image(f.read())
+        print(json.dumps(shared.compare_images_for_flux(image, generated), indent=2))
+        return
+    print(shared.analyze_image(image, args.prompt, seed=args.seed))
 
 
 def cmd_compare(args):
@@ -154,7 +180,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--i2i", action="store_true", help="image-editing instruction mode")
     p.set_defaults(fn=cmd_upsample)
 
-    p = sub.add_parser("vision", help="VLM image analysis (not ported yet: exits)")
+    p = sub.add_parser("vision", help="VLM image analysis (image + prompt -> description)")
     _common(p)
     p.add_argument("--image", required=True, help="image path to analyze")
     p.add_argument("--image2", help="second image: compare --image (reference) vs --image2 (generated)")

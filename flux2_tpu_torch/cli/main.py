@@ -22,10 +22,16 @@ The encoder registers in ``facade.shared``, which gives the pipeline its
 chat and upsampling surface.
 
 ``t2i --upsample`` rewrites the prompt through that encoder with the BFL
-protocol first and prints ``[upsample] final prompt: ...`` when it changed
-(``i2i --upsample`` describes the references with a VLM: it raises JAX's
-"requires a VLM" error until the vision half of ROADMAP item 8 lands, and
-``--interpret`` exits naming it). Dev on one 80 GB card:
+protocol first and prints ``[upsample] final prompt: ...`` when it changed;
+``i2i --upsample`` has the VLM describe the references first, and
+``--interpret IMAGE`` (t2i and i2i, repeatable) puts the VLM's description of
+each image before the prompt. The VLM comes from the checkpoint branch's
+lazy loader (JAX's ``_make_vlm_loader``): a Qwen3.5-VL checkpoint under the
+registry's ``qwen35-vlm`` path when there is one, else the Mistral-Small
+VLM (``--encoder-dir`` for Dev, else the registry's path), else a
+``SystemExit`` naming both. A random-init pipeline has no loader, as JAX's,
+so its ``--interpret`` raises JAX's "requires a VLM" error. Dev on one 80 GB
+card:
 
     python -m flux2_tpu_torch.cli.main t2i --model dev --random-init \
         --quantization w8a8 --encoder-quantization w8a8 --upsample \
@@ -57,8 +63,9 @@ loss and ``--resume`` of either package's checkpoints. It refuses pipeline
 parallelism and ``--shard`` (ROADMAP queue 16) and ``--quantization`` with
 ``--random-init`` (a recorded difference: JAX ignores the flag there).
 ``evaluate-lora --dataset D [--no-vlm]`` (JAX's ``cmd_evaluate_lora``,
-``:544-595``) generates a baseline per dataset image, scores it (the pixel
-scorer: no VLM is ported yet) and prints JAX's lines and JSON:
+``:544-595``) generates a baseline per dataset image, scores it (the VLM's
+``score_validation_image`` when the loader finds a VLM on disk, else the
+pixel scorer) and prints JAX's lines and JSON:
 
     python -m flux2_tpu_torch.cli.main train-lora --config lora.yaml \
         --transformer-dir T --vae-dir V --encoder-dir E [--quantization w8a8]
@@ -67,7 +74,11 @@ scorer: no VLM is ported yet) and prints JAX's lines and JSON:
 
 ``inpaint`` and ``outpaint`` (JAX's ``cmd_inpaint`` / ``cmd_outpaint``,
 ``:454-510``, with their flags and defaults, ``--steps`` 4) run the RePaint
-chains of ``flux2_tpu_torch/chains/`` and write ``-o``:
+chains of ``flux2_tpu_torch/chains/`` and write ``-o``. With
+``--enrich-prompt-with-vlm`` the command loads the pipeline's VLM first and
+the chain has it rewrite the prompt for ``--intent`` (inpaint) or the
+extended sides (outpaint); JAX's command never loads one, so there the flag
+warns and keeps the prompt, as the port's chain does without a VLM:
 
     python -m flux2_tpu_torch.cli.main inpaint --random-init --image in.png \
         --mask mask.png --prompt "a red door" [--crop-padding 64 --composite] -o out.png
@@ -107,10 +118,7 @@ w4a8), as JAX's does:
     python -m flux2_tpu_torch.cli.main t2i --transformer-dir T --vae-dir V \\
         --encoder-dir E --quantization w8a8 --prompt "a red fox" -o fox.png
 
-Not ported yet, and refused by argparse or raising: ``--shard`` and the VLM
-uses (``--interpret``, ``i2i --upsample``; ``inpaint``'s
-``--enrich-prompt-with-vlm`` warns and keeps the prompt, as JAX without a
-loaded VLM; ``--upsample-prompt``, the text-only rewrite, runs).
+Not ported yet, and refused: ``--shard`` (ROADMAP item 10).
 Images are read by Pillow
 where it imports (any format it reads), else PNG only, by the port's own
 decoder; so are masks (grey, grey + alpha, RGB or RGBA PNGs without Pillow).
@@ -354,7 +362,8 @@ def attach_text_encoder(pipe: Flux2Pipeline, encoder_dir: Optional[str] = None, 
     """Load the model family's encoder (Qwen3, or Mistral for Dev) onto the
     pipeline's device, register it in ``facade.shared`` and attach it with
     the facade: explicit ``encoder_dir``, then the models dir, then the HF
-    cache (JAX ``attach_text_encoder``, ``:276-309``, without the VLM loader)."""
+    cache, and set the pipeline's lazy VLM loader (JAX ``attach_text_encoder``,
+    ``:276-309``)."""
     from flux2_tpu_torch.models.text_encoders import facade
 
     t0 = _load_start()
@@ -375,8 +384,33 @@ def attach_text_encoder(pipe: Flux2Pipeline, encoder_dir: Optional[str] = None, 
     pipe.text_encoder_name = enc.name
     pipe.text_encoder_quantization = quantization
     pipe.encoders = facade.shared
+    pipe.vlm_loader = _make_vlm_loader(encoder_dir if name == "mistral-small-3.2" else None, pipe.device)
     _log_load(f"text encoder {enc.name} ({enc.config.num_hidden_layers} layers, {enc.config.hidden_size} hidden)",
               edir, t0, pipe.device, quantization)
+
+
+def _make_vlm_loader(mistral_dir_hint: Optional[str] = None, device: "torch.device | str" = "cuda"):
+    """The lazy VLM loader of ``--interpret``, vision ``--upsample`` and VLM
+    scoring (JAX's, ``:312-337``): the Qwen3.5 VLM when a Qwen3.5-VL
+    checkpoint sits at the registry's ``qwen35-vlm`` path, else the
+    Mistral-Small Pixtral VLM (``mistral_dir_hint``, else the registry's
+    path), else ``SystemExit``. The VLM loads onto ``device``."""
+    def load():
+        from flux2_tpu_torch.models.text_encoders import facade
+
+        qdir = registry.find_model_path(registry.TEXT_ENCODER_REPOS["qwen35-vlm"])
+        if qdir is not None and facade.detect_vlm_family(qdir) == "qwen35":
+            return facade.shared.load_qwen35_vlm(qdir, device=device)
+        mdir = registry.find_model_path(registry.TEXT_ENCODER_REPOS["mistral-small-3.2"], mistral_dir_hint)
+        if mdir is None:
+            raise SystemExit(
+                "--interpret/--upsample with images needs a VLM checkpoint "
+                "on disk (Qwen3.5-VL or Mistral-Small); run "
+                "`flux2 download --model dev` or set FLUX2_MODELS_DIR"
+            )
+        return facade.shared.load_mistral_vlm(mdir, device=device)
+
+    return load
 
 
 def _load_start() -> float:
@@ -433,10 +467,10 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--upsample-prompt", action="store_true",
                    help="text-encoder-only prompt rewriting (no VLM)")
     p.add_argument("--enrich-prompt-with-vlm", action="store_true",
-                   help="image-aware prompt rewriting via a VLM; with none loaded (the port has none yet) it "
-                        "warns and keeps --prompt")
+                   help="image-aware prompt rewriting via a VLM (wins over --upsample-prompt); with no VLM on "
+                        "disk it warns and keeps --prompt")
     p.add_argument("--intent", default="replace", choices=["replace", "remove", "modify", "change-scene"],
-                   help="drives --enrich-prompt-with-vlm's VLM (none is ported yet: ignored)")
+                   help="edit intent: drives --enrich-prompt-with-vlm's system prompt")
 
     p = sub.add_parser("outpaint", help="BFL-style outpainting")
     _add_common(p)
@@ -451,7 +485,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--upsample-prompt", action="store_true",
                    help="text-encoder-only prompt rewriting (no VLM)")
     p.add_argument("--enrich-prompt-with-vlm", action="store_true",
-                   help="image-aware prompt rewriting via a VLM; with none loaded it warns and keeps --prompt")
+                   help="image-aware prompt rewriting via a VLM (wins over --upsample-prompt); with no VLM on "
+                        "disk it warns and keeps --prompt")
 
     p = sub.add_parser("export-quantized", help="export a prequantized checkpoint")
     p.add_argument("--model", default="klein-4b", choices=[m.value for m in Flux2Model])
@@ -527,13 +562,6 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
-class _VisionNotPorted(argparse.Action):
-    """``--interpret``: JAX's flag, refused by the parser until its VLM is ported."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} needs a VLM: the vision half of ROADMAP item 8 (8b) is not ported yet")
-
-
 def _add_common(p: argparse.ArgumentParser) -> None:
     """The flags of JAX's ``_add_common`` (``:813-876``) that the port runs."""
     p.add_argument("--model", default="klein-4b", choices=[m.value for m in Flux2Model])
@@ -560,9 +588,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="write a runtime activity beacon manifest (env FLUX2_RUNTIME_BEACON=1)")
     p.add_argument("--prompt", default="")
     p.add_argument("--upsample", action="store_true", help="VLM prompt upsampling (BFL protocol)")
-    p.add_argument("--interpret", action=_VisionNotPorted, metavar="IMAGE",
-                   help="VLM-describe this image and inject into the prompt (the vision half of ROADMAP item 8: "
-                        "not ported yet, exits)")
+    p.add_argument("--interpret", action="append", metavar="IMAGE",
+                   help="VLM-describe this image and inject into the prompt (repeatable)")
     p.add_argument("--width", type=int, default=1024)
     p.add_argument("--height", type=int, default=1024)
     p.add_argument("--steps", type=int)
@@ -626,7 +653,8 @@ def cmd_t2i(args) -> None:
         beacon.update(phase="denoising", total_steps=args.steps or pipe.model.default_steps)
         res = pipe.generate(prompt=args.prompt, height=args.height, width=args.width, num_steps=args.steps,
                             guidance=args.guidance, seed=args.seed, upsample=args.upsample,
-                            checkpoint_interval=interval, on_checkpoint=on_ckpt)
+                            interpret_images=_interpret_images(args), checkpoint_interval=interval,
+                            on_checkpoint=on_ckpt)
     _print_upsampled(res)
     _report(res, args.output)
 
@@ -634,6 +662,11 @@ def cmd_t2i(args) -> None:
 def _print_upsampled(res) -> None:
     if res.was_upsampled:
         print(f"[upsample] final prompt: {res.final_prompt}")
+
+
+def _interpret_images(args):
+    """The ``--interpret`` images, read, or None."""
+    return [_load_image(p) for p in getattr(args, "interpret", None) or []] or None
 
 
 def _load_image(path: str):
@@ -653,7 +686,8 @@ def cmd_i2i(args) -> None:
     res = pipe.generate(prompt=args.prompt, height=args.height, width=args.width, num_steps=args.steps,
                         guidance=args.guidance, seed=args.seed, reference_latents=ref_lat, reference_ids=ref_ids,
                         strength=args.strength, init_latents=init, upsample=args.upsample,
-                        upsample_images=refs if args.upsample else None, checkpoint_interval=interval,
+                        upsample_images=refs if args.upsample else None,
+                        interpret_images=_interpret_images(args), checkpoint_interval=interval,
                         on_checkpoint=on_ckpt)
     _print_upsampled(res)
     _report(res, args.output)
@@ -706,9 +740,23 @@ def cmd_inpaint(args) -> None:
         use_image_as_reference=args.use_image_as_reference,
         max_pixels=args.max_pixels,
         upsample_prompt=args.upsample_prompt,
-        enrich_prompt_with_vlm=args.enrich_prompt_with_vlm,
+        enrich_prompt_with_vlm=_vlm_for_enrichment(pipe, args),
+        intent=args.intent,
     )
     _save_png(chain.run().image, args.output)
+
+
+def _vlm_for_enrichment(pipe: Flux2Pipeline, args) -> bool:
+    """``--enrich-prompt-with-vlm``: load the pipeline's VLM through its
+    loader before the chain runs (the chain only uses a VLM already loaded);
+    with no VLM checkpoint on disk, say so and let the chain fall back.
+    Returns the flag."""
+    if args.enrich_prompt_with_vlm and pipe.vlm is None and pipe.vlm_loader is not None:
+        try:
+            pipe._get_vlm()
+        except SystemExit as e:
+            flog.warning(str(e))
+    return args.enrich_prompt_with_vlm
 
 
 def cmd_outpaint(args) -> None:
@@ -728,7 +776,7 @@ def cmd_outpaint(args) -> None:
         seed=args.seed,
         max_pixels=args.max_pixels,
         upsample_prompt=args.upsample_prompt,
-        enrich_prompt_with_vlm=args.enrich_prompt_with_vlm,
+        enrich_prompt_with_vlm=_vlm_for_enrichment(pipe, args),
     )
     _save_png(chain.run().image, args.output)
 
@@ -890,11 +938,16 @@ def cmd_evaluate_lora(args) -> None:
 
 
 def _vlm_scorer(pipe):
-    """The VLM scene/style scorer of a loaded scoring service, else None (the
-    caller falls back to the pixel scorer). The VLMs are the vision half of
-    ROADMAP item 8 (8b), not ported yet, so a pipeline carries no service and
-    this returns None, as JAX's does with no VLM on disk."""
+    """The VLM scene/style scorer when a scoring service is reachable (the
+    pipeline's ``vlm_service``, else what its ``vlm_loader`` loads; a loader
+    that finds no checkpoint exits, which gives None), else None: the caller
+    falls back to the pixel scorer (JAX's, ``:598-607``)."""
     service = getattr(pipe, "vlm_service", None)
+    if service is None and getattr(pipe, "vlm_loader", None) is not None:
+        try:
+            service = pipe.vlm_loader()
+        except SystemExit:
+            return None
     if service is None or not hasattr(service, "score_validation_image"):
         return None
     return service.score_validation_image

@@ -14,6 +14,11 @@ it is split per layer and carried into the port's quantized module with its
 codes and scales moved to the [N, K] layout, bit for bit
 (``flux2_tpu_torch/ops/quant.py``).
 
+The VLMs (``pixtral_from_jax``, ``qwen35_vision_from_jax``,
+``qwen35_from_jax``) take JAX's per-block lists of dicts; Qwen3-VL's
+decoder is the generic one (``decoder_from_jax``). Each module takes the
+dtype of the tree's leaves (``config`` is the port's or JAX's).
+
 LoRA adapters go both ways: ``lora_from_jax`` splits JAX's stacked
 ``{group: {leaf: {a [L, in, r], b [L, r, out]}}}`` into the port's ``LoRA``
 module, and ``lora_to_flat`` gives the flat names and shapes of JAX's
@@ -34,6 +39,9 @@ from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
 from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
 from flux2_tpu_torch.models.flux2.vae import VAEConfig, VAEDecoder, VAEEncoder
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
+from flux2_tpu_torch.models.text_encoders.pixtral import PixtralVision, PixtralVisionConfig
+from flux2_tpu_torch.models.text_encoders.qwen35 import Qwen35LM, Qwen35TextConfig
+from flux2_tpu_torch.models.text_encoders.qwen35_vision import Qwen35Vision, Qwen35VisionConfig
 from flux2_tpu_torch.ops.quant import QTensor, W4A8Tensor, W8A8Tensor
 from flux2_tpu_torch.training.lora import LoRA, Adapter
 
@@ -219,6 +227,61 @@ def decoder_from_jax(params: dict, config: DecoderConfig) -> Qwen3Decoder:
         for i in range(config.num_hidden_layers):
             sd[f"layers.{i}.{name}"] = _stacked(leaf, i)
     return _load(Qwen3Decoder(config, device="cpu", dtype=embed.dtype), sd)
+
+
+def pixtral_from_jax(params: dict, config) -> PixtralVision:
+    """JAX's Pixtral tower and projector -> the port's ``PixtralVision``."""
+    sd: Dict[str, object] = {"patch_conv": _linear(params["patch_conv"]), "ln_pre": _tensor(params["ln_pre"])}
+    for i, blk in enumerate(params["blocks"]):
+        for name, leaf in blk.items():
+            sd[f"blocks.{i}.{name}"] = _tensor(leaf) if name.endswith("norm") else _linear(leaf)
+    proj = params["projector"]
+    sd["projector.norm"] = _tensor(proj["norm"])
+    for name in ("merge", "linear_1", "linear_2"):
+        sd[f"projector.{name}"] = _linear(proj[name])
+    return _load(PixtralVision(_port_config(config, PixtralVisionConfig), dtype=sd["ln_pre"].dtype), sd)
+
+
+def _dense(p: dict, prefix: str, sd: dict) -> None:
+    sd[f"{prefix}.weight"] = _linear(p["kernel"])
+    sd[f"{prefix}.bias"] = _tensor(p["bias"])
+
+
+def qwen35_vision_from_jax(params: dict, config) -> Qwen35Vision:
+    """JAX's Qwen3.5 vision tower -> the port's ``Qwen35Vision``."""
+    sd: Dict[str, object] = {"pos_embed": _tensor(params["pos_embed"])}
+    _dense(params["patch_embed"], "patch_embed", sd)
+    for i, blk in enumerate(params["blocks"]):
+        for name in ("norm1", "norm2"):
+            _norm(blk[name], f"blocks.{i}.{name}", sd)
+        for name in ("qkv", "proj", "fc1", "fc2"):
+            _dense(blk[name], f"blocks.{i}.{name}", sd)
+    _norm(params["merger"]["norm"], "merger.norm", sd)
+    for name in ("fc1", "fc2"):
+        _dense(params["merger"][name], f"merger.{name}", sd)
+    return _load(Qwen35Vision(_port_config(config, Qwen35VisionConfig), dtype=sd["pos_embed"].dtype), sd)
+
+
+def qwen35_from_jax(params: dict, config) -> Qwen35LM:
+    """JAX's Qwen3.5 hybrid LM -> the port's ``Qwen35LM`` (the conv kernel keeps its [K, conv_dim] layout)."""
+    sd: Dict[str, object] = {"embed_tokens": _tensor(params["embed_tokens"]),
+                             "final_norm": _tensor(params["final_norm"])}
+    for i, lp in enumerate(params["layers"]):
+        for name, leaf in lp.items():
+            if isinstance(leaf, dict):
+                for sub, x in leaf.items():
+                    keep = sub in ("conv_kernel", "norm_weight", "a_log", "dt_bias", "q_norm", "k_norm")
+                    sd[f"layers.{i}.{name}.{sub}"] = _tensor(x) if keep else _linear(x)
+            else:
+                sd[f"layers.{i}.{name}"] = _tensor(leaf) if name.endswith("norm") else _linear(leaf)
+    dtype = sd["embed_tokens"].dtype  # a_log and dt_bias too (float32 in JAX's init)
+    return _load(Qwen35LM(_port_config(config, Qwen35TextConfig), dtype=dtype),
+                 {k: v.to(dtype) for k, v in sd.items()})
+
+
+def _port_config(config, cls):
+    """``cls`` (a port config class) with the fields of ``config`` (the port's or JAX's)."""
+    return cls(**{f.name: getattr(config, f.name) for f in dataclasses.fields(cls)})
 
 
 def lora_from_jax(tree: dict, device: "torch.device | str" = "cpu") -> LoRA:

@@ -9,7 +9,11 @@ into ``map_vae_weights`` for the decoder and ``map_vae_encoder_weights`` for
 the encoder and ``quant_conv``), ``map_decoder_weights`` (the final norm and
 an untied ``lm_head`` too) and ``strip_language_model_prefix``
 (``:397-440``), with the ``model.language_model.`` nesting of newer VLM
-checkpoints (JAX reads it for Qwen3.5, ``:568-569``).
+checkpoints (JAX reads it for Qwen3.5, ``:568-569``), and the VLMs
+(``:442-638``): ``map_pixtral_weights`` (a Mistral3 checkpoint's
+``vision_tower.*`` / ``multi_modal_projector.*``), ``map_qwen35_vision_weights``
+(``visual.*`` / ``model.visual.*``) and ``map_qwen35_weights`` (qwen3_next
+names, the VL nesting too).
 
 Where JAX transposes every linear to [in, out] and stacks the layers, each
 ``map_*`` here yields (port parameter name, tensor) pairs straight in torch's
@@ -38,6 +42,9 @@ from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
 from flux2_tpu_torch.models.flux2.vae import VAEConfig, VAEDecoder, VAEEncoder
 from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
+from flux2_tpu_torch.models.text_encoders.pixtral import PixtralVision, PixtralVisionConfig
+from flux2_tpu_torch.models.text_encoders.qwen35 import Qwen35LM, Qwen35TextConfig
+from flux2_tpu_torch.models.text_encoders.qwen35_vision import Qwen35Vision, Qwen35VisionConfig
 
 Item = Tuple[str, torch.Tensor]
 
@@ -336,6 +343,190 @@ def load_decoder(weights: Mapping, cfg: DecoderConfig, device: "torch.device | s
     decoder = Qwen3Decoder(cfg, device=device, dtype=dtype)
     _raise_missing(fill(decoder, map_decoder_weights(weights)))
     return decoder
+
+
+# -- the VLMs ------------------------------------------------------------------------------
+
+
+class _Subset(Mapping):
+    """The entries of ``weights`` whose names ``keep`` accepts; the others are never read."""
+
+    def __init__(self, weights: Mapping, keep):
+        self._weights = weights
+        self._keys = [k for k in weights if keep(k)]
+        self._set = set(self._keys)
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        if key not in self._set:
+            raise KeyError(key)
+        return self._weights[key]
+
+    def __contains__(self, key: object) -> bool:
+        return key in self._set
+
+    def __iter__(self):
+        return iter(self._keys)
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+
+_PIXTRAL_BLOCK = {
+    "attention_norm.weight": "attention_norm",
+    "attention.q_proj.weight": "q_proj",
+    "attention.k_proj.weight": "k_proj",
+    "attention.v_proj.weight": "v_proj",
+    "attention.o_proj.weight": "o_proj",
+    "ffn_norm.weight": "ffn_norm",
+    "feed_forward.gate_proj.weight": "gate_proj",
+    "feed_forward.up_proj.weight": "up_proj",
+    "feed_forward.down_proj.weight": "down_proj",
+}
+_PIXTRAL_TOP = {
+    "vision_tower.ln_pre.weight": "ln_pre",
+    "multi_modal_projector.norm.weight": "projector.norm",
+    "multi_modal_projector.linear_1.weight": "projector.linear_1",
+    "multi_modal_projector.linear_2.weight": "projector.linear_2",
+}
+_PIXTRAL_LAYER = re.compile(r"vision_tower\.transformer\.layers\.(\d+)\.(.+)")
+
+
+def map_pixtral_weights(weights: Mapping, cfg: PixtralVisionConfig) -> Iterator[Item]:
+    """(port name, tensor) for the Pixtral tower and projector of a Mistral3
+    checkpoint (the language model's entries are not read). The patch conv
+    [h, 3, p, p] (OIHW) becomes the linear over (ph, pw, c)-flattened
+    patches; the merger's columns, channel-major in HF's unfold
+    (c * m * m + kh * m + kw), are permuted to the port's spatial-major
+    ((kh * m + kw) * d + c)."""
+    d, m = cfg.hidden_size, cfg.spatial_merge_size
+    sub = _Subset(weights, lambda k: k.startswith(("vision_tower.", "multi_modal_projector.")))
+    for key, v in quanto_items(sub):
+        layer = _PIXTRAL_LAYER.fullmatch(key)
+        if layer and layer.group(2) in _PIXTRAL_BLOCK:
+            yield f"blocks.{layer.group(1)}.{_PIXTRAL_BLOCK[layer.group(2)]}", v
+        elif key == "vision_tower.patch_conv.weight":
+            yield "patch_conv", v.permute(0, 2, 3, 1).reshape(v.shape[0], -1)
+        elif key == "multi_modal_projector.patch_merger.merging_layer.weight":
+            yield "projector.merge", v.reshape(v.shape[0], d, m, m).permute(0, 2, 3, 1).reshape(v.shape[0], m * m * d)
+        elif key in _PIXTRAL_TOP:
+            yield _PIXTRAL_TOP[key], v
+
+
+def load_pixtral(weights: Mapping, cfg: PixtralVisionConfig, device: "torch.device | str",
+                 dtype: torch.dtype = torch.bfloat16) -> PixtralVision:
+    vision = PixtralVision(cfg, device=device, dtype=dtype)
+    _raise_missing(fill(vision, map_pixtral_weights(weights, cfg)))
+    return vision
+
+
+_QWEN35_VISION_RENAMES: Sequence[Tuple[re.Pattern, str]] = [(re.compile(a), b) for a, b in (
+    (r"patch_embed\.proj\.bias", r"patch_embed.bias"),
+    (r"pos_embed\.weight", r"pos_embed"),
+    (r"blocks\.(\d+)\.(norm[12])\.(weight|bias)", r"blocks.\1.\2.\3"),
+    (r"blocks\.(\d+)\.attn\.(qkv|proj)\.(weight|bias)", r"blocks.\1.\2.\3"),
+    (r"blocks\.(\d+)\.mlp\.linear_(fc[12])\.(weight|bias)", r"blocks.\1.\2.\3"),
+    (r"merger\.norm\.(weight|bias)", r"merger.norm.\1"),
+    (r"merger\.linear_(fc[12])\.(weight|bias)", r"merger.\1.\2"),
+)]
+
+
+def map_qwen35_vision_weights(weights: Mapping, cfg: Qwen35VisionConfig) -> Iterator[Item]:
+    """(port name, tensor) for a Qwen3-VL vision tower (``model.visual.*``,
+    ``visual.*`` or bare names). The Conv3d patch embedding [D, C, T, P, P]
+    flattens to the linear over (t, ph, pw, c)-ordered patches."""
+    names = _base_names(weights)
+    pre = next((c for c in ("model.visual.", "visual.") if any(k.startswith(c + "patch_embed.") for k in names)), "")
+    sub = _Subset(weights, lambda k: k.startswith(pre) and not k[len(pre):].startswith(("layers.", "embed_tokens.")))
+    for key, v in quanto_items(sub):
+        name = key[len(pre):]
+        if name == "patch_embed.proj.weight":
+            yield "patch_embed.weight", v.permute(0, 2, 3, 4, 1).reshape(v.shape[0], -1)
+            continue
+        for pattern, repl in _QWEN35_VISION_RENAMES:
+            if pattern.fullmatch(name):
+                yield pattern.sub(repl, name), v
+                break
+
+
+def load_qwen35_vision(weights: Mapping, cfg: Qwen35VisionConfig, device: "torch.device | str",
+                       dtype: torch.dtype = torch.bfloat16) -> Qwen35Vision:
+    vision = Qwen35Vision(cfg, device=device, dtype=dtype)
+    _raise_missing(fill(vision, map_qwen35_vision_weights(weights, cfg)))
+    return vision
+
+
+_QWEN35_LAYER = {
+    "mlp.gate_proj.weight": "gate_proj",
+    "mlp.up_proj.weight": "up_proj",
+    "mlp.down_proj.weight": "down_proj",
+    "linear_attn.out_proj.weight": "linear_attn.out_proj",
+    "linear_attn.norm.weight": "linear_attn.norm_weight",  # the gated norm: standard, ones-init
+    "linear_attn.A_log": "linear_attn.a_log",
+    "linear_attn.dt_bias": "linear_attn.dt_bias",
+    "self_attn.q_proj.weight": "self_attn.q_proj",
+    "self_attn.k_proj.weight": "self_attn.k_proj",
+    "self_attn.v_proj.weight": "self_attn.v_proj",
+    "self_attn.o_proj.weight": "self_attn.o_proj",
+}
+# Qwen3NextRMSNorm weights are zero-centred (x * (1 + w)): the +1 is folded in at load
+_QWEN35_CENTRED = {
+    "input_layernorm.weight": "input_norm",
+    "post_attention_layernorm.weight": "post_attn_norm",
+    "self_attn.q_norm.weight": "self_attn.q_norm",
+    "self_attn.k_norm.weight": "self_attn.k_norm",
+}
+
+
+def _qwen35_layer_items(i: str, name: str, v: torch.Tensor, cfg: Qwen35TextConfig) -> List[Item]:
+    p = f"layers.{i}."
+    if name in _QWEN35_LAYER:
+        return [(p + _QWEN35_LAYER[name], v)]
+    if name in _QWEN35_CENTRED:
+        return [(p + _QWEN35_CENTRED[name], 1.0 + v.to(torch.float32))]
+    hk, hv = cfg.linear_num_key_heads, cfg.linear_num_value_heads
+    dk, dv, rep = cfg.linear_key_head_dim, cfg.linear_value_head_dim, hv // hk
+    if name == "linear_attn.in_proj_qkvz.weight":  # per key head: [q | k | v * rep | z * rep]
+        g = v.reshape(hk, 2 * dk + 2 * rep * dv, -1)
+        q, k, vv, z = torch.split(g, [dk, dk, rep * dv, rep * dv], dim=1)
+        qkv = torch.cat([t.reshape(-1, g.shape[-1]) for t in (q, k, vv)])
+        return [(p + "linear_attn.in_proj_qkv", qkv), (p + "linear_attn.in_proj_z", z.reshape(-1, g.shape[-1]))]
+    if name == "linear_attn.in_proj_ba.weight":  # per key head: [b * rep | a * rep]
+        g = v.reshape(hk, 2 * rep, -1)
+        return [(p + "linear_attn.in_proj_b", g[:, :rep].reshape(-1, g.shape[-1])),
+                (p + "linear_attn.in_proj_a", g[:, rep:].reshape(-1, g.shape[-1]))]
+    if name == "linear_attn.conv1d.weight":  # [conv_dim, 1, K] -> [K, conv_dim]
+        return [(p + "linear_attn.conv_kernel", v[:, 0, :].T)]
+    return []
+
+
+def map_qwen35_weights(weights: Mapping, cfg: Qwen35TextConfig) -> Iterator[Item]:
+    """(port name, tensor) for the Qwen3.5 hybrid LM in qwen3_next names
+    (``model.language_model.*``, ``language_model.*`` or ``model.*``):
+    ``in_proj_qkvz`` / ``in_proj_ba`` split per key-head group into the
+    conv path's q / k / v, z, b and a; the conv kernel to [K, conv_dim];
+    the zero-centred RMSNorm weights plus 1 (the DeltaNet's gated norm is
+    standard and passes as it is)."""
+    names = _base_names(weights)
+    pre = next((c for c in ("model.language_model.", "language_model.", "model.")
+                if any(k.startswith(c + "layers.") for k in names)), "")
+    sub = _Subset(weights, lambda k: k.startswith(pre))
+    for key, v in quanto_items(sub):
+        name = key[len(pre):]
+        if name == "embed_tokens.weight":
+            yield "embed_tokens", v
+        elif name == "norm.weight":
+            yield "final_norm", 1.0 + v.to(torch.float32)
+        else:
+            m = _DECODER_KEY.fullmatch(name)
+            if m:
+                yield from _qwen35_layer_items(m.group(1), m.group(2), v, cfg)
+
+
+def load_qwen35(weights: Mapping, cfg: Qwen35TextConfig, device: "torch.device | str",
+                dtype: torch.dtype = torch.bfloat16) -> Qwen35LM:
+    lm = Qwen35LM(cfg, device=device, dtype=dtype)
+    _raise_missing(fill(lm, map_qwen35_weights(weights, cfg)))
+    return lm
 
 
 # -- filling a module ------------------------------------------------------------------

@@ -1,7 +1,6 @@
-"""Text encoders: the registry of loaded encoders, their tokenizers, chat and upsampling.
+"""Text encoders: the registry of loaded encoders and VLMs, their tokenizers, chat and upsampling.
 
-Port of ``flux2_tpu/models/text_encoders/facade.py`` but for its vision
-half: ``HFTokenizerAdapter``, ``resolve_tokenizer`` (a ``tekken.json``
+Port of ``flux2_tpu/models/text_encoders/facade.py``: ``HFTokenizerAdapter``, ``resolve_tokenizer`` (a ``tekken.json``
 directory gets the Tekken tokenizer, anything else the HF adapter),
 ``quantize_encoder_params`` (in ``extractor.py``), the ``TextEncoders``
 registry and its ``shared`` instance (``load_mistral``, ``load_qwen3``,
@@ -18,9 +17,14 @@ The weights load in bf16 straight onto the device
 ``quantization``, and an encoder keeps its recipe: Mistral's (10, 20, 30),
 left padded, or Klein's (9, 18, 27), right padded.
 
-The VLMs (Pixtral, Qwen3-VL, Qwen3.5) are the vision half of ROADMAP item
-8 (8b), not ported yet: ``load_mistral_vlm``, ``load_qwen35_vlm``,
-``analyze_image`` and ``compare_images_for_flux`` raise.
+The vision half: ``detect_vlm_family`` ("qwen35" for a checkpoint with a
+``vision_config`` and a qwen ``model_type``, else "mistral"),
+``load_mistral_vlm`` (the Pixtral tower and projector beside the Mistral LM,
+which is reused when loaded, quantized or not), ``load_qwen35_vlm`` (the
+hybrid LM and its vision tower from one HF-layout checkpoint; it replaces a
+resident VLM of the other family), ``attach_vlm``, ``is_vlm_loaded``,
+``unload_vlm``, ``analyze_image`` and ``compare_images_for_flux``, with
+JAX's errors. The VLM weights load in bf16 onto the device.
 """
 
 from __future__ import annotations
@@ -38,9 +42,6 @@ from flux2_tpu_torch.models.text_encoders import generation
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
 from flux2_tpu_torch.models.text_encoders.extractor import EmbeddingExtractor, chat_ids, quantize_encoder_params
 from flux2_tpu_torch.utils import logging as flog
-
-VISION_NOT_PORTED = "is the vision half of ROADMAP item 8 (8b), not ported to flux2_tpu_torch yet"
-
 
 class HFTokenizerAdapter:
     """Wraps a transformers tokenizer into the ChatTokenizer protocol."""
@@ -99,11 +100,28 @@ def read_decoder_config(weights_dir: str, default: tc.DecoderConfig, qk_norm: bo
     return tc.DecoderConfig.from_json_dict(d.get("text_config", d), qk_norm=qk_norm, llama4=llama4)
 
 
+def detect_vlm_family(weights_dir: str) -> str:
+    """"qwen35" | "mistral" from a checkpoint directory's config.json: a
+    ``vision_config`` and a qwen ``model_type`` (top level or in
+    ``text_config``) make a Qwen3.5-VL; anything else is the Mistral/Pixtral VLM."""
+    path = os.path.join(weights_dir, "config.json")
+    if not os.path.exists(path):
+        return "mistral"
+    with open(path) as f:
+        d = json.load(f)
+    if "vision_config" not in d:
+        return "mistral"
+    mtype = str(d.get("model_type", "")).lower()
+    sub = str(d.get("text_config", {}).get("model_type", "")).lower()
+    return "qwen35" if ("qwen" in mtype or "qwen" in sub) else "mistral"
+
+
 class TextEncoders:
-    """Registry of loaded encoder models, keyed by name ("mistral", "qwen3-4b", ...)."""
+    """Registry of loaded encoder models, keyed by name ("mistral", "qwen3-4b", ...), and of one VLM."""
 
     def __init__(self):
         self._encoders: Dict[str, LoadedEncoder] = {}
+        self._vlm = None  # a MistralVLMService or a Qwen35VLMService
 
     # -- loading ---------------------------------------------------------------------
 
@@ -141,11 +159,89 @@ class TextEncoders:
         self._encoders[name] = enc
         return enc
 
-    def load_mistral_vlm(self, weights_dir: str, tokenizer_dir: Optional[str] = None):
-        raise NotImplementedError(f"the Mistral-Small-3.2 VLM (Pixtral tower, {weights_dir}) {VISION_NOT_PORTED}")
+    def load_mistral_vlm(self, weights_dir: str, tokenizer_dir: Optional[str] = None,
+                         device: "torch.device | str" = "cuda"):
+        """The Mistral-Small-3.2 VLM: the Pixtral tower and projector of the
+        checkpoint beside its Mistral LM (the loaded "mistral" encoder when
+        there is one, in whatever format it was loaded) -> a MistralVLMService."""
+        from flux2_tpu_torch.io import checkpoints, weight_mapping
+        from flux2_tpu_torch.models.text_encoders.pixtral import PixtralVisionConfig
+        from flux2_tpu_torch.models.text_encoders.vlm_service import MistralVLMService
 
-    def load_qwen35_vlm(self, weights_dir: str, tokenizer_dir: Optional[str] = None):
-        raise NotImplementedError(f"the Qwen3.5 VLM ({weights_dir}) {VISION_NOT_PORTED}")
+        if self._vlm is not None:
+            return self._vlm
+        if not self.is_loaded("mistral"):
+            self.load_mistral(weights_dir, tokenizer_dir, device=device)
+        lm = self._encoders["mistral"]
+        vcfg = PixtralVisionConfig(text_hidden_size=lm.config.hidden_size)
+        image_token_id = 10
+        cfg_json = os.path.join(weights_dir, "config.json")
+        if os.path.exists(cfg_json):
+            with open(cfg_json) as f:
+                d = json.load(f)
+            v = d.get("vision_config", {})
+            vcfg = PixtralVisionConfig(
+                hidden_size=v.get("hidden_size", 1024),
+                intermediate_size=v.get("intermediate_size", 4096),
+                num_hidden_layers=v.get("num_hidden_layers", 24),
+                num_attention_heads=v.get("num_attention_heads", 16),
+                patch_size=v.get("patch_size", 14),
+                image_size=v.get("image_size", 1540),
+                rope_theta=v.get("rope_theta", 10000.0),
+                spatial_merge_size=d.get("spatial_merge_size", 2),
+                text_hidden_size=lm.config.hidden_size,
+            )
+            image_token_id = d.get("image_token_index", 10)
+        vision = weight_mapping.load_pixtral(checkpoints.WeightsDir(weights_dir), vcfg, lm.decoder.embed_tokens.device)
+        self._vlm = MistralVLMService(decoder=lm.decoder, lm_config=lm.config, vision=vision, vision_config=vcfg,
+                                      tokenizer=lm.tokenizer, image_token_id=image_token_id)
+        flog.info(f"loaded Mistral VLM (Pixtral {vcfg.num_hidden_layers}-layer tower)")
+        return self._vlm
+
+    def load_qwen35_vlm(self, weights_dir: str, tokenizer_dir: Optional[str] = None,
+                        device: "torch.device | str" = "cuda"):
+        """The Qwen3.5 VLM (hybrid Gated DeltaNet LM and Qwen3-VL vision tower)
+        from one HF-layout checkpoint -> a Qwen35VLMService. A resident VLM
+        of the other family is replaced."""
+        from flux2_tpu_torch.io import checkpoints, weight_mapping
+        from flux2_tpu_torch.models.text_encoders.qwen35 import Qwen35TextConfig
+        from flux2_tpu_torch.models.text_encoders.qwen35_vision import Qwen35VisionConfig
+        from flux2_tpu_torch.models.text_encoders.vlm_service import Qwen35VLMService
+
+        if isinstance(self._vlm, Qwen35VLMService):
+            return self._vlm
+        if self._vlm is not None:
+            flog.info("replacing the loaded non-Qwen3.5 VLM with the requested Qwen3.5-VL")
+            self._vlm = None
+        with open(os.path.join(weights_dir, "config.json")) as f:
+            d = json.load(f)
+        vis_d = d.get("vision_config")
+        if vis_d is None:
+            raise ValueError(
+                f"{weights_dir}/config.json has no vision_config — not a "
+                "Qwen3.5-VL checkpoint (use load_mistral_vlm for Pixtral VLMs)"
+            )
+        lm_cfg = Qwen35TextConfig.from_json_dict(d.get("text_config", d))
+        v_cfg = Qwen35VisionConfig.from_json_dict(vis_d, image_token_id=d.get("image_token_id",
+                                                                              d.get("image_token_index")))
+        weights = checkpoints.WeightsDir(weights_dir)
+        lm = weight_mapping.load_qwen35(weights, lm_cfg, device)
+        vision = weight_mapping.load_qwen35_vision(weights, v_cfg, device)
+        tok = HFTokenizerAdapter.from_pretrained(tokenizer_dir or weights_dir)
+        self._vlm = Qwen35VLMService(lm, lm_cfg, vision, v_cfg, tok)
+        flog.info(f"loaded Qwen3.5 VLM ({lm_cfg.num_hidden_layers}-layer hybrid LM, {v_cfg.depth}-layer vision tower)")
+        return self._vlm
+
+    def attach_vlm(self, vlm) -> None:
+        """Register an already-built vision service (random-init runs, tests)."""
+        self._vlm = vlm
+
+    @property
+    def is_vlm_loaded(self) -> bool:
+        return self._vlm is not None
+
+    def unload_vlm(self) -> None:
+        self._vlm = None
 
     def unload(self, name: str) -> None:
         self._encoders.pop(name, None)
@@ -198,10 +294,18 @@ class TextEncoders:
         return self.chat([{"role": "user", "content": prompt}], name, **kw)
 
     def analyze_image(self, image, prompt: str, seed: int = 0) -> str:
-        raise NotImplementedError(f"VLM image analysis {VISION_NOT_PORTED}")
+        """VLM image analysis through the loaded VLM."""
+        if self._vlm is None:
+            raise ValueError("no VLM loaded; call load_mistral_vlm first")
+        return self._vlm.analyze_image(image, prompt, seed=seed)
 
     def compare_images_for_flux(self, reference, generated) -> dict:
-        raise NotImplementedError(f"VLM image comparison {VISION_NOT_PORTED}")
+        """The two-image FLUX.2 comparison through the Qwen3.5 VLM."""
+        if self._vlm is None:
+            raise ValueError("no VLM loaded; call load_qwen35_vlm first")
+        if not hasattr(self._vlm, "compare_images_for_flux"):
+            raise ValueError("image comparison needs the Qwen3.5 VLM (multi-image)")
+        return self._vlm.compare_images_for_flux(reference, generated)
 
     def upsample_prompt(self, prompt: str, name: str, mode: str = "upsampling_t2i", seed: int = 0,
                         on_token=None) -> str:

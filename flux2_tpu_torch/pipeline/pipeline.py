@@ -19,9 +19,10 @@ latents are kept and decoded after the loop (``on_checkpoint``). The decode
 is tiled above the memory profile's threshold (``memory_profile``).
 ``upsample=True`` rewrites the prompt through the attached encoder facade
 (``encoders``, ``text_encoder_name``) with the BFL protocol before it is
-encoded (``final_prompt``, ``was_upsampled``). The VLM services
-(``interpret_images``, vision upsampling) are the vision half of ROADMAP item
-8: no VLM is attached, so they raise JAX's "requires a VLM" errors.
+encoded (``final_prompt``, ``was_upsampled``). ``interpret_images`` and the
+image branch of ``upsample_prompt`` describe images through the vision
+service (``vlm``, loaded on first use by ``vlm_loader``: the CLI's checkpoint
+branch sets it); with neither they raise JAX's "requires a VLM" errors.
 
 The noise comes from a ``torch.Generator`` seeded with ``seed``: JAX uses
 threefry, so one seed gives different images in the two packages. Pass
@@ -159,7 +160,7 @@ class Flux2Pipeline:
     text_encoder_name: Optional[str] = None  # the registry's key of the attached encoder ("qwen3-4b")
     text_encoder_quantization: str = "bf16"  # the attached encoder's format (keys train-lora's caption cache)
     encoders: Optional[Any] = None  # facade.TextEncoders holding the attached encoder (chat / upsample surface)
-    vlm: Optional[Any] = None  # a vision service with analyze_image() (ROADMAP item 8b)
+    vlm: Optional[Any] = None  # a vision service with analyze_image() (models/text_encoders/vlm_service.py)
     vlm_loader: Optional[Callable[[], Any]] = None  # lazy VLM load
     vae_encoder: Optional[VAEEncoder] = None
     max_pixels: int = 4096 * 4096

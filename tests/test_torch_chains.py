@@ -14,6 +14,7 @@ are held against JAX's in tests/test_torch_shared_copies.py.
 import dataclasses
 import functools
 import io
+import types
 
 import jax
 import jax.numpy as jnp
@@ -168,22 +169,113 @@ def test_outpaint_refusals_equal_jax(pads, shape):
 
 
 def test_vlm_enrichment_warns_and_keeps_the_prompt_as_jax(capsys):
-    """No VLM is loaded (the port has none yet): both chains warn and keep the
-    prompt and the upsample flag; with precomputed embeddings, the same warning in both."""
-    jpipe = tiny_pipelines()[0]
+    """No VLM is loaded: both chains warn and keep the prompt and the upsample
+    flag; with precomputed embeddings, the same warning in both."""
+    jpipe, tpipe = tiny_pipelines()
     common = dict(prompt="a red door", image=_image(64, 64), mask=_grey_mask(64, 64), enrich_prompt_with_vlm=True,
                   upsample_prompt=True)
     for emb in (None, _emb(jpipe)):
         ref = jinpaint.MaskedInpaintingChain(pipeline=jpipe, embeddings=emb, **common)
         jout = ref._resolve_final_prompt_and_upsample()
         jwarn = capsys.readouterr().err
-        tout = tinpaint.resolve_prompt("a red door", True, True, None if emb is None else _port_emb())
+        chain = tinpaint.MaskedInpaintingChain(pipeline=tpipe, embeddings=None if emb is None else _port_emb(),
+                                               **common)
+        tout = chain._resolve_final_prompt_and_upsample()
         twarn = capsys.readouterr().err
         assert tout == jout == ("a red door", True)
-        if emb is None:
-            assert "no VLM is loaded" in jwarn and "no VLM is loaded" in twarn
-        else:
-            assert twarn == jwarn and "enrich_prompt_with_vlm ignored" in twarn
+        assert twarn == jwarn
+        assert ("no VLM is loaded" if emb is None else "enrich_prompt_with_vlm ignored") in twarn
+
+
+class _EchoVLM:
+    """A vision service stand-in whose reply spells its inputs: the system
+    prompt's first words, the user text and the image's shape and mean."""
+
+    def __init__(self, kind: str, reply: str = None):
+        self.kind, self.reply, self.calls = kind, reply, []
+
+    def _answer(self, system, user, image):
+        self.calls.append((system, user, image.shape))
+        if self.reply is not None:
+            return self.reply
+        return f" {' '.join(system.split()[:12])} | {user} | {image.shape} {float(image.mean()):.6f} "
+
+    def chat(self, system, user, image=None):
+        return self._answer(system, user, image)
+
+
+class _EchoMistral(_EchoVLM):
+    def analyze_image(self, image, prompt, seed=0):
+        return self._answer(prompt, "", image)
+
+
+@pytest.mark.parametrize("intent", ["replace", "remove", "modify", "change-scene", "outpaint"])
+def test_vlm_enrichment_through_the_cli_equals_jax(intent, cli_pipe, tmp_path, capsys, monkeypatch):
+    """``inpaint --enrich-prompt-with-vlm --intent X`` (and ``outpaint
+    --enrich-prompt-with-vlm``) through cli.main, the VLM loaded by the
+    pipeline's loader: the prompt the DiT gets is JAX's chain's on the same
+    reply, the intent's system prompt and the ORIGINAL image (outpaint: the
+    sorted extended sides), and wins over --upsample-prompt."""
+    vlm = _EchoVLM("qwen35")
+    monkeypatch.setattr(cli_pipe, "vlm_loader", lambda: vlm)
+    prompts = []
+    generate = type(cli_pipe).generate
+    monkeypatch.setattr(type(cli_pipe), "generate",
+                        lambda self, **k: prompts.append((k["prompt"], k["upsample"])) or generate(self, **k))
+    src = _image(64, 64)
+    src_path = str(tmp_path / "src.png")
+    with open(src_path, "wb") as f:
+        f.write(encode_png(_u8(src)))
+    mask_path = str(tmp_path / "mask.png")
+    with open(mask_path, "wb") as f:
+        f.write(encode_png(_u8(np.repeat(_grey_mask(64, 64)[..., None], 3, axis=-1))))
+    image = decode_png(open(src_path, "rb").read()).astype(np.float32) / 255.0
+    jpipe = tiny_pipelines()[0]
+    monkeypatch.setattr(jpipe, "vlm", vlm)
+    if intent == "outpaint":
+        argv = ["outpaint", "--image", src_path, "--left", "32", "--top", "32"]
+        ref = joutpaint.OutpaintingChain(pipeline=jpipe, image=image, prompt="a wider street", left=32, top=32,
+                                         upsample_prompt=True, enrich_prompt_with_vlm=True)
+    else:
+        argv = ["inpaint", "--image", src_path, "--mask", mask_path, "--intent", intent]
+        ref = jinpaint.MaskedInpaintingChain(pipeline=jpipe, prompt="a wider street", image=image,
+                                             mask=_grey_mask(64, 64), upsample_prompt=True,
+                                             enrich_prompt_with_vlm=True, intent=intent)
+    want = ref._resolve_final_prompt_and_upsample()
+    jwarn = capsys.readouterr().err
+    assert tcli.main([*argv, "--prompt", "a wider street", "--upsample-prompt", "--enrich-prompt-with-vlm",
+                      "--steps", "1", "-o", str(tmp_path / "out.png")]) == 0
+    assert prompts[0] == want and want[0] != "a wider street" and not want[1]
+    twarn = capsys.readouterr().err
+    assert [ln for ln in twarn.splitlines() if "VLM" in ln] == [ln for ln in jwarn.splitlines() if "VLM" in ln]
+    assert len(vlm.calls) == 2 and vlm.calls[0] == vlm.calls[1]  # JAX's chain, then the port's
+
+
+@pytest.mark.parametrize("case", ["mistral", "empty_reply", "failing", "no_vlm_on_disk"])
+def test_vlm_enrichment_fallbacks_equal_jax(case, capsys, monkeypatch):
+    """The Mistral VLM's analyze_image route, an empty reply, a VLM that
+    raises (the builder's fallback), and the CLI's loader finding no VLM: the
+    same prompts and warnings as JAX's chain."""
+    jpipe, tpipe = tiny_pipelines()
+    vlm = {"mistral": _EchoMistral("mistral"), "empty_reply": _EchoVLM("qwen35", reply="  "),
+           "failing": type("Failing", (), {"chat": lambda self, *a, **k: 1 / 0})(), "no_vlm_on_disk": None}[case]
+    monkeypatch.setattr(jpipe, "vlm", vlm)
+    tpipe = dataclasses.replace(tpipe, vlm=None, vlm_loader=(lambda: vlm) if vlm is not None else _no_vlm_on_disk)
+    kwargs = dict(prompt="a red door", image=_image(64, 64), mask=_grey_mask(64, 64), enrich_prompt_with_vlm=True,
+                  intent="modify")
+    want = jinpaint.MaskedInpaintingChain(pipeline=jpipe, **kwargs)._resolve_final_prompt_and_upsample()
+    jwarn = capsys.readouterr().err
+    args = types.SimpleNamespace(enrich_prompt_with_vlm=True)
+    assert tcli._vlm_for_enrichment(tpipe, args) is True
+    got = tinpaint.MaskedInpaintingChain(pipeline=tpipe, **kwargs)._resolve_final_prompt_and_upsample()
+    twarn = capsys.readouterr().err
+    assert got == want
+    assert [ln for ln in twarn.splitlines() if "VLM" in ln and "disk" not in ln] == jwarn.splitlines()
+    assert (got[0] != "a red door") == (case == "mistral")
+
+
+def _no_vlm_on_disk():
+    raise SystemExit("--interpret/--upsample with images needs a VLM checkpoint on disk")
 
 
 class _FixedEncoder:

@@ -398,10 +398,57 @@ def test_encoders_embed_and_compare_as_jax(encoder_tree, tmp_path, one_thread):
     assert stats["max_abs_diff"] == jstats["max_abs_diff"] == 0.0
 
 
-def test_encoders_vision_and_a_missing_dir_exit(capsys):
+def test_encoders_vision_and_a_missing_dir_exit(capsys, tmp_path):
+    """Without --encoder-dir ``vision`` exits with JAX's message, as the text commands do."""
+    from flux2_tpu.cli import encoders as jenc
     from flux2_tpu_torch.cli import encoders as tenc
+    from flux2_tpu_torch.models.text_encoders import facade
 
-    with pytest.raises(SystemExit, match="vision half of ROADMAP item 8"):
-        tenc.main(["vision", "--image", "a.png"])
+    image = str(tmp_path / "a.png")
+    Image.fromarray(np.zeros((28, 28, 3), np.uint8)).save(image)
+    facade.shared.unload_vlm()
+    messages = []
+    for main in (tenc.main, jenc.main):
+        with pytest.raises(SystemExit) as err:
+            main(["vision", "--image", image])
+        messages.append(str(err.value))
+    assert messages[0] == messages[1] and "pass --encoder-dir pointing at a VLM checkpoint" in messages[0]
     with pytest.raises(SystemExit, match="pass --encoder-dir"):
         tenc.main(["generate", "--prompt", "x"])
+
+
+@pytest.mark.parametrize("second", [False, True], ids=["image", "image2"])
+def test_encoders_vision_prints_as_jax(second, tmp_path, one_thread, monkeypatch):
+    """``vision --image`` (the sampled description, JAX's uniforms injected)
+    and ``vision --image2`` (the comparison JSON) on a tiny Qwen3.5-VL
+    checkpoint print JAX's lines; both loaders in f32 here."""
+    import functools
+
+    from flux2_tpu.models.text_encoders import facade as jfacade
+    from flux2_tpu_torch.io import weight_mapping as twm
+    from flux2_tpu_torch.models.text_encoders import facade
+    from flux2_tpu_torch.models.text_encoders import generation as tgen
+    from tests.test_torch_generation import jax_uniforms
+    from tests.test_torch_vlm_loader import write_tiny_qwen35_vl
+
+    vl_dir = write_tiny_qwen35_vl(tmp_path / "vl")
+    for name in ("load_qwen35", "load_qwen35_vision"):
+        monkeypatch.setattr(twm, name, functools.partial(getattr(twm, name), dtype=torch.float32))
+    monkeypatch.setattr(jfacade, "_bf16", lambda tree: tree)
+    draws = iter(jax_uniforms(0, 128))
+    monkeypatch.setattr(tgen, "_draw_uniform", lambda generator: torch.tensor(next(draws), dtype=torch.float32))
+    paths = []
+    for seed in (40, 41):
+        paths.append(str(tmp_path / f"{seed}.png"))
+        Image.fromarray((np.random.RandomState(seed).rand(64, 48, 3) * 255).astype(np.uint8)).save(paths[-1])
+    argv = ["vision", "--encoder-dir", vl_dir, "--image", paths[0], *(["--image2", paths[1]] if second else [])]
+    for shared in (facade.shared, jfacade.shared):
+        shared.unload_vlm()
+    try:
+        port, ref = _encoders_both(argv)
+    finally:
+        for shared in (facade.shared, jfacade.shared):
+            shared.unload_vlm()
+    assert port == ref and port
+    if second:
+        assert set(json.loads("\n".join(port))) == {"scene_score", "scene_reason", "style_score", "style_reason"}

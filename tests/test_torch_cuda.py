@@ -609,13 +609,13 @@ def test_tiny_real_data_training_on_the_card(device, tmp_path):
     """train-lora --random-init on a dataset at a tiny size on the card: the
     real data path (VAE encodes, the random encoder, control images) and two
     steps on K2 / K3 / K4 (2 blocks: K2 4, K3 2, K4 2 a step under remat)."""
-    import chip_smoke
     from flux2_tpu_torch.cli.main import parse_args
     from flux2_tpu_torch.cli.train import run_training
     from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
     from flux2_tpu_torch.models.flux2.vae import VAEConfig
+    from flux2_tpu_torch.utils import synthetic
 
-    data = chip_smoke.write_dataset(str(tmp_path / "data"), 0, [(64, 64), (64, 96)], control=(0, 1))
+    data = synthetic.write_dataset(str(tmp_path / "data"), 0, [(64, 64), (64, 96)], control=(0, 1))
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text(f"model: {{name: klein-4b}}\nlora: {{rank: 4}}\ndataset: {{path: {data['dataset']}, image_size: 64, "
                    f"control_path: {data['control']}}}\ntraining: {{max_steps: 2}}\ncheckpoints: {{output: "
@@ -734,3 +734,38 @@ def test_mistral_decode_on_the_card(device):
     out = gen.generate(dec, ids[0].tolist(), gen.GenerateParameters(max_tokens=6, temperature=0.0))
     torch.cuda.synchronize()
     assert len(out) == 6 and tqk.launches["w8a8"] - before == 7 * 3 * (1 + 6)  # the prefill, then 6 steps
+
+
+def test_tiny_mistral_vlm_w8a8_on_the_card(device, monkeypatch):
+    """A tiny Mistral VLM (the decoder above, a one-block Pixtral) with its LM
+    at w8a8: a greedy analyze_image launches K5 (and the prologue) exactly 7 a
+    layer for the prefill and for each stepped token, and its reply equals the
+    same run with K5 replaced by its plain version (equal to the bit)."""
+    from flux2_tpu_torch.models.text_encoders import generation as gen
+    from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
+    from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
+    from flux2_tpu_torch.models.text_encoders.extractor import quantize_encoder_params
+    from flux2_tpu_torch.models.text_encoders.pixtral import PixtralVision, PixtralVisionConfig
+    from flux2_tpu_torch.models.text_encoders.tekken import TekkenTokenizer
+    from flux2_tpu_torch.models.text_encoders.vlm_service import MistralVLMService
+
+    cfg = DecoderConfig(vocab_size=1300, hidden_size=512, intermediate_size=1024, num_hidden_layers=3,
+                        num_attention_heads=8, num_key_value_heads=4, head_dim=64, rms_norm_eps=1e-5,
+                        llama4_scaling_beta=0.1, original_max_position_embeddings=8)
+    g = torch.Generator(device=device).manual_seed(0)
+    dec = quantize_encoder_params(Qwen3Decoder(cfg, device=device, generator=g), "w8a8")
+    vcfg = PixtralVisionConfig(hidden_size=64, intermediate_size=128, num_hidden_layers=1, num_attention_heads=2,
+                               text_hidden_size=cfg.hidden_size)
+    svc = MistralVLMService(dec, cfg, PixtralVision.from_random(vcfg, device, g), vcfg, TekkenTokenizer.byte_fallback())
+    image = torch.rand(56, 84, 3, generator=torch.Generator().manual_seed(2)).numpy()
+    greedy = gen.GenerateParameters(max_tokens=6, temperature=0.0)
+    made = []
+    loop = gen.decode_loop
+    monkeypatch.setattr(gen, "decode_loop", lambda *a, **k: made.append(loop(*a, **k)) or made[-1])
+    tqk.reset_launches()
+    reply = svc.analyze_image(image, "describe", gen_params=greedy)
+    torch.cuda.synchronize()
+    n = len(made[0])
+    assert 1 <= n <= 6 and tqk.launches["w8a8"] == tqk.launches["quantize_rows"] == 7 * 3 * (1 + n)
+    monkeypatch.setattr(tqk, "w8a8_matmul", tqk.w8a8_matmul_reference)
+    assert svc.analyze_image(image, "describe", gen_params=greedy) == reply

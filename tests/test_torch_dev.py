@@ -217,12 +217,65 @@ def test_build_pipeline_dev_random_init_attaches_a_mistral(tiny_cli):
     assert no_enc.text_encoder is None and no_enc.encoders is None
 
 
-@pytest.mark.parametrize("argv", [["t2i", "--interpret", "a.png"], ["i2i", "--reference", "a.png", "--interpret",
-                                                                    "b.png"]], ids=["t2i", "i2i"])
-def test_interpret_exits_naming_the_vision_half(argv, capsys):
-    with pytest.raises(SystemExit):
-        tcli.parse_args(argv)
-    assert "vision half of ROADMAP item 8" in capsys.readouterr().err
+@pytest.fixture(scope="module")
+def vl_dir(tmp_path_factory):
+    from tests.test_torch_vlm_loader import write_tiny_qwen35_vl
+
+    return write_tiny_qwen35_vl(tmp_path_factory.mktemp("qwen35vl"))
+
+
+@pytest.mark.parametrize("argv", [["t2i"], ["i2i", "--reference", "REF"]], ids=["t2i", "i2i"])
+def test_interpret_exits_naming_the_vision_half(argv, pipes, tiny_cli, vl_dir, tmp_path, monkeypatch):
+    """``--interpret IMAGE`` (named when the flag still exited: the VLMs are
+    ported now) with a tiny Qwen3.5-VL on disk at the registry's path, found
+    by the checkpoint branch's lazy loader: the prompt the DiT gets equals
+    JAX's ``interpret_images`` through JAX's facade on the same checkpoint
+    (both loaders in f32 here, JAX's uniforms injected into the port's
+    sampled analysis)."""
+    import functools
+
+    from flux2_tpu_torch.io import registry
+    from flux2_tpu_torch.io import weight_mapping as twm
+
+    monkeypatch.setenv("FLUX2_MODELS_DIR", str(tmp_path / "models"))
+    shutil.copytree(vl_dir, registry.local_model_path(registry.TEXT_ENCODER_REPOS["qwen35-vlm"]))
+    monkeypatch.setattr(facade, "shared", facade.TextEncoders())
+    for name in ("load_qwen35", "load_qwen35_vision"):
+        monkeypatch.setattr(twm, name, functools.partial(getattr(twm, name), dtype=torch.float32))
+    monkeypatch.setattr(jfacade, "_bf16", lambda tree: tree)
+    build = tcli.build_pipeline
+    monkeypatch.setattr(tcli, "build_pipeline", lambda args, device, generator=None: dataclasses.replace(
+        build(args, device, generator), vlm_loader=tcli._make_vlm_loader(None, device)))
+    prompts = []
+    generate = Flux2Pipeline.generate
+    monkeypatch.setattr(Flux2Pipeline, "generate",
+                        lambda self, **k: prompts.append((res := generate(self, **k)).final_prompt) or res)
+    state = {}
+
+    def draw(generator):  # JAX's uniforms for seed 3, restarting with each decode loop
+        if state.get("generator") is not generator:
+            state.update(generator=generator, draws=iter(jax_uniforms(3, 128)))
+        return torch.tensor(next(state["draws"]), dtype=torch.float32)
+    monkeypatch.setattr(gen, "_draw_uniform", draw)
+
+    from PIL import Image
+
+    paths = {}
+    for name, seed in (("interpret", 30), ("REF", 31)):
+        paths[name] = str(tmp_path / f"{name}.png")
+        Image.fromarray((np.random.RandomState(seed).rand(64, 64, 3) * 255).astype(np.uint8)).save(paths[name])
+    argv = [paths.get(a, a) for a in argv]
+    assert tcli.main([*argv, "--model", "dev", "--random-init", "--interpret", paths["interpret"], "--prompt",
+                      "a red fox", "--width", "64", "--height", "64", "--steps", "1", "--seed", "3", "--device", "cpu",
+                      "-o", str(tmp_path / "out.png")]) == 0
+    jpipe = pipes[0]
+    monkeypatch.setattr(jpipe, "vlm", jfacade.TextEncoders().load_qwen35_vlm(
+        registry.local_model_path(registry.TEXT_ENCODER_REPOS["qwen35-vlm"])))
+    with Image.open(paths["interpret"]) as im:
+        image = np.asarray(im.convert("RGB"), np.float32) / 255.0
+    want = jpipe.interpret_images([image], "a red fox", seed=3)
+    assert want.startswith("Interpret image 1: ") and want.endswith("\n\nUser request: a red fox")
+    assert prompts == [want]
 
 
 class _StubVLM:

@@ -259,10 +259,16 @@ def test_registry_and_the_vision_half():
     assert enc.extract_flux_embeddings("a fox").shape == (1, 512, 64)
     enc.unload("mistral")
     assert not enc.is_loaded("mistral")
-    for call in (lambda: enc.load_mistral_vlm("d"), lambda: enc.load_qwen35_vlm("d"),
-                 lambda: enc.analyze_image(None, "x"), lambda: enc.compare_images_for_flux(None, None)):
-        with pytest.raises(NotImplementedError, match="vision half of ROADMAP item 8"):
-            call()
+    # the vision half (ported since): no VLM loaded, and a missing checkpoint, raise as JAX's facade does
+    from flux2_tpu.models.text_encoders import facade as jfacade
+
+    for reg in (enc, jfacade.TextEncoders()):
+        with pytest.raises(ValueError, match="no VLM loaded; call load_mistral_vlm first"):
+            reg.analyze_image(None, "x")
+        with pytest.raises(ValueError, match="no VLM loaded; call load_qwen35_vlm first"):
+            reg.compare_images_for_flux(None, None)
+        with pytest.raises(OSError):
+            reg.load_qwen35_vlm("d")
 
 
 def test_chat_ids_takes_a_batch_encoding():

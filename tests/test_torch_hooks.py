@@ -44,8 +44,8 @@ from flux2_tpu_torch.models.flux2 import vae as tvae
 from flux2_tpu_torch.models.flux2.config import Flux2Model
 from flux2_tpu_torch.pipeline import pipeline as tpl
 from flux2_tpu_torch.utils import memory as tmem
+from flux2_tpu_torch.utils import synthetic
 
-import chip_smoke
 from tests.test_golden_regression import _ref_image
 from tests.test_pipeline import _emb
 from tests.test_torch_i2i import BF16_LATENT_MAX, BF16_LATENT_MEAN, _noise, port_of, tiny_pipelines
@@ -315,8 +315,8 @@ def test_small_decoder_directory_loads_in_both_clis(tmp_path):
     decoder = tvae.VAEDecoder(SMALL_VAE, generator=gen)
     encoder = tvae.VAEEncoder(SMALL_VAE, generator=gen)
     vdir = str(tmp_path / "vae")
-    chip_smoke._write_sharded(vdir, chip_smoke._autoencoder_state(decoder, encoder), "diffusion_pytorch_model",
-                              {"_class_name": "AutoencoderKLFlux2", **dataclasses.asdict(SMALL_VAE)})
+    synthetic.write_sharded(vdir, synthetic.autoencoder_state(decoder, encoder), "diffusion_pytorch_model",
+                            {"_class_name": "AutoencoderKLFlux2", **dataclasses.asdict(SMALL_VAE)})
     tconfig = tcli._read_vae_config_json(vdir, tvae.FLUX2_VAE_SMALL_DECODER)
     jconfig = jcli._read_vae_config_json(vdir, jvae.FLUX2_VAE_SMALL_DECODER)
     assert tconfig == SMALL_VAE and jconfig.effective_decoder_channels == (4, 8, 8, 8)

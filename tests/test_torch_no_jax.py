@@ -22,7 +22,9 @@ preview and the held-out loss (``training/data.py``,
 ``training/validation.py``) and ``evaluate-lora``, the Dev / text-generation
 slice: ``t2i --model dev --random-init --upsample`` at a tiny size (Mistral,
 Tekken, the KV-cached decode) and ``python -m flux2_tpu_torch.cli.encoders
-generate``, and reports whether any ``jax`` or ``flux2_tpu`` module was loaded. (The suite's conftest imports JAX, so this must run in a
+generate``, the VLM slice: a random Pixtral + Mistral analysis, a Qwen3.5-VL
+checkpoint read by ``flux-encoders vision --image2``, its service enriching an
+inpaint prompt (``chains/vlm_prompt.py``) and the Qwen3-VL tower, and reports whether any ``jax`` or ``flux2_tpu`` module was loaded. (The suite's conftest imports JAX, so this must run in a
 subprocess.)
 """
 
@@ -80,21 +82,21 @@ with tempfile.TemporaryDirectory() as tmp:
                         transformer_config=dataclasses.replace(tc, num_attention_heads=2, joint_attention_dim=96))
     ckpt = sorted(os.listdir(os.path.join(tmp, "out")))
 # checkpoints: the tiny dense pipeline written as checkpoint directories by
-# chip_smoke.py's writers, then t2i and profile from them through the CLI
+# the writers of utils/synthetic.py, then t2i and profile from them through the CLI
 import chip_smoke
 from flux2_tpu_torch.cli import main as cli
-from flux2_tpu_torch.utils import inline_bpe_tokenizer
+from flux2_tpu_torch.utils import inline_bpe_tokenizer, synthetic
 dense = build_pipeline(argparse.Namespace(model="klein-4b", random_init=True), "cpu", torch.Generator().manual_seed(0),
                        transformer_config=qtc, vae_config=vc,
                        encoder_config=dataclasses.replace(TINY_DECODER, num_hidden_layers=28, vocab_size=600))
 with tempfile.TemporaryDirectory() as tmp:
     dirs = {k: os.path.join(tmp, k) for k in ("t", "v", "e")}
-    chip_smoke._write_sharded(dirs["t"], chip_smoke._diffusers_transformer_state(dense.transformer), "m",
-                              dataclasses.asdict(qtc))
-    chip_smoke._write_sharded(dirs["v"], chip_smoke._autoencoder_state(dense.vae, dense.vae_encoder), "m",
-                              dataclasses.asdict(vc))
-    chip_smoke._write_sharded(dirs["e"], chip_smoke._qwen3_state(dense.text_encoder.decoder, 28), "m",
-                              dataclasses.asdict(dense.text_encoder.decoder.cfg))
+    synthetic.write_sharded(dirs["t"], synthetic.diffusers_transformer_state(dense.transformer), "m",
+                            dataclasses.asdict(qtc))
+    synthetic.write_sharded(dirs["v"], synthetic.autoencoder_state(dense.vae, dense.vae_encoder), "m",
+                            dataclasses.asdict(vc))
+    synthetic.write_sharded(dirs["e"], synthetic.qwen3_state(dense.text_encoder.decoder, 28), "m",
+                            dataclasses.asdict(dense.text_encoder.decoder.cfg))
     inline_bpe_tokenizer().save_pretrained(dirs["e"])
     flags = ["--transformer-dir", dirs["t"], "--vae-dir", dirs["v"], "--encoder-dir", dirs["e"], "--width", "32",
              "--height", "32", "--steps", "1", "--device", "cpu"]
@@ -116,7 +118,7 @@ with tempfile.TemporaryDirectory() as tmp:
     lora_pngs = [list(decode_png(open(os.path.join(tmp, f), "rb").read()).shape) for f in ("q.png", "l.png")]
     # the real-data training slice: train-lora from the directories on a dataset (training/data.py, the
     # previews of training/validation.py, the held-out loss), then evaluate-lora
-    data = chip_smoke.write_dataset(os.path.join(tmp, "data"), 0, [(32, 32), (32, 48)])
+    data = synthetic.write_dataset(os.path.join(tmp, "data"), 0, [(32, 32), (32, 48)])
     cfg = os.path.join(tmp, "real.yaml")
     with open(cfg, "w") as f:
         f.write(f"model: {{name: klein-4b}}\nlora: {{rank: 2}}\ndataset: {{path: {data['dataset']}, image_size: 32, "
@@ -197,14 +199,47 @@ with tempfile.TemporaryDirectory() as tmp:
     dev_png = list(decode_png(open(os.path.join(tmp, "d.png"), "rb").read()).shape)
     dev_upsampled = "[upsample] final prompt: " in out.getvalue()
     enc_dir = os.path.join(tmp, "e")
-    chip_smoke._write_sharded(enc_dir, chip_smoke._qwen3_state(dense.text_encoder.decoder, 28), "m",
-                              dataclasses.asdict(dense.text_encoder.decoder.cfg))
+    synthetic.write_sharded(enc_dir, synthetic.qwen3_state(dense.text_encoder.decoder, 28), "m",
+                            dataclasses.asdict(dense.text_encoder.decoder.cfg))
     inline_bpe_tokenizer().save_pretrained(enc_dir)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         encoders.main(["generate", "--encoder-dir", enc_dir, "--prompt", "a fox", "--max-tokens", "2",
                        "--temperature", "0", "--device", "cpu"])
     generated = len(out.getvalue()) > 0
+# the VLM slice: a random Pixtral + Mistral service, a Qwen3.5-VL checkpoint written by utils/synthetic.py and
+# read by flux-encoders vision (--image2), its service enriching an inpaint prompt, and the Qwen3-VL tower
+from flux2_tpu_torch.chains.vlm_prompt import InpaintIntent
+from flux2_tpu_torch.models.text_encoders import facade, pixtral, qwen35, qwen35_vision, qwen3vl, vlm_service
+from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
+from flux2_tpu_torch.models.text_encoders.generation import GenerateParameters
+from flux2_tpu_torch.models.text_encoders.tekken import TekkenTokenizer
+g = torch.Generator().manual_seed(0)
+mcfg = dataclasses.replace(TINY_DECODER, qk_norm=False, llama4_scaling_beta=0.1, tie_word_embeddings=False,
+                           vocab_size=1300)
+tower = pixtral.PixtralVision.from_random(dataclasses.replace(pixtral.TINY_PIXTRAL, text_hidden_size=64), "cpu", g,
+                                         dtype=torch.float32)
+msvc = vlm_service.MistralVLMService(Qwen3Decoder(mcfg, generator=g, dtype=torch.float32), mcfg, tower, tower.cfg,
+                                     TekkenTokenizer.byte_fallback())
+mistral_reply = isinstance(msvc.analyze_image(src, "describe", GenerateParameters(max_tokens=2, temperature=0)), str)
+with tempfile.TemporaryDirectory() as tmp:
+    synthetic.write_qwen35_vl_checkpoint(tmp, dataclasses.replace(qwen35.TINY_QWEN35, vocab_size=600),
+                                         dataclasses.replace(qwen35_vision.TINY_VISION, depth=1, out_hidden_size=64),
+                                         torch.Generator().manual_seed(1), synthetic.vocab_tokenizer(600),
+                                         dtype=torch.float32)
+    img_path = os.path.join(tmp, "i.png")
+    with open(img_path, "wb") as f:
+        f.write(encode_png((src * 255).astype("uint8")))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        encoders.main(["vision", "--encoder-dir", tmp, "--image", img_path, "--image2", img_path, "--device", "cpu"])
+    compared = sorted(json.loads(out.getvalue()))
+    enriched = MaskedInpaintingChain(dataclasses.replace(pipe, vlm=facade.shared._vlm), "a door", src, mask,
+                                     enrich_prompt_with_vlm=True, intent=InpaintIntent.REMOVE
+                                     )._resolve_final_prompt_and_upsample()[0] != "a door"
+ids = torch.arange(5)[None]
+vl_states = list(qwen3vl.forward_hidden_states(dense.text_encoder.decoder, ids, torch.ones_like(ids),
+                                               section=(4, 2, 2), hf_canonical=True).shape)
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
                   "flux2_tpu": sorted(m for m in sys.modules if m == "flux2_tpu" or m.startswith("flux2_tpu.")),
                   "image": list(res.image.shape), "png": list(decode_png(png).shape),
@@ -219,7 +254,7 @@ print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.starts
                   "http": answers, "beacons": beacons, "mask_png": mask_png, "segmented": segmented,
                   "psnr": psnr, "lora_pngs": lora_pngs, "prequant": [k for k, _ in prequant], "real": real,
                   "evaluated": evaluated, "dev_png": dev_png, "dev_upsampled": dev_upsampled,
-                  "generated": generated}))
+                  "generated": generated, "vlm": [mistral_reply, compared, enriched, vl_states]}))
 """
 
 
@@ -243,4 +278,6 @@ def test_port_runs_without_importing_jax():
                       "real": ["best", "checkpoint_000001", "latent_cache", "learning_curve.svg", "val_latent_cache",
                                "validation"],
                       "evaluated": ["baseline_000.png"], "dev_png": [32, 32, 3], "dev_upsampled": True,
-                      "generated": True}
+                      "generated": True,
+                      "vlm": [True, ["scene_reason", "scene_score", "style_reason", "style_score"], True,
+                              [29, 1, 5, 64]]}

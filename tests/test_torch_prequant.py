@@ -179,21 +179,21 @@ def test_truncated_and_stale_files_are_refused_with_jax_messages(bf16_params, tm
 def trees(tmp_path_factory):
     """Two copies (mtimes kept, so their fingerprints agree) of a tiny
     transformer (Diffusers, bf16) and VAE directory, written from the port's
-    random modules by chip_smoke.py's writers, and a LoRA file."""
+    random modules by utils/synthetic.py's writers, and a LoRA file."""
     import dataclasses
 
-    import chip_smoke
     from flux2_tpu_torch.models.flux2.vae import VAEDecoder, VAEEncoder
+    from flux2_tpu_torch.utils import synthetic
 
     root = tmp_path_factory.mktemp("prequant")
     gen = torch.Generator().manual_seed(5)
     dit = Flux2Transformer(TREE_DIT, dtype=torch.bfloat16, generator=gen)
     vae, vae_encoder = VAEDecoder(VAE_CONFIG, generator=gen), VAEEncoder(VAE_CONFIG, generator=gen)
     port = {k: str(root / "port" / k) for k in ("transformer", "vae")}
-    chip_smoke._write_sharded(port["transformer"], chip_smoke._diffusers_transformer_state(dit),
-                              "diffusion_pytorch_model", dataclasses.asdict(TREE_DIT))
-    chip_smoke._write_sharded(port["vae"], chip_smoke._autoencoder_state(vae, vae_encoder), "diffusion_pytorch_model",
-                              dataclasses.asdict(VAE_CONFIG))
+    synthetic.write_sharded(port["transformer"], synthetic.diffusers_transformer_state(dit),
+                            "diffusion_pytorch_model", dataclasses.asdict(TREE_DIT))
+    synthetic.write_sharded(port["vae"], synthetic.autoencoder_state(vae, vae_encoder), "diffusion_pytorch_model",
+                            dataclasses.asdict(VAE_CONFIG))
     shutil.copytree(root / "port", root / "jax", copy_function=shutil.copy2)
     lora = str(root / "style.safetensors")
     tst.save_file(bfl_lora(TREE_DIT, seed=3), lora, metadata={"alpha": "8"})

@@ -690,3 +690,35 @@ def test_bfl_system_prompts_equal_jax():
 
     for name in ("SYSTEM_MESSAGE_EMBEDDINGS", "SYSTEM_MESSAGE_UPSAMPLING_T2I", "SYSTEM_MESSAGE_UPSAMPLING_I2I"):
         assert getattr(text, name) == getattr(jext, name)
+
+
+# -- the VLM slice: the copied prompt strings and the prompt builder ------------------------------------------
+
+
+def test_vlm_service_prompts_equal_jax():
+    from flux2_tpu.models.text_encoders import vlm_service as jsvc
+    from flux2_tpu_torch.models.text_encoders import vlm_service as tsvc
+
+    for name in ("SCORING_SYSTEM_PROMPT", "FLUX_IMAGE_COMPARISON_SYSTEM_PROMPT"):
+        assert getattr(tsvc, name) == getattr(jsvc, name)
+    # JAX writes the analyst's system prompt inline in Qwen35VLMService.analyze_image
+    assert f'"{tsvc.ANALYST_SYSTEM_PROMPT}"' in inspect.getsource(jsvc.Qwen35VLMService.analyze_image)
+
+
+def test_vlm_prompt_builder_copy_equals_jax():
+    from flux2_tpu.chains import vlm_prompt as jvp
+    from flux2_tpu_torch.chains import vlm_prompt as tvp
+
+    assert [i.value for i in tvp.InpaintIntent] == [i.value for i in jvp.InpaintIntent]
+    assert {k.value: v for k, v in tvp.SYSTEM_PROMPTS.items()} == {k.value: v for k, v in jvp.SYSTEM_PROMPTS.items()}
+    assert tvp.OUTPAINT_SYSTEM_PROMPT == jvp.OUTPAINT_SYSTEM_PROMPT
+    calls = []
+    for mod in (tvp, jvp):
+        builder = mod.VLMPromptBuilder(vlm_chat=lambda s, u, img: calls.append((s, u, img)) or f" {u} ")
+        assert builder.is_loaded and not mod.VLMPromptBuilder().is_loaded
+        assert builder.build_outpaint_prompt("a street", "IMG", ["top", "left"]) == \
+            "Sides being extended: left, top. Scene request: a street"
+        assert builder.build_inpaint_prompt(mod.InpaintIntent("remove"), "a table", "IMG") == "a table"
+        assert mod.VLMPromptBuilder().build_inpaint_prompt(mod.InpaintIntent.MODIFY, "x", None) is None
+        assert mod.VLMPromptBuilder(vlm_chat=lambda *a: 1 / 0).build_outpaint_prompt("x", None, ["top"]) is None
+    assert calls[:2] == calls[2:]

@@ -3,7 +3,7 @@ to the bit: the buckets, caption parsing, the dataset scan (``.txt``
 sidecars, ``manifest.jsonl``, control pairing), Pillow's LANCZOS resize and
 center crop, the ``LatentCache`` key, file names and round trip (a cache
 written by one package is read by the other), and ``batches``' order. The
-datasets are written from seeds by ``chip_smoke.write_dataset``.
+datasets are written from seeds by ``utils.synthetic.write_dataset``.
 """
 
 import dataclasses
@@ -12,9 +12,9 @@ import os
 import numpy as np
 import pytest
 
-import chip_smoke
 from flux2_tpu.training import data as jdata
 from flux2_tpu_torch.training import data as tdata
+from flux2_tpu_torch.utils import synthetic
 
 SIZES = [(64, 64), (48, 80), (96, 64), (64, 64), (40, 120)]
 
@@ -46,7 +46,7 @@ def test_parse_caption_equals_jax(raw, trigger):
 @pytest.fixture(scope="module")
 def datasets(tmp_path_factory):
     root = tmp_path_factory.mktemp("data")
-    return {manifest: chip_smoke.write_dataset(str(root / ("manifest" if manifest else "sidecars")), 3, SIZES,
+    return {manifest: synthetic.write_dataset(str(root / ("manifest" if manifest else "sidecars")), 3, SIZES,
                                                control=(0, 2), manifest=manifest)
             for manifest in (False, True)}
 

@@ -52,6 +52,7 @@ from flux2_tpu_torch.io import safetensors_io as tst
 from flux2_tpu_torch.io.jax_params import lora_from_jax, lora_to_flat
 from flux2_tpu_torch.models.flux2.vae import VAEConfig
 from flux2_tpu_torch.training import trainer as ttrainer
+from flux2_tpu_torch.utils import synthetic
 
 import tests.test_torch_checkpoints as ckpt_tests
 from tests.test_torch_lora import jax_lora
@@ -75,8 +76,8 @@ def _yaml(path, body: str) -> str:
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
     root = tmp_path_factory.mktemp("real")
-    data = chip_smoke.write_dataset(str(root / "data"), 0, SIZES, control=(0, 1, 3))
-    data["validation"] = chip_smoke.write_dataset(str(root / "held_out"), 1, [(64, 64)] * 2,
+    data = synthetic.write_dataset(str(root / "data"), 0, SIZES, control=(0, 1, 3))
+    data["validation"] = synthetic.write_dataset(str(root / "held_out"), 1, [(64, 64)] * 2,
                                                   captions=chip_smoke.VAL_CAPTIONS)["dataset"]
     return data
 

@@ -24,7 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from flux2_tpu.models.flux2 import config as jcfg
 from flux2_tpu.models.flux2 import transformer as jtfm
 from flux2_tpu.models.text_encoders import decoder as jdec
@@ -39,7 +38,7 @@ from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
 from flux2_tpu_torch.models.text_encoders.extractor import EmbeddingExtractor
 from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
 from flux2_tpu_torch.training import validation as tval
-from flux2_tpu_torch.utils import inline_bpe_tokenizer
+from flux2_tpu_torch.utils import inline_bpe_tokenizer, synthetic
 
 from tests.test_torch_shared_copies import jax_config
 from tests.test_torch_transformer import perturbed_numpy
@@ -178,7 +177,7 @@ def test_save_png_writes_jax_pixels(tmp_path):
 @pytest.mark.parametrize("trigger", [None, "sks"])
 def test_run_validation_equals_jax(tmp_path, trigger):
     jpipe, tpipe = tiny_pipelines("klein-4b")
-    ref_path = chip_smoke.write_dataset(str(tmp_path / "refs"), 4, [(64, 64)])["dataset"] + "/image_00.png"
+    ref_path = synthetic.write_dataset(str(tmp_path / "refs"), 4, [(64, 64)])["dataset"] + "/image_00.png"
     config = dict(prompts=("a red fox", {"prompt": "sks on a boat", "seed": 5, "width": 64, "height": 32},
                            {"prompt": "cartoon of a cat", "reference": ref_path}),
                   every_n_steps=2, width=32, height=32, steps=2, seed=11, trigger_word=trigger)
