@@ -85,7 +85,18 @@ where JAX's chunked form gives NaN), compare_images_for_flux and score_validatio
 Qwen3.5-VL checkpoint at full width (depth cut to 4 LM layers and 2 vision blocks) under the registry's
 qwen35-vlm path, then `t2i --interpret`, `i2i --upsample`, `flux-encoders vision --image` / `--image2`,
 `inpaint --enrich-prompt-with-vlm --intent remove` and `evaluate-lora` (VLM scoring) from the Klein-4B
-directories, each with its VLM replies in use. Every path runs with the launch
+directories, each with its VLM replies in use. The parallel slice (phase_parallel, on the bf16 Klein-4B
+pipeline after phase_mask, on a one-rank NCCL mesh: the card's machine has one GPU): C, a w8a8 and a
+w4a8 copy of the DiT sharded by `shard_params` (every partitioned K5 / K6 call equal to the unsharded
+one to the bit, 206 / 205 a forward); B, `Flux2Pipeline.shard(context_parallel=True)`, which on a mesh
+of one rank leaves the weights plain (K2 100, K1 none, each ring output equal to its K2 output to the
+bit); A, the DiT's weights made DTensors by `shard_params`, the path a larger mesh runs (the 1024^2
+4-step image's latents against the unsharded run's, K1 100, the host s/step of both), and the ring on
+it; the flash ring at (1, 24, 4608, 128) against the einsum ring and its backward against dense
+autograd; Qwen3-4B's decoder sharded by `shard_params` (embeddings to the bit); D, `t2i --random-init`
+at 512^2 under `--shard 1,1,1`, `auto`, `1,1,1,1 --context-parallel` and `1,1,1 --dcn`, and `serve
+--tp 2`, which exits naming the device count.
+Every path runs with the launch
 counts set to 0 just before it and checks them just after. Any failure raises: the
 traceback is printed and the exit code is not 0. There is no CPU fallback.
 
@@ -4411,6 +4422,299 @@ def phase_vlm(card: str, workdir: str, dirs: dict) -> dict:
     return out
 
 
+# -- the parallel slice: the mesh, sharding, partitioned K5/K6, ring attention on K2 -------------------------------
+
+PARALLEL_PROMPT = "a lighthouse on a cliff at dusk, sharded"
+PARALLEL_SEED = SEED + 16
+# The pipeline's bf16 tolerance (tests/test_torch_i2i.py's BF16_LATENT_MAX): the latents of two
+# runs that round their bf16 intermediates in other places, at |x| ~ 6, where bf16's step is 2^-5.
+PARALLEL_LATENT_TOL = 0.06
+# The flash ring (K2 on each step's block, the blocks merged in f32 by LSE) against the einsum
+# ring (f32 logits and accumulators) on the same bf16 inputs, relative L2: K2's bf16 rounding of P
+# and of its output, as KERNEL_REL_TOL.
+RING_REL_TOL = KERNEL_REL_TOL
+# The ring's gradient on bf16 inputs (K2 forward; the backward recomputes through the einsum ring, f32
+# inside, bf16 out) against dense f32 autograd on the same values, relative L2 per input: the bf16
+# rounding of the output and of each gradient, as KERNEL_REL_TOL.
+RING_GRAD_REL_TOL = KERNEL_REL_TOL
+RING_SHAPE = (1, 24, 4608, 128)
+
+
+def _bits(t: torch.Tensor) -> tuple:
+    """A fingerprint of a tensor's bits: (int64 sum of its 16- or 32-bit words, its shape)."""
+    t = t.detach().contiguous()
+    words = t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
+    return int(words.to(torch.int64).sum()), tuple(t.shape)
+
+
+class _KernelOutputs:
+    """Wraps a kernel wrapper of ``module`` (by name) and keeps each call's output fingerprint."""
+
+    def __init__(self, module, name: str, index=None):
+        self.module, self.name, self.index = module, name, index
+        self.outputs = []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        self.own = self.name in vars(self.module)  # else inherited (an autograd Function's apply)
+
+        def wrapped(*a, **k):
+            out = self.orig(*a, **k)
+            self.outputs.append(_bits(out if self.index is None else out[self.index]))
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        if self.own:
+            setattr(self.module, self.name, self.orig)
+        else:
+            delattr(self.module, self.name)
+
+
+def _parallel_quant(pipe, mesh, card: str) -> dict:
+    """C: a w8a8 and a w4a8 copy of the DiT, one 1024^2 forward unsharded, then the same copy sharded on the
+    one-rank mesh by ``shard_params`` (its products partitioned): every K5 / K6 call and the velocity equal
+    to the bit."""
+    import copy
+
+    import numpy as np
+
+    from flux2_tpu_torch.ops import latents as lu
+    from flux2_tpu_torch.ops import quant as tq
+    from flux2_tpu_torch.ops import quant_kernels as qk
+    from flux2_tpu_torch.ops.rope import rope_embeddings
+    from flux2_tpu_torch.parallel import sharding as sh
+
+    emb = pipe.text_encoder(PARALLEL_PROMPT)
+    noise = lu.seeded_noise_seq(PARALLEL_SEED, 1024, 1024, 1, device="cuda").bfloat16()
+    ids = np.concatenate([lu.text_position_ids(512), lu.image_position_ids(1024, 1024)])
+    cos, sin = rope_embeddings(torch.from_numpy(ids).cuda())
+    t = torch.full((1,), 0.7, device="cuda")
+    out = {}
+    for fmt, kernel in (("w8a8", "w8a8_matmul"), ("w4a8", "w4a8_matmul")):
+        model = tq.quantize_params(copy.deepcopy(pipe.transformer), fmt)
+        runs = []
+        for sharded in (False, True):
+            if sharded:
+                sh.shard_params(model, mesh, sh.DIT_RULES)
+            _zero_launches()
+            with _KernelOutputs(qk, kernel) as rec, torch.inference_mode():
+                t0 = time.perf_counter()
+                v = sh.gather(model(noise, emb, t, cos, sin))
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+            runs.append({"v": v, "calls": rec.outputs, "counts": _launch_counts(), "s": sec})
+        want = {name: 0 for name in runs[0]["counts"]}
+        want.update(flash=25, quantize_rows=FORWARD_LAUNCHES[fmt])
+        want[COUNTER[fmt]] = FORWARD_LAUNCHES[fmt]
+        for label, run in zip(("unsharded", "sharded"), runs):
+            if run["counts"] != want:
+                raise AssertionError(f"[parallel C] {fmt} {label} forward launched {run['counts']}, want {want}")
+            if len(run["calls"]) != FORWARD_LAUNCHES[fmt]:
+                raise AssertionError(f"[parallel C] {fmt} {label} forward: {len(run['calls'])} {kernel} calls "
+                                     f"recorded, want {FORWARD_LAUNCHES[fmt]}")
+        if runs[0]["calls"] != runs[1]["calls"]:
+            differ = sum(a != b for a, b in zip(runs[0]["calls"], runs[1]["calls"]))
+            raise AssertionError(f"[parallel C] {fmt}: {differ} of {len(runs[0]['calls'])} partitioned {kernel} calls "
+                                 "differ from the unsharded ones")
+        if not torch.equal(runs[0]["v"], runs[1]["v"]):
+            raise AssertionError(f"[parallel C] {fmt}: the sharded velocity differs, max abs "
+                                 f"{(runs[0]['v'].float() - runs[1]['v'].float()).abs().max().item()}")
+        log(f"[parallel C] {fmt} Klein-4B DiT forward at 1024^2 on the one-rank mesh, products partitioned: "
+            f"{len(runs[1]['calls'])} {kernel} calls each equal to the unsharded call to the bit, the velocity "
+            f"too; launches {runs[1]['counts']}; host+device s: unsharded {runs[0]['s']:.4f}, sharded "
+            f"{runs[1]['s']:.4f} [{card}]")
+        out[fmt] = {"launches": runs[1]["counts"][COUNTER[fmt]], "prologue": runs[1]["counts"]["quantize_rows"],
+                    "k1": runs[1]["counts"]["flash"], "s": (runs[0]["s"], runs[1]["s"])}
+        del model
+        gc_cuda()
+    return out
+
+
+def _ring_kernel_checks(mesh, card: str) -> dict:
+    """B's kernel checks: the flash ring at RING_SHAPE against the einsum ring (its plain version) and, on
+    a ring of one, against K2 alone to the bit; the ring's backward at a small shape against dense
+    autograd."""
+    from flux2_tpu_torch.ops import flash_attention as fa
+    from flux2_tpu_torch.parallel import ring_attention as ra
+    from flux2_tpu_torch.parallel.sharding import gather
+
+    g = torch.Generator(device="cuda").manual_seed(PARALLEL_SEED)
+    q, k, v = (torch.randn(RING_SHAPE, generator=g, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+    scale = RING_SHAPE[-1] ** -0.5
+    with torch.inference_mode():
+        _zero_launches()
+        flash = gather(ra.ring_attention(q, k, v, mesh, axis="tp"))
+        launches = _launch_counts()["flash_lse"]
+        plain = gather(ra.ring_attention(q, k, v, mesh, axis="tp", use_flash=False))
+        alone, _ = fa.flash_attention_lse(q, k, v, scale)
+        ms = time_ms(lambda: ra.ring_attention(q, k, v, mesh, axis="tp"))
+        plain_ms = time_ms(lambda: ra.ring_attention(q, k, v, mesh, axis="tp", use_flash=False), reps=5)
+        k2_ms = time_ms(lambda: fa.flash_attention_lse(q, k, v, scale))
+    if launches != 1:
+        raise AssertionError(f"[parallel B] the flash ring of one launched K2 {launches} times, want 1")
+    rel = float((flash.float() - plain.float()).norm() / plain.float().norm())
+    if not rel <= RING_REL_TOL:
+        raise AssertionError(f"[parallel B] flash ring vs einsum ring: relative L2 {rel} > {RING_REL_TOL}")
+    if not torch.equal(flash, alone):
+        raise AssertionError("[parallel B] the flash ring of one differs from K2 alone")
+    flop = 4 * RING_SHAPE[0] * RING_SHAPE[1] * RING_SHAPE[2] ** 2 * RING_SHAPE[3]
+    bound = bound_ms(flop, attention_bytes(1, RING_SHAPE[1], RING_SHAPE[2], RING_SHAPE[2], 2, 2, 1), BF16_FLOPS)
+    log(f"[parallel B] flash ring (K2) at {list(RING_SHAPE)} on a ring of one: relative L2 {rel:.4e} vs the "
+        f"einsum ring (tol {RING_REL_TOL}), equal to K2 alone to the bit; {ms:.4f} ms (K2 alone {k2_ms:.4f} ms, "
+        f"einsum ring {plain_ms:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}) [{card}]")
+
+    small = (1, 2, 256, 128)
+    leaves = [torch.randn(small, generator=g, device="cuda", dtype=torch.bfloat16).requires_grad_() for _ in range(3)]
+    _zero_launches()
+    o = gather(ra.ring_attention(*leaves, mesh, axis="tp", use_flash=True))
+    (o.float() ** 2).sum().backward()
+    if _launch_counts()["flash_lse"] != 1:
+        raise AssertionError(f"[parallel B] the ring's backward pass launched {_launch_counts()}, want K2 once")
+    dense_in = [t.detach().float().requires_grad_() for t in leaves]
+    s = torch.einsum("bhqd,bhkd->bhqk", dense_in[0], dense_in[1]) * small[-1] ** -0.5
+    dense = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), dense_in[2])
+    (dense * dense).sum().backward()
+    err = max(float((t.grad.float() - d.grad).norm() / d.grad.norm()) for t, d in zip(leaves, dense_in))
+    if not err <= RING_GRAD_REL_TOL:
+        raise AssertionError(f"[parallel B] ring gradient vs dense autograd: relative L2 {err} > {RING_GRAD_REL_TOL}")
+    log(f"[parallel B] ring backward at {list(small)} bf16 (K2 forward, einsum recompute) vs dense f32 autograd: "
+        f"relative L2 {err:.3e} (tol {RING_GRAD_REL_TOL}) [{card}]")
+    return {"rel": rel, "ms": ms, "plain_ms": plain_ms, "k2_ms": k2_ms, "bound": bound, "grad_err": err}
+
+
+def _parallel_cli(card: str, workdir: str) -> dict:
+    """D: t2i --random-init at 512^2, 2 steps, under each --shard form, in this process (one rank)."""
+    from flux2_tpu_torch.io.png import decode_png
+
+    counts = {}
+    for label, flags, want in (
+        ("shard 1,1,1", ["--shard", "1,1,1"], {"flash": 50}),
+        ("shard auto", ["--shard", "auto"], {"flash": 50}),
+        ("shard 1,1,1,1 context-parallel", ["--shard", "1,1,1,1", "--context-parallel"], {"flash_lse": 50}),
+        ("shard 1,1,1 dcn", ["--shard", "1,1,1", "--dcn"], {"flash": 50}),
+    ):
+        path = os.path.join(workdir, f"{label.replace(' ', '_').replace(',', '')}.png")
+        _zero_launches()
+        _run_cli(["t2i", "--random-init", "--width", "512", "--height", "512", "--steps", "2", "--seed",
+                  str(PARALLEL_SEED), "--prompt", PARALLEL_PROMPT, "-o", path, *flags], label, card, tag="parallel D")
+        got = _launch_counts()
+        _expect_counts(f"[parallel D] {label}", got, want)
+        with open(path, "rb") as f:
+            img = decode_png(f.read())
+        if img.shape != (512, 512, 3) or int(img.max()) == int(img.min()):
+            raise AssertionError(f"[parallel D] {label}: PNG {img.shape}, constant {int(img.max()) == int(img.min())}")
+        counts[label] = got
+        drop_encoders()
+    proc = subprocess.run([sys.executable, "-m", "flux2_tpu_torch.serve", "--tp", "2", "--random-init"],
+                          capture_output=True, text=True, timeout=120)
+    n = torch.cuda.device_count()
+    if proc.returncode == 0 or f"--tp 2 needs 2 CUDA devices" not in proc.stderr or f"has {n}" not in proc.stderr:
+        raise AssertionError(f"[parallel D] serve --tp 2 on {n} device(s): rc {proc.returncode}, {proc.stderr[-400:]}")
+    log(f"[parallel D] serve --tp 2 exits {proc.returncode}: {proc.stderr.strip().splitlines()[-1]} [{card}]")
+    return counts
+
+
+def phase_parallel(pipe, card: str, workdir: str) -> dict:
+    """The parallel slice on the full-width Klein-4B pipeline, on a one-rank NCCL mesh. C (first, on copies
+    of the DiT): w8a8 and w4a8 sharded by ``shard_params``. Then a 1024^2 4-step image unsharded, and B:
+    ``pipe.shard(context_parallel=True)``, which leaves the weights plain on a mesh of one rank: K2 25 a
+    forward (100), K1 none, each ring output equal to its K2 output to the bit, the image within the bf16
+    tolerance of the unsharded one. A: the DiT's weights made DTensors by ``shard_params`` (what a larger
+    mesh runs; ``pipe.shard`` skips it here): the same latents, K1 100, the host s/step of both, then the
+    ring on the DTensors (K2 100). The flash ring against the einsum ring and the ring's backward; Qwen3-4B
+    sharded by ``shard_params`` (embeddings to the bit); D, the CLI. ``pipe`` is left sharded."""
+    from torch.distributed.tensor import DTensor
+
+    from flux2_tpu_torch.ops import flash_attention as fa
+    from flux2_tpu_torch.parallel import ring_attention as ra
+    from flux2_tpu_torch.parallel import sharding as sh
+    from flux2_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, 1, 1, 1)
+    out = {"quant": _parallel_quant(pipe, mesh, card)}
+    emb = pipe.text_encoder(PARALLEL_PROMPT)
+
+    def image(label: str, want: dict, record: bool = False):
+        _zero_launches()
+        if record:
+            with _KernelOutputs(fa, "flash_attention_lse", index=0) as k2, \
+                    _KernelOutputs(ra._RingFlash, "apply") as rings:
+                res = pipe.generate(embeddings=emb, height=1024, width=1024, num_steps=4, seed=PARALLEL_SEED)
+            if k2.outputs != rings.outputs or len(rings.outputs) != 100:
+                raise AssertionError(f"[parallel B] {label}: {len(rings.outputs)} ring outputs, "
+                                     f"{sum(a != b for a, b in zip(k2.outputs, rings.outputs))} unequal to K2's")
+        else:
+            res = pipe.generate(embeddings=emb, height=1024, width=1024, num_steps=4, seed=PARALLEL_SEED)
+        counts = _launch_counts()
+        _expect_counts(f"[parallel] {label}", counts, want)
+        if not torch.isfinite(res.latents_device).all():
+            raise AssertionError(f"[parallel] {label}: non-finite latents")
+        return res, counts
+
+    def dtensors(module) -> int:
+        return sum(isinstance(t, DTensor) for t in list(module.parameters()) + list(module.buffers()))
+
+    ref, _ = image("unsharded", {"flash": 100})
+    pipe.shard(mesh, context_parallel=True)
+    if dtensors(pipe.transformer):
+        raise AssertionError("[parallel B] pipe.shard on a mesh of one rank made DTensors of the weights")
+    b, b_counts = image("B context-parallel", {"flash_lse": 100}, record=True)
+    bdiff = float((b.latents_device - ref.latents_device).abs().max())
+    if bdiff > PARALLEL_LATENT_TOL:
+        raise AssertionError(f"[parallel B] ring latents vs unsharded: max abs {bdiff} > {PARALLEL_LATENT_TOL}")
+    host = {"unsharded": _s_per_step(ref), "ring": _s_per_step(b)}
+    log(f"[parallel B] pipe.shard(mesh of one rank, context_parallel=True): weights left plain; K2 launches "
+        f"{b_counts['flash_lse']}, K1 {b_counts['flash']}; 100 ring outputs equal to their K2 outputs to the bit; "
+        f"latents vs unsharded max abs {bdiff:.3e} (tol {PARALLEL_LATENT_TOL}), image "
+        f"{float(abs(b.image - ref.image).max()):.4f}; s/step unsharded {host['unsharded']:.4f}, ring "
+        f"{host['ring']:.4f} [{card}]")
+
+    pipe.shard(mesh)
+    sh.shard_params(pipe.transformer, mesh, sh.DIT_RULES)
+    a, a_counts = image("A sharded", {"flash": 100})
+    diff = float((a.latents_device - ref.latents_device).abs().max())
+    if diff:
+        log(f"[parallel A] sharded latents differ from the unsharded ones: max abs {diff:.3e} (the DTensor "
+            f"path's elementwise ops in another order) [{card}]")
+        if diff > PARALLEL_LATENT_TOL:
+            raise AssertionError(f"[parallel A] latents max abs {diff} > {PARALLEL_LATENT_TOL}")
+    host["sharded"] = _s_per_step(a)
+    log(f"[parallel A] Klein-4B 1024^2 4 steps, {dtensors(pipe.transformer)} weights made DTensors by "
+        f"shard_params on the one-rank mesh: latents {'equal to the bit' if not diff else diff} vs unsharded; K1 "
+        f"launches {a_counts['flash']}; s/step unsharded {host['unsharded']:.4f}, sharded {host['sharded']:.4f} "
+        f"(DTensor dispatch {host['sharded'] - host['unsharded']:+.4f}) [{card}]")
+    pipe.shard(mesh, context_parallel=True)
+    a_ring, a_ring_counts = image("A sharded, context-parallel", {"flash_lse": 100}, record=True)
+    rdiff = float((a_ring.latents_device - b.latents_device).abs().max())
+    if rdiff > PARALLEL_LATENT_TOL:
+        raise AssertionError(f"[parallel A] DTensor ring latents vs B's: max abs {rdiff} > {PARALLEL_LATENT_TOL}")
+    host["sharded_ring"] = _s_per_step(a_ring)
+    log(f"[parallel A] the ring on the DTensor weights: K2 launches {a_ring_counts['flash_lse']}, K1 "
+        f"{a_ring_counts['flash']}; each ring output equal to its K2 output to the bit; latents vs B max abs "
+        f"{rdiff:.3e}; s/step {host['sharded_ring']:.4f} [{card}]")
+    out.update(host=host, k1=a_counts["flash"], k2=b_counts["flash_lse"], k2_sharded=a_ring_counts["flash_lse"],
+               ring=_ring_kernel_checks(mesh, card))
+
+    before = pipe.text_encoder(PARALLEL_PROMPT + " (encoder)")
+    decoder = pipe.encoders.get(pipe.text_encoder_name).decoder
+    pipe.encoders.shard(pipe.text_encoder_name, mesh)
+    if dtensors(decoder):
+        raise AssertionError("[parallel] TextEncoders.shard on a mesh of one rank made DTensors of the weights")
+    sh.shard_params(decoder, mesh, sh.DECODER_RULES)
+    after = pipe.text_encoder(PARALLEL_PROMPT + " (encoder)")
+    if not torch.equal(before, after):
+        raise AssertionError(f"[parallel] sharded Qwen3-4B embeddings differ: max abs "
+                             f"{(before.float() - after.float()).abs().max().item()}")
+    log(f"[parallel] Qwen3-4B: TextEncoders.shard on the mesh of one rank leaves its weights plain; "
+        f"{dtensors(decoder)} weights made DTensors by shard_params give embeddings {list(after.shape)} equal "
+        f"to the unsharded ones to the bit [{card}]")
+    out["cli"] = _parallel_cli(card, workdir)
+    return out
+
+
 def drop_encoders() -> None:
     """After a phase whose pipelines are gone: the encoders that ``cli.main``
     registered in ``facade.shared`` (JAX's registry keeps them, as the
@@ -4563,8 +4867,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mask_") as workdir:
         mask = phase_mask(pipe, card, workdir)
     log(f"[mask] phase: {time.perf_counter() - t0:.2f} s [{card}]")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as workdir:
+        par = phase_parallel(pipe, card, workdir)  # leaves pipe sharded: it goes next
+    log(f"[parallel] phase: {time.perf_counter() - t0:.2f} s [{card}]")
     del pipe
     drop_encoders()
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # the one-rank NCCL group phase_parallel's make_mesh started
 
     from flux2_tpu_torch.cli.main import build_pipeline as cli_build_pipeline
 
@@ -4653,6 +4964,11 @@ def main() -> int:
                          "t2i_dev_cli_2_steps": dev["cli"]["counts"]["flash"]},
         # the VLM slice: each generating command of phase_vlm C (Klein-4B, 512^2, 2 steps; the VLM runs none)
         "launches_vlm_cli": {label: r["counts"]["flash"] for label, r in vlm["cli"].items() if r["counts"]["flash"]},
+        # the parallel slice (phase_parallel, one-rank NCCL mesh): the sharded 1024^2 4-step image, the
+        # sharded quantized forwards (25 each) and the CLI's --shard runs (512^2, 2 steps)
+        "launches_parallel": {"sharded_1024px_4_steps": par["k1"],
+                              **{f"{fmt}_sharded_forward": q["k1"] for fmt, q in par["quant"].items()},
+                              **{f"t2i_{label}": c["flash"] for label, c in par["cli"].items() if c["flash"]}},
         "dev_shape": {"q": list(DEV_K1_SHAPE[:3]) + [128], "s_k": DEV_K1_SHAPE[3], "ms": dev["kernels"]["k1"]["alone"],
                       "wrapper_ms": dev["kernels"]["k1"]["ms"], "plain_ms": dev["kernels"]["k1"]["plain_ms"],
                       "bound_ms": dev["kernels"]["k1"]["bound"], "bound_by": dev["kernels"]["k1"]["bound_by"],
@@ -4708,6 +5024,8 @@ def main() -> int:
                                           "dense_bf16_linear_ms": dev["kernels"]["qmm"][name]["dense_ms"],
                                           "max_abs_err": 0.0}
                                    for name, m, k, n in MISTRAL_QMM_SHAPES}
+        if fmt in par["quant"]:  # the parallel slice: one partitioned forward on the one-rank mesh
+            entry["launches_parallel"] = {"sharded_partitioned_forward": par["quant"][fmt]["launches"]}
         if fmt == "w8a8":
             entry["launches_dev"] = {"mistral_w8a8_greedy_16_tokens": dev["encoder"]["greedy"]["counts"]["w8a8"],
                                      "t2i_dev_cli": dev["cli"]["counts"]["w8a8"]}
@@ -4739,6 +5057,8 @@ def main() -> int:
                                      "t2i_dev_cli": dev["cli"]["counts"]["quantize_rows"]},
                     "launches_vlm": {"mistral_vlm_w8a8_analyze_image":
                                      vlm["mistral"]["w8a8"]["counts"]["quantize_rows"]},
+                    "launches_parallel": {f"{fmt}_sharded_partitioned_forward": q["prologue"]
+                                          for fmt, q in par["quant"].items()},
                     "dev_shapes": {f"{name}_block_{block}": {"m_k": [m, k], "ms": dev["kernels"]["qmm"][name][
                                        f"prologue_{block}"]["alone"],
                                    "bound_ms": dev["kernels"]["qmm"][name][f"prologue_{block}"]["bound"][0]}
@@ -4747,6 +5067,7 @@ def main() -> int:
     # which computes dq, dk and dv at once, as does their library call. Launches
     # from the 512^2 training run.
     big = grad_checks["klein4b_1024px"]
+    ring = par["ring"]
     for name, source, replaces, counter, mark, errs, key, lib in (
         ("flash_attention_fwd_lse", "flash_attention.cu", ":73", "flash_lse", "flash_fwd_lse_kernel", ("out", "lse"),
          "k2", "k2"),
@@ -4769,6 +5090,14 @@ def main() -> int:
                             "random_init_resume": real["random"]["counts_resume"][counter],
                             **{f"train_lora_{base}": r["counts"][counter] for base, r in real["qlora"].items()},
                             "remat_dots_1024px_step": real["dots"]["counts"][counter]}})
+        if key == "k2":  # the parallel slice: K2 on every ring step's block (a ring of one here)
+            kernels[-1]["launches_parallel"] = {
+                "ring_1024px_4_steps": par["k2"], "ring_on_dtensors_1024px_4_steps": par["k2_sharded"],
+                **{f"t2i_{label}": c["flash_lse"] for label, c in par["cli"].items() if c["flash_lse"]}}
+            kernels[-1]["ring_shape"] = {"q": list(RING_SHAPE), "ms": ring["ms"], "k2_alone_ms": ring["k2_ms"],
+                                         "plain_ms": ring["plain_ms"], "plain": "the einsum ring",
+                                         "bound_ms": ring["bound"][0], "bound_by": ring["bound"][1],
+                                         "rel_l2_vs_plain": ring["rel"], "grad_rel_l2": ring["grad_err"]}
     log(f"[vae] 1024^2 decode: first {decode['cold_s']:.4f} s, warm {decode['warm_s']:.4f} s [{card}]")
     log(f"[i2i] 1024^2 encode: first {i2i['encode_cold_s']:.4f} s, warm {i2i['encode_warm_s']:.4f} s, TF32 on vs off "
         f"{i2i['tf32_rel']:.4e}; Klein-4B s/step I2I {i2i['i2i_s_per_step']:.4f} vs T2I {i2i['t2i_s_per_step']:.4f}; "

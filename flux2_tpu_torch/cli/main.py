@@ -118,7 +118,18 @@ w4a8), as JAX's does:
     python -m flux2_tpu_torch.cli.main t2i --transformer-dir T --vae-dir V \\
         --encoder-dir E --quantization w8a8 --prompt "a red fox" -o fox.png
 
-Not ported yet, and refused: ``--shard`` (ROADMAP item 10).
+Every generating command takes ``--shard 'data,fsdp,tp[,sp]' | auto``,
+``--context-parallel`` and ``--dcn`` (JAX's ``build_pipeline`` branch,
+``:213-236``): ``Flux2Pipeline.shard`` over the mesh of the run's ranks.
+Torch runs one process per rank, so a sharded run starts under torchrun,
+every rank runs the command, and rank 0 alone writes files and prints the
+result lines; without torchrun the world is one rank and a larger spec
+exits naming the count:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 8 \
+        -m flux2_tpu_torch.cli.main t2i --random-init --shard 1,1,8 \
+        --context-parallel --prompt "a red fox" -o fox.png
+
 Images are read by Pillow
 where it imports (any format it reads), else PNG only, by the port's own
 decoder; so are masks (grey, grey + alpha, RGB or RGBA PNGs without Pillow).
@@ -127,6 +138,7 @@ decoder; so are masks (grey, grey + alpha, RGB or RGBA PNGs without Pillow).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -185,6 +197,13 @@ def build_pipeline(
         raise ValueError(f"--encoder-quantization {enc_fmt!r}: choose from {ENCODER_QUANTIZATIONS}")
     model = Flux2Model(args.model)
     device = torch.device(device)
+    spec = getattr(args, "shard", None)
+    if spec:  # under torchrun each rank builds on its own card (cuda:LOCAL_RANK)
+        from flux2_tpu_torch.parallel import mesh as mesh_mod
+
+        mesh_mod.ensure_process_group(device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     if not getattr(args, "random_init", False):
         pipe = _load_pipeline(args, model, device, fmt, enc_fmt)
     else:
@@ -201,7 +220,45 @@ def build_pipeline(
             attach_random_encoder(pipe, quantize_encoder_params(decoder, enc_fmt), enc_fmt)
     apply_loras(pipe, getattr(args, "lora", None) or [])
     pipe.memory_profile = memory_profile(args)
+    if spec:
+        mesh = _mesh_from_spec(spec, getattr(args, "dcn", False), device.type)
+        pipe.shard(mesh, context_parallel=getattr(args, "context_parallel", False))
+        from flux2_tpu_torch.parallel.mesh import mesh_shape
+
+        flog.info(f"sharded over mesh {mesh_shape(mesh)}")
     return pipe
+
+
+def _mesh_from_spec(spec: str, dcn: bool, device_type: str):
+    """``--shard 'data,fsdp,tp[,sp]' | auto`` (with ``--dcn``: the data axis
+    over contiguous groups of ranks) -> the mesh, as JAX's ``build_pipeline``;
+    a mesh the ranks do not fill exits naming the rank count."""
+    import torch.distributed as dist
+
+    from flux2_tpu_torch.parallel import mesh as mesh_mod
+
+    if spec == "auto":
+        return mesh_mod.best_mesh_for_inference(device_type=device_type)
+    try:
+        dims = [int(x) for x in spec.split(",")]
+    except ValueError:
+        dims = []
+    if len(dims) not in (3, 4):
+        raise SystemExit("--shard expects 'data,fsdp,tp' or 'data,fsdp,tp,sp' or 'auto'")
+    sp = dims[3] if len(dims) == 4 else 1
+    try:
+        if dcn:
+            return mesh_mod.make_multislice_mesh(num_slices=dims[0], fsdp=dims[1], tp=dims[2], sp=sp,
+                                                 device_type=device_type)
+        return mesh_mod.make_mesh(data=dims[0], fsdp=dims[1], tp=dims[2], sp=sp, device_type=device_type)
+    except ValueError as e:
+        raise SystemExit(f"--shard {spec}: {e}: this run has {dist.get_world_size()} rank(s); start one process "
+                         f"per rank with torchrun (python -m torch.distributed.run --nproc-per-node N ...)")
+
+
+def _writes_files() -> bool:
+    """Rank 0 (or a run without torchrun) writes the files and prints the result lines."""
+    return int(os.environ.get("RANK", "0")) == 0
 
 
 def _lora_spec(spec: str):
@@ -441,11 +498,9 @@ def _parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
     p = sub.add_parser("t2i", help="text to image")
     _add_common(p)
-    _add_output(p, checkpoints=True)
 
     p = sub.add_parser("i2i", help="multi-reference image-to-image")
     _add_common(p)
-    _add_output(p, checkpoints=True)
     p.add_argument("--reference", action="append", required=True, help="reference image path (repeatable)")
     p.add_argument("--strength", type=float, default=1.0)
     p.add_argument("--max-ref-megapixels", type=float, default=1.0,
@@ -453,7 +508,6 @@ def _parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("inpaint", help="RePaint masked inpainting")
     _add_common(p)
-    _add_output(p)
     p.add_argument("--image", required=True)
     p.add_argument("--mask", required=True)
     p.add_argument("--alpha-mask", action="store_true", help="transparent = inpaint")
@@ -474,7 +528,6 @@ def _parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("outpaint", help="BFL-style outpainting")
     _add_common(p)
-    _add_output(p)
     p.add_argument("--image", required=True)
     p.add_argument("--top", type=int, default=0)
     p.add_argument("--bottom", type=int, default=0)
@@ -494,7 +547,6 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--transformer-dir")
     p.add_argument("--lora", action="append", metavar="PATH[:SCALE]",
                    help="bake this LoRA into the exported weights (repeatable)")
-    p.add_argument("--models-dir", help="custom models directory (env FLUX2_MODELS_DIR)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu; the CPU only when asked")
 
     p = sub.add_parser("profile", help="benchmark generation (warmup + N runs)")
@@ -563,7 +615,10 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
-    """The flags of JAX's ``_add_common`` (``:813-876``) that the port runs."""
+    """The flags of JAX's ``_add_common`` (``:813-876``), given to all six
+    generating subcommands as there, and ``--device``. Only ``t2i`` and ``i2i``
+    act on ``--checkpoint-every``; ``profile`` and ``evaluate-lora`` ignore
+    ``-o``, as JAX's do."""
     p.add_argument("--model", default="klein-4b", choices=[m.value for m in Flux2Model])
     p.add_argument("--quantization", default="bf16", choices=QUANTIZATIONS)
     p.add_argument("--transformer-dir")
@@ -575,6 +630,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
         help="load quantized checkpoints but run bf16 (fast); default keeps weights quantized in device memory",
     )
     p.add_argument("--lora", action="append", help="path[:scale], repeatable")
+    p.add_argument("--shard", help="mesh spec 'data,fsdp,tp[,sp]' or 'auto' (all ranks on tp); run under torchrun, "
+                                   "one process per rank")
+    p.add_argument("--context-parallel", action="store_true",
+                   help="ring attention over the sp (or tp) axis for long sequences")
+    p.add_argument("--dcn", action="store_true",
+                   help="multi-slice: --shard's data axis spans contiguous groups of ranks (model collectives stay "
+                        "inside each group)")
     p.add_argument("--memory-profile", choices=["auto", "performance", "balanced", "conservative"],
                    help="memory/speed trade-off preset (VAE tiling threshold etc.)")
     p.add_argument("--encoder-dir", help="text-encoder weights dir (default: registry resolution)")
@@ -595,14 +657,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--steps", type=int)
     p.add_argument("--guidance", type=float)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu; the CPU only when asked")
-
-
-def _add_output(p: argparse.ArgumentParser, checkpoints: bool = False) -> None:
     p.add_argument("-o", "--output", default="output.png")
-    if checkpoints:
-        p.add_argument("--checkpoint-every", type=int, metavar="N",
-                       help="save intermediate images every N denoising steps as <output>_step_NNN.png")
+    p.add_argument("--checkpoint-every", type=int, metavar="N",
+                   help="save intermediate images every N denoising steps as <output>_step_NNN.png")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu; the CPU only when asked")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -619,6 +677,8 @@ def _save_png(image, path: str) -> None:
     ``_save_image``'s (``io.png.to_u8``: truncated), and print ``saved <path>``."""
     from flux2_tpu_torch.io.png import encode_png, to_u8
 
+    if not _writes_files():
+        return
     with open(path, "wb") as f:
         f.write(encode_png(to_u8(image)))
     print(f"saved {path}")
@@ -857,7 +917,7 @@ def cmd_profile(args) -> None:
     print(prof.report())
     if stats["runs"]:
         print(json.dumps(stats))
-    if args.trace:
+    if args.trace and _writes_files():
         prof.export_chrome_trace(args.trace)
         print(f"chrome trace -> {args.trace} (open in Perfetto)")
 
@@ -1059,12 +1119,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         os.environ["HF_TOKEN"] = args.token
     if getattr(args, "beacon", False):
         os.environ["FLUX2_RUNTIME_BEACON"] = "1"
-    if args.command == "train-lora":
-        from flux2_tpu_torch.cli.train import run_training
+    import torch.distributed as dist
 
-        run_training(args, args.device)
-    else:
-        COMMANDS[args.command](args)
+    # a group that this command starts (a sharded run) ends with it; a caller's own group is left
+    own_group = not dist.is_initialized()
+    stdout = sys.stdout
+    with contextlib.ExitStack() as stack:
+        if not _writes_files():  # the other ranks of a torchrun run: rank 0 prints the results
+            sys.stdout = stack.enter_context(open(os.devnull, "w"))
+        try:
+            if args.command == "train-lora":
+                from flux2_tpu_torch.cli.train import run_training
+
+                run_training(args, args.device)
+            else:
+                COMMANDS[args.command](args)
+        finally:
+            sys.stdout = stdout
+            if own_group and dist.is_initialized():
+                dist.destroy_process_group()
     return 0
 
 

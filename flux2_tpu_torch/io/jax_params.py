@@ -111,25 +111,45 @@ def _carry(leaf, i=None):
     return _quantized(leaf, i) if _is_quantized_leaf(leaf) else _linear(_layer(leaf, i))
 
 
+# The DiT's unstacked linears: port name -> (JAX group, leaf). The stacked
+# groups (``double_blocks``, ``single_blocks``, the decoder's ``layers``) keep
+# their leaf names, and the decoder's top-level leaves are named alike.
+DIT_LINEARS = {
+    "x_embedder": ("x_embedder", "kernel"),
+    "context_embedder": ("context_embedder", "kernel"),
+    "time_linear1": ("time_embed", "linear1"),
+    "time_linear2": ("time_embed", "linear2"),
+    "guidance_linear1": ("guidance_embed", "linear1"),
+    "guidance_linear2": ("guidance_embed", "linear2"),
+    "double_mod_img": ("double_mod_img", "kernel"),
+    "double_mod_txt": ("double_mod_txt", "kernel"),
+    "single_mod": ("single_mod", "kernel"),
+    "norm_out": ("norm_out", "kernel"),
+    "proj_out": ("proj_out", "kernel"),
+}
+STACKS = ("double_blocks", "single_blocks", "layers")
+
+
+def jax_path(name: str):
+    """A port parameter name (or a quantized weight's module name) -> (JAX
+    key path as ``"/"``-joined keys, stacked): ``double_blocks.3.to_q`` ->
+    (``double_blocks/to_q``, True), ``time_linear1`` -> (``time_embed/linear1``,
+    False), ``embed_tokens`` -> (``embed_tokens``, False)."""
+    parts = name.split(".")
+    if len(parts) > 2 and parts[0] in STACKS and parts[1].isdigit():
+        return "/".join([parts[0], *parts[2:]]), True
+    if name in DIT_LINEARS:
+        return "/".join(DIT_LINEARS[name]), False
+    return "/".join(parts), False
+
+
 def transformer_from_jax(params: dict, config: Flux2TransformerConfig,
                          device: "torch.device | str" = "cpu") -> Flux2Transformer:
     """The port's DiT holding ``params`` (JAX's tree: numpy leaves, or torch
     tensors already in JAX's layout, as a prequantized file gives them)."""
     dtype = _tensor(params["double_blocks"]["norm_q"]).dtype  # norm scales are never quantized
-    sd = {
-        "x_embedder": _carry(params["x_embedder"]["kernel"]),
-        "context_embedder": _carry(params["context_embedder"]["kernel"]),
-        "time_linear1": _carry(params["time_embed"]["linear1"]),
-        "time_linear2": _carry(params["time_embed"]["linear2"]),
-        "double_mod_img": _carry(params["double_mod_img"]["kernel"]),
-        "double_mod_txt": _carry(params["double_mod_txt"]["kernel"]),
-        "single_mod": _carry(params["single_mod"]["kernel"]),
-        "norm_out": _carry(params["norm_out"]["kernel"]),
-        "proj_out": _carry(params["proj_out"]["kernel"]),
-    }
-    if config.guidance_embeds:
-        sd["guidance_linear1"] = _carry(params["guidance_embed"]["linear1"])
-        sd["guidance_linear2"] = _carry(params["guidance_embed"]["linear2"])
+    sd = {name: _carry(params[group][leaf]) for name, (group, leaf) in DIT_LINEARS.items()
+          if config.guidance_embeds or group != "guidance_embed"}
     for stack, n in (("double_blocks", config.num_layers), ("single_blocks", config.num_single_layers)):
         for name, leaf in params[stack].items():
             for i in range(n):

@@ -10,8 +10,21 @@ outputs, see ``_dots_policy``); and the
 klein-9b-kv pair ``forward_kv_extract`` / ``forward_kv_cached``: step 0 runs
 [txt ; ref ; img] with the reference queries blind to the output keys and
 returns each block's post-RoPE reference K/V, steps 1+ run [txt ; img] with
-that K/V inserted between the text and image keys. Ring attention is not
-ported yet.
+that K/V inserted between the text and image keys.
+
+Sharded (``parallel.sharding.shard_params(model, mesh, DIT_RULES)`` sets
+``self.mesh``): the forwards take plain tensors that every rank holds alike,
+make them ``Replicate()`` DTensors once (the sinusoids too: DTensor refuses
+to mix plain tensors in), run the blocks on DTensors with every weight
+product partitioned in ``q_linear`` and every attention on local heads
+(``sdpa``), and return the velocity as a DTensor (``parallel.sharding.gather``
+gives its value). A projection whose output joins the residual stream is
+gathered whole on the feature axis (``_lmm(full=True)``), so the stream
+stays replicated, or token-sharded under ``ring``. ``ring=(mesh, axis)``
+(``forward``, ``forward_kv_cached``) runs every attention as ring attention
+and pins the streams' token axis to ``axis`` between blocks (JAX's
+``_seq_shard``); ``forward_kv_extract`` stays dense, since its blocked span
+cannot ride the ring.
 
 Linear weights are stored [out, in] (``F.linear``'s layout); the JAX package
 stores [in, out] stacked over layers, and ``flux2_tpu_torch.io.jax_params``
@@ -38,6 +51,7 @@ from flux2_tpu_torch.ops.attention import sdpa
 from flux2_tpu_torch.ops.normalization import gate, layer_norm, modulate, rms_norm
 from flux2_tpu_torch.ops.quant import q_linear
 from flux2_tpu_torch.ops.rope import apply_rope
+from flux2_tpu_torch.parallel.sharding import on_head_boundaries, replicate, seq_shard, unshard_last
 
 
 def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -79,7 +93,8 @@ def sinusoidal_embedding(t: torch.Tensor, num_channels: int = 256) -> torch.Tens
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """[B, S, H*D] -> contiguous [B, H, S, D]."""
+    """[B, S, H*D] -> contiguous [B, H, S, D] (a sharded x split on head boundaries)."""
+    x = on_head_boundaries(x, num_heads)
     b, s, _ = x.shape
     return x.reshape(b, s, num_heads, -1).transpose(1, 2).contiguous()
 
@@ -90,20 +105,22 @@ def _unheads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _lmm(x: torch.Tensor, w, lora: Optional[nn.ModuleDict], name: str, scale: float) -> torch.Tensor:
+def _lmm(x: torch.Tensor, w, lora: Optional[nn.ModuleDict], name: str, scale: float,
+         full: bool = False) -> torch.Tensor:
     """Projection with an optional UNMERGED LoRA adapter (JAX ``_lmm``):
     y = x W^T + scale * ((x a) b), the adapter cast to x's dtype. The
-    backward forms only [in, r] and [r, out] gradients, never a base-sized one."""
+    backward forms only [in, r] and [r, out] gradients, never a base-sized one.
+    ``full``: a sharded output is gathered whole on the feature axis."""
     y = q_linear(x, w)
     if lora is not None and name in lora:
         ad = lora[name]
         y = y + ((x @ ad.a.to(x.dtype)) @ ad.b.to(x.dtype)) * scale
-    return y
+    return unshard_last(y) if full else y
 
 
 def _swiglu(x, bp, w_in: str, w_out: str, lora, scale) -> torch.Tensor:
     g, v = _lmm(x, getattr(bp, w_in), lora, w_in, scale).chunk(2, dim=-1)
-    return _lmm(F.silu(g) * v, getattr(bp, w_out), lora, w_out, scale)
+    return _lmm(F.silu(g) * v, getattr(bp, w_out), lora, w_out, scale, full=True)
 
 
 KV = Tuple[torch.Tensor, torch.Tensor]  # post-RoPE (k, v), [B, H, S, head_dim] each
@@ -145,17 +162,19 @@ class DoubleBlock(nn.Module):
 
     def forward(self, img, txt, img_mod, txt_mod, rope_cos, rope_sin, lora: Optional[nn.ModuleDict] = None,
                 lora_scale: float = 1.0, extra_kv: Optional[KV] = None,
-                kv_extract_span: Optional[Tuple[int, int]] = None, blocked_span: Optional[Tuple[int, int, int]] = None):
+                kv_extract_span: Optional[Tuple[int, int]] = None, blocked_span: Optional[Tuple[int, int, int]] = None,
+                ring: Optional[tuple] = None):
         """(img, txt), and with ``kv_extract_span=(start, length)`` also the
         post-RoPE K/V of those joint positions, taken before ``extra_kv`` (cached
-        post-RoPE reference K/V) is inserted between the text and image keys."""
+        post-RoPE reference K/V) is inserted between the text and image keys.
+        ``ring=(mesh, axis)``: ring attention."""
         nh = self.num_heads
         s_txt = txt.shape[1]
         img_n = modulate(layer_norm(img), img_mod[:, 0, 0], img_mod[:, 0, 1])
         txt_n = modulate(layer_norm(txt), txt_mod[:, 0, 0], txt_mod[:, 0, 1])
 
-        def proj(x, name):
-            return _lmm(x, getattr(self, name), lora, name, lora_scale)
+        def proj(x, name, full=False):
+            return _lmm(x, getattr(self, name), lora, name, lora_scale, full)
 
         q_img = rms_norm(_heads(proj(img_n, "to_q"), nh), self.norm_q)
         k_img = rms_norm(_heads(proj(img_n, "to_k"), nh), self.norm_k)
@@ -169,10 +188,10 @@ class DoubleBlock(nn.Module):
         v = torch.cat([v_txt, v_img], dim=2)
         extracted = _extract(k, v, kv_extract_span)
         k, v = _insert(k, v, extra_kv, s_txt)
-        attn = sdpa(q, k, v, blocked_span=blocked_span, bounded_logits=True)  # qk are RMS-normed above
+        attn = sdpa(q, k, v, blocked_span=blocked_span, ring=ring, bounded_logits=True)  # qk are RMS-normed above
 
-        img = img + gate(proj(_unheads(attn[:, :, s_txt:]), "to_out"), img_mod[:, 0, 2])
-        txt = txt + gate(proj(_unheads(attn[:, :, :s_txt]), "add_out"), txt_mod[:, 0, 2])
+        img = img + gate(proj(_unheads(attn[:, :, s_txt:]), "to_out", True), img_mod[:, 0, 2])
+        txt = txt + gate(proj(_unheads(attn[:, :, :s_txt]), "add_out", True), txt_mod[:, 0, 2])
 
         img_n2 = modulate(layer_norm(img), img_mod[:, 1, 0], img_mod[:, 1, 1])
         txt_n2 = modulate(layer_norm(txt), txt_mod[:, 1, 0], txt_mod[:, 1, 1])
@@ -202,13 +221,13 @@ class SingleBlock(nn.Module):
 
     def forward(self, x, mod, rope_cos, rope_sin, lora: Optional[nn.ModuleDict] = None, lora_scale: float = 1.0,
                 extra_kv: Optional[KV] = None, txt_len: int = 0, kv_extract_span: Optional[Tuple[int, int]] = None,
-                blocked_span: Optional[Tuple[int, int, int]] = None):
+                blocked_span: Optional[Tuple[int, int, int]] = None, ring: Optional[tuple] = None):
         """x, and with ``kv_extract_span`` also the extracted K/V (as ``DoubleBlock``);
         ``extra_kv`` goes in after the first ``txt_len`` keys."""
         nh = self.num_heads
 
-        def proj(x, name):
-            return _lmm(x, getattr(self, name), lora, name, lora_scale)
+        def proj(x, name, full=False):
+            return _lmm(x, getattr(self, name), lora, name, lora_scale, full)
 
         x_n = modulate(layer_norm(x), mod[:, 0, 0], mod[:, 0, 1])
         q = apply_rope(rms_norm(_heads(proj(x_n, "to_q"), nh), self.norm_q), rope_cos, rope_sin)
@@ -216,9 +235,9 @@ class SingleBlock(nn.Module):
         v = _heads(proj(x_n, "to_v"), nh)
         extracted = _extract(k, v, kv_extract_span)
         k, v = _insert(k, v, extra_kv, txt_len)
-        attn = _unheads(sdpa(q, k, v, blocked_span=blocked_span, bounded_logits=True))  # qk RMS-normed above
+        attn = _unheads(sdpa(q, k, v, blocked_span=blocked_span, ring=ring, bounded_logits=True))  # qk RMS-normed
         mlp = F.silu(proj(x_n, "mlp_gate")) * proj(x_n, "mlp_up")
-        out = proj(attn, "out_attn") + proj(mlp, "out_mlp")
+        out = proj(attn, "out_attn", True) + proj(mlp, "out_mlp", True)
         res = x + gate(out, mod[:, 0, 2])
         if kv_extract_span is not None:
             return res, extracted
@@ -227,6 +246,8 @@ class SingleBlock(nn.Module):
 
 class Flux2Transformer(nn.Module):
     """The FLUX.2 DiT: [B, S_img, 128] latents + [B, S_txt, joint] text -> velocity."""
+
+    mesh = None  # the DeviceMesh its weights are sharded over (``parallel.sharding.shard_params``)
 
     def __init__(
         self,
@@ -274,26 +295,34 @@ class Flux2Transformer(nn.Module):
     def time_guidance_embedding(self, timestep: torch.Tensor, guidance: Optional[torch.Tensor]) -> torch.Tensor:
         """Timestep (+ optional guidance) embedding [B, D]; sigma is scaled x1000."""
         tc = self.config.time_embed_channels
-        temb = self._mlp_embed(sinusoidal_embedding(timestep * 1000.0, tc), self.time_linear1, self.time_linear2)
+        t = replicate(sinusoidal_embedding(timestep * 1000.0, tc), self.mesh)
+        temb = self._mlp_embed(t, self.time_linear1, self.time_linear2)
         if self.config.guidance_embeds and guidance is not None:
-            g = sinusoidal_embedding(guidance * 1000.0, tc)
+            g = replicate(sinusoidal_embedding(guidance * 1000.0, tc), self.mesh)
             temb = temb + self._mlp_embed(g, self.guidance_linear1, self.guidance_linear2)
-        return temb
+        return unshard_last(temb)
 
     @staticmethod
     def _modulation(weight: torch.Tensor, temb: torch.Tensor, num_sets: int) -> torch.Tensor:
         """linear(silu(temb)) -> [B, num_sets, 3, D] of (shift, scale, gate)."""
-        out = q_linear(F.silu(temb), weight)
+        out = unshard_last(q_linear(F.silu(temb), weight))
         return out.reshape(out.shape[0], num_sets, 3, -1)
 
-    def _prelude(self, hidden_states, encoder_hidden_states, timestep, guidance):
+    def _inputs(self, *tensors):
+        """The forward's tensor inputs as ``Replicate()`` DTensors when sharded
+        (rope tables in float32)."""
+        return [replicate(t, self.mesh) for t in tensors]
+
+    def _prelude(self, hidden_states, encoder_hidden_states, timestep, guidance, ring=None):
         """Embedded image and text streams, the time embedding and the three
-        modulations (JAX ``_prelude``)."""
-        img = q_linear(hidden_states, self.x_embedder)
+        modulations (JAX ``_prelude``); the streams' token axis on the ring's
+        mesh axis under ``ring``."""
+        hidden_states, encoder_hidden_states = self._inputs(hidden_states, encoder_hidden_states)
+        img = seq_shard(unshard_last(q_linear(hidden_states, self.x_embedder)), ring)
         # a quantized context embedder takes the stream's dtype (JAX: hidden_states')
         ctx_w = self.context_embedder
         ctx_dtype = ctx_w.dtype if isinstance(ctx_w, torch.Tensor) else hidden_states.dtype
-        txt = q_linear(encoder_hidden_states.to(ctx_dtype), ctx_w)
+        txt = seq_shard(unshard_last(q_linear(encoder_hidden_states.to(ctx_dtype), ctx_w)), ring)
         # back to the stream dtype when a quantized time embedding left it f32
         temb = self.time_guidance_embedding(timestep, guidance).to(img.dtype)
         img_mod = self._modulation(self.double_mod_img, temb, 2)
@@ -303,8 +332,8 @@ class Flux2Transformer(nn.Module):
 
     def _final(self, temb: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
         """AdaLN-continuous out: (scale, shift) in diffusers order, then proj_out."""
-        scale, shift = q_linear(F.silu(temb), self.norm_out).chunk(2, dim=-1)
-        return q_linear(modulate(layer_norm(img), shift, scale), self.proj_out)
+        scale, shift = unshard_last(q_linear(F.silu(temb), self.norm_out)).chunk(2, dim=-1)
+        return unshard_last(q_linear(modulate(layer_norm(img), shift, scale), self.proj_out))
 
     def forward(
         self,
@@ -317,22 +346,23 @@ class Flux2Transformer(nn.Module):
         remat: "bool | str" = False,
         lora=None,  # flux2_tpu_torch.training.lora.LoRA
         lora_scale: float = 1.0,
+        ring: Optional[tuple] = None,
     ) -> torch.Tensor:
         """Velocity [B, S_img, 128]. ``remat``: False; True / "block" to
         recompute each block in the backward (``torch.utils.checkpoint``,
         non-reentrant; JAX ``_remat_wrap``); "dots" to recompute each block
         but its 2-D products (``_dots_policy``). ``lora`` adds the unmerged
-        adapters scaled by ``lora_scale``."""
+        adapters scaled by ``lora_scale``. ``ring=(mesh, axis)``: ring
+        attention in every block, the token axis sharded over ``axis``."""
         if remat not in (False, True, "block", "dots"):
             raise ValueError(f"remat={remat!r}: choose False, True, 'block' or 'dots'")
         s_txt = encoder_hidden_states.shape[1]
         img, txt, temb, img_mod, txt_mod, single_mod = self._prelude(hidden_states, encoder_hidden_states, timestep,
-                                                                     guidance)
-        rope_cos = rope_cos.to(torch.float32)
-        rope_sin = rope_sin.to(torch.float32)
+                                                                     guidance, ring)
+        rope_cos, rope_sin = self._inputs(rope_cos.to(torch.float32), rope_sin.to(torch.float32))
 
         def run(block, *args, lora_block):
-            kw = {"lora": lora_block, "lora_scale": lora_scale}
+            kw = {"lora": lora_block, "lora_scale": lora_scale, "ring": ring}
             if remat == "dots":
                 return checkpoint(block, *args, use_reentrant=False, context_fn=_dots_context, **kw)
             if remat:
@@ -342,11 +372,12 @@ class Flux2Transformer(nn.Module):
         for i, block in enumerate(self.double_blocks):
             lb = lora.block("double_blocks", i) if lora is not None else None
             img, txt = run(block, img, txt, img_mod, txt_mod, rope_cos, rope_sin, lora_block=lb)
-        x = torch.cat([txt, img], dim=1)
+            img, txt = seq_shard(img, ring), seq_shard(txt, ring)
+        x = seq_shard(torch.cat([txt, img], dim=1), ring)
         for i, block in enumerate(self.single_blocks):
             lb = lora.block("single_blocks", i) if lora is not None else None
-            x = run(block, x, single_mod, rope_cos, rope_sin, lora_block=lb)
-        return self._final(temb, x[:, s_txt:])
+            x = seq_shard(run(block, x, single_mod, rope_cos, rope_sin, lora_block=lb), ring)
+        return seq_shard(self._final(temb, x[:, s_txt:]), ring)
 
     def forward_kv_extract(
         self,
@@ -368,12 +399,12 @@ class Flux2Transformer(nn.Module):
         s_ref = reference_hidden_states.shape[1]
         img, txt, temb, img_mod, txt_mod, single_mod = self._prelude(hidden_states, encoder_hidden_states, timestep,
                                                                      guidance)
-        ref = q_linear(reference_hidden_states, self.x_embedder)
+        (reference_hidden_states,) = self._inputs(reference_hidden_states)
+        ref = unshard_last(q_linear(reference_hidden_states, self.x_embedder))
         img = torch.cat([ref, img], dim=1)  # image stream = [ref ; img]
         blocked = (s_txt, s_txt + s_ref, s_txt + s_ref)
         span = (s_txt, s_ref)
-        rope_cos = rope_cos.to(torch.float32)
-        rope_sin = rope_sin.to(torch.float32)
+        rope_cos, rope_sin = self._inputs(rope_cos.to(torch.float32), rope_sin.to(torch.float32))
         double_kv, single_kv = [], []
         for block in self.double_blocks:
             img, txt, kv = block(img, txt, img_mod, txt_mod, rope_cos, rope_sin, blocked_span=blocked,
@@ -395,19 +426,22 @@ class Flux2Transformer(nn.Module):
         double_kv: List[KV],
         single_kv: List[KV],
         guidance: Optional[torch.Tensor] = None,
+        ring: Optional[tuple] = None,
     ) -> torch.Tensor:
         """Steps 1+ of KV-cached denoising (JAX ``forward_kv_cached``): only
         [txt ; img] runs through the network; each attention takes the cached
         reference K/V between the text and image keys (S_q = S_txt + S_img
-        queries over S_k = S_q + S_ref keys). Velocity [B, S_img, 128]."""
+        queries over S_k = S_q + S_ref keys). Velocity [B, S_img, 128].
+        ``ring``: the [txt ; img] queries ride the ring against the rotating
+        [txt ; cached ref ; img] K/V."""
         s_txt = encoder_hidden_states.shape[1]
         img, txt, temb, img_mod, txt_mod, single_mod = self._prelude(hidden_states, encoder_hidden_states, timestep,
-                                                                     guidance)
-        rope_cos = rope_cos.to(torch.float32)
-        rope_sin = rope_sin.to(torch.float32)
+                                                                     guidance, ring)
+        rope_cos, rope_sin = self._inputs(rope_cos.to(torch.float32), rope_sin.to(torch.float32))
         for block, kv in zip(self.double_blocks, double_kv, strict=True):
-            img, txt = block(img, txt, img_mod, txt_mod, rope_cos, rope_sin, extra_kv=kv)
-        x = torch.cat([txt, img], dim=1)
+            img, txt = block(img, txt, img_mod, txt_mod, rope_cos, rope_sin, extra_kv=kv, ring=ring)
+            img, txt = seq_shard(img, ring), seq_shard(txt, ring)
+        x = seq_shard(torch.cat([txt, img], dim=1), ring)
         for block, kv in zip(self.single_blocks, single_kv, strict=True):
-            x = block(x, single_mod, rope_cos, rope_sin, extra_kv=kv, txt_len=s_txt)
-        return self._final(temb, x[:, s_txt:])
+            x = seq_shard(block(x, single_mod, rope_cos, rope_sin, extra_kv=kv, txt_len=s_txt, ring=ring), ring)
+        return seq_shard(self._final(temb, x[:, s_txt:]), ring)

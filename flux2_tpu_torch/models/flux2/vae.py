@@ -46,6 +46,7 @@ class VAEConfig:
     layers_per_block: int = 2
     norm_num_groups: int = 32
     norm_eps: float = 1e-6
+    scaling_factor: float = 0.18215  # unused by FLUX.2 encode/decode; kept for parity with JAX
 
     @property
     def effective_decoder_channels(self) -> Tuple[int, ...]:
@@ -64,6 +65,7 @@ class VAEConfig:
             layers_per_block=d.get("layers_per_block", 2),
             norm_num_groups=d.get("norm_num_groups", 32),
             norm_eps=d.get("norm_eps", 1e-6),
+            scaling_factor=d.get("scaling_factor", 0.18215),
         )
 
 

@@ -16,6 +16,16 @@ The attention is plain torch with float32 logits, as in JAX (an einsum
 there, no Pallas). Every layer matmul and the untied head go through
 ``q_linear`` (JAX's ``mm``), so they may be quantized
 (``extractor.quantize_encoder_params`` quantizes the layers only).
+
+Sharded under DECODER_RULES (``parallel.sharding.shard_params``, which sets
+``self.mesh``), ``forward_hidden_states`` takes plain ids and returns a
+DTensor: the token table is vocab-parallel (``F.embedding`` of a
+vocab-sharded DTensor), the projections are partitioned in ``q_linear``, and
+the attention runs on each rank's local heads under ``local_map``. Where
+``k_proj`` / ``v_proj`` stay whole but ``q_proj`` is split over tp (the KV
+width does not divide), each local query head still meets its KV head: the
+KV head is indexed by the *global* query head. The cached generation path
+(``prefill``, ``decode_step``) runs unsharded decoders only.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
 from flux2_tpu_torch.models.flux2.transformer import linear_weight, ones_weight
 from flux2_tpu_torch.ops.normalization import rms_norm
 from flux2_tpu_torch.ops.quant import q_linear
+from flux2_tpu_torch.parallel.sharding import on_head_boundaries, replicate, unshard_last
 
 NEG_INF = -1e30
 
@@ -87,6 +98,52 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype: torch.dty
     return KVCache(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """[B, S, n*hd] -> [B, n, S, hd] (a sharded x split on head boundaries)."""
+    x = on_head_boundaries(x, n)
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, hd).transpose(1, 2)
+
+
+def _attend(q, k, v, mask, rep: int, hd: int, q_start: int = 0, kv_start: int = 0) -> torch.Tensor:
+    """GQA of query heads ``q_start..`` over KV heads ``kv_start..``: query
+    head j reads KV head (q_start + j) // rep, as the whole model's
+    ``repeat_interleave`` gives it."""
+    if rep > 1 or q_start or kv_start:
+        idx = (torch.arange(q.shape[1], device=q.device) + q_start) // rep - kv_start
+        k, v = k[:, idx], v[:, idx]
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd**-0.5) + mask
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(probs, v)
+
+
+def _gqa_attention(q, k, v, mask, rep: int, hd: int) -> torch.Tensor:
+    """``_attend``, on each rank's local heads when q/k/v are DTensors."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(q, DTensor):
+        return _attend(q, k, v, mask, rep, hd)
+    mesh = q.device_mesh
+
+    def heads_only(t):
+        return [p if isinstance(p, Shard) and p.dim == 1 else Replicate() for p in t.placements]
+
+    def start(places, n_local):
+        """The global index of this rank's first head."""
+        i = next((i for i, p in enumerate(places) if isinstance(p, Shard)), None)
+        return 0 if i is None else mesh.get_local_rank(i) * n_local
+
+    qp, kp = heads_only(q), heads_only(k)
+
+    def body(q_loc, k_loc, v_loc, m):
+        return _attend(q_loc, k_loc, v_loc, m, rep, hd, start(qp, q_loc.shape[1]), start(kp, k_loc.shape[1]))
+
+    fn = local_map(body, out_placements=qp, in_placements=(qp, kp, kp, [Replicate()] * mesh.ndim),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(q, k, v, replicate(mask, mesh))
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: DecoderConfig, device, dtype, generator):
         super().__init__()
@@ -114,9 +171,9 @@ class DecoderLayer(nn.Module):
         b, s, _ = x.shape
         nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         h = rms_norm(x, self.input_norm, cfg.rms_norm_eps)
-        q = q_linear(h, self.q_proj).reshape(b, s, nh, hd).transpose(1, 2)
-        k = q_linear(h, self.k_proj).reshape(b, s, nkv, hd).transpose(1, 2)
-        v = q_linear(h, self.v_proj).reshape(b, s, nkv, hd).transpose(1, 2)
+        q = _heads(q_linear(h, self.q_proj), nh, hd)
+        k = _heads(q_linear(h, self.k_proj), nkv, hd)
+        v = _heads(q_linear(h, self.v_proj), nkv, hd)
         if cfg.qk_norm:
             q = rms_norm(q, self.q_norm, cfg.rms_norm_eps)
             k = rms_norm(k, self.k_norm, cfg.rms_norm_eps)
@@ -129,23 +186,19 @@ class DecoderLayer(nn.Module):
             ck[:, :, cache_pos:cache_pos + s] = k
             cv[:, :, cache_pos:cache_pos + s] = v
             k, v = ck, cv
-        rep = nh // nkv
-        if rep > 1:
-            k = k.repeat_interleave(rep, dim=1)
-            v = v.repeat_interleave(rep, dim=1)
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd**-0.5) + mask
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        attn = torch.matmul(probs, v).transpose(1, 2).reshape(b, s, nh * hd)
-        x = x + q_linear(attn, self.o_proj)
+        attn = _gqa_attention(q, k, v, mask, nh // nkv, hd).transpose(1, 2).reshape(b, s, nh * hd)
+        x = x + unshard_last(q_linear(attn, self.o_proj))
         h2 = rms_norm(x, self.post_attn_norm, cfg.rms_norm_eps)
         mlp = q_linear(F.silu(q_linear(h2, self.gate_proj)) * q_linear(h2, self.up_proj), self.down_proj)
-        return x + mlp
+        return x + unshard_last(mlp)
 
 
 class Qwen3Decoder(nn.Module):
     """Token ids -> hidden states of every layer (the conditioning encoder),
     logits, and KV-cached generation. Despite its name it is the generic
     decoder: a config with ``llama4_scaling_beta`` is Mistral's."""
+
+    mesh = None  # the DeviceMesh its weights are sharded over (``parallel.sharding.shard_params``)
 
     def __init__(
         self,
@@ -167,6 +220,20 @@ class Qwen3Decoder(nn.Module):
         if not cfg.tie_word_embeddings:  # drawn last, as JAX's init_params draws it
             self.lm_head = linear_weight(cfg.hidden_size, cfg.vocab_size, device, dtype, generator)
 
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """Token embeddings; a sharded table is looked up vocab-parallel and
+        the result made whole on every rank."""
+        if self.mesh is None:
+            return self.embed_tokens[ids]
+        from torch.distributed.tensor import Replicate
+
+        out = F.embedding(replicate(ids, self.mesh), self.embed_tokens)
+        return out.redistribute(self.mesh, [Replicate()] * self.mesh.ndim)
+
+    def _require_unsharded(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"{what} runs unsharded decoders only; this one is sharded over {self.mesh}")
+
     def _q_scale(self, positions: torch.Tensor) -> Optional[torch.Tensor]:
         cfg = self.cfg
         if cfg.llama4_scaling_beta is None:
@@ -179,12 +246,13 @@ class Qwen3Decoder(nn.Module):
         [L+1, B, S, H]; index 0 is the embedding output, i >= 1 layer i's output.
         ``inputs_embeds`` [B, S, H] replaces the token embeddings (VLM merge)."""
         s = input_ids.shape[1]
-        x = inputs_embeds if inputs_embeds is not None else self.embed_tokens[input_ids]
+        x = inputs_embeds if inputs_embeds is not None else self._embed(input_ids)
         # absolute positions 0..S-1 whatever the padding, as the JAX package
         positions = torch.arange(s, device=x.device)
         cos, sin = llm_rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
         mask = causal_padding_mask(attention_mask, s)
         q_scale = self._q_scale(positions)
+        x, cos, sin, mask, q_scale = (replicate(t, self.mesh) for t in (x, cos, sin, mask, q_scale))
         states = [x]
         for layer in self.layers:
             x = layer(x, cos, sin, mask, q_scale)
@@ -228,6 +296,7 @@ class Qwen3Decoder(nn.Module):
         """Fill an empty cache with a prompt [B, S] (or its ``inputs_embeds``,
         VLM image-token splicing); returns the last token's logits [B, V]
         and the cache, ``length`` S."""
+        self._require_unsharded("prefill")
         if cache.length:
             raise ValueError(f"prefill takes an empty cache, this one holds {cache.length} slots")
         s = input_ids.shape[1]
@@ -240,6 +309,7 @@ class Qwen3Decoder(nn.Module):
     def decode_step(self, token: torch.Tensor, cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
         """One token [B, 1] at position ``cache.length``, attending to the cache
         slots ``<= pos``; returns its logits [B, V] and the cache, one longer."""
+        self._require_unsharded("decode_step")
         pos = cache.length
         if pos >= cache.max_len:
             raise ValueError(f"the KV cache is full ({cache.max_len} slots)")

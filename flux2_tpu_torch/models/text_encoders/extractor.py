@@ -35,6 +35,7 @@ from flux2_tpu_torch.models.text_encoders.config import (  # noqa: F401  (QWEN3_
 )
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
 from flux2_tpu_torch.ops.quant import quantize_params
+from flux2_tpu_torch.parallel.sharding import gather
 
 SYSTEM_MESSAGE_EMBEDDINGS = (
     "You are an AI that reasons about image descriptions. You give structured "
@@ -150,13 +151,14 @@ class EmbeddingExtractor:
     recipe: str = "klein"
 
     def __call__(self, prompt: str) -> torch.Tensor:
+        """The conditioning as a plain tensor (a sharded decoder's gathered)."""
         prep = prepare_klein_input_ids if self.recipe == "klein" else prepare_input_ids
         ids, mask = prep(self.tokenizer, prompt, self.max_length)
         device = self.decoder.embed_tokens.device
         with torch.inference_mode():
-            return self.decoder.extract_hidden_layers(
+            return gather(self.decoder.extract_hidden_layers(
                 torch.from_numpy(ids).long().to(device), torch.from_numpy(mask).to(device), self.hidden_layers
-            )
+            ))
 
     @property
     def embedding_dim(self) -> int:

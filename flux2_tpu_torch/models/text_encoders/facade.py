@@ -243,6 +243,15 @@ class TextEncoders:
     def unload_vlm(self) -> None:
         self._vlm = None
 
+    def shard(self, name: str, mesh) -> None:
+        """Distribute an encoder's weights over a mesh with DECODER_RULES (JAX's
+        ``shard``); its conditioning path then runs sharded and returns the
+        gathered embeddings. A mesh of one rank leaves the weights as they are."""
+        from flux2_tpu_torch.parallel import sharding as sh
+
+        if not sh.shards_nothing(mesh):
+            sh.shard_params(self._encoders[name].decoder, mesh, sh.DECODER_RULES)
+
     def unload(self, name: str) -> None:
         self._encoders.pop(name, None)
 

@@ -19,8 +19,12 @@ counterpart: a dense weight goes to ``F.linear``; a quantized one goes to
 its hand-written kernel (``ops/quant_kernels.py``) on a CUDA tensor when
 JAX's shape gate admits it, and otherwise to dequantize-then-``F.linear``,
 as on JAX's CPU. ``FLUX2_PALLAS_DEQUANT=1`` opts the grouped qint8 / int4
-formats into the fused dequant-matmul kernel (K7), as in JAX. The
-``_PARTITIONED_RUNTIME`` branch (sharded meshes) is not ported yet.
+formats into the fused dequant-matmul kernel (K7), as in JAX. A weight
+whose tensors are DTensors (``parallel.sharding.shard_params``) goes to
+``parallel/quant_partition.py``: a dense, W8A8 or W4A8 one by JAX's column /
+row rules (JAX's partitioned runtime, which the port always takes), a stored
+``QTensor`` gathered whole first (the replicated body: JAX has no rule for
+K7's formats).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from flux2_tpu_torch.ops import quant_kernels as qk
 
@@ -313,6 +318,19 @@ def dequantize_any(w: QuantizedWeight, dtype: torch.dtype = torch.bfloat16) -> t
 # ---------------------------------------------------------------------------
 
 
+def _sharded_linear(x: torch.Tensor, w) -> torch.Tensor:
+    """``q_linear`` of a weight held as DTensors (see the module docstring)."""
+    from flux2_tpu_torch.parallel import quant_partition as qp
+
+    if isinstance(w, torch.Tensor):
+        return qp.dense_linear_partitioned(x, w)
+    if isinstance(w, W8A8Tensor):
+        return qp.w8a8_matmul_partitioned(x, w)
+    if isinstance(w, W4A8Tensor):
+        return qp.w4a8_matmul_partitioned(x, w)
+    return qp.replicated_linear(x, w)
+
+
 def _pallas_dequant_enabled() -> bool:
     return os.environ.get("FLUX2_PALLAS_DEQUANT", "0") == "1"
 
@@ -341,7 +359,9 @@ def q_linear(x: torch.Tensor, w: "torch.Tensor | QuantizedWeight") -> torch.Tens
     ``x``. Every other case dequantizes in ``x``'s dtype and calls
     ``F.linear``. Mixed dense dtypes promote, as ``x @ w`` does in JAX (a
     bf16 stream under a quantized x_embedder meets f32 weights in a float32
-    model)."""
+    model). A weight held as DTensors takes ``_sharded_linear``."""
+    if isinstance(w if isinstance(w, torch.Tensor) else w.q, DTensor):
+        return _sharded_linear(x, w)
     if isinstance(w, torch.Tensor):
         if x.dtype != w.dtype:
             dtype = torch.promote_types(x.dtype, w.dtype)

@@ -24,6 +24,12 @@ image branch of ``upsample_prompt`` describe images through the vision
 service (``vlm``, loaded on first use by ``vlm_loader``: the CLI's checkpoint
 branch sets it); with neither they raise JAX's "requires a VLM" errors.
 
+``shard(mesh, context_parallel=)`` distributes the DiT over a device mesh
+(``flux2_tpu_torch/parallel/``; JAX's ``shard``): every rank runs
+``generate`` with the same arguments, each forward's velocity is gathered
+from its DTensor, and under context parallelism every unmasked attention is
+ring attention (``ring``; the KV extract step stays dense).
+
 The noise comes from a ``torch.Generator`` seeded with ``seed``: JAX uses
 threefry, so one seed gives different images in the two packages. Pass
 ``noise=`` to reproduce a JAX run.
@@ -49,6 +55,7 @@ from flux2_tpu_torch.ops import latents as lu
 from flux2_tpu_torch.ops.quant import param_dtype
 from flux2_tpu_torch.ops import scheduler as sch
 from flux2_tpu_torch.ops.rope import rope_embeddings
+from flux2_tpu_torch.parallel.sharding import gather
 from flux2_tpu_torch.utils.memory import MemoryTelemetry, telemetry as _mem_telemetry
 from flux2_tpu_torch.utils.profiler import shared as _profiler
 
@@ -177,6 +184,10 @@ class Flux2Pipeline:
     lora_num_steps: Optional[int] = None
     lora_guidance: Optional[float] = None
     lora_keywords: Sequence[str] = ()
+    # set by shard(): the DeviceMesh the DiT is sharded over, and (mesh, axis)
+    # of ring attention under context parallelism
+    mesh: Optional[Any] = None
+    ring: Optional[Any] = None
 
     PROMPT_CACHE_SIZE = 8
 
@@ -209,6 +220,28 @@ class Flux2Pipeline:
         vae = VAEDecoder(vc, device=device, generator=generator)
         return cls(model=model, transformer=transformer, vae=vae, device=device,
                    vae_encoder=VAEEncoder(vc, device=device, generator=generator))
+
+    def shard(self, mesh, context_parallel: bool = False) -> "Flux2Pipeline":
+        """Distribute the DiT over a (data, fsdp, tp, sp) mesh (JAX's ``shard``):
+        DIT_RULES shard its weights (heads and MLP hidden over tp, weights at
+        rest over fsdp) and every rank keeps its chunk; the VAE stays
+        replicated. A mesh whose axes all have size 1 shards nothing, so it
+        leaves the weights as they are (as JAX's costs nothing on one device).
+        ``context_parallel=True`` runs every unmasked attention as ring
+        attention on ``sp`` when the mesh sizes it, else on ``tp``. Every
+        rank calls ``generate`` with the same arguments, and so draws the
+        same noise from the same seed."""
+        from flux2_tpu_torch.parallel import sharding as sh
+        from flux2_tpu_torch.parallel.mesh import SP_AXIS, TP_AXIS
+
+        if not sh.shards_nothing(mesh):
+            sh.shard_params(self.transformer, mesh, sh.DIT_RULES)
+        self.mesh = mesh
+        if context_parallel:
+            self.ring = (mesh, SP_AXIS if sh.axis_size(mesh, SP_AXIS) > 1 else TP_AXIS)
+        else:
+            self.ring = None
+        return self
 
     # -- phase 1: text encoding ------------------------------------------------
 
@@ -499,13 +532,13 @@ class Flux2Pipeline:
                 if ref is not None:
                     x = torch.cat([x, ref], dim=1)
                 if use_cfg:
-                    v2 = self.transformer(torch.cat([x, x]), embeddings, torch.cat([tstep, tstep]), cos, sin,
-                                          guidance=g)
+                    v2 = gather(self.transformer(torch.cat([x, x]), embeddings, torch.cat([tstep, tstep]), cos, sin,
+                                                 guidance=g, ring=self.ring))
                     v_cond, v_uncond = v2[:b], v2[b:]
                     scale = torch.tensor(guidance, dtype=torch.float32, device=self.device).to(v2.dtype)
                     v = v_uncond + scale * (v_cond - v_uncond)
                 else:
-                    v = self.transformer(x, embeddings, tstep, cos, sin, guidance=g)
+                    v = gather(self.transformer(x, embeddings, tstep, cos, sin, guidance=g, ring=self.ring))
                 latents = sch.euler_step(latents, v[:, :s_img].to(torch.float32), sigma, sigma_next)
                 latents = step_end(latents, i)
         return latents
@@ -531,7 +564,9 @@ class Flux2Pipeline:
                         x, ref, embeddings, tstep, *extract_rope, guidance=g)
                     cache = (double_kv, single_kv)
                 else:
-                    v = self.transformer.forward_kv_cached(x, embeddings, tstep, *cached_rope, *cache, guidance=g)
+                    v = self.transformer.forward_kv_cached(x, embeddings, tstep, *cached_rope, *cache, guidance=g,
+                                                           ring=self.ring)
+                v = gather(v)
                 latents = sch.euler_step(latents, v.to(torch.float32), sigma, sigma_next)
                 latents = step_end(latents, i)
         return latents

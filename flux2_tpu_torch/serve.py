@@ -56,7 +56,25 @@ the oldest.
 ``main`` takes JAX's flags and ``--device`` (``cuda`` unless asked for the
 CPU). With ``--random-init`` the pipeline carries a random encoder of the
 model's family in ``facade.shared`` (``cli.main.build_pipeline``), so
-``/embed`` and ``/chat`` answer where JAX's random-init server answers 503. ``--tp`` > 1 is refused until the port has parallelism.
+``/embed`` and ``/chat`` answer where JAX's random-init server answers 503.
+
+``--tp N`` (N > 1) shards the pipeline's DiT over a (1, 1, N) mesh, as JAX's
+``main`` does. JAX's one process drives every chip; the port runs one
+process per rank under torchrun (``python -m torch.distributed.run
+--nproc-per-node N -m flux2_tpu_torch.serve --tp N ...``). Rank 0 runs the
+server and the HTTP layer through ``_Leader``, which broadcasts each batch's
+``generate`` arguments (``broadcast_object_list`` for the plain ones, one
+``broadcast`` per tensor: the embeddings, the noise, the references) before
+it calls ``generate``; the other ranks run ``_follow``, which receives them
+and makes the same call, so every collective of the sharded forward meets
+its partners. Between batches a follower waits on the process group's store
+(``_await_call``), never inside a collective: a collective gives up after the
+group's timeout (10 minutes on NCCL, 30 on gloo), and a server may sit idle
+far longer. Rank 0 counts each call up in the store (``_send_call``) just
+before it broadcasts it. The cancel check of every step is broadcast from
+rank 0 (``_SyncedCancel``), and so is shutdown. Previews and the decoded
+image are rank 0's; the followers skip the decode. A machine with fewer CUDA
+devices than N exits naming both counts.
 """
 
 from __future__ import annotations
@@ -67,6 +85,7 @@ import collections
 import functools
 import io
 import json
+import logging
 import math
 import os
 import threading
@@ -79,7 +98,7 @@ import torch
 
 from flux2_tpu_torch.io.png import decode_image, encode_png, to_u8
 from flux2_tpu_torch.ops import latents as lu
-from flux2_tpu_torch.pipeline.pipeline import GenerationCancelled
+from flux2_tpu_torch.pipeline.pipeline import GenerationCancelled, _cancel_requested
 
 
 class ChatUnavailableError(RuntimeError):
@@ -949,6 +968,136 @@ def make_handler(server: Flux2Server):
     return Handler
 
 
+class _SyncedCancel:
+    """A batch's cancel check, taken on rank 0 (``fn``) and broadcast, so that
+    every rank stops at the same step end; the followers pass ``fn`` None."""
+
+    def __init__(self, fn=None):
+        self.fn = fn
+
+    def __call__(self) -> bool:
+        import torch.distributed as dist
+
+        flag = [bool(self.fn()) if self.fn is not None else None]
+        dist.broadcast_object_list(flag, src=0)
+        return bool(flag[0])
+
+
+# the store key rank 0 counts its calls in; a follower that has taken n calls waits for n + 1
+_CALLS_KEY = "flux2_serve/calls"
+_POLL_S = 0.005
+
+
+def _send_call(kwargs: Optional[dict], device: torch.device) -> None:
+    """Rank 0: post one ``generate`` call (None: shut down) in the store, then
+    broadcast it. The plain arguments go by ``broadcast_object_list``, each
+    tensor by ``broadcast``."""
+    import torch.distributed as dist
+
+    dist.distributed_c10d._get_default_store().add(_CALLS_KEY, 1)
+    if kwargs is None:
+        dist.broadcast_object_list([None], src=0)
+        return
+    tensors = {k: v for k, v in kwargs.items() if isinstance(v, torch.Tensor)}
+    plain = {k: v for k, v in kwargs.items() if k not in tensors and not callable(v)}
+    plain["cancel"] = kwargs.get("cancel") is not None
+    specs = {k: (tuple(v.shape), v.dtype) for k, v in tensors.items()}
+    dist.broadcast_object_list([(plain, specs)], src=0)
+    for k in sorted(tensors):
+        dist.broadcast(tensors[k].to(device).contiguous(), src=0)
+
+
+def _await_call(taken: int) -> None:
+    """A follower that has taken ``taken`` calls: poll the store until rank 0
+    posts the next one, however long the server stays idle."""
+    import torch.distributed as dist
+
+    store = dist.distributed_c10d._get_default_store()
+    while store.add(_CALLS_KEY, 0) <= taken:
+        time.sleep(_POLL_S)
+
+
+def _receive_call(device: torch.device) -> Optional[dict]:
+    """A follower: the next ``generate`` call's arguments, or None to stop
+    (once ``_await_call`` has seen it posted)."""
+    import torch.distributed as dist
+
+    msg = [None]
+    dist.broadcast_object_list(msg, src=0)
+    if msg[0] is None:
+        return None
+    plain, specs = msg[0]
+    kwargs = dict(plain)
+    for k in sorted(specs):
+        shape, dtype = specs[k]
+        kwargs[k] = torch.empty(shape, dtype=dtype, device=device)
+        dist.broadcast(kwargs[k], src=0)
+    kwargs["cancel"] = _SyncedCancel() if plain["cancel"] else None
+    return kwargs
+
+
+class _Leader:
+    """Rank 0's view of a sharded pipeline: ``generate`` broadcasts its call
+    to the followers first; everything else is the pipeline's. It is made
+    once every follower has read the store's count (the barrier)."""
+
+    def __init__(self, pipeline):
+        import torch.distributed as dist
+
+        dist.barrier()
+        self._pipeline = pipeline
+
+    def __getattr__(self, name):
+        return getattr(self._pipeline, name)
+
+    def generate(self, **kwargs):
+        cancel = kwargs.get("cancel")
+        if cancel is not None:
+            kwargs["cancel"] = _SyncedCancel(functools.partial(_cancel_requested, cancel))
+        _send_call(kwargs, self._pipeline.device)
+        return self._pipeline.generate(**kwargs)
+
+
+def _follow(pipe) -> None:
+    """A follower rank's loop: the same ``generate`` calls as rank 0, until
+    shutdown. It reads the store's count of calls before the barrier that
+    ``_Leader`` meets, so no call is posted before it is counted."""
+    import torch.distributed as dist
+
+    taken = dist.distributed_c10d._get_default_store().add(_CALLS_KEY, 0)
+    dist.barrier()
+    while True:
+        _await_call(taken)
+        taken += 1
+        kwargs = _receive_call(pipe.device)
+        if kwargs is None:
+            return
+        kwargs["decode"] = False
+        try:
+            pipe.generate(**kwargs)
+        except GenerationCancelled:  # rank 0's cancel, broadcast at the same step end
+            pass
+        except Exception:  # rank 0 meets the same error at the same point and answers the request with it
+            logging.getLogger("flux2_tpu").exception("follower rank: generate failed")
+
+
+def _shard_for_tp(args):
+    """``--tp N``: the process group of the torchrun ranks (the mesh must be
+    (1, 1, N) over them) and this rank's device. Exits when the machine has
+    fewer CUDA devices than N."""
+    from flux2_tpu_torch.parallel import mesh as mesh_mod
+
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < args.tp:
+            raise SystemExit(f"--tp {args.tp} needs {args.tp} CUDA devices, one per rank; this machine has {n}")
+    mesh_mod.ensure_process_group(device.type)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def main(argv=None, **build_kwargs):
     """``python -m flux2_tpu_torch.serve``: JAX's flags and ``--device``.
     ``build_kwargs`` go to ``cli.main.build_pipeline`` (``transformer_config=``,
@@ -973,12 +1122,30 @@ def main(argv=None, **build_kwargs):
                         help="steps used for --precompile warmup (default: model default)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu; the CPU only when asked")
     args = parser.parse_args(argv)
-    if args.tp > 1:
-        raise SystemExit("--tp (tensor-parallel serving) is not ported yet: ROADMAP.md item 10 (parallelism)")
+    import torch.distributed as dist
+
+    # the group a sharded server starts is ended on the way out; a caller's own group is left
+    own_group = args.tp > 1 and not dist.is_initialized()
+    device = _shard_for_tp(args) if args.tp > 1 else args.device
 
     from flux2_tpu_torch.cli.main import build_pipeline
 
-    pipe = build_pipeline(args, args.device, **build_kwargs)
+    pipe = build_pipeline(args, device, **build_kwargs)
+    if args.tp > 1:
+        from flux2_tpu_torch.parallel.mesh import make_mesh
+
+        try:
+            mesh = make_mesh(data=1, fsdp=1, tp=args.tp, device_type=pipe.device.type)
+        except ValueError as e:
+            raise SystemExit(f"--tp {args.tp}: {e}: this run has {dist.get_world_size()} rank(s); start one "
+                             f"process per rank with torchrun --nproc-per-node {args.tp}")
+        pipe.shard(mesh)
+        if dist.get_rank() != 0:
+            _follow(pipe)
+            if own_group:
+                dist.destroy_process_group()
+            return
+        pipe = _Leader(pipe)
     # the prompt is encoded on each request's thread, so the worker only sees embeddings
     emb_fn = pipe.encode_prompt if pipe.text_encoder is not None else None
 
@@ -999,6 +1166,10 @@ def main(argv=None, **build_kwargs):
         httpd.serve_forever()
     finally:
         server.shutdown()
+        if args.tp > 1:  # the followers leave their loop
+            _send_call(None, pipe.device)
+            if own_group:
+                dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -8,10 +8,11 @@ above it), while ``remat`` and ``max_checkpoint_latents`` are carried as data,
 as JAX's pipeline carries them. A device's bytes come from
 ``torch.cuda.get_device_properties(...).total_memory``: where no CUDA device
 exists the caller passes ``hbm_bytes``, or the functions raise (JAX falls
-back to 16 GiB a device, a TPU v5e's). JAX's last suggestion, to shard over
-more chips, names an API the port lacks and is left out.
+back to 16 GiB a device, a TPU v5e's). The last suggestion, to shard over
+more chips, names ``Flux2Pipeline.shard`` (``flux2_tpu_torch/parallel/``).
 
-Telemetry: ``MemorySnapshot``, ``MemoryTelemetry``, ``telemetry()``, with
+Telemetry: ``MemorySnapshot``, ``MemoryTelemetry`` (``peak_bytes`` and JAX's
+``report()`` table), ``telemetry()``, with
 ``device_memory_stats`` read from ``torch.cuda.memory_stats`` (zeros on the
 CPU, as JAX's backends without memory stats give). Also the host's peak
 resident set, which the checkpoint loaders report.
@@ -106,6 +107,7 @@ def check_feasibility(
             suggestions.append("reduce resolution (activation memory scales with tokens)")
         if num_reference_images > 1:
             suggestions.append("fewer reference images, or klein-9b-kv (caches reference K/V)")
+        suggestions.append("shard over more chips: pipeline.shard(make_mesh(tp=N))")
     return FeasibilityReport(
         feasible=required <= available,
         required_gb=required / 1024**3,
@@ -179,12 +181,26 @@ class MemoryTelemetry:
         self.snapshots.append(snap)
         return snap
 
+    @property
+    def peak_bytes(self) -> int:
+        return max((s.peak_bytes_in_use for s in self.snapshots), default=0)
+
     def as_dict(self) -> Dict[str, Dict[str, float]]:
         gb = 1024**3
         return {
             s.tag: {"in_use_gb": round(s.bytes_in_use / gb, 3), "peak_gb": round(s.peak_bytes_in_use / gb, 3)}
             for s in self.snapshots
         }
+
+    def report(self) -> str:
+        """The snapshots as JAX's table: phase, in use and peak in GiB, then the device's limit."""
+        lines = [f"{'phase':<20} {'in use':>10} {'peak':>10}"]
+        gb = 1024**3
+        for s in self.snapshots:
+            lines.append(f"{s.tag:<20} {s.bytes_in_use / gb:>9.2f}G {s.peak_bytes_in_use / gb:>9.2f}G")
+        if self.snapshots and self.snapshots[-1].bytes_limit:
+            lines.append(f"{'HBM limit':<20} {'':>10} {self.snapshots[-1].bytes_limit / gb:>9.2f}G")
+        return "\n".join(lines)
 
 
 _shared_telemetry: Optional[MemoryTelemetry] = None

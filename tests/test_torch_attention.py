@@ -97,10 +97,18 @@ def test_sdpa_on_cpu_takes_the_plain_path_and_launches_nothing():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
-def test_sdpa_ring_is_not_ported():
-    q, k, v = _t(*_qkv(6, 128))
-    with pytest.raises(NotImplementedError):
-        tattn.sdpa(q, k, v, ring=("mesh", "sp"))
+def test_sdpa_ring_on_a_one_rank_mesh_equals_dense():
+    """``sdpa(ring=(mesh, axis))`` on a one-rank CPU mesh (gloo on a HashStore): the ring of one, on
+    plain q/k/v a plain tensor out, equal to JAX's dense attention; nothing launched."""
+    from flux2_tpu_torch.parallel.mesh import make_mesh
+    from flux2_tpu_torch.parallel.sharding import gather
+
+    q, k, v = _qkv(6, 128)
+    before = tfa.launch_counts()
+    for axis in ("sp", "tp"):
+        out = tattn.sdpa(*_t(q, k, v), ring=(make_mesh(1, 1, 1, 1, device_type="cpu"), axis))
+        np.testing.assert_allclose(gather(out).numpy(), np.asarray(sdpa_xla(q, k, v)), atol=ATOL, rtol=0)
+    assert tfa.launch_counts() == before
 
 
 def test_flash_fwd_candidate_refuses_to_run_without_a_card(monkeypatch):

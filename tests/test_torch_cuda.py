@@ -769,3 +769,24 @@ def test_tiny_mistral_vlm_w8a8_on_the_card(device, monkeypatch):
     assert 1 <= n <= 6 and tqk.launches["w8a8"] == tqk.launches["quantize_rows"] == 7 * 3 * (1 + n)
     monkeypatch.setattr(tqk, "w8a8_matmul", tqk.w8a8_matmul_reference)
     assert svc.analyze_image(image, "describe", gen_params=greedy) == reply
+
+
+def test_ring_of_one_on_the_card_equals_k2(device):
+    """``ring_attention`` on a one-rank NCCL mesh at the 1024^2 shape: one K2 launch inside the ring,
+    its output equal to K2's alone to the bit (the LSE merge of one block is exact)."""
+    from flux2_tpu_torch.parallel.mesh import make_mesh
+    from flux2_tpu_torch.parallel.ring_attention import ring_attention
+    from flux2_tpu_torch.parallel.sharding import gather
+
+    import torch.distributed as dist
+
+    q, k, v = _qkv(device, 1, 24, 4608, 4608)
+    before = tfa.launch_counts()
+    try:
+        with torch.inference_mode():
+            out = gather(ring_attention(q, k, v, make_mesh(1, 1, 1, 1), axis="sp"))
+            alone, _ = tfa.flash_attention_lse(q, k, v, 128**-0.5)
+    finally:
+        dist.destroy_process_group()  # the one-rank NCCL group make_mesh started
+    assert tfa.launches_lse == before["flash_lse"] + 2 and tfa.launches == before["flash"]
+    assert torch.equal(out, alone)

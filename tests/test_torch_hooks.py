@@ -427,13 +427,10 @@ def test_memory_tables_equal_jax():
         assert dataclasses.asdict(tmem.MemoryProfile.named(name)) == dataclasses.asdict(jmem.MemoryProfile.named(name))
 
 
-SHARD_SUGGESTION = "shard over more chips: pipeline.shard(make_mesh(tp=N))"
-
-
 @pytest.mark.parametrize("gib", [16, 40, 80])
 def test_memory_decisions_equal_jax(gib):
     """Every model at three device sizes: the estimate, the feasibility report
-    (JAX's suggestions but its sharding one, an API the port lacks), the
+    (JAX's suggestions, the sharding one included), the
     recommended format and the auto profile."""
     hbm = gib * 2**30
     for tm in Flux2Model:
@@ -445,7 +442,7 @@ def test_memory_decisions_equal_jax(gib):
                 t = tmem.check_feasibility(tm, fmt, h, w, refs, hbm_bytes=hbm)
                 j = jmem.check_feasibility(jm, fmt, h, w, refs, hbm_bytes=hbm)
                 assert (t.feasible, t.required_gb, t.available_gb) == (j.feasible, j.required_gb, j.available_gb)
-                assert t.suggestions == [s for s in j.suggestions if s != SHARD_SUGGESTION]
+                assert t.suggestions == j.suggestions
             assert tmem.auto_profile(tm, fmt, hbm_bytes=hbm).name == jmem.auto_profile(jm, fmt, hbm_bytes=hbm).name
         assert tmem.recommended_quantization(tm, hbm_bytes=hbm) == jmem.recommended_quantization(jm, hbm_bytes=hbm)
 

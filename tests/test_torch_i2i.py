@@ -298,14 +298,15 @@ def test_i2i_flags_equal_jax():
 def test_unported_i2i_flags_are_refused(extra, capsys):
     """JAX's flags that the port does not run are refused by its parser;
     ``--upsample`` runs since the encoder facade is ported, ``--interpret``
-    since the VLMs are: they parse as JAX's."""
+    since the VLMs are, ``--shard`` since parallelism is: they parse as JAX's."""
     argv = ["i2i", *extra] if not extra else ["i2i", "--reference", "a.png", *extra]
     if extra:
         jcli.build_parser().parse_args(argv)  # JAX's flags, which the port does not run
-    if extra[:1] in (["--upsample"], ["--interpret"]):
+    if extra[:1] in (["--upsample"], ["--interpret"], ["--shard"]):
         port, ref = vars(tcli.parse_args(argv)), vars(jcli.build_parser().parse_args(argv))
-        assert (port["upsample"], port["interpret"]) == (ref["upsample"], ref["interpret"])
-        assert port["upsample"] or port["interpret"] == ["c.png"]
+        assert (port["upsample"], port["interpret"], port["shard"]) == (ref["upsample"], ref["interpret"],
+                                                                        ref["shard"])
+        assert port["upsample"] or port["interpret"] == ["c.png"] or port["shard"] == "auto"
         return
     with pytest.raises(SystemExit):
         tcli.parse_args(argv)

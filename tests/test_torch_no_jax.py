@@ -24,7 +24,9 @@ slice: ``t2i --model dev --random-init --upsample`` at a tiny size (Mistral,
 Tekken, the KV-cached decode) and ``python -m flux2_tpu_torch.cli.encoders
 generate``, the VLM slice: a random Pixtral + Mistral analysis, a Qwen3.5-VL
 checkpoint read by ``flux-encoders vision --image2``, its service enriching an
-inpaint prompt (``chains/vlm_prompt.py``) and the Qwen3-VL tower, and reports whether any ``jax`` or ``flux2_tpu`` module was loaded. (The suite's conftest imports JAX, so this must run in a
+inpaint prompt (``chains/vlm_prompt.py``) and the Qwen3-VL tower, the parallel slice: a sharded w8a8
+generate under context parallelism on a one-rank CPU mesh (``flux2_tpu_torch.parallel.*``), the sharded
+encoder and ``t2i --shard``, and reports whether any ``jax`` or ``flux2_tpu`` module was loaded. (The suite's conftest imports JAX, so this must run in a
 subprocess.)
 """
 
@@ -240,6 +242,23 @@ with tempfile.TemporaryDirectory() as tmp:
 ids = torch.arange(5)[None]
 vl_states = list(qwen3vl.forward_hidden_states(dense.text_encoder.decoder, ids, torch.ones_like(ids),
                                                section=(4, 2, 2), hf_canonical=True).shape)
+# the parallel slice on a one-rank CPU mesh: a sharded w8a8 generate under context parallelism (the
+# partitioned K5 body and the ring), the sharded encoder, and the CLI's --shard
+from flux2_tpu_torch.parallel import mesh as pmesh, quant_partition, ring_attention, sharding
+one = pmesh.make_mesh(1, 1, 1, 1, device_type="cpu")
+qpipe.shard(one, context_parallel=True)
+cp_image = list(qpipe.generate(prompt="a red fox", height=32, width=32, num_steps=1).image.shape)
+qpipe.encoders.shard(qpipe.text_encoder_name, one)
+cp_emb = list(qpipe.text_encoder("a red fox").shape)
+cli.build_pipeline = lambda a, d: real_build(a, d, transformer_config=qtc, vae_config=vc, encoder_config=dataclasses.replace(
+    TINY_DECODER, num_hidden_layers=28, vocab_size=600))
+with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["t2i", "--random-init", "--width", "32", "--height", "32", "--steps", "1", "--shard", "1,1,1",
+                  "--device", "cpu", "-o", os.path.join(tmp, "s.png")])
+    shard_png = list(decode_png(open(os.path.join(tmp, "s.png"), "rb").read()).shape)
+parallel = [cp_image, cp_emb, shard_png, sorted(m.rsplit(".", 1)[1] for m in sys.modules
+                                                if m.startswith("flux2_tpu_torch.parallel."))]
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
                   "flux2_tpu": sorted(m for m in sys.modules if m == "flux2_tpu" or m.startswith("flux2_tpu.")),
                   "image": list(res.image.shape), "png": list(decode_png(png).shape),
@@ -254,7 +273,8 @@ print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.starts
                   "http": answers, "beacons": beacons, "mask_png": mask_png, "segmented": segmented,
                   "psnr": psnr, "lora_pngs": lora_pngs, "prequant": [k for k, _ in prequant], "real": real,
                   "evaluated": evaluated, "dev_png": dev_png, "dev_upsampled": dev_upsampled,
-                  "generated": generated, "vlm": [mistral_reply, compared, enriched, vl_states]}))
+                  "generated": generated, "vlm": [mistral_reply, compared, enriched, vl_states],
+                  "parallel": parallel}))
 """
 
 
@@ -280,4 +300,6 @@ def test_port_runs_without_importing_jax():
                       "evaluated": ["baseline_000.png"], "dev_png": [32, 32, 3], "dev_upsampled": True,
                       "generated": True,
                       "vlm": [True, ["scene_reason", "scene_score", "style_reason", "style_score"], True,
-                              [29, 1, 5, 64]]}
+                              [29, 1, 5, 64]],
+                      "parallel": [[32, 32, 3], [1, 512, 192], [32, 32, 3],
+                                   ["mesh", "quant_partition", "ring_attention", "sharding"]]}

@@ -191,5 +191,9 @@ def test_build_pipeline_refuses_what_is_not_ported(tmp_path, monkeypatch):
     assert dev.text_encoder_name == "mistral" and dev.text_encoder.recipe == "mistral"
     assert tq.quantized_names(dev.text_encoder.decoder) and not tq.is_quantized(dev.text_encoder.decoder.lm_head)
     assert dev.encode_prompt("a fox").shape == (1, 512, TINY_DIT.joint_attention_dim)
-    with pytest.raises(SystemExit):
-        tcli._parser().parse_args(["t2i", "--random-init", "--shard", "auto"])
+    # --shard parses since parallelism is ported; without torchrun the world is one rank, so a larger
+    # mesh exits naming the count
+    assert tcli._parser().parse_args(["t2i", "--random-init", "--shard", "auto"]).shard == "auto"
+    with pytest.raises(SystemExit, match=r"mesh \[1, 2, 4, 1\] does not cover 1 devices: this run has 1 rank"):
+        tcli.build_pipeline(_args(shard="1,2,4"), "cpu", torch.Generator().manual_seed(0),
+                            transformer_config=TINY_DIT, vae_config=TINY_VAE, encoder_config=TINY_QWEN3)

@@ -633,11 +633,57 @@ def test_main_parses_as_jax(argv, monkeypatch):
     assert seen["port"] == seen["jax"]
 
 
-def test_main_refuses_tp(monkeypatch):
+def test_main_parses_tp_as_jax_and_shards_over_a_two_rank_mesh(monkeypatch):
+    """``--tp 2`` (parallelism, ROADMAP item 10): the parsed namespace equals JAX's, and the pipeline is
+    sharded over ``make_mesh(data=1, fsdp=1, tp=2)`` as JAX's ``main`` shards it; the port's mesh is
+    over the ranks of its torchrun group (``_shard_for_tp``: the CUDA count, the group)."""
+    from flux2_tpu.cli import main as jcli
+    from flux2_tpu_torch.cli import main as tcli
+    from flux2_tpu_torch.parallel import mesh as tmesh
+
+    seen = {}
+
+    class _Pipe:
+        device = torch.device("cpu")
+
+        def shard(self, mesh, context_parallel=False):
+            seen["shard"] = (mesh, context_parallel)
+            raise _Parsed
+
+    def capture(name):
+        def build(args, device=None, *a, **k):
+            seen[name] = dict(vars(args))
+            seen[f"{name}_device"] = device
+            if name == "jax":
+                raise _Parsed
+            return _Pipe()
+
+        return build
+
+    monkeypatch.setattr(jserve, "_enable_compile_cache", lambda: None)
+    monkeypatch.setattr(jcli, "build_pipeline", capture("jax"))
+    monkeypatch.setattr(tcli, "build_pipeline", capture("port"))
+    monkeypatch.setattr(tserve, "_shard_for_tp", lambda args: torch.device("cuda", 1))
+    monkeypatch.setattr(tmesh, "make_mesh", lambda **kw: ("mesh", kw))
+    argv = ["--tp", "2", "--random-init", "--port", "9001"]
+    for mod in (jserve, tserve):
+        with pytest.raises(_Parsed):
+            mod.main(argv)
+    assert seen["port"].pop("device") == "cuda"
+    assert seen["jax"].pop("lora") == []
+    assert seen["port"] == seen["jax"]
+    assert seen["port_device"] == torch.device("cuda", 1)  # this rank's card
+    assert seen["shard"] == (("mesh", {"data": 1, "fsdp": 1, "tp": 2, "device_type": "cpu"}), False)
+
+
+def test_main_tp_exits_naming_the_cuda_device_counts(monkeypatch):
+    """``--tp 2`` on a machine with fewer CUDA devices exits before building, naming both counts."""
     from flux2_tpu_torch.cli import main as tcli
 
     monkeypatch.setattr(tcli, "build_pipeline", lambda *a, **k: pytest.fail("built a pipeline"))
-    with pytest.raises(SystemExit, match="ROADMAP.md item 10"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match=r"--tp 2 needs 2 CUDA devices, one per rank; this machine has 1"):
         tserve.main(["--tp", "2", "--random-init"])
 
 

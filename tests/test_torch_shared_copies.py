@@ -722,3 +722,22 @@ def test_vlm_prompt_builder_copy_equals_jax():
         assert mod.VLMPromptBuilder().build_inpaint_prompt(mod.InpaintIntent.MODIFY, "x", None) is None
         assert mod.VLMPromptBuilder(vlm_chat=lambda *a: 1 / 0).build_outpaint_prompt("x", None, ["top"]) is None
     assert calls[:2] == calls[2:]
+
+
+@pytest.mark.parametrize("name", ["DIT_RULES", "DECODER_RULES", "VAE_RULES"])
+def test_partition_rule_tables_equal_jax(name):
+    """The port's copies of JAX's rule tables (flux2_tpu/parallel/sharding.py): each (regex, spec) pair,
+    the spec a tuple of mesh axis names where JAX's is a PartitionSpec; the axis names and
+    spec_for_path's resolution (a quantized child's flat-index suffix stripped) too."""
+    from flux2_tpu.parallel import mesh as jmesh
+    from flux2_tpu.parallel import sharding as jsh
+    from flux2_tpu_torch.parallel import mesh as tmesh
+    from flux2_tpu_torch.parallel import sharding as tsh
+
+    port, ref = getattr(tsh, name), getattr(jsh, name)
+    assert [(pattern, tuple(spec)) for pattern, spec in port] == [(pattern, tuple(spec)) for pattern, spec in ref]
+    assert tmesh.AXIS_NAMES == jmesh.AXIS_NAMES
+    for path in ("double_blocks/to_q", "double_blocks/to_q/[<flat index 1>]", "single_blocks/norm_q",
+                 "x_embedder/kernel", "time_embed/linear1", "layers/q_proj", "embed_tokens", "lm_head",
+                 "final_norm", "decoder/conv_in"):
+        assert tsh.spec_for_path(path, port) == tuple(jsh.spec_for_path(path, ref)), path
