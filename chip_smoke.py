@@ -95,7 +95,14 @@ bit); A, the DiT's weights made DTensors by `shard_params`, the path a larger me
 it; the flash ring at (1, 24, 4608, 128) against the einsum ring and its backward against dense
 autograd; Qwen3-4B's decoder sharded by `shard_params` (embeddings to the bit); D, `t2i --random-init`
 at 512^2 under `--shard 1,1,1`, `auto`, `1,1,1,1 --context-parallel` and `1,1,1 --dcn`, and `serve
---tp 2`, which exits naming the device count.
+--tp 2`, which exits naming the device count. The pipeline-parallel slice (phase_pp, after
+phase_parallel on its one-rank NCCL mesh: a pipeline of more stages needs more GPUs): a full-width
+Klein-4B-base train step at 512^2, batch 2, through `make_pp_forward(pp = 1, 2 microbatches)` against
+the dense step (K2 100, K3 = K4 = 50 against 50 / 25 / 25; loss 1e-2, LoRA gradient 5e-2), a held-out
+pass through the pipeline (K1 50), the warm s/step of both, and QLoRA on a w8a8 copy (K5 = prologue =
+806); phase_pp_cli, after phase_train_real on its dataset: `train-lora --shard 1,1,1,1` from the
+checkpoint directories equal to the bit to the run without it, and `pp: 2` / `pp: 5` on one GPU
+exiting with JAX's texts.
 Every path runs with the launch
 counts set to 0 just before it and checks them just after. Any failure raises: the
 traceback is printed and the exit code is not 0. There is no CPU fallback.
@@ -2541,11 +2548,11 @@ class _FirstStepAgainstPlain:
 
         trainer.make_train_step = self.make
 
-    def _make(self, transformer, tcfg):
+    def _make(self, transformer, tcfg, forward_fn=None):
         from flux2_tpu_torch.ops import quant_kernels as qk
         from flux2_tpu_torch.training import trainer
 
-        step = self.make(transformer, tcfg)
+        step = self.make(transformer, tcfg, forward_fn=forward_fn)
 
         def first_checked(lora, optimizer, batch, gen):
             if self.pair is not None:
@@ -2560,7 +2567,8 @@ class _FirstStepAgainstPlain:
                     sigmas, noise = trainer._draw(tcfg, g, batch["latents"])
                     plain = trainer.flow_matching_loss(transformer, lora, tcfg, batch["latents"], batch["embeddings"],
                                                        noise, sigmas, batch["rope_cos"], batch["rope_sin"],
-                                                       guidance=batch.get("guidance"), control=batch.get("control"))
+                                                       guidance=batch.get("guidance"), control=batch.get("control"),
+                                                       forward_fn=forward_fn)
                     plain = float(plain)
             finally:
                 setattr(qk, self.kernel, launch)
@@ -2857,7 +2865,7 @@ def phase_train_real(card: str, workdir: str, dirs: dict) -> dict:
     c = _phase_remat_dots(card, dirs["transformer"])
     d = _phase_evaluate_lora(card, root, data, dir_flags)
     log(f"[train-real] phase: {time.perf_counter() - t0:.2f} s [{card}]")
-    return {"random": a, "qlora": b, "dots": c, "evaluate": d}
+    return {"random": a, "qlora": b, "dots": c, "evaluate": d, "data": data}
 
 
 # -- LoRA inference, prequantized checkpoints and QLoRA ------------------------------------
@@ -4715,6 +4723,217 @@ def phase_parallel(pipe, card: str, workdir: str) -> dict:
     return out
 
 
+# -- pipeline-parallel training ----------------------------------------------------------------------
+
+PP_MICROBATCHES = 2
+PP_BATCH = 2
+# A train step through make_pp_forward(pp = 1, M microbatches), remat: each microbatch runs the 25
+# blocks' attention with grad (K2), again in the recompute (K2), and backward (K3, K4); the dense
+# step at the same batch runs each once over both rows (STEP_LAUNCHES). A held-out pass: K1 25 x M.
+PP_STEP_LAUNCHES = {"flash_lse": 2 * 25 * PP_MICROBATCHES, "flash_bwd_dq": 25 * PP_MICROBATCHES,
+                    "flash_bwd_dkv": 25 * PP_MICROBATCHES}
+PP_EVAL_LAUNCHES = {"flash": 25 * PP_MICROBATCHES}
+# QLoRA on w8a8 through the pipeline: the prelude and head once (206 - 200), the 200 block
+# projections forward and recomputed per microbatch; the prologue once before each K5 launch.
+PP_QLORA_K5 = FORWARD_LAUNCHES["w8a8"] - QLORA_RECOMPUTED + 2 * PP_MICROBATCHES * QLORA_RECOMPUTED
+PP_TIMED_STEPS = 3
+
+
+def _pp_batch(gen, size: int = 512) -> dict:
+    """A Klein-4B-base training batch of PP_BATCH rows at ``size`` on the card."""
+    import numpy as np
+
+    from flux2_tpu_torch.ops import latents as lu
+    from flux2_tpu_torch.ops.rope import rope_embeddings
+
+    ids = np.concatenate([lu.text_position_ids(32), lu.image_position_ids(size, size)])
+    cos, sin = rope_embeddings(torch.from_numpy(ids).cuda())
+    return {"latents": torch.randn(PP_BATCH, (size // 16) ** 2, 128, device="cuda", generator=gen),
+            "embeddings": torch.randn(PP_BATCH, 32, 7680, device="cuda", generator=gen),
+            "rope_cos": cos, "rope_sin": sin}
+
+
+def _pp_step(model, tcfg, batch: dict, forward_fn, label: str, want: dict) -> dict:
+    """One train step from the same LoRA and generator seeds: loss, the LoRA gradient and update, launches."""
+    from flux2_tpu_torch.training import trainer
+
+    state = trainer.init_train_state(model, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 18))
+    before = {n: p.detach().clone() for n, p in state.lora.named_parameters()}
+    step = trainer.make_train_step(model, tcfg, forward_fn=forward_fn)
+    _zero_launches()
+    metrics = step(state.lora, state.optimizer, dict(batch), torch.Generator(device="cuda").manual_seed(SEED + 19))
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    _expect_counts(f"[pp] {label}", counts, want)
+    out = {"loss": float(metrics["loss"]), "counts": counts,
+           "grads": {n: p.grad.detach().clone() for n, p in state.lora.named_parameters()},
+           "update": {n: p.detach() - before[n] for n, p in state.lora.named_parameters()}}
+    if not math.isfinite(out["loss"]) or not all(bool(torch.isfinite(g).all()) for g in out["grads"].values()):
+        raise AssertionError(f"[pp] {label}: loss {out['loss']}, or a gradient is not finite")
+    return out
+
+
+def _rel_tree(a: dict, b: dict) -> float:
+    """Relative L2 of ``a`` against ``b`` over every leaf."""
+    diff = sum(float((a[n].float() - b[n].float()).square().sum()) for n in b)
+    ref = sum(float(b[n].float().square().sum()) for n in b)
+    return (diff / ref) ** 0.5
+
+
+def _s_per_train_step(model, tcfg, batch: dict, forward_fn) -> float:
+    """Warm s/step: one step, then the mean of PP_TIMED_STEPS, each synchronised."""
+    from flux2_tpu_torch.training import trainer
+
+    state = trainer.init_train_state(model, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 18))
+    step = trainer.make_train_step(model, tcfg, forward_fn=forward_fn)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    step(state.lora, state.optimizer, dict(batch), gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PP_TIMED_STEPS):
+        step(state.lora, state.optimizer, dict(batch), gen)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / PP_TIMED_STEPS
+
+
+def phase_pp(card: str) -> dict:
+    """Pipeline-parallel LoRA training on the one-rank NCCL mesh (the card's machine has one GPU, so a
+    pipeline of more stages cannot run here): ``make_pp_mesh(1)``, ``place_stages`` (which keeps every
+    block and makes no DTensor on one rank) and ``make_pp_forward(mesh, 2)``, on a full-width
+    Klein-4B-base DiT (bf16, 512^2, batch 2, remat, rank 16). A: the pipelined step against the dense step
+    from the same seeds (loss 1e-2, LoRA gradient 5e-2 relative L2), K2 / K3 / K4 counted, a held-out pass
+    through the pipeline (K1), warm s/step of both. B: QLoRA on a w8a8 copy of the base through the
+    pipeline against the dense QLoRA step, K5 launches equal to the prologue's."""
+    from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
+    from flux2_tpu_torch.ops import quant
+    from flux2_tpu_torch.parallel import pipeline as pp_mod
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Model
+    from flux2_tpu_torch.training import trainer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    model = Flux2Transformer(Flux2Model.KLEIN_4B_BASE.transformer_config, device="cuda", generator=gen)
+    mesh = pp_mod.make_pp_mesh(1, 1, 1)
+    pp_mod.place_stages(model, mesh)
+    tensors = list(model.parameters()) + list(model.buffers())
+    if any(t.is_meta or isinstance(t, pp_mod.sh.DTensor) for t in tensors):
+        raise AssertionError("[pp] place_stages on the one-rank mesh freed a block or made a DTensor")
+    fwd = pp_mod.make_pp_forward(mesh, PP_MICROBATCHES)
+    tcfg = trainer.TrainConfig(rank=16, alpha=16.0, remat=True)
+    batch = _pp_batch(gen)
+
+    dense = _pp_step(model, tcfg, batch, None, "A dense step", STEP_LAUNCHES)
+    piped = _pp_step(model, tcfg, batch, fwd, "A pipelined step", PP_STEP_LAUNCHES)
+    rel_loss = abs(piped["loss"] - dense["loss"]) / abs(dense["loss"])
+    rel_grad = _rel_tree(piped["grads"], dense["grads"])
+    rel_update = _rel_tree(piped["update"], dense["update"])
+    if rel_loss > TRAIN_LOSS_REL_TOL or rel_grad > TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"[pp A] pipelined vs dense step: loss {piped['loss']} vs {dense['loss']} (relative "
+                             f"{rel_loss}, tol {TRAIN_LOSS_REL_TOL}), gradient relative L2 {rel_grad} (tol "
+                             f"{TRAIN_GRAD_REL_TOL})")
+    eval_loss = trainer.make_eval_loss(model, tcfg, forward_fn=fwd)
+    eval_dense = trainer.make_eval_loss(model, tcfg)
+    state = trainer.init_train_state(model, tcfg, torch.Generator(device="cuda").manual_seed(SEED + 18))
+    _zero_launches()
+    held = float(eval_loss(state.lora, dict(batch), torch.Generator(device="cuda").manual_seed(SEED + 20)))
+    eval_counts = _launch_counts()
+    _expect_counts("[pp] A held-out pass through the pipeline", eval_counts, PP_EVAL_LAUNCHES)
+    held_dense = float(eval_dense(state.lora, dict(batch), torch.Generator(device="cuda").manual_seed(SEED + 20)))
+    rel_held = abs(held - held_dense) / abs(held_dense)
+    if rel_held > TRAIN_LOSS_REL_TOL:
+        raise AssertionError(f"[pp A] held-out loss {held} vs dense {held_dense} (relative {rel_held})")
+    s_dense = _s_per_train_step(model, tcfg, batch, None)
+    s_pp = _s_per_train_step(model, tcfg, batch, fwd)
+    log(f"[pp A] Klein-4B-base at 512^2, batch {PP_BATCH}, remat, rank 16, on a one-rank (data 1, pp 1) mesh with "
+        f"{PP_MICROBATCHES} microbatches: loss {piped['loss']:.6f} vs dense {dense['loss']:.6f} (relative "
+        f"{rel_loss:.3e}, tol {TRAIN_LOSS_REL_TOL}); LoRA gradient relative L2 {rel_grad:.3e} (tol "
+        f"{TRAIN_GRAD_REL_TOL}); the first AdamW update (lr x g / |g| elementwise) relative L2 {rel_update:.3e}; "
+        f"launches pipelined {piped['counts']}, dense {dense['counts']}; held-out pass K1 {eval_counts['flash']}, "
+        f"loss {held:.6f} vs dense {held_dense:.6f} ({rel_held:.3e}); warm s/step pipelined {s_pp:.4f} vs dense "
+        f"{s_dense:.4f} (x{s_pp / s_dense:.3f}) [{card}]")
+
+    quant.quantize_params(model, "w8a8")
+    qdense = _pp_step(model, tcfg, batch, None, "B dense QLoRA step (w8a8)",
+                      {**STEP_LAUNCHES, "w8a8": QLORA_STEP_LAUNCHES["w8a8"]["w8a8"],
+                       "quantize_rows": QLORA_STEP_LAUNCHES["w8a8"]["w8a8"]})
+    qpiped = _pp_step(model, tcfg, batch, fwd, "B pipelined QLoRA step (w8a8)",
+                      {**PP_STEP_LAUNCHES, "w8a8": PP_QLORA_K5, "quantize_rows": PP_QLORA_K5})
+    q_rel = abs(qpiped["loss"] - qdense["loss"]) / abs(qdense["loss"])
+    q_grad = _rel_tree(qpiped["grads"], qdense["grads"])
+    if q_rel > TRAIN_LOSS_REL_TOL or q_grad > TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"[pp B] pipelined QLoRA step: loss {qpiped['loss']} vs dense {qdense['loss']} "
+                             f"(relative {q_rel}), gradient relative L2 {q_grad}")
+    q_s = _s_per_train_step(model, tcfg, batch, fwd)
+    log(f"[pp B] QLoRA on the w8a8 base through the pipeline: loss {qpiped['loss']:.6f} vs dense QLoRA "
+        f"{qdense['loss']:.6f} (relative {q_rel:.3e}, tol {TRAIN_LOSS_REL_TOL}); gradient relative L2 "
+        f"{q_grad:.3e}; K5 {qpiped['counts']['w8a8']} = prologue {qpiped['counts']['quantize_rows']} (dense step "
+        f"{qdense['counts']['w8a8']}); warm s/step pipelined {q_s:.4f} [{card}]")
+    out = {"counts": piped["counts"], "qlora_counts": qpiped["counts"], "eval_counts": eval_counts,
+           "s_dense": s_dense, "s_pp": s_pp, "qlora_s_pp": q_s}
+    del model, dense, piped, qdense, qpiped, state
+    gc_cuda()
+    log(f"[pp] phase A-B: {time.perf_counter() - t0:.2f} s [{card}]")
+    return out
+
+
+PP_CLI_YAML = """model: {{name: klein-4b}}
+lora: {{rank: 16, alpha: 16, target_layers: attention_ffn}}
+dataset: {{path: {data}, image_size: 512, trigger_word: sks}}
+training: {{optimizer: adamw, learning_rate: 1.0e-4, warmup_steps: 0, lr_scheduler: constant, batch_size: 1,
+  max_steps: 2, log_every: 1{pp}}}
+memory: {{gradient_checkpointing: true, cache_latents: true, cache_text_embeddings: true}}
+checkpoints: {{output: {out}, save_every: 0}}
+"""
+
+
+def phase_pp_cli(card: str, workdir: str, dirs: dict, dataset: str) -> dict:
+    """C: ``train-lora --shard 1,1,1,1`` from the checkpoint phase's directories on phase_train_real's dataset
+    (2 steps at 512^2), its history equal to the bit to the same command without ``--shard`` (the second
+    run reads the first's latent and caption caches, so both train on the same inputs); then ``pp: 2`` on
+    this one GPU, which exits with JAX's text."""
+    t0 = time.perf_counter()
+    out_dir = os.path.join(workdir, "pp_cli")
+    cfg = os.path.join(workdir, "pp_cli.yaml")
+    with open(cfg, "w") as f:
+        f.write(PP_CLI_YAML.format(data=dataset, out=out_dir, pp=""))
+    dir_flags = ["--transformer-dir", dirs["transformer"], "--vae-dir", dirs["vae"], "--encoder-dir", dirs["text_encoder"]]
+    plain, plain_counts, _, _, _ = _train(["--config", cfg, *dir_flags], "C without --shard", card)
+    sharded, shard_counts, _, _, log_text = _train(["--config", cfg, *dir_flags, "--shard", "1,1,1,1"],
+                                                   "C --shard 1,1,1,1", card)
+    keys = ("step", "loss", "dop_loss", "grad_norm")
+    if [[r[k] for k in keys] for r in sharded] != [[r[k] for k in keys] for r in plain]:
+        raise AssertionError(f"[pp C] --shard 1,1,1,1 history {sharded} differs from {plain}")
+    _expect_counts("[pp C] train-lora --shard 1,1,1,1", shard_counts, {n: 2 * c for n, c in STEP_LAUNCHES.items()})
+    if plain_counts != shard_counts or "sharded over mesh {'data': 1, 'fsdp': 1, 'tp': 1, 'sp': 1}" not in log_text:
+        raise AssertionError(f"[pp C] launches {shard_counts} vs {plain_counts}, or no 'sharded over mesh' line")
+    from flux2_tpu_torch.cli.main import parse_args
+    from flux2_tpu_torch.cli.train import run_training
+
+    n = torch.cuda.device_count()
+    exits = {  # JAX's texts (flux2_tpu/cli/train.py:697-709): Klein-4B's stacks (5, 20) take pp = 5 only
+        2: "pp=2 must divide both block stacks of klein-4b (5 double, 20 single): klein-4b (5/20) supports pp=5; "
+           "klein-9b (8/24) and dev (8/48) pp=2/4/8",
+        5: f"pp*pp_tp=5*1 does not divide {n} devices"}
+    for stages, want in exits.items():
+        pp_cfg = os.path.join(workdir, f"pp{stages}.yaml")
+        with open(pp_cfg, "w") as f:
+            f.write(PP_CLI_YAML.format(data=dataset, out=os.path.join(workdir, f"pp{stages}"), pp=f", pp: {stages}"))
+        try:
+            run_training(parse_args(["train-lora", "--config", pp_cfg, *dir_flags, "--device", "cuda"]), "cuda")
+        except SystemExit as e:
+            if str(e) != want:
+                raise AssertionError(f"[pp C] pp: {stages} on {n} GPU exited with {e!r}, want {want!r}")
+        else:
+            raise AssertionError(f"[pp C] pp: {stages} on {n} GPU trained")
+        gc_cuda()
+    log(f"[pp C] train-lora --shard 1,1,1,1 from the checkpoint directories: losses "
+        f"{[round(r['loss'], 6) for r in sharded]} equal to the bit to the run without --shard, launches "
+        f"{shard_counts}; on {n} GPU pp: 2 exits with '{exits[2]}', pp: 5 with '{exits[5]}' (JAX's texts); "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+    gc_cuda()
+    return {"counts": shard_counts}
+
+
 def drop_encoders() -> None:
     """After a phase whose pipelines are gone: the encoders that ``cli.main``
     registered in ``facade.shared`` (JAX's registry keeps them, as the
@@ -4873,6 +5092,8 @@ def main() -> int:
     log(f"[parallel] phase: {time.perf_counter() - t0:.2f} s [{card}]")
     del pipe
     drop_encoders()
+    gc_cuda()
+    pp = phase_pp(card)  # on phase_parallel's one-rank NCCL group
     import torch.distributed as dist
 
     dist.destroy_process_group()  # the one-rank NCCL group phase_parallel's make_mesh started
@@ -4912,6 +5133,8 @@ def main() -> int:
         log(f"[ckpt] checkpoint round trip and profile phase: {time.perf_counter() - t0:.2f} s [{card}]")
         drop_encoders()
         real = phase_train_real(card, workdir, ckpt["dirs"])
+        drop_encoders()
+        pp_cli = phase_pp_cli(card, workdir, ckpt["dirs"], real["data"]["dataset"])
         drop_encoders()
         t0 = time.perf_counter()
         lora = phase_lora_prequant(card, workdir, ckpt["dirs"], train["s_per_step"])
@@ -4966,6 +5189,8 @@ def main() -> int:
         "launches_vlm_cli": {label: r["counts"]["flash"] for label, r in vlm["cli"].items() if r["counts"]["flash"]},
         # the parallel slice (phase_parallel, one-rank NCCL mesh): the sharded 1024^2 4-step image, the
         # sharded quantized forwards (25 each) and the CLI's --shard runs (512^2, 2 steps)
+        # the pp slice (phase_pp): a held-out pass through the pipeline (M = 2) on the one-rank mesh
+        "launches_pp": {"held_out_pass_pipelined_512px_batch2": pp["eval_counts"]["flash"]},
         "launches_parallel": {"sharded_1024px_4_steps": par["k1"],
                               **{f"{fmt}_sharded_forward": q["k1"] for fmt, q in par["quant"].items()},
                               **{f"t2i_{label}": c["flash"] for label, c in par["cli"].items() if c["flash"]}},
@@ -5024,6 +5249,8 @@ def main() -> int:
                                           "dense_bf16_linear_ms": dev["kernels"]["qmm"][name]["dense_ms"],
                                           "max_abs_err": 0.0}
                                    for name, m, k, n in MISTRAL_QMM_SHAPES}
+        if fmt == "w8a8":  # the pp slice: one pipelined QLoRA step (M = 2) on the one-rank mesh
+            entry["launches_pp"] = {"pipelined_qlora_step_512px_batch2": pp["qlora_counts"]["w8a8"]}
         if fmt in par["quant"]:  # the parallel slice: one partitioned forward on the one-rank mesh
             entry["launches_parallel"] = {"sharded_partitioned_forward": par["quant"][fmt]["launches"]}
         if fmt == "w8a8":
@@ -5059,6 +5286,7 @@ def main() -> int:
                                      vlm["mistral"]["w8a8"]["counts"]["quantize_rows"]},
                     "launches_parallel": {f"{fmt}_sharded_partitioned_forward": q["prologue"]
                                           for fmt, q in par["quant"].items()},
+                    "launches_pp": {"pipelined_qlora_step_512px_batch2": pp["qlora_counts"]["quantize_rows"]},
                     "dev_shapes": {f"{name}_block_{block}": {"m_k": [m, k], "ms": dev["kernels"]["qmm"][name][
                                        f"prologue_{block}"]["alone"],
                                    "bound_ms": dev["kernels"]["qmm"][name][f"prologue_{block}"]["bound"][0]}
@@ -5090,6 +5318,11 @@ def main() -> int:
                             "random_init_resume": real["random"]["counts_resume"][counter],
                             **{f"train_lora_{base}": r["counts"][counter] for base, r in real["qlora"].items()},
                             "remat_dots_1024px_step": real["dots"]["counts"][counter]}})
+        # the pp slice (phase_pp, one-rank mesh, M = 2): the pipelined step, the pipelined QLoRA step, and
+        # train-lora --shard 1,1,1,1 (2 steps)
+        kernels[-1]["launches_pp"] = {"pipelined_step_512px_batch2": pp["counts"][counter],
+                                      "pipelined_qlora_w8a8_step": pp["qlora_counts"][counter],
+                                      "train_lora_shard_1111_2_steps": pp_cli["counts"][counter]}
         if key == "k2":  # the parallel slice: K2 on every ring step's block (a ring of one here)
             kernels[-1]["launches_parallel"] = {
                 "ring_1024px_4_steps": par["k2"], "ring_on_dtensors_1024px_4_steps": par["k2_sharded"],

@@ -59,8 +59,9 @@ the phases as a Chrome trace.
 checkpoint directories (``--quantization`` quantizes the base: QLoRA), on a
 dataset with random weights (``--random-init``), or on synthetic data
 (``--random-init`` and no dataset), with validation previews, the held-out
-loss and ``--resume`` of either package's checkpoints. It refuses pipeline
-parallelism and ``--shard`` (ROADMAP queue 16) and ``--quantization`` with
+loss and ``--resume`` of either package's checkpoints; the YAML's ``pp``
+keys (pipeline parallelism, ``parallel/pipeline.py``) and ``--shard`` run one
+process per rank under torchrun. It refuses ``--quantization`` with
 ``--random-init`` (a recorded difference: JAX ignores the flag there).
 ``evaluate-lora --dataset D [--no-vlm]`` (JAX's ``cmd_evaluate_lora``,
 ``:544-595``) generates a baseline per dataset image, scores it (the VLM's
@@ -69,6 +70,8 @@ pixel scorer) and prints JAX's lines and JSON:
 
     python -m flux2_tpu_torch.cli.main train-lora --config lora.yaml \
         --transformer-dir T --vae-dir V --encoder-dir E [--quantization w8a8]
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m flux2_tpu_torch.cli.main train-lora --config pp.yaml ...  # training: {pp: 2}
     python -m flux2_tpu_torch.cli.main evaluate-lora --transformer-dir T \
         --vae-dir V --encoder-dir E --dataset D --no-vlm
 

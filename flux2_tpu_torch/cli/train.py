@@ -33,17 +33,28 @@ the training base is never touched), the pixel scorer until a VLM is ported,
 ``best/``, the tracker's early stops; and the held-out loss on
 ``validation_path`` with its overfit-gap and stagnation stops.
 
+Pipeline parallelism (the YAML's ``pp``, ``pp_tp``, ``pp_microbatches``,
+``pp_over_dcn``; ``parallel/pipeline.py``) runs one process per rank under
+torchrun, with JAX's checks and messages: the stage knobs without ``pp > 1``
+exit before any build; after the base is built, ``pp`` with ``--shard``,
+stacks, ranks, heads and the batch split; then each rank keeps its stage's
+blocks (``place_stages``) and the step, the held-out loss and the previews
+run through the pipeline. ``--shard`` in the checkpoint branch trains on the
+sharded DiT (``Flux2Pipeline.shard``); the random-init branches ignore it,
+as JAX's do. Under torchrun every rank draws the same batches, and rank 0
+alone writes checkpoints, images and the log; it reads the control
+sentinels and the stop decisions are its own.
+
 JAX's random-init base is f32; the port's is bf16, as the checkpoint branch
-trains and as the kernels take it. Refused with ``SystemExit``: pipeline
-parallelism and ``--shard`` (ROADMAP queue 16), and ``--quantization`` with
-``--random-init`` (a recorded difference: JAX's random-init base ignores the
-flag). ``lora.dropout`` warns and trains without it, as JAX does.
+trains and as the kernels take it. Refused with ``SystemExit``:
+``--quantization`` with ``--random-init`` (a recorded difference: JAX's
+random-init base ignores the flag). ``lora.dropout`` warns and trains
+without it, as JAX does.
 """
 
 from __future__ import annotations
 
 import argparse
-import copy
 import dataclasses
 import hashlib
 import json
@@ -54,16 +65,18 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
 
 
 def _refuse_unsupported(cfg, args: argparse.Namespace) -> None:
-    """SystemExit for what the port does not carry: pipeline parallelism and
-    ``--shard`` (ROADMAP queue 16), and ``--quantization`` with ``--random-init``."""
-    if cfg.pp > 1 or cfg.pp_tp > 1 or cfg.pp_microbatches or cfg.pp_over_dcn or getattr(args, "shard", None):
-        raise SystemExit("train-lora in flux2_tpu_torch: pipeline parallelism and --shard are not ported yet "
-                         "(ROADMAP queue 16)")
+    """SystemExit for ``--quantization`` with ``--random-init`` (a recorded
+    difference), and JAX's for the pipeline-stage knobs without ``pp > 1``
+    (checked before any build, as JAX does)."""
+    if cfg.pp <= 1 and (cfg.pp_tp > 1 or cfg.pp_microbatches or cfg.pp_over_dcn):
+        raise SystemExit("pp_tp/pp_microbatches/pp_over_dcn only take effect with pp > 1 — set pp: N in the YAML "
+                         "(for tensor parallelism without pipeline stages use --shard instead)")
     if getattr(args, "random_init", False) and (getattr(args, "quantization", None) or "bf16") != "bf16":
         raise SystemExit(f"train-lora in flux2_tpu_torch: --quantization {args.quantization} with --random-init is "
                          "refused (a recorded difference: JAX's random-init base ignores the flag and trains an "
@@ -304,12 +317,16 @@ def _train_config(cfg):
 
 
 def _save(cfg, tstate, state, tcfg) -> str:
-    """checkpoint_{step:06d}/ with the training state's fields in training_state.json, then prune."""
+    """checkpoint_{step:06d}/ with the training state's fields in training_state.json, then prune
+    (rank 0 alone writes)."""
+    from flux2_tpu_torch.cli.main import _writes_files
     from flux2_tpu_torch.cli.train_config import prune_checkpoints
     from flux2_tpu_torch.training import trainer
 
     path = os.path.join(cfg.output_dir, f"checkpoint_{tstate.step:06d}")
     state.step = tstate.step
+    if not _writes_files():
+        return path
     trainer.save_checkpoint(path, state, tcfg, extra=dataclasses.asdict(tstate))
     print(f"checkpoint -> {path}", flush=True)
     prune_checkpoints(cfg, keep=path)
@@ -334,9 +351,77 @@ def _make_scorer(pipe):
     return scorer
 
 
+def _world() -> int:
+    """The number of ranks of this run (1 without a process group)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _agree(value):
+    """Rank 0's ``value`` on every rank of a multi-rank run: the control
+    sentinels and the early stops are decided once, so no rank leaves the
+    loop alone."""
+    if _world() == 1:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _rank0_first(fn):
+    """``fn()`` on rank 0, then on the other ranks: the latent and caption
+    caches are written once, then read."""
+    from flux2_tpu_torch.cli.main import _writes_files
+
+    if _world() > 1 and not _writes_files():
+        dist.barrier()
+    out = fn()
+    if _world() > 1 and _writes_files():
+        dist.barrier()
+    return out
+
+
+def _pipeline_parallel(cfg, tconfig, transformer, args):
+    """JAX's pp branch (``:679-747``): its checks and messages in its order,
+    then the (data, pp[, tp]) mesh over the run's ranks, this rank's stage
+    placed (``place_stages``) and the pipelined forward. Returns (mesh, forward)."""
+    from flux2_tpu_torch.parallel import pipeline as pp_mod
+    from flux2_tpu_torch.utils import logging as flog
+
+    if getattr(args, "shard", None):
+        raise SystemExit("pp and --shard are mutually exclusive (pp builds its own mesh)")
+    if tconfig.num_layers % cfg.pp or tconfig.num_single_layers % cfg.pp:
+        raise SystemExit(
+            f"pp={cfg.pp} must divide both block stacks of {cfg.model} "
+            f"({tconfig.num_layers} double, {tconfig.num_single_layers} single): "
+            f"klein-4b (5/20) supports pp=5; klein-9b (8/24) and dev (8/48) pp=2/4/8")
+    n_dev = _world()
+    tp = max(1, cfg.pp_tp)
+    if n_dev % (cfg.pp * tp):
+        raise SystemExit(f"pp*pp_tp={cfg.pp}*{tp} does not divide {n_dev} devices")
+    if tconfig.num_attention_heads % tp:
+        raise SystemExit(f"pp_tp={tp} must divide the attention head count "
+                         f"({tconfig.num_attention_heads} for {cfg.model})")
+    m_micro = cfg.pp_microbatches or cfg.pp
+    data_ax = n_dev // (cfg.pp * tp)
+    if cfg.batch_size % m_micro or (cfg.batch_size // m_micro) % data_ax:
+        raise SystemExit(
+            f"batch_size {cfg.batch_size} must split into {m_micro} microbatches "
+            f"each divisible by the data axis {data_ax} (pp={cfg.pp}, tp={tp}, "
+            f"{n_dev} devices)")
+    device_type = next(t for t in transformer.parameters()).device.type
+    mesh = pp_mod.make_pp_mesh(pp=cfg.pp, data=data_ax, tp=tp, pp_over_dcn=cfg.pp_over_dcn, device_type=device_type)
+    pp_mod.place_stages(transformer, mesh)
+    from flux2_tpu_torch.parallel.mesh import mesh_shape
+
+    flog.info(f"pipeline parallelism: mesh {mesh_shape(mesh)}, {m_micro} microbatches "
+              f"(bubble {(cfg.pp - 1) / (m_micro + cfg.pp - 1):.0%})" + (f", tp={tp} inside each stage" if tp > 1 else ""))
+    return mesh, pp_mod.make_pp_forward(mesh, cfg.pp_microbatches or None)
+
+
 def _checkpoint_pipeline(args, cfg, train_model, device: torch.device):
     """JAX's checkpoint branch: ``cli.main.build_pipeline`` for the training
-    variant, the DiT quantized to ``--quantization`` (QLoRA)."""
+    variant, the DiT quantized to ``--quantization`` (QLoRA) and sharded by
+    ``--shard`` (with ``--dcn`` as ``build_pipeline`` reads it)."""
     from flux2_tpu_torch.cli.main import build_pipeline
 
     build_args = argparse.Namespace(
@@ -346,7 +431,8 @@ def _checkpoint_pipeline(args, cfg, train_model, device: torch.device):
         encoder_tokenizer_dir=getattr(args, "encoder_tokenizer_dir", None),
         encoder_quantization=resolve_encoder_quantization(getattr(args, "encoder_quantization", None),
                                                           cfg.encoder_quantization),
-        no_text_encoder=False, lora=[], memory_profile=None, dequantize_runtime=False)
+        no_text_encoder=False, lora=[], memory_profile=None, dequantize_runtime=False,
+        shard=getattr(args, "shard", None), dcn=getattr(args, "dcn", False))
     return build_pipeline(build_args, device)
 
 
@@ -379,11 +465,30 @@ def run_training(
     """Train as ``flux2 train-lora`` does, on ``device``; returns one dict per
     step run here (step, loss, dop_loss, grad_norm, lr, seconds).
     ``transformer_config`` / ``vae_config`` replace the random-init branches'
-    (tests run tiny ones)."""
+    (tests run tiny ones). Under torchrun the ranks other than 0 log warnings
+    only; a process group this call starts ends with it."""
+    from flux2_tpu_torch.cli.main import _writes_files
+    from flux2_tpu_torch.utils import logging as flog
+
+    own_group = not dist.is_initialized()
+    level = flog._level
+    if not _writes_files():
+        flog.set_level("warning")
+    try:
+        return _run_training(args, device, transformer_config, vae_config)
+    finally:
+        flog._level = level
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_training(args, device, transformer_config, vae_config) -> List[dict]:
+    from flux2_tpu_torch.cli.main import _writes_files
     from flux2_tpu_torch.cli.train_config import YAMLTrainingConfig, write_learning_curve_svg
     from flux2_tpu_torch.io.registry import training_variant
     from flux2_tpu_torch.models.flux2.config import Flux2Model
     from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
+    from flux2_tpu_torch.parallel import pipeline as pp_mod
     from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
     from flux2_tpu_torch.training import data as td
     from flux2_tpu_torch.training import lora as lora_mod
@@ -404,6 +509,13 @@ def run_training(
 
     # --- base model ---
     device = torch.device(device)
+    if cfg.pp > 1 or (getattr(args, "shard", None) and not getattr(args, "random_init", False)):
+        # one process per rank under torchrun, each on its own card (cuda:LOCAL_RANK)
+        from flux2_tpu_torch.parallel.mesh import ensure_process_group
+
+        ensure_process_group(device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     has_dataset = bool(cfg.dataset_dir and os.path.isdir(cfg.dataset_dir))
     pipe = None
     if getattr(args, "random_init", False):
@@ -425,12 +537,17 @@ def run_training(
         transformer = pipe.transformer
     tconfig = transformer.config
 
+    # --- pipeline parallelism (GPipe stages over the DiT's block stacks) ---
+    pp_mesh = pp_forward = None
+    if cfg.pp > 1:
+        pp_mesh, pp_forward = _pipeline_parallel(cfg, tconfig, transformer, args)
+
     # --- data ---
     if pipe is not None:
         if not has_dataset:
             raise SystemExit("train-lora needs dataset_dir (images + .txt captions or manifest.jsonl); "
                              "use --random-init for a checkpoint-free smoke run")
-        sample_batch, items = _prepare_real_data(pipe, cfg, tconfig)
+        sample_batch, items = _rank0_first(lambda: _prepare_real_data(pipe, cfg, tconfig))
     else:
         sample_batch, items = _prepare_synthetic_data(cfg, tconfig, device), []
     if cfg.epochs > 0 and items and getattr(args, "max_steps", None) is None:
@@ -461,9 +578,12 @@ def run_training(
         steps=cfg.validation_steps, seed=cfg.validation_seed, guidance=cfg.validation_guidance,
         early_stop_patience=cfg.early_stop_patience, trigger_word=cfg.trigger_word)
     val_pipe = val_base = scorer = None
+    pp_previews = False
     ref_images = []
     if val_enabled:
         val_model, val_base = _validation_base(pipe, train_model, device)
+        # the training base under pp: each rank holds its stage, so the previews run pipelined
+        pp_previews = pp_mesh is not None and val_base is transformer
         val_pipe = Flux2Pipeline(model=val_model, transformer=val_base, vae=pipe.vae, device=device,
                                  text_encoder=pipe.text_encoder, text_encoder_name=pipe.text_encoder_name,
                                  vae_encoder=pipe.vae_encoder)
@@ -483,8 +603,8 @@ def run_training(
     if pipe is not None and cfg.validation_dataset_dir:
         vcfg = dataclasses.replace(cfg, dataset_dir=cfg.validation_dataset_dir, dop_weight=0.0, control_dir=None,
                                    caption_dropout=0.0, cache_dir=os.path.join(cfg.output_dir, "val_latent_cache"))
-        val_sample, val_items = _prepare_real_data(pipe, vcfg, tconfig)
-        val_loss_fn = trainer.make_eval_loss(transformer, tcfg)
+        val_sample, val_items = _rank0_first(lambda: _prepare_real_data(pipe, vcfg, tconfig))
+        val_loss_fn = trainer.make_eval_loss(transformer, tcfg, forward_fn=pp_forward)
         vr = np.random.RandomState(cfg.validation_seed)
         n_val = min(4, max(1, len(val_items)))
         val_batches = [val_sample(vr, cfg.batch_size) for _ in range(n_val)]  # FIXED: comparable across steps
@@ -515,7 +635,7 @@ def run_training(
         tstate = TrainingState(rng_seed=cfg.seed, config_hash=config_hash(tcfg))
     flog.info(f"LoRA rank {tcfg.rank} on {len(state.lora.targets())} targets: "
               f"{lora_mod.num_lora_params(state.lora):,} parameters")
-    step_fn = trainer.make_train_step(transformer, tcfg)
+    step_fn = trainer.make_train_step(transformer, tcfg, forward_fn=pp_forward)
     lora_scale = lora_mod.LoRAConfig(tcfg.rank, tcfg.alpha).scale
 
     history: List[dict] = []
@@ -535,14 +655,17 @@ def run_training(
         tracker.seed_from_history(tstate.validation_scores)
 
     def validate(step: int, eval_lora):
-        """One preview pass; with a LoRA, on a merged COPY of the base (R5)."""
-        val_pipe.transformer = val_base
+        """One preview pass; with a LoRA, on a merged COPY of the base (R5).
+        Under pp every rank runs it through the pipeline (its own stage merged);
+        rank 0 writes the images."""
+        base = val_base
         if eval_lora is not None:
-            val_pipe.transformer = lora_mod.merge_into_params(copy.deepcopy(val_base), eval_lora, lora_scale)
+            base = lora_mod.merged_copy(val_base, eval_lora, lora_scale)
+        val_pipe.transformer = pp_mod.PipelinedDiT(base, pp_mesh) if pp_previews else base
         try:
             return run_validation(val_pipe, val_cfg, step, embeddings_fn=val_pipe.encode_prompt, scorer=scorer,
-                                  reference_images=ref_images, output_dir=val_dir, ref_cache=val_ref_cache,
-                                  emb_cache=val_emb_cache)
+                                  reference_images=ref_images, output_dir=val_dir if _writes_files() else None,
+                                  ref_cache=val_ref_cache, emb_cache=val_emb_cache)
         finally:
             val_pipe.transformer = val_base
 
@@ -553,10 +676,11 @@ def run_training(
                 tstate.record_validation(0, r.scene, r.style, r.prompt)
 
         for step in range(tstate.step + 1, cfg.max_steps + 1):
-            if controller.should_stop():
+            if _agree(_writes_files() and controller.should_stop()):
                 flog.info("stop requested — checkpointing and exiting")
                 break
-            controller.wait_while_paused()
+            if _writes_files():
+                controller.wait_while_paused()
             seed = (rng_seed * 1_000_003 + step) % (2**32)
             batch = sample_batch(np.random.RandomState(seed), bs)
             if cfg.dop_every_n_steps > 1 and step % cfg.dop_every_n_steps:
@@ -584,15 +708,16 @@ def run_training(
                     plateau_best, plateau_bad = ma, 0
                 else:
                     plateau_bad += 1
-                    if plateau_bad >= cfg.early_stop_loss_patience:
-                        flog.info(f"early stop: loss plateau ({plateau_bad} checks without "
-                                  f"{cfg.early_stop_min_delta} improvement on the 20-step mean)")
-                        break
+                if _agree(plateau_bad >= cfg.early_stop_loss_patience):
+                    flog.info(f"early stop: loss plateau ({plateau_bad} checks without "
+                              f"{cfg.early_stop_min_delta} improvement on the 20-step mean)")
+                    break
 
             saved_path = None
-            if (cfg.save_every > 0 and step % cfg.save_every == 0) or controller.consume_checkpoint_request():
+            if (cfg.save_every > 0 and step % cfg.save_every == 0) or (
+                    _writes_files() and controller.consume_checkpoint_request()):
                 saved_path = _save(cfg, tstate, state, tcfg)
-                if cfg.learning_curve:
+                if cfg.learning_curve and _writes_files():
                     write_learning_curve_svg(tstate.loss_history, os.path.join(cfg.output_dir, "learning_curve.svg"),
                                              smoothing_window=cfg.learning_curve_smoothing)
 
@@ -601,11 +726,11 @@ def run_training(
                 records = validate(step, eval_lora)
                 for r in records:
                     tstate.record_validation(step, r.scene, r.style, r.prompt)
-                stop_early = tracker.record(step, records)
+                stop_early = _agree(tracker.record(step, records))
                 mean = tracker.mean_combined(records)
                 flog.info(f"validation @ {step}: combined {mean:.2f} (best {tracker.best_score:.2f} @ "
                           f"{tracker.best_step})")
-                if tracker.best_step == step and cfg.vlm_save_best_checkpoint:
+                if tracker.best_step == step and cfg.vlm_save_best_checkpoint and _writes_files():
                     if saved_path is None:  # improved at a non-save step: checkpoint so best/ holds these weights
                         saved_path = _save(cfg, tstate, state, tcfg)
                     best_dir = os.path.join(cfg.output_dir, "best")
@@ -642,11 +767,11 @@ def run_training(
                         if val_bad >= cfg.early_stop_val_stagnation_patience:
                             flog.info(f"early stop: val loss stagnant for {val_bad} check(s)")
                             stop = True
-                if stop:
+                if _agree(stop):
                     break
 
     _save(cfg, tstate, state, tcfg)
-    if cfg.learning_curve:
+    if cfg.learning_curve and _writes_files():
         write_learning_curve_svg(tstate.loss_history, os.path.join(cfg.output_dir, "learning_curve.svg"),
                                  smoothing_window=cfg.learning_curve_smoothing)
     flog.info(f"training done at step {tstate.step}; output in {cfg.output_dir}")

@@ -44,6 +44,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
@@ -110,11 +111,16 @@ def _lmm(x: torch.Tensor, w, lora: Optional[nn.ModuleDict], name: str, scale: fl
     """Projection with an optional UNMERGED LoRA adapter (JAX ``_lmm``):
     y = x W^T + scale * ((x a) b), the adapter cast to x's dtype. The
     backward forms only [in, r] and [r, out] gradients, never a base-sized one.
-    ``full``: a sharded output is gathered whole on the feature axis."""
+    ``full``: a sharded output is gathered whole on the feature axis. Under
+    a mesh the plain adapters enter as ``Replicate()`` DTensors on x's mesh
+    (DTensor refuses to mix the two); their gradient is the unsharded one."""
     y = q_linear(x, w)
     if lora is not None and name in lora:
         ad = lora[name]
-        y = y + ((x @ ad.a.to(x.dtype)) @ ad.b.to(x.dtype)) * scale
+        a, b = ad.a.to(x.dtype), ad.b.to(x.dtype)
+        if isinstance(x, DTensor):
+            a, b = replicate(a, x.device_mesh), replicate(b, x.device_mesh)
+        y = y + ((x @ a) @ b) * scale
     return unshard_last(y) if full else y
 
 
@@ -244,6 +250,19 @@ class SingleBlock(nn.Module):
         return res
 
 
+def run_block(block: nn.Module, *args, remat: "bool | str" = False, lora: Optional[nn.ModuleDict] = None,
+              lora_scale: float = 1.0, ring: Optional[tuple] = None):
+    """One block under ``remat`` (JAX ``_remat_wrap``): False runs it; True /
+    "block" recomputes it in the backward (``torch.utils.checkpoint``,
+    non-reentrant); "dots" recomputes all but its 2-D products."""
+    kw = {"lora": lora, "lora_scale": lora_scale, "ring": ring}
+    if remat == "dots":
+        return checkpoint(block, *args, use_reentrant=False, context_fn=_dots_context, **kw)
+    if remat:
+        return checkpoint(block, *args, use_reentrant=False, **kw)
+    return block(*args, **kw)
+
+
 class Flux2Transformer(nn.Module):
     """The FLUX.2 DiT: [B, S_img, 128] latents + [B, S_txt, joint] text -> velocity."""
 
@@ -361,22 +380,15 @@ class Flux2Transformer(nn.Module):
                                                                      guidance, ring)
         rope_cos, rope_sin = self._inputs(rope_cos.to(torch.float32), rope_sin.to(torch.float32))
 
-        def run(block, *args, lora_block):
-            kw = {"lora": lora_block, "lora_scale": lora_scale, "ring": ring}
-            if remat == "dots":
-                return checkpoint(block, *args, use_reentrant=False, context_fn=_dots_context, **kw)
-            if remat:
-                return checkpoint(block, *args, use_reentrant=False, **kw)
-            return block(*args, **kw)
-
+        kw = {"remat": remat, "lora_scale": lora_scale, "ring": ring}
         for i, block in enumerate(self.double_blocks):
             lb = lora.block("double_blocks", i) if lora is not None else None
-            img, txt = run(block, img, txt, img_mod, txt_mod, rope_cos, rope_sin, lora_block=lb)
+            img, txt = run_block(block, img, txt, img_mod, txt_mod, rope_cos, rope_sin, lora=lb, **kw)
             img, txt = seq_shard(img, ring), seq_shard(txt, ring)
         x = seq_shard(torch.cat([txt, img], dim=1), ring)
         for i, block in enumerate(self.single_blocks):
             lb = lora.block("single_blocks", i) if lora is not None else None
-            x = seq_shard(run(block, x, single_mod, rope_cos, rope_sin, lora_block=lb), ring)
+            x = seq_shard(run_block(block, x, single_mod, rope_cos, rope_sin, lora=lb, **kw), ring)
         return seq_shard(self._final(temb, x[:, s_txt:]), ring)
 
     def forward_kv_extract(

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 from typing import Callable, List, Sequence, Tuple
 
+import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
@@ -49,6 +50,40 @@ def _axes(t: DTensor, dim: int) -> Tuple[int, ...]:
     """The mesh dims (of size > 1) that shard dimension ``dim`` of ``t``."""
     mesh = t.device_mesh
     return tuple(i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim == dim and mesh.size(i) > 1)
+
+
+class _SumPartials(torch.autograd.Function):
+    """The row-parallel all-reduce of the partial products. Its output is
+    replicated, so every rank's cotangent is the whole one, and each partial
+    takes it as it is: the backward is the identity (LoRA training through a
+    sharded DiT differentiates through here)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        y = y.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumGrads(torch.autograd.Function):
+    """The identity on the column-parallel input, whose backward sums the
+    ranks' cotangents: each rank's ``dy @ w`` covers its N slice only, and
+    the input is replicated (Megatron's ``f``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def _run(x, parts: Sequence[DTensor], rebuild: Callable, n_axes: Tuple[int, ...], k_axes: Tuple[int, ...]):
@@ -74,9 +109,11 @@ def _run(x, parts: Sequence[DTensor], rebuild: Callable, n_axes: Tuple[int, ...]
         w_in[0][i] = Shard(1)  # the codes (or dense weight) only: scales are per column
 
     def body(x_loc, *locs):
+        for i in n_axes:
+            x_loc = _SumGrads.apply(x_loc, mesh.get_group(i))
         y = q_linear(x_loc, rebuild(*locs))
         for i in k_axes:
-            dist.all_reduce(y, group=mesh.get_group(i))
+            y = _SumPartials.apply(y, mesh.get_group(i))
         return y
 
     fn = local_map(body, out_placements=out, in_placements=(x_in, *w_in), device_mesh=mesh,

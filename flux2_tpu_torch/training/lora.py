@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 # DiT leaves that take LoRA adapters, keyed (block_group, leaf), as in JAX.
 DEFAULT_TARGETS: Tuple[Tuple[str, str], ...] = (
@@ -128,12 +129,18 @@ def merge_into_params(transformer: nn.Module, lora: LoRA, scale: float) -> nn.Mo
     in float32 and cast back to its dtype; a stored QTensor is dequantized,
     summed and requantized in its format and group size, and the new module
     takes the old one's place (the float32 transient is one block's [N, K]);
-    a W8A8 / W4A8 weight raises ``TypeError``, as in JAX."""
+    a W8A8 / W4A8 weight raises ``TypeError``, as in JAX. A block on ``meta``
+    (another pipeline stage's) is skipped; a weight held as DTensors merges
+    on its whole value and keeps its placements. Each merged weight is a new
+    tensor in its block, so a copy that shares the old ones leaves them as
+    they were (``merged_copy``)."""
     from flux2_tpu_torch.ops import quant
 
     for group in GROUPS:
         for i, adapters in enumerate(getattr(lora, group)):
             block = getattr(transformer, group)[i]
+            if any(t.is_meta for t in block.parameters()):
+                continue  # another pipeline stage's block (parallel.pipeline.place_stages)
             for leaf, ad in adapters.items():
                 w = getattr(block, leaf)
                 if isinstance(w, (quant.W8A8Tensor, quant.W4A8Tensor)):
@@ -144,11 +151,50 @@ def merge_into_params(transformer: nn.Module, lora: LoRA, scale: float) -> nn.Mo
                     )
                 device = w.device if isinstance(w, torch.Tensor) else w.q.device
                 delta = _delta(ad.a.to(device), ad.b.to(device))
-                if isinstance(w, torch.Tensor):
-                    w.copy_((w.float() + scale * delta).to(w.dtype))
+                if isinstance(w if isinstance(w, torch.Tensor) else w.q, DTensor):
+                    _merge_sharded(block, leaf, w, delta, scale)
+                elif isinstance(w, torch.Tensor):
+                    block._parameters[leaf] = nn.Parameter((w.float() + scale * delta).to(w.dtype), requires_grad=False)
                 else:
                     quant._replace(block, leaf, _merge_qtensor(w, delta, scale))
     return transformer
+
+
+def merged_copy(transformer: nn.Module, lora: LoRA, scale: float) -> nn.Module:
+    """A copy of ``transformer`` with the adapters folded in, the original
+    untouched (the previews' R5): the copy shares every tensor (and mesh) of
+    the original but the merged weights, which are new."""
+    import copy
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    memo = {id(t): t for t in [*transformer.parameters(), *transformer.buffers()]}
+    for mod in transformer.modules():
+        memo.update({id(v): v for v in vars(mod).values() if isinstance(v, DeviceMesh)})
+    return merge_into_params(copy.deepcopy(transformer, memo), lora, scale)
+
+
+def _merge_sharded(block: nn.Module, leaf: str, w, delta: torch.Tensor, scale: float) -> None:
+    """Merge into a weight held as DTensors (a sharded DiT): on its whole
+    value, then each rank keeps its chunk with the old placements again."""
+    import copy
+
+    from flux2_tpu_torch.ops import quant
+    from flux2_tpu_torch.parallel import sharding as sh
+
+    if isinstance(w, torch.Tensor):
+        full = w.full_tensor()
+        merged = sh.distribute((full.float() + scale * delta).to(full.dtype), w.device_mesh, w.placements)
+        block._parameters[leaf] = nn.Parameter(merged, requires_grad=False)
+        return
+    whole = copy.copy(w)
+    whole._buffers = {k: (b.full_tensor() if b is not None else None) for k, b in w._buffers.items()}
+    merged = _merge_qtensor(whole, delta, scale)
+    for k, b in merged._buffers.items():
+        old = w._buffers.get(k)
+        if b is not None and isinstance(old, DTensor):
+            merged._buffers[k] = sh.distribute(b, old.device_mesh, old.placements)
+    quant._replace(block, leaf, merged)
 
 
 def _delta(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

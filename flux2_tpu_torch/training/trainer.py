@@ -11,6 +11,9 @@ unmerged LoRA forward (``transformer.forward(lora=..., remat=...)``),
 ``backward``, then the optimizer update in place on the adapters' float32
 parameters. On the card every DiT attention of the step runs the flash
 kernels: K2 forward, K3 and K4 backward (``ops/flash_attention.py``).
+``forward_fn=`` replaces the DiT's forward, as JAX's does: under pipeline
+parallelism ``parallel/pipeline.make_pp_forward``, whose ``reduce_grads``
+runs after the backward; a sharded DiT's velocity is gathered whole.
 
 The optimizer follows optax's semantics, not torch's defaults:
 ``clip_by_global_norm`` keeps g when ||g|| < max and else takes
@@ -136,6 +139,16 @@ def _stream_dtype(transformer: nn.Module) -> torch.dtype:
     return w.dtype if isinstance(w, torch.Tensor) else torch.bfloat16
 
 
+def _forward(transformer: nn.Module, forward_fn: Optional[Callable], *args, **kwargs) -> torch.Tensor:
+    """The velocity as a plain tensor: ``forward_fn(transformer, ...)`` or the
+    DiT's own forward, a sharded DiT's DTensor gathered whole."""
+    from flux2_tpu_torch.parallel.sharding import gather
+
+    if forward_fn is not None:
+        return gather(forward_fn(transformer, *args, **kwargs))
+    return gather(transformer(*args, **kwargs))
+
+
 def _noisy(latents, noise, sigmas):
     s = sigmas[:, None, None]
     return (1.0 - s) * latents + s * noise
@@ -153,16 +166,19 @@ def flow_matching_loss(
     rope_sin: torch.Tensor,
     guidance: Optional[torch.Tensor] = None,
     control: Optional[torch.Tensor] = None,  # [B, S_ctl, 128] clean control tokens (I2I)
+    forward_fn: Optional[Callable] = None,  # Flux2Transformer.forward-compatible (e.g. pp)
 ) -> torch.Tensor:
     """MSE(model(noisy, t)[:, :S], noise - latents) in f32, optionally bell- or
-    SNR-weighted; the DiT runs in its weights' dtype with the LoRA unmerged."""
+    SNR-weighted; the DiT runs in its weights' dtype with the LoRA unmerged,
+    through ``forward_fn(transformer, ...)`` when given. A sharded DiT's
+    velocity (a DTensor) is gathered whole first."""
     scale = lora_mod.LoRAConfig(train_cfg.rank, train_cfg.alpha).scale
     s_out = latents.shape[1]
     x = _noisy(latents, noise, sigmas)
     if control is not None:
         x = torch.cat([x, control], dim=1)
-    pred = transformer(x.to(_stream_dtype(transformer)), embeddings, sigmas, rope_cos, rope_sin,
-                       guidance=guidance, remat=train_cfg.remat, lora=lora, lora_scale=scale)[:, :s_out]
+    pred = _forward(transformer, forward_fn, x.to(_stream_dtype(transformer)), embeddings, sigmas, rope_cos,
+                    rope_sin, guidance=guidance, remat=train_cfg.remat, lora=lora, lora_scale=scale)[:, :s_out]
     target = noise - latents  # ops/scheduler.get_velocity
     sq = torch.square(pred.float() - target.float())
     if train_cfg.loss_weighting in ("bell", "snr"):
@@ -183,6 +199,7 @@ def dop_loss(
     rope_cos: torch.Tensor,
     rope_sin: torch.Tensor,
     guidance: Optional[torch.Tensor] = None,
+    forward_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Differential Output Preservation: MSE(LoRA out, base out) on the
     preservation captions; the base forward runs without gradient (JAX's
@@ -191,10 +208,11 @@ def dop_loss(
     noisy = _noisy(latents, noise, sigmas).to(_stream_dtype(transformer))
     joint = preservation_embeddings.shape[1] + latents.shape[1]
     rope_cos, rope_sin = rope_cos[:joint], rope_sin[:joint]
-    pred_lora = transformer(noisy, preservation_embeddings, sigmas, rope_cos, rope_sin, guidance=guidance,
-                            remat=train_cfg.remat, lora=lora, lora_scale=scale)
+    pred_lora = _forward(transformer, forward_fn, noisy, preservation_embeddings, sigmas, rope_cos, rope_sin,
+                         guidance=guidance, remat=train_cfg.remat, lora=lora, lora_scale=scale)
     with torch.no_grad():
-        pred_base = transformer(noisy, preservation_embeddings, sigmas, rope_cos, rope_sin, guidance=guidance)
+        pred_base = _forward(transformer, forward_fn, noisy, preservation_embeddings, sigmas, rope_cos, rope_sin,
+                             guidance=guidance)
     return torch.mean(torch.square(pred_lora.float() - pred_base.float()))
 
 
@@ -431,21 +449,26 @@ def _draw(train_cfg: TrainConfig, generator: torch.Generator, latents: torch.Ten
     return sigmas.to(latents.device), noise.to(latents.device)
 
 
-def make_train_step(transformer: nn.Module, train_cfg: TrainConfig) -> Callable:
+def make_train_step(transformer: nn.Module, train_cfg: TrainConfig, forward_fn: Optional[Callable] = None) -> Callable:
     """step(lora, optimizer, batch, generator) -> metrics {loss, dop_loss, grad_norm}
     (0-d tensors), updating the adapters in place. ``batch``: latents [B,S,128],
     embeddings [B,S_txt,J], rope_cos/rope_sin, optional guidance / control /
     dop_embeddings. With ``grad_accumulation`` n > 1 the batch splits into n
-    micro-batches whose gradients sum into the adapters' ``.grad`` / n."""
+    micro-batches whose gradients sum into the adapters' ``.grad`` / n.
+    ``forward_fn`` replaces the DiT's forward (``parallel.pipeline.
+    make_pp_forward``: every rank draws and holds the whole batch, its
+    ``reduce_grads`` gives every rank the dense gradient after the backward,
+    so the adapters, the optimizer state and the metrics agree on every rank)."""
 
     def loss_fn(lora, batch, sigmas, noise):
         main = flow_matching_loss(transformer, lora, train_cfg, batch["latents"], batch["embeddings"], noise,
                                   sigmas, batch["rope_cos"], batch["rope_sin"], guidance=batch.get("guidance"),
-                                  control=batch.get("control"))
+                                  control=batch.get("control"), forward_fn=forward_fn)
         dop = torch.zeros((), device=main.device)
         if train_cfg.dop_weight > 0.0 and "dop_embeddings" in batch:
             dop = dop_loss(transformer, lora, train_cfg, batch["latents"], batch["dop_embeddings"], noise, sigmas,
-                           batch["rope_cos"], batch["rope_sin"], guidance=batch.get("guidance"))
+                           batch["rope_cos"], batch["rope_sin"], guidance=batch.get("guidance"),
+                           forward_fn=forward_fn)
             return main + train_cfg.dop_weight * dop, main, dop
         return main, main, dop
 
@@ -466,6 +489,8 @@ def make_train_step(transformer: nn.Module, train_cfg: TrainConfig) -> Callable:
             (total / n).backward()
             loss_sum = loss_sum + main.detach()
             dop_sum = dop_sum + dop.detach()
+        if hasattr(forward_fn, "reduce_grads"):
+            forward_fn.reduce_grads(params)
         grads = [p.grad for p in params]
         metrics = {"loss": loss_sum / n, "dop_loss": dop_sum / n, "grad_norm": global_norm(grads)}
         optimizer.step(grads)
@@ -474,16 +499,18 @@ def make_train_step(transformer: nn.Module, train_cfg: TrainConfig) -> Callable:
     return step
 
 
-def make_eval_loss(transformer: nn.Module, train_cfg: TrainConfig) -> Callable:
+def make_eval_loss(transformer: nn.Module, train_cfg: TrainConfig, forward_fn: Optional[Callable] = None) -> Callable:
     """eval_loss(lora, batch, generator) -> the training objective with no
-    gradient (so on the card the attention runs K1)."""
+    gradient (so on the card the attention runs K1), through ``forward_fn``
+    when given."""
 
     @torch.no_grad()
     def eval_loss(lora, batch, generator):
         sigmas, noise = _draw(train_cfg, generator, batch["latents"])
         return flow_matching_loss(transformer, lora, dataclasses.replace(train_cfg, remat=False), batch["latents"],
                                   batch["embeddings"], noise, sigmas, batch["rope_cos"], batch["rope_sin"],
-                                  guidance=batch.get("guidance"), control=batch.get("control"))
+                                  guidance=batch.get("guidance"), control=batch.get("control"),
+                                  forward_fn=forward_fn)
 
     return eval_loss
 

@@ -26,7 +26,10 @@ generate``, the VLM slice: a random Pixtral + Mistral analysis, a Qwen3.5-VL
 checkpoint read by ``flux-encoders vision --image2``, its service enriching an
 inpaint prompt (``chains/vlm_prompt.py``) and the Qwen3-VL tower, the parallel slice: a sharded w8a8
 generate under context parallelism on a one-rank CPU mesh (``flux2_tpu_torch.parallel.*``), the sharded
-encoder and ``t2i --shard``, and reports whether any ``jax`` or ``flux2_tpu`` module was loaded. (The suite's conftest imports JAX, so this must run in a
+encoder and ``t2i --shard``, the pp slice: a train step through ``parallel/pipeline.py``'s
+``make_pp_forward`` on a one-rank CPU mesh against the dense step (held by ``chip_smoke.py``'s
+``phase_pp`` helpers) and ``train-lora --random-init --shard``, and reports whether any ``jax`` or
+``flux2_tpu`` module was loaded. (The suite's conftest imports JAX, so this must run in a
 subprocess.)
 """
 
@@ -257,6 +260,32 @@ with tempfile.TemporaryDirectory() as tmp:
         cli.main(["t2i", "--random-init", "--width", "32", "--height", "32", "--steps", "1", "--shard", "1,1,1",
                   "--device", "cpu", "-o", os.path.join(tmp, "s.png")])
     shard_png = list(decode_png(open(os.path.join(tmp, "s.png"), "rb").read()).shape)
+# the pp slice on the one-rank CPU mesh: a train step through make_pp_forward (2 microbatches) against the
+# dense step, held by chip_smoke's phase_pp helpers, and train-lora's --shard in the random-init branch
+from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
+from flux2_tpu_torch.parallel import pipeline as ppl
+from flux2_tpu_torch.ops import latents as plu
+from flux2_tpu_torch.ops.rope import rope_embeddings
+ppm = ppl.make_pp_mesh(1, 1, 1, device_type="cpu")
+pdit = ppl.place_stages(Flux2Transformer(tc, dtype=torch.float32, generator=torch.Generator().manual_seed(0)), ppm)
+pcos, psin = rope_embeddings(torch.from_numpy(__import__("numpy").concatenate(
+    [plu.text_position_ids(4), plu.image_position_ids(32, 32)])))
+pbatch = {"latents": torch.randn(2, 4, 128), "embeddings": torch.randn(2, 4, 32), "rope_cos": pcos, "rope_sin": psin}
+ptcfg = trainer.TrainConfig(rank=2, alpha=2.0, remat=True)
+pgrads = []
+for pfwd in (None, ppl.make_pp_forward(ppm, 2)):
+    pstate = trainer.init_train_state(pdit, ptcfg, torch.Generator().manual_seed(1))
+    trainer.make_train_step(pdit, ptcfg, forward_fn=pfwd)(pstate.lora, pstate.optimizer, dict(pbatch),
+                                                          torch.Generator().manual_seed(2))
+    pgrads.append({n: p.grad for n, p in pstate.lora.named_parameters()})
+with tempfile.TemporaryDirectory() as tmp:
+    cfg = os.path.join(tmp, "pp.yaml")
+    with open(cfg, "w") as f:
+        f.write(f"model: {{name: klein-4b}}\nlora: {{rank: 2, alpha: 2}}\ndataset: {{image_size: 32}}\n"
+                f"training: {{max_steps: 1}}\ncheckpoints: {{output: {tmp}/out, save_every: 0}}\n")
+    phist = run_training(parse_args(["train-lora", "--config", cfg, "--random-init", "--shard", "1,1,1",
+                                     "--device", "cpu"]), "cpu", transformer_config=tc)
+pp_slice = [chip_smoke._rel_tree(pgrads[1], pgrads[0]) < 1e-5, chip_smoke.PP_QLORA_K5, [r["step"] for r in phist]]
 parallel = [cp_image, cp_emb, shard_png, sorted(m.rsplit(".", 1)[1] for m in sys.modules
                                                 if m.startswith("flux2_tpu_torch.parallel."))]
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
@@ -274,7 +303,7 @@ print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.starts
                   "psnr": psnr, "lora_pngs": lora_pngs, "prequant": [k for k, _ in prequant], "real": real,
                   "evaluated": evaluated, "dev_png": dev_png, "dev_upsampled": dev_upsampled,
                   "generated": generated, "vlm": [mistral_reply, compared, enriched, vl_states],
-                  "parallel": parallel}))
+                  "parallel": parallel, "pp": pp_slice}))
 """
 
 
@@ -302,4 +331,5 @@ def test_port_runs_without_importing_jax():
                       "vlm": [True, ["scene_reason", "scene_score", "style_reason", "style_score"], True,
                               [29, 1, 5, 64]],
                       "parallel": [[32, 32, 3], [1, 512, 192], [32, 32, 3],
-                                   ["mesh", "quant_partition", "ring_attention", "sharding"]]}
+                                   ["mesh", "pipeline", "quant_partition", "ring_attention", "sharding"]],
+                      "pp": [True, 806, [1]]}

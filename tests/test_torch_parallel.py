@@ -244,6 +244,21 @@ def test_sharded_forward_matches_single_device(pool):
         np.testing.assert_allclose(out["value"], ref, atol=2e-3, rtol=0)
 
 
+def test_lora_train_step_on_the_sharded_dit_matches_dense(pool):
+    """``train-lora --shard``'s step (the LoRA unmerged on the DiT sharded over fsdp=2 x tp=4, its adapters
+    replicated on the DiT's mesh) on eight ranks against the unsharded step from the same seeds: the loss (rtol
+    1e-5) and every adapter's gradient (within 1e-4 of its largest entry, f32 sums in another order), the same on
+    every rank. Without the sum of the column-parallel input's cotangents over the ranks (``_SumGrads``) it
+    fails."""
+    params, inputs = _dit_jax_params(), _dit_inputs()
+    for r in pool.run(f"{CASES}:dit_train_step", params, CFG, inputs, (1, 2, 4, 1)):
+        np.testing.assert_allclose(r["sharded"]["loss"], r["dense"]["loss"], rtol=1e-5)
+        for name, g in r["dense"]["grads"].items():
+            assert np.any(g) or name.endswith(".a"), name
+            np.testing.assert_allclose(r["sharded"]["grads"][name], g, rtol=0, atol=1e-4 * max(np.abs(g).max(), 1e-30),
+                                       err_msg=name)
+
+
 @pytest.mark.parametrize("kw", [
     dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=8,
          num_key_value_heads=4, head_dim=16, qk_norm=True, tie_word_embeddings=True),

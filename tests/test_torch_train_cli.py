@@ -4,9 +4,10 @@ A 1-double / 1-single-block DiT (2 heads of 128, joint dim 96) trains a rank-4
 LoRA on 32x32 synthetic data for a few steps: checkpoints, the learning-curve
 SVG, the log lines, pruning, the stop sentinel, and ``--resume`` (a run cut at
 step 2 and resumed ends where an uninterrupted run does, bit for bit: the
-same per-step draws, the same optimizer state). Pipeline parallelism and
-``--shard`` raise ``SystemExit`` naming their ROADMAP queue, and
-``--quantization`` with ``--random-init`` names its recorded difference;
+same per-step draws, the same optimizer state). ``--shard`` changes nothing
+in the random-init branch, as in JAX (pipeline parallelism and ``--shard``
+under torchrun: tests/test_torch_parallel_cli.py), and ``--quantization``
+with ``--random-init`` names its recorded difference;
 ``lora.dropout`` warns as JAX does and trains (R3); the step line is JAX's
 (R4). Real data, checkpoints and validation: tests/test_torch_train_real.py.
 """
@@ -129,16 +130,31 @@ def test_main_entry_point_runs_train_lora(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,yaml_kw,reason", [
-    (["--random-init", "--shard", "auto"], {}, "queue 16"),
-    (["--random-init"], {"training": ", pp: 5"}, "queue 16"),
     # a recorded difference: JAX's random-init base ignores --quantization
     (["--random-init", "--quantization", "w8a8"], {}, "recorded difference"),
-], ids=["shard", "pp", "quantized_base"])
+], ids=["quantized_base"])
 def test_unsupported_options_raise_naming_their_queue(tmp_path, flags, yaml_kw, reason):
     cfg = _yaml(tmp_path, **{k: v.format(tmp=tmp_path) for k, v in yaml_kw.items()})
     with pytest.raises(SystemExit, match=reason):
         _run(["--config", cfg, *(f.format(tmp=tmp_path) for f in flags)])
     assert not os.path.exists(tmp_path / "out")
+
+
+def test_random_init_ignores_shard_as_jax(tmp_path):
+    """JAX's random-init branch builds no pipeline, so ``--shard`` changes nothing there: the port trains the same
+    LoRA to the bit, and starts no process group for it."""
+    import torch.distributed as dist
+
+    plain = tmp_path / "plain"
+    plain.mkdir()
+    _run(["--config", _yaml(plain, steps=2, save_every=0), "--random-init"])
+    sharded = tmp_path / "sharded"
+    sharded.mkdir()
+    initialized = dist.is_initialized()
+    _run(["--config", _yaml(sharded, steps=2, save_every=0), "--random-init", "--shard", "1,1,2"])
+    assert dist.is_initialized() == initialized
+    a, b = _lora(plain / "out" / "checkpoint_000002"), _lora(sharded / "out" / "checkpoint_000002")
+    assert sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
 
 
 def test_lora_dropout_warns_as_jax_and_trains(tmp_path, capsys):

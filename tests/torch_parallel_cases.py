@@ -92,6 +92,29 @@ def dit_forward(params, cfg_kw: dict, inputs: dict, dims, ring_axis: Optional[st
     return _out(y)
 
 
+def dit_train_step(params, cfg_kw: dict, inputs: dict, dims):
+    """One LoRA train step (remat) on the DiT sharded over ``dims`` (train-lora
+    --shard's path: the adapters replicated on the DiT's mesh, the velocity
+    gathered) and on the unsharded DiT, from the same seeds: losses, gradient
+    norms and the LoRA gradients."""
+    from flux2_tpu_torch.training import trainer
+
+    tcfg = trainer.TrainConfig(rank=2, alpha=4.0, remat=True)
+    batch = {"latents": _t(inputs["hidden"]), "embeddings": _t(inputs["txt"]), "rope_cos": _t(inputs["cos"]),
+             "rope_sin": _t(inputs["sin"])}
+    out = {}
+    for kind in ("dense", "sharded"):
+        model = transformer_from_jax(params, Flux2TransformerConfig(**cfg_kw))
+        if kind == "sharded":
+            sh.shard_params(model, mesh(dims), sh.DIT_RULES)
+        state = trainer.init_train_state(model, tcfg, torch.Generator().manual_seed(1))
+        metrics = trainer.make_train_step(model, tcfg)(state.lora, state.optimizer, dict(batch),
+                                                       torch.Generator().manual_seed(5))
+        out[kind] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                     "grads": {n: p.grad.numpy().copy() for n, p in state.lora.named_parameters()}}
+    return out
+
+
 def dit_local_param_bytes(params, cfg_kw: dict, dims, fmt: Optional[str] = None):
     """Every rank's bytes of parameters and buffers after ``shard_params``."""
     model = transformer_from_jax(params, Flux2TransformerConfig(**cfg_kw))

@@ -4,10 +4,13 @@
         tests/torch_parallel_entry.py cli t2i --random-init --device cpu --shard 1,2,4 ...
     python -m torch.distributed.run --standalone --nproc-per-node 2 \\
         tests/torch_parallel_entry.py serve --tp 2 --random-init --device cpu --port P
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        tests/torch_parallel_entry.py train train-lora --config cfg.yaml --random-init --device cpu
 
 Every rank runs ``cli.main.main`` or ``serve.main`` with the rest of the
 command line on reduced random-init configs (a 2-head DiT, a small VAE, a
-28-layer tiny Qwen3 whose three hidden layers give the DiT's joint width).
+28-layer tiny Qwen3 whose three hidden layers give the DiT's joint width);
+``train`` runs ``cli.main.main`` with ``run_training`` on ``TRAIN_CONFIG``.
 Under ``serve``, rank 0 writes its pid to ``$PARALLEL_TEST_PIDFILE`` when
 that is set, and SIGUSR1 stops its HTTP server as Ctrl-C would, so its
 shutdown reaches the followers; each rank then prints ``rank R done``. With
@@ -40,6 +43,11 @@ CONFIGS = {
 }
 
 
+# train-lora --random-init (the ``train`` entry): 2 double and 2 single blocks, so pp=2 splits both stacks
+TRAIN_CONFIG = Flux2TransformerConfig(num_layers=2, num_single_layers=2, num_attention_heads=2, attention_head_dim=128,
+                                      joint_attention_dim=96, guidance_embeds=False)
+
+
 def _interrupt(signum, frame):
     raise KeyboardInterrupt
 
@@ -48,11 +56,16 @@ def main() -> int:
     torch.set_num_threads(1)
     which, argv = sys.argv[1], sys.argv[2:]
     rank = os.environ.get("RANK", "0")
-    if which == "cli":
+    if which in ("cli", "train"):
         from flux2_tpu_torch.cli import main as cli
+        from flux2_tpu_torch.cli import train
 
         build = cli.build_pipeline
         cli.build_pipeline = lambda args, device, generator=None, **kw: build(args, device, generator, **CONFIGS)
+        if which == "train":  # train-lora --random-init on TRAIN_CONFIG (and the small VAE on a dataset)
+            run = train.run_training
+            train.run_training = lambda args, device: run(args, device, transformer_config=TRAIN_CONFIG,
+                                                          vae_config=CONFIGS["vae_config"])
         rc = cli.main(argv)
     else:
         from flux2_tpu_torch import serve

@@ -2,7 +2,10 @@
 multi-rank CPU tests.
 
 ``RankPool(8)`` spawns eight processes (one torch thread each) that join one
-gloo process group on a free localhost port and then wait for work.
+gloo process group through a ``FileStore`` in a fresh temporary directory
+(no port is chosen ahead of the bind: a port picked free and then bound by
+rank 0 seconds later can be taken meanwhile by another test's sockets) and
+then wait for work.
 ``pool.run("module:function", *args)`` runs that function on every rank at
 once and returns the eight results in rank order (a rank's exception is
 raised here with its traceback). A test file starts one pool, module-scoped,
@@ -15,19 +18,21 @@ from __future__ import annotations
 
 import multiprocessing as mp
 import os
+import shutil
 import socket
+import tempfile
 import traceback
 
 
 def free_port() -> int:
+    """A localhost port that was free when asked (the caller must retry if it is taken before it binds)."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
 
 
-def _worker(rank: int, world: int, port: int, tasks, results) -> None:
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port), OMP_NUM_THREADS="1")
+def _worker(rank: int, world: int, store_path: str, tasks, results) -> None:
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), OMP_NUM_THREADS="1")
     import datetime
     import importlib
 
@@ -35,7 +40,7 @@ def _worker(rank: int, world: int, port: int, tasks, results) -> None:
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=180))
     results.put((rank, "ready", None))
     while True:
@@ -56,10 +61,11 @@ class RankPool:
     def __init__(self, world: int = 8, timeout: float = 600.0):
         ctx = mp.get_context("spawn")
         self.world, self.timeout = world, timeout
-        port = free_port()
+        self._dir = tempfile.mkdtemp(prefix="rank_pool_")
+        store = os.path.join(self._dir, "store")
         self._tasks = [ctx.Queue() for _ in range(world)]
         self._results = ctx.Queue()
-        self._procs = [ctx.Process(target=_worker, args=(r, world, port, self._tasks[r], self._results), daemon=True)
+        self._procs = [ctx.Process(target=_worker, args=(r, world, store, self._tasks[r], self._results), daemon=True)
                        for r in range(world)]
         for p in self._procs:
             p.start()
@@ -89,3 +95,4 @@ class RankPool:
             p.join(timeout=30)
             if p.is_alive():
                 p.kill()
+        shutil.rmtree(self._dir, ignore_errors=True)
