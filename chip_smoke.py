@@ -102,7 +102,17 @@ the dense step (K2 100, K3 = K4 = 50 against 50 / 25 / 25; loss 1e-2, LoRA gradi
 pass through the pipeline (K1 50), the warm s/step of both, and QLoRA on a w8a8 copy (K5 = prologue =
 806); phase_pp_cli, after phase_train_real on its dataset: `train-lora --shard 1,1,1,1` from the
 checkpoint directories equal to the bit to the run without it, and `pp: 2` / `pp: 5` on one GPU
-exiting with JAX's texts.
+exiting with JAX's texts. The last slice: phase_encoder_tp (after phase_pp, on the same one-rank NCCL
+mesh): Qwen3-4B at its published shape in bf16, w8a8 and w4a8, a 512-token prefill and 16 greedy tokens
+through `generation.generate`, unsharded and with its weights made DTensors by `shard_params` (the
+same tokens, every pass's logits equal to the bit, K5 = prologue or K6 = 252 a pass, s/token of both;
+every K5 / K6 call of one sharded prefill and step, at Qwen3-4B's projection shapes, equal to its plain
+version to the bit),
+then `TextEncoders.chat` and `upsample_prompt` after `TextEncoders.shard` against the unsharded text;
+phase_segmenter_train: `tools.train_segmenter` for 100 steps at 256^2, batch 16 (step 1's loss
+against the CPU, the loss falling, the file read back to the bit); phase_fidelity: `tools.fidelity_gate
+--random-init --models klein-4b --quantizations bf16,w8a8,w4a8 --mire` (the fixture rows missing their
+reference, each mire row a full-width Klein-4B I2I at 512x768: K1 25, K5 = prologue 206 or K6 205).
 Every path runs with the launch
 counts set to 0 just before it and checks them just after. Any failure raises: the
 traceback is printed and the exit code is not 0. There is no CPU fallback.
@@ -1530,7 +1540,7 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
     gc_cuda()
 
     # 8. auto_profile on this card
-    total = memory.total_device_bytes()
+    total = memory.total_hbm_bytes()
     for model in (Flux2Model.KLEIN_4B, Flux2Model.KLEIN_9B):
         est = memory.estimate_generation_bytes(model, "bf16")
         chosen = memory.auto_profile(model, "bf16")
@@ -4934,6 +4944,385 @@ def phase_pp_cli(card: str, workdir: str, dirs: dict, dataset: str) -> dict:
     return {"counts": shard_counts}
 
 
+# -- the last slice: generation on a sharded decoder, segmenter training, the fidelity gate --------------------
+
+ENCODER_TP_PROMPT = 512
+ENCODER_TP_TOKENS = 16
+# K5 (each with its prologue) or K6 launches of one pass through Qwen3-4B at its published shape, derived
+# before the run: 36 layers x 7 projections, every K (2560, 4096, 9728) and N (1024 to 9728) past both
+# gates, at M = 512 (the prefill) as at M = 1 (a decode step). A greedy 16-token decode is 17 passes: the
+# prefill, then every sampled token is stepped, the last too (the cache holds 512 + 16 slots).
+ENCODER_TP_PASS_LAUNCHES = 36 * 7
+ENCODER_TP_PASSES = 1 + ENCODER_TP_TOKENS
+# The (M, K, N) of those projections: q (2560 -> 32 x 128), k and v (2560 -> 8 x 128), o (4096 -> 2560),
+# gate and up (2560 -> 9728), down (9728 -> 2560), at the prefill's M = 512 and a decode step's M = 1;
+# every K5 / K6 call of one prefill and one step is held against its plain version (_qwen3_qmm_against_plain).
+QWEN3_4B_QMM_SHAPES = {(m, k, n): calls for m in (ENCODER_TP_PROMPT, 1)
+                       for k, n, calls in ((2560, 4096, 36), (2560, 1024, 72), (4096, 2560, 36), (2560, 9728, 72),
+                                           (9728, 2560, 36))}
+ENCODER_TP_LOGITS_REL_TOL = 1e-3  # held only where a logits row is not equal to the bit
+ENCODER_TP_UPSAMPLE = "a lighthouse on a cliff at dusk, rewritten on a sharded encoder"
+
+
+class _RecordDecoder:
+    """A decoder's ``prefill`` and ``decode_step`` wrapped on the instance: each call's logits (a float32
+    copy) and its seconds (after a synchronise) are kept."""
+
+    def __init__(self, decoder):
+        self.decoder, self.logits, self.seconds = decoder, [], []
+
+    def _wrap(self, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            logits, cache = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            self.logits.append(logits.float().clone())
+            return logits, cache
+        return call
+
+    def __enter__(self):
+        d = self.decoder
+        d.prefill, d.decode_step = self._wrap(d.prefill), self._wrap(d.decode_step)
+        return self
+
+    def __exit__(self, *exc):
+        del self.decoder.prefill, self.decoder.decode_step
+
+
+def _greedy_on_card(decoder, ids: list, label: str, want: dict) -> dict:
+    """``generation.generate`` (greedy, ENCODER_TP_TOKENS) with the launch counts set to 0 just before."""
+    from flux2_tpu_torch.models.text_encoders import generation
+
+    params = generation.GenerateParameters(max_tokens=ENCODER_TP_TOKENS, temperature=0.0)
+    with _RecordDecoder(decoder) as rec:
+        _zero_launches()
+        tokens = generation.generate(decoder, ids, params)
+        counts = _launch_counts()
+    _expect_counts(label, counts, want)
+    if len(tokens) != ENCODER_TP_TOKENS or len(rec.logits) != ENCODER_TP_PASSES:
+        raise AssertionError(f"{label}: {len(tokens)} tokens, {len(rec.logits)} passes")
+    if not all(torch.isfinite(x).all() for x in rec.logits):
+        raise AssertionError(f"{label}: non-finite logits")
+    return {"tokens": tokens, "logits": rec.logits, "counts": counts, "passes": len(rec.logits),
+            "prefill_s": rec.seconds[0], "s_per_token": statistics.mean(rec.seconds[1:])}
+
+
+def _qwen3_qmm_against_plain(decoder, fmt: str, ids: list, card: str) -> dict:
+    """Every K5 (with its prologue) or K6 call of one 512-token prefill and one decode step of the sharded
+    decoder held against ``w8a8_matmul_reference`` / ``w4a8_matmul_reference`` on the same activations and
+    local weights: equal to the bit, at exactly QWEN3_4B_QMM_SHAPES."""
+    from flux2_tpu_torch.models.text_encoders import generation
+    from flux2_tpu_torch.ops import quant_kernels as qk
+
+    name = f"{fmt}_matmul"
+    real, plain, shapes = getattr(qk, name), getattr(qk, f"{name}_reference"), {}
+
+    def held(x, w):
+        y = real(x, w)
+        ref = plain(x, w)
+        mkn = (x.numel() // x.shape[-1], x.shape[-1], y.shape[-1])
+        if not torch.equal(y, ref):
+            raise AssertionError(f"[encoder_tp] {fmt} (M,K,N)={mkn}: max abs "
+                                 f"{float((y.float() - ref.float()).abs().max())} from its plain version, want equal")
+        shapes[mkn] = shapes.get(mkn, 0) + 1
+        return y
+    setattr(qk, name, held)
+    try:
+        with torch.inference_mode():
+            cache = decoder.new_cache(1, len(ids) + 1, generation._stream_dtype(decoder), "cuda")
+            logits, cache = decoder.prefill(torch.tensor([ids], device="cuda"), cache)
+            decoder.decode_step(logits.argmax(-1, keepdim=True), cache)
+    finally:
+        setattr(qk, name, real)
+    if shapes != QWEN3_4B_QMM_SHAPES:
+        raise AssertionError(f"[encoder_tp] {fmt}: (M,K,N) calls {shapes}, want {QWEN3_4B_QMM_SHAPES}")
+    calls = sum(shapes.values())
+    log(f"[encoder_tp] {fmt} sharded: all {calls} {name} calls of a {len(ids)}-token prefill and one decode step "
+        f"equal to {name}_reference to the bit, (M,K,N) x calls "
+        f"{ {'x'.join(map(str, k)): v for k, v in sorted(shapes.items())} } [{card}]")
+    return {"calls": calls, "shapes": {"x".join(map(str, k)): v for k, v in shapes.items()}}
+
+
+def _sampler_scan_repeats(card: str, repeats: int = 200) -> dict:
+    """The sampler's prefix sums over Qwen3's 151936 probabilities on ``repeats`` runs: ``_prefix_sums`` held
+    to the same bits every run; a one-dimensional ``torch.cumsum`` (which the sampler no longer uses) counted
+    for the runs that differ from its first; both timed."""
+    from flux2_tpu_torch.models.text_encoders import generation
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    probs = torch.softmax(torch.randn(151936, device="cuda", generator=g) * 0.01, dim=0)
+    out = {}
+    for name, fn in (("prefix_sums", lambda: generation._prefix_sums(probs)),
+                     ("torch_cumsum", lambda: torch.cumsum(probs, 0))):
+        first = fn()
+        out[name] = {"differ": sum(not torch.equal(fn(), first) for _ in range(repeats)), "ms": time_ms(fn)}
+    if out["prefix_sums"]["differ"]:
+        raise AssertionError(f"[encoder_tp] the sampler's prefix sums differ on {out['prefix_sums']['differ']} of "
+                             f"{repeats} runs")
+    log(f"[encoder_tp] sampler prefix sums over 151936 probabilities, {repeats} runs: _prefix_sums the same bits "
+        f"every run, {out['prefix_sums']['ms']:.4f} ms; a 1-D torch.cumsum differs from its first on "
+        f"{out['torch_cumsum']['differ']}, {out['torch_cumsum']['ms']:.4f} ms [{card}]")
+    return out
+
+
+def _kernel_projections(decoder, fmt: str) -> int:
+    """The decoder's quantized projections that take K5 ("w8a8") or K6 ("w4a8"), the same at M = 512 and 1."""
+    from flux2_tpu_torch.ops import quant as tq
+
+    counts = []
+    for m in (ENCODER_TP_PROMPT, 1):
+        counts.append(sum(tq.kernel_route(torch.empty(m, w.orig_in, device="cuda", dtype=torch.bfloat16), w) == fmt
+                          for w in (decoder.get_submodule(n) for n in tq.quantized_names(decoder))))
+    if counts != [ENCODER_TP_PASS_LAUNCHES] * 2:
+        raise AssertionError(f"[encoder_tp] {fmt}: {counts} projections take the kernel at M = 512 / 1, derived "
+                             f"{ENCODER_TP_PASS_LAUNCHES}")
+    return counts[0]
+
+
+def phase_encoder_tp(card: str) -> dict:
+    """Text generation on a sharded decoder, on the one-rank NCCL mesh (the card's machine has one GPU):
+    Qwen3-4B at its published shape (QWEN3_4B_CONFIG_JSON), random from seed 0, in bf16, w8a8 and w4a8. Each
+    prefills a 512-token prompt and greedily generates 16 tokens through ``generation.generate``, unsharded,
+    then with its weights made DTensors by ``shard_params(DECODER_RULES)`` (``TextEncoders.shard`` leaves a
+    one-rank mesh's weights plain): the same tokens, every pass's logits equal to the bit (else within
+    ENCODER_TP_LOGITS_REL_TOL), K5 = prologue or K6 = 252 a pass, 17 passes, in both runs; s/token of both;
+    before the sharded run, every K5 / K6 call of one prefill and step equal to its plain version to the bit
+    (``_qwen3_qmm_against_plain``). First the sampler's prefix sums the same bits on 200 runs
+    (``_sampler_scan_repeats``). Last, on bf16 weights, through the facade: ``chat`` (greedy) and
+    ``upsample_prompt`` (sampled) after ``TextEncoders.shard`` give the unsharded text and ids, and ``chat``
+    once more on DTensor weights."""
+    from torch.distributed.tensor import DTensor
+
+    from flux2_tpu_torch.models.text_encoders import generation
+    from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
+    from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
+    from flux2_tpu_torch.models.text_encoders.extractor import quantize_encoder_params
+    from flux2_tpu_torch.models.text_encoders.facade import TextEncoders
+    from flux2_tpu_torch.parallel import sharding as sh
+    from flux2_tpu_torch.parallel.mesh import make_mesh
+    from flux2_tpu_torch.utils import inline_bpe_tokenizer
+
+    t0 = time.perf_counter()
+    cfg = DecoderConfig.from_json_dict(QWEN3_4B_CONFIG_JSON, qk_norm=True)
+    mesh = make_mesh(1, 1, 1, 1)
+    ids = torch.randint(0, cfg.vocab_size, (ENCODER_TP_PROMPT,), generator=torch.Generator().manual_seed(SEED + 21))
+    ids = ids.tolist()
+
+    def dtensors(module) -> int:
+        return sum(isinstance(t, DTensor) for t in list(module.parameters()) + list(module.buffers()))
+
+    out = {"scan": _sampler_scan_repeats(card)}
+    for fmt in ("bf16", "w8a8", "w4a8"):
+        dec = Qwen3Decoder(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
+        want = {}
+        if fmt != "bf16":
+            quantize_encoder_params(dec, fmt)
+            n = _kernel_projections(dec, fmt) * ENCODER_TP_PASSES
+            want = {fmt: n, "quantize_rows": n}
+        plain = _greedy_on_card(dec, ids, f"[encoder_tp] {fmt} unsharded", want)
+        sh.shard_params(dec, mesh, sh.DECODER_RULES)
+        n_dt = dtensors(dec)
+        held = _qwen3_qmm_against_plain(dec, fmt, ids, card) if fmt != "bf16" else None
+        sharded = _greedy_on_card(dec, ids, f"[encoder_tp] {fmt} sharded", want)
+        if sharded["tokens"] != plain["tokens"]:
+            raise AssertionError(f"[encoder_tp] {fmt}: sharded tokens {sharded['tokens']} != {plain['tokens']}")
+        unequal = [i for i, (a, b) in enumerate(zip(sharded["logits"], plain["logits"])) if not torch.equal(a, b)]
+        rel = max(_rel_l2(a, b) for a, b in zip(sharded["logits"], plain["logits"]))
+        if unequal:
+            log(f"[encoder_tp] {fmt}: sharded logits differ from the unsharded ones at passes {unequal} (0 = the "
+                f"prefill), max relative L2 {rel:.3e} [{card}]")
+            if rel > ENCODER_TP_LOGITS_REL_TOL:
+                raise AssertionError(f"[encoder_tp] {fmt}: logits relative L2 {rel} > {ENCODER_TP_LOGITS_REL_TOL}")
+        log(f"[encoder_tp] Qwen3-4B (published shape) {fmt}, {n_dt} weights made DTensors by shard_params on the "
+            f"one-rank mesh: {ENCODER_TP_PROMPT}-token prefill + {ENCODER_TP_TOKENS} greedy tokens equal to the "
+            f"unsharded run's; logits of all {sharded['passes']} passes "
+            f"{'equal to the bit' if not unequal else f'within {rel:.3e}'}; launches {sharded['counts']} (each run); "
+            f"prefill {plain['prefill_s']:.4f} s unsharded, {sharded['prefill_s']:.4f} s sharded; s/token "
+            f"unsharded {plain['s_per_token']:.4f}, sharded {sharded['s_per_token']:.4f} "
+            f"(x{sharded['s_per_token'] / plain['s_per_token']:.2f}) [{card}]")
+        out[fmt] = {"counts": sharded["counts"], "s_per_token": {"unsharded": plain["s_per_token"],
+                                                                 "sharded": sharded["s_per_token"]},
+                    "prefill_s": {"unsharded": plain["prefill_s"], "sharded": sharded["prefill_s"]},
+                    "bit_equal": not unequal, "passes": sharded["passes"], "against_plain": held}
+        del dec, plain, sharded
+        gc_cuda()
+
+    dec = Qwen3Decoder(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED))
+    enc = TextEncoders()
+    enc.attach("qwen3-4b", dec, cfg, inline_bpe_tokenizer(), (9, 18, 27), recipe="klein")
+    messages = [{"role": "user", "content": "a haiku about a lighthouse"}]
+    chat_params = generation.GenerateParameters(max_tokens=ENCODER_TP_TOKENS, temperature=0.0)
+    real_generate = generation.generate
+
+    def replies(label: str) -> dict:
+        seen = []
+
+        def spy(*args, **kwargs):
+            tokens = real_generate(*args, **kwargs)
+            seen.append(tokens)
+            return tokens
+        generation.generate = spy
+        try:
+            t = time.perf_counter()
+            chat = enc.chat(messages, "qwen3-4b", params=chat_params)
+            t_chat = time.perf_counter() - t
+            t = time.perf_counter()
+            up = enc.upsample_prompt(ENCODER_TP_UPSAMPLE, "qwen3-4b", seed=SEED) if label != "dtensors" else None
+            t_up = time.perf_counter() - t
+        finally:
+            generation.generate = real_generate
+        return {"chat": chat, "upsample": up, "ids": seen, "chat_s": t_chat, "upsample_s": t_up}
+
+    before = replies("unsharded")
+    enc.shard("qwen3-4b", mesh)
+    if dtensors(dec):
+        raise AssertionError("[encoder_tp] TextEncoders.shard on a mesh of one rank made DTensors of the weights")
+    after = replies("shard")
+    if (after["chat"], after["upsample"], after["ids"]) != (before["chat"], before["upsample"], before["ids"]):
+        raise AssertionError(f"[encoder_tp] chat / upsample_prompt after TextEncoders.shard differ: {after} vs {before}")
+    sh.shard_params(dec, mesh, sh.DECODER_RULES)
+    _zero_launches()
+    on_dt = replies("dtensors")
+    _expect_counts("[encoder_tp] chat on DTensor weights", _launch_counts(), {})
+    if (on_dt["chat"], on_dt["ids"]) != (before["chat"], before["ids"][:1]):
+        raise AssertionError(f"[encoder_tp] chat on DTensor weights: {on_dt} vs {before}")
+    log(f"[encoder_tp] facade, Qwen3-4B bf16 with the dev tokenizer: chat ({ENCODER_TP_TOKENS} greedy ids "
+        f"{before['ids'][0]}) and upsample_prompt ({len(before['ids'][1])} sampled ids, "
+        f"{len(before['upsample'])} characters) after TextEncoders.shard (weights left plain on one rank) equal to "
+        f"the unsharded replies; chat on DTensor weights equal too; chat {before['chat_s']:.2f} s unsharded, "
+        f"{on_dt['chat_s']:.2f} s on DTensors; upsample_prompt {before['upsample_s']:.2f} s [{card}]")
+    del dec, enc
+    gc_cuda()
+    log(f"[encoder_tp] phase: {time.perf_counter() - t0:.2f} s [{card}]")
+    return out
+
+
+SEG_TRAIN_STEPS = 100
+SEG_TRAIN_BATCH = 16
+SEG_FIRST_LOSS_REL_TOL = 1e-4  # step 1's loss on the card against the CPU, both float32 without TF32
+
+
+def phase_segmenter_train(card: str, workdir: str) -> dict:
+    """``tools.train_segmenter`` on the card: 100 steps at 256^2, batch 16, from seed 0 (``train``, what its
+    ``main`` runs, its lines logged). Holds step 1's loss within SEG_FIRST_LOSS_REL_TOL of the same step on
+    the CPU (the same network, drawn on the CPU's generator, and the same batch), the loss at step 100 below
+    step 1's, and the file read back by ``load_params`` equal to the trained network to the bit; no kernel
+    of the port runs. Prints ms a step and the held-out IoU (not held at 100 steps)."""
+    import numpy as np
+
+    from flux2_tpu_torch.chains import segmenter as seg
+    from flux2_tpu_torch.io import safetensors_io
+    from flux2_tpu_torch.tools import train_segmenter as ts
+
+    path = os.path.join(workdir, "segmenter.safetensors")
+    args = ts.build_parser().parse_args(["--steps", str(SEG_TRAIN_STEPS), "--batch", str(SEG_TRAIN_BATCH),
+                                         "--seed", str(SEED), "--out", path])
+    t0 = time.perf_counter()
+    _zero_launches()
+    hist = ts.train(args, log=lambda line: log(f"[segmenter] {line}"))
+    _expect_counts("[segmenter] training", _launch_counts(), {})
+    wall = time.perf_counter() - t0
+    losses = hist["losses"]
+    imgs, masks = ts.make_batch(np.random.RandomState(SEED), SEG_TRAIN_BATCH)
+    with torch.no_grad():
+        cpu_loss = float(ts.loss_fn(seg.init_params(torch.Generator().manual_seed(SEED)), imgs, masks))
+    rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    if rel > SEG_FIRST_LOSS_REL_TOL:
+        raise AssertionError(f"[segmenter] step 1 loss {losses[0]} on the card vs {cpu_loss} on the CPU (relative "
+                             f"{rel}, tol {SEG_FIRST_LOSS_REL_TOL})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[segmenter] loss at step {len(losses)} {losses[-1]} not below step 1's {losses[0]}")
+    trained = {k: v.cpu() for k, v in hist["model"].state_dict().items()}
+    back = seg.load_params(seg.SegmenterUNet(), safetensors_io.load_file(path)).state_dict()
+    if set(back) != set(trained) or any(not torch.equal(back[k], v) for k, v in trained.items()):
+        raise AssertionError(f"[segmenter] {path} read back by load_params differs from the trained network")
+    log(f"[segmenter] tools.train_segmenter on the card, {SEG_TRAIN_STEPS} steps at 256^2, batch {SEG_TRAIN_BATCH}: "
+        f"step 1 loss {losses[0]:.6f} vs {cpu_loss:.6f} on the CPU (relative {rel:.3e}, tol "
+        f"{SEG_FIRST_LOSS_REL_TOL}); step {SEG_TRAIN_STEPS} {losses[-1]:.6f}; {hist['s_per_step'] * 1e3:.2f} ms a "
+        f"step (steps 2-{SEG_TRAIN_STEPS}, the host's composites included); held-out IoU model "
+        f"{hist['iou']['model']:.4f} vs heuristic {hist['iou']['heuristic']:.4f} (not held); the file read back "
+        f"to the bit; {wall:.2f} s [{card}]")
+    return {"losses": [losses[0], losses[-1]], "ms_per_step": hist["s_per_step"] * 1e3, "iou": hist["iou"]}
+
+
+FIDELITY_QUANTS = ("bf16", "w8a8", "w4a8")
+# A mire row's I2I: 4 steps at strength 0.35 keep the last of the 4 sigmas (set_timesteps' t_start 3):
+# one forward, K1 25 and, on the quantized DiT, one forward's K5 = prologue (206) or K6 (205).
+FIDELITY_STEPS = 1
+
+
+def phase_fidelity(card: str, workdir: str) -> dict:
+    """``tools.fidelity_gate --random-init --models klein-4b --quantizations bf16,w8a8,w4a8 --mire`` on the
+    card against a reference tree this phase makes (empty: the fixture rows report the reference image
+    missing, as JAX's gate does without the tree). Each mire row builds the full-width Klein-4B through
+    ``cli.main.build_pipeline`` and runs the 512x768 chart's I2I (4 steps, strength 0.35), marked
+    no_checkpoint, with its ΔE. Holds exit 0, the rows, and each mire row's launches."""
+    import contextlib
+    import io
+
+    from flux2_tpu_torch.ops.scheduler import set_timesteps
+    from flux2_tpu_torch.tools import fidelity_gate as fg
+
+    steps = set_timesteps(4, image_seq_len=(512 // 16) * (768 // 16), strength=0.35).num_steps
+    if steps != FIDELITY_STEPS:
+        raise AssertionError(f"[fidelity] strength 0.35 of 4 steps leaves {steps}, derived {FIDELITY_STEPS}")
+    tree = os.path.join(workdir, "reference_tree")
+    os.makedirs(tree)
+    report_path = os.path.join(workdir, "fidelity.json")
+    rows = {}
+    real_mire = fg.run_mire
+
+    def counted(model, quantization, args):
+        gc_cuda()
+        _zero_launches()
+        t = time.perf_counter()
+        row = real_mire(model, quantization, args)
+        torch.cuda.synchronize()
+        rows[quantization] = {"counts": _launch_counts(), "s": time.perf_counter() - t}
+        return row
+
+    fg.run_mire = counted
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = fg.main(["--random-init", "--models", "klein-4b", "--quantizations", ",".join(FIDELITY_QUANTS),
+                          "--mire", "--reference-tree", tree, "--out", report_path])
+    finally:
+        fg.run_mire = real_mire
+    for line in buf.getvalue().strip().splitlines():
+        log(f"[fidelity] {line}")
+    if rc != 0:
+        raise AssertionError(f"[fidelity] the gate exited {rc}")
+    with open(report_path) as f:
+        report = json.load(f)
+    fixtures = [r for r in report["rows"] if not r["fixture"].startswith("mire_")]
+    mires = {r["quantization"]: r for r in report["rows"] if r["fixture"].startswith("mire_")}
+    if sorted(r["quantization"] for r in fixtures) != sorted(FIDELITY_QUANTS) or \
+            any(r.get("error") != "reference image missing" for r in fixtures):
+        raise AssertionError(f"[fidelity] fixture rows: {fixtures}")
+    forward = {"bf16": {}, "w8a8": {"w8a8": FORWARD_LAUNCHES["w8a8"], "quantize_rows": FORWARD_LAUNCHES["w8a8"]},
+               "w4a8": {"w4a8": FORWARD_LAUNCHES["w4a8"], "quantize_rows": FORWARD_LAUNCHES["w4a8"]}}
+    for q in FIDELITY_QUANTS:
+        r = mires.get(q, {})
+        if not r.get("no_checkpoint") or "error" in r or not all(math.isfinite(r.get(k, math.nan))
+                                                                for k in ("delta_e_mean", "delta_e_max")):
+            raise AssertionError(f"[fidelity] mire row {q}: {r}")
+        want = {"flash": 25 * FIDELITY_STEPS, **{k: v * FIDELITY_STEPS for k, v in forward[q].items()}}
+        _expect_counts(f"[fidelity] mire {q}", rows[q]["counts"], want)
+    if report["gate"] != {"scored": 0, "passed": 0, "no_checkpoint": 3, "errors": 3} or report["ok"]:
+        raise AssertionError(f"[fidelity] gate summary {report['gate']}, ok {report['ok']}")
+    log(f"[fidelity] tools.fidelity_gate --random-init on klein-4b: the {len(fixtures)} fixture rows report the "
+        f"reference image missing; mire rows (512x768 chart, 4 steps at strength 0.35: {FIDELITY_STEPS} forward), "
+        f"no_checkpoint: " + "; ".join(f"{q} ΔE mean {mires[q]['delta_e_mean']} max {mires[q]['delta_e_max']}, "
+                                      f"launches {rows[q]['counts']}, {rows[q]['s']:.2f} s (the pipeline built)"
+                                      for q in FIDELITY_QUANTS) +
+        f"; exit 0 in {time.perf_counter() - t0:.2f} s [{card}]")
+    return {"rows": rows, "mire": {q: {k: mires[q][k] for k in ("delta_e_mean", "delta_e_max")}
+                                   for q in FIDELITY_QUANTS}}
+
+
 def drop_encoders() -> None:
     """After a phase whose pipelines are gone: the encoders that ``cli.main``
     registered in ``facade.shared`` (JAX's registry keeps them, as the
@@ -5094,9 +5483,16 @@ def main() -> int:
     drop_encoders()
     gc_cuda()
     pp = phase_pp(card)  # on phase_parallel's one-rank NCCL group
+    enc_tp = phase_encoder_tp(card)  # on the same group
     import torch.distributed as dist
 
     dist.destroy_process_group()  # the one-rank NCCL group phase_parallel's make_mesh started
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_last_") as workdir:
+        seg_train = phase_segmenter_train(card, workdir)
+        fidelity = phase_fidelity(card, workdir)
+    drop_encoders()
+    log(f"[last] segmenter training and fidelity gate phases: {time.perf_counter() - t0:.2f} s [{card}]")
 
     from flux2_tpu_torch.cli.main import build_pipeline as cli_build_pipeline
 
@@ -5191,6 +5587,8 @@ def main() -> int:
         # sharded quantized forwards (25 each) and the CLI's --shard runs (512^2, 2 steps)
         # the pp slice (phase_pp): a held-out pass through the pipeline (M = 2) on the one-rank mesh
         "launches_pp": {"held_out_pass_pipelined_512px_batch2": pp["eval_counts"]["flash"]},
+        # the last slice (phase_fidelity): each mire row's I2I (512x768, 4 steps at strength 0.35: one forward)
+        "launches_fidelity_mire": {q: r["counts"]["flash"] for q, r in fidelity["rows"].items()},
         "launches_parallel": {"sharded_1024px_4_steps": par["k1"],
                               **{f"{fmt}_sharded_forward": q["k1"] for fmt, q in par["quant"].items()},
                               **{f"t2i_{label}": c["flash"] for label, c in par["cli"].items() if c["flash"]}},
@@ -5253,6 +5651,15 @@ def main() -> int:
             entry["launches_pp"] = {"pipelined_qlora_step_512px_batch2": pp["qlora_counts"]["w8a8"]}
         if fmt in par["quant"]:  # the parallel slice: one partitioned forward on the one-rank mesh
             entry["launches_parallel"] = {"sharded_partitioned_forward": par["quant"][fmt]["launches"]}
+        if fmt in enc_tp:  # the last slice: Qwen3-4B's 512-token prefill + 16 greedy tokens on DTensor weights,
+            # and the fidelity gate's mire row (one forward)
+            entry["launches_encoder_tp"] = {"qwen3_4b_sharded_greedy_16_tokens": enc_tp[fmt]["counts"][counter],
+                                            "per_pass": enc_tp[fmt]["counts"][counter] // enc_tp[fmt]["passes"],
+                                            "passes": enc_tp[fmt]["passes"]}
+            entry["qwen3_4b_shapes_against_plain"] = {"calls": enc_tp[fmt]["against_plain"]["calls"],
+                                                      "m_k_n_calls": enc_tp[fmt]["against_plain"]["shapes"],
+                                                      "max_abs_err": 0.0}
+            entry["launches_fidelity_mire"] = fidelity["rows"][fmt]["counts"][counter]
         if fmt == "w8a8":
             entry["launches_dev"] = {"mistral_w8a8_greedy_16_tokens": dev["encoder"]["greedy"]["counts"]["w8a8"],
                                      "t2i_dev_cli": dev["cli"]["counts"]["w8a8"]}
@@ -5287,6 +5694,10 @@ def main() -> int:
                     "launches_parallel": {f"{fmt}_sharded_partitioned_forward": q["prologue"]
                                           for fmt, q in par["quant"].items()},
                     "launches_pp": {"pipelined_qlora_step_512px_batch2": pp["qlora_counts"]["quantize_rows"]},
+                    "launches_encoder_tp": {f"qwen3_4b_{fmt}_sharded_greedy_16_tokens": enc_tp[fmt]["counts"][
+                        "quantize_rows"] for fmt in ("w8a8", "w4a8")},
+                    "launches_fidelity_mire": {q: fidelity["rows"][q]["counts"]["quantize_rows"]
+                                               for q in ("w8a8", "w4a8")},
                     "dev_shapes": {f"{name}_block_{block}": {"m_k": [m, k], "ms": dev["kernels"]["qmm"][name][
                                        f"prologue_{block}"]["alone"],
                                    "bound_ms": dev["kernels"]["qmm"][name][f"prologue_{block}"]["bound"][0]}

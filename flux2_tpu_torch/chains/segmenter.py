@@ -22,9 +22,10 @@ imports (the probability is quantized to 1/255 there), else JAX's
 antialiased bilinear resize (``jax.image.resize``), written out in numpy as
 the same separable weight matrices.
 
-Not ported: ``init_params``, which draws a fresh network with ``jax.random``
-for ``tools/train_segmenter.py`` (a JAX tool outside the package); the port
-only runs the trained weights.
+``init_params`` draws a fresh network for the trainer
+(``flux2_tpu_torch/tools/train_segmenter.py``): JAX's He-normal kernels,
+zero biases, GroupNorm ones and zeros, in JAX's draw order, from a
+``torch.Generator`` (so one seed gives other weights than JAX's).
 """
 
 from __future__ import annotations
@@ -110,6 +111,27 @@ class SegmenterUNet(nn.Module):
             up = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)  # nearest 2x
             x = getattr(self, f"up{i}")(torch.cat([up, skips[i - 1]], dim=1), stride=1)
         return self.head(x)[:, 0]
+
+
+def init_params(generator: torch.Generator, device: "torch.device | str | None" = None) -> SegmenterUNet:
+    """A fresh U-Net on ``device`` (the generator's by default): every kernel
+    He-normal, std sqrt(2 / (kh * kw * cin)), drawn as JAX's HWIO array in
+    JAX's order (stem, down1..3, up3..1, head; conv before conv2), biases
+    zero, GroupNorm scale one and bias zero (JAX ``init_params``)."""
+    device = generator.device if device is None else torch.device(device)
+    model = SegmenterUNet().to(device)
+    convs = [model.stem]
+    convs += [c for i in range(1, len(CHANNELS)) for c in (getattr(model, f"down{i}").conv,
+                                                              getattr(model, f"down{i}").conv2)]
+    convs += [c for i in range(len(CHANNELS) - 1, 0, -1) for c in (getattr(model, f"up{i}").conv,
+                                                                      getattr(model, f"up{i}").conv2)]
+    convs.append(model.head)
+    with torch.no_grad():
+        for conv in convs:
+            cout, cin, kh, kw = conv.kernel.shape
+            hwio = torch.randn((kh, kw, cin, cout), generator=generator, device=device, dtype=torch.float32)
+            conv.kernel.copy_((hwio * (2.0 / (kh * kw * cin)) ** 0.5).permute(3, 2, 0, 1))
+    return model
 
 
 def _is_kernel(name: str) -> bool:

@@ -85,6 +85,12 @@ def ones_weight(n: int, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.ones(n, device=device, dtype=dtype), requires_grad=False)
 
 
+def param_count(*modules: nn.Module) -> int:
+    """Elements of every parameter and buffer (a quantized weight's codes and
+    scales: JAX's leaves) of ``modules``; ``vae.param_count`` too."""
+    return sum(t.numel() for m in modules for t in (*m.parameters(), *m.buffers()))
+
+
 def sinusoidal_embedding(t: torch.Tensor, num_channels: int = 256) -> torch.Tensor:
     """Diffusers-style timestep embedding, flip_sin_to_cos=True: [B] -> [B, C] f32."""
     half = num_channels // 2

@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+# JAX's vae.param_count; JAX's tree holds both halves and the BatchNorm statistics, so pass the decoder and the encoder
+from flux2_tpu_torch.models.flux2.transformer import param_count  # noqa: F401
 from flux2_tpu_torch.ops.normalization import group_norm
 
 
@@ -47,6 +49,10 @@ class VAEConfig:
     norm_num_groups: int = 32
     norm_eps: float = 1e-6
     scaling_factor: float = 0.18215  # unused by FLUX.2 encode/decode; kept for parity with JAX
+
+    @property
+    def is_small_decoder(self) -> bool:
+        return self.decoder_block_out_channels is not None
 
     @property
     def effective_decoder_channels(self) -> Tuple[int, ...]:
@@ -71,6 +77,9 @@ class VAEConfig:
 
 FLUX2_VAE = VAEConfig()
 FLUX2_VAE_SMALL_DECODER = VAEConfig(decoder_block_out_channels=(96, 192, 384, 384))
+
+# Tiny hermetic-test config (JAX's).
+TINY_VAE = VAEConfig(block_out_channels=(8, 16), layers_per_block=1, norm_num_groups=4, latent_channels=4)
 
 
 @dataclasses.dataclass(frozen=True)

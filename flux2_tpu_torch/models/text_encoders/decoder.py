@@ -25,7 +25,12 @@ the attention runs on each rank's local heads under ``local_map``. Where
 ``k_proj`` / ``v_proj`` stay whole but ``q_proj`` is split over tp (the KV
 width does not divide), each local query head still meets its KV head: the
 KV head is indexed by the *global* query head. The cached generation path
-(``prefill``, ``decode_step``) runs unsharded decoders only.
+(``prefill``, ``decode_step``) runs sharded too: each rank's cache holds its
+own KV heads (``new_cache`` sizes it: the rank's share where ``k_proj`` splits
+on head boundaries, every head where it falls back to replication), written and
+read inside the same ``local_map`` body as plain tensors, and the logits are
+gathered whole on every rank (``logits``), so every rank samples the same
+token from the same row.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from flux2_tpu_torch.models.text_encoders.config import DecoderConfig
 from flux2_tpu_torch.models.flux2.transformer import linear_weight, ones_weight
 from flux2_tpu_torch.ops.normalization import rms_norm
 from flux2_tpu_torch.ops.quant import q_linear
-from flux2_tpu_torch.parallel.sharding import on_head_boundaries, replicate, unshard_last
+from flux2_tpu_torch.parallel.sharding import gather, on_head_boundaries, replicate, unshard_last
 
 NEG_INF = -1e30
 
@@ -94,6 +99,8 @@ class KVCache:
 
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
                   device: "torch.device | str" = "cpu") -> KVCache:
+    """An empty cache of every KV head (a sharded decoder sizes its own:
+    ``Qwen3Decoder.new_cache``)."""
     shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device))
 
@@ -117,12 +124,27 @@ def _attend(q, k, v, mask, rep: int, hd: int, q_start: int = 0, kv_start: int = 
     return torch.matmul(probs, v)
 
 
-def _gqa_attention(q, k, v, mask, rep: int, hd: int) -> torch.Tensor:
-    """``_attend``, on each rank's local heads when q/k/v are DTensors."""
+def _write_cache(k, v, cache_kv, pos: int):
+    """Write k / v [B, kv, S, hd] into a layer's cache at slot ``pos`` and
+    return the whole cache as the keys and values (k, v without a cache)."""
+    if cache_kv is None:
+        return k, v
+    ck, cv = cache_kv
+    ck[:, :, pos:pos + k.shape[2]] = k
+    cv[:, :, pos:pos + v.shape[2]] = v
+    return ck, cv
+
+
+def _gqa_attention(q, k, v, mask, rep: int, hd: int, cache_kv=None, cache_pos: int = 0) -> torch.Tensor:
+    """``_attend``, on each rank's local heads when q/k/v are DTensors; with
+    ``cache_kv`` (this layer's plain [B, local kv, max_len, hd] slices) the
+    new keys and values are written at ``cache_pos`` first and the attention
+    reads the whole cache."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     if not isinstance(q, DTensor):
+        k, v = _write_cache(k, v, cache_kv, cache_pos)
         return _attend(q, k, v, mask, rep, hd)
     mesh = q.device_mesh
 
@@ -137,7 +159,9 @@ def _gqa_attention(q, k, v, mask, rep: int, hd: int) -> torch.Tensor:
     qp, kp = heads_only(q), heads_only(k)
 
     def body(q_loc, k_loc, v_loc, m):
-        return _attend(q_loc, k_loc, v_loc, m, rep, hd, start(qp, q_loc.shape[1]), start(kp, k_loc.shape[1]))
+        kv_start = start(kp, k_loc.shape[1])
+        k_loc, v_loc = _write_cache(k_loc, v_loc, cache_kv, cache_pos)
+        return _attend(q_loc, k_loc, v_loc, m, rep, hd, start(qp, q_loc.shape[1]), kv_start)
 
     fn = local_map(body, out_placements=qp, in_placements=(qp, kp, kp, [Replicate()] * mesh.ndim),
                    device_mesh=mesh, redistribute_inputs=True)
@@ -181,12 +205,7 @@ class DecoderLayer(nn.Module):
         k = apply_llm_rope(k, cos, sin)
         if q_scale is not None:
             q = q * q_scale.to(q.dtype)
-        if cache_kv is not None:
-            ck, cv = cache_kv
-            ck[:, :, cache_pos:cache_pos + s] = k
-            cv[:, :, cache_pos:cache_pos + s] = v
-            k, v = ck, cv
-        attn = _gqa_attention(q, k, v, mask, nh // nkv, hd).transpose(1, 2).reshape(b, s, nh * hd)
+        attn = _gqa_attention(q, k, v, mask, nh // nkv, hd, cache_kv, cache_pos).transpose(1, 2).reshape(b, s, nh * hd)
         x = x + unshard_last(q_linear(attn, self.o_proj))
         h2 = rms_norm(x, self.post_attn_norm, cfg.rms_norm_eps)
         mlp = q_linear(F.silu(q_linear(h2, self.gate_proj)) * q_linear(h2, self.up_proj), self.down_proj)
@@ -220,9 +239,9 @@ class Qwen3Decoder(nn.Module):
         if not cfg.tie_word_embeddings:  # drawn last, as JAX's init_params draws it
             self.lm_head = linear_weight(cfg.hidden_size, cfg.vocab_size, device, dtype, generator)
 
-    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+    def embed(self, ids: torch.Tensor) -> torch.Tensor:
         """Token embeddings; a sharded table is looked up vocab-parallel and
-        the result made whole on every rank."""
+        the result made whole on every rank (a replicated DTensor)."""
         if self.mesh is None:
             return self.embed_tokens[ids]
         from torch.distributed.tensor import Replicate
@@ -230,9 +249,19 @@ class Qwen3Decoder(nn.Module):
         out = F.embedding(replicate(ids, self.mesh), self.embed_tokens)
         return out.redistribute(self.mesh, [Replicate()] * self.mesh.ndim)
 
-    def _require_unsharded(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(f"{what} runs unsharded decoders only; this one is sharded over {self.mesh}")
+    def new_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+                  device: "torch.device | str" = "cpu") -> KVCache:
+        """An empty cache for this decoder: every KV head unsharded; sharded,
+        the rank's share where ``k_proj``'s columns split on head boundaries
+        (``on_head_boundaries`` gathers a split inside a head, and a KV width
+        that does not divide stays whole: every head then)."""
+        nkv = self.cfg.num_key_value_heads
+        if self.mesh is not None and len(self.layers):
+            w = self.layers[0].k_proj
+            codes = w if isinstance(w, torch.Tensor) else w.q
+            ways = codes.shape[0] // codes.to_local().shape[0]
+            nkv = nkv if nkv % ways else nkv // ways
+        return init_kv_cache(dataclasses.replace(self.cfg, num_key_value_heads=nkv), batch, max_len, dtype, device)
 
     def _q_scale(self, positions: torch.Tensor) -> Optional[torch.Tensor]:
         cfg = self.cfg
@@ -246,7 +275,7 @@ class Qwen3Decoder(nn.Module):
         [L+1, B, S, H]; index 0 is the embedding output, i >= 1 layer i's output.
         ``inputs_embeds`` [B, S, H] replaces the token embeddings (VLM merge)."""
         s = input_ids.shape[1]
-        x = inputs_embeds if inputs_embeds is not None else self._embed(input_ids)
+        x = inputs_embeds if inputs_embeds is not None else self.embed(input_ids)
         # absolute positions 0..S-1 whatever the padding, as the JAX package
         positions = torch.arange(s, device=x.device)
         cos, sin = llm_rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
@@ -268,10 +297,12 @@ class Qwen3Decoder(nn.Module):
         return torch.cat([hs[i] for i in layer_indices], dim=-1)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        """Vocabulary projection of final-normed states, float32 (JAX ``_logits``)."""
-        if self.cfg.tie_word_embeddings:
-            return F.linear(h, self.embed_tokens).float()
-        return q_linear(h, self.lm_head).float()
+        """Vocabulary projection of final-normed states, float32 (JAX
+        ``_logits``): the tied table or the untied head through ``q_linear``.
+        A sharded head is vocab-parallel (column-parallel in ``q_linear``) and
+        the rows are gathered whole: a plain tensor, equal on every rank."""
+        head = self.embed_tokens if self.cfg.tie_word_embeddings else self.lm_head
+        return gather(q_linear(h, head)).float()
 
     def forward_logits(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full forward to vocabulary logits [B, S, V] float32."""
@@ -285,6 +316,7 @@ class Qwen3Decoder(nn.Module):
         slot ``positions[0]``; returns the last token's logits [B, V]."""
         cos, sin = llm_rope_cos_sin(positions, self.cfg.head_dim, self.cfg.rope_theta)
         q_scale = self._q_scale(positions)
+        x, cos, sin, mask, q_scale = (replicate(t, self.mesh) for t in (x, cos, sin, mask, q_scale))
         pos = cache.length
         for i, layer in enumerate(self.layers):
             x = layer(x, cos, sin, mask, q_scale, cache_kv=(cache.k[i], cache.v[i]), cache_pos=pos)
@@ -296,11 +328,10 @@ class Qwen3Decoder(nn.Module):
         """Fill an empty cache with a prompt [B, S] (or its ``inputs_embeds``,
         VLM image-token splicing); returns the last token's logits [B, V]
         and the cache, ``length`` S."""
-        self._require_unsharded("prefill")
         if cache.length:
             raise ValueError(f"prefill takes an empty cache, this one holds {cache.length} slots")
         s = input_ids.shape[1]
-        x = inputs_embeds if inputs_embeds is not None else self.embed_tokens[input_ids]
+        x = inputs_embeds if inputs_embeds is not None else self.embed(input_ids)
         positions = torch.arange(s, device=x.device)
         key_idx = torch.arange(cache.max_len, device=x.device)
         mask = torch.where(positions[:, None] >= key_idx[None, :], 0.0, NEG_INF).to(torch.float32)
@@ -309,11 +340,10 @@ class Qwen3Decoder(nn.Module):
     def decode_step(self, token: torch.Tensor, cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
         """One token [B, 1] at position ``cache.length``, attending to the cache
         slots ``<= pos``; returns its logits [B, V] and the cache, one longer."""
-        self._require_unsharded("decode_step")
         pos = cache.length
         if pos >= cache.max_len:
             raise ValueError(f"the KV cache is full ({cache.max_len} slots)")
-        x = self.embed_tokens[token]
+        x = self.embed(token)
         positions = torch.full((1,), pos, device=x.device, dtype=torch.long)
         key_idx = torch.arange(cache.max_len, device=x.device)
         mask = torch.where(key_idx <= pos, 0.0, NEG_INF).to(torch.float32)

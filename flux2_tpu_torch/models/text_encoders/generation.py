@@ -19,6 +19,11 @@ Sampling draws its uniforms from a ``torch.Generator`` seeded with
 seed samples different tokens in the two packages unless JAX's uniforms
 are injected. Greedy decoding (``temperature <= 0``) takes no draw and
 gives JAX's tokens.
+
+A decoder sharded by ``parallel.sharding.shard_params`` generates as it is:
+its cache holds each rank's own KV heads and its logits come back whole on
+every rank, so every rank, drawing from the same seed, samples the same
+token.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder, init_kv_cache
+from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,12 +89,30 @@ def _sample_token(u: float, logits: np.ndarray, recent: List[int], params: Gener
     return int(np.searchsorted(np.cumsum(probs), u))
 
 
+_SCAN_BLOCK = 512
+
+
+def _prefix_sums(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of a 1-D float32 tensor, the same bits on every
+    run: float64 products with triangular ones over blocks of _SCAN_BLOCK,
+    rounded to float32 once. (CUDA's one-dimensional ``torch.cumsum`` is a
+    scan whose order of additions varies from run to run, so one seed could
+    sample two different tokens.)"""
+    n, b = x.shape[0], _SCAN_BLOCK
+    rows = -(-n // b)
+    blocks = torch.nn.functional.pad(x.to(torch.float64), (0, rows * b - n)).reshape(rows, b)
+    within = blocks @ torch.ones(b, b, dtype=torch.float64, device=x.device).triu()
+    before = torch.ones(rows, rows, dtype=torch.float64, device=x.device).tril(-1) @ within[:, -1]
+    return (within + before[:, None]).reshape(-1)[:n].to(torch.float32)
+
+
 def _sample_device(u: Optional[torch.Tensor], logits: torch.Tensor, recent: torch.Tensor,
                    p: GenerateParameters) -> torch.Tensor:
     """JAX's ``_sample_device`` on the logits' device: logits [V], ``recent``
     [R] int64 (-1 = empty slot), ``u`` the draw (None when greedy). Returns
     a 0-d int64 token. Top-p keeps every token at or above the threshold
-    probability (ties included), as JAX's."""
+    probability (ties included), as JAX's. A search of the prefix sums
+    (JAX's ``searchsorted``) is the count of sums below the value."""
     logits = logits.to(torch.float32)
     if p.repetition_penalty != 1.0:
         idx = recent[recent >= 0]
@@ -102,11 +125,11 @@ def _sample_device(u: Optional[torch.Tensor], logits: torch.Tensor, recent: torc
     probs = torch.softmax(logits / p.temperature, dim=-1)
     if p.top_p < 1.0:
         srt = torch.sort(probs, descending=True).values
-        cutoff = torch.searchsorted(torch.cumsum(srt, dim=0), torch.tensor([p.top_p], device=probs.device))
+        cutoff = (_prefix_sums(srt) < p.top_p).sum()
         thresh = srt[torch.clamp(cutoff, max=probs.shape[0] - 1)]
         kept = torch.where(probs >= thresh, probs, 0.0)
         probs = kept / kept.sum()
-    return torch.searchsorted(torch.cumsum(probs, dim=0), u.reshape(1).to(probs.device))[0]
+    return (_prefix_sums(probs) < u.to(probs.device)).sum()
 
 
 def _stream_dtype(decoder: Qwen3Decoder) -> torch.dtype:
@@ -130,7 +153,7 @@ def generate_host(
     eos = set(eos_token_ids or [])
     device = decoder.embed_tokens.device
     max_len = max_cache_len or (len(input_ids) + gen_params.max_tokens)
-    cache = init_kv_cache(decoder.cfg, 1, max_len, _stream_dtype(decoder), device)
+    cache = decoder.new_cache(1, max_len, _stream_dtype(decoder), device)
     generator = torch.Generator(device=device).manual_seed(seed)
     out: List[int] = []
     recent = list(input_ids[-gen_params.repetition_context_size:])
@@ -218,7 +241,7 @@ def generate(
     ``max_cache_len`` slots) in the decoder's stream dtype."""
     device = decoder.embed_tokens.device
     max_len = max_cache_len or (len(input_ids) + gen_params.max_tokens)
-    cache = init_kv_cache(decoder.cfg, 1, max_len, _stream_dtype(decoder), device)
+    cache = decoder.new_cache(1, max_len, _stream_dtype(decoder), device)
     with torch.inference_mode():
         logits, cache = decoder.prefill(torch.tensor([input_ids], device=device), cache)
     step_fn, carry_len = decoder_step_fn(decoder)

@@ -6,7 +6,9 @@ Port of ``flux2_tpu/models/text_encoders/vlm_service.py``:
   Mistral's embedding space, spliced in at the [IMG] positions, then
   KV-cached generation through the decoder's ``prefill(inputs_embeds=)`` /
   ``decode_step`` and ``generation.decode_loop``: image analysis and
-  vision-aware upsampling. A w8a8 Mistral runs its layers on K5.
+  vision-aware upsampling. A w8a8 Mistral runs its layers on K5. The LM
+  may be sharded (``TextEncoders.shard``): its embeddings are gathered whole
+  before the splice and its cache holds each rank's KV heads.
 - ``Qwen35VLMService``: the Qwen3.5 vision tower and hybrid LM; ``chat``
   (the chains' prompt-builder callable, with "Image N:" labels on
   multi-image prompts), ``analyze_image``, ``compare_images_for_flux`` and
@@ -32,12 +34,13 @@ import numpy as np
 import torch
 
 from flux2_tpu_torch.models.text_encoders import generation
-from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder, init_kv_cache
+from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
 from flux2_tpu_torch.models.text_encoders.extractor import chat_ids
 from flux2_tpu_torch.models.text_encoders.pixtral import PixtralVision, PixtralVisionConfig
 from flux2_tpu_torch.models.text_encoders.qwen35 import Qwen35LM, Qwen35TextConfig, init_hybrid_cache
 from flux2_tpu_torch.models.text_encoders.qwen35_vision import (Qwen35Vision, Qwen35VisionConfig,
                                                                merge_image_embeddings, preprocess_image)
+from flux2_tpu_torch.parallel.sharding import gather
 
 SCORING_SYSTEM_PROMPT = (
     "You compare a generated image against reference images for LoRA "
@@ -135,9 +138,9 @@ class MistralVLMService:
         max_len = len(ids) + max_tokens
         with torch.inference_mode():
             input_ids = torch.tensor([ids], device=device)
-            merged = merge_image_embeddings(self.decoder.embed_tokens[input_ids], input_ids, img_embeds,
+            merged = merge_image_embeddings(gather(self.decoder.embed(input_ids)), input_ids, img_embeds,
                                             self.image_token_id)
-            cache = init_kv_cache(self.lm_config, 1, max_len, generation._stream_dtype(self.decoder), device)
+            cache = self.decoder.new_cache(1, max_len, generation._stream_dtype(self.decoder), device)
             logits, cache = generation.prefill_embeds_runner(self.decoder)(input_ids, cache, merged)
         return logits, cache, max_len
 

@@ -24,6 +24,10 @@ LATENT_CHANNELS = 32
 PATCH_SIZE = 2
 PATCHIFIED_CHANNELS = LATENT_CHANNELS * PATCH_SIZE * PATCH_SIZE  # 128
 
+# Ostris / ai-toolkit scale-shift used by the training path.
+FLUX2_SCALING_FACTOR = 0.3611
+FLUX2_SHIFT_FACTOR = 0.1159
+
 BATCHNORM_EPS = 1e-4  # FLUX.2 batch_norm_eps
 
 
@@ -42,14 +46,27 @@ def latent_dims(height: int, width: int) -> Tuple[int, int, int]:
     return lh, lw, (lh // PATCH_SIZE) * (lw // PATCH_SIZE)
 
 
+def generate_patchified_latents(
+    generator: torch.Generator,
+    height: int,
+    width: int,
+    batch_size: int = 1,
+    dtype: torch.dtype = torch.float32,
+    device: "torch.device | str | None" = None,
+) -> torch.Tensor:
+    """Unit-normal noise directly in patchified format [B, 128, H/16, W/16],
+    drawn from ``generator`` on ``device`` (the generator's by default)."""
+    device = generator.device if device is None else device
+    shape = (batch_size, PATCHIFIED_CHANNELS, height // 16, width // 16)
+    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32).to(dtype)
+
+
 def seeded_noise_seq(
     seed: int, height: int, width: int, batch: int = 1, device: "torch.device | str" = "cpu"
 ) -> torch.Tensor:
     """Seed -> unit-normal packed noise [B, S, 128] float32, drawn on ``device``."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    shape = (batch, PATCHIFIED_CHANNELS, height // 16, width // 16)
-    noise = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return pack_patchified_to_sequence(noise)
+    return pack_patchified_to_sequence(generate_patchified_latents(gen, height, width, batch))
 
 
 def pack_patchified_to_sequence(patchified: torch.Tensor) -> torch.Tensor:
@@ -148,3 +165,13 @@ def denormalize_with_batchnorm(
     c = running_mean.shape[0]
     mean = running_mean.reshape(1, c, 1, 1).to(torch.float32)
     return (latents.to(torch.float32) * _std(running_var, eps) + mean).to(latents.dtype)
+
+
+def normalize_flux2_latents(latents: torch.Tensor) -> torch.Tensor:
+    """Ostris training normalization: scale * (x - shift)."""
+    return FLUX2_SCALING_FACTOR * (latents - FLUX2_SHIFT_FACTOR)
+
+
+def denormalize_flux2_latents(normalized: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``normalize_flux2_latents``."""
+    return normalized / FLUX2_SCALING_FACTOR + FLUX2_SHIFT_FACTOR

@@ -57,6 +57,11 @@ class SigmaSchedule:
     def initial_sigma(self) -> float:
         return float(self.sigmas[0]) if len(self.sigmas) else 1.0
 
+    @property
+    def timesteps(self) -> np.ndarray:
+        """Timesteps in the [0, 1000] convention (sigma * num_train_timesteps)."""
+        return self.sigmas * NUM_TRAIN_TIMESTEPS
+
     def sigma_pairs(self) -> np.ndarray:
         """[n, 2] float32 array of (sigma, sigma_next) per step."""
         return np.stack([self.sigmas[:-1], self.sigmas[1:]], axis=-1)
@@ -107,3 +112,8 @@ def scale_noise(sample: torch.Tensor, sigma: float, noise: torch.Tensor) -> torc
     start): x_t = (1 - sigma) * x0 + sigma * noise."""
     sigma = torch.tensor(sigma, dtype=sample.dtype, device=sample.device)
     return (1.0 - sigma) * sample + sigma * noise.to(sample.dtype)
+
+
+def get_velocity(sample: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Rectified-flow velocity target: v = noise - sample."""
+    return noise - sample

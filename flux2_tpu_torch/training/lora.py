@@ -219,3 +219,10 @@ def _merge_qtensor(w, delta: torch.Tensor, scale: float):
 
 def num_lora_params(lora: LoRA) -> int:
     return sum(p.numel() for p in lora.parameters())
+
+
+def lora_zeros_like(lora: LoRA) -> LoRA:
+    """Adapters of ``lora``'s targets and shapes, every entry zero (the
+    gradient accumulator's start)."""
+    return LoRA({group: [{name: Adapter(torch.zeros_like(ad.a), torch.zeros_like(ad.b)) for name, ad in d.items()}
+                         for d in getattr(lora, group)] for group in GROUPS})

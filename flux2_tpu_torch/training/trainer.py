@@ -41,6 +41,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from flux2_tpu_torch.ops.scheduler import get_velocity
 from flux2_tpu_torch.training import lora as lora_mod
 
 
@@ -179,7 +180,7 @@ def flow_matching_loss(
         x = torch.cat([x, control], dim=1)
     pred = _forward(transformer, forward_fn, x.to(_stream_dtype(transformer)), embeddings, sigmas, rope_cos,
                     rope_sin, guidance=guidance, remat=train_cfg.remat, lora=lora, lora_scale=scale)[:, :s_out]
-    target = noise - latents  # ops/scheduler.get_velocity
+    target = get_velocity(latents, noise)
     sq = torch.square(pred.float() - target.float())
     if train_cfg.loss_weighting in ("bell", "snr"):
         w = bell_weights(sigmas) if train_cfg.loss_weighting == "bell" else snr_weights(sigmas, train_cfg.snr_gamma)

@@ -55,7 +55,7 @@ def device_memory_stats(device: "torch.device | str | None" = None) -> Dict[str,
     }
 
 
-def total_device_bytes() -> int:
+def total_hbm_bytes() -> int:
     """The summed memory of every CUDA device; raises where there is none."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass hbm_bytes= (the device memory to plan for)")
@@ -98,7 +98,7 @@ def check_feasibility(
     """Pre-check with actionable suggestions; ``hbm_bytes`` defaults to the
     CUDA devices' total memory."""
     required = estimate_generation_bytes(model, quantization, height, width, num_reference_images)
-    available = hbm_bytes if hbm_bytes is not None else total_device_bytes()
+    available = hbm_bytes if hbm_bytes is not None else total_hbm_bytes()
     suggestions: List[str] = []
     if required > available:
         if quantization == "bf16":
@@ -148,7 +148,7 @@ MEMORY_PROFILES: Dict[str, MemoryProfile] = {
 def auto_profile(model: Flux2Model, quantization: str = "bf16", hbm_bytes: Optional[int] = None) -> MemoryProfile:
     """Pick a profile by the estimated 1024^2 working set's share of device memory."""
     required = estimate_generation_bytes(model, quantization)
-    available = hbm_bytes if hbm_bytes is not None else total_device_bytes()
+    available = hbm_bytes if hbm_bytes is not None else total_hbm_bytes()
     ratio = required / max(available, 1)
     if ratio < 0.5:
         return MEMORY_PROFILES["performance"]

@@ -95,7 +95,7 @@ def kernel_time_ms(fn, mark: str = "", reps: int = 10) -> float:
     between launches."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without device events; a third empty one raises
+    for _ in range(6):  # a trace now and then comes back without device events, up to three in a row; a sixth raises
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -104,7 +104,7 @@ def kernel_time_ms(fn, mark: str = "", reps: int = 10) -> float:
                  if e.device_type == torch.autograd.DeviceType.CUDA and mark in e.name)
         if us > 0:
             return us / reps / 1e3
-    raise RuntimeError(f"torch.profiler recorded no {mark or 'kernel'} device time in three traces")
+    raise RuntimeError(f"torch.profiler recorded no {mark or 'kernel'} device time in six traces")
 
 
 def measure(fn, label: str, card: str) -> dict:

@@ -790,3 +790,21 @@ def test_ring_of_one_on_the_card_equals_k2(device):
         dist.destroy_process_group()  # the one-rank NCCL group make_mesh started
     assert tfa.launches_lse == before["flash_lse"] + 2 and tfa.launches == before["flash"]
     assert torch.equal(out, alone)
+
+
+def test_device_sampling_gives_the_same_token_on_every_run(device):
+    """``_sample_device`` over a Qwen3-size vocabulary (151936) with one draw: the same prefix sums to
+    the bit and the same token on 50 runs (a one-dimensional CUDA ``torch.cumsum`` adds in an order that
+    varies from run to run)."""
+    from flux2_tpu_torch.models.text_encoders import generation as gen
+
+    g = torch.Generator(device=device).manual_seed(5)
+    probs = torch.softmax(torch.randn(151936, device=device, generator=g) * 0.01, dim=0)
+    sums = gen._prefix_sums(probs)
+    logits = torch.randn(151936, device=device, generator=g)
+    p = gen.GenerateParameters(temperature=0.7, top_p=0.95, repetition_penalty=1.0)
+    u = torch.rand((), device=device, generator=g)
+    token = gen._sample_device(u, logits, torch.full((4,), -1, device=device), p)
+    for _ in range(50):
+        assert torch.equal(gen._prefix_sums(probs), sums)
+        assert torch.equal(gen._sample_device(u, logits, torch.full((4,), -1, device=device), p), token)

@@ -125,6 +125,16 @@ def test_sample_device_equals_jax(case):
         assert gen._sample_token(float(u), logits, [int(r) for r in recent if r >= 0], p) == host
 
 
+@pytest.mark.parametrize("n", [1, 511, 512, 513, 151936])
+def test_prefix_sums_equal_the_sequential_cumsum(n):
+    """The sampler's prefix sums: float64 sums rounded once to float32, as a sequential float64 cumsum."""
+    x = np.random.RandomState(n).dirichlet(np.ones(n)).astype(np.float32)
+    want = np.cumsum(x.astype(np.float64)).astype(np.float32)
+    got = gen._prefix_sums(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32 and got.shape == (n,)
+    np.testing.assert_allclose(got, want, rtol=1e-7, atol=0)
+
+
 def test_eos_stops_as_jax(jparams, port):
     p = gen.GenerateParameters(max_tokens=20, temperature=0.0)
     full = gen.generate(port, PROMPT, p)

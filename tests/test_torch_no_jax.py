@@ -28,7 +28,9 @@ inpaint prompt (``chains/vlm_prompt.py``) and the Qwen3-VL tower, the parallel s
 generate under context parallelism on a one-rank CPU mesh (``flux2_tpu_torch.parallel.*``), the sharded
 encoder and ``t2i --shard``, the pp slice: a train step through ``parallel/pipeline.py``'s
 ``make_pp_forward`` on a one-rank CPU mesh against the dense step (held by ``chip_smoke.py``'s
-``phase_pp`` helpers) and ``train-lora --random-init --shard``, and reports whether any ``jax`` or
+``phase_pp`` helpers) and ``train-lora --random-init --shard``, the last slice: greedy tokens of a
+decoder sharded by ``shard_params`` on that mesh, ``tools.train_segmenter`` for one step and
+``tools.fidelity_gate``'s download probe (the hub patched to act offline), and reports whether any ``jax`` or
 ``flux2_tpu`` module was loaded. (The suite's conftest imports JAX, so this must run in a
 subprocess.)
 """
@@ -286,6 +288,30 @@ with tempfile.TemporaryDirectory() as tmp:
     phist = run_training(parse_args(["train-lora", "--config", cfg, "--random-init", "--shard", "1,1,1",
                                      "--device", "cpu"]), "cpu", transformer_config=tc)
 pp_slice = [chip_smoke._rel_tree(pgrads[1], pgrads[0]) < 1e-5, chip_smoke.PP_QLORA_K5, [r["step"] for r in phist]]
+# the last slice: greedy tokens of a decoder sharded by shard_params on the one-rank CPU mesh against the
+# unsharded one's, the segmenter trainer for one step, and the fidelity gate's download probe with the hub
+# acting offline (its snapshot returns the empty directory, its file download fails)
+import copy, huggingface_hub
+from flux2_tpu_torch.models.text_encoders import generation
+from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
+from flux2_tpu_torch.tools import fidelity_gate, train_segmenter
+plain_dec = Qwen3Decoder(TINY_DECODER, dtype=torch.float32, generator=torch.Generator().manual_seed(3))
+sharded_dec = sharding.shard_params(copy.deepcopy(plain_dec), one, sharding.DECODER_RULES)
+greedy = generation.GenerateParameters(max_tokens=4, temperature=0.0)
+decode = [generation.generate(d, [1, 2, 3], greedy) for d in (plain_dec, sharded_dec)]
+def _offline(*a, **kw):
+    raise OSError("offline")
+huggingface_hub.snapshot_download = lambda repo_id, local_dir=None, **kw: local_dir
+huggingface_hub.hf_hub_download = _offline
+with tempfile.TemporaryDirectory() as tmp:
+    os.environ["FLUX2_MODELS_DIR"] = os.path.join(tmp, "models")
+    with contextlib.redirect_stdout(io.StringIO()):
+        seg_hist = train_segmenter.train(train_segmenter.build_parser().parse_args(
+            ["--steps", "1", "--batch", "1", "--device", "cpu", "--out", os.path.join(tmp, "seg.safetensors")]))
+        fidelity_gate.main(["--attempt-download", "klein-4b", "--models", "", "--out", os.path.join(tmp, "g.json")])
+    gate = json.load(open(os.path.join(tmp, "g.json")))
+last = [decode[0] == decode[1] and len(decode[0]) == 4, len(seg_hist["losses"]),
+        [gate["download_probe"]["outcome"], gate["tekken_probe"]["outcome"], gate["ok"]]]
 parallel = [cp_image, cp_emb, shard_png, sorted(m.rsplit(".", 1)[1] for m in sys.modules
                                                 if m.startswith("flux2_tpu_torch.parallel."))]
 print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
@@ -303,13 +329,13 @@ print(json.dumps({"jax": sorted(m for m in sys.modules if m == "jax" or m.starts
                   "psnr": psnr, "lora_pngs": lora_pngs, "prequant": [k for k, _ in prequant], "real": real,
                   "evaluated": evaluated, "dev_png": dev_png, "dev_upsampled": dev_upsampled,
                   "generated": generated, "vlm": [mistral_reply, compared, enriched, vl_states],
-                  "parallel": parallel, "pp": pp_slice}))
+                  "parallel": parallel, "pp": pp_slice, "last": last}))
 """
 
 
 def test_port_runs_without_importing_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=root)
+    env = dict(os.environ, PYTHONPATH=root, HF_HUB_OFFLINE="1")
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=root, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -332,4 +358,4 @@ def test_port_runs_without_importing_jax():
                               [29, 1, 5, 64]],
                       "parallel": [[32, 32, 3], [1, 512, 192], [32, 32, 3],
                                    ["mesh", "pipeline", "quant_partition", "ring_attention", "sharding"]],
-                      "pp": [True, 806, [1]]}
+                      "pp": [True, 806, [1]], "last": [True, 1, ["unavailable", "unavailable", False]]}

@@ -7,7 +7,11 @@ Placements are compared per logical dimension (K, N) with JAX's
 ``make_shardings``: the port's weights are [out, in] per block where JAX's
 are stacked [L, in, out]. JAX's three ahead-of-time fit proofs become
 per-rank parameter bytes from ``sharding.local_shape`` on ``meta`` tensors,
-under JAX's own bounds.
+under JAX's own bounds. A sharded decoder generates (F8's repair): its prefill
+logits and greedy tokens against JAX's unsharded ``prefill`` and ``generate``,
+``chat`` / ``upsample_prompt`` after ``TextEncoders.shard``, and the Mistral
+VLM over a sharded LM, each rank's case started before JAX's reference is
+computed.
 """
 
 import dataclasses
@@ -22,6 +26,7 @@ from flux2_tpu.models.flux2 import config as jcfg
 from flux2_tpu.models.flux2 import transformer as jtfm
 from flux2_tpu.models.text_encoders import config as jtcfg
 from flux2_tpu.models.text_encoders import decoder as jdec
+from flux2_tpu.models.text_encoders import generation as jgen
 from flux2_tpu.ops import latents as jlu
 from flux2_tpu.ops import quant as jquant
 from flux2_tpu.ops.rope import rope_embeddings
@@ -279,6 +284,112 @@ def test_sharded_decoder_forward_matches(pool, kw):
                     (1, 2, 4, 1))
     for out in outs:
         np.testing.assert_allclose(out["value"], ref, atol=2e-4, rtol=0)
+
+
+GEN_CONFIGS = {
+    # Qwen3-shaped: the tied table vocab-parallel, one KV head a rank
+    "qwen3_tied": dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                       num_attention_heads=8, num_key_value_heads=4, head_dim=16, qk_norm=True,
+                       tie_word_embeddings=True),
+    # Mistral-shaped: llama4 query scaling, the untied lm_head vocab-parallel; one KV head (k_proj / v_proj
+    # stay whole at tp=4), so every rank's cache holds it
+    "mistral_untied_kv_replicated": dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                                         num_attention_heads=8, num_key_value_heads=1, head_dim=8,
+                                         tie_word_embeddings=False, llama4_scaling_beta=0.1,
+                                         original_max_position_embeddings=4),
+    # the layers in W8A8 (JAX's min_size passes every one); 2 KV heads do not split 4 ways
+    "w8a8": dict(vocab_size=256, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=2, head_dim=64, qk_norm=True, tie_word_embeddings=True),
+}
+# prefill logits against JAX's unsharded prefill: the decoder_hidden_states case's bound, W8A8's as the DiT's
+GEN_ATOL = {"w8a8": 3e-4}
+
+
+@pytest.mark.parametrize("name", list(GEN_CONFIGS))
+def test_sharded_decoder_generates_as_jax(pool, name):
+    """F8's repair: a decoder sharded over (fsdp=2, tp=4) prefills within 2e-4 (W8A8 3e-4) of JAX's unsharded
+    ``prefill`` and greedily generates JAX's eight tokens, the same on every rank. Each rank's cache holds its
+    own KV heads (all of them where the KV width falls back to replication), and the logits come back whole,
+    as plain tensors."""
+    kw = GEN_CONFIGS[name]
+    fmt = "w8a8" if name == "w8a8" else None
+    cfg_d = jtcfg.DecoderConfig(**kw)
+    params = perturbed_numpy(jdec.init_params(jax.random.PRNGKey(0), cfg_d, dtype=jnp.float32), 0)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    if fmt:
+        from flux2_tpu.models.text_encoders import facade as jfacade
+
+        jp = jfacade.quantize_encoder_params(jp, fmt)
+    ids = [1, 5, 9, 2, 7, 3, 11, 4, 6]
+    pool.start(f"{CASES}:decoder_generate", params, kw, ids, (1, 2, 4, 1), 8, fmt)
+    # the prefill ``generate`` compiles (its cache bucketed to 256 slots: masked, the same logits)
+    want_logits, _ = jgen._prefill_runner(cfg_d)(jp, jnp.asarray([ids], jnp.int32),
+                                                 jdec.init_kv_cache(cfg_d, 1, 256, jnp.float32))
+    want_tokens = jgen.generate(jp, cfg_d, ids, jgen.GenerateParameters(max_tokens=8, temperature=0.0))
+    outs = pool.collect()
+    nkv = kw["num_key_value_heads"]
+    for out in outs:
+        assert out["plain"] and out["cache_length"] == len(ids)
+        assert out["cache_heads"] == (nkv // 4 if nkv % 4 == 0 else nkv)
+        np.testing.assert_allclose(out["prefill"], np.asarray(want_logits), atol=GEN_ATOL.get(name, 2e-4), rtol=0)
+        assert out["tokens"] == want_tokens and len(want_tokens) == 8
+    assert all(np.array_equal(o["prefill"], outs[0]["prefill"]) for o in outs)
+
+
+def test_sharded_facade_chat_and_upsample_equal_jax(pool):
+    """``TextEncoders.shard`` over (fsdp=2, tp=4), then ``chat`` (greedy) and ``upsample_prompt`` (JAX's
+    uniforms injected on every rank) through the dev tokenizer: the text of JAX's unsharded facade. Seed 8's
+    weights end JAX's sampled rewrite at EOS after 20 tokens (most seeds run the preset's 256, a 25 s case on
+    eight ranks), so the EOS stop is held sharded too."""
+    from flux2_tpu.models.text_encoders import facade as jfacade
+    from flux2_tpu.utils.dev_tokenizer import inline_bpe_tokenizer as jax_tokenizer
+
+    from tests.test_torch_generation import jax_uniforms
+
+    kw = dict(vocab_size=512, hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=8,
+              num_key_value_heads=4, head_dim=8, qk_norm=True, tie_word_embeddings=True)
+    cfg_d = jtcfg.DecoderConfig(**kw)
+    params = perturbed_numpy(jdec.init_params(jax.random.PRNGKey(8), cfg_d, dtype=jnp.float32), 8, scale=1.0)
+    messages = [{"role": "user", "content": "a serene mountain lake"}]
+    prompt = "a photo of a cat"
+    uniforms = jax_uniforms(4, 256)
+    pool.start(f"{CASES}:facade_shard_generate", params, kw, (1, 2, 4, 1), uniforms, messages, prompt)
+    jenc = jfacade.TextEncoders()
+    jenc.attach("qwen3-tiny", jax.tree_util.tree_map(jnp.asarray, params), cfg_d, jax_tokenizer(), (1, 2),
+                recipe="klein")
+    want_chat = jenc.chat(messages, "qwen3-tiny", params=jgen.GenerateParameters(max_tokens=12, temperature=0.0))
+    want_up = jenc.upsample_prompt(prompt, "qwen3-tiny", seed=4)
+    for out in pool.collect():
+        assert out["sharded"]
+        assert out["chat"] == want_chat
+        assert out["upsampled"] == want_up
+    assert want_chat and want_up != prompt
+
+
+def test_sharded_mistral_vlm_analyzes_as_jax(pool):
+    """The Mistral VLM over an LM that ``TextEncoders.shard`` sharded on (fsdp=2, tp=4): the image tokens
+    spliced into the gathered embeddings, a greedy 8-token ``analyze_image`` equal to JAX's unsharded one."""
+    from flux2_tpu.models.text_encoders import pixtral as jpx
+    from flux2_tpu.models.text_encoders import vlm_service as jsvc
+    from flux2_tpu_torch.models.text_encoders.config import TINY_DECODER
+    from flux2_tpu_torch.models.text_encoders.pixtral import PixtralVisionConfig
+
+    from tests.torch_parallel_cases import WordTokenizer
+
+    pix = PixtralVisionConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=1, num_attention_heads=2,
+                              patch_size=14, image_size=14 * 8, text_hidden_size=TINY_DECODER.hidden_size)
+    lm_kw, vis_kw = dataclasses.asdict(TINY_DECODER), dataclasses.asdict(pix)
+    lm = perturbed_numpy(jdec.init_params(jax.random.PRNGKey(0), jtcfg.DecoderConfig(**lm_kw), dtype=jnp.float32), 0)
+    vis = perturbed_numpy(jpx.init_params(jax.random.PRNGKey(1), jpx.PixtralVisionConfig(**vis_kw)), 1)
+    image = np.random.RandomState(0).rand(56, 28, 3).astype(np.float32)
+    pool.start(f"{CASES}:mistral_vlm_sharded", lm, lm_kw, vis, vis_kw, image, (1, 2, 4, 1))
+    ref = jsvc.MistralVLMService(jax.tree_util.tree_map(jnp.asarray, lm), jtcfg.DecoderConfig(**lm_kw),
+                                 jax.tree_util.tree_map(jnp.asarray, vis), jpx.PixtralVisionConfig(**vis_kw),
+                                 WordTokenizer(TINY_DECODER.vocab_size), image_token_id=7)
+    want = ref.analyze_image(image, "describe the scene", gen_params=jgen.GenerateParameters(max_tokens=8,
+                                                                                           temperature=0.0))
+    for out in pool.collect():
+        assert out["sharded"] and out["reply"] == want and len(want.split()) == 8
 
 
 def test_quantized_params_shard_over_mesh(pool):

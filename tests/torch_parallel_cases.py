@@ -240,6 +240,24 @@ def decoder_hidden_states(params, cfg_kw: dict, ids, dims, fmt: Optional[str] = 
     return _out(hs)
 
 
+def decoder_generate(params, cfg_kw: dict, ids, dims, n_tokens: int, fmt: Optional[str] = None):
+    """A decoder sharded by ``shard_params``: its prefill logits over a cache of this rank's KV heads, and
+    ``n_tokens`` greedy tokens through ``generation.generate``."""
+    from flux2_tpu_torch.models.text_encoders import generation
+    from flux2_tpu_torch.models.text_encoders.extractor import quantize_encoder_params
+
+    dec = decoder_from_jax(params, DecoderConfig(**cfg_kw))
+    if fmt:
+        quantize_encoder_params(dec, fmt)
+    sh.shard_params(dec, mesh(dims), sh.DECODER_RULES)
+    cache = dec.new_cache(1, len(ids) + n_tokens, torch.float32, "cpu")
+    with torch.inference_mode():
+        logits, cache = dec.prefill(torch.tensor([ids]), cache)
+    tokens = generation.generate(dec, list(ids), generation.GenerateParameters(max_tokens=n_tokens, temperature=0.0))
+    return {"prefill": logits.numpy(), "plain": not isinstance(logits, DTensor), "tokens": tokens,
+            "cache_heads": cache.k.shape[2], "cache_length": cache.length}
+
+
 def decoder_placements(params, cfg_kw: dict, dims):
     dec = decoder_from_jax(params, DecoderConfig(**cfg_kw))
     return sh.make_shardings(dec, mesh_mod.mesh_shape(mesh(dims)), sh.DECODER_RULES)
@@ -276,6 +294,48 @@ def facade_shard_encoder(params, cfg_kw: dict, prompt: str, layers, dims):
     enc.shard("tiny", mesh(dims))
     after = enc.extract_klein_embeddings(prompt, name="tiny").float().numpy()
     return {"before": before, "after": after}
+
+
+def facade_shard_generate(params, cfg_kw: dict, dims, uniforms, messages, prompt: str):
+    """``TextEncoders.shard`` of an attached tiny Qwen3 with the dev tokenizer, then ``chat`` (greedy) and
+    ``upsample_prompt`` (sampled, its draws JAX's ``uniforms``)."""
+    from flux2_tpu_torch.models.text_encoders import generation
+    from flux2_tpu_torch.models.text_encoders.facade import TextEncoders
+    from flux2_tpu_torch.utils.dev_tokenizer import inline_bpe_tokenizer
+
+    cfg = DecoderConfig(**cfg_kw)
+    enc = TextEncoders()
+    enc.attach("qwen3-tiny", decoder_from_jax(params, cfg), cfg, inline_bpe_tokenizer(), (1, 2), recipe="klein")
+    enc.shard("qwen3-tiny", mesh(dims))
+    sharded = isinstance(enc.get("qwen3-tiny").decoder.embed_tokens, DTensor)
+    chat = enc.chat(messages, "qwen3-tiny", params=generation.GenerateParameters(max_tokens=12, temperature=0.0))
+    draws = iter(uniforms)
+    real = generation._draw_uniform
+    generation._draw_uniform = lambda generator: torch.tensor(next(draws), dtype=torch.float32)
+    try:
+        upsampled = enc.upsample_prompt(prompt, "qwen3-tiny", seed=4)
+    finally:
+        generation._draw_uniform = real
+    return {"sharded": sharded, "chat": chat, "upsampled": upsampled}
+
+
+def mistral_vlm_sharded(lm_params, lm_kw: dict, vis_params, vis_kw: dict, image, dims):
+    """A Mistral VLM whose LM is sharded by ``TextEncoders.shard``: a greedy 8-token ``analyze_image``."""
+    from flux2_tpu_torch.io.jax_params import pixtral_from_jax
+    from flux2_tpu_torch.models.text_encoders import generation
+    from flux2_tpu_torch.models.text_encoders.facade import TextEncoders
+    from flux2_tpu_torch.models.text_encoders.pixtral import PixtralVisionConfig
+    from flux2_tpu_torch.models.text_encoders.vlm_service import MistralVLMService
+
+    cfg, vcfg = DecoderConfig(**lm_kw), PixtralVisionConfig(**vis_kw)
+    enc = TextEncoders()
+    lm = enc.attach("mistral", decoder_from_jax(lm_params, cfg), cfg, WordTokenizer(cfg.vocab_size), (1, 2))
+    enc.attach_vlm(MistralVLMService(lm.decoder, cfg, pixtral_from_jax(vis_params, vcfg), vcfg, lm.tokenizer,
+                                     image_token_id=7))
+    enc.shard("mistral", mesh(dims))
+    greedy = generation.GenerateParameters(max_tokens=8, temperature=0.0)
+    return {"sharded": isinstance(lm.decoder.embed_tokens, DTensor),
+            "reply": enc._vlm.analyze_image(np.asarray(image), "describe the scene", gen_params=greedy)}
 
 
 # -- partitioned W8A8 on one weight ------------------------------------------------------------

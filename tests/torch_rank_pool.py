@@ -8,7 +8,8 @@ rank 0 seconds later can be taken meanwhile by another test's sockets) and
 then wait for work.
 ``pool.run("module:function", *args)`` runs that function on every rank at
 once and returns the eight results in rank order (a rank's exception is
-raised here with its traceback). A test file starts one pool, module-scoped,
+raised here with its traceback); ``start`` and ``collect`` split it, so the
+test computes its JAX reference while the ranks work. A test file starts one pool, module-scoped,
 and runs every case in it, so it pays for one start-up. The workers import
 torch and the port only, never JAX: the references are computed in the
 pytest process.
@@ -82,11 +83,20 @@ class RankPool:
             raise RuntimeError("\n".join(errors))
         return out
 
-    def run(self, target: str, *args) -> list:
-        """``target`` ("module:function") on every rank; the results in rank order."""
+    def start(self, target: str, *args) -> None:
+        """Send ``target`` ("module:function") to every rank and return at once: the caller computes its
+        reference meanwhile, then takes the ranks' results with ``collect``."""
         for q in self._tasks:
             q.put((target, args))
+
+    def collect(self) -> list:
+        """The results of the case ``start`` sent, in rank order."""
         return self._collect()
+
+    def run(self, target: str, *args) -> list:
+        """``target`` on every rank; the results in rank order."""
+        self.start(target, *args)
+        return self.collect()
 
     def close(self) -> None:
         for q in self._tasks:
