@@ -843,12 +843,12 @@ def phase_cfg_serve(pipe, card: str) -> dict:
         raise AssertionError(f"CFG request launched {counts}, want {want}")
     if "" not in base._prompt_cache:
         raise AssertionError('CFG request: the "" negative was not encoded through the prompt LRU')
-    (r,) = server.request_timings
+    pt = res.phase_timings
     log(f"[serve cfg] klein-4b-base 1024^2, guidance {base.model.default_guidance}, cond + uncond rows: "
-        f"{wall:.3f} s wall; text encoding {r['text_encoding_s']:.4f} s, denoising "
-        f"{r['denoising_s'] / r['steps']:.4f} s/step, VAE decoding {r['vae_decoding_s']:.4f} s; launches {counts} "
+        f"{wall:.3f} s wall; text encoding {pt['text_encoding']:.4f} s, denoising "
+        f"{pt['denoising'] / res.num_steps:.4f} s/step, VAE decoding {pt['vae_decoding']:.4f} s; launches {counts} "
         f"[{card}]")
-    return {"wall_s": wall, "s_per_step": r["denoising_s"] / r["steps"]}
+    return {"wall_s": wall, "s_per_step": pt["denoising"] / res.num_steps}
 
 
 # -- I2I, img2img strength and the KV-cached klein-9b-kv path -------------------------------
@@ -5422,10 +5422,11 @@ def phase_serve(pipe, card: str, label: str, expected: dict):
     want = {name: expected.get(name, 0) for name in counts}
     if counts != want:
         raise AssertionError(f"{label} serve launched {counts}, want {want}")
-    for r in server.request_timings:
-        log(f"[serve {label}] {r['height']}x{r['width']} batch {r['batch_size']}: text encoding "
-            f"{r['text_encoding_s']:.4f} s, denoising {r['denoising_s'] / r['steps']:.4f} s/step ({r['steps']} "
-            f"steps, whole batch), VAE decoding {r['vae_decoding_s']:.4f} s [{card}]")
+    for call, res in zip(recorder.calls, recorder.results):
+        pt = res.phase_timings
+        log(f"[serve {label}] {call['height']}x{call['width']} batch {len(res.latents_device)}: text encoding "
+            f"{pt['text_encoding']:.4f} s, denoising {pt['denoising'] / res.num_steps:.4f} s/step ({res.num_steps} "
+            f"steps, whole batch), VAE decoding {pt['vae_decoding']:.4f} s [{card}]")
     log(f"[serve {label}] 5 requests in 3 batches, {wall:.3f} s wall; launches {counts}; peak device memory "
         f"{peak_gib:.2f} GiB [{card}]")
     return counts, peak_gib

@@ -248,10 +248,14 @@ class Flux2Pipeline:
     def encode_prompt(self, prompt: str) -> torch.Tensor:
         """Prompt -> embeddings through ``text_encoder``, with a small LRU keyed by
         prompt (cleared when the encoder is swapped). Thread-safe: the server
-        encodes on each request's own thread."""
+        encodes on each request's own thread. A miss is a ``pipeline.encode``
+        span, from the lock's acquisition to the synchronise, with the wait
+        for the lock as ``lock_wait_s``."""
         if self.text_encoder is None:
             raise ValueError("no text encoder attached; pass `embeddings=` to generate()")
+        asked = time.perf_counter()
         with self._prompt_lock:
+            acquired = time.perf_counter()
             cache = self._prompt_cache
             if self._cache_encoder is not self.text_encoder:
                 cache.clear()
@@ -262,6 +266,7 @@ class Flux2Pipeline:
             with torch.inference_mode():
                 emb = self.text_encoder(prompt)
             _sync(self.device)
+            _profiler().record("pipeline.encode", acquired, time.perf_counter(), lock_wait_s=acquired - asked)
             cache[prompt] = emb
             while len(cache) > self.PROMPT_CACHE_SIZE:
                 cache.popitem(last=False)
@@ -363,9 +368,13 @@ class Flux2Pipeline:
         schedule (and ``strength``'s cut). The batch follows ``embeddings``'
         leading axis. A base model (``uses_classical_cfg``) guides with
         ``negative_embeddings``, or with the encoded "" prompt when an encoder
-        is attached. Each phase is timed by the shared profiler (when
-        ``FLUX2_PROFILE=1``) and closed by a device-memory snapshot
-        (``memory_stats``), as in JAX.
+        is attached. Each phase is timed by the shared profiler (when it
+        records: ``FLUX2_PROFILE=1``, or a ``torch.profiler`` running) and
+        closed by a device-memory snapshot (``memory_stats``), as in JAX;
+        inside "2. Denoising" each step is a ``dit.step`` span (``step``,
+        ``batch``) from its top to the return of its step end, which without
+        a hook or previews holds no synchronise: the host's dispatch of the
+        step.
 
         After each step (k of n): ``step_hook`` rewrites the latents; a set
         ``cancel`` raises ``GenerationCancelled("cancelled at step k/n")``;
@@ -525,22 +534,24 @@ class Flux2Pipeline:
         if use_cfg:
             embeddings = torch.cat([embeddings, negative])
             g = torch.cat([g, g]) if g is not None else None
+        prof = _profiler()
         with torch.inference_mode():
             for i, (sigma, sigma_next) in enumerate(sigma_pairs):
-                tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
-                x = latents.to(dtype)
-                if ref is not None:
-                    x = torch.cat([x, ref], dim=1)
-                if use_cfg:
-                    v2 = gather(self.transformer(torch.cat([x, x]), embeddings, torch.cat([tstep, tstep]), cos, sin,
-                                                 guidance=g, ring=self.ring))
-                    v_cond, v_uncond = v2[:b], v2[b:]
-                    scale = torch.tensor(guidance, dtype=torch.float32, device=self.device).to(v2.dtype)
-                    v = v_uncond + scale * (v_cond - v_uncond)
-                else:
-                    v = gather(self.transformer(x, embeddings, tstep, cos, sin, guidance=g, ring=self.ring))
-                latents = sch.euler_step(latents, v[:, :s_img].to(torch.float32), sigma, sigma_next)
-                latents = step_end(latents, i)
+                with prof.span("dit.step", step=i, batch=b):
+                    tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
+                    x = latents.to(dtype)
+                    if ref is not None:
+                        x = torch.cat([x, ref], dim=1)
+                    if use_cfg:
+                        v2 = gather(self.transformer(torch.cat([x, x]), embeddings, torch.cat([tstep, tstep]), cos,
+                                                     sin, guidance=g, ring=self.ring))
+                        v_cond, v_uncond = v2[:b], v2[b:]
+                        scale = torch.tensor(guidance, dtype=torch.float32, device=self.device).to(v2.dtype)
+                        v = v_uncond + scale * (v_cond - v_uncond)
+                    else:
+                        v = gather(self.transformer(x, embeddings, tstep, cos, sin, guidance=g, ring=self.ring))
+                    latents = sch.euler_step(latents, v[:, :s_img].to(torch.float32), sigma, sigma_next)
+                    latents = step_end(latents, i)
         return latents
 
     def _denoise_kv_cached(self, latents, embeddings, reference_latents, sigma_pairs, extract_rope, cached_rope, g,
@@ -555,20 +566,22 @@ class Flux2Pipeline:
         b = latents.shape[0]
         ref = reference_latents.to(dtype).expand(b, -1, -1)
         cache = None
+        prof = _profiler()
         with torch.inference_mode():
             for i, (sigma, sigma_next) in enumerate(sigma_pairs):
-                tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
-                x = latents.to(dtype)
-                if cache is None:
-                    v, double_kv, single_kv = self.transformer.forward_kv_extract(
-                        x, ref, embeddings, tstep, *extract_rope, guidance=g)
-                    cache = (double_kv, single_kv)
-                else:
-                    v = self.transformer.forward_kv_cached(x, embeddings, tstep, *cached_rope, *cache, guidance=g,
-                                                           ring=self.ring)
-                v = gather(v)
-                latents = sch.euler_step(latents, v.to(torch.float32), sigma, sigma_next)
-                latents = step_end(latents, i)
+                with prof.span("dit.step", step=i, batch=b):
+                    tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
+                    x = latents.to(dtype)
+                    if cache is None:
+                        v, double_kv, single_kv = self.transformer.forward_kv_extract(
+                            x, ref, embeddings, tstep, *extract_rope, guidance=g)
+                        cache = (double_kv, single_kv)
+                    else:
+                        v = self.transformer.forward_kv_cached(x, embeddings, tstep, *cached_rope, *cache,
+                                                               guidance=g, ring=self.ring)
+                    v = gather(v)
+                    latents = sch.euler_step(latents, v.to(torch.float32), sigma, sigma_next)
+                    latents = step_end(latents, i)
         return latents
 
     # -- VAE encode: I2I references and img2img init ----------------------------

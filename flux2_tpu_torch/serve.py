@@ -34,7 +34,10 @@ with that seed. The batch cap is the JAX server's MXU-fill rule: images above
 have not been re-measured on the H100. ``chip_lock`` is held around each
 batch's device work and around ``embed`` and ``chat``; ``cancel_all``
 abandons every queued request and the running batch, which stops at its next
-step end (``_BatchCancel``).
+step end (``_BatchCancel``). While the shared profiler records
+(``utils/profiler.py``), each request taken leaves a ``serve.queue`` span
+(its enqueue to its pick, with the batch's size) and each PNG written a
+``serve.png`` span.
 
 I2I: a request's ``"references"`` (base64 images, data URLs too; read by
 Pillow where it imports, else PNG only, by the port's own decoder) are
@@ -81,7 +84,6 @@ from __future__ import annotations
 
 import argparse
 import base64
-import collections
 import functools
 import io
 import json
@@ -99,6 +101,7 @@ import torch
 from flux2_tpu_torch.io.png import decode_image, encode_png, to_u8
 from flux2_tpu_torch.ops import latents as lu
 from flux2_tpu_torch.pipeline.pipeline import GenerationCancelled, _cancel_requested
+from flux2_tpu_torch.utils.profiler import shared as _profiler
 
 
 class ChatUnavailableError(RuntimeError):
@@ -129,21 +132,19 @@ def packed_to_rgb_preview(seq: np.ndarray, height: int, width: int) -> np.ndarra
 
 
 class _Pending:
-    __slots__ = ("req", "emb", "refs", "strength", "encode_s", "event", "cancelled", "image", "error",
-                 "enqueued_at", "preview_id")
+    __slots__ = ("req", "emb", "refs", "strength", "event", "cancelled", "image", "error", "enqueued_at",
+                 "preview_id")
 
-    def __init__(self, req: dict, emb: Optional[torch.Tensor], encode_s: float = 0.0, refs: Optional[list] = None,
-                 strength: float = 1.0):
+    def __init__(self, req: dict, emb: Optional[torch.Tensor], refs: Optional[list] = None, strength: float = 1.0):
         self.req = req
         self.emb = emb
         self.refs = refs  # reference images [H, W, 3] float32 (I2I), or None
         self.strength = strength  # the request's "strength", checked by generate_png
-        self.encode_s = encode_s
         self.event = threading.Event()
         self.cancelled = threading.Event()
         self.image = None
         self.error = None
-        self.enqueued_at = time.time()
+        self.enqueued_at = time.perf_counter()  # the profiler's clock, for the serve.queue span
         self.preview_id = req.get("preview_id")  # opt-in live previews
 
 
@@ -186,8 +187,6 @@ class Flux2Server:
         self.batches_run = 0
         self.chats_served = 0
         self.embeds_served = 0
-        # Per-request phase times of the most recent requests (newest last).
-        self.request_timings: collections.deque = collections.deque(maxlen=256)
         self.max_batch = max_batch
         self.batch_window_s = batch_window_s
         self.max_queue = max_queue
@@ -231,7 +230,9 @@ class Flux2Server:
         """Run the largest same-shape group, unless the oldest request has waited
         past ``max_wait_s``: then its group goes first. Abandoned requests are
         dropped here, and their callers released with ``GenerationCancelled``.
-        The batch becomes ``_running_batch``. Called with ``_queue_cv`` held."""
+        The batch becomes ``_running_batch``, and each request taken a
+        ``serve.queue`` span (enqueue to pick, ``batch``: the batch's size).
+        Called with ``_queue_cv`` held."""
         for p in self._queue:
             if p.cancelled.is_set():
                 p.error = GenerationCancelled("cancelled before it ran")
@@ -241,13 +242,16 @@ class Flux2Server:
             return []
         groups = self._groups()
         oldest = self._queue[0]
-        if time.time() - oldest.enqueued_at > self.max_wait_s:
+        now = time.perf_counter()
+        if now - oldest.enqueued_at > self.max_wait_s:
             key = self._shape_key(oldest)
         else:
             key = max(groups, key=lambda k: (len(groups[k]), -groups[k][0].enqueued_at))
         batch = groups[key][: self._batch_cap(key)]
+        prof = _profiler()
         for p in batch:
             self._queue.remove(p)
+            prof.record("serve.queue", p.enqueued_at, now, batch=len(batch))
         self._running_batch = batch  # visible to cancel_all during the run
         return batch
 
@@ -324,14 +328,8 @@ class Flux2Server:
                     on_latents=on_latents,
                 )
             images = res.images if res.images is not None else res.image[None]
-            pt = res.phase_timings
             for i, p in enumerate(batch):
                 p.image = images[i]
-                self.request_timings.append({
-                    "height": hv, "width": wv, "steps": res.num_steps, "batch_size": len(batch),
-                    "text_encoding_s": p.encode_s, "denoising_s": pt["denoising"],
-                    "vae_decoding_s": pt["vae_decoding"],
-                })
         except Exception as e:  # surfaced to every request of the batch
             for p in batch:
                 p.error = e
@@ -528,12 +526,10 @@ class Flux2Server:
         """One request ({"prompt", "height", "width", "steps", "guidance", "seed",
         "references", "strength", "preview_id", "timeout_s"}) -> PNG bytes.
         Blocks until its batch has run."""
-        emb, encode_s = None, 0.0
+        emb = None
         if self.embeddings_fn is not None:
-            t = time.perf_counter()
             emb = self.embeddings_fn(req.get("prompt", ""))
-            encode_s = time.perf_counter() - t
-        pending = _Pending(req, emb, encode_s, refs=_decode_references(req), strength=_strength(req))
+        pending = _Pending(req, emb, refs=_decode_references(req), strength=_strength(req))
         with self._queue_cv:
             if len(self._queue) >= self.max_queue:
                 raise QueueFullError(f"queue full ({self.max_queue} pending); retry later")
@@ -547,7 +543,8 @@ class Flux2Server:
             raise TimeoutError(f"generation exceeded timeout_s={timeout}")
         if pending.error is not None:
             raise pending.error
-        return encode_png(to_u8(pending.image))
+        with _profiler().span("serve.png"):
+            return encode_png(to_u8(pending.image))
 
 
 def _disk_size(path: Optional[str]) -> int:

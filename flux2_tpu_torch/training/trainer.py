@@ -43,6 +43,7 @@ from torch import nn
 
 from flux2_tpu_torch.ops.scheduler import get_velocity
 from flux2_tpu_torch.training import lora as lora_mod
+from flux2_tpu_torch.utils.profiler import shared as _profiler
 
 
 @dataclasses.dataclass(frozen=True)
@@ -459,7 +460,11 @@ def make_train_step(transformer: nn.Module, train_cfg: TrainConfig, forward_fn: 
     ``forward_fn`` replaces the DiT's forward (``parallel.pipeline.
     make_pp_forward``: every rank draws and holds the whole batch, its
     ``reduce_grads`` gives every rank the dense gradient after the backward,
-    so the adapters, the optimizer state and the metrics agree on every rank)."""
+    so the adapters, the optimizer state and the metrics agree on every rank).
+    While the shared profiler records (``utils/profiler.py``), each micro-batch
+    is a ``train.forward`` span (the first holds the draw) and a
+    ``train.backward`` span, and the step's end a ``train.optimizer`` span
+    (``reduce_grads``, the grad norm, ``Optimizer.step``)."""
 
     def loss_fn(lora, batch, sigmas, noise):
         main = flow_matching_loss(transformer, lora, train_cfg, batch["latents"], batch["embeddings"], noise,
@@ -478,23 +483,28 @@ def make_train_step(transformer: nn.Module, train_cfg: TrainConfig, forward_fn: 
         b = batch["latents"].shape[0]
         if b % n:
             raise ValueError(f"batch {b} does not split into {n} micro-batches")
-        sigmas, noise = _draw(train_cfg, generator, batch["latents"])
+        prof = _profiler()
         params = list(lora.parameters())
         for p in params:
             p.grad = None
         loss_sum = dop_sum = 0.0
         for i in range(n):
-            sl = slice(i * b // n, (i + 1) * b // n)
-            mb = {k: (v[sl] if k in BATCHED_KEYS else v) for k, v in batch.items()}
-            total, main, dop = loss_fn(lora, mb, sigmas[sl], noise[sl])
-            (total / n).backward()
+            with prof.span("train.forward", micro=i):
+                if i == 0:  # the whole batch's draw, split over the micro-batches
+                    sigmas, noise = _draw(train_cfg, generator, batch["latents"])
+                sl = slice(i * b // n, (i + 1) * b // n)
+                mb = {k: (v[sl] if k in BATCHED_KEYS else v) for k, v in batch.items()}
+                total, main, dop = loss_fn(lora, mb, sigmas[sl], noise[sl])
+            with prof.span("train.backward", micro=i):
+                (total / n).backward()
             loss_sum = loss_sum + main.detach()
             dop_sum = dop_sum + dop.detach()
-        if hasattr(forward_fn, "reduce_grads"):
-            forward_fn.reduce_grads(params)
-        grads = [p.grad for p in params]
-        metrics = {"loss": loss_sum / n, "dop_loss": dop_sum / n, "grad_norm": global_norm(grads)}
-        optimizer.step(grads)
+        with prof.span("train.optimizer"):
+            if hasattr(forward_fn, "reduce_grads"):
+                forward_fn.reduce_grads(params)
+            grads = [p.grad for p in params]
+            metrics = {"loss": loss_sum / n, "dop_loss": dop_sum / n, "grad_norm": global_norm(grads)}
+            optimizer.step(grads)
         return metrics
 
     return step

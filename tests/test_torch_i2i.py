@@ -32,6 +32,7 @@ from flux2_tpu_torch.io.png import decode_png, encode_png
 from flux2_tpu_torch.models.flux2.config import Flux2Model
 from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
 from flux2_tpu_torch.serve import Flux2Server
+from flux2_tpu_torch.utils import profiler as tprof
 
 from tests.test_golden_regression import GOLDEN_I2I, GOLDEN_SIGMAS, GOLDEN_STRENGTH, _ref_image
 from tests.test_pipeline import _emb, tiny_pipeline
@@ -199,7 +200,7 @@ def _u8(image: np.ndarray) -> np.ndarray:
     return np.rint(np.clip(image, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
-def test_i2i_requests_run_alone_and_equal_a_direct_generate():
+def test_i2i_requests_run_alone_and_equal_a_direct_generate(monkeypatch):
     """Two same-shape I2I requests (one with strength 0.5, its reference as a
     data URL) run as two batches of one; each PNG equals a direct generate
     with that request's seed, references and init."""
@@ -207,6 +208,8 @@ def test_i2i_requests_run_alone_and_equal_a_direct_generate():
     emb = torch.from_numpy(np.array(_emb(tiny_pipelines()[0])))
     rng = np.random.RandomState(3)
     refs = [_u8(rng.rand(64, 64, 3)).astype(np.float32) / 255.0 for _ in range(2)]
+    spans = tprof.PhaseProfiler(enabled=True)
+    monkeypatch.setattr(tprof, "_shared", spans)  # the server's serve.queue spans give each request's batch
     server = Flux2Server(tpipe, embeddings_fn=lambda prompt: emb, batch_window_s=1.0)
     reqs = [{"prompt": "a", "height": 64, "width": 64, "steps": 2, "seed": 5, "references": [_b64_png(refs[0])]},
             {"prompt": "b", "height": 64, "width": 64, "steps": 2, "seed": 6, "strength": 0.5,
@@ -227,7 +230,7 @@ def test_i2i_requests_run_alone_and_equal_a_direct_generate():
             t.join(timeout=120)
         assert not errors and not any(t.is_alive() for t in threads)
         assert (server.batches_run, server.requests_served) == (2, 2)
-        assert [r["batch_size"] for r in server.request_timings] == [1, 1]
+        assert [sp.attrs["batch"] for sp in spans.spans("serve.queue")] == [1, 1]
     finally:
         server.shutdown()
     lat, ids = tpipe.encode_reference_images([refs[0]])

@@ -23,6 +23,7 @@ from flux2_tpu_torch.io.jax_params import transformer_from_jax, vae_from_jax
 from flux2_tpu_torch.io.png import decode_png
 from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline, GenerationCancelled
 from flux2_tpu_torch.serve import Flux2Server
+from flux2_tpu_torch.utils import profiler as tprof
 
 from test_golden_regression import GOLDEN
 from test_pipeline import _emb, tiny_pipeline
@@ -78,8 +79,10 @@ def test_generate_cancel_raises(pipes):
         tpipe.generate(embeddings=torch.zeros(1, 8, 96), height=64, width=64, num_steps=2, cancel=lambda: True)
 
 
-def test_server_coalesces_concurrent_requests_and_honours_each_seed(pipes):
+def test_server_coalesces_concurrent_requests_and_honours_each_seed(pipes, monkeypatch):
     _, tpipe = pipes
+    spans = tprof.PhaseProfiler(enabled=True)
+    monkeypatch.setattr(tprof, "_shared", spans)  # the server's serve.queue spans give each request's batch
     embs = {f"p{i}": torch.from_numpy(np.random.RandomState(i).randn(1, 8, 96).astype(np.float32))
             for i in range(3)}
     server = Flux2Server(tpipe, embeddings_fn=embs.__getitem__, batch_window_s=3.0)
@@ -100,7 +103,7 @@ def test_server_coalesces_concurrent_requests_and_honours_each_seed(pipes):
             t.join(timeout=120)
         assert not errors and not any(t.is_alive() for t in threads)
         assert server.batches_run == 1 and server.requests_served == 3
-        assert [r["batch_size"] for r in server.request_timings] == [3, 3, 3]
+        assert [sp.attrs["batch"] for sp in spans.spans("serve.queue")] == [3, 3, 3]
         for i in range(3):
             solo = tpipe.generate(embeddings=embs[f"p{i}"], height=64, width=64, num_steps=2, seed=10 + i)
             got = decode_png(pngs[i]).astype(np.int32)
