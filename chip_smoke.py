@@ -9,7 +9,14 @@ flash forward with the row LSE, and the dQ and dK/dV backward) at the training
 shapes, K5 / K6 / K7 (the W8A8, W4A8 and grouped int8/int4 quantized
 matmuls) and the int8 activation prologue of K5 and K6 (equal to the plain
 torch chain to the bit); K1 also at the I2I slice's shapes (S = 8704, the KV
-extract pass's blocked span, 4608 queries over 8704 keys). Then, with random
+extract pass's blocked span, 4608 queries over 8704 keys); the DiT's fused
+glue G1 (adaln_modulate) and G2 (qkv_heads) through their wrappers at every
+shape of a Klein-4B forward against the chain, timed at the single block's
+beside their byte bounds; every no-grad Klein-4B forward below on a bf16
+stream launches them 41 and 30 times (Klein-9B 57 and 40), which the
+serving, I2I, KV and editing phases check beside K1; K1's device time and
+cycles (the SM clock sampled) inside full-width Klein-4B and Klein-9B
+forwards on the fused route and on the chain, and alone. Then, with random
 weights drawn on the card from a seed, at full
 Klein-4B width: the 1024^2 VAE decode (first and warm), one DiT forward per
 quantized runtime against the bf16 forward, bf16 serving through the port's
@@ -187,6 +194,9 @@ QUANT_DIT_REL_TOL = {"w8a8": 0.1, "w4a8": 0.5, "qint8": 0.06, "int4": 0.4}
 # time_linear1 (K=256). One Qwen3-4B encode: 36 layers x (q, o, gate, up,
 # down) on K5; k_proj and v_proj (N=640) dequantize.
 FORWARD_LAUNCHES = {"w8a8": 206, "w4a8": 205, "qint8": 202, "int4": 202}
+KLEIN_4B_BLOCKS, KLEIN_9B_BLOCKS = (5, 20), (8, 24)  # double, single
+# G1 and G2 timed at the Klein-4B single block's 1024^2 shape: [txt ; img] tokens, 24 heads x 128.
+GLUE_SHAPE = (1, 512 + 4096, 24)
 ENCODE_LAUNCHES_W8A8 = 180
 QMM_SHAPES = [  # (name, M, K, N) as the served path gives them
     ("image_qkvo_1024", 4096, 3072, 3072),
@@ -597,6 +607,264 @@ def phase_quant_kernel_check(card: str):
     return results
 
 
+def _bf16_neighbours(y: torch.Tensor) -> list:
+    """The bf16 values one step below and one step above each element of y."""
+    bits = y.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+    neg, zero = bits >= 0x8000, (bits & 0x7FFF) == 0
+    down = torch.where(zero, 0x8001, torch.where(neg, bits + 1, bits - 1))
+    up = torch.where(zero, 0x0001, torch.where(neg, bits - 1, bits + 1))
+    return [torch.where(b >= 0x8000, b - 0x10000, b).to(torch.int16).view(torch.bfloat16) for b in (down, up)]
+
+
+def _glue_against_chain(label: str, out: torch.Tensor, chain: torch.Tensor, others: list) -> tuple:
+    """G1 or G2's ``out`` against the chain: every element must equal the
+    chain's arithmetic after its first sum-dependent rounding y applied to y
+    or to a bf16 neighbour of y (``others``), and at least 99.9% the chain's
+    own (tests/test_torch_cuda.py holds the kernels so). (share equal, largest
+    difference)."""
+    hit = out == chain
+    share = float(hit.float().mean())
+    for c in others:
+        hit |= out == c
+    err = float((out.float() - chain.float()).abs().max())
+    if not bool(hit.all()) or share < 0.999:
+        raise AssertionError(f"[glue] {label}: {int((~hit).sum())} elements off the chain's roundings, "
+                             f"{share:.6f} equal to the chain's")
+    return share, err
+
+
+def phase_glue_check(card: str) -> dict:
+    """G1 (adaln_modulate) and G2 (qkv_heads, ops/dit_glue.py) through their
+    wrappers at every shape a Klein-4B 1024^2 forward gives them, against the
+    chain they replace on the same bf16 inputs (``_glue_against_chain``): G1
+    on the single block's [txt ; img], each double block stream (512 and 4096
+    tokens) and ``_final``'s image slice of a batch of 2 (its batch stride
+    4608 rows); G2 on the single block (4608 tokens at 0) and on a double
+    block's two streams written into one joint buffer (text at 0, image at
+    512) against the chain's concatenation. Then each timed at the single
+    block's shape by CUDA events around 50 back-to-back launches of its C entry
+    (one wrapper call costs more host time than G1 takes on the card), beside
+    its bound (bytes: inputs read once, outputs written once), one wrapper
+    call, the chain, and the host's time a call of the wrapper and of its C
+    entry. No single PyTorch call computes either."""
+    from flux2_tpu_torch.ops import dit_glue
+    from flux2_tpu_torch.ops.normalization import layer_norm, modulate, rms_norm
+    from flux2_tpu_torch.ops.rope import apply_rope, rope_embeddings, rotate_half_interleaved
+    from flux2_tpu_torch.utils.quant_candidate import host_us
+
+    _, s, h = GLUE_SHAPE
+    s_txt, d = 512, h * 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen) * scale).bfloat16()
+
+    x2 = rand(2, s, d, scale=2)  # [txt ; img] of a batch of 2
+    mod = rand(2, 1, 3, d, scale=0.5)
+    shift2, scale2 = mod[:, 0, 0], mod[:, 0, 1]  # rows of the modulation tensor, as the blocks pass them
+    x, shift, scale = x2[:1], shift2[:1], scale2[:1]
+    q, k, v = (rand(1, s, d, scale=3) for _ in range(3))
+    norm_q, norm_k, norm_added_q, norm_added_k = (
+        (1 + 0.2 * torch.randn(128, device="cuda", generator=gen)).bfloat16() for _ in range(4))
+    cos, sin = rope_embeddings(torch.randint(0, 64, (s, 4), device="cuda", generator=gen))
+
+    def heads(t):
+        return t.reshape(t.shape[0], t.shape[1], h, 128).transpose(1, 2).contiguous()
+
+    def g1_plain():
+        return modulate(layer_norm(x), shift, scale)
+
+    def g2_plain():  # as a single block runs it on the chain
+        return (apply_rope(rms_norm(heads(q), norm_q), cos, sin), apply_rope(rms_norm(heads(k), norm_k), cos, sin),
+                heads(v))
+
+    outs = [torch.empty(1, h, s, 128, device="cuda", dtype=torch.bfloat16) for _ in range(3)]
+
+    def g1():
+        return dit_glue.adaln_modulate(x, shift, scale)
+
+    def g2():
+        dit_glue.qkv_heads(q, k, v, norm_q, norm_k, cos, sin, *outs, 0)
+        return outs
+
+    checked = {}
+    for label, xs, sh, sc in (("single block [txt ; img]", x, shift, scale),
+                              ("double block text", x[:, :s_txt].contiguous(), shift, scale),
+                              ("double block image", x[:, s_txt:].contiguous(), shift, scale),
+                              ("_final's image slice, batch 2", x2[:, s_txt:], shift2, scale2)):
+        before = dit_glue.launch_counts()["adaln_modulate"]
+        out = dit_glue.adaln_modulate(xs, sh, sc)
+        torch.cuda.synchronize()
+        if dit_glue.launch_counts()["adaln_modulate"] != before + 1:
+            raise AssertionError(f"[glue] adaln_modulate, {label}: the wrapper did not launch its kernel")
+        y = layer_norm(xs)
+        checked[f"adaln_modulate, {label}"] = _glue_against_chain(
+            f"adaln_modulate, {label}", out, modulate(y, sh, sc), [modulate(n, sh, sc) for n in _bf16_neighbours(y)])
+
+    def g2_against_chain(label, streams, joint):
+        """``streams``: (q, k, v, norm_q, norm_k) in joint order; ``joint``: G2's buffers after them."""
+        ys = {"q": [], "k": []}
+        for sq, sk, sv, nq, nk in streams:
+            ys["q"].append(rms_norm(heads(sq), nq))
+            ys["k"].append(rms_norm(heads(sk), nk))
+        for i, name in enumerate(("q", "k")):
+            y = torch.cat(ys[name], dim=2)
+            cands = [y, *_bf16_neighbours(y)]
+            rope = [(a.float() * cos + rotate_half_interleaved(b.float()) * sin).to(torch.bfloat16)
+                    for a in cands for b in cands]  # a's elements rotated against b's pair elements
+            checked[f"qkv_heads {name}, {label}"] = _glue_against_chain(
+                f"qkv_heads {name}, {label}", joint[i], apply_rope(y, cos, sin), rope)
+        if not torch.equal(joint[2], torch.cat([heads(t[2]) for t in streams], dim=2)):
+            raise AssertionError(f"[glue] qkv_heads v, {label}: not the streams' heads")
+
+    before = dit_glue.launch_counts()["qkv_heads"]
+    g2()
+    torch.cuda.synchronize()
+    g2_against_chain("single block", [(q, k, v, norm_q, norm_k)], outs)
+    joint = [torch.full((1, h, s, 128), 3.0, device="cuda", dtype=torch.bfloat16) for _ in range(3)]
+    streams = [tuple(t[:, :s_txt].contiguous() for t in (q, k, v)) + (norm_added_q, norm_added_k),
+               tuple(t[:, s_txt:].contiguous() for t in (q, k, v)) + (norm_q, norm_k)]
+    for offset, stream in zip((0, s_txt), streams):
+        dit_glue.qkv_heads(*stream, cos, sin, *joint, offset)
+    torch.cuda.synchronize()
+    if dit_glue.launch_counts()["qkv_heads"] != before + 3:
+        raise AssertionError("[glue] qkv_heads: the wrapper did not launch its kernel")
+    g2_against_chain("double block, text at 0 and image at 512 in one joint buffer", streams, joint)
+    log("[glue] against the chain through the wrappers (share equal to the chain's, largest difference): "
+        + "; ".join(f"{label} {share:.6%}, {err}" for label, (share, err) in checked.items()) + f" [{card}]")
+
+    # each C entry with its arguments made once, so that back-to-back launches keep the card busy
+    stream = torch.cuda.current_stream().cuda_stream
+    g1_out = torch.empty_like(x)
+    g1_args = (x.data_ptr(), x.stride(0), shift.data_ptr(), shift.stride(0), scale.data_ptr(), scale.stride(0),
+               g1_out.data_ptr(), 1, s, d, stream)
+    g2_args = (*(t.data_ptr() for t in (q, k, v, norm_q, norm_k, cos, sin, *outs)), 1, s, h, s, 0, stream)
+    rows = {}
+    for name, kernel, plain, nbytes, entry in (
+        ("adaln_modulate", g1, g1_plain, 2 * (2 * s * d) + 2 * 2 * d,
+         lambda: dit_glue._kernel("flux2_adaln_modulate")(*g1_args)),
+        ("qkv_heads", g2, g2_plain, 2 * (2 * 3 * s * d) + 2 * 4 * s * 128 + 2 * 2 * 128,
+         lambda: dit_glue._kernel("flux2_qkv_heads")(*g2_args)),
+    ):
+        launch_ms = statistics.median(event_times(lambda: [entry() for _ in range(50)], reps=7)) / 50
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        wrapper_us, entry_us = host_us(kernel), host_us(entry)
+        bound = bound_ms(0.0, nbytes, BF16_FLOPS)
+        log(f"[glue] {name} at (B, S, H) = {GLUE_SHAPE}: by CUDA events over 50 launches {launch_ms:.4f} ms "
+            f"({nbytes / launch_ms / 1e6:.1f} GB/s, {bound[0] / launch_ms:.1%} of its {bound[0]:.6f} ms bound, "
+            f"{bound[1]}), one wrapper call {ms:.4f} ms, the chain {plain_ms:.4f} ms; host time a call: the wrapper "
+            f"{wrapper_us:.1f} us, its C entry {entry_us:.1f} us [{card}]")
+        rows[name] = {"equal": min(v[0] for label, v in checked.items() if label.startswith(name)),
+                      "err": max(v[1] for label, v in checked.items() if label.startswith(name)),
+                      "launch_ms": launch_ms, "ms": ms, "plain_ms": plain_ms, "bound": bound, "bytes": nbytes,
+                      "wrapper_host_us": wrapper_us, "entry_host_us": entry_us}
+    return rows
+
+
+class _SampledClock:
+    """While entered: ``nvidia-smi`` samples the SM clock, the power draw and
+    the throttle reasons every 20 ms; on exit the median clock, its quartiles,
+    the median power and the share of samples under the software power cap
+    (reason 0x4), over the samples above 200 W (all, if none is)."""
+
+    def __enter__(self):
+        self._proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,clocks_throttle_reasons.active",
+                                       "--format=csv,noheader,nounits", "-lms", "20"], stdout=subprocess.PIPE,
+                                      text=True)
+        time.sleep(0.3)
+        return self
+
+    def __exit__(self, *exc):
+        self._proc.terminate()
+        rows = []
+        for line in self._proc.communicate()[0].splitlines():
+            try:
+                mhz, watts, reasons = (f.strip() for f in line.split(","))
+                rows.append((float(mhz), float(watts), int(reasons, 16)))
+            except ValueError:
+                continue
+        busy = [r for r in rows if r[1] > 200] or rows
+        clocks = [r[0] for r in busy]
+        self.mhz = statistics.median(clocks)
+        self.quartiles = statistics.quantiles(clocks, n=4) if len(clocks) > 1 else [self.mhz] * 3
+        self.watts = statistics.median(r[1] for r in busy)
+        self.capped = sum(1 for r in busy if r[2] & 0x4) / len(busy)
+        self.samples = len(busy)
+        return False
+
+
+def phase_k1_clock(card: str) -> dict:
+    """K1 (flash_fwd_kernel) in back-to-back full-width 1024^2 DiT forwards of
+    Klein-4B (40) and Klein-9B (20) under inference_mode, on the fused glue
+    route and on the torch chain (``transformer._fused`` forced false: the
+    route the parent of G1 / G2 ran; a tree without ``_fused`` runs the chain
+    alone), then alone (CUDA events, 50 back-to-back launches at the served
+    shape): its device time a launch (torch.profiler), its share of its bound
+    and its cycles (time x the median SM clock sampled meanwhile), so that a
+    fall of ``flash_fwd_roofline.serve`` can be told apart from the clock."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from flux2_tpu_torch.models.flux2 import transformer as tr
+    from flux2_tpu_torch.models.flux2.config import KLEIN_4B, KLEIN_9B
+    from flux2_tpu_torch.ops import flash_attention as fa
+    from flux2_tpu_torch.ops import latents as lu
+    from flux2_tpu_torch.ops.rope import rope_embeddings
+
+    fused = getattr(tr, "_fused", None)
+    routes = ("fused", "chain", "fused", "chain") if fused else ("chain", "chain")
+    ids = np.concatenate([lu.text_position_ids(512), lu.image_position_ids(1024, 1024)])
+    cos, sin = rope_embeddings(torch.from_numpy(ids).cuda())
+    out = {}
+    try:
+        for name, cfg, forwards in (("klein4b", KLEIN_4B, 40), ("klein9b", KLEIN_9B, 20)):
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            model = tr.Flux2Transformer(cfg, device="cuda", dtype=torch.bfloat16, generator=gen)
+            img = torch.randn(1, 4096, cfg.in_channels, device="cuda", generator=gen).bfloat16()
+            txt = torch.randn(1, 512, cfg.joint_attention_dim, device="cuda", generator=gen).bfloat16()
+            t = torch.full((1,), 0.7, device="cuda")
+            h = cfg.num_attention_heads
+            bound_us = 4 * h * 4608 * 4608 * 128 / BF16_FLOPS * 1e6
+            rows = out[name] = []
+            for route in routes:
+                if fused:
+                    tr._fused = fused if route == "fused" else (lambda *tensors: False)
+                with torch.inference_mode():
+                    for _ in range(3):
+                        model(img, txt, t, cos, sin)
+                    torch.cuda.synchronize()
+                    with _SampledClock() as clk, profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        for _ in range(forwards):
+                            model(img, txt, t, cos, sin)
+                        torch.cuda.synchronize()
+                        forward_ms = (time.perf_counter() - t0) / forwards * 1e3
+                k1 = [e for e in prof.key_averages() if "flash_fwd_kernel" in e.key]
+                n = sum(e.count for e in k1)
+                us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0) for e in k1) / n
+                rows.append({"route": route, "forward_ms": forward_ms, "k1_us": us, "launches": n, "mhz": clk.mhz,
+                             "watts": clk.watts, "capped": clk.capped, "cycles": us * clk.mhz})
+                log(f"[k1 clock] {name} {route}: forward {forward_ms:.2f} ms; K1 in the forwards {us:.2f} us x {n} "
+                    f"({bound_us / us:.2%} of its bound); SM clock median {clk.mhz:.0f} MHz, quartiles "
+                    f"{[round(x) for x in clk.quartiles]}, {clk.watts:.0f} W, power cap in {clk.capped:.0%} of "
+                    f"{clk.samples} samples; K1 {us * clk.mhz:.4g} cycles [{card}]")
+            q, k, v = (torch.randn(1, h, 4608, 128, device="cuda", generator=gen).bfloat16() for _ in range(3))
+            with torch.inference_mode(), _SampledClock() as clk:
+                us = statistics.median(event_times(lambda: [fa.flash_attention(q, k, v) for _ in range(50)],
+                                                   reps=15)) / 50 * 1e3
+            rows.append({"route": "alone", "k1_us": us, "mhz": clk.mhz, "watts": clk.watts, "capped": clk.capped,
+                         "cycles": us * clk.mhz})
+            log(f"[k1 clock] {name} K1 alone (CUDA events, 50 back-to-back): {us:.2f} us ({bound_us / us:.2%} of its "
+                f"bound); SM clock median {clk.mhz:.0f} MHz, {clk.watts:.0f} W, power cap in {clk.capped:.0%}; K1 "
+                f"{us * clk.mhz:.4g} cycles [{card}]")
+            del model, q, k, v
+            torch.cuda.empty_cache()
+    finally:
+        if fused:
+            tr._fused = fused
+    return out
+
+
 def _prologue_check(card: str) -> dict:
     """K5's and K6's activation prologue (quant_kernels.quantize_activations)
     against the plain torch chain on the card, at the served shapes, per row
@@ -677,29 +945,45 @@ def _qmm_yardsticks(kind: str, x, w, card: str) -> dict:
 
 
 def _zero_launches():
+    from flux2_tpu_torch.ops import dit_glue
     from flux2_tpu_torch.ops import flash_attention as fa
     from flux2_tpu_torch.ops import quant_kernels as qk
 
     fa.reset_launches()
     qk.reset_launches()
+    dit_glue.reset_launches()
 
 
-def _launch_counts() -> dict:
+def _launch_counts(glue: bool = False) -> dict:
     """Every kernel's count: K1 "flash", K2 "flash_lse", K3 "flash_bwd_dq", K4
-    "flash_bwd_dkv", and the quantized matmuls' (a path checks all of them)."""
+    "flash_bwd_dkv", and the quantized matmuls' (a path checks all of them).
+    With ``glue`` also G1 "adaln_modulate" and G2 "qkv_heads": the serving,
+    I2I, KV and editing phases check them (``_forward_glue``); the other
+    phases' expected counts leave them out."""
+    from flux2_tpu_torch.ops import dit_glue
     from flux2_tpu_torch.ops import flash_attention as fa
     from flux2_tpu_torch.ops import quant_kernels as qk
 
-    return {**fa.launch_counts(), **qk.launches}
+    return {**fa.launch_counts(), **qk.launches, **(dit_glue.launch_counts() if glue else {})}
+
+
+def _forward_glue(double: int, single: int, forwards: int = 1) -> dict:
+    """G1's and G2's launches in ``forwards`` no-grad DiT forwards on a bf16
+    stream (``transformer._fused``), under any runtime: G1 two a stream in each
+    double block, one in each single block and one in ``_final``; G2 one a
+    stream a block."""
+    return {"adaln_modulate": forwards * (4 * double + single + 1), "qkv_heads": forwards * (2 * double + single)}
 
 
 def phase_quant_model_check(pipe, card: str) -> dict:
     """One full-width Klein-4B DiT forward at 1024^2 per quantized runtime (a
-    copy of the bf16 DiT, quantized on the card) against the bf16 forward."""
+    copy of the bf16 DiT, quantized on the card) against the bf16 forward; each
+    forward launches the fused glue as ``_forward_glue`` says."""
     import copy
 
     import numpy as np
 
+    from flux2_tpu_torch.ops import dit_glue
     from flux2_tpu_torch.ops import latents as lu
     from flux2_tpu_torch.ops import quant as tq
     from flux2_tpu_torch.ops.rope import rope_embeddings
@@ -711,9 +995,13 @@ def phase_quant_model_check(pipe, card: str) -> dict:
     t = torch.full((1,), 0.7, device="cuda")
 
     def forward(model):
+        dit_glue.reset_launches()
         with torch.inference_mode():
             out = model(noise, emb, t, cos, sin)
         torch.cuda.synchronize()
+        if dit_glue.launch_counts() != _forward_glue(*KLEIN_4B_BLOCKS):
+            raise AssertionError(f"a Klein-4B forward launched {dit_glue.launch_counts()} of the fused glue, want "
+                                 f"{_forward_glue(*KLEIN_4B_BLOCKS)}")
         return out
 
     def timed(model) -> float:
@@ -827,7 +1115,7 @@ def phase_cfg_serve(pipe, card: str) -> dict:
         t0 = time.perf_counter()
         png = server.generate_png(req)
         wall = time.perf_counter() - t0
-        counts = _launch_counts()
+        counts = _launch_counts(glue=True)
     finally:
         server.shutdown()
     img = decode_png(png)
@@ -838,7 +1126,7 @@ def phase_cfg_serve(pipe, card: str) -> dict:
         raise AssertionError(f"CFG request: latents {tuple(res.latents_device.shape)}, finite "
                              f"{bool(torch.isfinite(res.latents_device).all())}")
     want = {name: 0 for name in counts}
-    want["flash"] = 25 * 4
+    want.update(flash=25 * 4, **_forward_glue(*KLEIN_4B_BLOCKS, 4))
     if counts != want:
         raise AssertionError(f"CFG request launched {counts}, want {want}")
     if "" not in base._prompt_cache:
@@ -910,10 +1198,14 @@ def _filtered_png(image_u8) -> tuple:
             + tpng._chunk(b"IEND", b"")), "the Paeth filter (Pillow not importable)"
 
 
-def _check_launches(label: str, counts: dict, flash: int) -> None:
+def _check_launches(label: str, counts: dict, flash: int, blocks: tuple = KLEIN_4B_BLOCKS) -> None:
+    """``counts`` (``_launch_counts(glue=True)``) hold ``flash`` K1 launches, one
+    a block of no-grad forwards on a bf16 stream through ``blocks`` (double,
+    single), those forwards' G1 and G2 launches, and nothing else."""
+    forwards, rest = divmod(flash, sum(blocks))
     want = {name: 0 for name in counts}
-    want["flash"] = flash
-    if counts != want:
+    want.update(flash=flash, **_forward_glue(*blocks, forwards))
+    if rest or counts != want:
         raise AssertionError(f"{label} launched {counts}, want {want}")
 
 
@@ -963,7 +1255,7 @@ def phase_i2i(pipe, card: str) -> dict:
                reference_ids=ids)
     _zero_launches()
     res = pipe.generate(**i2i)
-    counts = i2i_counts = _launch_counts()
+    counts = i2i_counts = _launch_counts(glue=True)
     _check_launches("Klein-4B 1024^2 I2I", counts, 25 * 4)
     if tuple(res.latents_device.shape) != (1, 4096, 128) or not torch.isfinite(res.latents_device).all():
         raise AssertionError(f"I2I latents {tuple(res.latents_device.shape)}, finite "
@@ -978,7 +1270,7 @@ def phase_i2i(pipe, card: str) -> dict:
     init = pipe.encode_image_to_packed_sequence(ref)
     _zero_launches()
     strong = pipe.generate(**i2i, strength=0.5, init_latents=init)
-    counts = _launch_counts()
+    counts = _launch_counts(glue=True)
     _check_launches("strength 0.5", counts, 25 * 2)
     if strong.num_steps != 2 or not torch.isfinite(strong.latents_device).all():
         raise AssertionError(f"strength 0.5 ran {strong.num_steps} steps, finite "
@@ -1008,7 +1300,7 @@ def phase_i2i(pipe, card: str) -> dict:
         t0 = time.perf_counter()
         pngs = _concurrent(server, reqs)
         wall = time.perf_counter() - t0
-        counts = _launch_counts()
+        counts = _launch_counts(glue=True)
     finally:
         server.shutdown()
     _check_launches("two I2I requests", counts, 25 * 4 + 25 * 2)
@@ -1049,11 +1341,11 @@ class _KVSplit:
 
     def _counting(self, key, fn):
         def wrapped(*args, **kwargs):
-            before = _launch_counts()["flash"]
+            before = _launch_counts(glue=True)["flash"]
             try:
                 return fn(*args, **kwargs)
             finally:
-                self.counts[key] += 1 if key == "kv_loops" else _launch_counts()["flash"] - before
+                self.counts[key] += 1 if key == "kv_loops" else _launch_counts(glue=True)["flash"] - before
         return wrapped
 
     def __exit__(self, *exc):
@@ -1098,11 +1390,11 @@ def phase_kv_cli(card: str, workdir: str) -> dict:
             argv = ["i2i", "--model", "klein-9b-kv", "--random-init", "--reference", ref_path, "--height", "1024",
                     "--width", "1024", "--steps", "4", "--prompt", I2I_PROMPT, "-o", out]
             lines = _run_cli(argv, "i2i klein-9b-kv", card)
-            counts = _launch_counts()
+            counts = _launch_counts(glue=True)
     finally:
         cli.build_pipeline = original
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    _check_launches("i2i --model klein-9b-kv", counts, 32 + 3 * 32)
+    _check_launches("i2i --model klein-9b-kv", counts, 32 + 3 * 32, KLEIN_9B_BLOCKS)
     if split.counts != {"kv_loops": 1, "extract": 32, "cached": 3 * 32}:
         raise AssertionError(f"i2i --model klein-9b-kv: {split.counts}, want one KV loop with 32 K1 launches in "
                              f"forward_kv_extract and 96 in forward_kv_cached")
@@ -1126,12 +1418,12 @@ def phase_kv_cli(card: str, workdir: str) -> dict:
     with torch.inference_mode():
         _zero_launches()
         v_extract, dkv, skv = pipe.transformer.forward_kv_extract(x, lat.bfloat16(), emb, t0, *extract_rope)
-        counts_extract = _launch_counts()
+        counts_extract = _launch_counts(glue=True)
         _zero_launches()
         v_cached = pipe.transformer.forward_kv_cached(x, emb, t0, *cached_rope, dkv, skv)
-        counts_cached = _launch_counts()
-    _check_launches("one forward_kv_extract", counts_extract, 32)
-    _check_launches("one forward_kv_cached", counts_cached, 32)
+        counts_cached = _launch_counts(glue=True)
+    _check_launches("one forward_kv_extract", counts_extract, 32, KLEIN_9B_BLOCKS)
+    _check_launches("one forward_kv_cached", counts_cached, 32, KLEIN_9B_BLOCKS)
     rel = float((v_cached.float() - v_extract.float()).norm() / v_extract.float().norm())
     cache_gib = sum(t.numel() * t.element_size() for kv in dkv + skv for t in kv) / 2**30
     del dkv, skv, v_extract, v_cached
@@ -1150,8 +1442,8 @@ def phase_kv_cli(card: str, workdir: str) -> dict:
     with _KVSplit() as split_hook:
         _zero_launches()
         hooked = pipe.generate(**i2i, step_hook=identity)
-        counts_hook = _launch_counts()
-    _check_launches("klein-9b-kv I2I with the identity RePaint hook", counts_hook, 32 + 3 * 32)
+        counts_hook = _launch_counts(glue=True)
+    _check_launches("klein-9b-kv I2I with the identity RePaint hook", counts_hook, 32 + 3 * 32, KLEIN_9B_BLOCKS)
     if split_hook.counts != split.counts or not torch.equal(hooked.latents_device, kv.latents_device):
         raise AssertionError(f"klein-9b-kv with the identity hook: {split_hook.counts}; latents equal to the "
                              f"unhooked call's: {torch.equal(hooked.latents_device, kv.latents_device)}")
@@ -1163,8 +1455,8 @@ def phase_kv_cli(card: str, workdir: str) -> dict:
     with _KVSplit() as split_plain:
         _zero_launches()
         plain.generate(**i2i)
-        counts_plain = _launch_counts()
-    _check_launches("klein-9b I2I (uncached)", counts_plain, 32 * 4)
+        counts_plain = _launch_counts(glue=True)
+    _check_launches("klein-9b I2I (uncached)", counts_plain, 32 * 4, KLEIN_9B_BLOCKS)
     if split_plain.counts != {"kv_loops": 0, "extract": 0, "cached": 0}:
         raise AssertionError(f"klein-9b I2I (uncached) went into the KV path: {split_plain.counts}")
     uncached = plain.generate(**i2i)
@@ -1322,7 +1614,7 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
     t0 = time.perf_counter()
     res = MaskedInpaintingChain(pipe, EDIT_PROMPT, src, mask, seed=EDIT_SEED, steps=4).run()
     wall = time.perf_counter() - t0
-    counts = _launch_counts()
+    counts = _launch_counts(glue=True)
     _check_launches("inpaint (T2I mode)", counts, 25 * 4)
     launches["inpaint"] = counts["flash"]
     source = pipe.encode_image_to_packed_sequence(src)
@@ -1345,7 +1637,7 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
         png_path = os.path.join(workdir, "inpaint.png")
         _zero_launches()
         _run_cli([*base, "-o", png_path], "inpaint", card, tag="edit")
-        _check_launches("inpaint subcommand", _launch_counts(), 25 * 4)
+        _check_launches("inpaint subcommand", _launch_counts(glue=True), 25 * 4)
         with open(png_path, "rb") as f:
             if f.read() != _png_of(res.image):
                 raise AssertionError("the inpaint subcommand's PNG differs from the in-process chain's")
@@ -1355,7 +1647,7 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
         _run_cli([*base, "--use-image-as-reference", "--strength", "0.5", "-o", ref_path],
                  "inpaint --use-image-as-reference --strength 0.5", card, tag="edit")
         wall_ref = time.perf_counter() - t0
-        counts = _launch_counts()
+        counts = _launch_counts(glue=True)
         _check_launches("inpaint --use-image-as-reference --strength 0.5", counts, 25 * 2)
         launches["inpaint_reference_strength"] = counts["flash"]
         s_ref = rec.calls[-1]["reference_latents"].shape[1]
@@ -1367,7 +1659,7 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
         _zero_launches()
         _run_cli([*base, "--crop-padding", "64", "--composite", "-o", crop_path], "inpaint --crop-padding 64 "
                  "--composite", card, tag="edit")
-        counts = _launch_counts()
+        counts = _launch_counts(glue=True)
         _check_launches("inpaint --crop-padding 64 --composite", counts, 25 * 4)
         x0, y0, x1, y1 = expand_crop_region(mask_bounding_box(mask), 64, 1024, 1024)
         outside = np.ones((1024, 1024), bool)
@@ -1390,7 +1682,7 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
         _run_cli(["outpaint", "--random-init", "--image", paths["src768"], "--top", "128", "--bottom", "128", "--left",
                   "128", "--right", "128", "--prompt", EDIT_PROMPT, "--seed", str(EDIT_SEED), "--steps", "4", "-o",
                   out_path], "outpaint", card, tag="edit")
-        counts = _launch_counts()
+        counts = _launch_counts(glue=True)
         _check_launches("outpaint 768^2 -> 1024^2", counts, 25 * 4)
         launches["outpaint"] = counts["flash"]
         s_out = 512 + 4096 + rec.calls[-1]["reference_latents"].shape[1]
@@ -1409,7 +1701,7 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
     pipe.generate(**t2i, on_progress=lambda k, n: progress.append((k, n)),
                   on_latents=lambda k, lat: lats.append((k, lat)), checkpoint_interval=1,
                   on_checkpoint=lambda k, img: checkpoints.append((k, img)))
-    _check_launches("T2I with callbacks", _launch_counts(), 25 * 4)
+    _check_launches("T2I with callbacks", _launch_counts(glue=True), 25 * 4)
     if (progress != [(1, 4), (2, 4), (3, 4), (4, 4)] or [k for k, _ in lats] != [1, 2, 3, 4]
             or any(lat.shape != (1, 4096, 128) or lat.dtype != np.float32 for _, lat in lats)
             or [k for k, _ in checkpoints] != [1, 2, 3]):
@@ -1430,7 +1722,7 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
         _zero_launches()
         lines = _run_cli(["t2i", "--random-init", "--prompt", EDIT_PROMPT, "--seed", str(EDIT_SEED), "--steps", "4",
                           "--checkpoint-every", "2", "-o", ck_path], "t2i --checkpoint-every 2", card, tag="edit")
-        _check_launches("t2i --checkpoint-every 2", _launch_counts(), 25 * 4)
+        _check_launches("t2i --checkpoint-every 2", _launch_counts(glue=True), 25 * 4)
     step_path = os.path.join(workdir, "x_step_002.png")
     if (lines[:2] != [f"saved {step_path}", f"saved {ck_path}"] or _read_png(step_path).shape != (1024, 1024, 3)
             or sorted(f for f in os.listdir(workdir) if f.startswith("x")) != ["x.png", "x_step_002.png"]):
@@ -1442,7 +1734,7 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
         raise AssertionError("the generate was not cancelled")
     except GenerationCancelled as e:
         message = str(e)
-    counts = _launch_counts()
+    counts = _launch_counts(glue=True)
     _check_launches("cancel after step 2", counts, 25 * 3)
     launches["cancel"] = counts["flash"]
     if message != "cancelled at step 3/4":
@@ -1492,7 +1784,7 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
         _run_cli(["t2i", "--random-init", "--height", "2048", "--width", "2048", "--memory-profile", "conservative",
                   "--prompt", EDIT_PROMPT, "--seed", str(EDIT_SEED), "--steps", "4", "-o", big_path],
                  "t2i 2048^2 --memory-profile conservative", card, tag="edit")
-        counts = _launch_counts()
+        counts = _launch_counts(glue=True)
     _check_launches("t2i 2048^2 --memory-profile conservative", counts, 25 * 4)
     launches["t2i_2048_tiled"] = counts["flash"]
     if counted.calls != 25 or _read_png(big_path).shape != (2048, 2048, 3):
@@ -1517,7 +1809,7 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
         _zero_launches()
         _run_cli(["t2i", "--small-decoder", "--random-init", "--prompt", EDIT_PROMPT, "--seed", str(EDIT_SEED),
                   "--steps", "4", "-o", small_path], "t2i --small-decoder", card, tag="edit")
-        counts = _launch_counts()
+        counts = _launch_counts(glue=True)
     finally:
         cli.build_pipeline = original
     _check_launches("t2i --small-decoder", counts, 25 * 4)
@@ -1556,7 +1848,7 @@ def phase_edit(pipe, card: str, workdir: str, t2i_s_per_step: float, decode_warm
         _zero_launches()
         server.generate_png(req)
         server.generate_png(dict(req, preview_id="edit-preview"))
-        counts = _launch_counts()
+        counts = _launch_counts(glue=True)
     finally:
         server.shutdown()
     _check_launches("two served requests", counts, 2 * 25 * 4)
@@ -1652,7 +1944,7 @@ def phase_http(pipe, card: str) -> dict:
             t0 = time.perf_counter()
             status, headers, body = http(method, path, payload, raw)
             wall = time.perf_counter() - t0
-            counts = _launch_counts()
+            counts = _launch_counts(glue=True)
             _check_launches(label, counts, flash)
             out.setdefault("launches", {})[label] = counts["flash"]
             return status, headers, body, wall
@@ -1695,7 +1987,7 @@ def phase_http(pipe, card: str) -> dict:
             t0 = time.perf_counter()
             direct = server.generate_png(req)
             walls["in_process"].append(time.perf_counter() - t0)
-            _check_launches("generate_png in the process", _launch_counts(), 100)
+            _check_launches("generate_png in the process", _launch_counts(glue=True), 100)
         res = pipe.generate(prompt=HTTP_PROMPT, height=1024, width=1024, num_steps=4, seed=21)
         want = to_u8(res.image)
         for label, data in (("PNG", png), ("json", json_png), ("generate_png", direct)):
@@ -1730,7 +2022,7 @@ def phase_http(pipe, card: str) -> dict:
         for th in threads:
             th.join(timeout=600)
         wall = time.perf_counter() - t0
-        _check_launches("three concurrent 256^2 requests", _launch_counts(), 100)
+        _check_launches("three concurrent 256^2 requests", _launch_counts(glue=True), 100)
         for r in results:
             _expect("POST /generate 256^2", r[0], 200, r[2])
             if decode_png(r[2]).shape != (256, 256, 3):
@@ -1755,7 +2047,7 @@ def phase_http(pipe, card: str) -> dict:
                 seen.append((int(headers["X-Step"]), int(headers["X-Total-Steps"]), decode_png(body).shape))
             time.sleep(0.02)
         sender.join()
-        _check_launches("a request with a preview id", _launch_counts(), 100)
+        _check_launches("a request with a preview id", _launch_counts(glue=True), 100)
         _expect("POST /generate with a preview id", answer[0][0], 200, answer[0][2])
         if not seen or any(not 1 <= k <= 4 or n != 4 or shape != (128, 128, 3) for k, n, shape in seen):
             raise AssertionError(f"/preview while running: {seen}")
@@ -1831,7 +2123,7 @@ def phase_http(pipe, card: str) -> dict:
             status, _, body = http("POST", "/chat", {"messages": [{"role": "user", "content": "hi"}],
                                                      "stream": stream})
             _expect(f"POST /chat stream={stream} without an encoder", status, 503, body)
-        _check_launches("504 and 503", _launch_counts(), 0)
+        _check_launches("504 and 503", _launch_counts(glue=True), 0)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1852,7 +2144,7 @@ def phase_http(pipe, card: str) -> dict:
             time.sleep(0.005)
         cancelled = server.cancel_all()
         sender.join(timeout=120)
-        counts = _launch_counts()
+        counts = _launch_counts(glue=True)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1957,7 +2249,7 @@ def phase_mask(pipe, card: str, workdir: str) -> dict:
     t0 = time.perf_counter()
     lines = _run_cli(["mask-subject", "--image", image_path, "-o", mask_path], "mask-subject", card, tag="mask")
     out["command_s"] = time.perf_counter() - t0
-    _check_launches("mask-subject", _launch_counts(), 0)
+    _check_launches("mask-subject", _launch_counts(glue=True), 0)
     report = json.loads(lines[-1])
     loaded = decode_image(open(image_path, "rb").read())
     model = default_segmenter("cuda")
@@ -2005,7 +2297,7 @@ def phase_mask(pipe, card: str, workdir: str) -> dict:
         _run_cli(["inpaint", "--random-init", "--image", image_path, "--mask", mask_path, "--prompt",
                   "a sunlit meadow around the subject", "--seed", str(EDIT_SEED), "--steps", "4", "-o", out_path],
                  "inpaint --mask <subject mask>", card, tag="mask")
-        counts = _launch_counts()
+        counts = _launch_counts(glue=True)
     _check_launches("inpaint with the subject mask", counts, 25 * 4)
     res = rec.results[-1]
     out["inpaint_launches"] = counts["flash"]
@@ -5401,7 +5693,7 @@ def phase_serve(pipe, card: str, label: str, expected: dict):
         t0 = time.perf_counter()
         pngs = _concurrent(server, big) + _concurrent(server, small)
         wall = time.perf_counter() - t0
-        counts = _launch_counts()
+        counts = _launch_counts(glue=True)
     finally:
         server.shutdown()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -5450,6 +5742,8 @@ def main() -> int:
     checks = phase_kernel_check(card)
     grad_checks = phase_flash_grad_check(card)
     qchecks = phase_quant_kernel_check(card)
+    glue = phase_glue_check(card)
+    phase_k1_clock(card)
 
     t0 = time.perf_counter()
     pipe, tok_name = build_pipeline()
@@ -5460,7 +5754,8 @@ def main() -> int:
     model_launches = phase_quant_model_check(pipe, card)
 
     flash_launches = 25 * 4 * 3
-    counts, bf16_peak = phase_serve(pipe, card, "bf16", {"flash": flash_launches})
+    serve_glue = _forward_glue(*KLEIN_4B_BLOCKS, 4 * 3)
+    counts, bf16_peak = phase_serve(pipe, card, "bf16", {"flash": flash_launches, **serve_glue})
     phase_cfg_serve(pipe, card)
     t0 = time.perf_counter()
     i2i = phase_i2i(pipe, card)
@@ -5505,7 +5800,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated [{card}]")
     w8a8_launches = FORWARD_LAUNCHES["w8a8"] * 4 * 3 + ENCODE_LAUNCHES_W8A8 * 5
     qcounts, w8a8_peak = phase_serve(qpipe, card, "w8a8", {"flash": flash_launches, "w8a8": w8a8_launches,
-                                                           "quantize_rows": w8a8_launches})
+                                                           "quantize_rows": w8a8_launches, **serve_glue})
     log(f"[serve] peak device memory: w8a8 {w8a8_peak:.2f} GiB vs bf16 {bf16_peak:.2f} GiB [{card}]")
     del qpipe
     drop_encoders()
@@ -5757,6 +6052,18 @@ def main() -> int:
         f"{edit['decode_2048']['tiled']['warm_s']:.4f} s / {edit['decode_2048']['tiled']['peak_gib']:.2f} GiB; small "
         f"decoder 1024^2 {edit['small_decode']['warm_s']:.4f} s against {decode['warm_s']:.4f} s; auto_profile "
         f"klein-4b {edit['auto_profile_klein-4b']}, klein-9b {edit['auto_profile_klein-9b']} [{card}]")
+    # G1 and G2 at the Klein-4B single block's shape (GLUE_SHAPE), timed by CUDA events; launches as counted
+    # in the bf16 serving run (3 batches of 4 steps) and the klein-9b-kv CLI image
+    for name in ("adaln_modulate", "qkv_heads"):
+        row = glue[name]
+        kernels.append({"name": name, "route": "cuda", "source": "flux2_tpu_torch/csrc/dit_glue.cu",
+                        "replaces": "no TPU kernel: XLA fused this glue on the TPU", "launches": counts[name],
+                        "launches_per_unit": _forward_glue(*KLEIN_4B_BLOCKS, 4)[name],
+                        "unit": "1024^2 image (4 Klein-4B forwards)", "launches_kv_cli": kv["counts"][name],
+                        "equal_to_chain": row["equal"], "max_abs_err": row["err"], "events_ms": row["launch_ms"],
+                        "wrapper_ms": row["ms"], "wrapper_host_us": row["wrapper_host_us"],
+                        "entry_host_us": row["entry_host_us"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0], "bound_by": row["bound"][1]})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

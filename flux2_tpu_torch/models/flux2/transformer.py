@@ -49,6 +49,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from flux2_tpu_torch.models.flux2.config import Flux2TransformerConfig
 from flux2_tpu_torch.ops.attention import sdpa
+from flux2_tpu_torch.ops import dit_glue
 from flux2_tpu_torch.ops.normalization import gate, layer_norm, modulate, rms_norm
 from flux2_tpu_torch.ops.quant import q_linear
 from flux2_tpu_torch.ops.rope import apply_rope
@@ -110,6 +111,29 @@ def _unheads(x: torch.Tensor) -> torch.Tensor:
     """[B, H, S, D] -> [B, S, H*D]."""
     b, h, s, d = x.shape
     return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _fused(*tensors: torch.Tensor) -> bool:
+    """The route of the block's glue: the hand-written kernels G1 and G2
+    (``ops/dit_glue.py``) when autograd records nothing (serving, previews,
+    held-out and DOP base passes) and every tensor they take is a plain bf16
+    one; else the torch chain (the train step and its remat recompute, the
+    sharded and ring runtimes' DTensors, an f32 stream, projection or norm)."""
+    return not torch.is_grad_enabled() and all(
+        t.dtype == torch.bfloat16 and not isinstance(t, DTensor) for t in tensors)
+
+
+def _adaln(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``modulate(layer_norm(x), shift, scale)``: G1 on the fused route."""
+    if _fused(x, shift, scale):
+        return dit_glue.adaln_modulate(x, shift, scale)
+    return modulate(layer_norm(x), shift, scale)
+
+
+def _joint_buffers(x: torch.Tensor, num_heads: int, s_joint: int) -> List[torch.Tensor]:
+    """G2's joint q, k and v: empty [B, H, S_joint, head_dim] in x's dtype, x a projection [B, S, H*head_dim]."""
+    b, _, d = x.shape
+    return [x.new_empty(b, num_heads, s_joint, d // num_heads) for _ in range(3)]
 
 
 def _lmm(x: torch.Tensor, w, lora: Optional[nn.ModuleDict], name: str, scale: float,
@@ -182,22 +206,27 @@ class DoubleBlock(nn.Module):
         ``ring=(mesh, axis)``: ring attention."""
         nh = self.num_heads
         s_txt = txt.shape[1]
-        img_n = modulate(layer_norm(img), img_mod[:, 0, 0], img_mod[:, 0, 1])
-        txt_n = modulate(layer_norm(txt), txt_mod[:, 0, 0], txt_mod[:, 0, 1])
+        img_n = _adaln(img, img_mod[:, 0, 0], img_mod[:, 0, 1])
+        txt_n = _adaln(txt, txt_mod[:, 0, 0], txt_mod[:, 0, 1])
 
         def proj(x, name, full=False):
             return _lmm(x, getattr(self, name), lora, name, lora_scale, full)
 
-        q_img = rms_norm(_heads(proj(img_n, "to_q"), nh), self.norm_q)
-        k_img = rms_norm(_heads(proj(img_n, "to_k"), nh), self.norm_k)
-        v_img = _heads(proj(img_n, "to_v"), nh)
-        q_txt = rms_norm(_heads(proj(txt_n, "add_q"), nh), self.norm_added_q)
-        k_txt = rms_norm(_heads(proj(txt_n, "add_k"), nh), self.norm_added_k)
-        v_txt = _heads(proj(txt_n, "add_v"), nh)
-
-        q = apply_rope(torch.cat([q_txt, q_img], dim=2), rope_cos, rope_sin)
-        k = apply_rope(torch.cat([k_txt, k_img], dim=2), rope_cos, rope_sin)
-        v = torch.cat([v_txt, v_img], dim=2)
+        q_txt, k_txt, v_txt = (proj(txt_n, name) for name in ("add_q", "add_k", "add_v"))
+        q_img, k_img, v_img = (proj(img_n, name) for name in ("to_q", "to_k", "to_v"))
+        if _fused(q_txt, k_txt, v_txt, q_img, k_img, v_img, self.norm_added_q, self.norm_added_k, self.norm_q,
+                  self.norm_k):
+            q, k, v = _joint_buffers(q_img, nh, s_txt + img.shape[1])
+            dit_glue.qkv_heads(q_txt, k_txt, v_txt, self.norm_added_q, self.norm_added_k, rope_cos, rope_sin, q, k, v,
+                               0)
+            dit_glue.qkv_heads(q_img, k_img, v_img, self.norm_q, self.norm_k, rope_cos, rope_sin, q, k, v, s_txt)
+        else:
+            q = apply_rope(torch.cat([rms_norm(_heads(q_txt, nh), self.norm_added_q),
+                                      rms_norm(_heads(q_img, nh), self.norm_q)], dim=2), rope_cos, rope_sin)
+            k = apply_rope(torch.cat([rms_norm(_heads(k_txt, nh), self.norm_added_k),
+                                      rms_norm(_heads(k_img, nh), self.norm_k)], dim=2), rope_cos, rope_sin)
+            v = torch.cat([_heads(v_txt, nh), _heads(v_img, nh)], dim=2)
+        del q_txt, k_txt, v_txt, q_img, k_img, v_img  # the projections, before the attention
         extracted = _extract(k, v, kv_extract_span)
         k, v = _insert(k, v, extra_kv, s_txt)
         attn = sdpa(q, k, v, blocked_span=blocked_span, ring=ring, bounded_logits=True)  # qk are RMS-normed above
@@ -205,8 +234,8 @@ class DoubleBlock(nn.Module):
         img = img + gate(proj(_unheads(attn[:, :, s_txt:]), "to_out", True), img_mod[:, 0, 2])
         txt = txt + gate(proj(_unheads(attn[:, :, :s_txt]), "add_out", True), txt_mod[:, 0, 2])
 
-        img_n2 = modulate(layer_norm(img), img_mod[:, 1, 0], img_mod[:, 1, 1])
-        txt_n2 = modulate(layer_norm(txt), txt_mod[:, 1, 0], txt_mod[:, 1, 1])
+        img_n2 = _adaln(img, img_mod[:, 1, 0], img_mod[:, 1, 1])
+        txt_n2 = _adaln(txt, txt_mod[:, 1, 0], txt_mod[:, 1, 1])
         img = img + gate(_swiglu(img_n2, self, "ff_in", "ff_out", lora, lora_scale), img_mod[:, 1, 2])
         txt = txt + gate(_swiglu(txt_n2, self, "ff_ctx_in", "ff_ctx_out", lora, lora_scale), txt_mod[:, 1, 2])
         if kv_extract_span is not None:
@@ -241,10 +270,16 @@ class SingleBlock(nn.Module):
         def proj(x, name, full=False):
             return _lmm(x, getattr(self, name), lora, name, lora_scale, full)
 
-        x_n = modulate(layer_norm(x), mod[:, 0, 0], mod[:, 0, 1])
-        q = apply_rope(rms_norm(_heads(proj(x_n, "to_q"), nh), self.norm_q), rope_cos, rope_sin)
-        k = apply_rope(rms_norm(_heads(proj(x_n, "to_k"), nh), self.norm_k), rope_cos, rope_sin)
-        v = _heads(proj(x_n, "to_v"), nh)
+        x_n = _adaln(x, mod[:, 0, 0], mod[:, 0, 1])
+        q, k, v = (proj(x_n, name) for name in ("to_q", "to_k", "to_v"))
+        if _fused(q, k, v, self.norm_q, self.norm_k):
+            joint = _joint_buffers(q, nh, q.shape[1])
+            dit_glue.qkv_heads(q, k, v, self.norm_q, self.norm_k, rope_cos, rope_sin, *joint, 0)
+            q, k, v = joint
+        else:
+            q = apply_rope(rms_norm(_heads(q, nh), self.norm_q), rope_cos, rope_sin)
+            k = apply_rope(rms_norm(_heads(k, nh), self.norm_k), rope_cos, rope_sin)
+            v = _heads(v, nh)
         extracted = _extract(k, v, kv_extract_span)
         k, v = _insert(k, v, extra_kv, txt_len)
         attn = _unheads(sdpa(q, k, v, blocked_span=blocked_span, ring=ring, bounded_logits=True))  # qk RMS-normed
@@ -358,7 +393,7 @@ class Flux2Transformer(nn.Module):
     def _final(self, temb: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
         """AdaLN-continuous out: (scale, shift) in diffusers order, then proj_out."""
         scale, shift = unshard_last(q_linear(F.silu(temb), self.norm_out)).chunk(2, dim=-1)
-        return unshard_last(q_linear(modulate(layer_norm(img), shift, scale), self.proj_out))
+        return unshard_last(q_linear(_adaln(img, shift, scale), self.proj_out))
 
     def forward(
         self,

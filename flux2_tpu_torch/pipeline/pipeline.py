@@ -51,6 +51,7 @@ import torch
 from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
 from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
 from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, VAEConfig, VAEDecoder, VAEEncoder, decode_tiled
+from flux2_tpu_torch.ops import dit_glue
 from flux2_tpu_torch.ops import latents as lu
 from flux2_tpu_torch.ops.quant import param_dtype
 from flux2_tpu_torch.ops import scheduler as sch
@@ -85,6 +86,11 @@ def _normalize_hook(step_hook):
             raise TypeError("structured step_hook must be (fn, state_pytree)")
         return step_hook
     return step_hook, None
+
+
+def _glue_launches() -> int:
+    """G1 and G2 launches so far: a ``dit.step`` span's ``glue`` is the step's difference."""
+    return sum(dit_glue.launches.values())
 
 
 class GenerationCancelled(RuntimeError):
@@ -372,9 +378,10 @@ class Flux2Pipeline:
         records: ``FLUX2_PROFILE=1``, or a ``torch.profiler`` running) and
         closed by a device-memory snapshot (``memory_stats``), as in JAX;
         inside "2. Denoising" each step is a ``dit.step`` span (``step``,
-        ``batch``) from its top to the return of its step end, which without
-        a hook or previews holds no synchronise: the host's dispatch of the
-        step.
+        ``batch``, ``glue``: the step's launches of the fused glue kernels G1
+        and G2, ``ops/dit_glue.py``) from its top to the return of its step
+        end, which without a hook or previews holds no synchronise: the host's
+        dispatch of the step.
 
         After each step (k of n): ``step_hook`` rewrites the latents; a set
         ``cancel`` raises ``GenerationCancelled("cancelled at step k/n")``;
@@ -537,7 +544,8 @@ class Flux2Pipeline:
         prof = _profiler()
         with torch.inference_mode():
             for i, (sigma, sigma_next) in enumerate(sigma_pairs):
-                with prof.span("dit.step", step=i, batch=b):
+                with prof.span("dit.step", step=i, batch=b) as span:
+                    glue = _glue_launches()
                     tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
                     x = latents.to(dtype)
                     if ref is not None:
@@ -551,6 +559,7 @@ class Flux2Pipeline:
                     else:
                         v = gather(self.transformer(x, embeddings, tstep, cos, sin, guidance=g, ring=self.ring))
                     latents = sch.euler_step(latents, v[:, :s_img].to(torch.float32), sigma, sigma_next)
+                    span.set(glue=_glue_launches() - glue)
                     latents = step_end(latents, i)
         return latents
 
@@ -569,7 +578,8 @@ class Flux2Pipeline:
         prof = _profiler()
         with torch.inference_mode():
             for i, (sigma, sigma_next) in enumerate(sigma_pairs):
-                with prof.span("dit.step", step=i, batch=b):
+                with prof.span("dit.step", step=i, batch=b) as span:
+                    glue = _glue_launches()
                     tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
                     x = latents.to(dtype)
                     if cache is None:
@@ -581,6 +591,7 @@ class Flux2Pipeline:
                                                                guidance=g, ring=self.ring)
                     v = gather(v)
                     latents = sch.euler_step(latents, v.to(torch.float32), sigma, sigma_next)
+                    span.set(glue=_glue_launches() - glue)
                     latents = step_end(latents, i)
         return latents
 

@@ -25,7 +25,7 @@ profiler's own flag, ``torch._C._autograd._profiler_enabled()``, is per
 thread; a torch without it leaves ``FLUX2_PROFILE=1`` alone). The check is
 made when a span opens (``record``: when it is filed); off, a span takes no
 lock and makes no span object, and costs the call with its keywords, the
-check and a shared null context.
+check and a shared null span.
 
 ``torch_trace`` takes the place of JAX's ``jax_trace``: a region under
 ``torch.profiler`` (the card's kernels too, when CUDA is up) written as a
@@ -72,6 +72,25 @@ class _Open:
         self._prof._file(self._name, self._start, time.perf_counter(), self._attrs)
         return False
 
+    def set(self, **attrs) -> None:
+        """Adds attributes known only inside the block (``dit.step``'s ``glue``)."""
+        self._attrs.update(attrs)
+
+
+class _Off:
+    """The span of a recorder that is off: one shared object, nothing filed."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
 
 def _flag_holder(module) -> object:
     """``module`` if it holds ``_is_profiler_enabled``, else a stand-in whose
@@ -83,7 +102,7 @@ def _flag_holder(module) -> object:
 
 
 _torch_profiler = _flag_holder(_autograd_profiler)
-_OFF = contextlib.nullcontext()
+_OFF = _Off()
 _NO_ATTRS: Mapping[str, object] = {}
 
 
@@ -108,7 +127,8 @@ class PhaseProfiler:
     # -- spans ---------------------------------------------------------------
 
     def span(self, name: str, **attrs):
-        """``with prof.span("dit.step", step=i):`` times the block, when on."""
+        """``with prof.span("dit.step", step=i) as sp:`` times the block, when
+        on; ``sp.set(...)`` adds attributes before it ends."""
         if not (self.enabled or _torch_profiler._is_profiler_enabled):
             return _OFF
         return _Open(self, name, attrs)

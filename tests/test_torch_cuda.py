@@ -6,7 +6,9 @@ klein-9b-kv generate on the card with exact K1 launch counts; a tiny POST
 on the card against the CPU, a tiny real-data ``train-lora`` and a
 ``remat: "dots"`` step against ``remat=True`` on the kernels; K5, K6 and
 the prologue at Mistral's M = 1 decode shapes (equal to the bit), K1 at
-Dev's 48 heads, and a tiny Mistral's KV-cached decode on the card.
+Dev's 48 heads, and a tiny Mistral's KV-cached decode on the card; the DiT's
+fused glue G1 and G2 at Klein-4B, Klein-9B and Dev widths against the chain,
+and a Klein-4B forward on them against the chain's.
 
 Skips without a CUDA device. Imports no JAX, so it runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -808,3 +810,188 @@ def test_device_sampling_gives_the_same_token_on_every_run(device):
     for _ in range(50):
         assert torch.equal(gen._prefix_sums(probs), sums)
         assert torch.equal(gen._sample_device(u, logits, torch.full((4,), -1, device=device), p), token)
+
+
+# The DiT's fused glue, G1 (adaln_modulate) and G2 (qkv_heads), against the
+# chain they replace, from the same bf16 inputs on the card. The kernels round
+# where the chain rounds; their only freedom is the order of a row's f32 sums
+# (the mean and variance of G1, the sum of squares of G2), which can move the
+# first bf16 rounding that depends on them, y = layer_norm(x) or rms_norm(x),
+# by one bf16 ulp. So every output element must equal the chain's arithmetic
+# after y applied to y or to one of its two bf16 neighbours (for RoPE, to each
+# of the pair's two elements), and at least 99.9% must equal the chain's own.
+# A later shift can cancel, so "one ulp of the output" would not hold.
+GLUE_HEADS = [24, 32, 48]  # Klein-4B, Klein-9B, Dev: D = 3072, 4096, 6144
+GLUE_IDS = ["klein4b", "klein9b", "dev"]
+
+
+def _bf16_neighbours(y: torch.Tensor):
+    """The bf16 values one step below and one step above each element of y."""
+    bits = y.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+    neg, zero = bits >= 0x8000, (bits & 0x7FFF) == 0
+    down = torch.where(zero, 0x8001, torch.where(neg, bits + 1, bits - 1))
+    up = torch.where(zero, 0x0001, torch.where(neg, bits - 1, bits + 1))
+    return [torch.where(b >= 0x8000, b - 0x10000, b).to(torch.int16).view(torch.bfloat16) for b in (down, up)]
+
+
+def _check_glue(out: torch.Tensor, chain: torch.Tensor, others) -> None:
+    hit = out == chain
+    share = float(hit.float().mean())
+    for c in others:
+        hit |= out == c
+    assert bool(hit.all()), f"{int((~hit).sum())} elements off the chain's roundings"
+    assert share >= 0.999, f"only {share:.5f} of the elements equal the chain's"
+
+
+@pytest.mark.parametrize("heads", GLUE_HEADS, ids=GLUE_IDS)
+@pytest.mark.parametrize("b,s,sliced", [(1, 4608, False), (1, 4097 + 512, False), (2, 4097 + 512, False),
+                                        (2, 4097, True)], ids=["s4608", "ragged", "batch2", "final_slice"])
+def test_adaln_kernel_matches_the_chain(device, heads, b, s, sliced):
+    """``sliced``: x is the image part of [txt ; img], as ``_final`` passes it."""
+    from flux2_tpu_torch.ops import dit_glue
+    from flux2_tpu_torch.ops.normalization import layer_norm, modulate
+
+    d = heads * 128
+    g = torch.Generator(device=device).manual_seed(d + s + b)
+    x = (torch.randn(b, s + 512 * sliced, d, device=device, generator=g) * 2).bfloat16()[:, 512 * sliced:]
+    mod = (torch.randn(b, 2, 3, d, device=device, generator=g) * 0.5).bfloat16()
+    shift, scale = mod[:, 1, 0], mod[:, 1, 1]  # rows of the modulation tensor, as the blocks pass them
+    before = dit_glue.launch_counts()["adaln_modulate"]
+    out = dit_glue.adaln_modulate(x, shift, scale)
+    torch.cuda.synchronize()
+    assert dit_glue.launch_counts()["adaln_modulate"] == before + 1
+    assert out.shape == x.shape and out.dtype == torch.bfloat16 and out.is_contiguous()
+    y = layer_norm(x)
+    _check_glue(out, modulate(y, shift, scale), [modulate(n, shift, scale) for n in _bf16_neighbours(y)])
+
+
+@pytest.mark.parametrize("heads", GLUE_HEADS, ids=GLUE_IDS)
+@pytest.mark.parametrize("b,s,s_joint,offset", [(1, 4608, 4608, 0), (1, 4096, 4608, 512), (2, 4097, 4609, 512),
+                                                (1, 8192, 8704, 512)],
+                         ids=["single_block", "double_image", "batch2_ragged", "kv_extract_image"])
+def test_qkv_heads_kernel_matches_the_chain(device, heads, b, s, s_joint, offset):
+    """One stream written into the joint buffers at ``offset``: the image stream
+    of a double block after 512 text tokens, and of klein-9b-kv's extract pass
+    ([ref ; img] after the text)."""
+    from flux2_tpu_torch.ops import dit_glue
+    from flux2_tpu_torch.ops.normalization import rms_norm
+    from flux2_tpu_torch.ops.rope import apply_rope, rope_embeddings, rotate_half_interleaved
+
+    g = torch.Generator(device=device).manual_seed(heads + s + offset)
+    q, k, v = ((torch.randn(b, s, heads * 128, device=device, generator=g) * 3).bfloat16() for _ in range(3))
+    norm_q, norm_k = ((1 + 0.2 * torch.randn(128, device=device, generator=g)).bfloat16() for _ in range(2))
+    cos, sin = rope_embeddings(torch.randint(0, 64, (s_joint, 4), device=device, generator=g))
+    outs = [torch.full((b, heads, s_joint, 128), 3.0, device=device, dtype=torch.bfloat16) for _ in range(3)]
+    before = dit_glue.launch_counts()["qkv_heads"]
+    dit_glue.qkv_heads(q, k, v, norm_q, norm_k, cos, sin, *outs, offset)
+    torch.cuda.synchronize()
+    assert dit_glue.launch_counts()["qkv_heads"] == before + 1
+    rows = slice(offset, offset + s)
+
+    def heads_of(x):
+        return x.reshape(b, s, heads, 128).transpose(1, 2).contiguous()
+
+    def rope(a, partner):  # a's elements rotated against ``partner``'s pair elements, as apply_rope rounds
+        return (a.float() * cos[rows] + rotate_half_interleaved(partner.float()) * sin[rows]).to(torch.bfloat16)
+
+    for out, x, w in ((outs[0], q, norm_q), (outs[1], k, norm_k)):
+        y = rms_norm(heads_of(x), w)
+        ys = [y, *_bf16_neighbours(y)]
+        _check_glue(out[:, :, rows], apply_rope(y, cos[rows], sin[rows]),
+                    [rope(a, p) for a in ys for p in ys])
+    assert torch.equal(outs[2][:, :, rows], heads_of(v))
+    for out in outs:
+        assert bool((out[:, :, :offset] == 3).all() and (out[:, :, offset + s:] == 3).all())
+
+
+def test_klein4b_forward_on_the_glue_kernels_matches_the_chain(device, monkeypatch):
+    """A 1024^2 Klein-4B forward under inference_mode (G1 41, G2 30) against
+    the same forward under enable_grad, which runs the chain. Each block on the
+    kernels, from the chain's input to it, lies within 2e-3 (relative L2) of the
+    chain's block (at most 7.3e-4 on the card). The whole forward cannot be
+    held to that: with random weights 25 blocks carry any moved rounding to
+    ~1e-2 of the velocity, and the chain with its norms' statistics summed in
+    another order (the reversed row) moves as far, so the kernels' forward must
+    lie within twice that control's distance of the chain."""
+    import numpy as np
+
+    from flux2_tpu_torch.models.flux2 import transformer as tr
+    from flux2_tpu_torch.models.flux2.config import KLEIN_4B
+    from flux2_tpu_torch.ops import dit_glue
+    from flux2_tpu_torch.ops import latents as lu
+    from flux2_tpu_torch.ops.rope import rope_embeddings
+
+    g = torch.Generator(device=device).manual_seed(0)
+    model = tr.Flux2Transformer(KLEIN_4B, device=device, dtype=torch.bfloat16, generator=g)
+    img = torch.randn(1, 4096, KLEIN_4B.in_channels, device=device, generator=g).bfloat16()
+    txt = torch.randn(1, 512, KLEIN_4B.joint_attention_dim, device=device, generator=g).bfloat16()
+    t = torch.full((1,), 0.7, device=device)
+    ids = np.concatenate([lu.text_position_ids(512), lu.image_position_ids(1024, 1024)])
+    cos, sin = rope_embeddings(torch.from_numpy(ids).to(device))
+    calls = []
+    hooks = [blk.register_forward_hook(lambda mod, args, kwargs, out: calls.append((mod, args, kwargs, out)),
+                                       with_kwargs=True) for blk in (*model.double_blocks, *model.single_blocks)]
+    with torch.enable_grad():
+        chain = model(img, txt, t, cos, sin).float()
+    for h in hooks:
+        h.remove()
+    dit_glue.reset_launches()
+    with torch.inference_mode():
+        fused = model(img, txt, t, cos, sin).float()
+    torch.cuda.synchronize()
+    assert dit_glue.launch_counts() == {"adaln_modulate": 41, "qkv_heads": 30}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    with torch.inference_mode():
+        for mod, args, kwargs, out in calls:
+            got = mod(*args, **kwargs)
+            for a, b in zip(got if isinstance(got, tuple) else (got,), out if isinstance(out, tuple) else (out,)):
+                assert rel(a, b) < 2e-3, f"{type(mod).__name__}: relative L2 {rel(a, b)}"
+
+    def layer_norm_reversed(x, eps=1e-6):
+        xf = x.float()
+        mean = xf.flip(-1).mean(-1, keepdim=True)
+        var = (xf - mean).flip(-1).square().mean(-1, keepdim=True)
+        return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+    def rms_norm_reversed(x, w, eps=1e-6):
+        xf = x.float()
+        return (xf * torch.rsqrt(xf.flip(-1).square().mean(-1, keepdim=True) + eps) * w.float()).to(x.dtype)
+
+    monkeypatch.setattr(tr, "layer_norm", layer_norm_reversed)
+    monkeypatch.setattr(tr, "rms_norm", rms_norm_reversed)
+    with torch.enable_grad():
+        control = model(img, txt, t, cos, sin).float()
+    assert rel(fused, chain) <= 2 * rel(control, chain), (rel(fused, chain), rel(control, chain))
+
+
+def test_glue_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    from flux2_tpu_torch.ops import dit_glue
+
+    x = torch.randn(1, 64, 256, device=device).bfloat16()
+    mod = torch.randn(1, 256, device=device).bfloat16()
+    with pytest.raises(TypeError):
+        dit_glue.adaln_modulate(x.float(), mod.float(), mod.float())
+    q = torch.randn(1, 64, 256, device=device).bfloat16()
+    cos = torch.ones(64, 128, device=device)
+    outs = [torch.empty(1, 2, 64, 128, device=device, dtype=torch.bfloat16) for _ in range(3)]
+    w = torch.ones(128, device=device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        dit_glue.qkv_heads(q.float(), q.float(), q.float(), w, w, cos, cos, *outs, 0)
+    outs64 = [torch.empty(1, 4, 64, 64, device=device, dtype=torch.bfloat16) for _ in range(3)]
+    with pytest.raises(NotImplementedError):
+        dit_glue.qkv_heads(q, q, q, w[:64], w[:64], cos[:, :64], cos[:, :64], *outs64, 0)
+    strided = torch.randn(1, 256, 64, device=device).bfloat16().transpose(1, 2)  # [1, 64, 256], not contiguous
+    with pytest.raises(ValueError):
+        dit_glue.qkv_heads(strided, q, q, w, w, cos, cos, *outs, 0)
+    # what only the C entries check: they refuse, and nothing is launched
+    before = dit_glue.launch_counts()
+    long_cos = torch.ones(128, 128, device=device)
+    with pytest.raises(RuntimeError):  # tokens [8, 72) past the joint 64
+        dit_glue.qkv_heads(q, q, q, w, w, long_cos, long_cos, *outs, 8)
+    x260 = torch.randn(1, 64, 260, device=device).bfloat16()  # D not a multiple of 8
+    with pytest.raises(RuntimeError):
+        dit_glue.adaln_modulate(x260, x260[:, 0], x260[:, 0])
+    assert dit_glue.launch_counts() == before

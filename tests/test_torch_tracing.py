@@ -152,7 +152,7 @@ def test_generate_files_one_dit_step_a_step_inside_denoising(tiny_pipe, spans):
     tiny_pipe.generate(embeddings=torch.zeros(2, 8, 96), height=64, width=64, num_steps=3, seed=1)
     (denoise,) = spans.spans("2. Denoising")
     steps = spans.spans("dit.step")
-    assert [dict(s.attrs) for s in steps] == [{"step": i, "batch": 2} for i in range(3)]
+    assert [dict(s.attrs) for s in steps] == [{"step": i, "batch": 2, "glue": 0} for i in range(3)]  # the CPU launches none
     assert all(denoise.start <= s.start <= s.end <= denoise.end and s.thread == denoise.thread for s in steps)
     assert {s.name for s in spans.spans()} == {"1. Text Encoding", "dit.step", "2. Denoising", "3. VAE Decoding"}
     assert set(spans.phases) == {"1. Text Encoding", "2. Denoising", "3. VAE Decoding"}  # spans stay out
