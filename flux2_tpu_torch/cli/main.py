@@ -353,8 +353,9 @@ def _load_pipeline(args, model: Flux2Model, device: torch.device, fmt: str, enc_
                 flog.info("dequantized to bf16 at load (speed-first runtime)")
             _log_load("transformer", os.path.dirname(prequant), t0, device, fmt)
         else:
-            transformer = weight_mapping.load_transformer(checkpoints.WeightsDir(tdir), tconfig, device)
-            quantize_params(transformer, fmt)
+            # quantized block by block as it loads: a bf16 Dev DiT alone fills most of an 80 GB card
+            transformer = weight_mapping.load_transformer(checkpoints.WeightsDir(tdir), tconfig, device,
+                                                          quantization=fmt)
             _log_load("transformer", tdir, t0, device, fmt)
     with profiler().phase("5. Load VAE"):
         t0 = _load_start()

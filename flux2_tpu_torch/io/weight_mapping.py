@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import re
 from collections.abc import Mapping
-from typing import Iterable, Iterator, List, Sequence, Tuple
+from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -45,6 +45,7 @@ from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
 from flux2_tpu_torch.models.text_encoders.pixtral import PixtralVision, PixtralVisionConfig
 from flux2_tpu_torch.models.text_encoders.qwen35 import Qwen35LM, Qwen35TextConfig
 from flux2_tpu_torch.models.text_encoders.qwen35_vision import Qwen35Vision, Qwen35VisionConfig
+from flux2_tpu_torch.ops.quant import quantize_params
 
 Item = Tuple[str, torch.Tensor]
 
@@ -205,14 +206,20 @@ def map_transformer_weights(weights: Mapping, config: Flux2TransformerConfig) ->
 
 
 def load_transformer(weights: Mapping, config: Flux2TransformerConfig, device: "torch.device | str",
-                     dtype: torch.dtype = torch.bfloat16) -> Flux2Transformer:
-    """The DiT of ``config`` on ``device`` in ``dtype``, filled from ``weights``."""
-    model = Flux2Transformer(config, device=device, dtype=dtype)
-    missing = fill(model, map_transformer_weights(weights, config))
+                     dtype: torch.dtype = torch.bfloat16, quantization: Optional[str] = None) -> Flux2Transformer:
+    """The DiT of ``config`` on ``device`` in ``dtype``, filled from ``weights``
+    block by block (``fill_by_block``). ``quantization`` (a ``quantize_params``
+    format) quantizes each block as soon as it is filled, so the DiT never
+    sits whole in ``dtype`` on the device: the result equals
+    ``quantize_params`` after a whole load, to the bit."""
+    fmt = quantization or "bf16"
+    model = Flux2Transformer(config, device="meta", dtype=dtype)
+    missing = fill_by_block(model, map_transformer_weights(weights, config), device,
+                            ("double_blocks", "single_blocks"), lambda prefix: quantize_params(model, fmt, prefix=prefix))
     if config.guidance_embeds and "guidance_linear1" in missing:
         raise KeyError("config.guidance_embeds=True but checkpoint has no guidance embedder")
     _raise_missing(missing)
-    return model
+    return quantize_params(model, fmt)  # the weights outside the blocks
 
 
 # -- VAE (diffusers AutoencoderKL names) ---------------------------------------------
@@ -339,9 +346,16 @@ def map_decoder_weights(weights: Mapping) -> Iterator[Item]:
 
 
 def load_decoder(weights: Mapping, cfg: DecoderConfig, device: "torch.device | str",
-                 dtype: torch.dtype = torch.bfloat16) -> Qwen3Decoder:
-    decoder = Qwen3Decoder(cfg, device=device, dtype=dtype)
-    _raise_missing(fill(decoder, map_decoder_weights(weights)))
+                 dtype: torch.dtype = torch.bfloat16, quantization: Optional[str] = None) -> Qwen3Decoder:
+    """The decoder of ``cfg`` on ``device`` in ``dtype``, filled from
+    ``weights`` layer by layer (``fill_by_block``). ``quantization`` quantizes
+    each layer's matmul weights as soon as the layer is filled; the result
+    equals ``extractor.quantize_encoder_params`` after a whole load, to the
+    bit (the token table, the final norm and ``lm_head`` stay dense)."""
+    fmt = quantization or "bf16"
+    decoder = Qwen3Decoder(cfg, device="meta", dtype=dtype)
+    _raise_missing(fill_by_block(decoder, map_decoder_weights(weights), device, ("layers",),
+                                 lambda prefix: quantize_params(decoder.layers, fmt, prefix=prefix[len("layers."):])))
     return decoder
 
 
@@ -548,6 +562,54 @@ def fill(module: nn.Module, items: Iterable[Item]) -> List[str]:
                 raise ValueError(f"checkpoint weight {name}: shape {tuple(t.shape)}, the model's {tuple(dst.shape)}")
             dst.copy_(t)
             filled.add(name)
+    return [n for n in targets if n not in filled]
+
+
+def fill_by_block(module: nn.Module, items: Iterable[Item], device: "torch.device | str",
+                  block_lists: Sequence[str], done: Callable[[str], None]) -> List[str]:
+    """``fill`` into ``module`` built on the meta device: everything outside
+    the blocks of the ``ModuleList``s ``block_lists`` is made on ``device``
+    first; a block is made there when its first tensor comes, and
+    ``done(prefix)`` runs (``prefix`` = ``"<list>.<i>."``) once its last has
+    come, so the device holds the dense weights of the blocks being filled
+    alone (``done`` quantizes the block, or does nothing). Returns the names
+    left unfilled."""
+    left = {}  # prefix -> (block, its names not yet filled)
+    for lname in block_lists:
+        for i, block in enumerate(getattr(module, lname)):
+            p = f"{lname}.{i}."
+            left[p] = (block, {p + n for n, _ in (*block.named_parameters(), *block.named_buffers())})
+    for mod_name, mod in module.named_modules():
+        if any((mod_name + ".").startswith(p) for p in left):
+            continue
+        for attr, t in (*mod._parameters.items(), *mod._buffers.items()):
+            if t is not None and t.is_meta:
+                new = torch.empty_like(t, device=device)
+                if attr in mod._parameters:
+                    mod._parameters[attr] = nn.Parameter(new, requires_grad=t.requires_grad)
+                else:
+                    mod._buffers[attr] = new
+    params = [n for n, _ in module.named_parameters()]
+    targets = params + [n for n, _ in module.named_buffers()]
+    known, params = set(targets), set(params)
+    filled = set()
+    with torch.no_grad():
+        for name, t in items:
+            if name not in known or name in filled:
+                continue
+            prefix = next((p for p in left if name.startswith(p)), None)
+            if prefix is not None and next(left[prefix][0].parameters()).is_meta:
+                left[prefix][0].to_empty(device=device)
+            dst = module.get_parameter(name) if name in params else module.get_buffer(name)
+            if tuple(dst.shape) != tuple(t.shape):
+                raise ValueError(f"checkpoint weight {name}: shape {tuple(t.shape)}, the model's {tuple(dst.shape)}")
+            dst.copy_(t)
+            filled.add(name)
+            if prefix is not None:
+                left[prefix][1].discard(name)
+                if not left[prefix][1]:
+                    del left[prefix]
+                    done(prefix)
     return [n for n in targets if n not in filled]
 
 

@@ -13,9 +13,9 @@ decoder's shape comes from the checkpoint's ``config.json`` (a VLM's
 ``head_dim`` 128 and ``intermediate_size`` 9728 (built-in 80 and 9216), the
 published Mistral Small 3.2 ``intermediate_size`` 32768 (built-in 14336).
 The weights load in bf16 straight onto the device
-(``io/weight_mapping.load_decoder``), the layers are quantized with
-``quantization``, and an encoder keeps its recipe: Mistral's (10, 20, 30),
-left padded, or Klein's (9, 18, 27), right padded.
+(``io/weight_mapping.load_decoder``), each layer quantized with
+``quantization`` as it is filled, and an encoder keeps its recipe:
+Mistral's (10, 20, 30), left padded, or Klein's (9, 18, 27), right padded.
 
 The vision half: ``detect_vlm_family`` ("qwen35" for a checkpoint with a
 ``vision_config`` and a qwen ``model_type``, else "mistral"),
@@ -40,7 +40,11 @@ import torch
 from flux2_tpu_torch.models.text_encoders import config as tc
 from flux2_tpu_torch.models.text_encoders import generation
 from flux2_tpu_torch.models.text_encoders.decoder import Qwen3Decoder
-from flux2_tpu_torch.models.text_encoders.extractor import EmbeddingExtractor, chat_ids, quantize_encoder_params
+from flux2_tpu_torch.models.text_encoders.extractor import (  # noqa: F401  (quantize_encoder_params: JAX facade's name)
+    EmbeddingExtractor,
+    chat_ids,
+    quantize_encoder_params,
+)
 from flux2_tpu_torch.utils import logging as flog
 
 class HFTokenizerAdapter:
@@ -143,9 +147,9 @@ class TextEncoders:
         from flux2_tpu_torch.io import checkpoints, weight_mapping
 
         cfg = read_decoder_config(weights_dir, default_cfg, qk_norm=qk_norm, llama4=llama4)
-        decoder = weight_mapping.load_decoder(checkpoints.WeightsDir(weights_dir), cfg, device)
-        if quantization != "bf16":
-            quantize_encoder_params(decoder, quantization)
+        # a quantized encoder is quantized layer by layer as it loads (quantize_encoder_params' result)
+        decoder = weight_mapping.load_decoder(checkpoints.WeightsDir(weights_dir), cfg, device,
+                                              quantization=quantization)
         tok = resolve_tokenizer(tokenizer_dir or weights_dir)
         flog.info(f"loaded text encoder {name} ({cfg.num_hidden_layers} layers, "
                   f"{cfg.hidden_size} hidden{', ' + quantization if quantization != 'bf16' else ''})")

@@ -440,17 +440,21 @@ def _replace(mod: nn.Module, attr: str, new) -> None:
     setattr(mod, attr, new)
 
 
-def quantize_params(module: nn.Module, fmt: str, min_size: int = 1 << 16) -> nn.Module:
+def quantize_params(module: nn.Module, fmt: str, min_size: int = 1 << 16, prefix: Optional[str] = None) -> nn.Module:
     """Quantize, in place, every float 2-D matmul weight of ``module`` whose
     stacked size (``layers * numel``) is at least ``min_size``, with JAX's
     name filter and per-format K divisibility; "w8a8" / "w4a8" also convert
-    stored QTensors. Returns ``module``."""
+    stored QTensors. ``prefix`` limits it to the weights whose qualified
+    names start with it (one block of a loader's, ``io/weight_mapping.py``),
+    each judged as in the whole module. Returns ``module``."""
     if fmt == "bf16":
         return module
     if fmt not in ("w8a8", "w4a8") and fmt not in GROUP_SIZES:
         raise ValueError(f"unknown quantization format {fmt}")
+    chosen = [(mod, attr, name, layers) for mod, attr, name, _, layers in _weights(module)
+              if prefix is None or name.startswith(prefix)]
     # the list holds no weight: each dense weight is freed as its quantized one replaces it
-    for mod, attr, name, layers in [(mod, attr, name, layers) for mod, attr, name, _, layers in _weights(module)]:
+    for mod, attr, name, layers in chosen:
         w = getattr(mod, attr)
         if is_quantized(w):
             if isinstance(w, QTensor) and fmt in ("w8a8", "w4a8"):

@@ -37,9 +37,12 @@ import torch
 
 # Kernel launches by the wrappers, keyed by kernel; tests and chip_smoke.py
 # reset and read it. Request threads (prompt encodes) and the serving worker
-# launch concurrently, so increments hold ``_launch_lock``.
+# launch concurrently, so increments hold ``_launch_lock``; each thread also
+# counts its own (``thread_launches``), so a span on one thread reads its own
+# launches alone while another thread's encode launches beside it.
 launches = {"w8a8": 0, "w4a8": 0, "dequant_int8": 0, "dequant_int4": 0, "quantize_rows": 0}
 _launch_lock = threading.Lock()
+_thread = threading.local()
 
 DEQUANT_BLOCK_K = 512  # JAX's DEFAULT_BK: the K7 gate wants K % 512 == 0
 DEQUANT_GROUP = 64  # the only group size the K7 kernel takes (qint8 / int4 default)
@@ -55,6 +58,16 @@ def _rows(x: torch.Tensor) -> int:
 def _count(name: str) -> None:
     with _launch_lock:
         launches[name] += 1
+    mine = getattr(_thread, "launches", None)
+    if mine is None:
+        mine = _thread.launches = dict.fromkeys(launches, 0)
+    mine[name] += 1
+
+
+def thread_launches(name: str) -> int:
+    """The launches of kernel ``name`` made so far on the calling thread
+    (``reset_launches`` leaves them: a caller reads differences)."""
+    return getattr(_thread, "launches", {}).get(name, 0)
 
 
 def reset_launches() -> None:

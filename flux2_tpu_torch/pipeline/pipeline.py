@@ -51,7 +51,7 @@ import torch
 from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
 from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
 from flux2_tpu_torch.models.flux2.vae import FLUX2_VAE, VAEConfig, VAEDecoder, VAEEncoder, decode_tiled
-from flux2_tpu_torch.ops import dit_glue
+from flux2_tpu_torch.ops import dit_glue, quant_kernels
 from flux2_tpu_torch.ops import latents as lu
 from flux2_tpu_torch.ops.quant import param_dtype
 from flux2_tpu_torch.ops import scheduler as sch
@@ -91,6 +91,12 @@ def _normalize_hook(step_hook):
 def _glue_launches() -> int:
     """G1 and G2 launches so far: a ``dit.step`` span's ``glue`` is the step's difference."""
     return sum(dit_glue.launches.values())
+
+
+def _w8a8_launches() -> int:
+    """K5 launches so far on this thread: a ``dit.step`` or ``pipeline.encode``
+    span's ``w8a8`` is the difference, without another thread's encode."""
+    return quant_kernels.thread_launches("w8a8")
 
 
 class GenerationCancelled(RuntimeError):
@@ -256,7 +262,8 @@ class Flux2Pipeline:
         prompt (cleared when the encoder is swapped). Thread-safe: the server
         encodes on each request's own thread. A miss is a ``pipeline.encode``
         span, from the lock's acquisition to the synchronise, with the wait
-        for the lock as ``lock_wait_s``."""
+        for the lock as ``lock_wait_s`` and the encode's K5 launches as
+        ``w8a8``."""
         if self.text_encoder is None:
             raise ValueError("no text encoder attached; pass `embeddings=` to generate()")
         asked = time.perf_counter()
@@ -269,10 +276,12 @@ class Flux2Pipeline:
             if prompt in cache:
                 cache.move_to_end(prompt)
                 return cache[prompt]
+            w8a8 = _w8a8_launches()
             with torch.inference_mode():
                 emb = self.text_encoder(prompt)
             _sync(self.device)
-            _profiler().record("pipeline.encode", acquired, time.perf_counter(), lock_wait_s=acquired - asked)
+            _profiler().record("pipeline.encode", acquired, time.perf_counter(), lock_wait_s=acquired - asked,
+                               w8a8=_w8a8_launches() - w8a8)
             cache[prompt] = emb
             while len(cache) > self.PROMPT_CACHE_SIZE:
                 cache.popitem(last=False)
@@ -379,7 +388,8 @@ class Flux2Pipeline:
         closed by a device-memory snapshot (``memory_stats``), as in JAX;
         inside "2. Denoising" each step is a ``dit.step`` span (``step``,
         ``batch``, ``glue``: the step's launches of the fused glue kernels G1
-        and G2, ``ops/dit_glue.py``) from its top to the return of its step
+        and G2, ``ops/dit_glue.py``; ``w8a8``: its K5 launches on the
+        denoising thread, ``quant_kernels.thread_launches``) from its top to the return of its step
         end, which without a hook or previews holds no synchronise: the host's
         dispatch of the step.
 
@@ -545,7 +555,7 @@ class Flux2Pipeline:
         with torch.inference_mode():
             for i, (sigma, sigma_next) in enumerate(sigma_pairs):
                 with prof.span("dit.step", step=i, batch=b) as span:
-                    glue = _glue_launches()
+                    glue, w8a8 = _glue_launches(), _w8a8_launches()
                     tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
                     x = latents.to(dtype)
                     if ref is not None:
@@ -559,7 +569,7 @@ class Flux2Pipeline:
                     else:
                         v = gather(self.transformer(x, embeddings, tstep, cos, sin, guidance=g, ring=self.ring))
                     latents = sch.euler_step(latents, v[:, :s_img].to(torch.float32), sigma, sigma_next)
-                    span.set(glue=_glue_launches() - glue)
+                    span.set(glue=_glue_launches() - glue, w8a8=_w8a8_launches() - w8a8)
                     latents = step_end(latents, i)
         return latents
 
@@ -579,7 +589,7 @@ class Flux2Pipeline:
         with torch.inference_mode():
             for i, (sigma, sigma_next) in enumerate(sigma_pairs):
                 with prof.span("dit.step", step=i, batch=b) as span:
-                    glue = _glue_launches()
+                    glue, w8a8 = _glue_launches(), _w8a8_launches()
                     tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
                     x = latents.to(dtype)
                     if cache is None:
@@ -591,7 +601,7 @@ class Flux2Pipeline:
                                                                guidance=g, ring=self.ring)
                     v = gather(v)
                     latents = sch.euler_step(latents, v.to(torch.float32), sigma, sigma_next)
-                    span.set(glue=_glue_launches() - glue)
+                    span.set(glue=_glue_launches() - glue, w8a8=_w8a8_launches() - w8a8)
                     latents = step_end(latents, i)
         return latents
 

@@ -73,7 +73,7 @@ class _Open:
         return False
 
     def set(self, **attrs) -> None:
-        """Adds attributes known only inside the block (``dit.step``'s ``glue``)."""
+        """Adds attributes known only inside the block (``dit.step``'s ``glue`` and ``w8a8``)."""
         self._attrs.update(attrs)
 
 

@@ -995,3 +995,75 @@ def test_glue_wrappers_raise_on_what_the_kernels_do_not_take(device):
     with pytest.raises(RuntimeError):
         dit_glue.adaln_modulate(x260, x260[:, 0], x260[:, 0])
     assert dit_glue.launch_counts() == before
+
+
+# FLUX.2-dev's w8a8 path: a step's ``w8a8`` span attribute, and the loaders'
+# quantized loads (``io/weight_mapping.load_transformer(quantization=)``).
+
+
+def test_tiny_w8a8_dev_steps_span_equals_the_wrappers_count(device, monkeypatch):
+    """Each ``dit.step`` span's ``w8a8`` equals the K5 launches the wrapper
+    counted in that step; a tiny guided (Dev) DiT at a 256-wide stream."""
+    from flux2_tpu_torch.models.flux2.config import Flux2Model, Flux2TransformerConfig
+    from flux2_tpu_torch.models.flux2.vae import VAEConfig
+    from flux2_tpu_torch.pipeline.pipeline import Flux2Pipeline
+    from flux2_tpu_torch.utils import profiler as tprof
+
+    tc = Flux2TransformerConfig(num_layers=1, num_single_layers=2, num_attention_heads=2, attention_head_dim=128,
+                                joint_attention_dim=256, guidance_embeds=True)
+    vc = VAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1, norm_num_groups=4)
+    pipe = Flux2Pipeline.from_random(Flux2Model.DEV, device=device, generator=torch.Generator(device).manual_seed(0),
+                                     transformer_config=tc, vae_config=vc)
+    tq.quantize_params(pipe.transformer, "w8a8")
+    rec = tprof.PhaseProfiler(enabled=True)
+    monkeypatch.setattr(tprof, "_shared", rec)
+    emb = torch.randn(1, 8, 256, device=device).bfloat16()
+    before = tqk.launches["w8a8"]
+    pipe.generate(embeddings=emb, height=64, width=64, num_steps=3, seed=1)
+    steps = [s.attrs["w8a8"] for s in rec.spans("dit.step")]
+    assert len(steps) == 3 and len(set(steps)) == 1 and steps[0] > 0
+    assert sum(steps) == tqk.launches["w8a8"] - before
+
+
+def test_dev_width_dit_loads_quantized_block_by_block_with_a_lower_peak(device):
+    """A Dev-width DiT (2 double + 4 single blocks at 6144 wide) from a seeded
+    Diffusers checkpoint: loaded with ``quantization="w8a8"`` it equals the
+    whole bf16 load quantized after, to the bit, at a lower device peak."""
+    from benchmark import weights as W
+    from flux2_tpu_torch.io import weight_mapping as wm
+    from flux2_tpu_torch.models.flux2.config import FLUX2_DEV
+    from flux2_tpu_torch.models.flux2.transformer import Flux2Transformer
+
+    t = {"in_channels": 128, "out_channels": 128, "num_layers": 2, "num_single_layers": 4, "attention_head_dim": 128,
+         "num_attention_heads": 48, "joint_attention_dim": 15360, "guidance_embeds": True, "mlp_ratio": 3.0,
+         "time_embed_channels": 256}
+    import dataclasses
+
+    cfg = dataclasses.replace(FLUX2_DEV, num_layers=2, num_single_layers=4)
+
+    def load(quantization):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ck = W.SeededCheckpoint(W.dit_groups(t), 7, "transformer", device, torch.bfloat16)
+        if quantization is None:  # the model built on the card, filled whole, then quantized
+            model = Flux2Transformer(cfg, device=device, dtype=torch.bfloat16)
+            assert not wm.fill(model, wm.map_transformer_weights(ck, cfg))
+            tq.quantize_params(model, "w8a8")
+        else:
+            model = wm.load_transformer(ck, cfg, device, quantization=quantization)
+        del ck
+        torch.cuda.synchronize()
+        return model, torch.cuda.max_memory_allocated() - base
+
+    whole, whole_peak = load(None)
+    state = {**dict(whole.named_parameters()), **dict(whole.named_buffers())}
+    state = {k: v.cpu() for k, v in state.items()}
+    del whole
+    by_block, block_peak = load("w8a8")
+    got = {**dict(by_block.named_parameters()), **dict(by_block.named_buffers())}
+    assert got.keys() == state.keys() and all(torch.equal(got[k].cpu(), state[k]) for k in state)
+    print(f"Dev-width DiT (2 + 4 blocks) device peak: whole bf16 then w8a8 {whole_peak / 2**30:.2f} GiB, "
+          f"block by block {block_peak / 2**30:.2f} GiB")
+    assert block_peak < 0.75 * whole_peak

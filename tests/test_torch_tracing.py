@@ -6,8 +6,9 @@ spans the program files (CPU, tiny widths, no JAX).
 - A running ``torch.profiler`` turns recording on in every thread, and its
   stop turns it off; the check is made when a span opens.
 - Phases keep one start per thread; the ring keeps its last ``maxlen``.
-- ``generate`` files one ``dit.step`` a step inside "2. Denoising"; a prompt
-  encode on a cache miss files ``pipeline.encode``; ``Flux2Server`` files a
+- ``generate`` files one ``dit.step`` a step inside "2. Denoising", with the
+  step's K5 launches on its own thread (``w8a8``); a prompt encode on a cache
+  miss files ``pipeline.encode``; ``Flux2Server`` files a
   ``serve.queue`` (with its batch's size) and a ``serve.png`` a request; a
   train step files ``train.forward`` and ``train.backward`` a micro-batch and
   one ``train.optimizer``.
@@ -152,7 +153,8 @@ def test_generate_files_one_dit_step_a_step_inside_denoising(tiny_pipe, spans):
     tiny_pipe.generate(embeddings=torch.zeros(2, 8, 96), height=64, width=64, num_steps=3, seed=1)
     (denoise,) = spans.spans("2. Denoising")
     steps = spans.spans("dit.step")
-    assert [dict(s.attrs) for s in steps] == [{"step": i, "batch": 2, "glue": 0} for i in range(3)]  # the CPU launches none
+    # the CPU launches neither glue kernel nor K5
+    assert [dict(s.attrs) for s in steps] == [{"step": i, "batch": 2, "glue": 0, "w8a8": 0} for i in range(3)]
     assert all(denoise.start <= s.start <= s.end <= denoise.end and s.thread == denoise.thread for s in steps)
     assert {s.name for s in spans.spans()} == {"1. Text Encoding", "dit.step", "2. Denoising", "3. VAE Decoding"}
     assert set(spans.phases) == {"1. Text Encoding", "2. Denoising", "3. VAE Decoding"}  # spans stay out
@@ -165,6 +167,43 @@ def test_a_prompt_encode_files_a_span_on_a_miss_only(tiny_pipe, spans, monkeypat
         tiny_pipe.encode_prompt(prompt)
     enc = spans.spans("pipeline.encode")
     assert len(enc) == 2 and all(s.attrs["lock_wait_s"] >= 0.0 and s.end >= s.start for s in enc)
+    assert [s.attrs["w8a8"] for s in enc] == [0, 0]
+
+
+def test_a_steps_w8a8_is_its_own_k5_launches(tiny_pipe, spans, monkeypatch):
+    """Each ``dit.step`` reads the K5 launches its forward made on its thread
+    (the counter ``quant_kernels._count`` advances, as after a CUDA launch),
+    and a prompt encode's launches on another thread meanwhile stay out."""
+    from flux2_tpu_torch.ops import quant_kernels
+
+    def launch(n):
+        for _ in range(n):
+            quant_kernels._count("w8a8")
+
+    forward = Flux2Transformer.forward
+    encode = threading.Thread(target=launch, args=(280,))  # an encode's launches, on a request thread
+
+    def launching(self, *args, **kwargs):
+        before = quant_kernels.launches["w8a8"]
+        launch(440)
+        if encode.ident is None:  # in step 0
+            encode.start()
+            encode.join(timeout=60)
+        assert quant_kernels.launches["w8a8"] >= before + 440
+        return forward(self, *args, **kwargs)
+
+    monkeypatch.setattr(Flux2Transformer, "forward", launching)
+    tiny_pipe.generate(embeddings=torch.zeros(1, 8, 96), height=64, width=64, num_steps=2, seed=1)
+    assert [s.attrs["w8a8"] for s in spans.spans("dit.step")] == [440, 440]
+
+    def text_encoder(prompt):
+        launch(7)
+        return torch.zeros(1, 8, 96)
+
+    monkeypatch.setattr(tiny_pipe, "text_encoder", text_encoder)
+    monkeypatch.setattr(tiny_pipe, "_prompt_cache", type(tiny_pipe._prompt_cache)())
+    tiny_pipe.encode_prompt("a newt")
+    assert spans.spans("pipeline.encode")[-1].attrs["w8a8"] == 7
 
 
 def test_the_server_files_queue_and_png_spans_a_request(tiny_pipe, spans):

@@ -244,20 +244,21 @@ def test_load_mistral_vlm_through_both_facades_equal(mistral_vl_dir):
 
 def test_load_mistral_vlm_reuses_a_quantized_lm(mistral_vl_dir, monkeypatch):
     """An encoder loaded with --encoder-quantization w8a8 is the VLM's LM (its
-    layers quantized; the tiny ones pass min_size=0 to be)."""
-    from flux2_tpu_torch.models.text_encoders import extractor
+    layers quantized as the loader fills them; the tiny ones pass min_size=0
+    to be)."""
+    from flux2_tpu_torch.io import weight_mapping
     from flux2_tpu_torch.models.text_encoders.generation import GenerateParameters
     from flux2_tpu_torch.ops import quant
 
-    monkeypatch.setattr(facade, "quantize_encoder_params",
-                        lambda dec, fmt: quant.quantize_params(dec.layers, fmt, min_size=0) and dec)
+    monkeypatch.setattr(weight_mapping, "quantize_params",
+                        lambda module, fmt, prefix=None: quant.quantize_params(module, fmt, min_size=0, prefix=prefix))
     reg = facade.TextEncoders()
     enc = reg.load_mistral(mistral_vl_dir, quantization="w8a8", device="cpu")
     svc = reg.load_mistral_vlm(mistral_vl_dir, device="cpu")
     assert svc.decoder is enc.decoder and set(quant.quantized_names(svc.decoder).values()) == {"w8a8"}
     image = np.random.RandomState(0).rand(56, 28, 3).astype(np.float32)
     reply = svc.analyze_image(image, "describe", gen_params=GenerateParameters(max_tokens=3, temperature=0.0))
-    assert isinstance(reply, str) and extractor.quantize_encoder_params is not facade.quantize_encoder_params
+    assert isinstance(reply, str) and quant.quantize_params is not weight_mapping.quantize_params
 
 
 @pytest.mark.parametrize("config", [None, {}, {"vision_config": {}}, {"vision_config": {}, "model_type": "qwen3_vl"},
