@@ -540,6 +540,17 @@ PROLOGUE_MARK = "quantize_rows_kernel"
 PROLOGUE_FORMATS = ("w8a8", "w4a8")
 
 
+def _wrapper_launches(kind: str, m: int, k: int, n: int) -> dict:
+    """The launch counters one wrapper call of ``kind`` at (M, K, N) bumps: its
+    kernel's, the prologue's, and ``w8a8_grouped`` where K5 walks its tiles in
+    groups of row bands (``quant_kernels.w8a8_group``)."""
+    from flux2_tpu_torch.ops import quant_kernels as qk
+
+    grouped = kind == "w8a8" and qk.w8a8_group(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count) > 1
+    return {COUNTER[kind]: 1, **({"quantize_rows": 1} if kind in PROLOGUE_FORMATS else {}),
+            **({"w8a8_grouped": 1} if grouped else {})}
+
+
 def phase_quant_kernel_check(card: str):
     """K5, K6 and K7 (int8, int4) against their plain versions, same inputs, served shapes.
     Each kernel's time alone twice: torch.profiler's mean over 10 calls of the
@@ -558,7 +569,6 @@ def phase_quant_kernel_check(card: str):
     results = {}
     for kind in ("w8a8", "w4a8", "qint8", "int4"):
         quantize, kernel, plain, with_scale = _qmm(kind)
-        counter = COUNTER[kind]
         rows = []
         for name, m, k, n in QMM_SHAPES:
             if kind in ("qint8", "int4"):
@@ -569,7 +579,7 @@ def phase_quant_kernel_check(card: str):
             out = kernel(x, w).float()
             torch.cuda.synchronize()
             launched = {c: qk.launches[c] - before[c] for c in before if qk.launches[c] != before[c]}
-            if launched != {counter: 1, **({"quantize_rows": 1} if kind in PROLOGUE_FORMATS else {})}:
+            if launched != _wrapper_launches(kind, m, k, n):
                 raise AssertionError(f"{kind} {name}: the wrapper launched {launched}")
             ref = plain(x, w).float()
             rel = float((out - ref).norm() / ref.norm())
@@ -959,12 +969,16 @@ def _launch_counts(glue: bool = False) -> dict:
     "flash_bwd_dkv", and the quantized matmuls' (a path checks all of them).
     With ``glue`` also G1 "adaln_modulate" and G2 "qkv_heads": the serving,
     I2I, KV and editing phases check them (``_forward_glue``); the other
-    phases' expected counts leave them out."""
+    phases' expected counts leave them out. K5's "w8a8_grouped" is left out:
+    it counts those of K5's own launches that walked grouped row bands, which
+    ``_wrapper_launches`` checks a call at a time."""
     from flux2_tpu_torch.ops import dit_glue
     from flux2_tpu_torch.ops import flash_attention as fa
     from flux2_tpu_torch.ops import quant_kernels as qk
 
-    return {**fa.launch_counts(), **qk.launches, **(dit_glue.launch_counts() if glue else {})}
+    counts = {**fa.launch_counts(), **qk.launches, **(dit_glue.launch_counts() if glue else {})}
+    del counts["w8a8_grouped"]
+    return counts
 
 
 def _forward_glue(double: int, single: int, forwards: int = 1) -> dict:
@@ -2826,7 +2840,7 @@ def _set_launches(counts: dict) -> None:
 
     fa.launches, fa.launches_lse = counts["flash"], counts["flash_lse"]
     fa.launches_dq, fa.launches_dkv = counts["flash_bwd_dq"], counts["flash_bwd_dkv"]
-    qk.launches.update({k: counts[k] for k in qk.launches})
+    qk.launches.update({k: counts[k] for k in qk.launches if k in counts})
 
 
 class _FirstStepAgainstPlain:
@@ -3738,6 +3752,18 @@ MISTRAL_QMM_SHAPES = [
     ("encode_down_proj", 512, 32768, 5120),
 ]
 DEV_K1_SHAPE = (1, 48, 4608, 4608)  # Dev's 48 heads over 512 text + 4096 image tokens (1024^2)
+# K5 at the Dev DiT's products (1024^2: 4096 image + 512 text tokens), whose weights (113-340 MB) are past the
+# L2: the single blocks' MLP gate / up and q / k / v, the double blocks' image and text ff_in, the single
+# blocks' output, the context embedder; then a ragged M whose last group of row bands is short.
+DEV_K5_SHAPES = [
+    ("single_mlp_gate", 4608, 6144, 18432),
+    ("double_img_ff_in", 4096, 6144, 36864),
+    ("double_txt_ff_in", 512, 6144, 36864),
+    ("single_qkv", 4608, 6144, 6144),
+    ("single_out", 4608, 18432, 6144),
+    ("context_embedder", 512, 15360, 6144),
+    ("ragged_m4100", 4100, 6144, 18432),
+]
 # A w8a8 Mistral encode against the bf16 one, relative L2 of the [1, 512, 15360] conditioning: the
 # DiT's w8a8 limit (QUANT_DIT_REL_TOL); 40 layers of per-token int8 activations and per-channel int8
 # weights, each a relative rounding of at most 1/254.
@@ -3765,7 +3791,9 @@ def counted(*a, **k):
     return out
 generation.generate = counted
 rc = cli.main(sys.argv[1:])
-print("LAUNCHES " + json.dumps({"counts": {**fa.launch_counts(), **qk.launches}, "generated": made}), flush=True)
+counts = {**fa.launch_counts(), **qk.launches}
+del counts["w8a8_grouped"]  # a share of K5's launches, left out as _launch_counts leaves it out
+print("LAUNCHES " + json.dumps({"counts": counts, "generated": made}), flush=True)
 sys.exit(rc)
 """
 
@@ -3791,7 +3819,8 @@ def phase_dev_kernels(card: str) -> dict:
     versions to the bit (at M = 1 the C entry also writes into a 128-row
     buffer of canaries, which must keep all rows past 0), each alone
     (torch.profiler), as its wrapper, its bound and a dense bf16 F.linear of
-    the same product (torch._int_mm takes no M <= 16)."""
+    the same product (torch._int_mm takes no M <= 16); then K5 on both of its
+    tile orders at the Dev DiT's shapes (``_dev_k5_order``)."""
     from flux2_tpu_torch.ops import flash_attention as fa
     from flux2_tpu_torch.ops import quant as tq
     from flux2_tpu_torch.ops import quant_kernels as qk
@@ -3839,7 +3868,7 @@ def phase_dev_kernels(card: str) -> dict:
             out = kernel(x, qw)
             torch.cuda.synchronize()
             launched = {c: qk.launches[c] - before[c] for c in before if qk.launches[c] != before[c]}
-            if launched != {fmt: 1, "quantize_rows": 1}:
+            if launched != _wrapper_launches(fmt, m, kk, n):
                 raise AssertionError(f"{fmt} {name}: the wrapper launched {launched}")
             if not torch.equal(out, plain(x, qw)):
                 raise AssertionError(f"{fmt} {name} (M,K,N)=({m},{kk},{n}): not equal to its plain version "
@@ -3880,7 +3909,61 @@ def phase_dev_kernels(card: str) -> dict:
         del x, w
         torch.cuda.empty_cache()
     results["qmm"] = rows
+    results["k5_order"] = _dev_k5_order(gen, card)
     return results
+
+
+def _dev_k5_order(gen, card: str) -> dict:
+    """K5 at DEV_K5_SHAPES on both tile orders of its C entry: ``group`` 1 (row
+    band major, the order before ``quant_kernels.w8a8_group``) and the group
+    the wrapper takes. Each order writes into outputs filled with canaries, bf16
+    and f32, which must equal the plain version to the bit (a tile never written,
+    or written from a wrong map, fails); the wrapper must count the grouped
+    launch; then each order alone (torch.profiler, in turns: 1, G, G, 1) and its
+    share of the bound."""
+    from flux2_tpu_torch.ops import quant as tq
+    from flux2_tpu_torch.ops import quant_kernels as qk
+    from flux2_tpu_torch.utils import quant_candidate as qc
+    from flux2_tpu_torch.utils.profile_step import kernel_time_ms
+
+    entry = qk._kernel(qc.ENTRY["w8a8"])
+    rows = {}
+    for name, m, k, n in DEV_K5_SHAPES:
+        x = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+        qw = tq.to_w8a8((torch.randn(n, k, device="cuda", generator=gen) * k**-0.5).bfloat16())
+        args = qc.entry_args("w8a8", x, qw)
+        group = args[-1]
+        orders = {1: args[:-1] + (1,), group: args}
+        for dtype in (torch.bfloat16, torch.float32):
+            ref = qk.w8a8_matmul_reference(x.to(dtype), qw)
+            for g, a in orders.items():
+                out = qc.call(entry, a, torch.full((m, n), 7.0, device="cuda", dtype=dtype))
+                torch.cuda.synchronize()
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"K5 {name} (M,K,N)=({m},{k},{n}) group {g} {dtype}: not equal to its plain "
+                                         f"version ({int((out != ref).sum())} elements differ)")
+            del ref, out
+        before = dict(qk.launches)
+        qk.w8a8_matmul(x, qw)
+        torch.cuda.synchronize()
+        launched = {c: qk.launches[c] - before[c] for c in before if qk.launches[c] != before[c]}
+        if launched != _wrapper_launches("w8a8", m, k, n):
+            raise AssertionError(f"K5 {name}: the wrapper launched {launched} at group {group}")
+        buf = torch.empty(m, n, device="cuda", dtype=torch.bfloat16)
+        times = {g: [] for g in (1, group)}
+        for g in (1, group, group, 1):
+            times[g].append(kernel_time_ms(lambda: qc.call(entry, orders[g], buf), "w8a8_kernel"))
+        bnd = bound_ms(2.0 * m * n * k, m * k + 4 * m + n * k + 4 * n + 2 * m * n, INT8_OPS)
+        row = {"group": group, "bound": bnd, **{f"alone_g{g}": t for g, t in times.items()}}
+        log(f"[dev kernel] K5 order {name} (M,K,N)=({m},{k},{n}): both orders equal to the plain version to the bit "
+            f"(bf16, f32, canaries); alone, row-band major (group 1) "
+            + " / ".join(f"{t:.4f}" for t in times[1]) + f" ms ({bnd[0] / statistics.mean(times[1]):.1%} of the "
+            f"bound), groups of {group} bands " + " / ".join(f"{t:.4f}" for t in times[group])
+            + f" ms ({bnd[0] / statistics.mean(times[group]):.1%}); bound {bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+        rows[name] = row
+        del x, qw, args, orders, buf
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_dev_encoder(card: str) -> dict:
@@ -4786,11 +4869,14 @@ class _KernelOutputs:
 def _parallel_quant(pipe, mesh, card: str) -> dict:
     """C: a w8a8 and a w4a8 copy of the DiT, one 1024^2 forward unsharded, then the same copy sharded on the
     one-rank mesh by ``shard_params`` (its products partitioned): every K5 / K6 call and the velocity equal
-    to the bit."""
+    to the bit. Both forwards run the block's glue on the torch chain (``transformer._fused`` forced false),
+    the route the sharded DTensors take, so that both feed each product the same bits; G1 / G2 against the
+    chain are ``phase_glue_check``'s."""
     import copy
 
     import numpy as np
 
+    from flux2_tpu_torch.models.flux2 import transformer as tr
     from flux2_tpu_torch.ops import latents as lu
     from flux2_tpu_torch.ops import quant as tq
     from flux2_tpu_torch.ops import quant_kernels as qk
@@ -4806,16 +4892,20 @@ def _parallel_quant(pipe, mesh, card: str) -> dict:
     for fmt, kernel in (("w8a8", "w8a8_matmul"), ("w4a8", "w4a8_matmul")):
         model = tq.quantize_params(copy.deepcopy(pipe.transformer), fmt)
         runs = []
-        for sharded in (False, True):
-            if sharded:
-                sh.shard_params(model, mesh, sh.DIT_RULES)
-            _zero_launches()
-            with _KernelOutputs(qk, kernel) as rec, torch.inference_mode():
-                t0 = time.perf_counter()
-                v = sh.gather(model(noise, emb, t, cos, sin))
-                torch.cuda.synchronize()
-                sec = time.perf_counter() - t0
-            runs.append({"v": v, "calls": rec.outputs, "counts": _launch_counts(), "s": sec})
+        fused, tr._fused = tr._fused, (lambda *tensors: False)
+        try:
+            for sharded in (False, True):
+                if sharded:
+                    sh.shard_params(model, mesh, sh.DIT_RULES)
+                _zero_launches()
+                with _KernelOutputs(qk, kernel) as rec, torch.inference_mode():
+                    t0 = time.perf_counter()
+                    v = sh.gather(model(noise, emb, t, cos, sin))
+                    torch.cuda.synchronize()
+                    sec = time.perf_counter() - t0
+                runs.append({"v": v, "calls": rec.outputs, "counts": _launch_counts(), "s": sec})
+        finally:
+            tr._fused = fused
         want = {name: 0 for name in runs[0]["counts"]}
         want.update(flash=25, quantize_rows=FORWARD_LAUNCHES[fmt])
         want[COUNTER[fmt]] = FORWARD_LAUNCHES[fmt]
@@ -4826,9 +4916,10 @@ def _parallel_quant(pipe, mesh, card: str) -> dict:
                 raise AssertionError(f"[parallel C] {fmt} {label} forward: {len(run['calls'])} {kernel} calls "
                                      f"recorded, want {FORWARD_LAUNCHES[fmt]}")
         if runs[0]["calls"] != runs[1]["calls"]:
-            differ = sum(a != b for a, b in zip(runs[0]["calls"], runs[1]["calls"]))
-            raise AssertionError(f"[parallel C] {fmt}: {differ} of {len(runs[0]['calls'])} partitioned {kernel} calls "
-                                 "differ from the unsharded ones")
+            differ = [i for i, (a, b) in enumerate(zip(runs[0]["calls"], runs[1]["calls"])) if a != b]
+            raise AssertionError(f"[parallel C] {fmt}: {len(differ)} of {len(runs[0]['calls'])} partitioned {kernel} "
+                                 f"calls differ from the unsharded ones, the first call {differ[0]} (out shape "
+                                 f"{runs[0]['calls'][differ[0]][1]})")
         if not torch.equal(runs[0]["v"], runs[1]["v"]):
             raise AssertionError(f"[parallel C] {fmt}: the sharded velocity differs, max abs "
                                  f"{(runs[0]['v'].float() - runs[1]['v'].float()).abs().max().item()}")

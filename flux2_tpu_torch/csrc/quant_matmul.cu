@@ -55,7 +55,16 @@
 //   - tiles: 128 x 256 (two multiplying warpgroups, 128 accumulators a
 //     thread, setmaxnreg as K6) where there are as many as SMs, 128 x 128
 //     otherwise, and 64 x 128 with one multiplying warpgroup and two CTAs an
-//     SM for M <= 64, where the weight bytes bound it.
+//     SM for M <= 64, where the weight bytes bound it;
+//   - the tile order: groups of G row bands, the row band fastest inside a
+//     group (w8a8_tile). The CTAs in flight then cover G bands by about
+//     SMs / G weight tiles, so the G CTAs that read one weight tile read it
+//     at about the same time and HBM serves it once, where a row-band-major
+//     walk (G = 1) streams the whole weight again every wave once a band
+//     holds more weight tiles than there are SMs (Dev's N = 18432 and 36864;
+//     the weight is 113-226 MB against the 50 MB L2). The caller picks G
+//     from the shape (ops/quant_kernels.w8a8_group); the order moves no
+//     bit of the output, since each tile's sum and epilogue are its own.
 //
 // K6 and K7 take the "swapped" form: out^T = W x^T, with the weight as
 // wgmma's A operand in registers and x as B from shared memory, so no
@@ -528,11 +537,22 @@ __device__ __forceinline__ void sts_f32x2(uint32_t addr, float a, float b) {
   asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(a), "f"(b) : "memory");
 }
 
+// Tile ``tile`` of K5's walk as (row band, weight tile): groups of ``group``
+// row bands (the last one holds the bands left over), each walked with the
+// row band fastest. ``group`` = 1 is the row-band-major order. The loading
+// and the multiplying warpgroups both take their tiles from here.
+__device__ __forceinline__ int2 w8a8_tile(int tile, int mt, int ntn, int group) {
+  const int first = tile / (group * ntn) * group;  // the group's first row band
+  const int bands = min(group, mt - first);
+  const int local = tile - first * ntn;
+  return make_int2(first + local % bands, local / bands);
+}
+
 template <int kBN, int kConsumers, typename OutT>
 __global__ void __launch_bounds__(W8Layout<kBN, kConsumers>::kThreads, W8Layout<kBN, kConsumers>::kMinBlocks)
 w8a8_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
             const __grid_constant__ CUtensorMap omap, const float* __restrict__ xs, const float* __restrict__ ws,
-            int m, int n, int k) {
+            int m, int n, int k, int group) {
   using L = W8Layout<kBN, kConsumers>;
   constexpr int S = L::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -540,8 +560,9 @@ w8a8_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
   auto full = [&](int st) { return base + L::kBars + 8u * st; };
   auto empty = [&](int st) { return base + L::kBars + 8u * (S + st); };
   const int nk = k / 128;
-  const int ntn = n / kBN;
-  const int tiles = ((m + L::kBM - 1) / L::kBM) * ntn;  // row-tile major: neighbouring CTAs share x rows
+  const int mt = (m + L::kBM - 1) / L::kBM, ntn = n / kBN;
+  const int tiles = mt * ntn;
+  group = min(group, mt);  // a group past the last band is the whole M
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -561,7 +582,8 @@ w8a8_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
     if (threadIdx.x == 0) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = (tile / ntn) * L::kBM, n0 = (tile % ntn) * kBN;
+        const int2 mn = w8a8_tile(tile, mt, ntn, group);
+        const int m0 = mn.x * L::kBM, n0 = mn.y * kBN;
         for (int kt = 0; kt < nk; ++kt, ++it) {
           const int st = it % S;
           if (it >= S) mbar_wait(empty(st), ((it / S) - 1) & 1);
@@ -590,7 +612,8 @@ w8a8_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
     int acc[kBN / 2];
     int it = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = (tile / ntn) * L::kBM, n0 = (tile % ntn) * kBN;
+      const int2 mn = w8a8_tile(tile, mt, ntn, group);
+      const int m0 = mn.x * L::kBM, n0 = mn.y * kBN;
       for (int kt = 0; kt < nk; ++kt, ++it) {
         const int st = it % S;
         mbar_wait(full(st), (it / S) & 1);
@@ -697,10 +720,11 @@ int launch_dequant(const CUtensorMap& xmap, const CUtensorMap& cmap, const float
 
 // K5 on one tile shape: the tensor maps (x and weight boxes of the tile's
 // rows by 128 K bytes; output boxes of 64 rows by 128 bytes), then a grid of
-// at most as many CTAs as the card holds at once.
+// at most as many CTAs as the card holds at once, walking the tiles in
+// groups of ``group`` row bands.
 template <int kBN, int kConsumers, typename OutT>
 int launch_w8a8(const void* xq, const float* xs, const void* wq, const float* ws, void* out, int m, int n, int k,
-                void* stream) {
+                int group, void* stream) {
   using L = W8Layout<kBN, kConsumers>;
   constexpr bool kF32 = sizeof(OutT) == 4;
   CUtensorMap xmap, wmap, omap;
@@ -719,7 +743,7 @@ int launch_w8a8(const void* xq, const float* xs, const void* wq, const float* ws
   const long long tiles = static_cast<long long>((m + L::kBM - 1) / L::kBM) * (n / kBN);
   const int grid = static_cast<int>(tiles < sm_count() * L::kMinBlocks ? tiles : sm_count() * L::kMinBlocks);
   w8a8_kernel<kBN, kConsumers, OutT><<<grid, L::kThreads, L::kSmem, static_cast<cudaStream_t>(stream)>>>(
-      xmap, wmap, omap, xs, ws, m, n, k);
+      xmap, wmap, omap, xs, ws, m, n, k, group);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -729,27 +753,28 @@ int launch_w8a8(const void* xq, const float* xs, const void* wq, const float* ws
 // at least as many such tiles as SMs; else 128 x 128.
 template <typename OutT>
 int dispatch_w8a8(const void* xq, const float* xs, const void* wq, const float* ws, void* out, int m, int n, int k,
-                  void* stream) {
-  if (m <= 64) return launch_w8a8<128, 1, OutT>(xq, xs, wq, ws, out, m, n, k, stream);
+                  int group, void* stream) {
+  if (m <= 64) return launch_w8a8<128, 1, OutT>(xq, xs, wq, ws, out, m, n, k, group, stream);
   if (n % 256 == 0 && ((m + 127) / 128) * (n / 256) >= sm_count()) {
-    return launch_w8a8<256, 2, OutT>(xq, xs, wq, ws, out, m, n, k, stream);
+    return launch_w8a8<256, 2, OutT>(xq, xs, wq, ws, out, m, n, k, group, stream);
   }
-  return launch_w8a8<128, 2, OutT>(xq, xs, wq, ws, out, m, n, k, stream);
+  return launch_w8a8<128, 2, OutT>(xq, xs, wq, ws, out, m, n, k, group, stream);
 }
 
 }  // namespace
 
 // xq int8 [m, k], xs f32 [m], wq int8 [n, k], ws f32 [n]; out [m, n] f32 if
-// out_f32 else bf16. Needs k % 128 == 0, n % 128 == 0 (the K5 gate asks
+// out_f32 else bf16; the tiles walked in groups of ``group`` >= 1 row bands
+// (1: row-band major). Needs k % 128 == 0, n % 128 == 0 (the K5 gate asks
 // k % 256 and n % 256) and 16-byte aligned xq, wq and out. Returns a
 // cudaError_t.
 extern "C" int flux2_w8a8_matmul(const void* xq, const void* xs, const void* wq, const void* ws, void* out,
-                                 int m, int n, int k, int out_f32, void* stream) {
-  if (!grid_ok(m, n) || k <= 0 || k % 128 || n % 128) return static_cast<int>(cudaErrorInvalidValue);
+                                 int m, int n, int k, int out_f32, int group, void* stream) {
+  if (!grid_ok(m, n) || k <= 0 || k % 128 || n % 128 || group < 1) return static_cast<int>(cudaErrorInvalidValue);
   const float* sa = static_cast<const float*>(xs);
   const float* sb = static_cast<const float*>(ws);
-  if (out_f32) return dispatch_w8a8<float>(xq, sa, wq, sb, out, m, n, k, stream);
-  return dispatch_w8a8<__nv_bfloat16>(xq, sa, wq, sb, out, m, n, k, stream);
+  if (out_f32) return dispatch_w8a8<float>(xq, sa, wq, sb, out, m, n, k, group, stream);
+  return dispatch_w8a8<__nv_bfloat16>(xq, sa, wq, sb, out, m, n, k, group, stream);
 }
 
 // xq int8 [m, k], xs f32 [m, k/512], wq uint8 [n, k/2] split-half packed,

@@ -40,12 +40,16 @@ import torch
 # launch concurrently, so increments hold ``_launch_lock``; each thread also
 # counts its own (``thread_launches``), so a span on one thread reads its own
 # launches alone while another thread's encode launches beside it.
-launches = {"w8a8": 0, "w4a8": 0, "dequant_int8": 0, "dequant_int4": 0, "quantize_rows": 0}
+# ``w8a8_grouped`` counts the K5 launches that walked their tiles in groups of
+# more than one row band (``w8a8_group``).
+launches = {"w8a8": 0, "w8a8_grouped": 0, "w4a8": 0, "dequant_int8": 0, "dequant_int4": 0, "quantize_rows": 0}
 _launch_lock = threading.Lock()
 _thread = threading.local()
 
 DEQUANT_BLOCK_K = 512  # JAX's DEFAULT_BK: the K7 gate wants K % 512 == 0
 DEQUANT_GROUP = 64  # the only group size the K7 kernel takes (qint8 / int4 default)
+H100_SMS = 132
+L2_BYTES = 50 * 2**20  # the H100's L2
 
 
 def _rows(x: torch.Tensor) -> int:
@@ -104,6 +108,58 @@ def w4a8_supported(x: torch.Tensor, w) -> bool:
         return False
     n, k2 = w.q.shape[-2:]
     return (2 * k2) % w.block == 0 and n % 256 == 0 and w.block % 256 == 0
+
+
+# ---------------------------------------------------------------------------
+# K5's tile order
+# ---------------------------------------------------------------------------
+
+
+def w8a8_tile_shape(m: int, n: int, sms: int = H100_SMS):
+    """(BM, BN, stages, CTAs an SM) of K5's tile for an [m, n] output, as
+    ``dispatch_w8a8`` and ``W8Layout`` in ``csrc/quant_matmul.cu`` pick them."""
+    if m <= 64:
+        return 64, 128, 3, 2
+    if n % 256 == 0 and -(-m // 128) * (n // 256) >= sms:
+        return 128, 256, 3, 1
+    return 128, 128, 4, 1
+
+
+@functools.lru_cache(maxsize=None)
+def w8a8_group(m: int, n: int, k: int, sms: int = H100_SMS) -> int:
+    """The row bands G that K5 walks its output tiles in groups of (the
+    ``group`` of its C entry; 1 is the row-band-major walk).
+
+    A wave of K5's persistent CTAs (``sms`` tiles, or all of them when fewer)
+    then covers G row bands by about sms / G weight tiles, and reads each x
+    band and each weight tile once, K deep; a wave that spans whole groups
+    (when a group holds fewer tiles than the wave) covers every weight tile.
+    G is the one whose wave reads the fewest bytes, the smaller on a tie,
+    among 1, the powers of two below the number of row bands and that number,
+    such that the group's x bands, which every wave of the group reads again,
+    and the weight k-slices in the rings of the CTAs in flight fit half the L2
+    (each of its two halves holds what the SMs on both sides read). So G is 1
+    where M is one band (M <= 64: the modulations and every decode token) and
+    where one wave holds every tile."""
+    bm, bn, stages, per_sm = w8a8_tile_shape(m, n, sms)
+    mt, ntn = -(-m // bm), n // bn
+    p = min(sms * per_sm, mt * ntn)  # the CTAs in flight
+
+    def wave_bytes(g):
+        if g * ntn >= p:
+            return (g * bm + -(-p // g) * bn) * k
+        return (min(mt, -(-p // ntn)) * bm + ntn * bn) * k
+
+    def fits(g):
+        return g * bm * k + -(-p // g) * bn * 128 * stages <= L2_BYTES // 2
+
+    groups = [g for g in {1 << i for i in range(mt.bit_length()) if 1 << i < mt} | {mt} if g == 1 or fits(g)]
+    return min(groups, key=lambda g: (wave_bytes(g), g))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -178,10 +234,11 @@ def dequant_matmul_reference(x: torch.Tensor, w) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-# (pointers, ints) before the stream of each C entry. K5 and K6: xq, xs, wq, ws,
-# out, m, n, k, out_is_f32. K7: x, codes, scale, bias, out, m, n, k, group,
-# is_int4. The prologue: x, xq, xs, m, k, block, x_is_f32.
-_SIGNATURES = {"flux2_w8a8_matmul": (5, 4), "flux2_w4a8_matmul": (5, 4), "flux2_dequant_matmul": (5, 5),
+# (pointers, ints) before the stream of each C entry. K5: xq, xs, wq, ws, out,
+# m, n, k, out_is_f32, group (``w8a8_group``). K6: the same without the group.
+# K7: x, codes, scale, bias, out, m, n, k, group, is_int4. The prologue: x, xq,
+# xs, m, k, block, x_is_f32.
+_SIGNATURES = {"flux2_w8a8_matmul": (5, 5), "flux2_w4a8_matmul": (5, 4), "flux2_dequant_matmul": (5, 5),
                "flux2_quantize_rows": (3, 4)}
 
 
@@ -260,8 +317,11 @@ def w8a8_matmul(x: torch.Tensor, w) -> torch.Tensor:
     xq, xs = quantize_activations(x.reshape(-1, k), k)
     m = xq.shape[0]
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
+    group = w8a8_group(m, n, k, _sm_count(x.device))
     _launch("flux2_w8a8_matmul", "w8a8", x.device, xq.data_ptr(), xs.data_ptr(), w.q.data_ptr(),
-            w.scale.data_ptr(), out.data_ptr(), m, n, k, out_f32)
+            w.scale.data_ptr(), out.data_ptr(), m, n, k, out_f32, group)
+    if group > 1:
+        _count("w8a8_grouped")
     return out.reshape(*lead, n)
 
 

@@ -93,10 +93,12 @@ def _glue_launches() -> int:
     return sum(dit_glue.launches.values())
 
 
-def _w8a8_launches() -> int:
-    """K5 launches so far on this thread: a ``dit.step`` or ``pipeline.encode``
-    span's ``w8a8`` is the difference, without another thread's encode."""
-    return quant_kernels.thread_launches("w8a8")
+def _w8a8_launches(counter: str = "w8a8") -> int:
+    """K5 launches so far on this thread (``counter`` "w8a8_grouped": those
+    walked in groups of row bands): a ``dit.step`` or ``pipeline.encode``
+    span's ``w8a8`` is the difference, and a ``dit.step``'s ``w8a8_grouped``,
+    without another thread's encode."""
+    return quant_kernels.thread_launches(counter)
 
 
 class GenerationCancelled(RuntimeError):
@@ -389,7 +391,8 @@ class Flux2Pipeline:
         inside "2. Denoising" each step is a ``dit.step`` span (``step``,
         ``batch``, ``glue``: the step's launches of the fused glue kernels G1
         and G2, ``ops/dit_glue.py``; ``w8a8``: its K5 launches on the
-        denoising thread, ``quant_kernels.thread_launches``) from its top to the return of its step
+        denoising thread, ``quant_kernels.thread_launches``; ``w8a8_grouped``:
+        those of them walked in groups of row bands) from its top to the return of its step
         end, which without a hook or previews holds no synchronise: the host's
         dispatch of the step.
 
@@ -555,7 +558,7 @@ class Flux2Pipeline:
         with torch.inference_mode():
             for i, (sigma, sigma_next) in enumerate(sigma_pairs):
                 with prof.span("dit.step", step=i, batch=b) as span:
-                    glue, w8a8 = _glue_launches(), _w8a8_launches()
+                    glue, w8a8, grouped = _glue_launches(), _w8a8_launches(), _w8a8_launches("w8a8_grouped")
                     tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
                     x = latents.to(dtype)
                     if ref is not None:
@@ -569,7 +572,8 @@ class Flux2Pipeline:
                     else:
                         v = gather(self.transformer(x, embeddings, tstep, cos, sin, guidance=g, ring=self.ring))
                     latents = sch.euler_step(latents, v[:, :s_img].to(torch.float32), sigma, sigma_next)
-                    span.set(glue=_glue_launches() - glue, w8a8=_w8a8_launches() - w8a8)
+                    span.set(glue=_glue_launches() - glue, w8a8=_w8a8_launches() - w8a8,
+                             w8a8_grouped=_w8a8_launches("w8a8_grouped") - grouped)
                     latents = step_end(latents, i)
         return latents
 
@@ -589,7 +593,7 @@ class Flux2Pipeline:
         with torch.inference_mode():
             for i, (sigma, sigma_next) in enumerate(sigma_pairs):
                 with prof.span("dit.step", step=i, batch=b) as span:
-                    glue, w8a8 = _glue_launches(), _w8a8_launches()
+                    glue, w8a8, grouped = _glue_launches(), _w8a8_launches(), _w8a8_launches("w8a8_grouped")
                     tstep = torch.full((b,), float(sigma), dtype=torch.float32, device=self.device)
                     x = latents.to(dtype)
                     if cache is None:
@@ -601,7 +605,8 @@ class Flux2Pipeline:
                                                                guidance=g, ring=self.ring)
                     v = gather(v)
                     latents = sch.euler_step(latents, v.to(torch.float32), sigma, sigma_next)
-                    span.set(glue=_glue_launches() - glue, w8a8=_w8a8_launches() - w8a8)
+                    span.set(glue=_glue_launches() - glue, w8a8=_w8a8_launches() - w8a8,
+                             w8a8_grouped=_w8a8_launches("w8a8_grouped") - grouped)
                     latents = step_end(latents, i)
         return latents
 

@@ -51,19 +51,20 @@ def kernel_time_ms(fn, mark: str = "", reps: int = 10) -> float:
     """Mean device time of the kernels whose name holds ``mark`` (all of them
     by default) in one call of ``fn`` (torch.profiler over ``reps`` calls):
     a kernel alone, without its wrapper's other launches or the host's time
-    between launches."""
+    between launches. A trace that holds no such kernel, or a count of them
+    that is not a whole number a call (a trace that lost some of its device
+    events, so that it reads too short), is taken again."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(6):  # a trace now and then comes back without device events, up to three in a row; a sixth raises
+    for _ in range(6):  # such a trace comes now and then, up to three in a row; a sixth raises
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and mark in e.name)
-        if us > 0:
-            return us / reps / 1e3
-    raise RuntimeError(f"torch.profiler recorded no {mark or 'kernel'} device time in six traces")
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and mark in e.name]
+        if events and len(events) % reps == 0:
+            return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+    raise RuntimeError(f"torch.profiler recorded no whole trace of {mark or 'kernel'} launches in six traces")
 
 
 def _card() -> str:

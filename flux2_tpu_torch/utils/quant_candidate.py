@@ -81,13 +81,13 @@ def typed_entries(lib) -> dict:
 def entry_args(kind: str, x: torch.Tensor, qw) -> tuple:
     """The C entry's arguments before the stream for x [M, K] bf16 and a weight
     quantized in ``kind``: K5 and K6 take the activations quantized as their
-    wrappers quantize them."""
+    wrappers quantize them, K5 its wrapper's tile order on an H100."""
     from flux2_tpu_torch.ops import quant_kernels as qk
 
     m, k = x.shape
     n = qw.q.shape[0]
     if kind == "w8a8":
-        return (*qk.quantize_rows(x), qw.q, qw.scale, m, n, k, 0)
+        return (*qk.quantize_rows(x), qw.q, qw.scale, m, n, k, 0, qk.w8a8_group(m, n, k))
     if kind == "w4a8":
         return (*qk.quantize_row_blocks(x, qw.block), qw.q, qw.scale, m, n, k, 0)
     return (x, qw.q, qw.scale, qw.bias, m, n, k, qw.group_size, int(kind == "int4"))
@@ -104,8 +104,8 @@ def call(fn, args, out: torch.Tensor) -> torch.Tensor:
     """One launch of a C entry on the arguments of ``quantized``; the output goes to ``out``."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     ints = [a for a in args if not isinstance(a, torch.Tensor)]
-    if out.dtype == torch.float32:  # K5 / K6's out_f32 flag
-        ints[-1] = 1
+    if out.dtype == torch.float32:  # K5 / K6's out_f32 flag, after m, n, k
+        ints[3] = 1
     err = fn(*(t.data_ptr() for t in tensors[:4]), out.data_ptr(), *ints, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"launch failed with cudaError {err}")

@@ -388,9 +388,14 @@ def test_q_linear_routes_on_cuda(device, monkeypatch):
 
 
 def test_quantized_wrappers_raise_on_what_the_kernels_do_not_take(device):
+    from flux2_tpu_torch.utils import quant_candidate as qc
+
     x, w = _qmm_inputs(device, 16, 512, 256)
     with pytest.raises(ValueError):
         tqk.w8a8_matmul(x[:, :256], tq.to_w8a8(w))  # K disagrees
+    args = qc.entry_args("w8a8", x, tq.to_w8a8(w))
+    with pytest.raises(RuntimeError, match="cudaError 1"):  # K5's C entry takes groups of one row band or more
+        qc.call(tqk._kernel("flux2_w8a8_matmul"), args[:-1] + (0,), torch.empty(16, 256, device=device).bfloat16())
     with pytest.raises(TypeError):
         tqk.dequant_matmul(x.float(), tq.quantize(w, "qint8"))
     with pytest.raises(ValueError):
@@ -434,19 +439,54 @@ def test_dequant_kernel_matches_reference_and_repeats(device, fmt, m, k, n):
     assert torch.equal(out, again)
 
 
+# K5 at the Dev DiT's products whose weights are past the L2 (the single blocks' MLP gate, the double
+# blocks' image and text ff_in, the context embedder), which it walks in groups of 16 and 4 row bands, and
+# at M = 4100, whose last group holds one of 33 bands.
+K5_DEV = [(4608, 6144, 18432), (4096, 6144, 36864), (512, 6144, 36864), (512, 15360, 6144), (4100, 6144, 18432)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m,k,n", [(1, 512, 256), (8, 512, 256), (100, 512, 256), (4095, 512, 256), *QMM_SERVED])
+@pytest.mark.parametrize("m,k,n", [(1, 512, 256), (8, 512, 256), (100, 512, 256), (4095, 512, 256), *QMM_SERVED,
+                                   *K5_DEV])
 def test_w8a8_kernel_equals_its_plain_version_to_the_bit(device, m, k, n, dtype):
     """K5's s32 sums are exact and its epilogue is the plain version's
-    float(acc) * (xs * ws), so both output types agree to the bit."""
+    float(acc) * (xs * ws), so both output types agree to the bit, in the tile
+    order the wrapper takes. Its C entry, in that order, also fills an output
+    of canaries whole: a tile never stored, or stored from a wrong map, fails.
+    The kernel launched has the tile ``w8a8_tile_shape`` gives the group rule."""
+    from flux2_tpu_torch.utils import quant_candidate as qc
+
     x, w = _qmm_inputs(device, m, k, n, dtype)
     qw = tq.to_w8a8(w)
     out = tqk.w8a8_matmul(x, qw)
     again = tqk.w8a8_matmul(x, qw)
+    args = qc.entry_args("w8a8", x, qw)
+    canaries = qc.call(tqk._kernel("flux2_w8a8_matmul"), args, torch.full((m, n), 7.0, device=device, dtype=dtype))
     torch.cuda.synchronize()
+    ref = tqk.w8a8_matmul_reference(x, qw)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     assert out.dtype == dtype and out.shape == (m, n)
-    assert torch.equal(out, tqk.w8a8_matmul_reference(x, qw))
+    assert args[-1] == tqk.w8a8_group(m, n, k, sms)
+    assert torch.equal(out, ref)
     assert torch.equal(out, again)
+    assert torch.equal(canaries, ref)
+    bm, bn, _, _ = tqk.w8a8_tile_shape(m, n, sms)
+    assert _k5_tile_launched(lambda: tqk.w8a8_matmul(x, qw)) == (bn, bm // 64)
+
+
+def _k5_tile_launched(fn):
+    """(BN, multiplying warpgroups) of the K5 kernel that ``fn`` launches, from its name in a torch.profiler trace."""
+    import re
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(6):  # a trace now and then comes back without device events (profile_step.kernel_time_ms)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == cuda and "w8a8_kernel" in e.name]
+        if names:
+            return tuple(int(v) for v in re.search(r"w8a8_kernel<(\d+),\s*(\d+)", names[0]).groups())
+    raise RuntimeError("torch.profiler recorded no w8a8_kernel in six traces")
 
 
 def _tie_values(amax: float, dtype: torch.dtype) -> torch.Tensor:
@@ -1018,11 +1058,13 @@ def test_tiny_w8a8_dev_steps_span_equals_the_wrappers_count(device, monkeypatch)
     rec = tprof.PhaseProfiler(enabled=True)
     monkeypatch.setattr(tprof, "_shared", rec)
     emb = torch.randn(1, 8, 256, device=device).bfloat16()
-    before = tqk.launches["w8a8"]
+    before = dict(tqk.launches)
     pipe.generate(embeddings=emb, height=64, width=64, num_steps=3, seed=1)
     steps = [s.attrs["w8a8"] for s in rec.spans("dit.step")]
     assert len(steps) == 3 and len(set(steps)) == 1 and steps[0] > 0
-    assert sum(steps) == tqk.launches["w8a8"] - before
+    assert sum(steps) == tqk.launches["w8a8"] - before["w8a8"]
+    grouped = [s.attrs["w8a8_grouped"] for s in rec.spans("dit.step")]
+    assert sum(grouped) == tqk.launches["w8a8_grouped"] - before["w8a8_grouped"]
 
 
 def test_dev_width_dit_loads_quantized_block_by_block_with_a_lower_peak(device):

@@ -138,8 +138,8 @@ def test_the_dit_step_span_counts_the_steps_glue_launches(monkeypatch):
                                      dtype=torch.bfloat16, transformer_config=CONFIG, vae_config=vae)
     pipe.generate(embeddings=torch.zeros(1, S_TXT, 96), height=64, width=64, num_steps=2, seed=1)
     steps = rec.spans("dit.step")
-    assert [dict(s.attrs) for s in steps] == [{"step": i, "batch": 1, "glue": G1_CALLS + G2_CALLS, "w8a8": 0}
-                                              for i in range(2)]
+    assert [dict(s.attrs) for s in steps] == [{"step": i, "batch": 1, "glue": G1_CALLS + G2_CALLS, "w8a8": 0,
+                                               "w8a8_grouped": 0} for i in range(2)]
     assert sum(dit_glue.launches.values()) == 2 * (G1_CALLS + G2_CALLS)
 
 

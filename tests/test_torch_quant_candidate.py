@@ -41,7 +41,7 @@ def test_entry_args_follow_the_wrappers(kind):
         xq, xs = tqk.quantize_rows(x) if kind == "w8a8" else tqk.quantize_row_blocks(x, qw.block)
         assert torch.equal(tensors[0], xq) and torch.equal(tensors[1], xs)
         assert tensors[2] is qw.q and tensors[3] is qw.scale
-        assert ints == [16, 256, 512, 0]  # m, n, k, out_f32
+        assert ints == ([16, 256, 512, 0, 1] if kind == "w8a8" else [16, 256, 512, 0])  # m, n, k, out_f32[, group]
     else:
         assert qw.format == kind and tensors[0] is x
         assert tensors[1] is qw.q and tensors[2] is qw.scale and tensors[3] is qw.bias

@@ -178,3 +178,37 @@ def test_profiler_marks_part_the_prologue_from_k5_and_k6():
     for kind, name in (("w8a8", K5_NAME), ("w4a8", K6_NAME)):
         assert chip_smoke.KERNEL_MARK[kind] in name and chip_smoke.KERNEL_MARK[kind] not in PROLOGUE_NAME
         assert chip_smoke.PROLOGUE_MARK not in name
+
+
+@pytest.mark.parametrize("recorded", [[5, 10], [0, 0, 10], [10]], ids=["part", "none", "whole"])
+def test_kernel_time_takes_again_a_trace_that_lost_launches(monkeypatch, recorded):
+    """``kernel_time_ms`` reads only a trace that holds a whole number of the
+    marked launches a call: one that lost some of its device events (which
+    would read too short) or all of them is taken again."""
+    from types import SimpleNamespace
+
+    from flux2_tpu_torch.utils import profile_step
+
+    traces = iter(recorded)
+
+    class FakeProfile:
+        def __init__(self, activities):
+            self.n = next(traces)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            def event(name, us):
+                return SimpleNamespace(device_type=torch.autograd.DeviceType.CUDA, name=name,
+                                       time_range=SimpleNamespace(elapsed_us=lambda: us))
+
+            return [event(K5_NAME, 300.0)] * self.n + [event(PROLOGUE_NAME, 7.0)] * 10
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    assert profile_step.kernel_time_ms(lambda: None, "w8a8_kernel", reps=10) == pytest.approx(0.3)
+    assert next(traces, None) is None

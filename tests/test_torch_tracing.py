@@ -154,7 +154,8 @@ def test_generate_files_one_dit_step_a_step_inside_denoising(tiny_pipe, spans):
     (denoise,) = spans.spans("2. Denoising")
     steps = spans.spans("dit.step")
     # the CPU launches neither glue kernel nor K5
-    assert [dict(s.attrs) for s in steps] == [{"step": i, "batch": 2, "glue": 0, "w8a8": 0} for i in range(3)]
+    assert [dict(s.attrs) for s in steps] == [{"step": i, "batch": 2, "glue": 0, "w8a8": 0, "w8a8_grouped": 0}
+                                              for i in range(3)]
     assert all(denoise.start <= s.start <= s.end <= denoise.end and s.thread == denoise.thread for s in steps)
     assert {s.name for s in spans.spans()} == {"1. Text Encoding", "dit.step", "2. Denoising", "3. VAE Decoding"}
     assert set(spans.phases) == {"1. Text Encoding", "2. Denoising", "3. VAE Decoding"}  # spans stay out
